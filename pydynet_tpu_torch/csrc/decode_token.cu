@@ -1,0 +1,623 @@
+// One greedy B=1 Llama decode step on NVIDIA Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel `_token_kernel`
+// (pydynet_tpu/ops/decode_step.py:160, launched by `fused_decode_token`
+// at :1346). It computes the same step: gather emb[tok]; per layer RMSNorm,
+// q/k/v, interleaved RoPE, the K/V row write at pos (clamped to S-1), causal
+// online-softmax attention over rows [0, pos], wo + residual, RMSNorm,
+// SwiGLU + residual; then the final RMSNorm, the lm_head GEMV + bias and a
+// greedy argmax whose ties go to the lowest index. The TPU layout tricks
+// (128-lane padding, 16-row read-modify-write cache tiles, head-mask and
+// pair-swap matmuls, scalar prefetch) are gone: weights are (out, in) rows so
+// a warp reads one row as contiguous bytes, and caches are (N, S, D).
+//
+// One token is a chain of 5 * n_layers + 2 launches on the caller's stream:
+//   1. RMSNorm + q/k/v GEMV + RoPE + K/V row write (each block renormalises
+//      the D-wide residual itself; layer 0 gathers the embedding row),
+//   2. attention split over (head, 64-row block of the cache): each block
+//      writes its softmax partial (max, sum, p @ V),
+//   3. the online-softmax merge of those partials + wo GEMV + residual,
+//   4. RMSNorm + gate/up GEMV + SiLU * up,
+//   5. down GEMV + residual,
+// then 6. final RMSNorm + head GEMV + bias with a (max, index) pair per
+// vocab tile (the int8 head quantises the activations per block, exactly as
+// the TPU kernel's `qvec`), and 7. a one-block argmax over the tiles. `pos`
+// and `tok` are read from device memory, so no step syncs with the host and
+// the chain can later be captured in a CUDA graph.
+//
+// What bounds it on an H100: at stories15M width (D 288, F 768, 6 layers,
+// V 32000) a token reads about 12 MB of bf16 layer weights, 18.4 MB of bf16
+// head (9.2 MB as int8) and up to about 7 MB of KV at pos 1023: about 10 us
+// of traffic at 3.35 TB/s. A chain of 32 launches costs more than that, so
+// the step is bound by launch latency. The design spreads each launch over
+// many SMs (attention over heads x row blocks, GEMVs a warp per row with
+// 16-byte loads) so that each is short; capturing the chain in a CUDA graph,
+// then fusing launches, comes later.
+//
+// Types: the residual stream is f32; every matmul input is rounded to the
+// weight type T (f32 or bf16) and accumulated in f32; the caches are T.
+// The int8 head accumulates exactly in int32.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cmath>
+#include <cstdint>
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;  // ops/decode_step.py's _THREADS: the
+                               // wrapper keeps head_dim <= kThreads
+constexpr int kWarps = kThreads / 32;
+constexpr int kHeadRowsPerWarp = 4;  // few, so ~1000 blocks keep the head's
+                                     // row loads in flight on every SM
+constexpr int kHeadRows = kWarps * kHeadRowsPerWarp;  // vocab rows per block
+constexpr int kAttnRows = 64;  // cache rows per attention block
+static_assert(kThreads % kAttnRows == 0 && kAttnRows == 64,
+              "attention: one warp reduces the block's 64 scores");
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and widened back: "the matmul input is cast to T"
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum_i(int v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Block-wide reductions; every thread gets the result. `red` holds kWarps
+// floats of shared memory; the leading barrier guards its previous use.
+__device__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int i = 0; i < kWarps; ++i) t += red[i];
+  return t;
+}
+
+__device__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = red[0];
+  for (int i = 1; i < kWarps; ++i) t = fmaxf(t, red[i]);
+  return t;
+}
+
+// (value, index) order of the greedy argmax: larger value, then lower index
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// x_s[i] = R(src[i] / sqrt(mean(src^2) + 1e-6) * w[i]) for i < D, where R
+// rounds to the matmul input type (float: no rounding). Ends synchronised.
+template <typename R, typename Src, typename W>
+__device__ void load_normed(const Src* src, const W* w, int D, float* x_s,
+                            float* red) {
+  float ss = 0.f;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    float v = to_f(src[i]);
+    x_s[i] = v;
+    ss += v * v;
+  }
+  ss = block_sum(ss, red);
+  const float den = sqrtf(ss / (float)D + 1e-6f);
+  for (int i = threadIdx.x; i < D; i += blockDim.x)
+    x_s[i] = round_to<R>(x_s[i] / den * to_f(w[i]));
+  __syncthreads();
+}
+
+__device__ __forceinline__ int to_i(int8_t x) { return x; }
+
+// Accumulate row[k] * x_s[k] over the lane's share of k < K: 16-byte loads
+// of the row where it is 16-byte aligned, element loads for the rest.
+// Acc is float (f32/bf16 rows) or int (int8 rows, x_s holding integers).
+template <typename Acc, typename W>
+__device__ __forceinline__ Acc lane_dot(const W* row, const float* x_s,
+                                        int K) {
+  constexpr int kVec = 16 / sizeof(W);
+  const int lane = threadIdx.x & 31;
+  Acc acc = 0;
+  int k0 = 0;
+  if ((reinterpret_cast<uintptr_t>(row) & 15) == 0) {
+    const int nvec = K / kVec;
+    const uint4* rv = reinterpret_cast<const uint4*>(row);
+    for (int v = lane; v < nvec; v += 32) {
+      const uint4 u = rv[v];
+      const W* e = reinterpret_cast<const W*>(&u);
+      const float* xs = x_s + v * kVec;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        if constexpr (std::is_same<Acc, int>::value)
+          acc += to_i(e[i]) * (int)xs[i];
+        else
+          acc += to_f(e[i]) * xs[i];
+      }
+    }
+    k0 = nvec * kVec;
+  }
+  for (int k = k0 + lane; k < K; k += 32) {
+    if constexpr (std::is_same<Acc, int>::value)
+      acc += to_i(row[k]) * (int)x_s[k];
+    else
+      acc += to_f(row[k]) * x_s[k];
+  }
+  return acc;
+}
+
+// dot(row[0:K], x_s[0:K]) over one warp; every lane gets the sum
+template <typename W>
+__device__ __forceinline__ float warp_dot(const W* row, const float* x_s,
+                                          int K) {
+  return warp_sum(lane_dot<float>(row, x_s, K));
+}
+
+// 1. RMSNorm + q/k/v + RoPE + K/V row write. A warp owns one (even, odd)
+// feature pair of the concatenated [q; k; v] rows, so RoPE needs no
+// exchange between warps.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+qkv_rope_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok_p,
+                const T* __restrict__ emb, int first, float* __restrict__ h,
+                const T* __restrict__ in_norm, const T* __restrict__ wq,
+                const T* __restrict__ wk, const T* __restrict__ wv,
+                const T* __restrict__ cos_t, const T* __restrict__ sin_t,
+                float* __restrict__ q_out, T* __restrict__ ck,
+                T* __restrict__ cv, int D, int S, int V) {
+  extern __shared__ float smem[];
+  float* x_s = smem;
+  float* red = smem + D;
+  const int pos = min(*pos_p, S - 1);
+  if (first) {
+    const int tok = min(max(*tok_p, 0), V - 1);
+    const T* e = emb + (size_t)tok * D;
+    load_normed<T>(e, in_norm, D, x_s, red);
+    if (blockIdx.x == 0)
+      for (int i = threadIdx.x; i < D; i += blockDim.x) h[i] = to_f(e[i]);
+  } else {
+    load_normed<T>(h, in_norm, D, x_s, red);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int npairs = 3 * D / 2;
+  for (int p = blockIdx.x * kWarps + warp; p < npairs;
+       p += gridDim.x * kWarps) {
+    const int which = (2 * p) / D;  // 0 q, 1 k, 2 v
+    const int j = 2 * p - which * D;
+    const T* w = which == 0 ? wq : (which == 1 ? wk : wv);
+    float a = warp_dot(w + (size_t)j * D, x_s, D);
+    float b = warp_dot(w + (size_t)(j + 1) * D, x_s, D);
+    if (lane == 0) {
+      const size_t r = (size_t)pos * D + j;
+      if (which < 2) {  // rotate the interleaved pair (2i, 2i+1)
+        const float ra = a * to_f(cos_t[r]) - b * to_f(sin_t[r]);
+        const float rb = b * to_f(cos_t[r + 1]) + a * to_f(sin_t[r + 1]);
+        a = ra;
+        b = rb;
+      }
+      if (which == 0) {
+        q_out[j] = a;
+        q_out[j + 1] = b;
+      } else {
+        T* c = (which == 1 ? ck : cv) + r;
+        c[0] = from_f<T>(a);
+        c[1] = from_f<T>(b);
+      }
+    }
+  }
+}
+
+// 2. Attention of one head (blockIdx.x) over one block of kAttnRows cache
+// rows (blockIdx.y) within [0, pos]: four threads score a row, one warp
+// takes the block's max and sum of exp, then threads split as (feature d,
+// row group g) to accumulate p @ V. The block writes its partial (max m,
+// sum l, p @ V) for attn_out_kernel's merge; blocks past pos write nothing.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attention_kernel(const int* __restrict__ pos_p, const float* __restrict__ q,
+                 const T* __restrict__ ck, const T* __restrict__ cv,
+                 float* __restrict__ part_m, float* __restrict__ part_l,
+                 float* __restrict__ part_acc, int D, int hd, int S,
+                 float scale) {
+  extern __shared__ float smem[];
+  float* q_s = smem;             // hd
+  float* p_s = q_s + hd;         // kAttnRows
+  float* part = p_s + kAttnRows; // kThreads
+  float* ml = part + kThreads;   // 2
+  const int head = blockIdx.x, tid = threadIdx.x;
+  const int n = min(*pos_p, S - 1) + 1;
+  const int r0 = blockIdx.y * kAttnRows;
+  if (r0 >= n) return;
+  const int len = min(kAttnRows, n - r0);
+  for (int d = tid; d < hd; d += blockDim.x)
+    q_s[d] = round_to<T>(q[head * hd + d]);
+  __syncthreads();
+  const T* kb = ck + (size_t)r0 * D + head * hd;
+  const T* vb = cv + (size_t)r0 * D + head * hd;
+  {  // scores: threads (4 row, sub) with sub = tid % 4 in one warp
+    constexpr int kTpr = kThreads / kAttnRows;
+    const int row = tid / kTpr, sub = tid % kTpr;
+    const int seg = (hd + kTpr - 1) / kTpr;
+    float dot = 0.f;
+    if (row < len) {
+      const T* k = kb + (size_t)row * D;
+      for (int e = sub * seg; e < min(hd, sub * seg + seg); ++e)
+        dot += to_f(k[e]) * q_s[e];
+    }
+    for (int o = 1; o < kTpr; o <<= 1)
+      dot += __shfl_xor_sync(0xffffffffu, dot, o);
+    if (sub == 0) p_s[row] = row < len ? dot * scale : -INFINITY;
+  }
+  __syncthreads();
+  if (tid < 32) {  // one warp: max, exp, sum over the 64 scores
+    const float a = p_s[tid], b = p_s[tid + 32];
+    const float m = warp_max(fmaxf(a, b));
+    const float pa = expf(a - m), pb = expf(b - m);  // exp(-inf) = 0
+    p_s[tid] = pa;
+    p_s[tid + 32] = pb;
+    const float l = warp_sum(pa + pb);
+    if (tid == 0) {
+      ml[0] = m;
+      ml[1] = l;
+    }
+  }
+  __syncthreads();
+  const int groups = blockDim.x / hd;
+  const int d = tid % hd, g = tid / hd;
+  float pv = 0.f;
+  if (g < groups)
+    for (int r = g; r < len; r += groups)
+      pv += p_s[r] * to_f(vb[(size_t)r * D + d]);
+  part[tid] = pv;
+  __syncthreads();
+  const int slot = head * gridDim.y + blockIdx.y;
+  if (tid < hd) {
+    float t = 0.f;
+    for (int gg = 0; gg < groups; ++gg) t += part[gg * hd + tid];
+    part_acc[(size_t)slot * hd + tid] = t;
+  }
+  if (tid == 0) {
+    part_m[slot] = ml[0];
+    part_l[slot] = ml[1];
+  }
+}
+
+// h[r] += dot(w[r, 0:K], x_s) for r < D, a warp per output row
+template <typename T>
+__device__ __forceinline__ void gemv_residual(const float* x_s, int K,
+                                              const T* w, float* h, int D) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = blockIdx.x * kWarps + warp; r < D; r += gridDim.x * kWarps) {
+    const float a = warp_dot(w + (size_t)r * K, x_s, K);
+    if (lane == 0) h[r] += a;
+  }
+}
+
+// 3. Merge the attention partials of every head (online-softmax rescale to
+// the common max), round the D-wide result to T, then wo GEMV + residual.
+// Each block redoes the small merge so that no extra launch is needed.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attn_out_kernel(const int* __restrict__ pos_p,
+                const float* __restrict__ part_m,
+                const float* __restrict__ part_l,
+                const float* __restrict__ part_acc, int nsplit, int hd,
+                const T* __restrict__ wo, float* __restrict__ h, int D,
+                int S) {
+  extern __shared__ float x_s[];
+  const int n = min(*pos_p, S - 1) + 1;
+  const int used = (n + kAttnRows - 1) / kAttnRows;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    const int head = i / hd, d = i - head * hd;
+    const int base = head * nsplit;
+    float m = -INFINITY;
+    for (int s = 0; s < used; ++s) m = fmaxf(m, part_m[base + s]);
+    float num = 0.f, den = 0.f;
+    for (int s = 0; s < used; ++s) {
+      const float c = expf(part_m[base + s] - m);
+      num += c * part_acc[(size_t)(base + s) * hd + d];
+      den += c * part_l[base + s];
+    }
+    x_s[i] = round_to<T>(num / fmaxf(den, 1e-30f));
+  }
+  __syncthreads();
+  gemv_residual(x_s, D, wo, h, D);
+}
+
+// 5. h[r] += dot(down[r, 0:F], T(ff)) for r < D
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+down_residual_kernel(const float* __restrict__ ff, int F,
+                     const T* __restrict__ w, float* __restrict__ h, int D) {
+  extern __shared__ float x_s[];
+  for (int i = threadIdx.x; i < F; i += blockDim.x)
+    x_s[i] = round_to<T>(ff[i]);
+  __syncthreads();
+  gemv_residual(x_s, F, w, h, D);
+}
+
+// 4. RMSNorm + gate/up + SiLU(gate) * up -> ff (f32, F wide)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gate_up_kernel(const float* __restrict__ h, const T* __restrict__ post_norm,
+               const T* __restrict__ gate_w, const T* __restrict__ up_w,
+               float* __restrict__ ff, int D, int F) {
+  extern __shared__ float smem[];
+  float* x_s = smem;
+  float* red = smem + D;
+  load_normed<T>(h, post_norm, D, x_s, red);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int j = blockIdx.x * kWarps + warp; j < F; j += gridDim.x * kWarps) {
+    const float gv = warp_dot(gate_w + (size_t)j * D, x_s, D);
+    const float uv = warp_dot(up_w + (size_t)j * D, x_s, D);
+    if (lane == 0) ff[j] = gv * (1.f / (1.f + expf(-gv))) * uv;
+  }
+}
+
+// 6. Final RMSNorm + head GEMV + bias over kHeadRows vocab rows, reduced to
+// one (max, index) pair per block. HW is T, or int8_t for the int8 head
+// (per-row f32 scales `head_s`, activations quantised as the TPU's qvec).
+template <typename T, typename HW>
+__global__ void __launch_bounds__(kThreads)
+head_kernel(const float* __restrict__ h, const T* __restrict__ final_norm,
+            const HW* __restrict__ head_w, const float* __restrict__ head_s,
+            const T* __restrict__ head_b, float* __restrict__ tile_val,
+            int* __restrict__ tile_idx, int D, int V) {
+  constexpr bool kInt8 = std::is_same<HW, int8_t>::value;
+  extern __shared__ float smem[];
+  float* x_s = smem;
+  float* red = smem + D;
+  __shared__ float wv[kWarps];
+  __shared__ int wi[kWarps];
+  float sx = 0.f;
+  if constexpr (kInt8) {
+    load_normed<float>(h, final_norm, D, x_s, red);
+    float amax = 0.f;
+    for (int i = threadIdx.x; i < D; i += blockDim.x)
+      amax = fmaxf(amax, fabsf(x_s[i]));
+    amax = fmaxf(block_max(amax, red), 1e-30f);
+    const float inv = 127.0f / amax;
+    for (int i = threadIdx.x; i < D; i += blockDim.x)
+      x_s[i] = rintf(x_s[i] * inv);  // round half to even
+    sx = amax * (1.0f / 127.0f);
+    __syncthreads();
+  } else {
+    load_normed<T>(h, final_norm, D, x_s, red);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  const int r0 = blockIdx.x * kHeadRows + warp * kHeadRowsPerWarp;
+  for (int r = r0; r < min(r0 + kHeadRowsPerWarp, V); ++r) {
+    const HW* row = head_w + (size_t)r * D;
+    float logit;
+    if constexpr (kInt8) {
+      const int acc = warp_sum_i(lane_dot<int>(row, x_s, D));
+      logit = (float)acc * (head_s[r] * sx) + to_f(head_b[r]);
+    } else {
+      logit = warp_dot(row, x_s, D) + to_f(head_b[r]);
+    }
+    if (better(logit, r, bv, bi)) {
+      bv = logit;
+      bi = r;
+    }
+  }
+  if (lane == 0) {
+    wv[warp] = bv;
+    wi[warp] = bi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kWarps; ++w)
+      if (better(wv[w], wi[w], bv, bi)) {
+        bv = wv[w];
+        bi = wi[w];
+      }
+    tile_val[blockIdx.x] = bv;
+    tile_idx[blockIdx.x] = bi;
+  }
+}
+
+// 7. One block: argmax over the tiles' (max, index) pairs -> out[0]
+__global__ void __launch_bounds__(kThreads)
+argmax_kernel(const float* __restrict__ tile_val,
+              const int* __restrict__ tile_idx, int n, int* __restrict__ out) {
+  __shared__ float wv[kWarps];
+  __shared__ int wi[kWarps];
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+  for (int t = threadIdx.x; t < n; t += blockDim.x)
+    if (better(tile_val[t], tile_idx[t], bv, bi)) {
+      bv = tile_val[t];
+      bi = tile_idx[t];
+    }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+    if (better(ov, oi, bv, bi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  if ((threadIdx.x & 31) == 0) {
+    wv[threadIdx.x >> 5] = bv;
+    wi[threadIdx.x >> 5] = bi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < kWarps; ++w)
+      if (better(wv[w], wi[w], bv, bi)) {
+        bv = wv[w];
+        bi = wi[w];
+      }
+    out[0] = bi == INT_MAX ? 0 : bi;
+  }
+}
+
+int head_tiles(int vocab) { return (vocab + kHeadRows - 1) / kHeadRows; }
+int attn_splits(int seq) { return (seq + kAttnRows - 1) / kAttnRows; }
+
+struct Args {
+  const int* pos;
+  const int* tok;
+  int* out;
+  const void *emb, *cos, *sin, *final_norm;
+  const void *wq, *wk, *wv, *wo, *gate_w, *up_w, *down_w;
+  const void *in_norm, *post_norm, *head_w;
+  const float* head_s;
+  const void* head_b;
+  void *ck, *cv;
+  float* scratch;
+  int N, D, H, F, V, S;
+  float scale;
+};
+
+#define PDT_CHECK()                          \
+  do {                                       \
+    cudaError_t e_ = cudaGetLastError();     \
+    if (e_ != cudaSuccess) return e_;        \
+  } while (0)
+
+template <typename T, typename HW>
+cudaError_t run(const Args& a, cudaStream_t st) {
+  const int D = a.D, F = a.F, S = a.S, hd = a.D / a.H;
+  const int ntiles = head_tiles(a.V);
+  const int nsplit = attn_splits(S);
+  float* h = a.scratch;
+  float* q = h + D;
+  float* ff = q + D;
+  float* tile_val = ff + F;
+  int* tile_idx = reinterpret_cast<int*>(tile_val + ntiles);
+  float* part_m = tile_val + 2 * ntiles;
+  float* part_l = part_m + a.H * nsplit;
+  float* part_acc = part_l + a.H * nsplit;
+  const T* emb = static_cast<const T*>(a.emb);
+  const T* cos_t = static_cast<const T*>(a.cos);
+  const T* sin_t = static_cast<const T*>(a.sin);
+  const T* in_norm = static_cast<const T*>(a.in_norm);
+  const T* post_norm = static_cast<const T*>(a.post_norm);
+  const T* wq = static_cast<const T*>(a.wq);
+  const T* wk = static_cast<const T*>(a.wk);
+  const T* wv = static_cast<const T*>(a.wv);
+  const T* wo = static_cast<const T*>(a.wo);
+  const T* gate_w = static_cast<const T*>(a.gate_w);
+  const T* up_w = static_cast<const T*>(a.up_w);
+  const T* down_w = static_cast<const T*>(a.down_w);
+  T* ck = static_cast<T*>(a.ck);
+  T* cv = static_cast<T*>(a.cv);
+  const size_t LDD = (size_t)D * D, LFD = (size_t)F * D, LSD = (size_t)S * D;
+
+  const int grid_qkv = (3 * D / 2 + kWarps - 1) / kWarps;
+  const int grid_d = (D + kWarps - 1) / kWarps;
+  const int grid_f = (F + kWarps - 1) / kWarps;
+  const size_t sm_norm = (size_t)(D + kWarps) * sizeof(float);
+  const size_t sm_attn = (size_t)(hd + kAttnRows + kThreads + 2) *
+                         sizeof(float);
+  for (int l = 0; l < a.N; ++l) {
+    qkv_rope_kernel<T><<<grid_qkv, kThreads, sm_norm, st>>>(
+        a.pos, a.tok, emb, l == 0, h, in_norm + (size_t)l * D, wq + l * LDD,
+        wk + l * LDD, wv + l * LDD, cos_t, sin_t, q, ck + l * LSD,
+        cv + l * LSD, D, S, a.V);
+    PDT_CHECK();
+    attention_kernel<T><<<dim3(a.H, nsplit), kThreads, sm_attn, st>>>(
+        a.pos, q, ck + l * LSD, cv + l * LSD, part_m, part_l, part_acc, D,
+        hd, S, a.scale);
+    PDT_CHECK();
+    attn_out_kernel<T><<<grid_d, kThreads, D * sizeof(float), st>>>(
+        a.pos, part_m, part_l, part_acc, nsplit, hd, wo + l * LDD, h, D, S);
+    PDT_CHECK();
+    gate_up_kernel<T><<<grid_f, kThreads, sm_norm, st>>>(
+        h, post_norm + (size_t)l * D, gate_w + l * LFD, up_w + l * LFD, ff,
+        D, F);
+    PDT_CHECK();
+    down_residual_kernel<T><<<grid_d, kThreads, F * sizeof(float), st>>>(
+        ff, F, down_w + l * LFD, h, D);
+    PDT_CHECK();
+  }
+  head_kernel<T, HW><<<ntiles, kThreads, sm_norm, st>>>(
+      h, static_cast<const T*>(a.final_norm),
+      static_cast<const HW*>(a.head_w), a.head_s,
+      static_cast<const T*>(a.head_b), tile_val, tile_idx, D, a.V);
+  PDT_CHECK();
+  argmax_kernel<<<1, kThreads, 0, st>>>(tile_val, tile_idx, ntiles, a.out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of scratch the wrapper allocates for one step: h, q (D each), ff
+// (F), a (max, index) pair per head tile, and the attention partials (m, l
+// and a head_dim vector per head and row block).
+int pdt_decode_token_scratch_floats(int dim, int n_heads, int ffn, int vocab,
+                                    int seq) {
+  return 2 * dim + ffn + 2 * head_tiles(vocab) +
+         attn_splits(seq) * (2 * n_heads + dim);
+}
+
+// wdtype 0: float32 weights and caches, 1: bfloat16. qhead 1: head_w is
+// int8 (V, D) with float32 per-row scales head_s. Returns the CUDA error
+// of the first launch that failed, or cudaSuccess.
+int pdt_decode_token(int wdtype, int qhead, const void* pos, const void* tok,
+                     void* out, const void* emb, const void* cos,
+                     const void* sin, const void* final_norm, const void* wq,
+                     const void* wk, const void* wv, const void* wo,
+                     const void* gate_w, const void* up_w,
+                     const void* down_w, const void* in_norm,
+                     const void* post_norm, const void* head_w,
+                     const void* head_s, const void* head_b, void* ck,
+                     void* cv, void* scratch, int n_layers, int dim,
+                     int n_heads, int ffn, int vocab, int seq, float scale,
+                     void* stream) {
+  Args a{static_cast<const int*>(pos),
+         static_cast<const int*>(tok),
+         static_cast<int*>(out),
+         emb, cos, sin, final_norm,
+         wq, wk, wv, wo, gate_w, up_w, down_w,
+         in_norm, post_norm, head_w,
+         static_cast<const float*>(head_s),
+         head_b, ck, cv,
+         static_cast<float*>(scratch),
+         n_layers, dim, n_heads, ffn, vocab, seq, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wdtype == 0)
+    return qhead ? run<float, int8_t>(a, st) : run<float, float>(a, st);
+  if (wdtype == 1)
+    return qhead ? run<__nv_bfloat16, int8_t>(a, st)
+                 : run<__nv_bfloat16, __nv_bfloat16>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

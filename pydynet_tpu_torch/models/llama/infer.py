@@ -1,0 +1,97 @@
+"""Greedy Llama decode from the command line (port of
+``llm/llama/infer.py``):
+
+    python -m pydynet_tpu_torch.models.llama.infer --random-init
+    python -m pydynet_tpu_torch.models.llama.infer --weights stories15M.npz \
+        --tokenizer tokenizer.model.np --dtype bfloat16 --quant int8-head
+
+``--device cuda`` (the default) needs a GPU and raises without one;
+``--device cpu`` runs the kernels' plain versions. Without a checkpoint the
+stories15M configuration is built with random weights from ``--seed``.
+Prints the text as it streams and then tokens per second.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ...device import resolve
+from .io import infer_config, load_model
+from .model import Llama
+from .tokenizer import Tokenizer
+
+DIM = 288
+N_LAYERS = 6
+N_HEADS = 6
+VOCAB_SIZE = 32000
+MAX_SEQ_LEN = 1024
+MAX_BATCH = 1
+FFN_DIM = 768
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def build_model(args, device) -> Llama:
+    gen = torch.Generator().manual_seed(args.seed)
+    if os.path.exists(args.weights) and not args.random_init:
+        cfg = infer_config(args.weights, MAX_SEQ_LEN, MAX_BATCH)
+        return load_model(Llama(device=device, generator=gen, **cfg),
+                          args.weights)
+    print(f"[infer] checkpoint {args.weights!r} not used -> random weights "
+          f"from seed {args.seed}")
+    return Llama(VOCAB_SIZE, DIM, N_HEADS, FFN_DIM, MAX_SEQ_LEN, MAX_BATCH,
+                 N_LAYERS, device=device, generator=gen)
+
+
+def main(argv=None) -> float:
+    parser = argparse.ArgumentParser(description="Greedy Llama decode")
+    parser.add_argument("--prompt", type=str, default="There was a boy")
+    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    parser.add_argument("--weights", type=str,
+                        default="llm/llama/data/stories15M.model.npz")
+    parser.add_argument("--tokenizer", type=str,
+                        default="llm/llama/data/tokenizer.model.np")
+    parser.add_argument("--random-init", action="store_true")
+    parser.add_argument("--max-new-tokens", type=int, default=1024,
+                        help="bound on the total length, prompt included")
+    parser.add_argument("--dtype", choices=list(DTYPES), default="float32")
+    parser.add_argument("--quant", choices=["int8-head"], default=None)
+    parser.add_argument("--chunk", type=int, default=None,
+                        help="decode steps between reads back to the host")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the random weights")
+    args = parser.parse_args(argv)
+
+    device = resolve(args.device)
+    tokenizer = Tokenizer(args.tokenizer)
+    model = build_model(args, device).eval()
+    gen_kwargs = {"dtype": DTYPES[args.dtype], "quant": args.quant}
+    if args.chunk:
+        gen_kwargs["chunk"] = args.chunk
+    input_ids = np.array([tokenizer.encode(args.prompt)])
+    L = input_ids.shape[1]
+    if device.type == "cuda":  # build the kernels outside the timed run
+        for _ in model.generate(input_ids, L + 2, **gen_kwargs):
+            pass
+    print(f"\n{args.prompt}", end="")
+    start = time.perf_counter()
+    for token in model.generate(input_ids, args.max_new_tokens,
+                                **gen_kwargs):
+        L += 1
+        tid = int(token[0, 0])
+        if tid in (tokenizer.eos_id, tokenizer.bos_id):
+            break
+        print(tokenizer.decode([tid]), end="")
+        sys.stdout.flush()
+    elapsed = time.perf_counter() - start
+    print(f"\n\nToken count: {L}, elapsed: {elapsed:.2f}s, "
+          f"{round(L / elapsed)} tokens/s")
+    return L / elapsed
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,539 @@
+"""Llama (stories15M class) in PyTorch: the port of
+``pydynet_tpu/models/llama/model.py``.
+
+The module tree and dotted parameter names are the JAX package's
+(``layers.{i}.attention.Q.weight``, ..., ``lm_head.bias``); Linear weights
+are torch's (out, in). Three ways through the model:
+
+* the eager module path, ``model(ids, start_pos)``, with the per-module KV
+  caches the reference keeps (used by ``utils.fidelity.greedy_truth``);
+* the plain lane (``generate(fused=False)``): a dense prefill and a
+  per-token decode in plain PyTorch over layer-stacked weights, any batch;
+* the fused lane (the default at B=1): the same dense prefill, then one
+  ``ops.decode_step.fused_decode_token`` call per token, which launches the
+  hand-written CUDA kernel chain on a GPU. A B=1 model the kernel does not
+  take (narrow GQA caches, dims outside ``_fused_decode_supported``)
+  raises unless the caller asks for the plain lane.
+
+Semantics kept from the JAX package: interleaved RoPE pairs; bucketed
+prefill read at ``last_idx - 1``; decoding starts at ``pos = L`` on the
+prefill token; ``max_new_tokens`` bounds the total length, capped at
+``max_seq_len``. bf16 rounds differently per lane, as there: the dense lane
+rounds per layer in bf16, the fused lane keeps the residual in f32.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...device import resolve
+from ...nn.modules.norm import RMSNorm, rms_norm
+from ...ops import decode_step as dsk
+from ...ops.quant import quantize_int8
+
+# tokens decoded between two reads back to the host
+DECODE_CHUNK = 512
+
+
+def compute_cos_sin_cache(head_dim: int, max_seq_len: int, base: int = 10000):
+    """Interleaved-pair RoPE tables, each (max_seq_len, head_dim // 2)
+    float32, computed exactly as the JAX package does for a float32 model
+    (NumPy, frequencies rounded to float32 before cos/sin)."""
+    inv_freq = 1.0 / (base**(np.arange(0, head_dim, 2)[:head_dim // 2] /
+                             head_dim))
+    freqs = np.outer(np.arange(max_seq_len), inv_freq).astype(np.float32)
+    return torch.from_numpy(np.cos(freqs)), torch.from_numpy(np.sin(freqs))
+
+
+def _rope_pure(x, cos, sin):
+    """Rotate interleaved (real, imag) feature pairs. x (..., L, H, hd);
+    cos/sin (L, hd // 2), broadcast over heads."""
+    xr, xi = x[..., 0::2], x[..., 1::2]
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    return torch.stack([xr * cos - xi * sin, xr * sin + xi * cos],
+                       dim=-1).reshape(x.shape)
+
+
+def bucket_prompt(input_ids, L: int, max_seq_len: int):
+    """Pad the prompt to the next power of two (at least 8, at most
+    ``max_seq_len``). Returns ``(ids_padded, last_idx)``; the logits are
+    read at ``last_idx - 1``, and ``last_idx is None`` means no padding."""
+    Lp = min(max(1 << (L - 1).bit_length(), 8), max_seq_len)
+    if Lp > L:
+        return np.pad(input_ids, ((0, 0), (0, Lp - L))), L
+    return input_ids, None
+
+
+class FeedForward(nn.Module):
+    """SwiGLU feed-forward."""
+
+    def __init__(self, dim, up_dim, device=None, dtype=None):
+        super().__init__()
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.up = nn.Linear(dim, up_dim, **kw)
+        self.gate = nn.Linear(dim, up_dim, **kw)
+        self.down = nn.Linear(up_dim, dim, **kw)
+
+    def forward(self, x):
+        return self.down(F.silu(self.gate(x)) * self.up(x))
+
+
+class Attention(nn.Module):
+    """Multi-head (or grouped-query) attention with the in-module KV cache
+    the eager path uses in eval mode. The caches are non-persistent
+    buffers: they stay out of ``state_dict``."""
+
+    def __init__(self, dim: int, n_heads: int, max_seq_len: int,
+                 max_batch_size: int = None, device=None, dtype=None,
+                 n_kv_heads: int = None):
+        super().__init__()
+        assert dim % n_heads == 0
+        self.n_heads = n_heads
+        self.head_dim = dim // n_heads
+        self.n_kv_heads = n_kv_heads or n_heads
+        assert n_heads % self.n_kv_heads == 0, (n_heads, self.n_kv_heads)
+        kv_dim = self.n_kv_heads * self.head_dim
+        kw = dict(bias=False, device=device, dtype=dtype)
+        self.Q = nn.Linear(dim, dim, **kw)
+        self.K = nn.Linear(dim, kv_dim, **kw)
+        self.V = nn.Linear(dim, kv_dim, **kw)
+        self.O = nn.Linear(dim, dim, **kw)
+        shape = (max_batch_size or 1, max_seq_len, self.n_kv_heads,
+                 self.head_dim)
+        self.register_buffer("cache_k", torch.zeros(shape, device=device,
+                                                    dtype=dtype),
+                             persistent=False)
+        self.register_buffer("cache_v", torch.zeros(shape, device=device,
+                                                    dtype=dtype),
+                             persistent=False)
+
+    def forward(self, x, start_pos: int, mask, freqs_cos, freqs_sin):
+        B, L, _ = x.shape
+        xq = self.Q(x).view(B, L, self.n_heads, self.head_dim)
+        xk = self.K(x).view(B, L, self.n_kv_heads, self.head_dim)
+        xv = self.V(x).view(B, L, self.n_kv_heads, self.head_dim)
+        xq = _rope_pure(xq, freqs_cos, freqs_sin)
+        xk = _rope_pure(xk, freqs_cos, freqs_sin)
+        if not self.training:  # write the cache in place, read [0, end)
+            self.cache_k[:B, start_pos:start_pos + L] = xk
+            self.cache_v[:B, start_pos:start_pos + L] = xv
+            xk = self.cache_k[:B, :start_pos + L]
+            xv = self.cache_v[:B, :start_pos + L]
+        g = self.n_heads // self.n_kv_heads
+        if g != 1:
+            xk = xk.repeat_interleave(g, dim=2)
+            xv = xv.repeat_interleave(g, dim=2)
+        s = torch.einsum("blhd,bmhd->bhlm", xq, xk) * (1.0 /
+                                                   math.sqrt(self.head_dim))
+        if mask is not None:
+            s = s + mask
+        out = torch.einsum("bhlm,bmhd->blhd", torch.softmax(s, dim=-1), xv)
+        return self.O(out.reshape(B, L, -1))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm decoder block."""
+
+    def __init__(self, dim, n_heads, ffn_dim, max_seq_len,
+                 max_batch_size=None, device=None, dtype=None,
+                 n_kv_heads=None):
+        super().__init__()
+        self.attention = Attention(dim, n_heads, max_seq_len, max_batch_size,
+                                   device, dtype, n_kv_heads)
+        self.ffn = FeedForward(dim, ffn_dim, device, dtype)
+        self.input_norm = RMSNorm(dim, device=device, dtype=dtype)
+        self.post_attn_norm = RMSNorm(dim, device=device, dtype=dtype)
+
+    def forward(self, x, start_pos, mask, freqs_cos, freqs_sin):
+        z = x + self.attention(self.input_norm(x), start_pos, mask,
+                               freqs_cos, freqs_sin)
+        return z + self.ffn(self.post_attn_norm(z))
+
+
+class Llama(nn.Module):
+    """Decoder-only Llama. Weights are drawn on the CPU from ``generator``
+    (a fresh ``torch.Generator`` seeded 0 when not given), so one seed gives
+    the same model on every device, then cast to ``dtype`` and moved to
+    ``device`` (``"cpu"`` or ``"cuda"``; a missing GPU raises)."""
+
+    def __init__(self, vocab_size, embed_dim, n_heads, ffn_dim: int,
+                 max_seq_len: int, max_batch_size: int = None,
+                 n_layers: int = 6, dtype=None, n_kv_heads: int = None,
+                 device=None, generator: torch.Generator = None):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.embed_dim = embed_dim
+        self.n_heads = n_heads
+        self.n_kv_heads = n_kv_heads or n_heads
+        self.ffn_dim = ffn_dim
+        self.max_seq_len = max_seq_len
+        self.max_batch_size = max_batch_size
+        self.n_layers = n_layers
+        self.head_dim = embed_dim // n_heads
+
+        self.tok_embedding = nn.Embedding(vocab_size, embed_dim)
+        cos, sin = compute_cos_sin_cache(self.head_dim, max_seq_len)
+        self.register_buffer("freqs_cos", cos, persistent=False)
+        self.register_buffer("freqs_sin", sin, persistent=False)
+        self.layers = nn.ModuleList([
+            TransformerBlock(embed_dim, n_heads, ffn_dim, max_seq_len,
+                             max_batch_size, n_kv_heads=n_kv_heads)
+            for _ in range(n_layers)
+        ])
+        self.norm = RMSNorm(embed_dim)
+        self.lm_head = nn.Linear(embed_dim, vocab_size)
+        self._weights_cache = {}  # (dtype, fused, quant) -> decode weights
+        self.reset_parameters(generator)
+        self.to(device=resolve(device), dtype=dtype or torch.float32)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator = None):
+        """Linear weights and biases uniform in +-1/sqrt(fan_in), embedding
+        N(0, 1), norms 1, all drawn from ``generator`` in a fixed order."""
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                bound = 1.0 / math.sqrt(m.in_features)
+                for p in (m.weight, m.bias):
+                    if p is not None:
+                        p.copy_(torch.empty(p.shape).uniform_(
+                            -bound, bound, generator=generator))
+            elif isinstance(m, nn.Embedding):
+                m.weight.copy_(torch.empty(m.weight.shape).normal_(
+                    generator=generator))
+            elif isinstance(m, RMSNorm):
+                m.weight.fill_(1.0)
+        self._weights_cache.clear()
+
+    # decode-weight snapshots hold copies of the weights (or tensors of the
+    # old device and type): anything that replaces the weights drops them
+    def _apply(self, fn, *args, **kwargs):
+        self._weights_cache.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        self._weights_cache.clear()
+        return super().load_state_dict(*args, **kwargs)
+
+    @property
+    def device(self) -> torch.device:
+        return self.tok_embedding.weight.device
+
+    # --------------------------- eager module path -------------------------
+    def _ids(self, input_ids):
+        return torch.as_tensor(np.asarray(input_ids), dtype=torch.long,
+                               device=self.device)
+
+    def _forward_hidden(self, input_ids, start_pos: int):
+        ids = self._ids(input_ids)
+        L = ids.shape[-1]
+        h = self.tok_embedding(ids)
+        cos = self.freqs_cos[start_pos:start_pos + L]
+        sin = self.freqs_sin[start_pos:start_pos + L]
+        mask = None
+        if L > 1:
+            m = torch.full((L, L), float("-inf"), device=h.device).triu(1)
+            mask = torch.cat([torch.zeros(L, start_pos, device=h.device), m],
+                             dim=1).to(h.dtype)
+        for layer in self.layers:
+            h = layer(h, start_pos, mask, cos, sin)
+        return self.norm(h)
+
+    def forward_logits(self, input_ids, start_pos: int = 0):
+        """Logits at every position."""
+        return self.lm_head(self._forward_hidden(input_ids, start_pos))
+
+    def forward(self, input_ids, start_pos: int):
+        """Logits at the last position, (B, 1, V)."""
+        return self.lm_head(self._forward_hidden(input_ids, start_pos)[:, -1:])
+
+    # ------------------------------ plain lane ------------------------------
+    def _weights(self, dtype=None):
+        """Layer-stacked decode weights in torch's (out, in) layout, cast to
+        ``dtype`` when given: q/k/v and gate/up are concatenated into one
+        matrix each, as in the JAX package's ``_weights``."""
+        key = (dtype, "dense", None)
+        if key in self._weights_cache:
+            return self._weights_cache[key]
+        P = dict(self.named_parameters())
+        P.update(freqs_cos=self.freqs_cos, freqs_sin=self.freqs_sin)
+
+        def g(name):
+            a = P[name].detach()
+            return a.to(dtype) if dtype else a
+
+        def stack(fmt):
+            return torch.stack([g(fmt.format(i))
+                                for i in range(self.n_layers)])
+
+        w = {
+            "tok": g("tok_embedding.weight"),
+            "cos": g("freqs_cos"),
+            "sin": g("freqs_sin"),
+            "norm": g("norm.weight"),
+            "head_w": g("lm_head.weight"),
+            "head_b": g("lm_head.bias"),
+            "wqkv": torch.cat([stack("layers.{}.attention.Q.weight"),
+                               stack("layers.{}.attention.K.weight"),
+                               stack("layers.{}.attention.V.weight")], 1),
+            "wo": stack("layers.{}.attention.O.weight"),
+            "wgu": torch.cat([stack("layers.{}.ffn.gate.weight"),
+                              stack("layers.{}.ffn.up.weight")], 1),
+            "down": stack("layers.{}.ffn.down.weight"),
+            "in_norm": stack("layers.{}.input_norm.weight"),
+            "post_norm": stack("layers.{}.post_attn_norm.weight"),
+        }
+        self._weights_cache[key] = w
+        return w
+
+    def _empty_caches(self, B: int, dtype):
+        shape = (self.n_layers, B, self.max_seq_len, self.n_kv_heads,
+                 self.head_dim)
+        return (torch.zeros(shape, dtype=dtype, device=self.device),
+                torch.zeros(shape, dtype=dtype, device=self.device))
+
+    def forward_logits_one(self, weights, ck, cv, tokens, pos: int,
+                           last_idx: int = None):
+        """Dense forward of ``tokens`` (B, L) at absolute position ``pos``
+        over caches (N, B, S, Hkv, hd), which are written in place at rows
+        [pos, pos + L). Attention reads rows [0, pos + L) under the causal
+        mask. Returns float32 logits (B, V) at the last position, or at
+        ``last_idx - 1`` when the prompt is bucket-padded."""
+        B, L = tokens.shape
+        S, H, Hkv, hd = (self.max_seq_len, self.n_heads, self.n_kv_heads,
+                         self.head_dim)
+        D, Dkv, Fd = H * hd, Hkv * hd, self.ffn_dim
+        g = H // Hkv
+        W = weights
+        h = W["tok"][tokens]
+        cos, sin = W["cos"][pos:pos + L], W["sin"][pos:pos + L]
+        start = min(pos, S - L)  # the write slice stays inside the cache
+        end = min(S, pos + L)
+        qpos = pos + torch.arange(L, device=h.device)[:, None]
+        allowed = torch.arange(end, device=h.device)[None, :] <= qpos
+        mask = torch.zeros(L, end, device=h.device).masked_fill(
+            ~allowed, float("-inf"))
+        scale = 1.0 / math.sqrt(hd)
+        for i in range(self.n_layers):
+            hn = rms_norm(h, W["in_norm"][i]).to(h.dtype)
+            qkv = F.linear(hn, W["wqkv"][i])
+            q = qkv[..., :D].reshape(B, L, H, hd)
+            k = qkv[..., D:D + Dkv].reshape(B, L, Hkv, hd)
+            v = qkv[..., D + Dkv:].reshape(B, L, Hkv, hd)
+            q = _rope_pure(q, cos.to(q.dtype), sin.to(q.dtype))
+            k = _rope_pure(k, cos.to(k.dtype), sin.to(k.dtype))
+            ck[i, :, start:start + L] = k
+            cv[i, :, start:start + L] = v
+            kk, vv = ck[i, :, :end], cv[i, :, :end]
+            if g != 1:
+                kk = kk.repeat_interleave(g, dim=2)
+                vv = vv.repeat_interleave(g, dim=2)
+            s = torch.einsum("blhd,bmhd->bhlm", q.float(), kk.float()) * scale
+            p = torch.softmax(s + mask, dim=-1).to(h.dtype)
+            att = torch.einsum("bhlm,bmhd->blhd", p, vv).reshape(B, L, D)
+            z = h + F.linear(att, W["wo"][i])
+            zn = rms_norm(z, W["post_norm"][i]).to(z.dtype)
+            gate, up = F.linear(zn, W["wgu"][i]).split(Fd, dim=-1)
+            h = z + F.linear(gate * torch.sigmoid(gate) * up, W["down"][i])
+        h = rms_norm(h, W["norm"]).to(h.dtype)
+        hl = h[:, -1] if last_idx is None else h[:, last_idx - 1]
+        return F.linear(hl, W["head_w"]).float() + W["head_b"].float()
+
+    def prefill(self, weights, ck, cv, ids, last_idx=None):
+        """Greedy token after the prompt ``ids`` (B, L), caches filled."""
+        tokens = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        logits = self.forward_logits_one(weights, ck, cv, tokens, 0,
+                                         last_idx)
+        return logits.argmax(-1)
+
+    def decode_chunk_plain(self, weights, ck, cv, tok, pos: int,
+                           n_steps: int):
+        """``n_steps`` greedy tokens on the plain lane from ``tok`` (B,) at
+        ``pos``; returns them as (n_steps, B) int32, still on the device."""
+        toks = torch.empty(n_steps, tok.shape[0], dtype=torch.int32,
+                           device=tok.device)
+        for i in range(n_steps):
+            logits = self.forward_logits_one(weights, ck, cv, tok[:, None],
+                                             pos + i)
+            tok = toks[i] = logits.argmax(-1)
+        return toks
+
+    # ------------------------------ fused lane ------------------------------
+    def _fused_weights(self, dtype=None, quant=None):
+        """The plain lane's weights plus what ``fused_decode_token`` reads:
+        per-matrix (N, out, in) stacks, (S, D) RoPE tables
+        ``tile(repeat(cos, 2), H)`` in the weight type, and for
+        ``quant="int8-head"`` the int8 head with per-row float32 scales
+        (the JAX package's ``quantize_int8(head_w, axis=0)`` in torch's
+        layout). The plain head stays for the prefill token."""
+        if quant not in (None, "int8-head"):
+            raise NotImplementedError(
+                f"quant={quant!r} on the fused lane: only int8-head is "
+                "ported (ROADMAP.md queue 1, 'Remaining weight formats')")
+        key = (dtype, "fused", quant)
+        if key in self._weights_cache:
+            return self._weights_cache[key]
+        base = self._weights(dtype)
+        D, H, Fd = self.embed_dim, self.n_heads, self.ffn_dim
+
+        def expand(t):  # (S, hd/2) -> (S, D): each pair's angle, per head
+            return t.repeat_interleave(2, dim=-1).repeat(1, H).contiguous()
+
+        w = dict(base)
+        w.update({
+            "wq": base["wqkv"][:, :D].contiguous(),
+            "wk": base["wqkv"][:, D:2 * D].contiguous(),
+            "wv": base["wqkv"][:, 2 * D:].contiguous(),
+            "gate_w": base["wgu"][:, :Fd].contiguous(),
+            "up_w": base["wgu"][:, Fd:].contiguous(),
+            "cosD": expand(base["cos"]),
+            "sinD": expand(base["sin"]),
+        })
+        if quant == "int8-head":
+            hq, hs = quantize_int8(base["head_w"], axis=1)
+            w["head_wq"] = hq                  # int8 (V, D)
+            w["head_s"] = hs.reshape(-1)       # float32 (V,)
+        self._weights_cache[key] = w
+        return w
+
+    def _fused_decode_supported(self, quant=None) -> bool:
+        """Whether the fused lane can run this model.
+
+        The JAX package bounds its kernel by TPU VMEM (100 MB): the Pallas
+        kernel keeps every per-layer weight matrix resident in a
+        double-buffered VMEM window. Re-derived for the H100: the CUDA
+        chain streams weights from device memory through registers and
+        keeps nothing per layer on chip, so weight size sets no bound. What
+        stays on chip is one activation vector per block in shared memory
+        (D floats in the norm kernels, F in the down projection) within the
+        48 KB a block gets without opting in, so max(D, F) plus a few
+        reduction slots must fit in 12,288 floats; the attention block
+        (256 threads) needs head_dim <= 256; RoPE needs an even head_dim
+        (``ops.decode_step.kernel_takes``). Narrow GQA caches are not
+        ported, so n_kv_heads must equal n_heads.
+        """
+        return (quant in (None, "int8-head")
+                and self.n_kv_heads == self.n_heads
+                and dsk.kernel_takes(self.embed_dim, self.n_heads,
+                                     self.ffn_dim))
+
+    def fused_step(self, weights, ck, cv, tok, pos, out=None):
+        """One ``fused_decode_token`` call: ``tok``/``pos`` (1,) int32 on
+        the device, caches (N, S, D) updated in place; returns (1,) int32."""
+        qhead = "head_s" in weights
+        return dsk.fused_decode_token(
+            pos, tok, weights["tok"], weights["cosD"], weights["sinD"],
+            weights["norm"], weights["wq"], weights["wk"], weights["wv"],
+            weights["wo"], weights["gate_w"], weights["up_w"],
+            weights["down"], weights["in_norm"], weights["post_norm"],
+            weights["head_wq"] if qhead else weights["head_w"],
+            weights["head_b"], ck, cv, n_heads=self.n_heads,
+            head_s=weights.get("head_s"), out=out)
+
+    def decode_chunk(self, weights, ck, cv, tok, pos: int, n_steps: int):
+        """``n_steps`` fused greedy steps (B=1) from ``tok`` (1,) int32 at
+        ``pos`` over flat caches (N, S, D). Positions and tokens stay on the
+        device: step i reads step i-1's output in place, so no step waits
+        for the host. Returns the (n_steps,) int32 tokens."""
+        toks = torch.empty(n_steps, dtype=torch.int32, device=tok.device)
+        positions = torch.arange(pos, pos + n_steps, dtype=torch.int32,
+                                 device=tok.device)
+        for i in range(n_steps):
+            self.fused_step(weights, ck, cv, tok, positions[i:i + 1],
+                            out=toks[i:i + 1])
+            tok = toks[i:i + 1]
+        return toks
+
+    def _flat_caches(self, ck5, cv5):
+        """(N, 1, S, H, hd) dense caches as the fused lane's (N, S, D)
+        views of the same memory."""
+        N, S = self.n_layers, self.max_seq_len
+        return ck5.view(N, S, -1), cv5.view(N, S, -1)
+
+    # ------------------------------- generate -------------------------------
+    def _check_generate(self, B, dtype, fused, quant, temperature, top_k,
+                        top_p, repetition_penalty, kv_quant, flash_prefill):
+        """Resolve ``fused`` (None means B == 1) and raise for whatever this
+        port does not run yet, naming its ROADMAP.md item. Nothing is
+        rerouted silently: a B=1 model the fused kernel does not take raises
+        unless the caller asks for the plain lane with ``fused=False``."""
+        def todo(what, item):
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP.md queue 1, '{item}')")
+
+        if (temperature or 0) > 0 or top_k is not None or top_p is not None \
+                or repetition_penalty is not None:
+            todo("sampling", "Sampling")
+        if kv_quant is not None:
+            todo(f"kv_quant={kv_quant!r}", "Batched decode")
+        if quant not in (None, "int8-head"):
+            todo(f"quant={quant!r}", "Remaining weight formats")
+        if flash_prefill:
+            todo("flash prefill", "Long-prompt prefill")
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            raise NotImplementedError(f"dtype {dtype}: use float32 or "
+                                      "bfloat16")
+        if fused == "numpy":
+            todo("the NumPy CPU decode lane", "CPU decode lane")
+        if fused is None:
+            fused = B == 1
+        if fused and B > 1:
+            todo("fused decode at B>1", "Batched decode")
+        if fused and self.n_kv_heads != self.n_heads:
+            todo("narrow GQA caches on the fused lane (fused=False runs the "
+                 "plain lane)", "Batched decode")
+        if fused and not self._fused_decode_supported(quant):
+            todo("a fused decode kernel for these dims (fused=False runs "
+                 "the plain lane)", "Big-dims lane")
+        if quant and not fused:
+            todo("quantized weights on the plain lane", "Big-dims lane")
+        return fused
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int,
+                 chunk: int = DECODE_CHUNK, dtype=None, fused=None,
+                 quant=None, temperature: float = 0.0, top_k: int = None,
+                 top_p: float = None, repetition_penalty: float = None,
+                 kv_quant=None, flash_prefill=None):
+        """Greedy generation. Yields (B, 1) int32 CPU tensors one token at a
+        time: first the prefill token, then one per decode step. Tokens are
+        read back from the device once per ``chunk`` steps, the prefill
+        token with the first chunk. ``max_new_tokens`` bounds the total
+        length (prompt included) and is capped at ``max_seq_len``; a total
+        at or below the prompt length yields nothing. ``dtype`` (float32 or
+        bfloat16) casts the weights and caches; ``quant="int8-head"`` stores
+        the lm_head as int8 on the fused lane. ``fused=None`` is the fused
+        lane at B=1 and the plain lane at B>1."""
+        ids = np.asarray(input_ids)
+        B, L = ids.shape
+        fused = self._check_generate(B, dtype, fused, quant, temperature,
+                                     top_k, top_p, repetition_penalty,
+                                     kv_quant, flash_prefill)
+        total = min(max_new_tokens, self.max_seq_len)
+        if total <= L:
+            return
+        weights = (self._fused_weights(dtype, quant) if fused
+                   else self._weights(dtype))
+        ck, cv = self._empty_caches(B, weights["tok"].dtype)
+        tok = self.prefill(weights, ck, cv,
+                           *bucket_prompt(ids, L, self.max_seq_len))
+        tok = tok.to(torch.int32)
+        if fused:
+            ck, cv = self._flat_caches(ck, cv)
+        rows, pos = tok[None], L  # (1, B): the prefill token
+        while True:
+            n = min(chunk, total - pos - 1)
+            if n > 0:
+                decode = self.decode_chunk if fused else self.decode_chunk_plain
+                toks = decode(weights, ck, cv, tok, pos, n).reshape(n, B)
+                tok, pos = toks[-1], pos + n
+                rows = torch.cat([rows, toks])
+            yield from rows.cpu()[:, :, None]
+            if pos + 1 >= total:
+                return
+            rows = rows[:0]

@@ -1,0 +1,316 @@
+"""The PyTorch port's Llama against the JAX package's, on the CPU.
+
+Weights come from a seeded JAX model and reach the port through
+``params_from_tpu``, so both compute from the same numbers. The JAX fused
+lane runs its Pallas kernel in interpret mode, as ``tests/test_llama.py``
+does; the port's fused lane runs the kernel's plain version on the CPU.
+"""
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import pydynet_tpu as pdn
+from pydynet_tpu.models.llama import io as jio
+from pydynet_tpu.models.llama.model import Llama as JLlama
+from pydynet_tpu.ops import decode_step as jdsk
+from pydynet_tpu.utils import fidelity as jfid
+
+from pydynet_tpu_torch.models.llama import Llama, params_from_tpu
+from pydynet_tpu_torch.models.llama import io as tio
+from pydynet_tpu_torch.models.llama.tokenizer import Tokenizer
+from pydynet_tpu_torch.ops import decode_step as tdsk
+from pydynet_tpu_torch.utils import fidelity as tfid
+
+# a fused-capable tiny size (test_llama.py's int8 plumbing config)
+TINY = dict(vocab_size=256, embed_dim=32, n_heads=2, ffn_dim=64,
+            max_seq_len=32, max_batch_size=1, n_layers=2)
+STORIES15M = dict(vocab_size=32000, embed_dim=288, n_heads=6, ffn_dim=768,
+                  max_seq_len=1024, max_batch_size=1, n_layers=6)
+
+
+def jax_model(cfg, seed=0):
+    np.random.seed(seed)
+    model = JLlama(dtype=np.float32, **cfg)
+    model.eval()
+    return model
+
+
+def port_of(jm, cfg):
+    params = {n: p.numpy() for n, p in jm._parameters.items()}
+    model = Llama(**cfg)
+    model.load_state_dict(params_from_tpu(params), strict=True)
+    return model.eval()
+
+
+def stream(gen):
+    return [int(t.numpy()[0, 0]) for t in gen]
+
+
+@pytest.fixture
+def step_calls(monkeypatch):
+    """Count the port's fused_decode_token calls (on the CPU they run the
+    plain version, which the kernel's launch counter does not count)."""
+    calls = []
+    real = tdsk.fused_decode_token
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tdsk, "fused_decode_token", spy)
+    return calls
+
+
+@pytest.fixture
+def jax_interpret_kernel(monkeypatch):
+    """JAX's fused lane with its Pallas kernel in interpret mode."""
+    monkeypatch.setattr(jdsk, "fused_decode_token",
+                        functools.partial(jdsk.fused_decode_token,
+                                          interpret=True))
+
+
+def test_params_from_tpu_round_trips():
+    jm = jax_model(TINY)
+    params = {n: p.numpy() for n, p in jm._parameters.items()}
+    state = params_from_tpu(params)
+    skipped = {n for n in params if n.split(".")[-1] in
+               ("cache_k", "cache_v", "freqs_cos", "freqs_sin")}
+    assert skipped and set(state) == set(params) - skipped
+    model = Llama(**TINY)
+    assert set(model.state_dict()) == set(state)
+    model.load_state_dict(state, strict=True)
+    for name, value in model.state_dict().items():
+        back = value.numpy()
+        if back.ndim == 2 and name != "tok_embedding.weight":
+            back = back.T  # torch (out, in) -> JAX (in, out)
+        np.testing.assert_array_equal(back, params[name])
+    assert model.layers[0].attention.Q.weight.shape == (32, 32)
+    assert model.layers[0].ffn.gate.weight.shape == (64, 32)
+
+
+def test_eager_logits_match_jax():
+    jm = jax_model(TINY, seed=1)
+    tm = port_of(jm, TINY)
+    ids = np.array([[1, 5, 9, 77, 3]])
+    with pdn.no_grad():
+        want0 = jm(ids, 0).numpy()
+        want1 = jm(np.array([[42]]), 5).numpy()
+    with torch.no_grad():
+        got0 = tm(ids, 0).numpy()
+        got1 = tm(np.array([[42]]), 5).numpy()
+        all_pos = tm.forward_logits(ids, 0).numpy()
+    assert got0.shape == (1, 1, 256)
+    np.testing.assert_allclose(got0, want0, atol=1e-5)
+    np.testing.assert_allclose(got1, want1, atol=1e-5)
+    np.testing.assert_allclose(all_pos[:, -1:], got0, atol=1e-6)
+
+
+@pytest.mark.parametrize("quant", [None, "int8-head"])
+@pytest.mark.parametrize("L", [3, 8, 9])
+def test_generate_fused_matches_jax_fused(L, quant, jax_interpret_kernel,
+                                          step_calls):
+    """Greedy streams token for token, f32 and int8-head, across the
+    prompt bucketing edges (3 -> 8, 8 stays, 9 -> 16)."""
+    jm = jax_model(TINY, seed=L)
+    tm = port_of(jm, TINY)
+    ids = (np.arange(L)[None] * 37 + 1) % 256
+    with pdn.no_grad():
+        want = stream(jm.generate(ids, 24, chunk=8, fused=True, quant=quant))
+    got = stream(tm.generate(ids, 24, chunk=8, quant=quant))
+    assert got == want and len(got) == 24 - L
+    assert len(step_calls) == 24 - L - 1
+    # the default chunk holds the whole request: one read back at the end
+    assert stream(tm.generate(ids, 24, quant=quant)) == want
+    assert len(step_calls) == 2 * (24 - L - 1)
+
+
+@pytest.mark.parametrize("L", [3, 9])
+def test_generate_plain_matches_jax(L, step_calls):
+    jm = jax_model(TINY, seed=10 + L)
+    tm = port_of(jm, TINY)
+    ids = (np.arange(L)[None] * 53 + 2) % 256
+    with pdn.no_grad():
+        want = stream(jm.generate(ids, 20, chunk=8, fused=False))
+    got = stream(tm.generate(ids, 20, chunk=8, fused=False))
+    assert not step_calls
+    assert got == want and len(got) == 20 - L
+    assert stream(tm.generate(ids, 20, chunk=5)) == want  # fused, B=1
+
+
+def test_generate_plain_batched_matches_jax():
+    jm = jax_model(TINY, seed=20)
+    tm = port_of(jm, TINY)
+    ids = np.array([[1, 5, 9], [2, 7, 3], [30, 20, 10]])
+    with pdn.no_grad():
+        want = np.concatenate([t.numpy() for t in
+                               jm.generate(ids, 14, chunk=4, fused=False)], 1)
+    rows = list(tm.generate(ids, 14, chunk=4))
+    assert all(r.shape == (3, 1) and r.dtype == torch.int32 for r in rows)
+    np.testing.assert_array_equal(torch.cat(rows, 1).numpy(), want)
+
+
+@pytest.mark.parametrize("max_new", [2, 3, 4, 40])
+def test_generate_length_edges_match_jax(max_new):
+    """max_new_tokens bounds the total length and is capped at max_seq_len;
+    a total at or below the prompt length yields nothing."""
+    jm = jax_model(TINY, seed=30)
+    tm = port_of(jm, TINY)
+    ids = np.array([[1, 5, 9]])
+    with pdn.no_grad():
+        want = stream(jm.generate(ids, max_new, fused=False))
+    assert len(want) == max(0, min(max_new, 32) - 3)
+    assert stream(tm.generate(ids, max_new)) == want
+    assert stream(tm.generate(ids, max_new, fused=False)) == want
+
+
+def test_generate_unported_options_raise():
+    tm = Llama(**TINY)
+    ids = np.array([[1, 5, 9]])
+    cases = [dict(temperature=0.8), dict(top_k=5), dict(kv_quant="int8"),
+             dict(quant="int8"), dict(quant="int4"), dict(flash_prefill=True),
+             dict(fused="numpy"), dict(quant="int8-head", fused=False),
+             dict(dtype=torch.float16)]
+    for kw in cases:
+        with pytest.raises(NotImplementedError):
+            next(tm.generate(ids, 8, **kw))
+    with pytest.raises(NotImplementedError, match="B>1"):
+        next(tm.generate(np.array([[1, 2], [3, 4]]), 8, fused=True))
+    gqa = Llama(**dict(TINY, n_kv_heads=1))
+    assert not gqa._fused_decode_supported()
+    for fused in (None, True):  # B=1 is never rerouted to the plain lane
+        with pytest.raises(NotImplementedError, match="GQA"):
+            next(gqa.generate(ids, 8, fused=fused))
+    assert len(stream(gqa.generate(ids, 8, fused=False))) == 5
+    odd = Llama(**dict(TINY, embed_dim=512, n_heads=1))  # head_dim > 256
+    assert not odd._fused_decode_supported()
+    for fused in (None, True):
+        with pytest.raises(NotImplementedError, match="Big-dims"):
+            next(odd.generate(ids, 8, fused=fused))
+    assert len(stream(odd.generate(ids, 8, fused=False))) == 5
+    # B>1 with fused=None runs the plain lane, as asked
+    assert len(list(tm.generate(np.array([[1, 2], [3, 4]]), 5))) == 3
+
+
+def test_bf16_generate_runs_both_lanes():
+    """bf16 rounds differently per lane (f32 residual on the fused lane), so
+    only the confident-step gate holds them to the f32 stream."""
+    tm = Llama(**TINY, generator=torch.Generator().manual_seed(3)).eval()
+    ids = np.array([[1, 5, 9]])
+    truth, margins, tops = tfid.greedy_truth(tm, ids, 12)
+    for quant in (None, "int8-head"):
+        checked, ok, _ = tfid.gate_fused_argmax(
+            tm, ids, truth, margins, tops, dtype=torch.bfloat16, quant=quant)
+        assert checked > 0 and ok, (quant, checked)
+    for fused in (True, False):
+        toks = stream(tm.generate(ids, 15, dtype=torch.bfloat16, fused=fused))
+        assert len(toks) == 12 and all(0 <= x < 256 for x in toks)
+
+
+def test_greedy_truth_and_gate_match_jax():
+    jm = jax_model(TINY, seed=40)
+    tm = port_of(jm, TINY)
+    ids = np.array([[1, 5, 9, 4]])
+    with pdn.no_grad():
+        jt, jmg, jtop = jfid.greedy_truth(jm, ids, 10)
+    tt, tmg, ttop = tfid.greedy_truth(tm, ids, 10)
+    np.testing.assert_array_equal(tt, jt)
+    np.testing.assert_allclose(tmg, jmg, atol=1e-5)
+    np.testing.assert_allclose(ttop, jtop, atol=1e-5)
+    assert np.array_equal(tfid._confident(tmg, ttop, 0.05, 0.02),
+                          jfid._confident(jmg, jtop, 0.05, 0.02))
+    checked, ok, frac = tfid.gate_fused_argmax(tm, ids, tt, tmg, ttop)
+    assert checked > 0 and ok and frac == 1.0
+
+
+def test_load_model_and_infer_config_match_jax(tmp_path):
+    """One HF-named npz loads into both packages with the same numbers."""
+    cfg = dict(TINY, n_kv_heads=1)
+    jm = jax_model(cfg, seed=50)
+    P = {n: p.numpy() for n, p in jm._parameters.items()}
+    hf = {"model.embed_tokens.weight": P["tok_embedding.weight"],
+          "lm_head.weight": P["lm_head.weight"].T,
+          "model.norm.weight": P["norm.weight"], "config.n_heads": 2}
+    names = {"self_attn.q_proj": "attention.Q", "self_attn.k_proj":
+             "attention.K", "self_attn.v_proj": "attention.V",
+             "self_attn.o_proj": "attention.O", "mlp.up_proj": "ffn.up",
+             "mlp.gate_proj": "ffn.gate", "mlp.down_proj": "ffn.down"}
+    for i in range(2):
+        for theirs, ours in names.items():
+            hf[f"model.layers.{i}.{theirs}.weight"] = \
+                P[f"layers.{i}.{ours}.weight"].T
+        hf[f"model.layers.{i}.input_layernorm.weight"] = \
+            P[f"layers.{i}.input_norm.weight"]
+        hf[f"model.layers.{i}.post_attention_layernorm.weight"] = \
+            P[f"layers.{i}.post_attn_norm.weight"]
+    path = tmp_path / "tiny.npz"
+    np.savez(path, **hf)
+    jcfg = jio.infer_config(str(path), 32, 1)
+    tcfg = tio.infer_config(str(path), 32, 1)
+    assert tcfg == jcfg and tcfg["n_kv_heads"] == 1
+    tm = tio.load_model(Llama(**tcfg), str(path))
+    expect = params_from_tpu(P)
+    for name, value in tm.state_dict().items():
+        if name != "lm_head.bias":  # not in the checkpoint: keeps its init
+            torch.testing.assert_close(value, expect[name], rtol=0, atol=0)
+
+
+def test_tokenizer_matches_jax(tmp_path):
+    from pydynet_tpu.models.llama.tokenizer import Tokenizer as JTokenizer
+
+    vocab = {"tokens": ["<unk>", "<s>", "</s>", "a", "b", "c", "ab", "abc",
+                        " ", "bc"],
+             "scores": [0, 0, 0, -1, -1, -1, 2.0, 3.0, -1, 1.0]}
+    path = tmp_path / "tok.json"
+    path.write_text(__import__("json").dumps(vocab))
+    for p in (str(path), None):
+        jt, tt = JTokenizer(p), Tokenizer(p)
+        for text in ("abc abcb", "cab bca", ""):
+            assert tt.encode(text) == jt.encode(text)
+            assert tt.decode(tt.encode(text)) == jt.decode(jt.encode(text))
+
+
+def test_stories15m_width_matches_jax_at_confident_steps():
+    """Full stories15M width, 6 layers, random weights: the port's default
+    (fused) lane on the CPU against JAX's plain lane, 8 tokens, equal at
+    every confident step until a legitimate near-tie divergence."""
+    jm = jax_model(STORIES15M, seed=0)
+    tm = port_of(jm, STORIES15M)
+    ids = np.array([[1, 243, 532, 991]])
+    with pdn.no_grad():
+        want = stream(jm.generate(ids, 12, fused=False))
+    got = stream(tm.generate(ids, 12))
+    truth, margins, tops = tfid.greedy_truth(tm, ids, 8)
+    conf = tfid._confident(margins[:, 0], tops[:, 0], tfid.MARGIN,
+                           tfid.REL_MARGIN)
+    assert len(got) == len(want) == 8 and conf.any()
+    for i in range(8):
+        if got[i] != want[i]:
+            assert not conf[i], (i, got, want)
+            break
+
+
+def test_infer_cli_runs_on_cpu_and_refuses_missing_gpu(tmp_path, capsys):
+    from pydynet_tpu_torch.models.llama import infer
+
+    rate = infer.main(["--random-init", "--device", "cpu",
+                       "--max-new-tokens", "10", "--dtype", "bfloat16",
+                       "--quant", "int8-head", "--weights",
+                       str(tmp_path / "none.npz")])
+    out = capsys.readouterr().out
+    assert rate > 0 and "Token count:" in out
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            infer.main(["--random-init", "--max-new-tokens", "6"])
+
+
+def test_weight_snapshots_follow_load_state_dict():
+    a = Llama(**TINY).eval()
+    b = Llama(**TINY, generator=torch.Generator().manual_seed(7)).eval()
+    ids = np.array([[1, 5, 9]])
+    stream(a.generate(ids, 12))  # caches a's decode weights
+    a.load_state_dict(b.state_dict())
+    assert stream(a.generate(ids, 12)) == stream(b.generate(ids, 12))
+    assert stream(a.generate(ids, 12, fused=False)) == \
+        stream(b.generate(ids, 12, fused=False))
