@@ -10,24 +10,38 @@ the run with a nonzero exit and no result line:
 1. the device, and ``nvidia-smi``'s name and power limit;
 2. build the CUDA kernels from ``pydynet_tpu_torch/csrc`` (timed; says
    whether the library for these sources was already built);
-3. the decode-step kernel against its plain PyTorch version at stories15M
-   width with seeded random weights, in float32, bfloat16 and bfloat16 with
-   the int8 head, at positions 0, 1, 17, 255, 1023 and 1030 (the last one
-   exercises the clamp to S - 1);
-4. the main path: ``Llama.generate`` of a 1024-token request in bfloat16,
-   with and without ``quant="int8-head"``, through the kernel (its launch
-   counter must equal the decode steps), the confident-step argmax gate
-   against a float32 truth stream, and the ``infer`` CLI once;
+3. the B=1 decode-step kernel (K1) against its plain PyTorch version at
+   stories15M width with seeded random weights, in float32, bfloat16 and
+   bfloat16 with the int8 head, at positions 0, 1, 17, 255, 1023 and 1030
+   (the last one exercises the clamp to S - 1);
+3b. the batched decode-step kernel (K2) against its plain version the same
+   way at B = 4 and 32, positions 1, 17, 255, 1023 and 1030, with per-row
+   ``starts`` (one row starting at pos), and each K2 row at B = 8 against
+   K1 on that row alone;
+4. the B=1 path: ``Llama.generate`` of a 1024-token request in bfloat16,
+   with and without ``quant="int8-head"``, through K1 (its launch counter
+   must equal the decode steps), the confident-step argmax gate against a
+   float32 truth stream, and the ``infer`` CLI once;
+4b. the serving path: ``LlamaServer`` (B = 8, bfloat16, with and without
+   the int8 head) serving 24 requests with slot recycling, shifted
+   admissions and truncation at the cache end, through K2 (its launch
+   counter must equal the steps the server dispatched); a float32 server
+   whose streams equal standalone float32 ``generate`` (K1) up to the first
+   near-tie; the batched argmax gates at B = 4 and 32; ``generate`` of a
+   1024-token request at B = 8 through K2; and the ``serve_cli`` once;
 5. timings: tokens per second of the 1024-token request in each format,
-   timed ``REPEATS`` times in turns, and the kernel's time per step beside
-   the plain version's, with the card's name and power limit;
-6. only with ``--profile``: the step by CUDA events and the host's enqueue
-   time per call at positions 0, 512 and 1023, the device time of each
-   kernel of the chain from ``torch.profiler``, and the device's busy share
-   of a 1024-token request under the profiler.
+   timed ``REPEATS`` times in turns, K1's and K2's time per step beside
+   their plain versions', the serving run's generated tokens per second
+   (``REPEATS`` times, the formats in turns) and the B = 8 request's, with
+   the card's name and power limit;
+6. only with ``--profile``: for K1 the step by CUDA events and the host's
+   enqueue time per call at positions 0, 512 and 1023, and for K1 and K2
+   the device time of each kernel of the chain from ``torch.profiler``;
+   the device's busy share of a 1024-token request and of a serving run
+   under the profiler.
 
 The last two lines of standard output are a JSON object describing the
-kernel and then ``{"ok": true, "device": {...}}``.
+kernels and then ``{"ok": true, "device": {...}}``.
 """
 import json
 import subprocess
@@ -38,8 +52,10 @@ import numpy as np
 import torch
 
 CFG = dict(vocab_size=32000, embed_dim=288, n_heads=6, ffn_dim=768,
-           max_seq_len=1024, max_batch_size=1, n_layers=6)  # stories15M
+           max_seq_len=1024, max_batch_size=32, n_layers=6)  # stories15M
 POSITIONS = (0, 1, 17, 255, 1023, 1030)
+BATCH_POSITIONS = (1, 17, 255, 1023, 1030)
+BATCHES = (4, 32)  # K2 against its plain version
 FORMATS = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
            "bf16-int8head": (torch.bfloat16, "int8-head")}
 # cache tolerance, kernel vs plain: f32 differs only in summation order
@@ -48,7 +64,13 @@ FORMATS = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
 CACHE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-5}
 PROMPT = np.array([[1, 243, 532, 991]])
 REQUEST = 1024  # total length of the main-path request
-REPEATS = 5  # timed requests per format in phase 5
+REPEATS = 5  # timed requests (or serving runs) per format in phase 5
+SERVE = dict(batch_size=8, chunk=128, eos_id=-1)  # the phase-4b server
+N_REQUESTS = 24
+MAX_NEW = (64, 256, 700)  # cycled over the requests
+F32_MARGIN = 1e-3  # f32 server vs f32 generate: they differ by rounding of
+# the shifted rotation and summation order (~1e-6), so a stream is compared
+# up to its first step whose f32 top-2 margin is below this
 
 
 def phase(name, t0):
@@ -56,25 +78,50 @@ def phase(name, t0):
           flush=True)
 
 
+def i32(values, dev):
+    return torch.tensor(values, dtype=torch.int32, device=dev)
+
+
 def step_args(model, weights, ck, cv, pos, tok):
+    from pydynet_tpu_torch.models.llama.model import decode_weight_args
+
     dev = model.device
-    qhead = "head_s" in weights
-    return ((torch.tensor([pos], dtype=torch.int32, device=dev),
-             torch.tensor([tok], dtype=torch.int32, device=dev),
-             weights["tok"], weights["cosD"], weights["sinD"],
-             weights["norm"], weights["wq"], weights["wk"], weights["wv"],
-             weights["wo"], weights["gate_w"], weights["up_w"],
-             weights["down"], weights["in_norm"], weights["post_norm"],
-             weights["head_wq"] if qhead else weights["head_w"],
-             weights["head_b"], ck, cv),
+    return ((i32([pos], dev), i32([tok], dev),
+             *decode_weight_args(weights), ck, cv),
             dict(n_heads=model.n_heads, head_s=weights.get("head_s")))
 
 
-def random_caches(model, dtype, seed):
-    g = torch.Generator().manual_seed(seed)
+def batched_args(model, weights, ck, cv, pos, toks, starts=None):
+    from pydynet_tpu_torch.models.llama.model import decode_weight_args
+
+    dev = model.device
+    return ((i32([pos], dev), i32(list(toks), dev),
+             *decode_weight_args(weights), ck, cv),
+            dict(n_heads=model.n_heads, head_s=weights.get("head_s"),
+                 starts=None if starts is None else i32(list(starts), dev)))
+
+
+def random_caches(model, dtype, seed, batch=None):
+    """Seeded random caches: (N, S, D), or (N, B, S, D) for ``batch``."""
+    g = torch.Generator(device=model.device).manual_seed(seed)
     shape = (model.n_layers, model.max_seq_len, model.embed_dim)
-    return [torch.randn(shape, generator=g).mul_(0.5).to(model.device, dtype)
-            for _ in range(2)]
+    if batch is not None:
+        shape = (model.n_layers, batch) + shape[1:]
+    return [torch.randn(shape, generator=g, device=model.device)
+            .mul_(0.5).to(dtype) for _ in range(2)]
+
+
+def confident_rows(logits):
+    """Whether each row's top-2 logit margin clears bf16 noise."""
+    from pydynet_tpu_torch.utils.fidelity import REL_MARGIN, MARGIN
+
+    srt = torch.sort(logits.float(), dim=-1).values
+    top, margin = srt[..., -1], srt[..., -1] - srt[..., -2]
+    return (margin > MARGIN + REL_MARGIN * top.abs()).cpu()
+
+
+def max_diff(a, b):
+    return float((a.float() - b.float()).abs().max())
 
 
 def kernel_vs_plain(model, fmt, pos, tok=1234, seed=0):
@@ -82,7 +129,6 @@ def kernel_vs_plain(model, fmt, pos, tok=1234, seed=0):
     the same inputs. Returns (kernel token, plain token, plain logits,
     max |cache difference|)."""
     from pydynet_tpu_torch.ops import decode_step as dsk
-    from pydynet_tpu_torch.utils.fidelity import REL_MARGIN, MARGIN
 
     dtype, quant = FORMATS[fmt]
     w = model._fused_weights(dtype, quant)
@@ -94,12 +140,94 @@ def kernel_vs_plain(model, fmt, pos, tok=1234, seed=0):
     logits = dsk.decode_token_logits_ref(*rargs, **kw)
     want = int(torch.argmax(logits))
     torch.cuda.synchronize()
-    err = max(float((ck.float() - rck.float()).abs().max()),
-              float((cv.float() - rcv.float()).abs().max()))
-    srt = torch.sort(logits).values
-    top, margin = float(srt[-1]), float(srt[-1] - srt[-2])
-    confident = margin > MARGIN + REL_MARGIN * abs(top)
-    return got, want, confident, err
+    err = max(max_diff(ck, rck), max_diff(cv, rcv))
+    return got, want, bool(confident_rows(logits)), err
+
+
+def batched_vs_plain(model, fmt, batch, pos, seed=0):
+    """One batched step of ``batch`` rows through K2 and through its plain
+    version on the same inputs, rows starting at seeded ``starts`` in
+    [0, min(pos, S - 1)] (row 0 at pos itself). Returns (kernel tokens,
+    plain tokens, confident rows, max |cache difference|)."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    dtype, quant = FORMATS[fmt]
+    w = model._fused_weights(dtype, quant)
+    ck, cv = random_caches(model, dtype, seed, batch)
+    rng = np.random.default_rng(seed)
+    p = min(pos, model.max_seq_len - 1)
+    starts = rng.integers(0, p + 1, size=batch)
+    starts[0] = p
+    toks = rng.integers(0, model.vocab_size, size=batch)
+    args, kw = batched_args(model, w, ck, cv, pos, toks, starts)
+    rck, rcv = ck.clone(), cv.clone()
+    got = dsk.fused_decode_token_batched(*args, **kw).cpu()
+    logits = dsk.decode_token_batched_logits_ref(*args[:-2], rck, rcv, **kw)
+    torch.cuda.synchronize()
+    err = max(max_diff(ck, rck), max_diff(cv, rcv))
+    return got, logits.argmax(-1).cpu().int(), confident_rows(logits), err
+
+
+def batched_rows_vs_k1(model, fmt, batch=8, pos=512, seed=5):
+    """K2 over ``batch`` rows starting at 0 against K1 on each row alone.
+    Returns (tokens equal, max |cache difference|)."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    dtype, quant = FORMATS[fmt]
+    w = model._fused_weights(dtype, quant)
+    ck, cv = random_caches(model, dtype, seed, batch)
+    toks = np.random.default_rng(seed).integers(0, model.vocab_size,
+                                                size=batch)
+    rows_k = [ck[:, b].clone() for b in range(batch)]
+    rows_v = [cv[:, b].clone() for b in range(batch)]
+    args, kw = batched_args(model, w, ck, cv, pos, toks)
+    got = dsk.fused_decode_token_batched(*args, **kw).tolist()
+    one = []
+    for b in range(batch):
+        a1, k1 = step_args(model, w, rows_k[b], rows_v[b], pos, int(toks[b]))
+        one.append(int(dsk.fused_decode_token(*a1, **k1)[0]))
+    err = max(max(max_diff(ck[:, b], rows_k[b]), max_diff(cv[:, b],
+                                                          rows_v[b]))
+              for b in range(batch))
+    return got == one, err
+
+
+def serve_requests(model, seed=0):
+    """Seeded (prompt, max_new_tokens) requests: prompt lengths in
+    [2, 16], max_new_tokens cycling over MAX_NEW."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(1, model.vocab_size,
+                          size=int(rng.integers(2, 17))).tolist(),
+             MAX_NEW[i % len(MAX_NEW)]) for i in range(N_REQUESTS)]
+
+
+def serve(model, requests, **kw):
+    """One server run over ``requests``; returns (server, requests done)."""
+    from pydynet_tpu_torch.models.llama.serve import LlamaServer
+
+    srv = LlamaServer(model, **kw)
+    rids = [srv.submit(p, max_new_tokens=n) for p, n in requests]
+    done = srv.run()
+    torch.cuda.synchronize()
+    return srv, [done[r] for r in rids]
+
+
+def batch_prompt(batch):
+    """bench.py's batched prompts: PROMPT shifted by 7 a row, BOS first."""
+    prompt = np.tile(PROMPT, (batch, 1)) + np.arange(batch)[:, None] * 7
+    prompt[:, 0] = 1
+    return prompt
+
+
+def busy_share(prof, wall):
+    """Device busy seconds (the union of kernel intervals) over ``wall``."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in kernel_events(prof))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e6
 
 
 def time_step(fn, n):
@@ -136,6 +264,21 @@ def kernel_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def by_kernel(prof, n, label):
+    """Print the device time of each kernel over ``n`` steps."""
+    by_name = {}
+    for e in kernel_events(prof):
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    total = sum(t for t, _ in by_name.values()) / n
+    print(f"[chip_smoke] profile {label}, device time by kernel over {n} "
+          f"steps:")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+        print(f"[chip_smoke]   {t / n:8.2f} us/step "
+              f"{100 * t / n / total:5.1f} % x{c // n}  {name[:70]}")
+    print(f"[chip_smoke]   device total {total:.1f} us/step")
+
+
 def profile(model, card):
     """Phase 6: where a decode step's time goes on the card."""
     from torch.profiler import ProfilerActivity
@@ -143,6 +286,8 @@ def profile(model, card):
     from pydynet_tpu_torch.ops import decode_step as dsk
 
     print(f"[chip_smoke] profile on {card}")
+    cuda = [ProfilerActivity.CUDA]
+    n = 50
     with torch.no_grad():
         for fmt, (dtype, quant) in FORMATS.items():
             w = model._fused_weights(dtype, quant)
@@ -157,42 +302,142 @@ def profile(model, card):
             if fmt == "f32":
                 continue
             args, kw = step_args(model, w, ck, cv, 512, 1234)
-            n = 50
-            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with torch_profile(activities=cuda) as prof:
                 for _ in range(n):
                     dsk.fused_decode_token(*args, **kw)
                 torch.cuda.synchronize()
-            by_name = {}
-            for e in kernel_events(prof):
-                t, c = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
-            total = sum(t for t, _ in by_name.values()) / n
-            print(f"[chip_smoke] profile {fmt} pos 512, device time by "
-                  f"kernel over {n} steps:")
-            for name, (t, c) in sorted(by_name.items(),
-                                       key=lambda kv: -kv[1][0]):
-                print(f"[chip_smoke]   {t / n:8.2f} us/step "
-                      f"{100 * t / n / total:5.1f} % x{c // n}  {name[:70]}")
-            print(f"[chip_smoke]   device total {total:.1f} us/step")
+            by_kernel(prof, n, f"K1 {fmt} pos 512")
+        w = model._fused_weights(torch.bfloat16, None)
+        ck, cv = random_caches(model, torch.bfloat16, 1, 8)
+        args, kw = batched_args(model, w, ck, cv, 512, range(100, 108))
+        step = lambda: dsk.fused_decode_token_batched(*args, **kw)
+        print(f"[chip_smoke] profile K2 bf16 B=8 pos 512: event "
+              f"{time_step(step, 200) * 1e3:.1f} us/step, host enqueue "
+              f"{enqueue_us(step):.1f} us/call")
+        with torch_profile(activities=cuda) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+        by_kernel(prof, n, "K2 bf16 B=8 pos 512")
+        del ck, cv
         for quant in (None, "int8-head"):
-            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with torch_profile(activities=cuda) as prof:
                 start = time.perf_counter()
-                n = sum(1 for _ in model.generate(PROMPT, REQUEST,
-                                                  dtype=torch.bfloat16,
-                                                  quant=quant))
+                n_tok = sum(1 for _ in model.generate(PROMPT, REQUEST,
+                                                      dtype=torch.bfloat16,
+                                                      quant=quant))
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - start
-            spans = sorted((e.time_range.start, e.time_range.end)
-                           for e in kernel_events(prof))
-            busy, end = 0.0, float("-inf")
-            for a, b in spans:  # length of the union of kernel intervals
-                busy += max(0.0, b - max(a, end))
-                end = max(end, b)
-            busy /= 1e6
+            busy = busy_share(prof, wall)
             print(f"[chip_smoke] profile generate bf16 quant={quant} under "
-                  f"the profiler: {n} tokens in {wall:.3f} s, device busy "
-                  f"{busy:.3f} s = {100 * busy / wall:.1f} %, idle "
+                  f"the profiler: {n_tok} tokens in {wall:.3f} s, device "
+                  f"busy {busy:.3f} s = {100 * busy / wall:.1f} %, idle "
                   f"{100 - 100 * busy / wall:.1f} %")
+    requests = serve_requests(model)
+    with torch_profile(activities=cuda) as prof:
+        start = time.perf_counter()
+        srv, done = serve(model, requests, dtype=torch.bfloat16, **SERVE)
+        wall = time.perf_counter() - start
+    busy = busy_share(prof, wall)
+    n_tok = sum(len(r.tokens) for r in done)
+    print(f"[chip_smoke] profile serve bf16 B=8 under the profiler: {n_tok} "
+          f"tokens, {srv.dispatched_steps} steps in {wall:.3f} s, device "
+          f"busy {busy:.3f} s = {100 * busy / wall:.1f} %, idle "
+          f"{100 - 100 * busy / wall:.1f} %")
+
+
+def check_serving(model):
+    """Phase 4b: the serving path through K2. Returns K2's launches."""
+    from pydynet_tpu_torch.models.llama import serve_cli
+    from pydynet_tpu_torch.ops import decode_step as dsk
+    from pydynet_tpu_torch.utils import fidelity
+
+    k2 = dsk.fused_decode_token_batched
+    requests = serve_requests(model)
+    serve(model, requests[:2], dtype=torch.bfloat16, **SERVE)  # warm-up
+    k2.launches = 0
+    for quant in (None, "int8-head"):
+        before = k2.launches
+        start = time.perf_counter()
+        srv, done = serve(model, requests, dtype=torch.bfloat16,
+                          quant=quant, **SERVE)
+        wall = time.perf_counter() - start
+        launched = k2.launches - before
+        n_tok = sum(len(r.tokens) for r in done)
+        name = f"bf16{'-' + quant if quant else ''}"
+        print(f"[chip_smoke] serve {name} B=8: {len(done)} requests, "
+              f"{n_tok} tokens, {sum(r.truncated for r in done)} truncated, "
+              f"{srv.dispatched_steps} steps dispatched, {launched} K2 "
+              f"launches, {n_tok / wall:.1f} tok/s")
+        if not all(r.done and r.tokens for r in done):
+            raise AssertionError(f"serve {name}: a request did not finish")
+        if not all(0 <= t < model.vocab_size for r in done for t in r.tokens):
+            raise AssertionError(f"serve {name}: token out of range")
+        if not any(r.truncated for r in done):
+            raise AssertionError(f"serve {name}: no request reached the "
+                                 "cache end")
+        if launched != srv.dispatched_steps:
+            raise AssertionError(f"serve {name}: {launched} launches for "
+                                 f"{srv.dispatched_steps} dispatched steps")
+    serve_launches = k2.launches
+
+    # f32 server against standalone f32 generate (K1) on each prompt
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, model.vocab_size,
+                            size=int(rng.integers(2, 17))).tolist()
+               for _ in range(8)]
+    _, done = serve(model, [(p, 48) for p in prompts], dtype=torch.float32,
+                    batch_size=4, chunk=128, eos_id=-1)
+    compared = 0
+    for p, req in zip(prompts, done):
+        truth, margins, _ = fidelity.greedy_truth(model, np.array([p]), 48)
+        conf = fidelity._confident(margins[:, 0], None, F32_MARGIN, 0.0)
+        k = int(np.argmin(conf)) if not conf.all() else len(conf)
+        alone = [int(t[0, 0]) for t in model.generate(
+            np.array([p]), len(p) + 48, dtype=torch.float32)]
+        if req.tokens[:k] != alone[:k] or alone[:k] != truth[:k, 0].tolist():
+            raise AssertionError(f"f32 server stream {req.tokens[:k]} != "
+                                 f"generate {alone[:k]} (truth "
+                                 f"{truth[:k, 0].tolist()})")
+        compared += k
+    print(f"[chip_smoke] f32 server B=4 vs standalone f32 generate: "
+          f"{compared} tokens equal up to each stream's first near-tie")
+    if compared < 100:
+        raise AssertionError(f"only {compared} f32 tokens compared")
+
+    # the batched argmax gates (bench.py's batched-b4, -b32, -b4-int8head)
+    for batch, quants in ((4, (None, "int8-head")), (32, (None,))):
+        prompt = batch_prompt(batch)
+        truth, margins, tops = fidelity.greedy_truth(model, prompt, 64)
+        for quant in quants:
+            checked, ok, agree = fidelity.gate_fused_argmax(
+                model, prompt, truth, margins, tops, dtype=torch.bfloat16,
+                quant=quant)
+            print(f"[chip_smoke] gate B={batch} bf16 quant={quant}: checked "
+                  f"{checked} ok {ok} agree {agree:.3f}")
+            if not (checked > 0 and ok):
+                raise AssertionError(f"batched gate failed: B={batch}, "
+                                     f"quant={quant}")
+
+    # generate at B=8 through K2
+    steps = REQUEST - PROMPT.shape[1] - 1
+    before = k2.launches
+    rows = list(model.generate(batch_prompt(8), REQUEST,
+                               dtype=torch.bfloat16))
+    launched = k2.launches - before
+    print(f"[chip_smoke] generate bf16 B=8: {len(rows)} rows, {launched} K2 "
+          f"launches")
+    if launched != steps or len(rows) != steps + 1 \
+            or any(r.shape != (8, 1) for r in rows):
+        raise AssertionError(f"generate B=8: {launched} launches, "
+                             f"{len(rows)} rows; want {steps} steps")
+
+    before = k2.launches
+    serve_cli.main(["--random-init", "--device", "cuda", "--batch-size", "8",
+                    "--max-new-tokens", "64"])
+    if k2.launches == before:
+        raise AssertionError("serve CLI did not run the batched kernel")
+    return serve_launches
 
 
 def main() -> int:
@@ -229,7 +474,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     phase("2 build", t0)
 
-    # 3. kernel against plain at stories15M width
+    # 3. K1 against plain at stories15M width
     t0 = time.perf_counter()
     model = Llama(**CFG, device="cuda",
                   generator=torch.Generator().manual_seed(0)).eval()
@@ -250,7 +495,40 @@ def main() -> int:
                 max_err[fmt] = max(max_err[fmt], err)
     phase("3 kernel vs plain", t0)
 
-    # 4. main path
+    # 3b. K2 against plain, and K2 rows against K1
+    t0 = time.perf_counter()
+    max_err_b = {}
+    with torch.no_grad():
+        for fmt, (dtype, _) in FORMATS.items():
+            max_err_b[fmt] = 0.0
+            for batch in BATCHES:
+                for pos in BATCH_POSITIONS:
+                    got, want, conf, err = batched_vs_plain(model, fmt,
+                                                            batch, pos)
+                    same = got == want
+                    print(f"[chip_smoke] K2 {fmt} B={batch} pos {pos}: "
+                          f"{int(same.sum())}/{batch} tokens equal, "
+                          f"{int(conf.sum())} confident, cache err "
+                          f"{err:.3g}")
+                    if err > CACHE_ATOL[dtype]:
+                        raise AssertionError(
+                            f"K2 {fmt} B={batch} pos {pos}: cache error "
+                            f"{err} > {CACHE_ATOL[dtype]}")
+                    must = torch.ones_like(conf) if dtype == torch.float32 \
+                        else conf
+                    if not same[must].all():
+                        raise AssertionError(
+                            f"K2 {fmt} B={batch} pos {pos}: tokens "
+                            f"{got.tolist()} != plain {want.tolist()}")
+                    max_err_b[fmt] = max(max_err_b[fmt], err)
+            equal, err = batched_rows_vs_k1(model, fmt)
+            print(f"[chip_smoke] K2 {fmt} B=8 rows vs K1: tokens equal "
+                  f"{equal}, cache err {err:.3g}")
+            if not equal or err > CACHE_ATOL[dtype]:
+                raise AssertionError(f"K2 {fmt}: rows differ from K1")
+    phase("3b batched kernel vs plain", t0)
+
+    # 4. the B=1 path
     t0 = time.perf_counter()
     steps = REQUEST - PROMPT.shape[1] - 1
     for quant in (None, "int8-head"):  # warm-up: weights, cuBLAS, kernels
@@ -288,7 +566,12 @@ def main() -> int:
         raise AssertionError("infer CLI did not run the kernel")
     phase("4 main path", t0)
 
-    # 5. timings, kernel vs plain per step at pos 512 (bf16, main format)
+    # 4b. the serving path
+    t0 = time.perf_counter()
+    serve_launches = check_serving(model)
+    phase("4b serving path", t0)
+
+    # 5. timings: kernels vs plain per step at pos 512, then end to end
     t0 = time.perf_counter()
     ms = {}
     with torch.no_grad():
@@ -309,6 +592,20 @@ def main() -> int:
             print(f"[chip_smoke] {card}: {fmt} step at pos 512: kernel "
                   f"{ms[fmt][0] * 1e3:.1f} us, plain {ms[fmt][1] * 1e3:.1f} "
                   f"us")
+        w = model._fused_weights(torch.bfloat16, None)
+        for batch in (8, 32):
+            ck, cv = random_caches(model, torch.bfloat16, 1, batch)
+            args, kw = batched_args(model, w, ck, cv, 512,
+                                    range(100, 100 + batch))
+            kern = lambda: dsk.fused_decode_token_batched(*args, **kw)
+            ref = lambda: dsk.fused_decode_token_batched_ref(*args, **kw)
+            plain, kernel = time_step(ref, 3), time_step(kern, 200)
+            plain2, kernel2 = time_step(ref, 3), time_step(kern, 200)
+            ms[f"K2 B={batch}"] = (min(kernel, kernel2), min(plain, plain2))
+            print(f"[chip_smoke] {card}: K2 bf16 B={batch} step at pos 512: "
+                  f"kernel {ms[f'K2 B={batch}'][0] * 1e3:.1f} us, plain "
+                  f"{ms[f'K2 B={batch}'][1] * 1e3:.1f} us")
+            del ck, cv
     tok_s = {None: [], "int8-head": []}
     for _ in range(REPEATS):  # the formats in turns
         for quant, rates in tok_s.items():
@@ -324,6 +621,31 @@ def main() -> int:
               f"request, tok/s of {REPEATS} runs: "
               f"{', '.join(f'{r:.1f}' for r in rates)}; median "
               f"{float(np.median(rates)):.1f}")
+    requests = serve_requests(model)
+    serve_rates = {None: [], "int8-head": []}
+    for _ in range(REPEATS):  # the formats in turns
+        for quant, rates in serve_rates.items():
+            start = time.perf_counter()
+            _, done = serve(model, requests, dtype=torch.bfloat16,
+                            quant=quant, **SERVE)
+            rates.append(sum(len(r.tokens) for r in done)
+                         / (time.perf_counter() - start))
+    for quant, rates in serve_rates.items():
+        name = f"bf16{'-' + quant if quant else ''}"
+        print(f"[chip_smoke] {card}: serve {name} B=8, {N_REQUESTS} "
+              f"requests, generated tok/s of {REPEATS} runs: "
+              f"{', '.join(f'{r:.1f}' for r in rates)}; median "
+              f"{float(np.median(rates)):.1f}")
+    rates = []
+    for _ in range(3):
+        start = time.perf_counter()
+        n = sum(r.numel() for r in model.generate(batch_prompt(8), REQUEST,
+                                                  dtype=torch.bfloat16))
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - start))
+    print(f"[chip_smoke] {card}: generate bf16 B=8 {REQUEST}-token request, "
+          f"tok/s of 3 runs: {', '.join(f'{r:.1f}' for r in rates)}; median "
+          f"{float(np.median(rates)):.1f}")
     phase("5 timings", t0)
 
     if "--profile" in sys.argv[1:]:
@@ -331,12 +653,17 @@ def main() -> int:
         profile(model, card)
         phase("6 profile", t0)
 
-    print(json.dumps({"kernels": [{
-        "name": "decode_token", "route": "cuda",
-        "source": "pydynet_tpu_torch/csrc/decode_token.cu",
-        "replaces": "pydynet_tpu/ops/decode_step.py:160",
-        "launches": main_launches, "max_abs_err": max_err["f32"],
-        "ms": ms["bf16"][0], "plain_ms": ms["bf16"][1]}]}))
+    print(json.dumps({"kernels": [
+        {"name": "decode_token", "route": "cuda",
+         "source": "pydynet_tpu_torch/csrc/decode_token.cu",
+         "replaces": "pydynet_tpu/ops/decode_step.py:160",
+         "launches": main_launches, "max_abs_err": max_err["f32"],
+         "ms": ms["bf16"][0], "plain_ms": ms["bf16"][1]},
+        {"name": "decode_token_batched", "route": "cuda",
+         "source": "pydynet_tpu_torch/csrc/decode_token_batched.cu",
+         "replaces": "pydynet_tpu/ops/decode_step.py:509",
+         "launches": serve_launches, "max_abs_err": max_err_b["f32"],
+         "ms": ms["K2 B=8"][0], "plain_ms": ms["K2 B=8"][1]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -9,11 +9,12 @@ are torch's (out, in). Three ways through the model:
   caches the reference keeps (used by ``utils.fidelity.greedy_truth``);
 * the plain lane (``generate(fused=False)``): a dense prefill and a
   per-token decode in plain PyTorch over layer-stacked weights, any batch;
-* the fused lane (the default at B=1): the same dense prefill, then one
-  ``ops.decode_step.fused_decode_token`` call per token, which launches the
-  hand-written CUDA kernel chain on a GPU. A B=1 model the kernel does not
-  take (narrow GQA caches, dims outside ``_fused_decode_supported``)
-  raises unless the caller asks for the plain lane.
+* the fused lane (the default): the same dense prefill, then one call per
+  token of ``ops.decode_step.fused_decode_token`` at B=1 or
+  ``fused_decode_token_batched`` at B>1, which launch the hand-written CUDA
+  kernel chains on a GPU. A model the kernels do not take (narrow GQA
+  caches, dims or a batch outside ``_fused_decode_supported``) raises
+  unless the caller asks for the plain lane.
 
 Semantics kept from the JAX package: interleaved RoPE pairs; bucketed
 prefill read at ``last_idx - 1``; decoding starts at ``pos = L`` on the
@@ -56,6 +57,25 @@ def _rope_pure(x, cos, sin):
     cos, sin = cos[..., None, :], sin[..., None, :]
     return torch.stack([xr * cos - xi * sin, xr * sin + xi * cos],
                        dim=-1).reshape(x.shape)
+
+
+def not_ported(what: str, item: str):
+    """Raise for an option this port does not run yet, naming its item in
+    ROADMAP.md's queue 1."""
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue 1, '{item}')")
+
+
+def decode_weight_args(weights):
+    """The decode steps' weight arguments, ``emb`` to ``head_b``, from a
+    :meth:`Llama._fused_weights` snapshot (its int8 head when it has one)."""
+    qhead = "head_s" in weights
+    return (weights["tok"], weights["cosD"], weights["sinD"], weights["norm"],
+            weights["wq"], weights["wk"], weights["wv"], weights["wo"],
+            weights["gate_w"], weights["up_w"], weights["down"],
+            weights["in_norm"], weights["post_norm"],
+            weights["head_wq"] if qhead else weights["head_w"],
+            weights["head_b"])
 
 
 def bucket_prompt(input_ids, L: int, max_seq_len: int):
@@ -370,11 +390,11 @@ class Llama(nn.Module):
         ``tile(repeat(cos, 2), H)`` in the weight type, and for
         ``quant="int8-head"`` the int8 head with per-row float32 scales
         (the JAX package's ``quantize_int8(head_w, axis=0)`` in torch's
-        layout). The plain head stays for the prefill token."""
+        layout). The plain head stays for the prefill token;
+        :func:`decode_weight_args` picks the decode steps' arguments."""
         if quant not in (None, "int8-head"):
-            raise NotImplementedError(
-                f"quant={quant!r} on the fused lane: only int8-head is "
-                "ported (ROADMAP.md queue 1, 'Remaining weight formats')")
+            not_ported(f"quant={quant!r} on the fused lane",
+                       "Remaining weight formats")
         key = (dtype, "fused", quant)
         if key in self._weights_cache:
             return self._weights_cache[key]
@@ -401,8 +421,8 @@ class Llama(nn.Module):
         self._weights_cache[key] = w
         return w
 
-    def _fused_decode_supported(self, quant=None) -> bool:
-        """Whether the fused lane can run this model.
+    def _fused_decode_supported(self, quant=None, batch: int = 1) -> bool:
+        """Whether the fused lane can run this model at ``batch`` rows.
 
         The JAX package bounds its kernel by TPU VMEM (100 MB): the Pallas
         kernel keeps every per-layer weight matrix resident in a
@@ -414,84 +434,102 @@ class Llama(nn.Module):
         48 KB a block gets without opting in, so max(D, F) plus a few
         reduction slots must fit in 12,288 floats; the attention block
         (256 threads) needs head_dim <= 256; RoPE needs an even head_dim
-        (``ops.decode_step.kernel_takes``). Narrow GQA caches are not
-        ported, so n_kv_heads must equal n_heads.
+        (``ops.decode_step.kernel_takes``). At B>1 the batched chain keeps
+        all B activation rows in shared memory, opting in up to 227 KB, and
+        a warp keeps row b's sums in lane b, so B <= 32
+        (``ops.decode_step.batched_kernel_takes``). Narrow GQA caches are
+        not ported, so n_kv_heads must equal n_heads.
         """
+        D, H, Fd = self.embed_dim, self.n_heads, self.ffn_dim
+        takes = (dsk.kernel_takes(D, H, Fd) if batch == 1
+                 else dsk.batched_kernel_takes(D, H, Fd, batch))
         return (quant in (None, "int8-head")
-                and self.n_kv_heads == self.n_heads
-                and dsk.kernel_takes(self.embed_dim, self.n_heads,
-                                     self.ffn_dim))
+                and self.n_kv_heads == self.n_heads and takes)
 
     def fused_step(self, weights, ck, cv, tok, pos, out=None):
         """One ``fused_decode_token`` call: ``tok``/``pos`` (1,) int32 on
         the device, caches (N, S, D) updated in place; returns (1,) int32."""
-        qhead = "head_s" in weights
         return dsk.fused_decode_token(
-            pos, tok, weights["tok"], weights["cosD"], weights["sinD"],
-            weights["norm"], weights["wq"], weights["wk"], weights["wv"],
-            weights["wo"], weights["gate_w"], weights["up_w"],
-            weights["down"], weights["in_norm"], weights["post_norm"],
-            weights["head_wq"] if qhead else weights["head_w"],
-            weights["head_b"], ck, cv, n_heads=self.n_heads,
-            head_s=weights.get("head_s"), out=out)
+            pos, tok, *decode_weight_args(weights), ck, cv,
+            n_heads=self.n_heads, head_s=weights.get("head_s"), out=out)
 
-    def decode_chunk(self, weights, ck, cv, tok, pos: int, n_steps: int):
-        """``n_steps`` fused greedy steps (B=1) from ``tok`` (1,) int32 at
-        ``pos`` over flat caches (N, S, D). Positions and tokens stay on the
-        device: step i reads step i-1's output in place, so no step waits
-        for the host. Returns the (n_steps,) int32 tokens."""
-        toks = torch.empty(n_steps, dtype=torch.int32, device=tok.device)
+    def fused_step_batched(self, weights, ck, cv, tok, pos, starts=None,
+                           out=None):
+        """One ``fused_decode_token_batched`` call: ``tok`` (B,) and ``pos``
+        (1,) int32 on the device, caches (N, B, S, D) updated in place,
+        ``starts`` (B,) int32 per-row attention lower bounds or None;
+        returns (B,) int32."""
+        return dsk.fused_decode_token_batched(
+            pos, tok, *decode_weight_args(weights), ck, cv,
+            n_heads=self.n_heads, head_s=weights.get("head_s"),
+            starts=starts, out=out)
+
+    def decode_chunk(self, weights, ck, cv, tok, pos: int, n_steps: int,
+                     starts=None):
+        """``n_steps`` fused greedy steps from ``tok`` (B,) int32 at the
+        shared ``pos``: flat caches (N, S, D) take the B=1 kernel, batched
+        caches (N, B, S, D) the batched one, whose rows may start their
+        attention at ``starts`` (B,) int32 on the device. Positions and
+        tokens stay on the device: step i reads step i-1's output in place,
+        so no step waits for the host. Returns the (n_steps, B) int32
+        tokens."""
+        toks = torch.empty(n_steps, tok.shape[0], dtype=torch.int32,
+                           device=tok.device)
         positions = torch.arange(pos, pos + n_steps, dtype=torch.int32,
                                  device=tok.device)
         for i in range(n_steps):
-            self.fused_step(weights, ck, cv, tok, positions[i:i + 1],
-                            out=toks[i:i + 1])
-            tok = toks[i:i + 1]
+            if ck.dim() == 4:
+                self.fused_step_batched(weights, ck, cv, tok,
+                                        positions[i:i + 1], starts=starts,
+                                        out=toks[i])
+            else:
+                self.fused_step(weights, ck, cv, tok, positions[i:i + 1],
+                                out=toks[i])
+            tok = toks[i]
         return toks
 
     def _flat_caches(self, ck5, cv5):
-        """(N, 1, S, H, hd) dense caches as the fused lane's (N, S, D)
-        views of the same memory."""
-        N, S = self.n_layers, self.max_seq_len
-        return ck5.view(N, S, -1), cv5.view(N, S, -1)
+        """(N, B, S, H, hd) dense caches as the fused lane's views of the
+        same memory: (N, S, D) at B=1, (N, B, S, D) at B>1."""
+        N, B, S = ck5.shape[:3]
+        shape = (N, S, -1) if B == 1 else (N, B, S, -1)
+        return ck5.view(shape), cv5.view(shape)
 
     # ------------------------------- generate -------------------------------
     def _check_generate(self, B, dtype, fused, quant, temperature, top_k,
                         top_p, repetition_penalty, kv_quant, flash_prefill):
-        """Resolve ``fused`` (None means B == 1) and raise for whatever this
-        port does not run yet, naming its ROADMAP.md item. Nothing is
-        rerouted silently: a B=1 model the fused kernel does not take raises
-        unless the caller asks for the plain lane with ``fused=False``."""
-        def todo(what, item):
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md queue 1, '{item}')")
-
+        """Resolve ``fused`` (None means the fused lane, at any B) and raise
+        for whatever this port does not run yet, naming its ROADMAP.md item.
+        Nothing is rerouted silently: a model or batch the fused kernels do
+        not take raises unless the caller asks for the plain lane with
+        ``fused=False``."""
         if (temperature or 0) > 0 or top_k is not None or top_p is not None \
                 or repetition_penalty is not None:
-            todo("sampling", "Sampling")
+            not_ported("sampling", "Sampling")
         if kv_quant is not None:
-            todo(f"kv_quant={kv_quant!r}", "Batched decode")
+            not_ported(f"kv_quant={kv_quant!r}", "Batched decode")
         if quant not in (None, "int8-head"):
-            todo(f"quant={quant!r}", "Remaining weight formats")
+            not_ported(f"quant={quant!r}", "Remaining weight formats")
         if flash_prefill:
-            todo("flash prefill", "Long-prompt prefill")
+            not_ported("flash prefill", "Long-prompt prefill")
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise NotImplementedError(f"dtype {dtype}: use float32 or "
                                       "bfloat16")
         if fused == "numpy":
-            todo("the NumPy CPU decode lane", "CPU decode lane")
+            not_ported("the NumPy CPU decode lane", "CPU decode lane")
         if fused is None:
-            fused = B == 1
-        if fused and B > 1:
-            todo("fused decode at B>1", "Batched decode")
+            fused = True
         if fused and self.n_kv_heads != self.n_heads:
-            todo("narrow GQA caches on the fused lane (fused=False runs the "
-                 "plain lane)", "Batched decode")
-        if fused and not self._fused_decode_supported(quant):
-            todo("a fused decode kernel for these dims (fused=False runs "
-                 "the plain lane)", "Big-dims lane")
+            not_ported("narrow GQA caches on the fused lane (fused=False "
+                       "runs the plain lane)", "Narrow GQA")
+        if fused and B > dsk.MAX_BATCH:
+            not_ported(f"the batched kernel above B={dsk.MAX_BATCH} "
+                       "(fused=False runs the plain lane)", "Batched decode")
+        if fused and not self._fused_decode_supported(quant, B):
+            not_ported("a fused decode kernel for these dims (fused=False "
+                       "runs the plain lane)", "Big-dims lane")
         if quant and not fused:
-            todo("quantized weights on the plain lane", "Big-dims lane")
+            not_ported("quantized weights on the plain lane", "Big-dims lane")
         return fused
 
     @torch.no_grad()
@@ -508,7 +546,8 @@ class Llama(nn.Module):
         at or below the prompt length yields nothing. ``dtype`` (float32 or
         bfloat16) casts the weights and caches; ``quant="int8-head"`` stores
         the lm_head as int8 on the fused lane. ``fused=None`` is the fused
-        lane at B=1 and the plain lane at B>1."""
+        lane: one B=1 kernel chain a token at B=1, one batched chain a token
+        for all rows at B>1."""
         ids = np.asarray(input_ids)
         B, L = ids.shape
         fused = self._check_generate(B, dtype, fused, quant, temperature,
@@ -529,7 +568,8 @@ class Llama(nn.Module):
         while True:
             n = min(chunk, total - pos - 1)
             if n > 0:
-                decode = self.decode_chunk if fused else self.decode_chunk_plain
+                decode = (self.decode_chunk if fused
+                          else self.decode_chunk_plain)
                 toks = decode(weights, ck, cv, tok, pos, n).reshape(n, B)
                 tok, pos = toks[-1], pos + n
                 rows = torch.cat([rows, toks])

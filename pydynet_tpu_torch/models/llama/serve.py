@@ -1,0 +1,425 @@
+"""Continuous-batching greedy decode server over the batched decode kernel:
+the port of ``pydynet_tpu/models/llama/serve.py`` (its fused lane).
+
+``B`` cache slots decode in lockstep at ONE shared position, one batched
+kernel step (``ops.decode_step.fused_decode_token_batched``) per fleet token,
+and a finished slot is recycled for the next queued request without
+touching the other slots:
+
+* the new prompt is prefilled at position 0 in a fresh cache, and its rows
+  are written into the slot's PAST cache rows ``[pos - len, pos)``, the K
+  rows rotated on by the shift to their absolute positions, overwriting the
+  previous request's stale keys and values;
+* the slot's attention is lower-bounded at its admission row by the
+  kernel's per-row ``starts``, so stale rows below it are invisible;
+* rotary attention scores depend only on relative distance, so a request
+  decoded at shifted absolute positions emits the tokens it would from
+  position 0 (up to float rounding of the rotary tables).
+
+Scheduling rules that fall out of the shared position:
+
+* admission needs ``len(prompt) <= pos`` (the prompt lands in past rows),
+  except on an idle server, where ``pos`` jumps to the prompt length;
+* the server stops admitting at the cache end; requests still decoding at
+  ``max_seq_len`` are finished as truncated.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
+item): sampling and speculative serving, the int8 KV cache, weight formats
+beyond int8-head, the XLA lane with its prefix cache, flash prefill.
+"""
+from __future__ import annotations
+
+import itertools
+from collections import deque
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ...ops import decode_step as dsk
+from .model import bucket_prompt, not_ported
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: list
+    max_new_tokens: int
+    tokens: list = field(default_factory=list)  # generated ids
+    done: bool = False
+    truncated: bool = False
+
+
+class _FleetScheduler:
+    """Host-side slot protocol of the server: queueing, admission planning
+    (with the idle position rewind), power-of-two admission-wave splitting,
+    finish rules (EOS pop, ``max_new_tokens``, truncation) and fleet
+    truncation. Subclasses provide the device programs and the chunk loop.
+    """
+
+    def _init_fleet_state(self):
+        self._starts = np.zeros(self.B, np.int32)
+        self._pos = 0
+        self._slots: list = [None] * self.B
+        self._queue: deque = deque()
+        self._rid = itertools.count()
+        self._finished: dict = {}
+        self._admit_credits: list = []  # (rid, [first_token]) for stream()
+
+    def submit(self, prompt_ids, max_new_tokens: int = 256) -> int:
+        """Queue one prompt (list or array of token ids); returns its
+        request id. ``max_new_tokens`` counts the generated tokens, the
+        admission token included."""
+        prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
+        if not 0 < len(prompt) < self.S:
+            raise ValueError(f"prompt length {len(prompt)} outside "
+                             f"[1, {self.S - 1}]")
+        rid = next(self._rid)
+        self._queue.append(Request(rid, prompt, int(max_new_tokens)))
+        return rid
+
+    @property
+    def active(self) -> int:
+        return sum(1 for r in self._slots if r is not None)
+
+    def _plan_admissions(self):
+        """Assign queued requests to free slots under the admission rule
+        (module doc): the prompt must land in past rows, except on an
+        idle server, where the position rewinds to the prompt length."""
+        plan = []
+        for slot in range(self.B):
+            if self._slots[slot] is not None or not self._queue:
+                continue
+            req = self._queue[0]
+            L = len(req.prompt)
+            if self.active == 0 and not plan:
+                # idle server: reset the shared position to the prompt
+                # length so the request gets the whole cache as headroom
+                # (stale rows are invisible: below the admission row
+                # ``starts`` masks them, above the decode position the
+                # kernel's position bound hides them until rewritten)
+                self._pos = L
+            if L > self._pos or self._pos >= self.S:
+                continue  # must land in past rows (see module doc)
+            self._queue.popleft()
+            self._slots[slot] = req
+            plan.append((slot, req))
+        return plan
+
+    @staticmethod
+    def _pow2_subwaves(group):
+        """Split one same-length admission group into power-of-two
+        sub-batches, which bounds the prefill shapes to (L, 2^i)."""
+        i = 0
+        while i < len(group):
+            k = 1 << ((len(group) - i).bit_length() - 1)
+            yield group[i:i + k]
+            i += k
+
+    def _credit_firsts(self, waves, firsts_dev):
+        """One host read back for every admission wave's first tokens,
+        credited to their requests in dispatch order."""
+        firsts = torch.cat(firsts_dev).cpu().tolist()
+        j = 0
+        for sub in waves:
+            for slot, req in sub:
+                req.tokens.append(firsts[j])
+                j += 1
+                self._maybe_finish(slot)
+                if req.tokens:  # EOS as the first token was popped
+                    self._admit_credits.append((req.rid, [req.tokens[-1]]))
+
+    def _maybe_finish(self, slot, truncated=False):
+        req = self._slots[slot]
+        if req is None:
+            return
+        if req.tokens and req.tokens[-1] == self.eos_id:
+            req.tokens.pop()  # EOS itself is not emitted
+            req.done = True
+        elif len(req.tokens) >= req.max_new_tokens or truncated:
+            req.done = True
+            req.truncated = truncated
+        if req.done:
+            self._finished[req.rid] = req
+            self._slots[slot] = None
+
+    def _truncate_fleet(self):
+        for slot in range(self.B):
+            self._maybe_finish(slot, truncated=True)
+        if self.active == 0:
+            self._pos = 0  # fleet drained: rewind for the queue
+
+
+class LlamaServer(_FleetScheduler):
+    """Greedy continuous-batching decode for one Llama model.
+
+    >>> srv = LlamaServer(model, batch_size=8, dtype=torch.bfloat16)
+    >>> rid = srv.submit(tokenizer.encode(prompt))
+    >>> done = srv.run()           # {rid: Request}
+
+    ``quant="int8-head"`` stores the lm_head as int8 with per-row scales
+    (the batched kernel quantises each row's activations with its own
+    scale). ``chunk`` is the number of decode steps a dispatch runs: a
+    finished request's slot is recycled at the next chunk boundary, one
+    chunk late under ``run``'s pipeline. The constructor keeps the JAX
+    package's keyword names; the options not ported yet raise
+    ``NotImplementedError`` naming their ROADMAP.md item.
+    ``dispatched_steps`` counts the batched decode steps dispatched so far,
+    clamped filler steps included.
+    """
+
+    def __init__(self, model, batch_size: int = 8, dtype=None,
+                 chunk: int = 128, eos_id: int = 2, temperature: float = 0.0,
+                 top_k: int = None, top_p: float = None, seed: int = None,
+                 kv_quant=None, quant=None, lane: str = None,
+                 prefix_cache: bool = False, flash_prefill=None,
+                 speculative=None):
+        if (temperature or 0) > 0 or top_k is not None or top_p is not None \
+                or seed is not None:
+            not_ported("sampled serving", "Sampling")
+        if speculative:
+            not_ported("speculative serving", "Sampling")
+        if kv_quant is not None:
+            not_ported(f"kv_quant={kv_quant!r}", "Batched decode")
+        if quant not in (None, "int8-head"):
+            not_ported(f"quant={quant!r}", "Remaining weight formats")
+        if lane == "xla" or prefix_cache:
+            not_ported("the XLA serving lane and its prefix cache",
+                       "Big-dims lane")
+        if lane not in (None, "fused", "xla"):
+            raise ValueError(f"unknown lane: {lane!r}")
+        if flash_prefill:
+            not_ported("flash prefill", "Long-prompt prefill")
+        if dtype not in (None, torch.float32, torch.bfloat16):
+            raise NotImplementedError(f"dtype {dtype}: use float32 or "
+                                      "bfloat16")
+        if model.n_kv_heads != model.n_heads:
+            not_ported("narrow GQA caches on the fused lane", "Narrow GQA")
+        if batch_size > dsk.MAX_BATCH:
+            not_ported(f"the batched kernel above B={dsk.MAX_BATCH}",
+                       "Batched decode")
+        if not dsk.batched_kernel_takes(model.embed_dim, model.n_heads,
+                                        model.ffn_dim, batch_size):
+            not_ported("the batched kernel for these dims", "Big-dims lane")
+        model.eval()
+        self.model = model
+        self.B = batch_size
+        self.chunk = chunk
+        self.eos_id = eos_id
+        self._dtype = dtype
+        self._quant = quant
+        self._refresh_weights()
+        N, S, D = model.n_layers, model.max_seq_len, model.embed_dim
+        self.S = S
+        dev, cdt = model.device, self._w["tok"].dtype
+        self._ck = torch.zeros(N, self.B, S, D, dtype=cdt, device=dev)
+        self._cv = torch.zeros(N, self.B, S, D, dtype=cdt, device=dev)
+        self._tok = torch.ones(self.B, dtype=torch.int32, device=dev)
+        # the kernel's copy of _starts, written at admission only, so a
+        # decode dispatch copies nothing from the host
+        self._starts_dev = torch.zeros(self.B, dtype=torch.int32, device=dev)
+        self._init_fleet_state()
+        self.dispatched_steps = 0
+
+    # ------------------------------ device ------------------------------ #
+    def _refresh_weights(self):
+        """The decode weights of the model as it is now: the snapshot
+        ``generate`` uses (same cache key), which the model drops when its
+        weights change, so requests mid-decode continue on the new weights
+        from their next chunk."""
+        self._w = self.model._fused_weights(self._dtype, self._quant)
+
+    @torch.no_grad()
+    def _admit_many(self, prompts, pos0: int, slots):
+        """Prefill a wave of k same-length prompts (k, L) into ``slots`` at
+        absolute rows ``[pos0, pos0 + L)`` of the fleet's caches; returns
+        their first tokens (k,) int32 on the device.
+
+        The prefill runs at position 0 (``generate``'s bucketed dense
+        prefill), and its K rows are then rotated on by ``pos0``: rotary
+        rotations compose additively, so a row rotated for position p and
+        again by row ``pos0`` of the table carries the rotation for p + pos0.
+        The rotation is in float32 from the weight-type tables; V rows are
+        not rotated."""
+        model, w = self.model, self._w
+        k, L = prompts.shape
+        ids, last_idx = bucket_prompt(prompts, L, self.S)
+        ck5, cv5 = model._empty_caches(k, self._ck.dtype)
+        tok1 = model.prefill(w, ck5, cv5, ids, last_idx).to(torch.int32)
+        N, D = model.n_layers, model.embed_dim
+        rows_k = ck5[:, :, :L].reshape(N, k, L, D).float()
+        rows_v = cv5[:, :, :L].reshape(N, k, L, D)
+        rows_k = dsk._rope_pairs(rows_k, w["cosD"][pos0].float(),
+                             w["sinD"][pos0].float()).to(self._ck.dtype)
+        idx = torch.as_tensor(slots, dtype=torch.long, device=tok1.device)
+        self._ck[:, idx, pos0:pos0 + L] = rows_k
+        self._cv[:, idx, pos0:pos0 + L] = rows_v
+        self._tok[idx] = tok1
+        self._starts_dev[idx] = pos0
+        return tok1
+
+    @torch.no_grad()
+    def _decode(self, n: int):
+        """Dispatch ``n`` batched steps from the fleet's position; returns
+        the (n, B) int32 tokens on the device, not yet read back."""
+        toks = self.model.decode_chunk(
+            self._w, self._ck, self._cv, self._tok, self._pos, n,
+            starts=self._starts_dev)
+        self._tok.copy_(toks[-1])  # a copy: admission writes _tok in place
+        return toks
+
+    # ------------------------------- API -------------------------------- #
+    def _try_admit(self):
+        plan = self._plan_admissions()
+        if not plan:
+            return
+        # the wave grouped by prompt length, each group split into
+        # power-of-two sub-batches: one prefill per sub-batch, and one host
+        # read back for every admission's first token at the end
+        by_len: dict = {}
+        for slot, req in plan:
+            by_len.setdefault(len(req.prompt), []).append((slot, req))
+        waves, firsts_dev = [], []
+        for L, group in sorted(by_len.items()):
+            pos0 = self._pos - L
+            for sub in self._pow2_subwaves(group):
+                prompts = np.array([r.prompt for _, r in sub], np.int64)
+                slots = [s for s, _ in sub]
+                firsts_dev.append(self._admit_many(prompts, pos0, slots))
+                self._starts[slots] = pos0
+                waves.append(sub)
+        self._credit_firsts(waves, firsts_dev)
+
+    _EXHAUSTED = object()  # _dispatch sentinel: cache end reached
+
+    def _dispatch(self, n: int = None):
+        """Admit what fits, then dispatch one decode chunk with no host
+        read back. Returns ``(toks, slots_snapshot, valid)``, ``None``
+        (nothing active), or ``_EXHAUSTED`` (cache end reached).
+
+        ``toks`` is a :class:`_Pending` read back: on a GPU the chunk's
+        tokens are copied into pinned host memory right after the chunk is
+        dispatched, with an event behind the copy. Waiting on that event
+        waits for this chunk only, where ``tensor.cpu()`` would wait for
+        everything queued since, the next chunk included, and so stall the
+        one-deep pipeline of ``run`` and ``stream``."""
+        self._refresh_weights()
+        self._try_admit()
+        if self.active == 0:
+            return None
+        navail = self.S - self._pos
+        if navail <= 0:
+            return self._EXHAUSTED
+        # a fixed chunk size: steps past the cache end run against the
+        # kernel's clamp of pos to S - 1 (in bounds, filler tokens) and are
+        # trimmed by _process through ``valid``
+        n = n or self.chunk
+        toks = _Pending(self._decode(n))
+        self.dispatched_steps += n
+        self._pos += min(n, navail)
+        # chunk tokens belong to the slot -> request mapping AT DISPATCH:
+        # by the time they are read back a slot may have been recycled
+        return toks, list(self._slots), min(n, navail)
+
+    def _process(self, toks, snapshot, valid=None):
+        """Read one dispatched chunk back and credit its tokens to the
+        requests that occupied each slot at dispatch time. ``valid`` trims
+        the clamped filler steps decoded past the cache end. Returns
+        [(rid, new_tokens)] for :meth:`stream` (EOS excluded, as in
+        ``Request.tokens``)."""
+        toks = toks.numpy()[:valid]  # (n, B)
+        credited = []
+        for slot in range(self.B):
+            req = snapshot[slot]
+            if req is None or req.done:
+                continue  # empty at dispatch, or already finished (the
+                # slot decoded one chunk of discarded filler before the
+                # pipeline caught up; see run())
+            before = len(req.tokens)
+            for t in toks[:, slot]:
+                req.tokens.append(int(t))
+                if req.tokens[-1] == self.eos_id \
+                        or len(req.tokens) >= req.max_new_tokens:
+                    break
+            if self._slots[slot] is req:
+                self._maybe_finish(slot)
+            new = req.tokens[before:]  # after _maybe_finish pops the EOS
+            if new:
+                credited.append((req.rid, new))
+        return credited
+
+    def step(self, n: int = None):
+        """Admit what fits, then decode ``n`` (default ``chunk``) tokens for
+        every slot; returns the requests that finished. Synchronous
+        (dispatch, then read back); ``run`` pipelines instead."""
+        before = set(self._finished)
+        disp = self._dispatch(n)
+        self._admit_credits.clear()  # stream()-only bookkeeping: stale
+        # entries must not leak into a later stream() call
+        if disp is self._EXHAUSTED:
+            self._truncate_fleet()
+        elif disp is not None:
+            self._process(*disp)
+        return [self._finished[r] for r in set(self._finished) - before]
+
+    def stream(self, max_steps: int = 10_000):
+        """Generator over ``(rid, new_tokens)`` chunks as they are read
+        back, until the queue and all slots drain; :meth:`run` is this loop
+        drained.
+
+        A one-deep pipeline: chunk k+1 is dispatched BEFORE chunk k is read
+        back, so tokens arrive one chunk late while the device keeps busy;
+        each request's tokens arrive in order, interleaved across requests
+        chunk by chunk."""
+        pending = None
+        for _ in range(max_steps):
+            if pending is None and not self._queue and self.active == 0:
+                break
+            disp = self._dispatch()
+            if self._admit_credits:  # admission-time first tokens
+                yield from self._admit_credits
+                self._admit_credits = []
+            if disp is self._EXHAUSTED:
+                if pending is not None:  # account in-flight tokens first
+                    yield from self._process(*pending)
+                    pending = None
+                    continue  # retry: the chunk may have finished slots
+                self._truncate_fleet()
+                continue
+            if pending is not None:
+                yield from self._process(*pending)
+            pending = disp
+        if pending is not None:
+            yield from self._process(*pending)
+
+    def run(self, max_steps: int = 10_000) -> dict:
+        """Drive until the queue and all slots drain; {rid: Request}.
+
+        The one-deep pipeline of :meth:`stream`: the host's read back and
+        bookkeeping for chunk k overlap the device's work on chunk k+1. The
+        cost: a slot whose request finished in chunk k decodes one chunk of
+        filler in k+1 before it is recycled (the filler rows are
+        overwritten or masked by the next admission's ``starts``), and
+        admissions lag one chunk behind EOS discovery."""
+        for _ in self.stream(max_steps):
+            pass
+        return dict(self._finished)
+
+
+class _Pending:
+    """A dispatched chunk's (n, B) tokens on their way to the host."""
+
+    def __init__(self, toks):
+        if toks.device.type == "cuda":
+            self._host = torch.empty(toks.shape, dtype=toks.dtype,
+                                     pin_memory=True)
+            self._host.copy_(toks, non_blocking=True)
+            self._ready = torch.cuda.Event()
+            self._ready.record()
+        else:
+            self._host, self._ready = toks, None
+
+    def numpy(self):
+        if self._ready is not None:
+            self._ready.synchronize()
+        return self._host.numpy()

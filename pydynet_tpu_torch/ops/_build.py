@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``pydynet_tpu_torch/csrc/*.cu`` source is compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library with a plain C interface, which
+Hopper (``sm_90a``), all sources at once in parallel processes, and the
+objects are linked into one shared library with a plain C interface, which
 ``ctypes`` loads. The library lives in ``build/pydynet_tpu_torch/`` at the
 root of the source checkout (two levels above this package, so the port is
 run from a checkout, not an installed copy), named by a hash of the sources
@@ -23,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pydynet_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +33,9 @@ SIGNATURES = {
     "pdt_decode_token": (_I, [_I, _I] + [_P] * 22 + [_I] * 6
                          + [ctypes.c_float, _P]),
     "pdt_decode_token_scratch_floats": (_I, [_I] * 5),
+    "pdt_decode_token_batched": (_I, [_I, _I] + [_P] * 23 + [_I] * 7
+                                 + [ctypes.c_float, _P]),
+    "pdt_decode_token_batched_scratch_floats": (_I, [_I] * 6),
 }
 
 
@@ -53,9 +57,10 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources and flags is (or will be)."""
+    """Where the library for the current sources, headers and flags is (or
+    will be)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libpdt_kernels_{h.hexdigest()[:16]}.so"
@@ -68,16 +73,32 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, jobs = [], []
+        for src in sources():  # one nvcc a source, all started together
+            objs.append(f"{tmp}/{src.stem}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        errors = []
+        for cmd, proc in jobs:
+            output = proc.communicate()[0]
+            if proc.returncode != 0:
+                errors.append(f"({proc.returncode}) {' '.join(cmd)}\n"
+                              f"{output}")
+        if not errors:
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", f"{tmp}/lib.so",
+                   *objs]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            if proc.returncode == 0:
+                os.replace(f"{tmp}/lib.so", out)
+                return out
+            errors.append(f"({proc.returncode}) {' '.join(cmd)}\n"
+                          f"{proc.stdout}")
+    raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
 
 
 @functools.cache

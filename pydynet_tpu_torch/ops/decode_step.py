@@ -1,12 +1,16 @@
-"""One greedy B=1 Llama decode step: the port of the Pallas TPU kernel
-``_token_kernel`` (``pydynet_tpu/ops/decode_step.py:160``, launched by
-``fused_decode_token`` at :1346).
+"""Greedy Llama decode steps: the ports of the Pallas TPU kernels
+``_token_kernel`` (B=1; ``pydynet_tpu/ops/decode_step.py:160``, launched by
+``fused_decode_token`` at :1346) and ``_token_kernel_batched`` (B rows
+sharing one weight stream; :509, launched by ``fused_decode_token_batched``
+at :1027).
 
-``fused_decode_token`` is the wrapper. For CUDA tensors it launches the
-hand-written Hopper kernel chain in ``csrc/decode_token.cu``; for CPU
-tensors it runs ``fused_decode_token_ref``, the same step in plain PyTorch.
-It never moves data between devices and never falls back: a CUDA input the
-kernel does not take raises.
+``fused_decode_token`` and ``fused_decode_token_batched`` are the wrappers.
+For CUDA tensors they launch the hand-written Hopper kernel chains in
+``csrc/decode_token.cu`` and ``csrc/decode_token_batched.cu``; for CPU
+tensors they run ``fused_decode_token_ref`` and
+``fused_decode_token_batched_ref``, the same steps in plain PyTorch. They
+never move data between devices and never fall back: a CUDA input a kernel
+does not take raises.
 
 Layouts (T is the weight type, float32 or bfloat16; N layers, S cache rows,
 D model width, F ffn width, V vocab):
@@ -25,6 +29,14 @@ D model width, F ffn width, V vocab):
 Returns ``out``, a (1,) int32 tensor holding the next token (allocated when
 not given). The residual stream is float32; each matmul input is rounded to
 T and accumulated in float32; argmax ties go to the lowest index.
+
+The batched step takes the same arguments except: ``tok`` (B,) int32;
+``ck``, ``cv`` (N, B, S, D) T, row b's cache at ``[:, b]``; ``starts`` (B,)
+int32 or None (zeros): row b attends its cache rows
+``[starts[b], min(pos, S - 1)]``, its new row always included; ``out`` (B,)
+int32. ``pos`` is shared by the rows. The int8 head quantises each row's
+activations with its own scale. Each row gets what the B=1 step gives on
+that row alone with ``starts[b] = 0``.
 """
 from __future__ import annotations
 
@@ -36,8 +48,10 @@ import torch
 from ..nn.modules.norm import rms_norm
 from . import _build
 
-_THREADS = 256  # block size of every launch (kThreads in decode_token.cu)
+_THREADS = 256  # block size of every launch (kThreads in common.cuh)
 _SMEM_FLOATS = 48 * 1024 // 4  # shared memory a block gets without opt-in
+_SMEM_OPTIN_FLOATS = 232448 // 4  # what it may opt in to on sm_90
+MAX_BATCH = 32  # kMaxBatch in decode_token_batched.cu
 _WDTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -49,6 +63,20 @@ def kernel_takes(dim: int, n_heads: int, ffn: int) -> bool:
     hd = dim // n_heads
     return (dim % n_heads == 0 and hd % 2 == 0 and hd <= _THREADS
             and max(dim, ffn) + 64 <= _SMEM_FLOATS)
+
+
+def batched_kernel_takes(dim: int, n_heads: int, ffn: int,
+                         batch: int) -> bool:
+    """Whether the batched CUDA kernel takes these widths and rows. Its
+    blocks hold all B activation rows (D or F wide, float32) in shared
+    memory, opting in above 48 KB, so B * max(D, F) plus the head block's
+    per-row reduction slots must fit the 227 KB a block may opt in to; a
+    warp keeps row b's sums in lane b, so B <= 32; the attention block is
+    K1's (head_dim <= 256 and even)."""
+    hd = dim // n_heads
+    return (dim % n_heads == 0 and hd % 2 == 0 and hd <= _THREADS
+            and 1 <= batch <= MAX_BATCH
+            and batch * max(dim, ffn) + 1024 <= _SMEM_OPTIN_FLOATS)
 
 
 def _rope_pairs(x, cos, sin):
@@ -63,14 +91,16 @@ def _rope_pairs(x, cos, sin):
 def decode_token_logits_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
                             wo, gate_w, up_w, down_w, in_norm, post_norm,
                             head_w, head_b, ck, cv, *, n_heads: int,
-                            head_s=None):
+                            head_s=None, start: int = 0):
     """The plain-PyTorch step up to the float32 logits (V,), caches updated
-    in place; :func:`fused_decode_token_ref` takes their argmax. Runs on any
-    device (it reads ``pos`` and ``tok`` back to the host)."""
+    in place; :func:`fused_decode_token_ref` takes their argmax. Attention
+    reads cache rows ``[start, p]`` (``start`` clipped to ``[0, p]``). Runs
+    on any device (it reads ``pos`` and ``tok`` back to the host)."""
     N, S, D = ck.shape
     hd = D // n_heads
     wdt = emb.dtype
     p = min(int(pos.reshape(-1)[0]), S - 1)
+    lo = min(max(start, 0), p)
     t = int(tok.reshape(-1)[0])
 
     def mm(w, x):  # input rounded to the weight type, f32 accumulation
@@ -84,8 +114,8 @@ def decode_token_logits_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
         k = _rope_pairs(mm(wk[layer], x), c, s)
         ck[layer, p] = k.to(wdt)
         cv[layer, p] = mm(wv[layer], x).to(wdt)
-        keys = ck[layer, :p + 1].float().view(p + 1, n_heads, hd)
-        vals = cv[layer, :p + 1].float().view(p + 1, n_heads, hd)
+        keys = ck[layer, lo:p + 1].float().view(p + 1 - lo, n_heads, hd)
+        vals = cv[layer, lo:p + 1].float().view(p + 1 - lo, n_heads, hd)
         qh = q.to(wdt).float().view(n_heads, hd)
         scores = torch.einsum("nhd,hd->hn", keys, qh) * (1.0 / math.sqrt(hd))
         att = torch.einsum("hn,nhd->hd", torch.softmax(scores, -1), vals)
@@ -121,11 +151,55 @@ def fused_decode_token_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
     return out
 
 
+def decode_token_batched_logits_ref(pos, tok, emb, cos, sin, final_norm, wq,
+                                    wk, wv, wo, gate_w, up_w, down_w,
+                                    in_norm, post_norm, head_w, head_b, ck,
+                                    cv, *, n_heads: int, head_s=None,
+                                    starts=None):
+    """The plain-PyTorch batched step up to the float32 logits (B, V),
+    caches updated in place: each row through :func:`decode_token_logits_ref`
+    on its own cache ``[:, b]`` from its own ``starts[b]``."""
+    lows = [0] * tok.shape[0] if starts is None else starts.tolist()
+    return torch.stack([
+        decode_token_logits_ref(
+            pos, tok[b:b + 1], emb, cos, sin, final_norm, wq, wk, wv, wo,
+            gate_w, up_w, down_w, in_norm, post_norm, head_w, head_b,
+            ck[:, b], cv[:, b], n_heads=n_heads, head_s=head_s, start=lo)
+        for b, lo in enumerate(lows)])
+
+
+def fused_decode_token_batched_ref(pos, tok, emb, cos, sin, final_norm, wq,
+                                   wk, wv, wo, gate_w, up_w, down_w, in_norm,
+                                   post_norm, head_w, head_b, ck, cv, *,
+                                   n_heads: int, head_s=None, starts=None,
+                                   out=None):
+    """The plain-PyTorch version of :func:`fused_decode_token_batched`: same
+    arguments, same results, on any device."""
+    logits = decode_token_batched_logits_ref(
+        pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
+        down_w, in_norm, post_norm, head_w, head_b, ck, cv, n_heads=n_heads,
+        head_s=head_s, starts=starts)
+    if out is None:
+        out = torch.empty(tok.shape[0], dtype=torch.int32, device=emb.device)
+    out[:] = torch.argmax(logits, dim=-1)  # first maximal index per row
+    return out
+
+
 def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
            down_w, in_norm, post_norm, head_w, head_b, ck, cv, n_heads,
-           head_s, out):
-    """Raise unless the arguments have the layouts of the module doc."""
-    N, S, D = ck.shape
+           head_s, out, starts=None, batched=False):
+    """Raise unless the arguments have the layouts of the module doc (the
+    batched step's when ``batched``). Returns (B, N, S, D, F, V), B = 1 for
+    the B=1 step."""
+    if ck.dim() != (4 if batched else 3):
+        raise ValueError(f"ck: expected {4 if batched else 3} dims, got "
+                         f"{tuple(ck.shape)}")
+    if batched:
+        N, B, S, D = ck.shape
+        rows, cache = (B,), (N, B, S, D)
+    else:
+        (N, S, D), B = ck.shape, 1
+        rows, cache = (1,), (N, S, D)
     V = emb.shape[0]
     F = gate_w.shape[1]
     wdt = emb.dtype
@@ -144,14 +218,16 @@ def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
         "in_norm": (in_norm, (N, D), wdt),
         "post_norm": (post_norm, (N, D), wdt),
         "head_w": (head_w, (V, D), wdt if head_s is None else torch.int8),
-        "head_b": (head_b, (V,), wdt), "ck": (ck, (N, S, D), wdt),
-        "cv": (cv, (N, S, D), wdt), "pos": (pos, (1,), torch.int32),
-        "tok": (tok, (1,), torch.int32),
+        "head_b": (head_b, (V,), wdt), "ck": (ck, cache, wdt),
+        "cv": (cv, cache, wdt), "pos": (pos, (1,), torch.int32),
+        "tok": (tok, rows, torch.int32),
     }
     if head_s is not None:
         shapes["head_s"] = (head_s, (V,), torch.float32)
+    if starts is not None:
+        shapes["starts"] = (starts, rows, torch.int32)
     if out is not None:
-        shapes["out"] = (out, (1,), torch.int32)
+        shapes["out"] = (out, rows, torch.int32)
     for name, (t, shape, dtype) in shapes.items():
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: expected {dtype} {shape}, got "
@@ -161,7 +237,16 @@ def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
                              f"{emb.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return N, S, D, F, V
+    return B, N, S, D, F, V
+
+
+def _check_cuda(emb, takes, what):
+    """Raise unless ``emb`` is on a CUDA device and the kernel takes the
+    shapes (``takes``)."""
+    if emb.device.type != "cuda":
+        raise ValueError(f"no decode kernel for device {emb.device}")
+    if not takes:
+        raise ValueError(f"beyond the kernel's limits: {what}")
 
 
 def fused_decode_token(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo,
@@ -173,15 +258,12 @@ def fused_decode_token(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo,
     :func:`fused_decode_token_ref`."""
     args = (pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w,
             up_w, down_w, in_norm, post_norm, head_w, head_b, ck, cv)
-    N, S, D, F, V = _check(*args, n_heads, head_s, out)
+    _, N, S, D, F, V = _check(*args, n_heads, head_s, out)
     if emb.device.type == "cpu":
         return fused_decode_token_ref(*args, n_heads=n_heads, head_s=head_s,
                                       out=out)
-    if emb.device.type != "cuda":
-        raise ValueError(f"no decode kernel for device {emb.device}")
-    if not kernel_takes(D, n_heads, F):
-        raise ValueError(f"dims beyond the kernel's limits: D={D}, "
-                         f"n_heads={n_heads}, F={F}")
+    _check_cuda(emb, kernel_takes(D, n_heads, F),
+                f"D={D}, n_heads={n_heads}, F={F}")
     lib = _build.load()
     hd = D // n_heads
     if out is None:
@@ -206,3 +288,47 @@ def fused_decode_token(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo,
 
 
 fused_decode_token.launches = 0
+
+
+def fused_decode_token_batched(pos, tok, emb, cos, sin, final_norm, wq, wk,
+                               wv, wo, gate_w, up_w, down_w, in_norm,
+                               post_norm, head_w, head_b, ck, cv, *,
+                               n_heads: int, head_s=None, starts=None,
+                               out=None):
+    """One greedy decode step for B rows (see the module doc for the
+    layouts). CUDA tensors launch ``csrc/decode_token_batched.cu``, one
+    weight stream for all rows; CPU tensors run
+    :func:`fused_decode_token_batched_ref`."""
+    args = (pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w,
+            up_w, down_w, in_norm, post_norm, head_w, head_b, ck, cv)
+    B, N, S, D, F, V = _check(*args, n_heads, head_s, out, starts,
+                              batched=True)
+    if emb.device.type == "cpu":
+        return fused_decode_token_batched_ref(
+            *args, n_heads=n_heads, head_s=head_s, starts=starts, out=out)
+    _check_cuda(emb, batched_kernel_takes(D, n_heads, F, B),
+                f"B={B}, D={D}, n_heads={n_heads}, F={F}")
+    lib = _build.load()
+    hd = D // n_heads
+    if out is None:
+        out = torch.empty(B, dtype=torch.int32, device=emb.device)
+    scratch = torch.empty(
+        lib.pdt_decode_token_batched_scratch_floats(B, D, n_heads, F, V, S),
+        dtype=torch.float32, device=emb.device)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (pos, tok, starts, out, emb, cos, sin, final_norm, wq,
+                      wk, wv, wo, gate_w, up_w, down_w, in_norm, post_norm,
+                      head_w, head_s, head_b, ck, cv, scratch)]
+    with torch.cuda.device(emb.device):  # launch on the tensors' GPU
+        stream = torch.cuda.current_stream().cuda_stream
+        fused_decode_token_batched.launches += 1
+        err = lib.pdt_decode_token_batched(
+            _WDTYPES[emb.dtype], int(head_s is not None), *ptrs, B, N, D,
+            n_heads, F, V, S, ctypes.c_float(1.0 / math.sqrt(hd)), stream)
+    if err != 0:
+        raise RuntimeError(f"decode_token_batched launch failed: CUDA error "
+                           f"{err}")
+    return out
+
+
+fused_decode_token_batched.launches = 0

@@ -1,5 +1,5 @@
-"""Fidelity gates for the fused decode kernel (port of the B=1 argmax gate
-in ``pydynet_tpu/utils/fidelity.py``).
+"""Fidelity gates for the fused decode kernels (port of the argmax gate in
+``pydynet_tpu/utils/fidelity.py``).
 
 The kernel is driven teacher-forced along a greedy token stream from the
 eager float32 model, and its per-step token must equal that stream at every
@@ -47,31 +47,31 @@ def gate_fused_argmax(model, prompt_ids, truth, margins, tops=None, *,
                       rel: float = REL_MARGIN):
     """``(checked, ok, agree)`` for one weight format on the model's device:
     the dense prefill's token and then the fused step's token, fed the
-    ``truth`` stream, must equal it at every confident step. Zero confident
-    steps is not a pass. ``agree`` is the agreeing share of the checked
-    steps."""
+    ``truth`` stream, must equal it at every confident step of every row.
+    B=1 drives the B=1 kernel (``fused_step``), B>1 the batched one
+    (``fused_step_batched``) on all rows at once. Zero confident steps is
+    not a pass. ``agree`` is the agreeing share of the checked steps."""
     prompt_ids = np.asarray(prompt_ids)
     B, L = prompt_ids.shape
-    if B != 1:
-        raise NotImplementedError("the fused gate is B=1; batched decode is "
-                                  "not ported (ROADMAP.md queue 1, "
-                                  "'Batched decode')")
     w = model._fused_weights(dtype, quant)
-    ck5, cv5 = model._empty_caches(1, w["tok"].dtype)
-    first = int(model.prefill(w, ck5, cv5, prompt_ids)[0])
+    ck5, cv5 = model._empty_caches(B, w["tok"].dtype)
+    first = model.prefill(w, ck5, cv5, prompt_ids).cpu().numpy()
     ck, cv = model._flat_caches(ck5, cv5)
     steps = truth.shape[0]
     dev = model.device
-    toks_in = torch.as_tensor(truth[:-1, 0], dtype=torch.int32, device=dev)
+    toks_in = torch.as_tensor(truth[:-1], dtype=torch.int32, device=dev)
     positions = torch.arange(L, L + steps - 1, dtype=torch.int32, device=dev)
-    outs = torch.empty(steps - 1, dtype=torch.int32, device=dev)
+    outs = torch.empty(steps - 1, B, dtype=torch.int32, device=dev)
     for i in range(steps - 1):
-        model.fused_step(w, ck, cv, toks_in[i:i + 1], positions[i:i + 1],
-                         out=outs[i:i + 1])
-    got = np.concatenate([[first], outs.cpu().numpy()])
-    conf = _confident(margins[:, 0], None if tops is None else tops[:, 0],
-                      margin, rel)
-    checked = int(conf.sum())
-    ok = int((got[conf] == truth[conf, 0]).sum())
+        if B == 1:
+            model.fused_step(w, ck, cv, toks_in[i], positions[i:i + 1],
+                             out=outs[i])
+        else:
+            model.fused_step_batched(w, ck, cv, toks_in[i],
+                                     positions[i:i + 1], out=outs[i])
+    got = np.concatenate([first[None], outs.cpu().numpy()])  # (steps, B)
+    conf = _confident(margins, tops, margin, rel)
+    checked = int(conf.sum())  # per row and step, as the JAX gate counts
+    ok = int((got[conf] == truth[conf]).sum())
     frac = ok / checked if checked else 0.0
     return checked, checked > 0 and ok == checked, frac

@@ -1,9 +1,10 @@
-"""The port's CUDA decode kernel against its plain PyTorch version, on a GPU.
+"""The port's CUDA decode kernels against their plain PyTorch versions, on a
+GPU.
 
     python -m pytest -m gpu tests/test_torch_gpu.py -q
 
-Needs a CUDA GPU and nvcc; without a GPU every test here skips. The kernel
-has no interpret mode, so it runs only on the card.
+Needs a CUDA GPU and nvcc; without a GPU every test here skips. The kernels
+have no interpret mode, so they run only on the card.
 """
 import numpy as np
 import pytest
@@ -87,3 +88,101 @@ def test_cpu_inputs_never_launch(model):
     before = dsk.fused_decode_token.launches
     assert len(list(cpu.generate(np.array([[1, 5, 9]]), 12))) == 9
     assert dsk.fused_decode_token.launches == before
+
+
+@pytest.mark.parametrize("batch", [4, 32])
+@pytest.mark.parametrize("pos", [17, 1030])
+@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head"])
+def test_batched_kernel_matches_plain(model, fmt, pos, batch):
+    """K2 with per-row starts (row 0 starting at pos): tokens equal (bf16:
+    at confident rows) and caches within chip_smoke's tolerance."""
+    from chip_smoke import CACHE_ATOL, FORMATS, batched_vs_plain
+
+    with torch.no_grad():
+        got, want, conf, err = batched_vs_plain(model, fmt, batch, pos)
+    assert err <= CACHE_ATOL[FORMATS[fmt][0]]
+    must = torch.ones_like(conf) if fmt == "f32" else conf
+    assert torch.equal(got[must], want[must])
+
+
+@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head"])
+def test_batched_rows_match_k1(model, fmt):
+    """Each K2 row starting at 0 gives K1's token and cache row on that row
+    alone."""
+    from chip_smoke import CACHE_ATOL, FORMATS, batched_rows_vs_k1
+
+    with torch.no_grad():
+        equal, err = batched_rows_vs_k1(model, fmt)
+    assert equal and err <= CACHE_ATOL[FORMATS[fmt][0]]
+
+
+@pytest.mark.parametrize("qhead", [False, True], ids=["bf16", "int8-head"])
+def test_batched_cross_tile_tie_goes_low(model, qhead):
+    """Rows 10 and 20000 (different vocab tiles) tie in every row; two rows
+    with different inputs both pick 10."""
+    from chip_smoke import batched_args, random_caches
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    w = dict(model._fused_weights(torch.bfloat16,
+                                  "int8-head" if qhead else None))
+    key = "head_wq" if qhead else "head_w"
+    head = torch.zeros_like(w[key])
+    head[10] = head[20000] = w[key][5]
+    bias = torch.zeros_like(w["head_b"])
+    bias[10] = bias[20000] = 100.0
+    w[key], w["head_b"] = head, bias
+    ck, cv = random_caches(model, torch.bfloat16, 2, 2)
+    args, kw = batched_args(model, w, ck, cv, 40, [321, 7], [0, 30])
+    assert dsk.fused_decode_token_batched(*args, **kw).tolist() == [10, 10]
+    assert dsk.fused_decode_token_batched_ref(*args, **kw).tolist() == \
+        [10, 10]
+
+
+def test_batched_starts_hide_stale_rows(model):
+    """Rows below a row's start hold a recycled slot's old request: large
+    values there change neither the tokens nor the rows from the start."""
+    from chip_smoke import batched_args, random_caches
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    w = model._fused_weights(torch.float32, None)
+    ck, cv = random_caches(model, torch.float32, 4, 4)
+    starts = [0, 100, 500, 700]
+    dirty_k, dirty_v = ck.clone(), cv.clone()
+    for b, lo in enumerate(starts):
+        dirty_k[:, b, :lo] = 1e4
+        dirty_v[:, b, :lo] = -1e4
+    args, kw = batched_args(model, w, ck, cv, 700, [1, 2, 3, 4], starts)
+    clean = dsk.fused_decode_token_batched(*args, **kw)
+    args, kw = batched_args(model, w, dirty_k, dirty_v, 700, [1, 2, 3, 4],
+                            starts)
+    assert torch.equal(dsk.fused_decode_token_batched(*args, **kw), clean)
+    for b, lo in enumerate(starts):
+        assert torch.equal(dirty_k[:, b, lo:], ck[:, b, lo:])
+        assert torch.equal(dirty_v[:, b, lo:], cv[:, b, lo:])
+
+
+def test_batched_launch_counter_counts_kernel_launches_only(model):
+    from chip_smoke import batched_args, random_caches
+    from pydynet_tpu_torch.models.llama.serve import LlamaServer
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    k2 = dsk.fused_decode_token_batched
+    w = model._fused_weights(torch.bfloat16, None)
+    ck, cv = random_caches(model, torch.bfloat16, 3, 4)
+    args, kw = batched_args(model, w, ck, cv, 7, [11, 12, 13, 14])
+    before = k2.launches
+    for _ in range(3):
+        k2(*args, **kw)
+    dsk.fused_decode_token_batched_ref(*args, **kw)
+    assert k2.launches - before == 3
+    before = k2.launches
+    rows = list(model.generate(np.array([[1, 243, 532, 991]] * 3), 20,
+                               dtype=torch.bfloat16))
+    assert len(rows) == 16 and k2.launches - before == 15
+    before = k2.launches
+    srv = LlamaServer(model, batch_size=2, dtype=torch.bfloat16, chunk=8,
+                      eos_id=-1)
+    for prompt in ([1, 5, 9], [2, 7, 3, 11], [30, 20]):
+        srv.submit(prompt, max_new_tokens=12)
+    assert all(r.done for r in srv.run().values())
+    assert k2.launches - before == srv.dispatched_steps > 0

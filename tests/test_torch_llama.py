@@ -64,6 +64,20 @@ def step_calls(monkeypatch):
 
 
 @pytest.fixture
+def batched_calls(monkeypatch):
+    """Row counts of the port's fused_decode_token_batched calls."""
+    calls = []
+    real = tdsk.fused_decode_token_batched
+
+    def spy(*args, **kwargs):
+        calls.append(args[1].shape[0])
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tdsk, "fused_decode_token_batched", spy)
+    return calls
+
+
+@pytest.fixture
 def jax_interpret_kernel(monkeypatch):
     """JAX's fused lane with its Pallas kernel in interpret mode."""
     monkeypatch.setattr(jdsk, "fused_decode_token",
@@ -139,14 +153,15 @@ def test_generate_plain_matches_jax(L, step_calls):
     assert stream(tm.generate(ids, 20, chunk=5)) == want  # fused, B=1
 
 
-def test_generate_plain_batched_matches_jax():
+def test_generate_plain_batched_matches_jax(batched_calls):
     jm = jax_model(TINY, seed=20)
     tm = port_of(jm, TINY)
     ids = np.array([[1, 5, 9], [2, 7, 3], [30, 20, 10]])
     with pdn.no_grad():
         want = np.concatenate([t.numpy() for t in
                                jm.generate(ids, 14, chunk=4, fused=False)], 1)
-    rows = list(tm.generate(ids, 14, chunk=4))
+    rows = list(tm.generate(ids, 14, chunk=4, fused=False))
+    assert not batched_calls
     assert all(r.shape == (3, 1) and r.dtype == torch.int32 for r in rows)
     np.testing.assert_array_equal(torch.cat(rows, 1).numpy(), want)
 
@@ -175,8 +190,9 @@ def test_generate_unported_options_raise():
     for kw in cases:
         with pytest.raises(NotImplementedError):
             next(tm.generate(ids, 8, **kw))
-    with pytest.raises(NotImplementedError, match="B>1"):
-        next(tm.generate(np.array([[1, 2], [3, 4]]), 8, fused=True))
+    for fused in (None, True):  # B>1 above the batched kernel's rows
+        with pytest.raises(NotImplementedError, match="B=32"):
+            next(tm.generate(np.ones((33, 2), np.int64), 8, fused=fused))
     gqa = Llama(**dict(TINY, n_kv_heads=1))
     assert not gqa._fused_decode_supported()
     for fused in (None, True):  # B=1 is never rerouted to the plain lane
@@ -189,23 +205,48 @@ def test_generate_unported_options_raise():
         with pytest.raises(NotImplementedError, match="Big-dims"):
             next(odd.generate(ids, 8, fused=fused))
     assert len(stream(odd.generate(ids, 8, fused=False))) == 5
-    # B>1 with fused=None runs the plain lane, as asked
-    assert len(list(tm.generate(np.array([[1, 2], [3, 4]]), 5))) == 3
+    # B>1 runs the plain lane only when asked for it
+    assert len(list(tm.generate(np.array([[1, 2], [3, 4]]), 5,
+                                fused=False))) == 3
+    for fused in (None, True):
+        with pytest.raises(NotImplementedError, match="GQA"):
+            next(gqa.generate(np.array([[1, 2], [3, 4]]), 8, fused=fused))
 
 
-def test_bf16_generate_runs_both_lanes():
+def test_generate_default_lane_is_batched_kernel_at_b_gt_1(batched_calls,
+                                                           step_calls):
+    """fused=None at B=3 runs the batched step once a decode token (its
+    plain version here, the CUDA kernel on a GPU), never the plain lane."""
+    tm = Llama(**TINY).eval()
+    ids = np.array([[1, 5, 9], [2, 7, 3], [30, 20, 10]])
+    rows = list(tm.generate(ids, 12, chunk=4))
+    assert len(rows) == 12 - 3 and all(r.shape == (3, 1) for r in rows)
+    assert batched_calls == [3] * (12 - 3 - 1) and not step_calls
+    want = torch.cat(list(tm.generate(ids, 12, fused=False)), 1)
+    assert torch.equal(torch.cat(rows, 1), want)  # f32: the same stream
+
+
+def test_bf16_generate_runs_both_lanes(batched_calls):
     """bf16 rounds differently per lane (f32 residual on the fused lane), so
-    only the confident-step gate holds them to the f32 stream."""
-    tm = Llama(**TINY, generator=torch.Generator().manual_seed(3)).eval()
-    ids = np.array([[1, 5, 9]])
-    truth, margins, tops = tfid.greedy_truth(tm, ids, 12)
-    for quant in (None, "int8-head"):
-        checked, ok, _ = tfid.gate_fused_argmax(
-            tm, ids, truth, margins, tops, dtype=torch.bfloat16, quant=quant)
-        assert checked > 0 and ok, (quant, checked)
-    for fused in (True, False):
-        toks = stream(tm.generate(ids, 15, dtype=torch.bfloat16, fused=fused))
-        assert len(toks) == 12 and all(0 <= x < 256 for x in toks)
+    only the confident-step gate holds them to the f32 stream; at B=3 the
+    gate drives the batched step."""
+    for B in (1, 3):
+        tm = Llama(**dict(TINY, max_batch_size=B),
+                   generator=torch.Generator().manual_seed(3)).eval()
+        ids = np.array([[1, 5, 9], [2, 7, 3], [30, 20, 10]])[:B]
+        truth, margins, tops = tfid.greedy_truth(tm, ids, 12)
+        before = len(batched_calls)
+        for quant in (None, "int8-head"):
+            checked, ok, _ = tfid.gate_fused_argmax(
+                tm, ids, truth, margins, tops, dtype=torch.bfloat16,
+                quant=quant)
+            assert checked > 0 and ok, (B, quant, checked)
+        assert len(batched_calls) - before == (2 * 11 if B > 1 else 0)
+        for fused in (True, False):
+            toks = torch.cat(list(tm.generate(ids, 15, dtype=torch.bfloat16,
+                                              fused=fused)), 1)
+            assert toks.shape == (B, 12)
+            assert 0 <= toks.min() and toks.max() < 256
 
 
 def test_greedy_truth_and_gate_match_jax():

@@ -226,6 +226,143 @@ def test_fused_decode_token_rejects_bad_arguments():
                                .transpose(1, 2), ta["cv"], n_heads=H)
 
 
+def _batched_inputs(seed, B, qhead=False):
+    """The tiny step inputs with (N, B, S, D) caches: JAX's lane-padded,
+    the port's plain."""
+    ja, ta = _tiny_step_inputs(seed, qhead)
+    rng = np.random.default_rng(seed + 100)
+    ck, cv = f32(rng, N, B, S, D, scale=0.3), f32(rng, N, B, S, D, scale=0.3)
+    pad = ((0, 0),) * 3 + ((0, jds.lane_pad_dim(D) - D),)
+    ja = dict(ja, ck=jnp.asarray(np.pad(ck, pad)),
+              cv=jnp.asarray(np.pad(cv, pad)))
+    return ja, dict(ta, ck=t(ck), cv=t(cv))
+
+
+def _jax_batched(ja, pos, toks, starts=None, consts=None, head_s="same"):
+    """JAX's batched kernel in interpret mode on the tiny inputs; the
+    embedding gather happens outside it, as in the JAX package."""
+    consts = ja["consts"] if consts is None else consts
+    h0 = jnp.asarray(np.asarray(consts[0])[np.asarray(toks)])
+    return jds.fused_decode_token_batched(
+        pos, h0, *consts[1:], ja["ck"], ja["cv"], vt=VT, sb=SB,
+        interpret=True, head_s=ja["head_s"] if head_s == "same" else head_s,
+        starts=None if starts is None else jnp.asarray(starts, jnp.int32))
+
+
+def _batched(ta, pos, toks, starts=None, consts=None, head_s="same",
+             ck=None, cv=None):
+    return tds.fused_decode_token_batched(
+        _i32(pos), torch.tensor(toks, dtype=torch.int32),
+        *(ta["consts"] if consts is None else consts),
+        ta["ck"] if ck is None else ck, ta["cv"] if cv is None else cv,
+        n_heads=H, head_s=ta["head_s"] if head_s == "same" else head_s,
+        starts=None if starts is None else torch.tensor(starts,
+                                                        dtype=torch.int32))
+
+
+@pytest.mark.parametrize("past", [0, 5])
+def test_fused_decode_token_batched_clamps_pos_at_cache_end(past):
+    """pos S + past acts as S - 1 in both packages: same tokens, same
+    caches."""
+    ja, ta = _batched_inputs(8, 3)
+    toks, starts = [9, 40, 77], [0, 20, S - 1]
+    ref_ck, ref_cv = ta["ck"].clone(), ta["cv"].clone()
+    n1 = _batched(ta, S - 1, toks, starts, ck=ref_ck, cv=ref_cv)
+    ck, cv = ta["ck"].clone(), ta["cv"].clone()
+    n2 = _batched(ta, S + past, toks, starts, ck=ck, cv=cv)
+    assert torch.equal(n2, n1)
+    assert torch.equal(ck, ref_ck) and torch.equal(cv, ref_cv)
+    jn, jck, _ = _jax_batched(ja, S + past, toks, starts)
+    np.testing.assert_array_equal(n2.numpy(), np.asarray(jn))
+    np.testing.assert_allclose(ck.numpy(), np.asarray(jck)[..., :D],
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("qhead", [False, True], ids=["f32", "int8-head"])
+def test_fused_decode_token_batched_cross_tile_tie_goes_low(qhead):
+    """Vocab rows 10 and 200 (different 128-row tiles) tie for every row's
+    maximum: both packages pick 10 in every row."""
+    ja, ta = _batched_inputs(5, 3)
+    rng = np.random.default_rng(6)
+    head_w = np.zeros((D, V), np.float32)
+    head_w[:, 10] = head_w[:, 200] = f32(rng, D)
+    head_b = np.zeros(V, np.float32)
+    head_b[10] = head_b[200] = 100.0
+    jhead, jhead_s = jnp.asarray(head_w), None
+    thead, thead_s = t(head_w.T), None
+    if qhead:
+        jhead, jhead_s = jquant.quantize_int8(jhead, axis=0)
+        thead = t(np.asarray(jhead).T)
+        thead_s = t(np.asarray(jhead_s).reshape(V))
+    jc = ja["consts"][:-2] + (jhead, jnp.asarray(head_b[None]))
+    tc = ta["consts"][:-2] + (thead, t(head_b))
+    jn, _, _ = _jax_batched(ja, 4, [3, 50, 7], [0, 2, 4], jc, jhead_s)
+    tn = _batched(ta, 4, [3, 50, 7], [0, 2, 4], tc, thead_s)
+    assert np.asarray(jn).tolist() == [10, 10, 10]
+    assert tn.tolist() == [10, 10, 10]
+
+
+def test_fused_decode_token_batched_starts_hide_stale_rows():
+    """Rows below a row's start may hold anything (a recycled slot's old
+    request): huge values there change nothing, in either package."""
+    ja, ta = _batched_inputs(9, 3, qhead=True)
+    toks, starts = [5, 6, 7], [0, 6, 11]
+    clean = _batched(ta, 12, toks, starts, ck=ta["ck"].clone(),
+                     cv=ta["cv"].clone())
+    ck, cv = ta["ck"].clone(), ta["cv"].clone()
+    for b, lo in enumerate(starts):
+        ck[:, b, :lo] = 1e4
+        cv[:, b, :lo] = -1e4
+    assert torch.equal(_batched(ta, 12, toks, starts, ck=ck, cv=cv), clean)
+    jck, jcv = np.asarray(ja["ck"]).copy(), np.asarray(ja["cv"]).copy()
+    for b, lo in enumerate(starts):
+        jck[:, b, :lo] = 1e4
+        jcv[:, b, :lo] = -1e4
+    jn, _, _ = _jax_batched(dict(ja, ck=jnp.asarray(jck),
+                                 cv=jnp.asarray(jcv)), 12, toks, starts)
+    np.testing.assert_array_equal(np.asarray(jn), clean.numpy())
+
+
+def test_fused_decode_token_batched_rows_match_b1_step():
+    """Row b of the batched step, starting at 0, gives the token and cache
+    row the B=1 step gives on that row alone."""
+    _, ta = _batched_inputs(10, 4)
+    toks = [3, 99, 180, 255]
+    ck, cv = ta["ck"].clone(), ta["cv"].clone()
+    got = _batched(ta, 9, toks, ck=ck, cv=cv)
+    for b in range(4):
+        rck, rcv = ta["ck"][:, b].clone(), ta["cv"][:, b].clone()
+        one = tds.fused_decode_token(_i32(9), _i32(toks[b]), *ta["consts"],
+                                     rck, rcv, n_heads=H)
+        assert int(one[0]) == int(got[b])
+        assert torch.equal(rck, ck[:, b]) and torch.equal(rcv, cv[:, b])
+
+
+def test_fused_decode_token_batched_rejects_bad_arguments():
+    _, ta = _batched_inputs(11, 2)
+    c = ta["consts"]
+    with pytest.raises(ValueError, match="tok"):
+        _batched(ta, 0, [1, 2, 3])
+    with pytest.raises(ValueError, match="starts"):
+        tds.fused_decode_token_batched(
+            _i32(0), torch.tensor([1, 2], dtype=torch.int32), *c, ta["ck"],
+            ta["cv"], n_heads=H, starts=torch.tensor([0, 1]))
+    with pytest.raises(ValueError, match="ck"):
+        tds.fused_decode_token_batched(
+            _i32(0), torch.tensor([1, 2], dtype=torch.int32), *c,
+            ta["ck"][:, 0], ta["cv"][:, 0], n_heads=H)
+    with pytest.raises(ValueError, match="out"):
+        tds.fused_decode_token_batched(
+            _i32(0), torch.tensor([1, 2], dtype=torch.int32), *c, ta["ck"],
+            ta["cv"], n_heads=H, out=torch.empty(1, dtype=torch.int32))
+    # the batched kernel's limits: rows held in lanes, activations in
+    # shared memory
+    assert tds.batched_kernel_takes(288, 6, 768, 32)
+    assert not tds.batched_kernel_takes(288, 6, 768, 33)
+    assert not tds.batched_kernel_takes(288, 6, 768, 0)
+    assert not tds.batched_kernel_takes(4096, 32, 11008, 8)
+
+
 def test_cuda_device_raises_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present; this checks the CPU-only case")
@@ -243,6 +380,7 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import pydynet_tpu_torch\n"
             "import pydynet_tpu_torch.models.llama.infer\n"
+            "import pydynet_tpu_torch.models.llama.serve_cli\n"
             "import pydynet_tpu_torch.utils.fidelity\n"
             "import pydynet_tpu_torch.ops._build\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -258,7 +396,8 @@ def test_build_paths_are_keyed_by_sources(monkeypatch, tmp_path):
     from pydynet_tpu_torch.ops import _build
 
     srcs = _build.sources()
-    assert [p.name for p in srcs] == ["decode_token.cu"]
+    assert [p.name for p in srcs] == ["decode_token.cu",
+                                      "decode_token_batched.cu"]
     path = _build.library_path()
     assert path == _build.library_path()
     assert path.parent == REPO / "build" / "pydynet_tpu_torch"
