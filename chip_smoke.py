@@ -29,16 +29,28 @@ the run with a nonzero exit and no result line:
    whose streams equal standalone float32 ``generate`` (K1) up to the first
    near-tie; the batched argmax gates at B = 4 and 32; ``generate`` of a
    1024-token request at B = 8 through K2; and the ``serve_cli`` once;
+4c. the training path: the flash-attention forward (K3) and its dq and
+   dk/dv backward kernels (K4) against their plain versions at
+   (B, L, 6, 48), B in {1, 8}, L in {1, 7, 64, 1000, 1024}, in float32 and
+   bfloat16; a full-parameter fine-tune of the stories15M model at B = 1,
+   L = 1024 over ``TRAIN_STEPS`` Adam steps through ``finetune_steps``
+   (each kernel's launch counter must equal 6 layers x the steps, and the
+   loss must fall), whose first step is held against the same step on the
+   CPU; and the ``finetune`` CLI once;
 5. timings: tokens per second of the 1024-token request in each format,
    timed ``REPEATS`` times in turns, K1's and K2's time per step beside
    their plain versions', the serving run's generated tokens per second
-   (``REPEATS`` times, the formats in turns) and the B = 8 request's, with
+   (``REPEATS`` times, the formats in turns) and the B = 8 request's; K3's
+   and K4's times beside their plain versions' at (1, 1024, 6, 48) and
+   (8, 1024, 6, 48), and the training step's time and training tokens per
+   second at B = 1 and 8, L = 1024 (``REPEATS`` steps in turns); all with
    the card's name and power limit;
 6. only with ``--profile``: for K1 the step by CUDA events and the host's
    enqueue time per call at positions 0, 512 and 1023, and for K1 and K2
    the device time of each kernel of the chain from ``torch.profiler``;
    the device's busy share of a 1024-token request and of a serving run
-   under the profiler.
+   under the profiler; for the training step at B = 1 and 8 the device time
+   of its largest kernels and the device's busy share.
 
 The last two lines of standard output are a JSON object describing the
 kernels and then ``{"ok": true, "device": {...}}``.
@@ -71,6 +83,28 @@ MAX_NEW = (64, 256, 700)  # cycled over the requests
 F32_MARGIN = 1e-3  # f32 server vs f32 generate: they differ by rounding of
 # the shifted rotation and summation order (~1e-6), so a stream is compared
 # up to its first step whose f32 top-2 margin is below this
+FLASH_BATCHES, FLASH_LENGTHS = (1, 8), (1, 7, 64, 1000, 1024)
+FLASH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+# flash kernels vs their plain versions, both float32 arithmetic on the same
+# inputs: they differ in summation order (and the forward's online softmax
+# against a two-pass one), so outputs of O(1) get the JAX package's own
+# tolerances for its kernels against the composite: 2e-5 for o and lse,
+# 5e-4 for the gradients; a bfloat16 output may also round to the
+# neighbouring bfloat16 value, one ulp, at most 2**-7 of its magnitude
+FLASH_ATOL = {"o": 2e-5, "lse": 2e-5, "dq": 5e-4, "dk": 5e-4, "dv": 5e-4}
+BF16_ULP = 2.0**-7
+TRAIN_CFG = dict(CFG, max_batch_size=1)
+TRAIN_PREFIXES = ("tok_embedding", "layers", "norm", "lm_head")
+TRAIN_L, TRAIN_LR, TRAIN_STEPS = 1024, 1e-3, 20
+# the first Adam step on the card vs the CPU: the loss differs by summation
+# order over 1024 x 32000 logits (~1e-6 relative); each gradient tensor is
+# held within 1e-4 of its largest element; a weight moves by
+# lr * g / (|g| + 3.2e-7), about +-lr wherever |g| >> 3e-7, so a gradient
+# difference d moves it by at most lr * d / 3.2e-7: lr / 10 allows d up to
+# 3e-8, far above float32 summation noise of these gradients
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_W_ATOL = 1e-5, 1e-4, TRAIN_LR / 10
+TRAIN_TEXT = ("Once upon a time, there was a little girl named Lily. She "
+              "loved to play outside in the park with her friends.")
 
 
 def phase(name, t0):
@@ -264,8 +298,9 @@ def kernel_events(prof):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def by_kernel(prof, n, label):
-    """Print the device time of each kernel over ``n`` steps."""
+def by_kernel(prof, n, label, top=None):
+    """Print the device time of each kernel over ``n`` steps (the ``top``
+    largest when given)."""
     by_name = {}
     for e in kernel_events(prof):
         t, c = by_name.get(e.name, (0.0, 0))
@@ -273,7 +308,8 @@ def by_kernel(prof, n, label):
     total = sum(t for t, _ in by_name.values()) / n
     print(f"[chip_smoke] profile {label}, device time by kernel over {n} "
           f"steps:")
-    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for name, (t, c) in ranked[:top]:
         print(f"[chip_smoke]   {t / n:8.2f} us/step "
               f"{100 * t / n / total:5.1f} % x{c // n}  {name[:70]}")
     print(f"[chip_smoke]   device total {total:.1f} us/step")
@@ -344,6 +380,26 @@ def profile(model, card):
           f"tokens, {srv.dispatched_steps} steps in {wall:.3f} s, device "
           f"busy {busy:.3f} s = {100 * busy / wall:.1f} %, idle "
           f"{100 - 100 * busy / wall:.1f} %")
+    del srv, done
+    n = 5
+    for B in (1, 8):  # the training step
+        tm, opt = train_model("cuda")
+        inp, tgt = train_pair(B)
+        tm.finetune_steps(inp, tgt, opt, 2)  # warm-up
+        torch.cuda.synchronize()
+        with torch_profile(activities=cuda) as prof:
+            start = time.perf_counter()
+            tm.finetune_steps(inp, tgt, opt, n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        by_kernel(prof, n, f"train step B={B} L={TRAIN_L} f32", top=25)
+        busy = busy_share(prof, wall)
+        print(f"[chip_smoke] profile train step B={B} under the profiler: "
+              f"{n} steps in {wall:.3f} s, {len(kernel_events(prof)) // n} "
+              f"kernels a step, device busy {busy:.3f} s = "
+              f"{100 * busy / wall:.1f} %, idle "
+              f"{100 - 100 * busy / wall:.1f} %")
+        del tm, opt
 
 
 def check_serving(model):
@@ -438,6 +494,207 @@ def check_serving(model):
     if k2.launches == before:
         raise AssertionError("serve CLI did not run the batched kernel")
     return serve_launches
+
+
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+
+
+def flash_counters():
+    from pydynet_tpu_torch.ops import flash_attention as fa
+
+    return [getattr(fa, name) for name in FLASH_KERNELS]
+
+
+def flash_inputs(B, L, dtype, seed=0):
+    """Seeded q, k, v and dO, (B, L, 6, 48) on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((B, L, CFG["n_heads"], 48), generator=g,
+                        device="cuda").to(dtype) for _ in range(4)]
+
+
+def flash_vs_plain(B, L, dtype, seed=0):
+    """K3 and both K4 kernels against their plain versions on the same
+    inputs (the backward ones given the kernel forward's o and lse). Raises
+    beyond ``FLASH_ATOL``; returns {output: max |kernel - plain|}."""
+    from pydynet_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = flash_inputs(B, L, dtype, seed)
+    scale = 48 ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    dd = fa.attention_dd(o, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, dd)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd)
+    plain = dict(zip(("o", "lse"), fa.flash_attention_fwd_ref(q, k, v,
+                                                              scale)))
+    plain["dq"] = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, dd, scale)
+    plain["dk"], plain["dv"] = fa.flash_attention_bwd_dkv_ref(
+        q, k, v, do, lse, dd, scale)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got in dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv).items():
+        want = plain[name].float()
+        err = (got.float() - want).abs()
+        tol = FLASH_ATOL[name] + (BF16_ULP * want.abs()
+                                  if got.dtype == torch.bfloat16 else 0.0)
+        if got.shape != want.shape or not bool((err <= tol).all()):
+            raise AssertionError(f"flash {name} B={B} L={L} {dtype}: max "
+                                 f"error {float(err.max())} beyond "
+                                 f"tolerance")
+        errs[name] = float(err.max())
+    return errs
+
+
+def train_model(device):
+    """The stories15M model from seed 0 with every parameter trainable, its
+    Adam, and a seeded (1, TRAIN_L) token pair."""
+    from pydynet_tpu_torch.models.llama import Llama
+    from pydynet_tpu_torch.optim import Adam
+
+    model = Llama(**TRAIN_CFG, device=device,
+                  generator=torch.Generator().manual_seed(0))
+    model.set_trainable_parameters(TRAIN_PREFIXES)
+    opt = Adam([p for p in model.parameters() if p.requires_grad],
+               lr=TRAIN_LR)
+    return model, opt
+
+
+def train_pair(batch=1, seed=0):
+    ids = np.random.default_rng(seed).integers(
+        0, CFG["vocab_size"], size=(batch, TRAIN_L + 1))
+    return ids[:, :-1], ids[:, 1:]
+
+
+def check_step_vs_cpu(gpu, cpu):
+    """A model after one step on the card against the same step on the CPU:
+    loss, gradients and weights within the stated tolerances. Returns the
+    largest (gradient, weight) differences."""
+    g_err = w_err = 0.0
+    theirs = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        c = theirs[name]
+        dg = float((p.grad.cpu() - c.grad).abs().max())
+        dw = float((p.detach().cpu() - c.detach()).abs().max())
+        if dg > TRAIN_GRAD_RTOL * float(c.grad.abs().max()) + 1e-12 \
+                or dw > TRAIN_W_ATOL:
+            raise AssertionError(f"first step vs CPU: {name} gradient "
+                                 f"error {dg}, weight error {dw}")
+        g_err, w_err = max(g_err, dg), max(w_err, dw)
+    return g_err, w_err
+
+
+def check_training():
+    """Phase 4c: K3/K4 against plain, the fine-tune through them, the CLI.
+    Returns ({kernel: launches in the main run}, {kernel: max f32 error})."""
+    from pydynet_tpu_torch.models.llama import finetune
+
+    errs = {name: 0.0 for name in FLASH_KERNELS}
+    for dname, dtype in FLASH_DTYPES.items():
+        for B in FLASH_BATCHES:
+            for L in FLASH_LENGTHS:
+                e = flash_vs_plain(B, L, dtype)
+                print(f"[chip_smoke] flash {dname} B={B} L={L}: max error "
+                      + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
+                if dtype == torch.float32:
+                    for name, keys in zip(FLASH_KERNELS,
+                                          (("o", "lse"), ("dq",),
+                                           ("dk", "dv"))):
+                        errs[name] = max([errs[name]] + [e[x] for x in keys])
+
+    inp, tgt = train_pair()
+    gpu, opt = train_model("cuda")
+    cpu, cpu_opt = train_model("cpu")
+    counters = flash_counters()
+    for c in counters:
+        c.launches = 0
+    losses = [gpu.finetune_steps(inp, tgt, opt, 1)]
+    t0 = time.perf_counter()
+    cpu_loss = cpu.finetune_step(inp, tgt, cpu_opt)
+    cpu_s = time.perf_counter() - t0
+    gpu_loss = float(losses[0][0])
+    g_err, w_err = check_step_vs_cpu(gpu, cpu)
+    print(f"[chip_smoke] train step 1 vs CPU ({cpu_s:.1f} s there): loss "
+          f"{gpu_loss:.6f} vs {cpu_loss:.6f}, max gradient error "
+          f"{g_err:.3g}, max weight error {w_err:.3g}")
+    if abs(gpu_loss - cpu_loss) > TRAIN_LOSS_RTOL * abs(cpu_loss):
+        raise AssertionError(f"first step loss {gpu_loss} != CPU {cpu_loss}")
+    losses.append(gpu.finetune_steps(inp, tgt, opt, TRAIN_STEPS - 1))
+    losses = torch.cat(losses).tolist()
+    launches = {name: c.launches for name, c in zip(FLASH_KERNELS, counters)}
+    print(f"[chip_smoke] fine-tune stories15M B=1 L={TRAIN_L}, all "
+          f"parameters, Adam lr {TRAIN_LR}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; launches {launches}")
+    want = CFG["n_layers"] * TRAIN_STEPS
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"launches {launches}, want {want} each")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+
+    before = [c.launches for c in counters]
+    cli = finetune.main(["--random-init", "--device", "cuda", "--trainable",
+                         ",".join(TRAIN_PREFIXES), "--steps", "5", "--lr",
+                         "1e-3", "--text", TRAIN_TEXT, "--save",
+                         "build/chip_smoke_finetuned.npz"])
+    ran = [c.launches - b for c, b in zip(counters, before)]
+    print(f"[chip_smoke] finetune CLI: losses {cli}, launches {ran}")
+    if ran != [CFG["n_layers"] * 5] * 3 or not cli[-1] < cli[0]:
+        raise AssertionError("finetune CLI did not train through the "
+                             "kernels")
+    return launches, errs
+
+
+def time_training(card):
+    """Phase 5's training part: K3 and K4 against plain, then the step."""
+    from pydynet_tpu_torch.ops import flash_attention as fa
+
+    ms = {}
+    scale = 48 ** -0.5
+    for B in (1, 8):
+        q, k, v, do = flash_inputs(B, TRAIN_L, torch.float32, 1)
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        dd = fa.attention_dd(o, do)
+        pairs = {
+            "flash_attention_fwd": (
+                lambda: fa.flash_attention_fwd(q, k, v),
+                lambda: fa.flash_attention_fwd_ref(q, k, v, scale)),
+            "flash_attention_bwd_dq": (
+                lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dd),
+                lambda: fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, dd,
+                                                      scale)),
+            "flash_attention_bwd_dkv": (
+                lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd),
+                lambda: fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, dd,
+                                                       scale)),
+        }
+        for name, (kern, ref) in pairs.items():
+            plain, kernel = time_step(ref, 10), time_step(kern, 50)
+            kernel2, plain2 = time_step(kern, 50), time_step(ref, 10)
+            ms[name, B] = (min(kernel, kernel2), min(plain, plain2))
+            print(f"[chip_smoke] {card}: {name} f32 ({B}, {TRAIN_L}, 6, 48):"
+                  f" kernel {ms[name, B][0] * 1e3:.1f} us, plain "
+                  f"{ms[name, B][1] * 1e3:.1f} us")
+        del q, k, v, do, o, lse, dd
+    runs = {}
+    for B in (1, 8):
+        model, opt = train_model("cuda")
+        inp, tgt = train_pair(B)
+        model.finetune_steps(inp, tgt, opt, 2)  # warm-up
+        runs[B] = (model, opt, inp, tgt, [])
+    for _ in range(REPEATS):  # the batches in turns
+        for B, (model, opt, inp, tgt, times) in runs.items():
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            model.finetune_step(inp, tgt, opt, sync=False)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+    for B, (*_, times) in runs.items():
+        step = float(np.median(times))
+        print(f"[chip_smoke] {card}: train step B={B} L={TRAIN_L} f32, all "
+              f"parameters: ms of {REPEATS} steps "
+              f"{', '.join(f'{t * 1e3:.2f}' for t in times)}; median "
+              f"{step * 1e3:.2f} ms, {B * TRAIN_L / step:.1f} training "
+              f"tokens/s")
+    return ms
 
 
 def main() -> int:
@@ -571,6 +828,11 @@ def main() -> int:
     serve_launches = check_serving(model)
     phase("4b serving path", t0)
 
+    # 4c. the training path
+    t0 = time.perf_counter()
+    train_launches, flash_err = check_training()
+    phase("4c training path", t0)
+
     # 5. timings: kernels vs plain per step at pos 512, then end to end
     t0 = time.perf_counter()
     ms = {}
@@ -646,6 +908,7 @@ def main() -> int:
     print(f"[chip_smoke] {card}: generate bf16 B=8 {REQUEST}-token request, "
           f"tok/s of 3 runs: {', '.join(f'{r:.1f}' for r in rates)}; median "
           f"{float(np.median(rates)):.1f}")
+    ms.update(time_training(card))
     phase("5 timings", t0)
 
     if "--profile" in sys.argv[1:]:
@@ -663,7 +926,13 @@ def main() -> int:
          "source": "pydynet_tpu_torch/csrc/decode_token_batched.cu",
          "replaces": "pydynet_tpu/ops/decode_step.py:509",
          "launches": serve_launches, "max_abs_err": max_err_b["f32"],
-         "ms": ms["K2 B=8"][0], "plain_ms": ms["K2 B=8"][1]}]}))
+         "ms": ms["K2 B=8"][0], "plain_ms": ms["K2 B=8"][1]}] + [
+        {"name": name, "route": "cuda",
+         "source": "pydynet_tpu_torch/csrc/flash_attention.cu",
+         "replaces": f"pydynet_tpu/ops/flash_attention.py:{line}",
+         "launches": train_launches[name], "max_abs_err": flash_err[name],
+         "ms": ms[name, 1][0], "plain_ms": ms[name, 1][1]}
+        for name, line in zip(FLASH_KERNELS, (82, 192, 259))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

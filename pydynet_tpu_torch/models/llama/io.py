@@ -2,16 +2,20 @@
 ``pydynet_tpu/models/llama/io.py``): the same HF-named npz files.
 
 HF stores Linear weights as (out, in), which is torch's layout, so unlike
-the JAX package nothing is transposed here.
+the JAX package nothing is transposed when a checkpoint is loaded. Finetuned
+parameters are the other way round: their npz files keep the JAX package's
+(in, out) Linear layout, so one file loads into both packages.
 """
 from __future__ import annotations
 
 import math
+import os
 import warnings
 
 import numpy as np
 import torch
 
+from .convert import params_to_tpu, swap_linear
 from .model import Llama
 
 
@@ -96,3 +100,33 @@ def load_model(llama: Llama, model_path: str) -> Llama:
         put("norm.weight", w["model.norm.weight"])
     llama._weights_cache.clear()
     return llama
+
+
+@torch.no_grad()
+def save_finetuned_parameters(model: Llama, output_path: str):
+    """Write the parameters that require a gradient to ``output_path`` as an
+    npz, Linear weights transposed to the JAX package's (in, out). The path
+    is used as given: no ``.npz`` is appended."""
+    params = params_to_tpu({name: p for name, p in model.named_parameters()
+                            if p.requires_grad})
+    # a file object, because np.savez appends '.npz' to a bare path
+    with open(output_path, "wb") as f:
+        np.savez(f, **params)
+
+
+@torch.no_grad()
+def load_finetuned_parameters(model: Llama, finetuned_path: str) -> Llama:
+    """Copy every parameter the npz holds into ``model`` (Linear weights
+    transposed back to (out, in)); names the model lacks, such as the JAX
+    package's KV caches, are ignored. A path without its ``.npz`` is found
+    with it."""
+    if not os.path.exists(finetuned_path) \
+            and os.path.exists(finetuned_path + ".npz"):
+        finetuned_path += ".npz"
+    with np.load(finetuned_path) as weights:
+        for name, param in model.named_parameters():
+            if name in weights.files:
+                param.copy_(torch.from_numpy(np.ascontiguousarray(
+                    swap_linear(name, weights[name]))))
+    model._weights_cache.clear()
+    return model

@@ -3,10 +3,16 @@
 
 The module tree and dotted parameter names are the JAX package's
 (``layers.{i}.attention.Q.weight``, ..., ``lm_head.bias``); Linear weights
-are torch's (out, in). Three ways through the model:
+are torch's (out, in). Four ways through the model:
 
 * the eager module path, ``model(ids, start_pos)``, with the per-module KV
-  caches the reference keeps (used by ``utils.fidelity.greedy_truth``);
+  caches the reference keeps in eval mode (used by
+  ``utils.fidelity.greedy_truth``);
+* the training path (``finetune_step``/``finetune_steps``): the module path
+  in train mode, no caches, causal attention at ``start_pos == 0`` through
+  ``nn.functional.scaled_dot_product_attention`` and the flash kernels (K3
+  forward, K4 backward on a GPU), the JAX package's cross-entropy and its
+  optimizers (``optim``);
 * the plain lane (``generate(fused=False)``): a dense prefill and a
   per-token decode in plain PyTorch over layer-stacked weights, any batch;
 * the fused lane (the default): the same dense prefill, then one call per
@@ -32,7 +38,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...device import resolve
+from ...nn.functional import scaled_dot_product_attention
+from ...nn.modules.loss import CrossEntropyLoss
 from ...nn.modules.norm import RMSNorm, rms_norm
+from ...nn.utils import clip_grad_norm_
 from ...ops import decode_step as dsk
 from ...ops.quant import quantize_int8
 
@@ -143,10 +152,19 @@ class Attention(nn.Module):
             self.cache_v[:B, start_pos:start_pos + L] = xv
             xk = self.cache_k[:B, :start_pos + L]
             xv = self.cache_v[:B, :start_pos + L]
+        elif mask is not None and start_pos != 0:
+            raise ValueError(f"start_pos={start_pos} in train mode: the "
+                             "train-mode forward keeps no KV cache, so "
+                             "a prompt must start at 0")
         g = self.n_heads // self.n_kv_heads
-        if g != 1:
+        if g != 1:  # GQA: autograd sums each group's gradient
             xk = xk.repeat_interleave(g, dim=2)
             xv = xv.repeat_interleave(g, dim=2)
+        if self.training and mask is not None:
+            # the training path: pure causal attention through the flash
+            # kernels (K3 forward, K4 backward on a GPU)
+            out = scaled_dot_product_attention(xq, xk, xv, causal=True)
+            return self.O(out.reshape(B, L, -1))
         s = torch.einsum("blhd,bmhd->bhlm", xq, xk) * (1.0 /
                                                    math.sqrt(self.head_dim))
         if mask is not None:
@@ -246,6 +264,8 @@ class Llama(nn.Module):
 
     # --------------------------- eager module path -------------------------
     def _ids(self, input_ids):
+        if isinstance(input_ids, torch.Tensor):
+            return input_ids.to(device=self.device, dtype=torch.long)
         return torch.as_tensor(np.asarray(input_ids), dtype=torch.long,
                                device=self.device)
 
@@ -271,6 +291,79 @@ class Llama(nn.Module):
     def forward(self, input_ids, start_pos: int):
         """Logits at the last position, (B, 1, V)."""
         return self.lm_head(self._forward_hidden(input_ids, start_pos)[:, -1:])
+
+    # ------------------------- freezing / finetuning ------------------------
+    def set_trainable_parameters(self, trainable_prefixes=("lm_head",)):
+        """Let a parameter require a gradient iff its dotted name starts with
+        one of ``trainable_prefixes``. Returns ``(trainable, frozen)``
+        counts.
+
+        The JAX package keeps its KV caches (two per layer) and RoPE tables
+        (two) as Parameters too, so its counts include them: its frozen count
+        is larger by 2 * n_layers + 2 when no prefix matches them, and a
+        prefix such as ``layers`` makes its caches trainable and counts them
+        there. Here they are buffers and are never counted."""
+        trainable = frozen = 0
+        for name, param in self.named_parameters():
+            on = any(name.startswith(prefix) for prefix in trainable_prefixes)
+            param.requires_grad_(on)
+            trainable += on
+            frozen += not on
+        return trainable, frozen
+
+    def _train_step(self, inp, tgt, optimizer, criterion, start_pos,
+                    clip_norm):
+        """Forward, loss, backward, optional clipping and the optimizer step
+        on device tensors; returns the detached loss, still on the device."""
+        optimizer.zero_grad()
+        with torch.enable_grad():
+            logits = self.forward_logits(inp, start_pos)
+            B, L, V = logits.shape
+            loss = criterion(logits.reshape(B * L, V), tgt)
+            loss.backward()
+        if clip_norm is not None:
+            clip_grad_norm_(optimizer.params, clip_norm)
+        optimizer.step()
+        return loss.detach()
+
+    def _train_inputs(self, input_ids, target_ids, criterion):
+        self.train(True)
+        tgt = torch.as_tensor(np.asarray(target_ids).reshape(-1),
+                              dtype=torch.long, device=self.device)
+        return self._ids(input_ids), tgt, criterion or CrossEntropyLoss()
+
+    def finetune_step(self, input_ids, target_ids, optimizer, criterion=None,
+                      start_pos: int = 0, sync: bool = True,
+                      clip_norm: float = None):
+        """One fine-tune step on (B, L) ``input_ids`` and ``target_ids``:
+        causal forward in train mode (attention through the flash kernels),
+        ``criterion`` (cross-entropy by default) over the (B * L, V) logits,
+        backward, global-norm clipping at ``clip_norm`` when given, and
+        ``optimizer.step()``. Returns the loss as a float, or with
+        ``sync=False`` as a device scalar (no wait for the device). The
+        decode-weight snapshots are dropped, so decode sees the new
+        weights."""
+        inp, tgt, criterion = self._train_inputs(input_ids, target_ids,
+                                                 criterion)
+        loss = self._train_step(inp, tgt, optimizer, criterion, start_pos,
+                                clip_norm)
+        self._weights_cache.clear()
+        return loss.item() if sync else loss
+
+    def finetune_steps(self, input_ids, target_ids, optimizer, n_steps: int,
+                       criterion=None, start_pos: int = 0,
+                       clip_norm: float = None):
+        """``n_steps`` :meth:`finetune_step` calls on the same pair, in a
+        Python loop that never reads back: returns the losses as an
+        (n_steps,) tensor on the device."""
+        inp, tgt, criterion = self._train_inputs(input_ids, target_ids,
+                                                 criterion)
+        losses = torch.empty(n_steps, dtype=torch.float32, device=self.device)
+        for i in range(n_steps):
+            losses[i] = self._train_step(inp, tgt, optimizer, criterion,
+                                         start_pos, clip_norm)
+        self._weights_cache.clear()
+        return losses
 
     # ------------------------------ plain lane ------------------------------
     def _weights(self, dtype=None):

@@ -36,6 +36,11 @@ SIGNATURES = {
     "pdt_decode_token_batched": (_I, [_I, _I] + [_P] * 23 + [_I] * 7
                                  + [ctypes.c_float, _P]),
     "pdt_decode_token_batched_scratch_floats": (_I, [_I] * 6),
+    "pdt_flash_fwd": (_I, [_I] + [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]),
+    "pdt_flash_bwd_dq": (_I, [_I] + [_P] * 7 + [_I] * 4
+                         + [ctypes.c_float, _P]),
+    "pdt_flash_bwd_dkv": (_I, [_I] + [_P] * 8 + [_I] * 4
+                          + [ctypes.c_float, _P]),
 }
 
 

@@ -186,3 +186,71 @@ def test_batched_launch_counter_counts_kernel_launches_only(model):
         srv.submit(prompt, max_new_tokens=12)
     assert all(r.done for r in srv.run().values())
     assert k2.launches - before == srv.dispatched_steps > 0
+
+
+@pytest.fixture(scope="module")
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the flash-attention kernels run only "
+                    "on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("L", [1, 7, 64, 1000, 1024])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_kernels_match_plain(gpu, dtype, B, L):
+    """K3 and both K4 kernels within chip_smoke's stated tolerances of their
+    plain versions at the training path's shapes (B, L, 6, 48)."""
+    from chip_smoke import FLASH_DTYPES, flash_vs_plain
+
+    errs = flash_vs_plain(B, L, FLASH_DTYPES[dtype])
+    assert set(errs) == {"o", "lse", "dq", "dk", "dv"}
+
+
+@pytest.mark.parametrize("d", [16, 64, 100, 128, 256])
+def test_flash_kernels_take_every_head_dim(gpu, d):
+    """Each register-tile width (d <= 64, 128, 256), odd L, and gradients
+    through the autograd op against the plain composite's."""
+    from pydynet_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v, do = (torch.randn((2, 77, 3, d), generator=g, device="cuda")
+                   .requires_grad_() for _ in range(4))
+    out = fa.flash_attention_causal(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    ref = fa.mha_reference(q, k, v, fa.causal_mask(77, device="cuda"))
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    assert float((out - ref).abs().max()) < 2e-5
+    for a, b in zip(grads, want):
+        assert float((a - b).abs().max()) < 5e-4
+
+
+def test_flash_cuda_inputs_never_fall_back(gpu):
+    from pydynet_tpu_torch.ops import flash_attention as fa
+
+    q = torch.zeros((1, 8, 2, 264), device="cuda")
+    with pytest.raises(ValueError, match="limits"):
+        fa.flash_attention_fwd(q, q, q)
+    h = torch.zeros((1, 8, 2, 16), device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="limits"):
+        fa.flash_attention_fwd(h, h, h)
+
+
+def test_full_parameter_step_matches_cpu(gpu):
+    """One Adam step of the stories15M model at B=1, L=1024, every parameter
+    trainable, on the card (through the kernels: 6 launches each) against
+    the same step on the CPU, within chip_smoke's stated tolerances."""
+    from chip_smoke import (FLASH_KERNELS, TRAIN_LOSS_RTOL, check_step_vs_cpu,
+                            flash_counters, train_model, train_pair)
+
+    inp, tgt = train_pair()
+    gpu_model, opt = train_model("cuda")
+    cpu_model, cpu_opt = train_model("cpu")
+    before = [c.launches for c in flash_counters()]
+    loss = gpu_model.finetune_step(inp, tgt, opt)
+    assert [c.launches - b for c, b in zip(flash_counters(), before)] == \
+        [6] * len(FLASH_KERNELS)
+    cpu_loss = cpu_model.finetune_step(inp, tgt, cpu_opt)
+    assert abs(loss - cpu_loss) <= TRAIN_LOSS_RTOL * abs(cpu_loss)
+    check_step_vs_cpu(gpu_model, cpu_model)

@@ -381,6 +381,11 @@ def test_port_imports_no_jax():
             "import pydynet_tpu_torch\n"
             "import pydynet_tpu_torch.models.llama.infer\n"
             "import pydynet_tpu_torch.models.llama.serve_cli\n"
+            "import pydynet_tpu_torch.models.llama.finetune\n"
+            "import pydynet_tpu_torch.nn.functional\n"
+            "import pydynet_tpu_torch.nn.utils\n"
+            "import pydynet_tpu_torch.optim\n"
+            "import pydynet_tpu_torch.ops.flash_attention\n"
             "import pydynet_tpu_torch.utils.fidelity\n"
             "import pydynet_tpu_torch.ops._build\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -397,7 +402,8 @@ def test_build_paths_are_keyed_by_sources(monkeypatch, tmp_path):
 
     srcs = _build.sources()
     assert [p.name for p in srcs] == ["decode_token.cu",
-                                      "decode_token_batched.cu"]
+                                      "decode_token_batched.cu",
+                                      "flash_attention.cu"]
     path = _build.library_path()
     assert path == _build.library_path()
     assert path.parent == REPO / "build" / "pydynet_tpu_torch"
