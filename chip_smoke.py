@@ -18,6 +18,13 @@ the run with a nonzero exit and no result line:
    way at B = 4 and 32, positions 1, 17, 255, 1023 and 1030, with per-row
    ``starts`` (one row starting at pos), and each K2 row at B = 8 against
    K1 on that row alone;
+3c. the quantized-matmul kernels against their plain versions, bit for
+   bit: the activation quantization, the decode kernel (K5) and the prefill
+   kernel (K6) at M in {1, 2, 3, 4, 5, 12, 16, 32, 33, 256, 1000} rows
+   (every row tile of the decode kernel, full and partial), float32 and
+   bfloat16 rows, int8 and int4 weights, at stories15M's and Llama-2-7B's
+   (K, N); and the stacked kernel (K7) with a device layer index at the
+   first, a middle and the last of 32 layers;
 4. the B=1 path: ``Llama.generate`` of a 1024-token request in bfloat16,
    with and without ``quant="int8-head"``, through K1 (its launch counter
    must equal the decode steps), the confident-step argmax gate against a
@@ -37,20 +44,41 @@ the run with a nonzero exit and no result line:
    (each kernel's launch counter must equal 6 layers x the steps, and the
    loss must fall), whose first step is held against the same step on the
    CPU; and the ``finetune`` CLI once;
+4d. the big-dims path: a Llama-2-7B-geometry model (32 layers, bf16,
+   seeded random weights) generating a 64-token request with ``quant="int8"``
+   and ``"int4"``, routed by ``fused=None`` to the scan lane, with the
+   quantized-matmul launch counters equal to the counts the code implies
+   (4 x 32 stacked launches and one head launch a forward); the int8 stream
+   teacher-forced against the bf16 scan lane at confident steps; a B=4
+   ``LlamaServer(quant="int4")`` that routes itself to the scan lane and
+   serves 8 requests (launches counted the same way), every served stream
+   teacher-forced through standalone B=1 ``generate``'s forward and equal
+   to it at every confident step; the int4 lane against the truth of
+   ``dequant_inplace`` weights by majority agreement; the stories15M scan
+   lane with a 40-token prompt (its prefill through K6) against the same
+   lane on the CPU; and the ``serve_cli`` once with ``--lane xla --quant
+   int8``;
 5. timings: tokens per second of the 1024-token request in each format,
    timed ``REPEATS`` times in turns, K1's and K2's time per step beside
    their plain versions', the serving run's generated tokens per second
    (``REPEATS`` times, the formats in turns) and the B = 8 request's; K3's
    and K4's times beside their plain versions' at (1, 1024, 6, 48) and
    (8, 1024, 6, 48), and the training step's time and training tokens per
-   second at B = 1 and 8, L = 1024 (``REPEATS`` steps in turns); all with
-   the card's name and power limit;
+   second at B = 1 and 8, L = 1024 (``REPEATS`` steps in turns); the 7B
+   request's tokens per second in int8 and int4 and the B=4 server's over
+   ``BIG_TIME_REQUESTS`` requests, and each quantized matmul at the 7B
+   shapes (M = 1, 4 and 256) beside its plain version, ``torch._int_mm``
+   (int8, M > 16) and its bound; each
+   kernel's bound (bytes over 3.35 TB/s or operations over the peak for
+   its type) and, for K3/K4, ``F.scaled_dot_product_attention``'s forward
+   and backward; all with the card's name and power limit;
 6. only with ``--profile``: for K1 the step by CUDA events and the host's
    enqueue time per call at positions 0, 512 and 1023, and for K1 and K2
    the device time of each kernel of the chain from ``torch.profiler``;
    the device's busy share of a 1024-token request and of a serving run
    under the profiler; for the training step at B = 1 and 8 the device time
-   of its largest kernels and the device's busy share.
+   of its largest kernels and the device's busy share; for a 7B int8 and
+   int4 token on the scan lane the device time by kernel and the busy share.
 
 The last two lines of standard output are a JSON object describing the
 kernels and then ``{"ok": true, "device": {...}}``.
@@ -105,6 +133,32 @@ TRAIN_L, TRAIN_LR, TRAIN_STEPS = 1024, 1e-3, 20
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_W_ATOL = 1e-5, 1e-4, TRAIN_LR / 10
 TRAIN_TEXT = ("Once upon a time, there was a little girl named Lily. She "
               "loved to play outside in the park with her friends.")
+# Llama-2-7B geometry (scripts/bench_7b_full.py:48), all 32 layers, bf16
+LLAMA2_7B = dict(vocab_size=32000, embed_dim=4096, n_heads=32, ffn_dim=11008,
+                 max_seq_len=1024, max_batch_size=1, n_layers=32)
+# (K, N) of every quantized matmul: fused qkv, wo, fused gate/up, down, head
+QMM_SHAPES = {"stories15M": ((288, 864), (288, 288), (288, 1536), (768, 288),
+                             (288, 32000)),
+              "7B": ((4096, 12288), (4096, 4096), (4096, 22016),
+                     (11008, 4096), (4096, 32000))}
+QMM_NAMES = ("wqkv", "wo", "wgu", "down", "head")
+# decode rows run in tiles of 1, 2, 4 or 8 (M = 3, 5 and 12 end in a
+# partial tile); prefill rows (M > 32) in tiles of 64
+QMM_ROWS = (1, 2, 3, 4, 5, 12, 16, 32, 33, 256, 1000)
+BIG_NEW = 64  # tokens of the 7B request (prefill token included)
+BIG_SERVE = dict(batch_size=4, chunk=32, eos_id=-1)
+BIG_REQUESTS, BIG_MAX_NEW = 8, (48, 64, 24, 40)
+BIG_TIME_REQUESTS = 32  # the timed server: decode steps outweigh admission
+BIG_REPEATS = 3
+LONG_PROMPT = 40  # a stories15M scan-lane prompt past 32 rows: the K6 path
+INT4_MIN_AGREE = 0.75  # bench.py's majority floor for the lossy formats
+QMM_KERNELS = ("quantize_rows", "qmatmul", "qmatmul_prefill",
+               "qmatmul_stacked")
+# the least time of a function: bytes over the memory rate, or operations
+# over the card's peak for their type (NVIDIA's H100 SXM data sheet, dense)
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.int8: 1979e12}
 
 
 def phase(name, t0):
@@ -402,6 +456,36 @@ def profile(model, card):
         del tm, opt
 
 
+def profile_big(model):
+    """Phase 6's 7B part: the device time by kernel of Llama-2-7B int8 and
+    int4 tokens on the scan lane, and the device's busy share over them."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    bf16, n = torch.bfloat16, 8
+    with torch.no_grad():
+        for quant in ("int8", "int4"):
+            w = model._weights_xq(bf16, quant)
+            ck, cv = model._empty_caches(1, bf16)
+            tok = model.prefill(w, ck, cv, PROMPT).to(torch.int32)
+            model.decode_chunk_plain(w, ck, cv, tok, PROMPT.shape[1], 2)
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                start = time.perf_counter()
+                model.decode_chunk_plain(w, ck, cv, tok, PROMPT.shape[1] + 2,
+                                         n)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - start
+            by_kernel(prof, n, f"7B {quant} token, scan lane", top=12)
+            busy = busy_share(prof, wall)
+            print(f"[chip_smoke] profile 7B {quant}: {n} tokens in "
+                  f"{wall:.3f} s, {len(kernel_events(prof)) // n} kernels a "
+                  f"token, device busy {busy:.3f} s = "
+                  f"{100 * busy / wall:.1f} %, idle "
+                  f"{100 - 100 * busy / wall:.1f} %")
+            del ck, cv
+
+
 def check_serving(model):
     """Phase 4b: the serving path through K2. Returns K2's launches."""
     from pydynet_tpu_torch.models.llama import serve_cli
@@ -545,6 +629,28 @@ def flash_vs_plain(B, L, dtype, seed=0):
     return errs
 
 
+FLASH_PRODUCTS = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 3,
+                  "flash_attention_bwd_dkv": 4}  # matrix products a kernel
+
+
+def sdpa_ms(q, k, v, do):
+    """The library yardstick of K3/K4 (timed, never used by the port):
+    ``F.scaled_dot_product_attention(is_causal=True)`` forward, and its
+    autograd backward, on the same (B, L, H, d) inputs."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    with torch.no_grad():
+        fwd = time_step(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), 50)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    bwd = time_step(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                retain_graph=True), 50)
+    return fwd, bwd
+
+
 def train_model(device):
     """The stories15M model from seed 0 with every parameter trainable, its
     Adam, and a seeded (1, TRAIN_L) token pair."""
@@ -666,13 +772,19 @@ def time_training(card):
                 lambda: fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, dd,
                                                        scale)),
         }
+        lib = sdpa_ms(q, k, v, do)
         for name, (kern, ref) in pairs.items():
             plain, kernel = time_step(ref, 10), time_step(kern, 50)
             kernel2, plain2 = time_step(kern, 50), time_step(ref, 10)
-            ms[name, B] = (min(kernel, kernel2), min(plain, plain2))
+            b_ms, b_by = flash_bound(q, FLASH_PRODUCTS[name])
+            ms[name, B] = (min(kernel, kernel2), min(plain, plain2), b_ms,
+                           b_by, lib[name != "flash_attention_fwd"])
+            way = "forward" if name == "flash_attention_fwd" else "backward"
             print(f"[chip_smoke] {card}: {name} f32 ({B}, {TRAIN_L}, 6, 48):"
                   f" kernel {ms[name, B][0] * 1e3:.1f} us, plain "
-                  f"{ms[name, B][1] * 1e3:.1f} us")
+                  f"{ms[name, B][1] * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us"
+                  f" ({b_by}), F.scaled_dot_product_attention {way} "
+                  f"{ms[name, B][4] * 1e3:.1f} us")
         del q, k, v, do, o, lse, dd
     runs = {}
     for B in (1, 8):
@@ -695,6 +807,464 @@ def time_training(card):
               f"{step * 1e3:.2f} ms, {B * TRAIN_L / step:.1f} training "
               f"tokens/s")
     return ms
+
+
+def bound(n_bytes, n_ops, dtype):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak for ``dtype``."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / PEAK_OPS_S[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def decode_step_bound(w, ck, pos, rows):
+    """K1/K2's bound at ``pos`` for ``rows`` rows: every weight once (the
+    embedding's ``rows`` rows), each row's cache rows [0, pos] read and its
+    new row written, in the weight type; operations two a weight and two a
+    cache element a row."""
+    N, D = ck.shape[0], ck.shape[-1]
+    mats = [w[k] for k in ("wq", "wk", "wv", "wo", "gate_w", "up_w", "down")]
+    head = w["head_wq"] if "head_s" in w else w["head_w"]
+    small = [w[k] for k in ("norm", "in_norm", "post_norm", "head_b")]
+    it = ck.element_size()
+    kv = rows * N * D * 2 * it * (pos + 2)  # pos + 1 rows read, one written
+    n_bytes = nbytes(*mats, head, *small) + rows * D * it * 3 + kv
+    n_ops = 2 * rows * (sum(m.numel() for m in mats) + head.numel()) \
+        + 4 * rows * N * D * (pos + 1)
+    return bound(n_bytes, n_ops, ck.dtype)
+
+
+def flash_bound(q, products):
+    """K3/K4's bound on (B, L, H, d) inputs: q, k, v (and dO, o) read once,
+    outputs written once; ``products`` matrix products of the causal
+    L (L + 1) / 2 query-key pairs, two operations a multiply-add."""
+    B, L, H, d = q.shape
+    n_bytes = nbytes(q) * {2: 4, 3: 6, 4: 7}[products]
+    n_ops = 2 * products * B * H * d * L * (L + 1) // 2
+    return bound(n_bytes, n_ops, q.dtype)
+
+
+def qmm_bound(x, wq, M, N):
+    """qmatmul's bound: x, the weights and their scales read once, the
+    float32 (M, N) result written once; 2 M K N int8 operations."""
+    K = x.shape[1]
+    n_bytes = nbytes(x, wq) + 4 * N + 4 * M * N
+    return bound(n_bytes, 2 * M * K * N, torch.int8)
+
+
+def qmm_counters():
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    return {"quantize_rows": gq.quantize_rows.launches,
+            "qmatmul": gq.qmatmul.launches,
+            "qmatmul_prefill": gq.qmatmul.prefill_launches,
+            "qmatmul_stacked": gq.qmatmul_stacked.launches}
+
+
+def zero_qmm_counters():
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    gq.quantize_rows.launches = gq.qmatmul.launches = 0
+    gq.qmatmul.prefill_launches = gq.qmatmul_stacked.launches = 0
+
+
+def random_qweights(K, N, q4, seed, layers=None):
+    """Seeded int8 weights on the card, every byte value (int4: every
+    nibble pair), and float32 channel scales: (K, N) / (1, N), or stacked
+    (layers, Kst, N) / (layers, 1, N)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lead = () if layers is None else (layers,)
+    w = torch.randint(-128, 128, lead + (K // 2 if q4 else K, N),
+                      generator=g, device="cuda", dtype=torch.int8)
+    ws = torch.rand(lead + (1, N), generator=g, device="cuda") * 1e-3
+    return w, ws
+
+
+def random_rows(M, K, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device="cuda") * 3
+    if M > 2:
+        x[1] = 0.0  # an all-zero row: the 1e-30 floor
+    return x.to(dtype)
+
+
+def check_qmatmul():
+    """Phase 3c: the quantized-matmul kernels against their plain versions,
+    bit for bit. Returns {kernel: max |kernel - plain|}."""
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    errs = {name: 0.0 for name in QMM_KERNELS}
+    counts = {}
+    for where, shapes in QMM_SHAPES.items():
+        for K, N in shapes:
+            for q4 in (False, True):
+                w, ws = random_qweights(K, N, q4, K + N + q4)
+                for M in QMM_ROWS:
+                    for dtype in (torch.float32, torch.bfloat16):
+                        x = random_rows(M, K, dtype, M + K)
+                        xq, sx = gq.quantize_rows(x)
+                        rxq, rsx = gq.quantize_rows_ref(x)
+                        got = gq.qmatmul(x, w, ws, q4=q4)
+                        want = gq.qmatmul_ref(x, w, ws, q4=q4)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(xq, rxq) and torch.equal(sx, rsx)):
+                            raise AssertionError(
+                                f"quantize_rows M={M} K={K} {dtype} differs "
+                                f"from plain")
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"qmatmul {where} ({K}, {N}) q4={q4} M={M} "
+                                f"{dtype}: max error {max_diff(got, want)}")
+                        name = "qmatmul" if M <= gq.MAX_DECODE_ROWS \
+                            else "qmatmul_prefill"
+                        errs[name] = max(errs[name], max_diff(got, want))
+                        counts[where] = counts.get(where, 0) + 1
+                del w, ws
+    # the stacked kernel with a device index: first, middle and last layer
+    L, (K, N) = LLAMA2_7B["n_layers"], QMM_SHAPES["7B"][1]
+    for q4 in (False, True):
+        w, ws = random_qweights(K, N, q4, 7 + q4, layers=L)
+        for M in (1, 2, 3, 4, 12, 33, 256):
+            x = random_rows(M, K, torch.bfloat16, M)
+            for layer in (0, L // 2, L - 1):
+                idx = torch.tensor(layer, dtype=torch.int32, device=w.device)
+                got = gq.qmatmul_stacked(x, w, ws, idx, q4=q4)
+                want = gq.qmatmul_ref(x, w[layer], ws[layer], q4=q4)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"qmatmul_stacked layer {layer} q4={q4} M={M}: max "
+                        f"error {max_diff(got, want)}")
+                errs["qmatmul_stacked"] = max(errs["qmatmul_stacked"],
+                                              max_diff(got, want))
+        del w, ws
+    print(f"[chip_smoke] quantized matmuls equal their plain versions bit "
+          f"for bit: {counts} (shape, format, M, type) cases, int8 and int4, "
+          f"and the stacked kernel at layers 0, {L // 2}, {L - 1}")
+    return errs
+
+
+def big_requests(model, n=BIG_REQUESTS, seed=0):
+    """Seeded (prompt, max_new_tokens) requests for the 7B server: prompt
+    lengths in [2, 16], max_new_tokens cycling over BIG_MAX_NEW."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(1, model.vocab_size,
+                          size=int(rng.integers(2, 17))).tolist(),
+             BIG_MAX_NEW[i % len(BIG_MAX_NEW)]) for i in range(n)]
+
+
+def check_big_dims():
+    """Phase 4d: Llama-2-7B geometry on the scan lane through K5 and K7, the
+    B=4 server, and the stories15M scan lane through K6 and the serve CLI.
+    Returns (7B model, {kernel: launches in the main run})."""
+    from pydynet_tpu_torch.models.llama import Llama, serve_cli
+    from pydynet_tpu_torch.utils import fidelity
+
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    model = Llama(**LLAMA2_7B, dtype=bf16, device="cuda",
+                  generator=torch.Generator().manual_seed(0)).eval()
+    torch.cuda.synchronize()
+    print(f"[chip_smoke] built Llama-2-7B geometry ({model.n_layers} "
+          f"layers, bf16, seeded random) in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    total = PROMPT.shape[1] + BIG_NEW
+    for quant in ("int8", "int4"):
+        if model.use_fused(quant, 1):
+            raise AssertionError(f"7B quant={quant} routed to the fused lane")
+    streams, launches = {}, None
+    with torch.no_grad():
+        for quant in ("int8", "int4"):  # warm-up: snapshots, cuBLAS
+            list(model.generate(PROMPT, PROMPT.shape[1] + 2, dtype=bf16,
+                                quant=quant))
+        torch.cuda.synchronize()
+        zero_qmm_counters()
+        for quant in ("int8", "int4"):
+            start = time.perf_counter()
+            streams[quant] = [int(t[0, 0]) for t in model.generate(
+                PROMPT, total, dtype=bf16, quant=quant)]
+            torch.cuda.synchronize()
+            print(f"[chip_smoke] 7B generate {quant}: {len(streams[quant])} "
+                  f"tokens in {time.perf_counter() - start:.2f} s")
+        launches = qmm_counters()
+    forwards = 2 * BIG_NEW  # prefill + BIG_NEW - 1 steps, two formats
+    per = 4 * model.n_layers  # stacked launches a forward, one head launch
+    want = {"quantize_rows": (per + 1) * forwards, "qmatmul": forwards,
+            "qmatmul_prefill": 0, "qmatmul_stacked": per * forwards}
+    print(f"[chip_smoke] 7B launches {launches}, implied {want}")
+    if launches != want:
+        raise AssertionError("7B launches differ from the implied counts")
+    for quant, toks in streams.items():
+        if len(toks) != BIG_NEW \
+                or not all(0 <= x < model.vocab_size for x in toks):
+            raise AssertionError(f"7B {quant}: bad stream {toks}")
+
+    # int8 against the bf16 scan lane, teacher-forced, at confident steps
+    truth, margins, tops = fidelity.scan_truth(model, PROMPT, BIG_NEW,
+                                               dtype=bf16)
+    model._weights_cache.pop((bf16, "dense", None))  # 13 GB dense stack
+    checked, ok, agree = fidelity.gate_scan_argmax(
+        model, PROMPT, truth, margins, tops, dtype=bf16, quant="int8")
+    print(f"[chip_smoke] gate 7B int8 vs bf16 scan lane: checked {checked} "
+          f"ok {ok} agree {agree:.3f}")
+    if not (checked > 0 and ok):
+        raise AssertionError("7B int8 gate failed")
+
+    # the B=4 server: routed to the scan lane on its own, 8 requests
+    from pydynet_tpu_torch.models.llama.serve import LlamaServer
+
+    requests = big_requests(model)
+    srv = LlamaServer(model, dtype=bf16, quant="int4", **BIG_SERVE)
+    if srv._lane != "xla":
+        raise AssertionError(f"7B int4 server on lane {srv._lane}")
+    waves = []
+    admit = srv._admit_many
+    srv._admit_many = lambda p, pos0, slots: waves.append(1) or admit(
+        p, pos0, slots)
+    rids = [srv.submit(p, max_new_tokens=n) for p, n in requests]
+    zero_qmm_counters()
+    start = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    served = qmm_counters()
+    n_tok = sum(len(done[r].tokens) for r in rids)
+    forwards = srv.dispatched_steps + len(waves)
+    print(f"[chip_smoke] 7B server int4 B=4: {len(rids)} requests, {n_tok} "
+          f"tokens, {srv.dispatched_steps} steps, {len(waves)} admission "
+          f"waves in {wall:.2f} s; launches {served}")
+    if served["qmatmul_stacked"] != per * forwards \
+            or served["qmatmul"] != forwards:
+        raise AssertionError("7B server launches differ from the implied "
+                             "counts")
+    if not all(done[r].done and done[r].tokens for r in rids):
+        raise AssertionError("7B server: a request did not finish")
+    # every served request, teacher-forced: standalone B=1 generate's
+    # forward is fed the served stream and must give the served token at
+    # each of its confident steps (batched rows reduce attention in another
+    # order in bf16, so a near-tie may go either way); step 0 is the
+    # admission wave's prefill
+    checked = agree = n_steps = 0
+    for rid, (prompt, n_new) in zip(rids, requests):
+        got = np.array(done[rid].tokens)
+        if len(got) != n_new:
+            raise AssertionError(f"7B server: {len(got)} tokens, want "
+                                 f"{n_new}")
+        tr, mg, tp = fidelity.scan_truth(model, np.array([prompt]), n_new,
+                                         dtype=bf16, quant="int4",
+                                         forced=got[:, None])
+        conf = fidelity._confident(mg[:, 0], tp[:, 0], fidelity.MARGIN,
+                                   fidelity.REL_MARGIN)
+        same = tr[:, 0] == got
+        if not same[conf].all():
+            raise AssertionError(f"7B server request {rid} differs from "
+                                 f"standalone generate at confident steps "
+                                 f"{np.flatnonzero(conf & ~same).tolist()}")
+        checked += int(conf.sum())
+        agree += int(same.sum())
+        n_steps += n_new
+    print(f"[chip_smoke] 7B server vs standalone generate, every request "
+          f"teacher-forced: {checked} of {n_steps} steps confident, all "
+          f"equal; {agree} of {n_steps} equal in all")
+    if checked == 0:
+        raise AssertionError("7B server: no confident step to compare")
+    del srv, done
+
+    # int4 against a dequantized-weights truth, majority agreement (the
+    # weights are round-tripped in place: this runs last on the model)
+    fidelity.dequant_inplace(model, "int4")
+    truth, margins, tops = fidelity.scan_truth(model, PROMPT, BIG_NEW,
+                                               dtype=bf16)
+    model._weights_cache.pop((bf16, "dense", None))
+    checked, ok, agree = fidelity.gate_scan_argmax(
+        model, PROMPT, truth, margins, tops, dtype=bf16, quant="int4",
+        min_agree=INT4_MIN_AGREE)
+    print(f"[chip_smoke] gate 7B int4 vs dequantized truth: checked "
+          f"{checked} ok {ok} agree {agree:.3f}")
+    if not ok:
+        raise AssertionError("7B int4 majority gate failed")
+
+    # stories15M on the scan lane: a long prompt's prefill through K6
+    small = Llama(**CFG, device="cuda",
+                  generator=torch.Generator().manual_seed(0)).eval()
+    cpu = Llama(**CFG, device="cpu",
+                generator=torch.Generator().manual_seed(0)).eval()
+    prompt = np.random.default_rng(1).integers(1, CFG["vocab_size"],
+                                               (1, LONG_PROMPT))
+    n_new = 32
+    zero_qmm_counters()
+    got = {q: [int(t[0, 0]) for t in small.generate(
+        prompt, LONG_PROMPT + n_new, quant=q, fused=False)]
+        for q in ("int8", "int4")}
+    long_run = qmm_counters()
+    L = CFG["n_layers"]
+    want = {"quantize_rows": 2 * (4 * L + 1) * n_new,
+            "qmatmul": 2 * ((4 * L + 1) * (n_new - 1) + 1),
+            "qmatmul_prefill": 2 * 4 * L, "qmatmul_stacked": 0}
+    print(f"[chip_smoke] stories15M scan lane, {LONG_PROMPT}-token prompt: "
+          f"launches {long_run}, implied {want}")
+    if long_run != want:
+        raise AssertionError("stories15M scan-lane launches differ")
+    # against the same lane on the CPU, teacher-forced, at confident steps:
+    # float noise between the devices moves an activation across a rounding
+    # boundary of its int8 now and then, so free-running streams part at
+    # margins far above float32 noise
+    for q, toks in got.items():
+        tr, mg, tp = fidelity.scan_truth(cpu, prompt, n_new, quant=q)
+        checked, ok, agree = fidelity.gate_scan_argmax(small, prompt, tr, mg,
+                                                       tp, quant=q)
+        same = next((i for i, (a, b) in enumerate(zip(toks, tr[:, 0]))
+                     if a != b), n_new)
+        print(f"[chip_smoke] stories15M f32 {q} scan lane vs the CPU: "
+              f"the first {same} of {n_new} tokens equal; teacher-forced "
+              f"gate checked {checked} ok {ok} agree {agree:.3f}")
+        if not (checked > 0 and ok):
+            raise AssertionError(f"stories15M {q} gate against the CPU "
+                                 "failed")
+    del small, cpu
+    before = qmm_counters()["qmatmul"]
+    serve_cli.main(["--random-init", "--device", "cuda", "--lane", "xla",
+                    "--quant", "int8", "--batch-size", "4",
+                    "--max-new-tokens", "48"])
+    if qmm_counters()["qmatmul"] == before:
+        raise AssertionError("serve CLI did not run the quantized matmuls")
+    launches["qmatmul_prefill"] = long_run["qmatmul_prefill"]
+    return model, launches
+
+
+def time_rotating(fn, reps, n):
+    """ms a call of ``fn(i)`` for i cycling over n layers: the weights of
+    one layer are cold in L2 again by the time the loop comes back. The
+    host enqueues the calls as it goes, so a call that costs the host more
+    than the device is timed at the host's rate."""
+    return time_step(lambda: [fn(i) for i in range(n)], reps) / n
+
+
+def time_graph(fn, n, replays=5):
+    """Device ms a call of ``fn(i)``, i cycling over n layers: the n calls
+    captured once in a CUDA graph and replayed, so no host time falls
+    between the launches."""
+    fn(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(i)
+    ms = time_step(graph.replay, replays) / n
+    del graph
+    return ms
+
+
+def time_big_dims(model, card):
+    """Phase 5's 7B part: tokens/s of the request and the server, and each
+    quantized matmul against its bound, its plain version and
+    ``torch._int_mm``. Returns {(kernel): (ms, plain_ms, bound_ms,
+    bound_by, library_ms)} at the shapes the kernels line reports."""
+    from pydynet_tpu_torch.models.llama.serve import LlamaServer
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    bf16 = torch.bfloat16
+    total = PROMPT.shape[1] + BIG_NEW
+    rates = {"int8": [], "int4": []}
+    serve_rates = []
+    requests = big_requests(model, BIG_TIME_REQUESTS)
+    for _ in range(BIG_REPEATS):  # the formats in turns
+        for quant, r in rates.items():
+            start = time.perf_counter()
+            n = sum(1 for _ in model.generate(PROMPT, total, dtype=bf16,
+                                              quant=quant))
+            torch.cuda.synchronize()
+            r.append(n / (time.perf_counter() - start))
+        start = time.perf_counter()
+        srv, done = serve(model, requests, dtype=bf16, quant="int4",
+                          **BIG_SERVE)
+        serve_rates.append(sum(len(x.tokens) for x in done)
+                           / (time.perf_counter() - start))
+    n_tok = sum(len(x.tokens) for x in done)
+    for quant, r in rates.items():
+        print(f"[chip_smoke] {card}: 7B generate {quant} B=1 {BIG_NEW}-token "
+              f"request, tok/s of {BIG_REPEATS} runs: "
+              f"{', '.join(f'{x:.2f}' for x in r)}; median "
+              f"{float(np.median(r)):.2f} ({1e3 / float(np.median(r)):.2f} "
+              f"ms/token)")
+    print(f"[chip_smoke] {card}: 7B serve int4 B=4, {BIG_TIME_REQUESTS} "
+          f"requests, {n_tok} tokens, {srv.dispatched_steps} steps, generated "
+          f"tok/s of {BIG_REPEATS} runs: "
+          f"{', '.join(f'{x:.2f}' for x in serve_rates)}; median "
+          f"{float(np.median(serve_rates)):.2f}")
+
+    out = {}
+    L = model.n_layers
+    for quant in ("int8", "int4"):
+        q4 = quant == "int4"
+        W = model._weights_xq(bf16, quant)
+        for name in QMM_NAMES:
+            stacked = name != "head"
+            wq = W[name + "_xq"]
+            ws = W[name + "_xs"]
+            K, N = wq.shape[-2] * (2 if q4 else 1), wq.shape[-1]
+            for M in (1, 4, 256):
+                x = random_rows(M, K, bf16, M)
+                if stacked:
+                    ids = W["layer_ids"]
+                    kern = lambda i: gq.qmatmul(x, wq[i], ws[i], q4=q4)
+                    stack = lambda i: gq.qmatmul_stacked(x, wq, ws, ids[i],
+                                                         q4=q4)
+                    plain = lambda: gq.qmatmul_ref(x, wq[0], ws[0], q4=q4)
+                    n = L
+                else:
+                    kern = lambda i: gq.qmatmul(x, wq, ws, q4=q4)
+                    stack = None
+                    plain = lambda: gq.qmatmul_ref(x, wq, ws, q4=q4)
+                    n = 1
+                w1 = wq[0] if stacked else wq
+                b_ms, b_by = qmm_bound(x, w1, M, N)
+                reps = max(3, 32 // n)
+                p1 = time_step(plain, 2)
+                k1 = time_graph(kern, n, reps)
+                s1 = time_graph(stack, n, reps) if stack else None
+                call = time_rotating(kern, reps, n)
+                k2 = time_graph(kern, n, reps)
+                s2 = time_graph(stack, n, reps) if stack else None
+                p2 = time_step(plain, 2)
+                lib = None
+                if M > 16 and not q4:  # torch._int_mm takes M > 16
+                    xq = gq.quantize_rows(x)[0]
+                    lib = time_graph(
+                        lambda i: torch._int_mm(xq, wq[i] if stacked
+                                                else wq), n, reps)
+                kms, pms = min(k1, k2), min(p1, p2)
+                sms = min(s1, s2) if stack else None
+                gbs = nbytes(w1) / (kms * 1e-3) / 1e9
+                print(f"[chip_smoke] {card}: {quant} {name} ({K}, {N}) M={M}: "
+                      f"qmatmul {kms * 1e3:.1f} us on the device ({gbs:.0f} "
+                      f"GB/s of weights; {call * 1e3:.1f} us a call with the "
+                      f"host's enqueue)"
+                      + (f", stacked {sms * 1e3:.1f} us" if stack else "")
+                      + f", bound {b_ms * 1e3:.1f} us ({b_by}), plain "
+                      f"{pms * 1e3:.1f} us, torch._int_mm "
+                      + (f"{lib * 1e3:.1f} us" if lib else "none"))
+                out[quant, name, M] = (kms, sms, pms, b_ms, b_by, lib)
+    D = model.embed_dim
+    for quant in ("int8", "int4"):  # K11's counterpart: the probes' shape
+        kms = out[quant, "wgu", 1][0]
+        w_bytes = nbytes(model._weights_xq(bf16, quant)["wgu_xq"][0])
+        print(f"[chip_smoke] {card}: {quant} weight stream of wgu "
+              f"({D}, {2 * model.ffn_dim}), M=1: "
+              f"{w_bytes / (kms * 1e-3) / 1e9:.0f} GB/s")
+    x = random_rows(1, D, bf16, 0)
+    q_ms = time_graph(lambda i: gq.quantize_rows(x), 100)
+    q_plain = time_step(lambda: gq.quantize_rows_ref(x), 50)
+    q_bound = bound(nbytes(x) + D + 4, 3 * D, bf16)
+    print(f"[chip_smoke] {card}: quantize_rows (1, {D}) bf16: kernel "
+          f"{q_ms * 1e3:.1f} us, plain {q_plain * 1e3:.1f} us, bound "
+          f"{q_bound[0] * 1e3:.3f} us")
+    out["quantize_rows"] = (q_ms, q_plain) + q_bound
+    return out
 
 
 def main() -> int:
@@ -785,6 +1355,11 @@ def main() -> int:
                 raise AssertionError(f"K2 {fmt}: rows differ from K1")
     phase("3b batched kernel vs plain", t0)
 
+    # 3c. the quantized matmuls (K5, K6, K7) against plain
+    t0 = time.perf_counter()
+    qmm_err = check_qmatmul()
+    phase("3c quantized matmuls vs plain", t0)
+
     # 4. the B=1 path
     t0 = time.perf_counter()
     steps = REQUEST - PROMPT.shape[1] - 1
@@ -833,6 +1408,11 @@ def main() -> int:
     train_launches, flash_err = check_training()
     phase("4c training path", t0)
 
+    # 4d. the big-dims path: Llama-2-7B geometry on the scan lane
+    t0 = time.perf_counter()
+    big, qmm_launches = check_big_dims()
+    phase("4d big-dims path", t0)
+
     # 5. timings: kernels vs plain per step at pos 512, then end to end
     t0 = time.perf_counter()
     ms = {}
@@ -850,10 +1430,11 @@ def main() -> int:
                                20)
             kernel2 = time_step(lambda: dsk.fused_decode_token(*args, **kw),
                                 200)
-            ms[fmt] = (min(kernel, kernel2), min(plain, plain2))
+            ms[fmt] = (min(kernel, kernel2), min(plain, plain2)) \
+                + decode_step_bound(w, ck, 512, 1)
             print(f"[chip_smoke] {card}: {fmt} step at pos 512: kernel "
                   f"{ms[fmt][0] * 1e3:.1f} us, plain {ms[fmt][1] * 1e3:.1f} "
-                  f"us")
+                  f"us, bound {ms[fmt][2] * 1e3:.1f} us ({ms[fmt][3]})")
         w = model._fused_weights(torch.bfloat16, None)
         for batch in (8, 32):
             ck, cv = random_caches(model, torch.bfloat16, 1, batch)
@@ -863,10 +1444,13 @@ def main() -> int:
             ref = lambda: dsk.fused_decode_token_batched_ref(*args, **kw)
             plain, kernel = time_step(ref, 3), time_step(kern, 200)
             plain2, kernel2 = time_step(ref, 3), time_step(kern, 200)
-            ms[f"K2 B={batch}"] = (min(kernel, kernel2), min(plain, plain2))
+            ms[f"K2 B={batch}"] = (min(kernel, kernel2),
+                                   min(plain, plain2)) \
+                + decode_step_bound(w, ck, 512, batch)
             print(f"[chip_smoke] {card}: K2 bf16 B={batch} step at pos 512: "
                   f"kernel {ms[f'K2 B={batch}'][0] * 1e3:.1f} us, plain "
-                  f"{ms[f'K2 B={batch}'][1] * 1e3:.1f} us")
+                  f"{ms[f'K2 B={batch}'][1] * 1e3:.1f} us, bound "
+                  f"{ms[f'K2 B={batch}'][2] * 1e3:.1f} us")
             del ck, cv
     tok_s = {None: [], "int8-head": []}
     for _ in range(REPEATS):  # the formats in turns
@@ -909,30 +1493,47 @@ def main() -> int:
           f"tok/s of 3 runs: {', '.join(f'{r:.1f}' for r in rates)}; median "
           f"{float(np.median(rates)):.1f}")
     ms.update(time_training(card))
+    big_ms = time_big_dims(big, card)
     phase("5 timings", t0)
 
     if "--profile" in sys.argv[1:]:
         t0 = time.perf_counter()
         profile(model, card)
+        profile_big(big)
         phase("6 profile", t0)
 
+    def entry(name, source, replaces, launches, err, t):
+        return {"name": name, "route": "cuda",
+                "source": f"pydynet_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
+                "bound_ms": t[2], "bound_by": t[3], "library_ms": t[4]}
+
+    gq_file = "pydynet_tpu/ops/gemv_quant.py"
+    wgu1, wgu256 = big_ms["int8", "wgu", 1], big_ms["int8", "wgu", 256]
     print(json.dumps({"kernels": [
-        {"name": "decode_token", "route": "cuda",
-         "source": "pydynet_tpu_torch/csrc/decode_token.cu",
-         "replaces": "pydynet_tpu/ops/decode_step.py:160",
-         "launches": main_launches, "max_abs_err": max_err["f32"],
-         "ms": ms["bf16"][0], "plain_ms": ms["bf16"][1]},
-        {"name": "decode_token_batched", "route": "cuda",
-         "source": "pydynet_tpu_torch/csrc/decode_token_batched.cu",
-         "replaces": "pydynet_tpu/ops/decode_step.py:509",
-         "launches": serve_launches, "max_abs_err": max_err_b["f32"],
-         "ms": ms["K2 B=8"][0], "plain_ms": ms["K2 B=8"][1]}] + [
-        {"name": name, "route": "cuda",
-         "source": "pydynet_tpu_torch/csrc/flash_attention.cu",
-         "replaces": f"pydynet_tpu/ops/flash_attention.py:{line}",
-         "launches": train_launches[name], "max_abs_err": flash_err[name],
-         "ms": ms[name, 1][0], "plain_ms": ms[name, 1][1]}
-        for name, line in zip(FLASH_KERNELS, (82, 192, 259))]}))
+        entry("decode_token", "decode_token.cu",
+              "pydynet_tpu/ops/decode_step.py:160", main_launches,
+              max_err["f32"], ms["bf16"] + (None,)),
+        entry("decode_token_batched", "decode_token_batched.cu",
+              "pydynet_tpu/ops/decode_step.py:509", serve_launches,
+              max_err_b["f32"], ms["K2 B=8"] + (None,))] + [
+        entry(name, "flash_attention.cu",
+              f"pydynet_tpu/ops/flash_attention.py:{line}",
+              train_launches[name], flash_err[name], ms[name, 1])
+        for name, line in zip(FLASH_KERNELS, (82, 192, 259))] + [
+        entry("quantize_rows", "gemv_quant.cu", f"{gq_file}:309",
+              qmm_launches["quantize_rows"], qmm_err["quantize_rows"],
+              big_ms["quantize_rows"] + (None,)),
+        entry("qmatmul", "gemv_quant.cu", f"{gq_file}:172",
+              qmm_launches["qmatmul"], qmm_err["qmatmul"],
+              (wgu1[0], wgu1[2], wgu1[3], wgu1[4], None)),
+        entry("qmatmul_prefill", "gemv_quant.cu", f"{gq_file}:136",
+              qmm_launches["qmatmul_prefill"], qmm_err["qmatmul_prefill"],
+              (wgu256[0], wgu256[2], wgu256[3], wgu256[4], wgu256[5])),
+        entry("qmatmul_stacked", "gemv_quant.cu", f"{gq_file}:416",
+              qmm_launches["qmatmul_stacked"], qmm_err["qmatmul_stacked"],
+              (wgu1[1], wgu1[2], wgu1[3], wgu1[4], None))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

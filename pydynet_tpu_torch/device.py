@@ -1,9 +1,10 @@
 """Device resolution for the PyTorch port (counterpart of
 ``pydynet_tpu/device.py`` and ``cuda.py``).
 
-``"cpu"`` resolves to the host and ``"cuda"``/``"cuda:N"`` to an NVIDIA GPU.
-Asking for a GPU where PyTorch sees none raises: nothing in the port falls
-back to the CPU on its own.
+``"cuda"``/``"cuda:N"`` resolves to an NVIDIA GPU, and so does no device at
+all: the port runs on the card unless the caller asks for ``"cpu"``. Asking
+for a GPU where PyTorch sees none raises: nothing in the port falls back to
+the CPU on its own.
 """
 from __future__ import annotations
 
@@ -20,11 +21,12 @@ def device_count() -> int:
 
 
 def resolve(device=None) -> torch.device:
-    """``None``/``"cpu"``/``"cuda[:N]"``/``torch.device`` -> ``torch.device``.
+    """``None``/``"cpu"``/``"cuda[:N]"``/``torch.device`` -> ``torch.device``;
+    ``None`` means ``"cuda"``.
 
     Raises ``RuntimeError`` for a CUDA device when no GPU is present, and
     ``ValueError`` for any other device type."""
-    name = "cpu" if device is None else device
+    name = "cuda" if device is None else device
     if str(name).partition(":")[0] not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device!r}: use 'cpu' or "
                          "'cuda'")
@@ -32,7 +34,7 @@ def resolve(device=None) -> torch.device:
     if dev.type == "cpu":
         return dev
     if not is_available():
-        raise RuntimeError(f"device {device!r} requested but no CUDA GPU "
+        raise RuntimeError(f"device {str(name)!r} requested but no CUDA GPU "
                            "is available")
     index = 0 if dev.index is None else dev.index
     if index >= device_count():

@@ -1,4 +1,4 @@
-"""Llama (stories15M class) in PyTorch: the port of
+"""Llama (stories15M to Llama-2-7B geometry) in PyTorch: the port of
 ``pydynet_tpu/models/llama/model.py``.
 
 The module tree and dotted parameter names are the JAX package's
@@ -13,19 +13,30 @@ are torch's (out, in). Four ways through the model:
   ``nn.functional.scaled_dot_product_attention`` and the flash kernels (K3
   forward, K4 backward on a GPU), the JAX package's cross-entropy and its
   optimizers (``optim``);
-* the plain lane (``generate(fused=False)``): a dense prefill and a
-  per-token decode in plain PyTorch over layer-stacked weights, any batch;
-* the fused lane (the default): the same dense prefill, then one call per
-  token of ``ops.decode_step.fused_decode_token`` at B=1 or
+* the scan lane (``generate(fused=False)``, the JAX package's XLA
+  ``lax.scan`` lane): a dense prefill and a per-token decode over
+  layer-stacked weights, any batch. With ``quant="int8"``/``"int4"`` its
+  four layer matmuls and the head, and with ``"int8-head"`` the head, run
+  through ``ops.gemv_quant`` (the quantized-matmul kernels K5-K7 on a GPU):
+  ``qmatmul`` on each layer's weights up to ``UNROLL_MAX_LAYERS`` layers,
+  ``qmatmul_stacked`` on the stacked weights with a device layer index
+  above;
+* the fused lane: the same dense prefill, then one call per token of
+  ``ops.decode_step.fused_decode_token`` at B=1 or
   ``fused_decode_token_batched`` at B>1, which launch the hand-written CUDA
-  kernel chains on a GPU. A model the kernels do not take (narrow GQA
-  caches, dims or a batch outside ``_fused_decode_supported``) raises
-  unless the caller asks for the plain lane.
+  kernel chains on a GPU (weights f32/bf16, optionally the int8 head).
+
+``fused=None`` routes: the fused lane wherever the port's fused kernels
+take the model, weight format and batch; else the scan lane where the JAX
+package's rule (``_tpu_fused_supported``, its ``_fused_decode_supported``)
+sends the model there, as it does a Llama-2-7B model with int8 or int4
+weights; else it raises, naming the ROADMAP.md item that would port the
+missing kernel. ``fused=True`` and ``fused=False`` ask for a lane.
 
 Semantics kept from the JAX package: interleaved RoPE pairs; bucketed
 prefill read at ``last_idx - 1``; decoding starts at ``pos = L`` on the
 prefill token; ``max_new_tokens`` bounds the total length, capped at
-``max_seq_len``. bf16 rounds differently per lane, as there: the dense lane
+``max_seq_len``. bf16 rounds differently per lane, as there: the scan lane
 rounds per layer in bf16, the fused lane keeps the residual in f32.
 """
 from __future__ import annotations
@@ -43,10 +54,21 @@ from ...nn.modules.loss import CrossEntropyLoss
 from ...nn.modules.norm import RMSNorm, rms_norm
 from ...nn.utils import clip_grad_norm_
 from ...ops import decode_step as dsk
-from ...ops.quant import quantize_int8
+from ...ops import gemv_quant as gq
+from ...ops.quant import quantize_int4, quantize_int8
 
 # tokens decoded between two reads back to the host
 DECODE_CHUNK = 512
+# deeper models run the quantized scan lane through ``qmatmul_stacked`` on
+# the layer-stacked weights (the JAX package's rolled-scan bound,
+# ``model.py:251``)
+UNROLL_MAX_LAYERS = 16
+QUANTS = (None, "int8-head", "int8", "int4")
+# the scan lane's matrices: stacked (L, K, N) name -> the per-layer modules
+# concatenated along the output axis, as in ``_weights``
+_LAYER_MATS = {"wqkv": ("attention.Q", "attention.K", "attention.V"),
+               "wo": ("attention.O",), "wgu": ("ffn.gate", "ffn.up"),
+               "down": ("ffn.down",)}
 
 
 def compute_cos_sin_cache(head_dim: int, max_seq_len: int, base: int = 10000):
@@ -193,10 +215,13 @@ class TransformerBlock(nn.Module):
 
 
 class Llama(nn.Module):
-    """Decoder-only Llama. Weights are drawn on the CPU from ``generator``
-    (a fresh ``torch.Generator`` seeded 0 when not given), so one seed gives
-    the same model on every device, then cast to ``dtype`` and moved to
-    ``device`` (``"cpu"`` or ``"cuda"``; a missing GPU raises)."""
+    """Decoder-only Llama on ``device`` (``"cuda"`` when not given, which
+    raises without a GPU; ``"cpu"`` only when asked for). The parameters are
+    allocated on the device in ``dtype`` (float32 when not given) and filled
+    by :meth:`reset_parameters` from ``generator`` (a fresh
+    ``torch.Generator`` seeded 0 when not given), one tensor at a time drawn
+    in float32 on the CPU, so one seed gives the same model on every device
+    and no full float32 copy of the model is ever held on the host."""
 
     def __init__(self, vocab_size, embed_dim, n_heads, ffn_dim: int,
                  max_seq_len: int, max_batch_size: int = None,
@@ -212,26 +237,34 @@ class Llama(nn.Module):
         self.max_batch_size = max_batch_size
         self.n_layers = n_layers
         self.head_dim = embed_dim // n_heads
-
-        self.tok_embedding = nn.Embedding(vocab_size, embed_dim)
+        dtype = dtype or torch.float32
+        device = resolve(device)
+        self._weights_cache = {}  # (dtype, lane, quant) -> decode weights
+        with torch.device("meta"):  # shapes only: no storage, no init draws
+            self.tok_embedding = nn.Embedding(vocab_size, embed_dim,
+                                              dtype=dtype)
+            self.layers = nn.ModuleList([
+                TransformerBlock(embed_dim, n_heads, ffn_dim, max_seq_len,
+                                 max_batch_size, dtype=dtype,
+                                 n_kv_heads=n_kv_heads)
+                for _ in range(n_layers)
+            ])
+            self.norm = RMSNorm(embed_dim, dtype=dtype)
+            self.lm_head = nn.Linear(embed_dim, vocab_size, dtype=dtype)
+        self.to_empty(device=device)
         cos, sin = compute_cos_sin_cache(self.head_dim, max_seq_len)
-        self.register_buffer("freqs_cos", cos, persistent=False)
-        self.register_buffer("freqs_sin", sin, persistent=False)
-        self.layers = nn.ModuleList([
-            TransformerBlock(embed_dim, n_heads, ffn_dim, max_seq_len,
-                             max_batch_size, n_kv_heads=n_kv_heads)
-            for _ in range(n_layers)
-        ])
-        self.norm = RMSNorm(embed_dim)
-        self.lm_head = nn.Linear(embed_dim, vocab_size)
-        self._weights_cache = {}  # (dtype, fused, quant) -> decode weights
+        self.register_buffer("freqs_cos", cos.to(device, dtype),
+                             persistent=False)
+        self.register_buffer("freqs_sin", sin.to(device, dtype),
+                             persistent=False)
         self.reset_parameters(generator)
-        self.to(device=resolve(device), dtype=dtype or torch.float32)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator = None):
         """Linear weights and biases uniform in +-1/sqrt(fan_in), embedding
-        N(0, 1), norms 1, all drawn from ``generator`` in a fixed order."""
+        N(0, 1), norms 1, all drawn in float32 on the CPU from ``generator``
+        in a fixed order and copied into the parameters; the eager path's
+        KV caches are zeroed."""
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for m in self.modules():
@@ -246,6 +279,9 @@ class Llama(nn.Module):
                     generator=generator))
             elif isinstance(m, RMSNorm):
                 m.weight.fill_(1.0)
+            elif isinstance(m, Attention):
+                m.cache_k.zero_()
+                m.cache_v.zero_()
         self._weights_cache.clear()
 
     # decode-weight snapshots hold copies of the weights (or tensors of the
@@ -365,7 +401,7 @@ class Llama(nn.Module):
         self._weights_cache.clear()
         return losses
 
-    # ------------------------------ plain lane ------------------------------
+    # ------------------------------ scan lane -------------------------------
     def _weights(self, dtype=None):
         """Layer-stacked decode weights in torch's (out, in) layout, cast to
         ``dtype`` when given: q/k/v and gate/up are concatenated into one
@@ -404,6 +440,64 @@ class Llama(nn.Module):
         self._weights_cache[key] = w
         return w
 
+    def _weights_xq(self, dtype, quant):
+        """The scan lane's weights for a quantized format (the JAX package's
+        ``_weights_xq``, ``model.py:647-681``). ``"int8"``/``"int4"``
+        quantize each stacked layer matrix as (L, K, N), contraction axis
+        first (torch's (out, in) transposed), with per-output-channel scales
+        (L, 1, N), into ``<name>_xq``/``<name>_xs``; every format quantizes
+        the head as (D, V) into ``head_xq``/``head_xs`` (1, V). ``"q4"``
+        marks int4 and ``layer_ids`` holds the device layer indices of
+        ``qmatmul_stacked``. A quantized matrix is built a layer at a time,
+        so no dense stacked copy of it is made or kept."""
+        if quant not in ("int8", "int4", "int8-head"):
+            raise ValueError(f"unsupported quant mode: {quant!r}")
+        key = (dtype, "xq", quant)
+        if key in self._weights_cache:
+            return self._weights_cache[key]
+        P = dict(self.named_parameters())
+        P.update(freqs_cos=self.freqs_cos, freqs_sin=self.freqs_sin)
+
+        def g(name):
+            a = P[name].detach()
+            return a.to(dtype) if dtype else a
+
+        q4 = quant == "int4"
+        qfn = quantize_int4 if q4 else quantize_int8
+        if quant == "int8-head":
+            w = dict(self._weights(dtype))
+            del w["head_w"]
+        else:
+            w = {k: g(n) for k, n in (("tok", "tok_embedding.weight"),
+                                      ("cos", "freqs_cos"),
+                                      ("sin", "freqs_sin"),
+                                      ("norm", "norm.weight"),
+                                      ("head_b", "lm_head.bias"))}
+            for k, n in (("in_norm", "input_norm"),
+                         ("post_norm", "post_attn_norm")):
+                w[k] = torch.stack([g(f"layers.{i}.{n}.weight")
+                                    for i in range(self.n_layers)])
+            for name, mods in _LAYER_MATS.items():
+                for i in range(self.n_layers):
+                    m = torch.cat([g(f"layers.{i}.{mod}.weight")
+                                   for mod in mods]).t()  # (K, N)
+                    q, sc = qfn(m, axis=0)
+                    if i == 0:
+                        w[name + "_xq"] = q.new_empty((self.n_layers,)
+                                                      + q.shape)
+                        w[name + "_xs"] = sc.new_empty((self.n_layers,)
+                                                       + sc.shape)
+                    w[name + "_xq"][i] = q
+                    w[name + "_xs"][i] = sc
+            if q4:
+                w["q4"] = True
+        hq, hs = qfn(g("lm_head.weight").t(), axis=0)
+        w["head_xq"], w["head_xs"] = hq.contiguous(), hs.contiguous()
+        w["layer_ids"] = torch.arange(self.n_layers, dtype=torch.int32,
+                                      device=self.device)
+        self._weights_cache[key] = w
+        return w
+
     def _empty_caches(self, B: int, dtype):
         shape = (self.n_layers, B, self.max_seq_len, self.n_kv_heads,
                  self.head_dim)
@@ -411,30 +505,53 @@ class Llama(nn.Module):
                 torch.zeros(shape, dtype=dtype, device=self.device))
 
     def forward_logits_one(self, weights, ck, cv, tokens, pos: int,
-                           last_idx: int = None):
+                           last_idx: int = None, starts=None):
         """Dense forward of ``tokens`` (B, L) at absolute position ``pos``
         over caches (N, B, S, Hkv, hd), which are written in place at rows
-        [pos, pos + L). Attention reads rows [0, pos + L) under the causal
-        mask. Returns float32 logits (B, V) at the last position, or at
-        ``last_idx - 1`` when the prompt is bucket-padded."""
+        [pos, pos + L) (clamped into the cache, as the JAX package's
+        ``dynamic_update_slice`` clamps). Row b attends cache rows
+        [starts[b], pos + L) under the causal mask (``starts`` (B,) int32 on
+        the device, the server's slot-recycling bound; 0 when None).
+        Returns float32 logits (B, V) at the last position, or at
+        ``last_idx - 1`` when the prompt is bucket-padded. Weights from
+        :meth:`_weights_xq` run the quantized matmuls (see the module
+        doc)."""
         B, L = tokens.shape
         S, H, Hkv, hd = (self.max_seq_len, self.n_heads, self.n_kv_heads,
                          self.head_dim)
         D, Dkv, Fd = H * hd, Hkv * hd, self.ffn_dim
         g = H // Hkv
         W = weights
+        q4 = "q4" in W
+        stacked = self.n_layers > UNROLL_MAX_LAYERS
+
+        def mm(x, name, i):
+            if name + "_xq" not in W:
+                return F.linear(x, W[name][i])
+            x2 = x.reshape(-1, x.shape[-1]).contiguous()
+            if stacked:
+                y = gq.qmatmul_stacked(x2, W[name + "_xq"], W[name + "_xs"],
+                                       W["layer_ids"][i], q4=q4)
+            else:
+                y = gq.qmatmul(x2, W[name + "_xq"][i], W[name + "_xs"][i],
+                               q4=q4)
+            return y.reshape(x.shape[:-1] + y.shape[-1:]).to(x.dtype)
+
         h = W["tok"][tokens]
-        cos, sin = W["cos"][pos:pos + L], W["sin"][pos:pos + L]
         start = min(pos, S - L)  # the write slice stays inside the cache
         end = min(S, pos + L)
+        cos, sin = W["cos"][start:start + L], W["sin"][start:start + L]
         qpos = pos + torch.arange(L, device=h.device)[:, None]
-        allowed = torch.arange(end, device=h.device)[None, :] <= qpos
-        mask = torch.zeros(L, end, device=h.device).masked_fill(
+        cols = torch.arange(end, device=h.device)
+        allowed = cols[None, :] <= qpos                     # (L, end)
+        if starts is not None:  # (B, 1, L, end): broadcast over heads
+            allowed = (allowed[None] & (cols >= starts[:, None, None]))[:, None]
+        mask = torch.zeros(allowed.shape, device=h.device).masked_fill(
             ~allowed, float("-inf"))
         scale = 1.0 / math.sqrt(hd)
         for i in range(self.n_layers):
             hn = rms_norm(h, W["in_norm"][i]).to(h.dtype)
-            qkv = F.linear(hn, W["wqkv"][i])
+            qkv = mm(hn, "wqkv", i)
             q = qkv[..., :D].reshape(B, L, H, hd)
             k = qkv[..., D:D + Dkv].reshape(B, L, Hkv, hd)
             v = qkv[..., D + Dkv:].reshape(B, L, Hkv, hd)
@@ -449,13 +566,18 @@ class Llama(nn.Module):
             s = torch.einsum("blhd,bmhd->bhlm", q.float(), kk.float()) * scale
             p = torch.softmax(s + mask, dim=-1).to(h.dtype)
             att = torch.einsum("bhlm,bmhd->blhd", p, vv).reshape(B, L, D)
-            z = h + F.linear(att, W["wo"][i])
+            z = h + mm(att, "wo", i)
             zn = rms_norm(z, W["post_norm"][i]).to(z.dtype)
-            gate, up = F.linear(zn, W["wgu"][i]).split(Fd, dim=-1)
-            h = z + F.linear(gate * torch.sigmoid(gate) * up, W["down"][i])
+            gate, up = mm(zn, "wgu", i).split(Fd, dim=-1)
+            h = z + mm(gate * torch.sigmoid(gate) * up, "down", i)
         h = rms_norm(h, W["norm"]).to(h.dtype)
         hl = h[:, -1] if last_idx is None else h[:, last_idx - 1]
-        return F.linear(hl, W["head_w"]).float() + W["head_b"].float()
+        if "head_xq" in W:
+            logits = gq.qmatmul(hl.contiguous(), W["head_xq"], W["head_xs"],
+                                q4=q4)
+        else:
+            logits = F.linear(hl, W["head_w"]).float()
+        return logits + W["head_b"].float()
 
     def prefill(self, weights, ck, cv, ids, last_idx=None):
         """Greedy token after the prompt ``ids`` (B, L), caches filled."""
@@ -465,14 +587,16 @@ class Llama(nn.Module):
         return logits.argmax(-1)
 
     def decode_chunk_plain(self, weights, ck, cv, tok, pos: int,
-                           n_steps: int):
-        """``n_steps`` greedy tokens on the plain lane from ``tok`` (B,) at
-        ``pos``; returns them as (n_steps, B) int32, still on the device."""
+                           n_steps: int, starts=None):
+        """``n_steps`` greedy tokens on the scan lane from ``tok`` (B,) at
+        ``pos``, rows attending from ``starts`` (see
+        :meth:`forward_logits_one`); returns them as (n_steps, B) int32,
+        still on the device."""
         toks = torch.empty(n_steps, tok.shape[0], dtype=torch.int32,
                            device=tok.device)
         for i in range(n_steps):
             logits = self.forward_logits_one(weights, ck, cv, tok[:, None],
-                                             pos + i)
+                                             pos + i, starts=starts)
             tok = toks[i] = logits.argmax(-1)
         return toks
 
@@ -539,6 +663,62 @@ class Llama(nn.Module):
         return (quant in (None, "int8-head")
                 and self.n_kv_heads == self.n_heads and takes)
 
+    def _tpu_fused_supported(self, quant=None) -> bool:
+        """The JAX package's routing rule, ``_fused_decode_supported``
+        (``pydynet_tpu/models/llama/model.py:1228-1258``): whether its
+        whole-token Pallas kernel takes the model, else ``generate`` runs
+        the scan lane. 8-aligned widths, a 16-aligned cache, an even
+        head_dim, a vocab that tiles, and every per-layer weight window
+        double-buffered within 100 MB of TPU VMEM at the format's item size.
+        ``fused=None`` sends a model the port's fused kernels do not take to
+        the scan lane exactly where this rule does."""
+        D, Fd, S, V = (self.embed_dim, self.ffn_dim, self.max_seq_len,
+                       self.vocab_size)
+        CW = dsk.lane_pad_dim(max(self.n_kv_heads * self.head_dim, 1)) \
+            if self.n_kv_heads != self.n_heads else D
+        itemsize = {"int8": 1.0, "int4": 0.5}.get(quant, 2.0)
+        vmem = 2 * (2 * D * D + 2 * D * CW + 3 * D * Fd) * itemsize
+        return (D % 8 == 0 and Fd % 8 == 0 and S % 16 == 0
+                and self.head_dim % 2 == 0 and dsk.pick_vt(V) > 0
+                and dsk.pick_sb(S) > 0 and V % 8 == 0
+                and vmem <= (100 << 20))
+
+    def _fused_refusal(self, quant, batch):
+        """None when the port's fused kernels take the weight format, the
+        model and ``batch`` rows; else ``(what, ROADMAP item)`` naming what
+        is missing."""
+        if quant not in (None, "int8-head"):
+            return (f"quant={quant!r} on the fused lane (fused=False runs "
+                    "the scan lane)", "Remaining weight formats")
+        if self.n_kv_heads != self.n_heads:
+            return ("narrow GQA caches on the fused lane (fused=False runs "
+                    "the scan lane)", "Narrow GQA")
+        if batch > dsk.MAX_BATCH:
+            return (f"the batched kernel above B={dsk.MAX_BATCH} "
+                    "(fused=False runs the scan lane)", "Batched decode")
+        if not self._fused_decode_supported(quant, batch):
+            return ("a fused decode kernel for these dims (fused=False runs "
+                    "the scan lane)", "Big-dims lane")
+        return None
+
+    def use_fused(self, quant, batch: int, fused=None) -> bool:
+        """Resolve the lane of ``generate`` and ``LlamaServer``: ``fused``
+        True or False asks for a lane; None takes the fused lane where the
+        port's fused kernels take the model, format and batch, else the scan
+        lane where the JAX package's rule (:meth:`_tpu_fused_supported`)
+        sends the model there. Raises ``NotImplementedError`` naming the
+        ROADMAP.md item for a fused lane the port cannot run."""
+        if quant not in QUANTS:
+            raise ValueError(f"unsupported quant mode: {quant!r}")
+        if fused is not None and not fused:
+            return False
+        refusal = self._fused_refusal(quant, batch)
+        if refusal is None:
+            return True
+        if fused is None and not self._tpu_fused_supported(quant):
+            return False
+        not_ported(*refusal)
+
     def fused_step(self, weights, ck, cv, tok, pos, out=None):
         """One ``fused_decode_token`` call: ``tok``/``pos`` (1,) int32 on
         the device, caches (N, S, D) updated in place; returns (1,) int32."""
@@ -591,18 +771,17 @@ class Llama(nn.Module):
     # ------------------------------- generate -------------------------------
     def _check_generate(self, B, dtype, fused, quant, temperature, top_k,
                         top_p, repetition_penalty, kv_quant, flash_prefill):
-        """Resolve ``fused`` (None means the fused lane, at any B) and raise
-        for whatever this port does not run yet, naming its ROADMAP.md item.
-        Nothing is rerouted silently: a model or batch the fused kernels do
-        not take raises unless the caller asks for the plain lane with
+        """Resolve the lane (:meth:`use_fused`) and raise for whatever this
+        port does not run yet, naming its ROADMAP.md item. Nothing is
+        rerouted silently: a model, format or batch that neither the port's
+        fused kernels take nor the JAX package's rule sends to the scan lane
+        raises unless the caller asks for the scan lane with
         ``fused=False``."""
         if (temperature or 0) > 0 or top_k is not None or top_p is not None \
                 or repetition_penalty is not None:
             not_ported("sampling", "Sampling")
         if kv_quant is not None:
             not_ported(f"kv_quant={kv_quant!r}", "Batched decode")
-        if quant not in (None, "int8-head"):
-            not_ported(f"quant={quant!r}", "Remaining weight formats")
         if flash_prefill:
             not_ported("flash prefill", "Long-prompt prefill")
         if dtype not in (None, torch.float32, torch.bfloat16):
@@ -610,20 +789,7 @@ class Llama(nn.Module):
                                       "bfloat16")
         if fused == "numpy":
             not_ported("the NumPy CPU decode lane", "CPU decode lane")
-        if fused is None:
-            fused = True
-        if fused and self.n_kv_heads != self.n_heads:
-            not_ported("narrow GQA caches on the fused lane (fused=False "
-                       "runs the plain lane)", "Narrow GQA")
-        if fused and B > dsk.MAX_BATCH:
-            not_ported(f"the batched kernel above B={dsk.MAX_BATCH} "
-                       "(fused=False runs the plain lane)", "Batched decode")
-        if fused and not self._fused_decode_supported(quant, B):
-            not_ported("a fused decode kernel for these dims (fused=False "
-                       "runs the plain lane)", "Big-dims lane")
-        if quant and not fused:
-            not_ported("quantized weights on the plain lane", "Big-dims lane")
-        return fused
+        return self.use_fused(quant, B, fused)
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int,
@@ -638,9 +804,11 @@ class Llama(nn.Module):
         length (prompt included) and is capped at ``max_seq_len``; a total
         at or below the prompt length yields nothing. ``dtype`` (float32 or
         bfloat16) casts the weights and caches; ``quant="int8-head"`` stores
-        the lm_head as int8 on the fused lane. ``fused=None`` is the fused
-        lane: one B=1 kernel chain a token at B=1, one batched chain a token
-        for all rows at B>1."""
+        the lm_head as int8, ``"int8"`` and ``"int4"`` (scan lane) every
+        matmul weight as well. ``fused`` picks the lane (module doc): on
+        the fused lane one B=1 kernel chain a token at B=1, one batched
+        chain a token for all rows at B>1; on the scan lane one dense
+        forward a token, its matmuls quantized with ``quant``."""
         ids = np.asarray(input_ids)
         B, L = ids.shape
         fused = self._check_generate(B, dtype, fused, quant, temperature,
@@ -649,8 +817,12 @@ class Llama(nn.Module):
         total = min(max_new_tokens, self.max_seq_len)
         if total <= L:
             return
-        weights = (self._fused_weights(dtype, quant) if fused
-                   else self._weights(dtype))
+        if fused:
+            weights = self._fused_weights(dtype, quant)
+        elif quant:
+            weights = self._weights_xq(dtype, quant)
+        else:
+            weights = self._weights(dtype)
         ck, cv = self._empty_caches(B, weights["tok"].dtype)
         tok = self.prefill(weights, ck, cv,
                            *bucket_prompt(ids, L, self.max_seq_len))

@@ -23,9 +23,21 @@ Scheduling rules that fall out of the shared position:
 * the server stops admitting at the cache end; requests still decoding at
   ``max_seq_len`` are finished as truncated.
 
+The scan lane (``lane="xla"``, the JAX package's XLA ``lax.scan`` lane for
+big dims) keeps the same protocol over the scan lane's forward
+(``Llama.forward_logits_one`` with per-row ``starts``) and (N, B, S, Hkv,
+hd) caches: an admission wave is prefilled at position 0 in a fresh cache,
+its K rows are rotated by angle(pos0) in float32 and scattered into the
+fleet's caches at rows [pos0, pos0 + L); ``quant="int8"``/``"int4"`` (and
+``"int8-head"``) run its matmuls through ``ops.gemv_quant``. ``lane=None``
+routes as ``generate`` does (``Llama.use_fused``): the fused lane where the
+port's batched kernel takes the model, format and batch, the scan lane
+where the JAX package's rule sends the model there (Llama-2-7B geometry
+with int8 or int4 weights).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): sampling and speculative serving, the int8 KV cache, weight formats
-beyond int8-head, the XLA lane with its prefix cache, flash prefill.
+item): sampling and speculative serving, the int8 KV cache, int8 and int4
+layers on the fused lane, the scan lane's prefix cache, flash prefill.
 """
 from __future__ import annotations
 
@@ -37,7 +49,7 @@ import numpy as np
 import torch
 
 from ...ops import decode_step as dsk
-from .model import bucket_prompt, not_ported
+from .model import _rope_pure, bucket_prompt, not_ported
 
 
 @dataclass
@@ -159,13 +171,15 @@ class LlamaServer(_FleetScheduler):
 
     ``quant="int8-head"`` stores the lm_head as int8 with per-row scales
     (the batched kernel quantises each row's activations with its own
-    scale). ``chunk`` is the number of decode steps a dispatch runs: a
-    finished request's slot is recycled at the next chunk boundary, one
-    chunk late under ``run``'s pipeline. The constructor keeps the JAX
-    package's keyword names; the options not ported yet raise
-    ``NotImplementedError`` naming their ROADMAP.md item.
-    ``dispatched_steps`` counts the batched decode steps dispatched so far,
-    clamped filler steps included.
+    scale); ``"int8"`` and ``"int4"`` quantize every matmul on the scan
+    lane. ``lane`` is ``"fused"``, ``"xla"`` (the scan lane) or None (routed
+    as ``generate`` routes, see the module doc). ``chunk`` is the number of
+    decode steps a dispatch runs: a finished request's slot is recycled at
+    the next chunk boundary, one chunk late under ``run``'s pipeline. The
+    constructor keeps the JAX package's keyword names; the options not
+    ported yet raise ``NotImplementedError`` naming their ROADMAP.md item.
+    ``dispatched_steps`` counts the decode steps dispatched so far, clamped
+    filler steps included.
     """
 
     def __init__(self, model, batch_size: int = 8, dtype=None,
@@ -181,26 +195,18 @@ class LlamaServer(_FleetScheduler):
             not_ported("speculative serving", "Sampling")
         if kv_quant is not None:
             not_ported(f"kv_quant={kv_quant!r}", "Batched decode")
-        if quant not in (None, "int8-head"):
-            not_ported(f"quant={quant!r}", "Remaining weight formats")
-        if lane == "xla" or prefix_cache:
-            not_ported("the XLA serving lane and its prefix cache",
-                       "Big-dims lane")
         if lane not in (None, "fused", "xla"):
             raise ValueError(f"unknown lane: {lane!r}")
+        if prefix_cache:
+            not_ported("the scan lane's prefix cache", "Big-dims lane")
         if flash_prefill:
             not_ported("flash prefill", "Long-prompt prefill")
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise NotImplementedError(f"dtype {dtype}: use float32 or "
                                       "bfloat16")
-        if model.n_kv_heads != model.n_heads:
-            not_ported("narrow GQA caches on the fused lane", "Narrow GQA")
-        if batch_size > dsk.MAX_BATCH:
-            not_ported(f"the batched kernel above B={dsk.MAX_BATCH}",
-                       "Batched decode")
-        if not dsk.batched_kernel_takes(model.embed_dim, model.n_heads,
-                                        model.ffn_dim, batch_size):
-            not_ported("the batched kernel for these dims", "Big-dims lane")
+        fused = model.use_fused(quant, batch_size,
+                                None if lane is None else lane == "fused")
+        self._lane = "fused" if fused else "xla"
         model.eval()
         self.model = model
         self.B = batch_size
@@ -212,10 +218,13 @@ class LlamaServer(_FleetScheduler):
         N, S, D = model.n_layers, model.max_seq_len, model.embed_dim
         self.S = S
         dev, cdt = model.device, self._w["tok"].dtype
-        self._ck = torch.zeros(N, self.B, S, D, dtype=cdt, device=dev)
-        self._cv = torch.zeros(N, self.B, S, D, dtype=cdt, device=dev)
+        if fused:
+            self._ck = torch.zeros(N, self.B, S, D, dtype=cdt, device=dev)
+            self._cv = torch.zeros(N, self.B, S, D, dtype=cdt, device=dev)
+        else:  # the scan lane's (N, B, S, Hkv, hd) layout
+            self._ck, self._cv = model._empty_caches(self.B, cdt)
         self._tok = torch.ones(self.B, dtype=torch.int32, device=dev)
-        # the kernel's copy of _starts, written at admission only, so a
+        # the decode steps' copy of _starts, written at admission only, so a
         # decode dispatch copies nothing from the host
         self._starts_dev = torch.zeros(self.B, dtype=torch.int32, device=dev)
         self._init_fleet_state()
@@ -224,10 +233,16 @@ class LlamaServer(_FleetScheduler):
     # ------------------------------ device ------------------------------ #
     def _refresh_weights(self):
         """The decode weights of the model as it is now: the snapshot
-        ``generate`` uses (same cache key), which the model drops when its
-        weights change, so requests mid-decode continue on the new weights
-        from their next chunk."""
-        self._w = self.model._fused_weights(self._dtype, self._quant)
+        ``generate`` uses on this lane (same cache key), which the model
+        drops when its weights change, so requests mid-decode continue on
+        the new weights from their next chunk."""
+        m = self.model
+        if self._lane == "fused":
+            self._w = m._fused_weights(self._dtype, self._quant)
+        elif self._quant:
+            self._w = m._weights_xq(self._dtype, self._quant)
+        else:
+            self._w = m._weights(self._dtype)
 
     @torch.no_grad()
     def _admit_many(self, prompts, pos0: int, slots):
@@ -246,11 +261,18 @@ class LlamaServer(_FleetScheduler):
         ids, last_idx = bucket_prompt(prompts, L, self.S)
         ck5, cv5 = model._empty_caches(k, self._ck.dtype)
         tok1 = model.prefill(w, ck5, cv5, ids, last_idx).to(torch.int32)
-        N, D = model.n_layers, model.embed_dim
-        rows_k = ck5[:, :, :L].reshape(N, k, L, D).float()
-        rows_v = cv5[:, :, :L].reshape(N, k, L, D)
-        rows_k = dsk._rope_pairs(rows_k, w["cosD"][pos0].float(),
-                             w["sinD"][pos0].float()).to(self._ck.dtype)
+        if self._lane == "fused":
+            N, D = model.n_layers, model.embed_dim
+            rows_k = ck5[:, :, :L].reshape(N, k, L, D).float()
+            rows_v = cv5[:, :, :L].reshape(N, k, L, D)
+            rows_k = dsk._rope_pairs(rows_k, w["cosD"][pos0].float(),
+                                     w["sinD"][pos0].float())
+        else:  # (N, k, L, Hkv, hd) rows, one table row for every head
+            rows_v = cv5[:, :, :L]
+            rows_k = _rope_pure(ck5[:, :, :L].float(),
+                                w["cos"][pos0:pos0 + 1].float(),
+                                w["sin"][pos0:pos0 + 1].float())
+        rows_k = rows_k.to(self._ck.dtype)
         idx = torch.as_tensor(slots, dtype=torch.long, device=tok1.device)
         self._ck[:, idx, pos0:pos0 + L] = rows_k
         self._cv[:, idx, pos0:pos0 + L] = rows_v
@@ -260,11 +282,12 @@ class LlamaServer(_FleetScheduler):
 
     @torch.no_grad()
     def _decode(self, n: int):
-        """Dispatch ``n`` batched steps from the fleet's position; returns
+        """Dispatch ``n`` decode steps from the fleet's position; returns
         the (n, B) int32 tokens on the device, not yet read back."""
-        toks = self.model.decode_chunk(
-            self._w, self._ck, self._cv, self._tok, self._pos, n,
-            starts=self._starts_dev)
+        decode = (self.model.decode_chunk if self._lane == "fused"
+                  else self.model.decode_chunk_plain)
+        toks = decode(self._w, self._ck, self._cv, self._tok, self._pos, n,
+                      starts=self._starts_dev)
         self._tok.copy_(toks[-1])  # a copy: admission writes _tok in place
         return toks
 

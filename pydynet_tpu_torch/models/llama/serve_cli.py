@@ -1,6 +1,7 @@
 """Continuous-batching serving from the command line (port of
 ``llm/llama/serve.py``): submit many prompts, decode them in lockstep on the
-batched decode kernel with slot recycling, and report aggregate throughput.
+batched decode kernel (or the scan lane) with slot recycling, and report
+aggregate throughput.
 
     python -m pydynet_tpu_torch.models.llama.serve_cli --random-init \\
         --prompt "There was a boy" --prompt "Once upon a time" \\
@@ -10,7 +11,10 @@ batched decode kernel with slot recycling, and report aggregate throughput.
 ``--device cpu`` runs the kernels' plain versions. Without a checkpoint the
 stories15M configuration is built with random weights from ``--seed``.
 ``--prompts-file`` reads one prompt per line; ``--stream`` prints tokens as
-chunks are read back; ``--quant int8-head`` stores the lm_head as int8.
+chunks are read back; ``--quant int8-head`` stores the lm_head as int8,
+``int8``/``int4`` every matmul weight (on the scan lane). ``--lane`` picks
+the decode engine, ``fused`` (the batched decode kernel) or ``xla`` (the
+scan lane); by default it is routed as ``Llama.generate`` routes.
 """
 from __future__ import annotations
 
@@ -54,7 +58,12 @@ def main(argv=None) -> float:
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random weights")
     parser.add_argument("--dtype", choices=list(DTYPES), default="bfloat16")
-    parser.add_argument("--quant", choices=["int8-head"], default=None)
+    parser.add_argument("--quant", choices=["int8-head", "int8", "int4"],
+                        default=None)
+    parser.add_argument("--lane", choices=["fused", "xla"], default=None,
+                        help="decode engine (default: routed as generate "
+                        "routes: the fused kernels where they take the "
+                        "model and format, else the scan lane)")
     parser.add_argument("--stream", action="store_true",
                         help="print tokens as chunks are read back "
                         "(LlamaServer.stream) instead of completions at the "
@@ -73,7 +82,8 @@ def main(argv=None) -> float:
     model = build_model(args, device).eval()
     srv = LlamaServer(model, batch_size=args.batch_size,
                       dtype=DTYPES[args.dtype], chunk=args.chunk,
-                      eos_id=tokenizer.eos_id, quant=args.quant)
+                      eos_id=tokenizer.eos_id, quant=args.quant,
+                      lane=args.lane)
     encoded = [tokenizer.encode(p) for p in prompts]
     rids = [srv.submit(ids, max_new_tokens=args.max_new_tokens)
             for ids in encoded]

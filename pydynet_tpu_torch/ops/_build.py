@@ -41,6 +41,10 @@ SIGNATURES = {
                          + [ctypes.c_float, _P]),
     "pdt_flash_bwd_dkv": (_I, [_I] + [_P] * 8 + [_I] * 4
                           + [ctypes.c_float, _P]),
+    "pdt_quantize_rows": (_I, [_I] + [_P] * 3 + [_I] * 2 + [_P]),
+    "pdt_qmm_scratch_ints": (_I, [_I] * 4),
+    "pdt_qmm": (_I, [_I] + [_P] * 5 + [_I] * 2 + [_P] * 2 + [_I] * 3
+                + [_P]),
 }
 
 

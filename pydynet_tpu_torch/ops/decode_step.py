@@ -79,6 +79,32 @@ def batched_kernel_takes(dim: int, n_heads: int, ffn: int,
             and batch * max(dim, ffn) + 1024 <= _SMEM_OPTIN_FLOATS)
 
 
+def lane_pad_dim(d: int) -> int:
+    """Smallest multiple of 128 >= d (``pydynet_tpu/ops/decode_step.py:1274``,
+    used by the JAX package's routing rule, ``Llama._tpu_fused_supported``)."""
+    return -(-d // 128) * 128
+
+
+def pick_vt(vocab: int, cap: int = 8192) -> int:
+    """Largest 128-multiple vocab tile <= ``cap`` dividing ``vocab``, else
+    the largest one at all, else 0 (``decode_step.py:1279``, without the
+    ``d_model`` byte budget the routing rule does not pass)."""
+    for limit in (min(cap, vocab), vocab):
+        for vt in range(limit, 127, -128):
+            if vocab % vt == 0 and vt % 128 == 0:
+                return vt
+    return 0
+
+
+def pick_sb(seq: int, cap: int = 256) -> int:
+    """Largest 16-multiple KV block <= ``cap`` dividing ``seq``, else 0
+    (``decode_step.py:1304``)."""
+    for sb in range(min(cap, seq), 15, -16):
+        if seq % sb == 0:
+            return sb
+    return 0
+
+
 def _rope_pairs(x, cos, sin):
     """Rotate interleaved (2i, 2i+1) pairs: x (..., D); cos/sin (D,) f32."""
     xr, xi = x[..., 0::2], x[..., 1::2]

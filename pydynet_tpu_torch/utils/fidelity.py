@@ -1,19 +1,57 @@
-"""Fidelity gates for the fused decode kernels (port of the argmax gate in
-``pydynet_tpu/utils/fidelity.py``).
+"""Fidelity gates for the decode lanes (port of the argmax gates and the
+dequantized truth of ``pydynet_tpu/utils/fidelity.py``).
 
-The kernel is driven teacher-forced along a greedy token stream from the
-eager float32 model, and its per-step token must equal that stream at every
-step whose float32 top-2 margin clears bf16 noise. Teacher forcing stops one
-near-tie flip from cascading, so the gate checks the kernel's arithmetic, not
-the chaos of a random-weight stream.
+A lane is driven teacher-forced along a greedy token stream from a truth
+model, and its per-step token must equal that stream at every step whose
+top-2 margin clears bf16 noise (``gate_fused_argmax``, ``gate_scan_argmax``),
+or, for a lossy weight format, agree with it on a majority of steps
+(``min_agree``). Teacher forcing stops one near-tie flip from cascading, so
+the gate checks the lane's arithmetic, not the chaos of a random-weight
+stream. ``dequant_inplace`` makes the truth of a lossy format: the weights
+round-tripped through it, so the quantized lane differs from the truth only
+by the per-call activation quantization.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..ops import quant as Q
+
 MARGIN = 0.05      # absolute floor: bf16 rounding at |logit| ~ 5 is ~ 0.04
 REL_MARGIN = 0.02  # plus this share of |top logit|: bf16's ulp is |x|/256
+_ROUND_TRIPPED = ("attention.Q", "attention.K", "attention.V", "attention.O",
+                  "ffn.gate", "ffn.up", "ffn.down")
+
+
+@torch.no_grad()
+def dequant_inplace(model, quant: str = "int4"):
+    """Round-trip the model's matmul weights (every layer's seven and the
+    head) through ``quant`` ("int8" or "int4") with per-output-channel
+    scales over the contraction axis, as the scan lane's ``_weights_xq``
+    quantizes them, IN PLACE. Per-output-channel scales commute with the
+    scan lane's q/k/v and gate/up concatenation, so this is exactly the
+    quantized lane's weight error. Returns the model."""
+    if quant == "int4":
+        def rt(a):
+            return Q.dequantize_int4(*Q.quantize_int4(a, axis=1), axis=1)
+    elif quant == "int8":
+        def rt(a):
+            return Q.dequantize_int8(*Q.quantize_int8(a, axis=1))
+    else:
+        raise ValueError(f"unsupported quant mode: {quant!r}")
+    names = [f"layers.{i}.{m}.weight" for i in range(model.n_layers)
+             for m in _ROUND_TRIPPED] + ["lm_head.weight"]
+    for name in names:
+        p = model.get_parameter(name)
+        p.copy_(rt(p))
+    model._weights_cache.clear()
+    return model
+
+
+def dequant_int4_inplace(model):
+    """``dequant_inplace(model, "int4")``."""
+    return dequant_inplace(model, "int4")
 
 
 @torch.no_grad()
@@ -72,6 +110,74 @@ def gate_fused_argmax(model, prompt_ids, truth, margins, tops=None, *,
     got = np.concatenate([first[None], outs.cpu().numpy()])  # (steps, B)
     conf = _confident(margins, tops, margin, rel)
     checked = int(conf.sum())  # per row and step, as the JAX gate counts
+    ok = int((got[conf] == truth[conf]).sum())
+    frac = ok / checked if checked else 0.0
+    return checked, checked > 0 and ok == checked, frac
+
+
+def _top2(logits):
+    srt = torch.sort(logits.float(), dim=-1).values
+    return (srt[..., -1] - srt[..., -2]).cpu().numpy(), \
+        srt[..., -1].cpu().numpy()
+
+
+@torch.no_grad()
+def scan_truth(model, prompt_ids, steps: int, *, dtype=None, quant=None,
+               forced=None):
+    """Greedy stream of the scan lane (``generate(fused=False)``'s
+    forward, in ``dtype`` and ``quant``) with per-step top-2 margins and top
+    values: ``(truth, margins, tops)``, each (steps, B). The truth of the
+    gates below on a model too large for the eager float32 stream. With
+    ``forced`` (steps, B) the lane is fed those tokens instead of its own
+    argmax: the margins are then those along the ``forced`` stream."""
+    prompt_ids = np.asarray(prompt_ids)
+    B, L = prompt_ids.shape
+    w = model._weights_xq(dtype, quant) if quant else model._weights(dtype)
+    ck, cv = model._empty_caches(B, w["tok"].dtype)
+    tokens = torch.as_tensor(prompt_ids, dtype=torch.long,
+                             device=model.device)
+    logits = model.forward_logits_one(w, ck, cv, tokens, 0)
+    truth, margins, tops = [], [], []
+    for i in range(steps):
+        m, t = _top2(logits)
+        margins.append(m)
+        tops.append(t)
+        nxt = logits.argmax(-1)
+        truth.append(nxt.cpu().numpy())
+        if forced is not None:
+            nxt = torch.as_tensor(forced[i], device=model.device)
+        if i + 1 < steps:
+            logits = model.forward_logits_one(w, ck, cv, nxt[:, None], L + i)
+    return np.array(truth), np.array(margins), np.array(tops)
+
+
+@torch.no_grad()
+def gate_scan_argmax(model, prompt_ids, truth, margins, tops=None, *,
+                     dtype=None, quant=None, margin: float = MARGIN,
+                     rel: float = REL_MARGIN, min_agree: float = None):
+    """``(checked, ok, agree)`` for the scan lane in ``dtype`` and ``quant``
+    (its quantized matmuls on a GPU), teacher-forced along ``truth``: its
+    prefill token and then each step's token must equal the truth at every
+    confident step of every row, as :func:`gate_fused_argmax` asks of the
+    fused kernels; zero confident steps is not a pass. ``min_agree`` makes
+    it the JAX package's majority gate for lossy formats: every step is
+    checked and the agreeing share must reach ``min_agree``."""
+    prompt_ids = np.asarray(prompt_ids)
+    B, L = prompt_ids.shape
+    w = model._weights_xq(dtype, quant) if quant else model._weights(dtype)
+    ck, cv = model._empty_caches(B, w["tok"].dtype)
+    got = [model.prefill(w, ck, cv, prompt_ids)]
+    toks_in = torch.as_tensor(truth[:-1], dtype=torch.long,
+                              device=model.device)
+    for i in range(truth.shape[0] - 1):
+        got.append(model.forward_logits_one(w, ck, cv, toks_in[i][:, None],
+                                            L + i).argmax(-1))
+    got = torch.stack(got).cpu().numpy()  # (steps, B)
+    if min_agree is not None:
+        frac = float((got == truth).mean()) if truth.size else 0.0
+        return truth.size, truth.size > 0 and frac >= min_agree, frac
+    conf = _confident(margins, tops, margin, rel)
+    checked = int(conf.sum())
     ok = int((got[conf] == truth[conf]).sum())
     frac = ok / checked if checked else 0.0
     return checked, checked > 0 and ok == checked, frac

@@ -84,7 +84,7 @@ def test_cpu_inputs_never_launch(model):
     from pydynet_tpu_torch.ops import decode_step as dsk
 
     cpu = Llama(vocab_size=256, embed_dim=32, n_heads=2, ffn_dim=64,
-                max_seq_len=32, n_layers=2).eval()
+                max_seq_len=32, n_layers=2, device="cpu").eval()
     before = dsk.fused_decode_token.launches
     assert len(list(cpu.generate(np.array([[1, 5, 9]]), 12))) == 9
     assert dsk.fused_decode_token.launches == before
@@ -254,3 +254,114 @@ def test_full_parameter_step_matches_cpu(gpu):
     cpu_loss = cpu_model.finetune_step(inp, tgt, cpu_opt)
     assert abs(loss - cpu_loss) <= TRAIN_LOSS_RTOL * abs(cpu_loss)
     check_step_vs_cpu(gpu_model, cpu_model)
+
+
+# chip_smoke.QMM_SHAPES: stories15M's and Llama-2-7B's (K, N)
+QMM_CASES = [(288, 864), (288, 288), (288, 1536), (768, 288), (288, 32000),
+             (4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
+             (4096, 32000)]
+
+
+@pytest.mark.parametrize("q4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 12, 16, 32, 33, 256])
+@pytest.mark.parametrize("shape", QMM_CASES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_qmatmul_matches_plain(gpu, shape, M, q4):
+    """K5 (M <= 32) and K6 (M > 32) bit for bit against the plain version,
+    float32 and bfloat16 rows, at stories15M's and Llama-2-7B's shapes: every
+    decode row tile (1, 2, 4, 8 rows), full and partial (M = 3, 5, 12)."""
+    from chip_smoke import random_qweights, random_rows
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    K, N = shape
+    w, ws = random_qweights(K, N, q4, K + N)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = random_rows(M, K, dtype, M)
+        assert torch.equal(gq.qmatmul(x, w, ws, q4=q4),
+                           gq.qmatmul_ref(x, w, ws, q4=q4))
+        for got, want in zip(gq.quantize_rows(x), gq.quantize_rows_ref(x)):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("q4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 12, 33])
+def test_qmatmul_stacked_device_index(gpu, M, q4):
+    """K7 reads its layer from a device tensor (first, middle, last of 32)
+    or a Python int; an index past the stack is clamped, as
+    ``jax.lax.dynamic_index_in_dim`` clamps it."""
+    from chip_smoke import random_qweights, random_rows
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    w, ws = random_qweights(512, 1024, q4, 3, layers=32)
+    x = random_rows(M, 512, torch.bfloat16, M)
+    for layer in (0, 16, 31):
+        want = gq.qmatmul_ref(x, w[layer], ws[layer], q4=q4)
+        idx = torch.tensor(layer, dtype=torch.int32, device="cuda")
+        assert torch.equal(gq.qmatmul_stacked(x, w, ws, idx, q4=q4), want)
+        assert torch.equal(gq.qmatmul_stacked(x, w, ws, layer, q4=q4), want)
+    big = torch.tensor(40, dtype=torch.int32, device="cuda")
+    assert torch.equal(gq.qmatmul_stacked(x, w, ws, big, q4=q4),
+                       gq.qmatmul_ref(x, w[31], ws[31], q4=q4))
+
+
+def test_qmatmul_launch_counters_count_kernel_launches_only(gpu):
+    from chip_smoke import random_qweights, random_rows
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    w, ws = random_qweights(288, 864, False, 1)
+    counters = (lambda: (gq.quantize_rows.launches, gq.qmatmul.launches,
+                         gq.qmatmul.prefill_launches,
+                         gq.qmatmul_stacked.launches))
+    before = counters()
+    gq.qmatmul(random_rows(4, 288, torch.float32, 0), w, ws)
+    gq.qmatmul(random_rows(40, 288, torch.float32, 0), w, ws)
+    gq.qmatmul_stacked(random_rows(2, 288, torch.float32, 0), w[None],
+                       ws[None], 0)
+    gq.qmatmul_ref(random_rows(4, 288, torch.float32, 0), w, ws)
+    gq.qmatmul(random_rows(4, 288, torch.float32, 0).cpu(), w.cpu(),
+               ws.cpu())
+    assert [a - b for a, b in zip(counters(), before)] == [3, 1, 1, 1]
+
+
+def test_qmatmul_cuda_inputs_never_fall_back(gpu):
+    from chip_smoke import random_qweights, random_rows
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    w, ws = random_qweights(64, 8, False, 2)
+    x = random_rows(2, 64, torch.float32, 0)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        gq.qmatmul(x, w[:, :6].contiguous(), ws[:, :6].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        gq.qmatmul(random_rows(64, 2, torch.float32, 0).t(), w, ws)
+    with pytest.raises(ValueError, match="x:"):
+        gq.qmatmul(x.half(), w, ws)
+    with pytest.raises(ValueError, match="is on cpu"):
+        gq.qmatmul(x, w.cpu(), ws)
+
+
+def test_scan_lane_quant_generate_on_the_card(gpu):
+    """A tiny model deeper than UNROLL_MAX_LAYERS (the stacked kernel) and
+    a shallow one (the per-layer kernels) decode on the scan lane with
+    int8 and int4 weights through the kernels, and, teacher-forced along
+    the CPU's stream, give its tokens at every confident step (float noise
+    between the devices can move an activation across an int8 rounding
+    boundary, so free-running streams may part at a near-tie)."""
+    from pydynet_tpu_torch.models.llama import Llama
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+    from pydynet_tpu_torch.utils import fidelity
+
+    for n_layers in (2, 17):
+        cfg = dict(vocab_size=256, embed_dim=64, n_heads=4, ffn_dim=128,
+                   max_seq_len=64, n_layers=n_layers)
+        gpu_m = Llama(**cfg, device="cuda").eval()
+        cpu_m = Llama(**cfg, device="cpu").eval()
+        ids = np.array([[1, 5, 9]])
+        for quant in ("int8", "int4"):
+            before = gq.qmatmul_stacked.launches + gq.qmatmul.launches
+            got = [int(t[0, 0]) for t in gpu_m.generate(
+                ids, 24, fused=False, quant=quant)]
+            assert gq.qmatmul_stacked.launches + gq.qmatmul.launches \
+                - before == 21 * (4 * n_layers + 1)
+            tr, mg, tp = fidelity.scan_truth(cpu_m, ids, 21, quant=quant)
+            checked, ok, _ = fidelity.gate_scan_argmax(gpu_m, ids, tr, mg, tp,
+                                                       quant=quant)
+            assert len(got) == 21 and checked > 0 and ok

@@ -39,7 +39,7 @@ def jax_model(cfg, seed=0):
 
 def port_of(jm, cfg):
     params = {n: p.numpy() for n, p in jm._parameters.items()}
-    model = Llama(**cfg)
+    model = Llama(**cfg, device="cpu")
     model.load_state_dict(params_from_tpu(params), strict=True)
     return model.eval()
 
@@ -92,7 +92,7 @@ def test_params_from_tpu_round_trips():
     skipped = {n for n in params if n.split(".")[-1] in
                ("cache_k", "cache_v", "freqs_cos", "freqs_sin")}
     assert skipped and set(state) == set(params) - skipped
-    model = Llama(**TINY)
+    model = Llama(**TINY, device="cpu")
     assert set(model.state_dict()) == set(state)
     model.load_state_dict(state, strict=True)
     for name, value in model.state_dict().items():
@@ -181,25 +181,35 @@ def test_generate_length_edges_match_jax(max_new):
 
 
 def test_generate_unported_options_raise():
-    tm = Llama(**TINY)
+    tm = Llama(**TINY, device="cpu")
     ids = np.array([[1, 5, 9]])
     cases = [dict(temperature=0.8), dict(top_k=5), dict(kv_quant="int8"),
              dict(quant="int8"), dict(quant="int4"), dict(flash_prefill=True),
-             dict(fused="numpy"), dict(quant="int8-head", fused=False),
+             dict(fused="numpy"), dict(quant="int4", fused=True),
              dict(dtype=torch.float16)]
     for kw in cases:
         with pytest.raises(NotImplementedError):
             next(tm.generate(ids, 8, **kw))
+    # int8/int4 layers at a width the JAX package runs on its fused kernel
+    # are K1/K2's `qlayers`/`q4`; the scan lane runs them when asked for
+    for quant in ("int8", "int4"):
+        with pytest.raises(NotImplementedError, match="weight formats"):
+            next(tm.generate(ids, 8, quant=quant))
+    for quant in ("int8", "int8-head", "int4"):
+        assert len(stream(tm.generate(ids, 8, quant=quant, fused=False))) == 5
+    with pytest.raises(ValueError, match="quant"):
+        next(tm.generate(ids, 8, quant="int2", fused=False))
     for fused in (None, True):  # B>1 above the batched kernel's rows
         with pytest.raises(NotImplementedError, match="B=32"):
             next(tm.generate(np.ones((33, 2), np.int64), 8, fused=fused))
-    gqa = Llama(**dict(TINY, n_kv_heads=1))
+    gqa = Llama(**dict(TINY, n_kv_heads=1), device="cpu")
     assert not gqa._fused_decode_supported()
     for fused in (None, True):  # B=1 is never rerouted to the plain lane
         with pytest.raises(NotImplementedError, match="GQA"):
             next(gqa.generate(ids, 8, fused=fused))
     assert len(stream(gqa.generate(ids, 8, fused=False))) == 5
-    odd = Llama(**dict(TINY, embed_dim=512, n_heads=1))  # head_dim > 256
+    odd = Llama(**dict(TINY, embed_dim=512, n_heads=1),  # head_dim > 256
+                device="cpu")
     assert not odd._fused_decode_supported()
     for fused in (None, True):
         with pytest.raises(NotImplementedError, match="Big-dims"):
@@ -217,7 +227,7 @@ def test_generate_default_lane_is_batched_kernel_at_b_gt_1(batched_calls,
                                                            step_calls):
     """fused=None at B=3 runs the batched step once a decode token (its
     plain version here, the CUDA kernel on a GPU), never the plain lane."""
-    tm = Llama(**TINY).eval()
+    tm = Llama(**TINY, device="cpu").eval()
     ids = np.array([[1, 5, 9], [2, 7, 3], [30, 20, 10]])
     rows = list(tm.generate(ids, 12, chunk=4))
     assert len(rows) == 12 - 3 and all(r.shape == (3, 1) for r in rows)
@@ -231,7 +241,7 @@ def test_bf16_generate_runs_both_lanes(batched_calls):
     only the confident-step gate holds them to the f32 stream; at B=3 the
     gate drives the batched step."""
     for B in (1, 3):
-        tm = Llama(**dict(TINY, max_batch_size=B),
+        tm = Llama(**dict(TINY, max_batch_size=B), device="cpu",
                    generator=torch.Generator().manual_seed(3)).eval()
         ids = np.array([[1, 5, 9], [2, 7, 3], [30, 20, 10]])[:B]
         truth, margins, tops = tfid.greedy_truth(tm, ids, 12)
@@ -290,7 +300,7 @@ def test_load_model_and_infer_config_match_jax(tmp_path):
     jcfg = jio.infer_config(str(path), 32, 1)
     tcfg = tio.infer_config(str(path), 32, 1)
     assert tcfg == jcfg and tcfg["n_kv_heads"] == 1
-    tm = tio.load_model(Llama(**tcfg), str(path))
+    tm = tio.load_model(Llama(**tcfg, device="cpu"), str(path))
     expect = params_from_tpu(P)
     for name, value in tm.state_dict().items():
         if name != "lm_head.bias":  # not in the checkpoint: keeps its init
@@ -347,8 +357,9 @@ def test_infer_cli_runs_on_cpu_and_refuses_missing_gpu(tmp_path, capsys):
 
 
 def test_weight_snapshots_follow_load_state_dict():
-    a = Llama(**TINY).eval()
-    b = Llama(**TINY, generator=torch.Generator().manual_seed(7)).eval()
+    a = Llama(**TINY, device="cpu").eval()
+    b = Llama(**TINY, device="cpu",
+              generator=torch.Generator().manual_seed(7)).eval()
     ids = np.array([[1, 5, 9]])
     stream(a.generate(ids, 12))  # caches a's decode weights
     a.load_state_dict(b.state_dict())

@@ -372,8 +372,21 @@ def test_cuda_device_raises_without_gpu():
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         tmodel.Llama(V, D, H, F, S, n_layers=1, device="cuda")
     assert tdevice.resolve("cpu") == torch.device("cpu")
+    assert tmodel.Llama(V, D, H, F, S, n_layers=1,
+                        device="cpu").device == torch.device("cpu")
     with pytest.raises(ValueError):
         tdevice.resolve("tpu")
+
+
+def test_no_device_means_the_card():
+    """``Llama(...)`` and ``resolve()`` without a device mean the GPU: on a
+    machine without one they raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; this checks the CPU-only case")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tdevice.resolve()
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tmodel.Llama(V, D, H, F, S, n_layers=1)
 
 
 def test_port_imports_no_jax():
@@ -386,6 +399,7 @@ def test_port_imports_no_jax():
             "import pydynet_tpu_torch.nn.utils\n"
             "import pydynet_tpu_torch.optim\n"
             "import pydynet_tpu_torch.ops.flash_attention\n"
+            "import pydynet_tpu_torch.ops.gemv_quant\n"
             "import pydynet_tpu_torch.utils.fidelity\n"
             "import pydynet_tpu_torch.ops._build\n"
             "bad = sorted(m for m in sys.modules\n"
@@ -403,7 +417,7 @@ def test_build_paths_are_keyed_by_sources(monkeypatch, tmp_path):
     srcs = _build.sources()
     assert [p.name for p in srcs] == ["decode_token.cu",
                                       "decode_token_batched.cu",
-                                      "flash_attention.cu"]
+                                      "flash_attention.cu", "gemv_quant.cu"]
     path = _build.library_path()
     assert path == _build.library_path()
     assert path.parent == REPO / "build" / "pydynet_tpu_torch"

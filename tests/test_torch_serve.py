@@ -57,7 +57,7 @@ def models(seed, **over):
     np.random.seed(seed)
     jm = JLlama(dtype=np.float32, **cfg)
     jm.eval()
-    tm = Llama(**cfg)
+    tm = Llama(**cfg, device="cpu")
     tm.load_state_dict(params_from_tpu(
         {n: p.numpy() for n, p in jm._parameters.items()}), strict=True)
     return jm, tm.eval()
@@ -294,16 +294,18 @@ def test_unported_options_raise():
     _, tm = models(20)
     cases = [dict(temperature=0.8), dict(top_k=5), dict(top_p=0.9),
              dict(seed=3), dict(speculative=4), dict(kv_quant="int8"),
-             dict(quant="int8"), dict(quant="int4"), dict(lane="xla"),
-             dict(prefix_cache=True), dict(flash_prefill=True),
+             dict(quant="int8"), dict(quant="int4"),
+             dict(lane="fused", quant="int4"), dict(prefix_cache=True),
+             dict(flash_prefill=True),
              dict(batch_size=33), dict(dtype=torch.float16)]
     for kw in cases:
         with pytest.raises(NotImplementedError):
             LlamaServer(tm, **kw)
-    gqa = Llama(**dict(CFG, n_kv_heads=1))
+    gqa = Llama(**dict(CFG, n_kv_heads=1), device="cpu")
     with pytest.raises(NotImplementedError, match="GQA"):
         LlamaServer(gqa)
-    wide = Llama(**dict(CFG, embed_dim=512, n_heads=1))  # head_dim > 256
+    wide = Llama(**dict(CFG, embed_dim=512, n_heads=1),  # head_dim > 256
+                 device="cpu")
     with pytest.raises(NotImplementedError, match="Big-dims"):
         LlamaServer(wide)
     srv = LlamaServer(tm, batch_size=2)

@@ -40,7 +40,7 @@ def models(seed=0, **over):
     cfg = dict(TINY, **over)
     np.random.seed(seed)
     jm = JLlama(dtype=np.float32, **cfg)
-    tm = Llama(**cfg)
+    tm = Llama(**cfg, device="cpu")
     tm.load_state_dict(params_from_tpu(
         {n: p.numpy() for n, p in jm._parameters.items()}))
     return jm, tm
@@ -198,7 +198,7 @@ def test_generate_follows_the_trained_weights():
     pattern = np.array([[1, 5, 9, 7, 3, 200] * 4])
     tm.finetune_steps(pattern[:, :-1], pattern[:, 1:], port_adam(tm, lr=3e-2),
                       20)
-    fresh = Llama(**TINY)
+    fresh = Llama(**TINY, device="cpu")
     fresh.load_state_dict(tm.state_dict())
     for (dtype, fused), old in before.items():
         new = [int(x) for x in tm.generate(prompt, 16, dtype=dtype,
