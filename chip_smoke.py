@@ -25,6 +25,10 @@ the run with a nonzero exit and no result line:
    bfloat16 rows, int8 and int4 weights, at stories15M's and Llama-2-7B's
    (K, N); and the stacked kernel (K7) with a device layer index at the
    first, a middle and the last of 32 layers;
+3d. the train-mode BatchNorm kernel (K8) against its plain version at
+   (N, C) from (1, 7) to (8192, 1024) in float32 and bfloat16, its
+   gradients through the autograd op against the plain forward's, and a
+   float64 CUDA input raising;
 4. the B=1 path: ``Llama.generate`` of a 1024-token request in bfloat16,
    with and without ``quant="int8-head"``, through K1 (its launch counter
    must equal the decode steps), the confident-step argmax gate against a
@@ -58,6 +62,11 @@ the run with a nonzero exit and no result line:
    lane with a 40-token prompt (its prefill through K6) against the same
    lane on the CPU; and the ``serve_cli`` once with ``--lane xla --quant
    int8``;
+4e. the nn-stack trainers: DNN_BN's first step on the card (through K8)
+   against the same step on the CPU; the ``dropout_bn`` trainer at its
+   published setting, 20 epochs of 8 steps (K8's counter must equal
+   2 x 160 and every net's mean loss must fall); the MNIST ConvNet at its
+   defaults (test accuracy above 0.5); and both CLIs once;
 5. timings: tokens per second of the 1024-token request in each format,
    timed ``REPEATS`` times in turns, K1's and K2's time per step beside
    their plain versions', the serving run's generated tokens per second
@@ -71,14 +80,19 @@ the run with a nonzero exit and no result line:
    (int8, M > 16) and its bound; each
    kernel's bound (bytes over 3.35 TB/s or operations over the peak for
    its type) and, for K3/K4, ``F.scaled_dot_product_attention``'s forward
-   and backward; all with the card's name and power limit;
+   and backward; K8's time at (40, 512), (40, 128), (1024, 1024) and
+   (8192, 1024) beside its plain version, its bound and ``F.batch_norm``,
+   the dropout_bn train step in steps/s and the MNIST ConvNet's epochs in
+   steps/s and samples/s; all with the card's name and power limit;
 6. only with ``--profile``: for K1 the step by CUDA events and the host's
    enqueue time per call at positions 0, 512 and 1023, and for K1 and K2
    the device time of each kernel of the chain from ``torch.profiler``;
    the device's busy share of a 1024-token request and of a serving run
    under the profiler; for the training step at B = 1 and 8 the device time
    of its largest kernels and the device's busy share; for a 7B int8 and
-   int4 token on the scan lane the device time by kernel and the busy share.
+   int4 token on the scan lane the device time by kernel and the busy
+   share; for the dropout_bn train step its largest kernels and the busy
+   share.
 
 The last two lines of standard output are a JSON object describing the
 kernels and then ``{"ok": true, "device": {...}}``.
@@ -154,6 +168,26 @@ LONG_PROMPT = 40  # a stories15M scan-lane prompt past 32 rows: the K6 path
 INT4_MIN_AGREE = 0.75  # bench.py's majority floor for the lossy formats
 QMM_KERNELS = ("quantize_rows", "qmatmul", "qmatmul_prefill",
                "qmatmul_stacked")
+# K8, the train-mode BatchNorm, against its plain version: (N, C) from one
+# row to a wide batch, the dropout_bn trainer's (40, 512) and (40, 128) among
+# them. Inputs are O(1) (x normal, gamma in [0.5, 1.5], beta normal / 2), so
+# float32 gets the JAX package's tolerances for its kernel against its
+# composite (tests/test_ops_kernels.py:241-243): the sums are taken in
+# another order. A bfloat16 out may also round to the neighbouring bfloat16
+# value, one ulp (BF16_ULP of its magnitude); its float32 mean and var keep
+# 1e-5. Gradients through the autograd op against autograd through the plain
+# forward: within BN_GRAD_RTOL of each gradient tensor's largest element.
+BN_SHAPES = ((1, 7), (8, 128), (40, 512), (40, 128), (1000, 300),
+             (1024, 1024), (8192, 1024))
+BN_ATOL = {"out": 1e-5, "mean": 1e-6, "var": 1e-5}
+BN_BF16_STATS_ATOL = 1e-5
+BN_GRAD_RTOL = 1e-4
+BN_TIME_SHAPES = ((40, 512), (40, 128), (1024, 1024), (8192, 1024))
+# the dropout_bn trainer at its published setting (examples/pydynet/
+# dropout_bn.py:128): 320 training faces at batch 40 are 8 steps an epoch,
+# each with two BatchNorm1d layers in train mode, so 2 K8 launches a step
+DBN_EPOCHS, DBN_STEPS, DBN_LR = 20, 8, 5e-5
+MNIST_MIN_ACC = 0.5  # chance is 0.1; tests/test_utils_examples.py:128
 # the least time of a function: bytes over the memory rate, or operations
 # over the card's peak for their type (NVIDIA's H100 SXM data sheet, dense)
 HBM_BYTES_S = 3.35e12
@@ -671,18 +705,21 @@ def train_pair(batch=1, seed=0):
     return ids[:, :-1], ids[:, 1:]
 
 
-def check_step_vs_cpu(gpu, cpu):
+def check_step_vs_cpu(gpu, cpu, w_atol=TRAIN_W_ATOL, skip=()):
     """A model after one step on the card against the same step on the CPU:
-    loss, gradients and weights within the stated tolerances. Returns the
-    largest (gradient, weight) differences."""
+    gradients within ``TRAIN_GRAD_RTOL`` of each tensor's largest element and
+    weights within ``w_atol`` (lr / 10 of the step), for every parameter not
+    named in ``skip``. Returns the largest (gradient, weight) differences."""
     g_err = w_err = 0.0
     theirs = dict(cpu.named_parameters())
     for name, p in gpu.named_parameters():
+        if name in skip:
+            continue
         c = theirs[name]
         dg = float((p.grad.cpu() - c.grad).abs().max())
         dw = float((p.detach().cpu() - c.detach()).abs().max())
         if dg > TRAIN_GRAD_RTOL * float(c.grad.abs().max()) + 1e-12 \
-                or dw > TRAIN_W_ATOL:
+                or dw > w_atol:
             raise AssertionError(f"first step vs CPU: {name} gradient "
                                  f"error {dg}, weight error {dw}")
         g_err, w_err = max(g_err, dg), max(w_err, dw)
@@ -1267,6 +1304,309 @@ def time_big_dims(model, card):
     return out
 
 
+def bn_inputs(N, C, dtype, seed=0, device="cuda"):
+    """Seeded O(1) K8 inputs: x (N, C) normal in ``dtype``, gamma in
+    [0.5, 1.5] and beta normal / 2, (1, C) float32."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((N, C), generator=g, device=device).to(dtype)
+    gamma = torch.rand((1, C), generator=g, device=device) + 0.5
+    beta = torch.randn((1, C), generator=g, device=device) / 2
+    return x, gamma, beta
+
+
+def bn_vs_plain(N, C, dtype, seed=0):
+    """K8 against its plain version on the same inputs, and the gradients
+    through the autograd op against autograd through the plain forward.
+    Raises beyond the stated tolerances; returns {output: max error}."""
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    x, gamma, beta = bn_inputs(N, C, dtype, seed)
+    got = bn.batch_norm_train(x, gamma, beta)
+    want = bn.batch_norm_train_ref(x, gamma, beta)
+    xs = [t.detach().clone().requires_grad_() for t in (x, gamma, beta)]
+    ws = [t.detach().clone().requires_grad_() for t in (x, gamma, beta)]
+    dout = torch.randn(x.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed + 1)).to(dtype)
+    grads = torch.autograd.grad(bn.batch_norm_train(*xs)[0], xs, dout)
+    plain = torch.autograd.grad(bn.batch_norm_train_ref(*ws)[0], ws, dout)
+    torch.cuda.synchronize()
+    errs = {}
+    bf16 = dtype == torch.bfloat16
+    for name, a, b in zip(("out", "mean", "var"), got, want):
+        err = (a.float() - b.float()).abs()
+        tol = BN_ATOL[name]
+        if bf16:
+            tol = tol + BF16_ULP * b.float().abs() if name == "out" \
+                else BN_BF16_STATS_ATOL
+        if a.shape != b.shape or a.dtype != b.dtype \
+                or not bool((err <= tol).all()):
+            raise AssertionError(f"batch_norm_train ({N}, {C}) {dtype} "
+                                 f"{name}: max error {float(err.max())} "
+                                 f"beyond tolerance")
+        errs[name] = float(err.max())
+    for name, a, b in zip(("dx", "dgamma", "dbeta"), grads, plain):
+        err = float((a.float() - b.float()).abs().max())
+        big = float(b.float().abs().max())
+        tol = BN_GRAD_RTOL * big + (BF16_ULP * big if bf16 else 0.0)
+        if err > tol:
+            raise AssertionError(f"batch_norm_train ({N}, {C}) {dtype} "
+                                 f"{name}: error {err} > {tol}")
+        errs[name] = err
+    return errs
+
+
+def check_batchnorm():
+    """Phase 3d: K8 against plain at BN_SHAPES in float32 and bfloat16, and
+    a float64 CUDA input raising. Returns the largest float32 error."""
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    worst = 0.0
+    for dname, dtype in FLASH_DTYPES.items():
+        for N, C in BN_SHAPES:
+            e = bn_vs_plain(N, C, dtype)
+            print(f"[chip_smoke] batch_norm_train {dname} ({N}, {C}): max "
+                  f"error " + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
+            if dtype == torch.float32:
+                worst = max(worst, e["out"], e["mean"], e["var"])
+    x, gamma, beta = bn_inputs(8, 16, torch.float64)
+    try:
+        bn.batch_norm_train(x, gamma.double(), beta.double())
+    except ValueError as e:
+        print(f"[chip_smoke] float64 on the card raises: {e}")
+    else:
+        raise AssertionError("batch_norm_train took a float64 CUDA tensor")
+    return worst
+
+
+def dbn_first_step(device, seed=0):
+    """DNN_BN from ``seed`` on ``device`` after one Adam step (lr 5e-5) on
+    the trainer's first 40 faces; returns (net, loss)."""
+    from pydynet_tpu_torch import manual_seed
+    from pydynet_tpu_torch.examples import dropout_bn as dbn
+    from pydynet_tpu_torch.nn import CrossEntropyLoss
+    from pydynet_tpu_torch.optim import Adam
+
+    manual_seed(seed)
+    net = dbn.DNN_BN().to(device)
+    opt = Adam(net.parameters(), lr=DBN_LR)
+    X, y = dbn.load_faces()
+    bx, by = (torch.from_numpy(a[:40]).to(device) for a in (X, y))
+    loss = dbn.train_step([net], [opt], CrossEntropyLoss(), bx, by)[0]
+    return net, float(loss)
+
+
+def check_dbn_step_vs_cpu():
+    """DNN_BN's first step on the card (two K8 launches) against the same
+    step on the CPU: loss, gradients, weights and running statistics.
+    Returns the largest (gradient, weight, statistic) differences.
+
+    fc1.bias and fc2.bias feed a BatchNorm, which takes away any constant
+    shift of its input: their gradients are zero up to rounding on either
+    device, and Adam's first step moves each by up to lr in a direction
+    that rounding alone decides. They are held to that (their gradients
+    within 1e-4 of the largest gradient of their layer's weight, their
+    values within 2 lr of the CPU's), every other parameter to
+    ``check_step_vs_cpu``'s rule."""
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    before = bn.batch_norm_train.launches
+    gpu, gpu_loss = dbn_first_step("cuda")
+    if bn.batch_norm_train.launches - before != 2:
+        raise AssertionError("DNN_BN's step did not launch K8 twice")
+    cpu, cpu_loss = dbn_first_step("cpu")
+    if abs(gpu_loss - cpu_loss) > TRAIN_LOSS_RTOL * abs(cpu_loss):
+        raise AssertionError(f"DNN_BN step loss {gpu_loss} != CPU "
+                             f"{cpu_loss}")
+    for fc in (gpu.fc1, gpu.fc2, cpu.fc1, cpu.fc2):
+        if float(fc.bias.grad.abs().max()) \
+                > 1e-4 * float(fc.weight.grad.abs().max()):
+            raise AssertionError("a bias before a BatchNorm got more than "
+                                 "rounding noise of gradient")
+    for name in ("fc1", "fc2"):
+        g, c = getattr(gpu, name).bias, getattr(cpu, name).bias
+        if float((g.detach().cpu() - c.detach()).abs().max()) > 2 * DBN_LR:
+            raise AssertionError(f"{name}.bias moved more than lr")
+    g_err, w_err = check_step_vs_cpu(gpu, cpu, DBN_LR / 10,
+                                     skip=("fc1.bias", "fc2.bias"))
+    s_err = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(gpu.buffers(), cpu.buffers()))
+    if s_err > 1e-5:
+        raise AssertionError(f"running statistics differ by {s_err}")
+    print(f"[chip_smoke] DNN_BN step 1 vs CPU: loss {gpu_loss:.6f} vs "
+          f"{cpu_loss:.6f}, max gradient error {g_err:.3g}, max weight "
+          f"error {w_err:.3g}, max running-statistic error {s_err:.3g}")
+    return g_err, w_err, s_err
+
+
+def check_nn_training():
+    """Phase 4e: the nn-stack trainers. DNN_BN's first step against the
+    CPU; the dropout_bn trainer at its published setting through K8 (its
+    counter set to 0 just before and read just after); the MNIST ConvNet
+    at its defaults; both CLIs once. Returns K8's launches in the main
+    run."""
+    from pydynet_tpu_torch.examples import dropout_bn as dbn
+    from pydynet_tpu_torch.examples import mnist
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    check_dbn_step_vs_cpu()
+    k8 = bn.batch_norm_train
+    k8.launches = 0
+    _, history, accs = dbn.train(epochs=DBN_EPOCHS)
+    launches = k8.launches
+    print(f"[chip_smoke] dropout_bn {DBN_EPOCHS} epochs: K8 launches "
+          f"{launches}, mean losses first {history[0]} last {history[-1]}, "
+          f"test accuracies {accs}")
+    want = 2 * DBN_EPOCHS * DBN_STEPS
+    if launches != want:
+        raise AssertionError(f"K8 launches {launches}, want {want}")
+    if not all(np.isfinite(history[0] + history[-1])) or not all(
+            b < a for a, b in zip(history[0], history[-1])):
+        raise AssertionError(f"a net's loss did not fall: {history}")
+    acc = mnist.main(["--network", "conv", "--synthetic"])
+    print(f"[chip_smoke] MNIST ConvNet 20 epochs: test accuracy {acc}")
+    if not acc > MNIST_MIN_ACC:
+        raise AssertionError(f"MNIST ConvNet accuracy {acc} <= "
+                             f"{MNIST_MIN_ACC}")
+    before = k8.launches
+    accs = dbn.cli(["--epochs", "2"])
+    acc = mnist.main(["--network", "mlp", "--synthetic", "--epochs", "2"])
+    print(f"[chip_smoke] CLIs: dropout_bn accuracies {accs}, K8 launches "
+          f"{k8.launches - before}; MNIST MLP accuracy {acc}")
+    if k8.launches - before != 2 * 2 * DBN_STEPS or not 0 < acc <= 1:
+        raise AssertionError("the CLIs did not train through K8")
+    return launches
+
+
+def bn_bound(x):
+    """K8's bound: x read once and out written once, gamma and beta read,
+    mean and var written; about 8 float32 operations an element."""
+    C = x.shape[1]
+    return bound(2 * nbytes(x) + 4 * 4 * C, 8 * x.numel(), torch.float32)
+
+
+def dbn_step_runner(seed=0):
+    """The dropout_bn train step of the three nets on the card, on the
+    first batch: a callable for timing and profiling."""
+    from pydynet_tpu_torch import manual_seed
+    from pydynet_tpu_torch.examples import dropout_bn as dbn
+    from pydynet_tpu_torch.nn import CrossEntropyLoss
+    from pydynet_tpu_torch.optim import Adam
+
+    manual_seed(seed)
+    nets = [dbn.DNN().cuda(), dbn.DNN_dropout().cuda(), dbn.DNN_BN().cuda()]
+    optims = [Adam(n.parameters(), lr=DBN_LR) for n in nets]
+    X, y = dbn.load_faces()
+    bx, by = (torch.from_numpy(a[:40]).cuda() for a in (X, y))
+    loss_fn = CrossEntropyLoss()
+    return lambda: dbn.train_step(nets, optims, loss_fn, bx, by)
+
+
+def mnist_runner(seed=42):
+    """The MNIST ConvNet on the card with its Adam and the synthetic
+    training set there: a callable that runs one epoch and waits."""
+    from pydynet_tpu_torch import manual_seed
+    from pydynet_tpu_torch.examples import mnist
+    from pydynet_tpu_torch.optim import Adam
+
+    manual_seed(seed)
+    net = mnist.ConvNet().cuda()
+    opt = Adam(net.parameters(), lr=1e-4)
+    (X, y), _ = mnist.synthetic_mnist()
+    Xd = torch.from_numpy(X.astype(np.float32)).cuda()
+    yd = torch.from_numpy(y).cuda()
+
+    def epoch():
+        perm = torch.from_numpy(np.random.permutation(len(X))).cuda()
+        loss, steps = mnist.train_epoch(net, opt, Xd[perm], yd[perm], 256)
+        float(loss)
+        return steps, len(X)
+
+    return epoch
+
+
+def time_nn_training(card):
+    """Phase 5's nn part: K8 at BN_TIME_SHAPES in float32 against its plain
+    version, its bound and ``F.batch_norm``; the dropout_bn step and the
+    MNIST ConvNet's epochs. Returns {(N, C): (ms, plain_ms, bound_ms,
+    bound_by, library_ms)}."""
+    import torch.nn.functional as tF
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    out = {}
+    with torch.no_grad():
+        for N, C in BN_TIME_SHAPES:
+            x, gamma, beta = bn_inputs(N, C, torch.float32, 3)
+            g, b = gamma.reshape(-1), beta.reshape(-1)
+            kern = lambda i: bn.batch_norm_train(x, gamma, beta)
+            ref = lambda i: bn.batch_norm_train_ref(x, gamma, beta)
+            lib = lambda i: tF.batch_norm(x, None, None, g, b, training=True,
+                                          eps=1e-6)
+            # device time: CUDA-graph replays of 20 calls, in turns
+            plain, kernel, library = (time_graph(ref, 20), time_graph(kern, 20),
+                                      time_graph(lib, 20))
+            kernel2, plain2 = time_graph(kern, 20), time_graph(ref, 20)
+            call = time_step(lambda: kern(0), 200)  # with the host's enqueue
+            out[N, C] = (min(kernel, kernel2), min(plain, plain2)) \
+                + bn_bound(x) + (library,)
+            print(f"[chip_smoke] {card}: batch_norm_train f32 ({N}, {C}): "
+                  f"kernel {out[N, C][0] * 1e3:.2f} us on the device "
+                  f"({call * 1e3:.2f} us a call with the host's enqueue), "
+                  f"plain {out[N, C][1] * 1e3:.2f} us, bound "
+                  f"{out[N, C][2] * 1e3:.3f} us ({out[N, C][3]}), "
+                  f"F.batch_norm {library * 1e3:.2f} us")
+    step = dbn_step_runner()
+    for _ in range(3):  # warm-up
+        step()
+    rates = []
+    for _ in range(REPEATS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(50):
+            step()
+        torch.cuda.synchronize()
+        rates.append(50 / (time.perf_counter() - start))
+    print(f"[chip_smoke] {card}: dropout_bn train step (three nets, batch "
+          f"40) steps/s of {REPEATS} runs of 50: "
+          f"{', '.join(f'{r:.1f}' for r in rates)}; median "
+          f"{float(np.median(rates)):.1f}")
+    epoch = mnist_runner()
+    epoch()  # warm-up
+    times = []
+    for _ in range(5):
+        start = time.perf_counter()
+        steps, samples = epoch()
+        times.append(time.perf_counter() - start)
+    t = float(np.median(times))
+    print(f"[chip_smoke] {card}: MNIST ConvNet train epoch ({steps} steps of "
+          f"256) s of 5 epochs: {', '.join(f'{x:.4f}' for x in times)}; "
+          f"median {steps / t:.1f} steps/s, {samples / t:.0f} samples/s")
+    return out
+
+
+def profile_nn(card):
+    """Phase 6's nn part: the dropout_bn step's largest kernels and the
+    device's busy share over 20 steps."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    step, n = dbn_step_runner(), 20
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    by_kernel(prof, n, f"dropout_bn step on {card}", top=15)
+    busy = busy_share(prof, wall)
+    print(f"[chip_smoke] profile dropout_bn step: {n} steps in {wall:.3f} s, "
+          f"{len(kernel_events(prof)) // n} kernels a step, device busy "
+          f"{busy:.3f} s = {100 * busy / wall:.1f} %, idle "
+          f"{100 - 100 * busy / wall:.1f} %")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA GPU: nothing to check", file=sys.stderr)
@@ -1360,6 +1700,11 @@ def main() -> int:
     qmm_err = check_qmatmul()
     phase("3c quantized matmuls vs plain", t0)
 
+    # 3d. the train-mode BatchNorm (K8) against plain
+    t0 = time.perf_counter()
+    bn_err = check_batchnorm()
+    phase("3d batch norm vs plain", t0)
+
     # 4. the B=1 path
     t0 = time.perf_counter()
     steps = REQUEST - PROMPT.shape[1] - 1
@@ -1412,6 +1757,11 @@ def main() -> int:
     t0 = time.perf_counter()
     big, qmm_launches = check_big_dims()
     phase("4d big-dims path", t0)
+
+    # 4e. the nn-stack trainers: dropout_bn through K8, the MNIST ConvNet
+    t0 = time.perf_counter()
+    bn_launches = check_nn_training()
+    phase("4e nn training path", t0)
 
     # 5. timings: kernels vs plain per step at pos 512, then end to end
     t0 = time.perf_counter()
@@ -1494,12 +1844,14 @@ def main() -> int:
           f"{float(np.median(rates)):.1f}")
     ms.update(time_training(card))
     big_ms = time_big_dims(big, card)
+    bn_ms = time_nn_training(card)
     phase("5 timings", t0)
 
     if "--profile" in sys.argv[1:]:
         t0 = time.perf_counter()
         profile(model, card)
         profile_big(big)
+        profile_nn(card)
         phase("6 profile", t0)
 
     def entry(name, source, replaces, launches, err, t):
@@ -1533,7 +1885,10 @@ def main() -> int:
               (wgu256[0], wgu256[2], wgu256[3], wgu256[4], wgu256[5])),
         entry("qmatmul_stacked", "gemv_quant.cu", f"{gq_file}:416",
               qmm_launches["qmatmul_stacked"], qmm_err["qmatmul_stacked"],
-              (wgu1[1], wgu1[2], wgu1[3], wgu1[4], None))]}))
+              (wgu1[1], wgu1[2], wgu1[3], wgu1[4], None)),
+        entry("batch_norm_train", "batchnorm.cu",
+              "pydynet_tpu/ops/batchnorm.py:28", bn_launches, bn_err,
+              bn_ms[40, 512])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

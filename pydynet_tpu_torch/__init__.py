@@ -8,7 +8,9 @@ This package never imports JAX.
 from torch import no_grad
 
 from .device import device_count, is_available, resolve
+from .random import default_generator, manual_seed
 
-__all__ = ["device_count", "is_available", "no_grad", "resolve"]
+__all__ = ["default_generator", "device_count", "is_available",
+           "manual_seed", "no_grad", "resolve"]
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
-"""The nn surface the Llama slice needs; the rest of ``pydynet_tpu.nn``
-is still to port (``ROADMAP.md``)."""
-from . import functional, utils
-from .modules import CrossEntropyLoss, Loss, RMSNorm, rms_norm
+"""The port's nn surface: the layers, init, functional ops and gradient
+clipping; what of ``pydynet_tpu.nn`` is still to port is in ``ROADMAP.md``
+(RNNs, LoRA)."""
+from . import functional, init, utils
+from .modules import *  # noqa: F401,F403
+from .modules import __all__ as _modules_all
 
-__all__ = ["CrossEntropyLoss", "Loss", "RMSNorm", "functional", "rms_norm",
-           "utils"]
+__all__ = list(_modules_all) + ["functional", "init", "utils"]

@@ -1,5 +1,4 @@
-"""Loss modules (port of ``pydynet_tpu/nn/modules/loss.py``, the ones the
-training path uses)."""
+"""Loss modules (port of ``pydynet_tpu/nn/modules/loss.py``)."""
 from __future__ import annotations
 
 import torch
@@ -20,6 +19,23 @@ class Loss(nn.Module):
     def forward(self, y_pred: torch.Tensor,
                 y_true: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+
+class MSELoss(Loss):
+    """:func:`nn.functional.mse_loss`."""
+
+    def forward(self, y_pred: torch.Tensor,
+                y_true: torch.Tensor) -> torch.Tensor:
+        return F.mse_loss(y_pred, y_true, reduction=self.reduction)
+
+
+class NLLLoss(Loss):
+    """:func:`nn.functional.nll_loss`: ``-y_pred * y_true`` over every
+    element."""
+
+    def forward(self, y_pred: torch.Tensor,
+                y_true: torch.Tensor) -> torch.Tensor:
+        return F.nll_loss(y_pred, y_true, reduction=self.reduction)
 
 
 class CrossEntropyLoss(Loss):

@@ -45,6 +45,8 @@ SIGNATURES = {
     "pdt_qmm_scratch_ints": (_I, [_I] * 4),
     "pdt_qmm": (_I, [_I] + [_P] * 5 + [_I] * 2 + [_P] * 2 + [_I] * 3
                 + [_P]),
+    "pdt_batch_norm_train": (_I, [_I, _I] + [_P] * 6 + [_I, _I]
+                             + [ctypes.c_float, _P]),
 }
 
 

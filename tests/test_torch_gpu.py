@@ -365,3 +365,63 @@ def test_scan_lane_quant_generate_on_the_card(gpu):
             checked, ok, _ = fidelity.gate_scan_argmax(gpu_m, ids, tr, mg, tp,
                                                        quant=quant)
             assert len(got) == 21 and checked > 0 and ok
+
+
+# chip_smoke.BN_SHAPES: from one row to a wide batch, the trainer's among
+BN_CASES = [(1, 7), (8, 128), (40, 512), (40, 128), (1000, 300),
+            (1024, 1024), (8192, 1024)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", BN_CASES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_batchnorm_kernel_matches_plain(gpu, shape, dtype):
+    """K8 and its gradients within chip_smoke's stated tolerances of the
+    plain version."""
+    from chip_smoke import FLASH_DTYPES, bn_vs_plain
+
+    errs = bn_vs_plain(*shape, FLASH_DTYPES[dtype])
+    assert set(errs) == {"out", "mean", "var", "dx", "dgamma", "dbeta"}
+
+
+def test_batchnorm_modules_route_to_k8(gpu):
+    """A 2-D BatchNorm1d input in train mode launches K8 once a forward, in
+    float32 and bfloat16, and moves the running statistics; BatchNorm2d,
+    eval mode and CPU inputs launch nothing."""
+    from pydynet_tpu_torch import nn
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    k8 = bn.batch_norm_train
+    bn1 = nn.BatchNorm1d(64).cuda()
+    x = torch.randn(16, 64, device="cuda") * 2 + 3
+    before = k8.launches
+    bn1(x)
+    bn1.to(torch.bfloat16)(x.to(torch.bfloat16))
+    assert k8.launches - before == 2
+    assert float(bn1.running_mean.float().mean()) > 0.3
+    before = k8.launches
+    bn1.float().eval()(x)
+    nn.BatchNorm2d(3).cuda()(torch.randn(4, 3, 5, 5, device="cuda"))
+    nn.BatchNorm1d(64)(x.cpu())
+    assert k8.launches == before
+
+
+def test_dropout_bn_step_matches_cpu(gpu):
+    """DNN_BN's first Adam step on the card (two K8 launches) against the
+    CPU, within chip_smoke's stated tolerances."""
+    from chip_smoke import check_dbn_step_vs_cpu
+
+    check_dbn_step_vs_cpu()
+
+
+def test_batchnorm_cuda_inputs_never_fall_back(gpu):
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    g = torch.ones(1, 8, device="cuda")
+    for dtype in (torch.float64, torch.float16):
+        with pytest.raises(ValueError, match="types"):
+            bn.batch_norm_train(torch.zeros(4, 8, device="cuda",
+                                            dtype=dtype), g, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        bn.batch_norm_train(torch.zeros(8, 4, device="cuda").t(), g, g)
+    with pytest.raises(ValueError, match="is on cpu"):
+        bn.batch_norm_train(torch.zeros(4, 8, device="cuda"), g.cpu(), g)
