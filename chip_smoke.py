@@ -11,9 +11,10 @@ the run with a nonzero exit and no result line:
 2. build the CUDA kernels from ``pydynet_tpu_torch/csrc`` (timed; says
    whether the library for these sources was already built);
 3. the B=1 decode-step kernel (K1) against its plain PyTorch version at
-   stories15M width with seeded random weights, in float32, bfloat16 and
-   bfloat16 with the int8 head, at positions 0, 1, 17, 255, 1023 and 1030
-   (the last one exercises the clamp to S - 1);
+   stories15M width with seeded random weights, in float32, bfloat16,
+   bfloat16 with the int8 head, and with int8 layers and head (float32 and
+   bfloat16) and int4 layers and head (bfloat16), at positions 0, 1, 17,
+   255, 1023 and 1030 (the last one exercises the clamp to S - 1);
 3b. the batched decode-step kernel (K2) against its plain version the same
    way at B = 4 and 32, positions 1, 17, 255, 1023 and 1030, with per-row
    ``starts`` (one row starting at pos), and each K2 row at B = 8 against
@@ -29,10 +30,24 @@ the run with a nonzero exit and no result line:
    (N, C) from (1, 7) to (8192, 1024) in float32 and bfloat16, its
    gradients through the autograd op against the plain forward's, and a
    float64 CUDA input raising;
+3e. the greedy head alone (K9) against its plain version at stories15M's
+   head (D 288, V 32000) in float32 and bfloat16, with a forced tie between
+   two rows in different vocab tiles (the lower must win); the layers-only
+   step (K10) against its plain version at stories15M width (6 layers,
+   S 1024) in float32 and bfloat16 with the pair-swap and head-mask
+   matrices at positions 0, 511, 1023 and 1030 (which must act as 1023),
+   its output and both caches compared and the rows other than pos
+   untouched; then the path K9 and K10 make together, a float32 greedy
+   decode of the prompt and 63 tokens teacher-forced along the float32
+   truth stream, one K10 and one K9 launch a token, equal to the truth at
+   every confident step;
 4. the B=1 path: ``Llama.generate`` of a 1024-token request in bfloat16,
-   with and without ``quant="int8-head"``, through K1 (its launch counter
-   must equal the decode steps), the confident-step argmax gate against a
-   float32 truth stream, and the ``infer`` CLI once;
+   with ``quant`` None, ``"int8-head"``, ``"int8"`` and ``"int4"``, through
+   K1 (its launch counter must equal the decode steps), the confident-step
+   argmax gate against a float32 truth stream (int8: against the stream of
+   a copy whose weights went through int8 and back; int4: majority
+   agreement with the int4 round trip's), and the ``infer`` CLI once plain
+   and once with ``--quant int8``;
 4b. the serving path: ``LlamaServer`` (B = 8, bfloat16, with and without
    the int8 head) serving 24 requests with slot recycling, shifted
    admissions and truncation at the cache end, through K2 (its launch
@@ -67,9 +82,12 @@ the run with a nonzero exit and no result line:
    published setting, 20 epochs of 8 steps (K8's counter must equal
    2 x 160 and every net's mean loss must fall); the MNIST ConvNet at its
    defaults (test accuracy above 0.5); and both CLIs once;
-5. timings: tokens per second of the 1024-token request in each format,
-   timed ``REPEATS`` times in turns, K1's and K2's time per step beside
-   their plain versions', the serving run's generated tokens per second
+5. timings: tokens per second of the 1024-token request in each format
+   (bfloat16, int8-head, int8, int4), timed ``REPEATS`` times in turns,
+   K1's (also with int8 and int4 layers) and K2's time per step beside
+   their plain versions' and their bounds, K9's beside its bound and
+   ``torch.argmax(head_w @ h + b)``, K10's beside its bound and its plain
+   version's, the serving run's generated tokens per second
    (``REPEATS`` times, the formats in turns) and the B = 8 request's; K3's
    and K4's times beside their plain versions' at (1, 1024, 6, 48) and
    (8, 1024, 6, 48), and the training step's time and training tokens per
@@ -111,11 +129,30 @@ POSITIONS = (0, 1, 17, 255, 1023, 1030)
 BATCH_POSITIONS = (1, 17, 255, 1023, 1030)
 BATCHES = (4, 32)  # K2 against its plain version
 FORMATS = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
-           "bf16-int8head": (torch.bfloat16, "int8-head")}
+           "bf16-int8head": (torch.bfloat16, "int8-head"),
+           "f32-int8": (torch.float32, "int8"),
+           "bf16-int8": (torch.bfloat16, "int8"),
+           "bf16-int4": (torch.bfloat16, "int4")}
+BATCHED_FORMATS = ("f32", "bf16", "bf16-int8head")  # what K2 takes
 # cache tolerance, kernel vs plain: f32 differs only in summation order
 # (values are O(1), so 1e-4 is ~1000 f32 ulps); bf16 rows may round to a
 # neighbouring bf16 value (one ulp at |x| < 8 is at most 2**-5)
 CACHE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-5}
+# int8/int4 layers: an activation whose x * 127 / amax lies within float32
+# summation noise of a half-integer rounds to the other integer in one of
+# the two; that moves its matmul's outputs by up to max |w| * amax / 127 and
+# the layers after it carry the change on through the residual, so a
+# cache row may move by several such steps; bf16's bound holds that
+QUANT_CACHE_ATOL = 2.0**-5
+# K10 vs plain: h_out (1, D) is RMS-normed, O(1): float32 differs in
+# summation order only (the JAX package's 1e-4 for its kernel,
+# tests/test_ops_kernels.py:107); bf16 rounds every matmul input and the
+# probabilities, one of which may land on a neighbouring bf16 value
+STEP_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-5}
+STEP_POSITIONS = (0, 511, 1023, 1030)  # 1030 >= S acts as S - 1
+HEAD_TIE = (100, 20000)  # vocab rows in different head tiles
+PATH_STEPS = 64  # truth tokens of the K10 + K9 path and the gates
+B1_QUANTS = (None, "int8-head", "int8", "int4")  # phase 4's requests
 PROMPT = np.array([[1, 243, 532, 991]])
 REQUEST = 1024  # total length of the main-path request
 REPEATS = 5  # timed requests (or serving runs) per format in phase 5
@@ -205,12 +242,19 @@ def i32(values, dev):
 
 
 def step_args(model, weights, ck, cv, pos, tok):
-    from pydynet_tpu_torch.models.llama.model import decode_weight_args
+    from pydynet_tpu_torch.models.llama.model import (decode_quant_kwargs,
+                                                      decode_weight_args)
 
     dev = model.device
     return ((i32([pos], dev), i32([tok], dev),
              *decode_weight_args(weights), ck, cv),
-            dict(n_heads=model.n_heads, head_s=weights.get("head_s")))
+            dict(n_heads=model.n_heads, **decode_quant_kwargs(weights)))
+
+
+def cache_atol(fmt):
+    dtype, quant = FORMATS[fmt]
+    return QUANT_CACHE_ATOL if quant in ("int8", "int4") else \
+        CACHE_ATOL[dtype]
 
 
 def batched_args(model, weights, ck, cv, pos, toks, starts=None):
@@ -312,6 +356,207 @@ def batched_rows_vs_k1(model, fmt, batch=8, pos=512, seed=5):
                                                           rows_v[b]))
               for b in range(batch))
     return got == one, err
+
+
+def head_inputs(model, dtype, seed=0, tie=False):
+    """K9's inputs at the model's head: a seeded normed-like h (1, D)
+    float32 and the model's head (V, D) and bias in ``dtype``; with ``tie``
+    the rows HEAD_TIE both hold the same row, aligned with h, and the same
+    bias, so they tie for the maximum."""
+    w = model._fused_weights(dtype)
+    g = torch.Generator(device=model.device).manual_seed(seed)
+    h = torch.randn(1, model.embed_dim, generator=g, device=model.device)
+    head_w, head_b = w["head_w"], w["head_b"]
+    if tie:
+        head_w, head_b = head_w.clone(), head_b.clone()
+        for r in HEAD_TIE:
+            head_w[r] = (h[0].sign() * 0.5).to(dtype)
+            head_b[r] = 1.0
+    return h, head_w, head_b
+
+
+def head_vs_plain(model, dtype, seed=0, tie=False):
+    """K9 and its plain version on the same inputs. Returns (kernel token,
+    plain token, the plain logit the kernel's token falls short of the
+    plain maximum by)."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    h, w, b = head_inputs(model, dtype, seed, tie)
+    got = int(dsk.lm_head_argmax(h, w, b)[0, 0])
+    want = int(dsk.lm_head_argmax_ref(h, w, b)[0, 0])
+    logits = w.float() @ h[0] + b.float()
+    return got, want, float(logits.max() - logits[got])
+
+
+def step_inputs(model, dtype, pos, tok=1234, seed=0):
+    """K10's arguments at the model's width: h0 the embedding row of
+    ``tok``, the RoPE rows of ``pos``, the pair-swap and head-mask
+    matrices, the model's layer weights in ``dtype`` and seeded random
+    caches."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    w = model._fused_weights(dtype)
+    dev, D = model.device, model.embed_dim
+    p = min(pos, model.max_seq_len - 1)
+    tok %= model.vocab_size
+    ck, cv = random_caches(model, dtype, seed)
+    return (i32([pos], dev), w["tok"][tok:tok + 1].float(),
+            w["cosD"][p:p + 1].float(), w["sinD"][p:p + 1].float(),
+            dsk.rope_pair_swap_matrix(D).to(dev),
+            dsk.head_mask_matrix(D, model.n_heads).to(dev), w["norm"],
+            *(w[k] for k in ("wq", "wk", "wv", "wo", "gate_w", "up_w",
+                             "down", "in_norm", "post_norm")), ck, cv)
+
+
+def step_vs_plain(model, dtype, pos, seed=0):
+    """K10 and its plain version on the same inputs, the caches copied
+    (``alias=False``). Returns (max |h_out difference|, max |cache
+    difference|, rows other than min(pos, S - 1) unchanged in both, the
+    kernel's h_out)."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    args = step_inputs(model, dtype, pos, seed=seed)
+    ck0, cv0 = args[-2:]
+    h, ck, cv = dsk.fused_decode_step(*args, alias=False)
+    rh, rck, rcv = dsk.fused_decode_step_ref(*args, alias=False)
+    torch.cuda.synchronize()
+    p = min(pos, model.max_seq_len - 1)
+    rows = torch.ones(model.max_seq_len, dtype=torch.bool, device=h.device)
+    rows[p] = False
+    kept = all(torch.equal(new[:, rows], old[:, rows])
+               for new, old in ((ck, ck0), (cv, cv0), (rck, ck0), (rcv, cv0)))
+    return (max_diff(h, rh), max(max_diff(ck, rck), max_diff(cv, rcv)),
+            kept, h)
+
+
+def check_head_and_step(model, truth, margins, tops):
+    """Phase 3e: K9 and K10 against their plain versions, then the path
+    they make together (K10's layers, K9's head): a float32 greedy decode
+    of PROMPT and the first PATH_STEPS - 1 truth tokens, one token a step
+    from position 0, teacher-forced. Its token after each step from the
+    prompt's last on must equal the truth at every confident step. Returns
+    ({kernel: max error}, {kernel: launches on the path})."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+    from pydynet_tpu_torch.utils import fidelity
+
+    err = {"lm_head_argmax": 0.0, "fused_decode_step": 0.0}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for seed in range(3):
+            got, want, short = head_vs_plain(model, dtype, seed)
+            print(f"[chip_smoke] K9 {name} seed {seed}: kernel {got} plain "
+                  f"{want}, logit shortfall {short:.3g}")
+            if got != want:
+                raise AssertionError(f"K9 {name}: kernel {got} != plain "
+                                     f"{want}")
+            err["lm_head_argmax"] = max(err["lm_head_argmax"], short)
+        got, want, _ = head_vs_plain(model, dtype, 7, tie=True)
+        print(f"[chip_smoke] K9 {name} tie of rows {HEAD_TIE}: kernel {got} "
+              f"plain {want}")
+        if got != want or got != HEAD_TIE[0]:
+            raise AssertionError(f"K9 {name} tie: kernel {got}, plain {want}"
+                                 f", want {HEAD_TIE[0]}")
+        outs = {}
+        for pos in STEP_POSITIONS:
+            h_err, c_err, kept, outs[pos] = step_vs_plain(model, dtype, pos)
+            print(f"[chip_smoke] K10 {name} pos {pos}: h_out err {h_err:.3g}"
+                  f", cache err {c_err:.3g}, other rows kept {kept}")
+            if h_err > STEP_ATOL[dtype] or c_err > CACHE_ATOL[dtype] \
+                    or not kept:
+                raise AssertionError(f"K10 {name} pos {pos}: h_out err "
+                                     f"{h_err}, cache err {c_err}, kept "
+                                     f"{kept}")
+            err["fused_decode_step"] = max(err["fused_decode_step"], h_err)
+        last = model.max_seq_len - 1
+        if not torch.equal(outs[STEP_POSITIONS[-1]], outs[last]):
+            raise AssertionError(f"K10 {name}: pos {STEP_POSITIONS[-1]} "
+                                 f"differs from pos {last}")
+    # the path: counters zeroed just before it, read just after
+    w = model._fused_weights(torch.float32)
+    dev, D, L = model.device, model.embed_dim, PROMPT.shape[1]
+    rot = dsk.rope_pair_swap_matrix(D).to(dev)
+    hmask = dsk.head_mask_matrix(D, model.n_heads).to(dev)
+    ck, cv = model._flat_caches(*model._empty_caches(1, torch.float32))
+    feed = list(PROMPT[0]) + [int(t) for t in truth[:PATH_STEPS - 1, 0]]
+    toks = torch.tensor(feed, dtype=torch.long, device=dev)
+    positions = torch.arange(len(feed), dtype=torch.int32, device=dev)
+    outs = torch.empty(len(feed), 1, 1, dtype=torch.int32, device=dev)
+    layers = [w[k] for k in ("wq", "wk", "wv", "wo", "gate_w", "up_w",
+                             "down", "in_norm", "post_norm")]
+    torch.cuda.synchronize()
+    dsk.fused_decode_step.launches = dsk.lm_head_argmax.launches = 0
+    for i in range(len(feed)):
+        h, _, _ = dsk.fused_decode_step(
+            positions[i:i + 1], w["tok"][toks[i]][None].float(),
+            w["cosD"][i][None].float(), w["sinD"][i][None].float(), rot,
+            hmask, w["norm"], *layers, ck, cv)
+        dsk.lm_head_argmax(h, w["head_w"], w["head_b"], out=outs[i])
+    launches = {"fused_decode_step": dsk.fused_decode_step.launches,
+                "lm_head_argmax": dsk.lm_head_argmax.launches}
+    got = outs[L - 1:, 0].cpu().numpy()  # (PATH_STEPS, 1)
+    conf = fidelity._confident(margins[:PATH_STEPS], tops[:PATH_STEPS],
+                               fidelity.MARGIN, fidelity.REL_MARGIN)
+    ok = int((got[conf] == truth[:PATH_STEPS][conf]).sum())
+    print(f"[chip_smoke] K10 + K9 path: {len(feed)} steps, launches "
+          f"{launches}, {ok}/{int(conf.sum())} confident steps equal the "
+          f"f32 truth")
+    if any(n != len(feed) for n in launches.values()):
+        raise AssertionError(f"K10 + K9 path launches {launches}, want "
+                             f"{len(feed)} each")
+    if not conf.any() or ok != int(conf.sum()):
+        raise AssertionError("K10 + K9 path differs from the truth at a "
+                             "confident step")
+    return err, launches
+
+
+def time_head_and_step(model, card):
+    """Phase 5's K9 and K10 part: device time by CUDA-graph replay beside
+    the bound, the plain version (CUDA events around a loop) and, for K9,
+    ``torch.argmax(head_w @ h + b)``; in float32 and bfloat16, K10 at pos
+    512. Returns {"K9 <fmt>" / "K10 <fmt>": (ms, plain_ms, bound_ms,
+    bound_by, library_ms)}."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        h, w, b = head_inputs(model, dtype)
+        hv = h[0].to(dtype)
+        kern = lambda i: dsk.lm_head_argmax(h, w, b)
+        lib = lambda i: torch.argmax(w @ hv + b)
+        plain = lambda: dsk.lm_head_argmax_ref(h, w, b)
+        k1, l1, p1 = time_graph(kern, 1, 50), time_graph(lib, 1, 50), \
+            time_step(plain, 20)
+        k2, l2, p2 = time_graph(kern, 1, 50), time_graph(lib, 1, 50), \
+            time_step(plain, 20)
+        V, D = w.shape
+        b_ms, b_by = bound(nbytes(h, w, b) + 4, 2 * V * D, dtype)
+        out["K9 " + name] = (min(k1, k2), min(p1, p2), b_ms, b_by,
+                             min(l1, l2))
+        print(f"[chip_smoke] {card}: K9 lm_head_argmax {name} ({V}, {D}): "
+              f"kernel {min(k1, k2) * 1e3:.1f} us, plain "
+              f"{min(p1, p2) * 1e3:.1f} us, torch.argmax(head_w @ h + b) "
+              f"{min(l1, l2) * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
+              f"({b_by})")
+        pos = 512
+        args = step_inputs(model, dtype, pos)
+        kern = lambda i: dsk.fused_decode_step(*args)
+        plain = lambda: dsk.fused_decode_step_ref(*args)
+        k1, p1 = time_graph(kern, 1, 20), time_step(plain, 5)
+        k2, p2 = time_graph(kern, 1, 20), time_step(plain, 5)
+        N, S, D = args[-1].shape
+        H = model.n_heads
+        mats = args[7:14]
+        rows = pos + 1
+        n_bytes = (nbytes(*args[1:16]) + 4 * D
+                   + 2 * N * D * args[-1].element_size() * (rows + 1))
+        n_ops = N * (2 * sum(m.numel() for m in mats) + 4 * D * D
+                     + 2 * rows * D * H + rows * D * (2 * H + 2))
+        b_ms, b_by = bound(n_bytes, n_ops, dtype)
+        out["K10 " + name] = (min(k1, k2), min(p1, p2), b_ms, b_by, None)
+        print(f"[chip_smoke] {card}: K10 fused_decode_step {name} pos {pos}: "
+              f"kernel {min(k1, k2) * 1e3:.1f} us, plain "
+              f"{min(p1, p2) * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
+              f"({b_by})")
+    return out
 
 
 def serve_requests(model, seed=0):
@@ -859,18 +1104,25 @@ def nbytes(*tensors):
 
 
 def decode_step_bound(w, ck, pos, rows):
-    """K1/K2's bound at ``pos`` for ``rows`` rows: every weight once (the
-    embedding's ``rows`` rows), each row's cache rows [0, pos] read and its
-    new row written, in the weight type; operations two a weight and two a
-    cache element a row."""
+    """K1/K2's bound at ``pos`` for ``rows`` rows: every weight once, as
+    stored (int8, or int4 two a byte, with its scales), the embedding's
+    ``rows`` rows, each row's cache rows [0, pos] read and its new row
+    written, in the cache type; operations two a weight and two a cache
+    element a row."""
+    from pydynet_tpu_torch.models.llama.model import FUSED_MATS
+
     N, D = ck.shape[0], ck.shape[-1]
-    mats = [w[k] for k in ("wq", "wk", "wv", "wo", "gate_w", "up_w", "down")]
-    head = w["head_wq"] if "head_s" in w else w["head_w"]
+    q = "_q" if "wq_s" in w else ""
+    mats = [w[k + q] for k in FUSED_MATS]
+    scales = [w[k + "_s"] for k in FUSED_MATS] if q else []
+    head = [w["head_wq"], w["head_s"]] if "head_s" in w else [w["head_w"]]
     small = [w[k] for k in ("norm", "in_norm", "post_norm", "head_b")]
     it = ck.element_size()
     kv = rows * N * D * 2 * it * (pos + 2)  # pos + 1 rows read, one written
-    n_bytes = nbytes(*mats, head, *small) + rows * D * it * 3 + kv
-    n_ops = 2 * rows * (sum(m.numel() for m in mats) + head.numel()) \
+    n_bytes = nbytes(*mats, *scales, *head, *small) + rows * D * it * 3 + kv
+    per_byte = 2 if "q4" in w else 1  # weights a stored element holds
+    n_ops = 2 * rows * per_byte * (sum(m.numel() for m in mats)
+                                   + head[0].numel()) \
         + 4 * rows * N * D * (pos + 1)
     return bound(n_bytes, n_ops, ck.dtype)
 
@@ -1653,9 +1905,9 @@ def main() -> int:
                 got, want, confident, err = kernel_vs_plain(model, fmt, pos)
                 print(f"[chip_smoke] {fmt} pos {pos}: kernel {got} plain "
                       f"{want} confident {confident} cache err {err:.3g}")
-                if err > CACHE_ATOL[dtype]:
+                if err > cache_atol(fmt):
                     raise AssertionError(f"{fmt} pos {pos}: cache error "
-                                         f"{err} > {CACHE_ATOL[dtype]}")
+                                         f"{err} > {cache_atol(fmt)}")
                 if got != want and (dtype == torch.float32 or confident):
                     raise AssertionError(f"{fmt} pos {pos}: kernel token "
                                          f"{got} != plain {want}")
@@ -1666,7 +1918,8 @@ def main() -> int:
     t0 = time.perf_counter()
     max_err_b = {}
     with torch.no_grad():
-        for fmt, (dtype, _) in FORMATS.items():
+        for fmt in BATCHED_FORMATS:
+            dtype = FORMATS[fmt][0]
             max_err_b[fmt] = 0.0
             for batch in BATCHES:
                 for pos in BATCH_POSITIONS:
@@ -1705,15 +1958,23 @@ def main() -> int:
     bn_err = check_batchnorm()
     phase("3d batch norm vs plain", t0)
 
+    # 3e. K9 and K10 against plain, and the path they make together
+    t0 = time.perf_counter()
+    truth, margins, tops = fidelity.greedy_truth(model, PROMPT, PATH_STEPS)
+    with torch.no_grad():
+        step_err, step_launches = check_head_and_step(model, truth, margins,
+                                                      tops)
+    phase("3e head and layers-only step vs plain", t0)
+
     # 4. the B=1 path
     t0 = time.perf_counter()
     steps = REQUEST - PROMPT.shape[1] - 1
-    for quant in (None, "int8-head"):  # warm-up: weights, cuBLAS, kernels
+    for quant in B1_QUANTS:  # warm-up: weights, cuBLAS, kernels
         list(model.generate(PROMPT, PROMPT.shape[1] + 3,
                             dtype=torch.bfloat16, quant=quant))
     torch.cuda.synchronize()
     dsk.fused_decode_token.launches = 0
-    for quant in (None, "int8-head"):
+    for quant in B1_QUANTS:
         before = dsk.fused_decode_token.launches
         toks = [int(t[0, 0]) for t in model.generate(
             PROMPT, REQUEST, dtype=torch.bfloat16, quant=quant)]
@@ -1727,7 +1988,6 @@ def main() -> int:
         if not all(0 <= x < CFG["vocab_size"] for x in toks):
             raise AssertionError(f"{name}: token out of range")
     main_launches = dsk.fused_decode_token.launches
-    truth, margins, tops = fidelity.greedy_truth(model, PROMPT, 64)
     for quant in (None, "int8-head"):
         checked, ok, agree = fidelity.gate_fused_argmax(
             model, PROMPT, truth, margins, tops, dtype=torch.bfloat16,
@@ -1736,11 +1996,30 @@ def main() -> int:
               f"ok {ok} agree {agree:.3f}")
         if not (checked > 0 and ok):
             raise AssertionError(f"fidelity gate failed for quant={quant}")
-    before = dsk.fused_decode_token.launches
-    infer.main(["--random-init", "--device", "cuda", "--max-new-tokens",
-                "64"])
-    if dsk.fused_decode_token.launches == before:
-        raise AssertionError("infer CLI did not run the kernel")
+    # int8 and int4 layers: the truth of a copy whose weights went through
+    # the format and back (bench.py's dequant_truth), so the gate sees the
+    # kernel's arithmetic and the activations' quantization, not the weight
+    # error; int8 at every confident step, int4 by majority agreement
+    for quant, kw in (("int8", {}), ("int4", {"min_agree": INT4_MIN_AGREE})):
+        rt = fidelity.dequant_inplace(
+            Llama(**CFG, device="cuda",
+                  generator=torch.Generator().manual_seed(0)).eval(), quant)
+        t_rt, m_rt, top_rt = fidelity.greedy_truth(rt, PROMPT, PATH_STEPS)
+        checked, ok, agree = fidelity.gate_fused_argmax(
+            rt, PROMPT, t_rt, m_rt, top_rt, dtype=torch.bfloat16,
+            quant=quant, **kw)
+        print(f"[chip_smoke] gate bf16 quant={quant} (against the {quant} "
+              f"round-trip truth{', majority' if kw else ''}): checked "
+              f"{checked} ok {ok} agree {agree:.3f}")
+        if not (checked > 0 and ok):
+            raise AssertionError(f"fidelity gate failed for quant={quant}")
+        del rt
+    for extra in ([], ["--quant", "int8"]):
+        before = dsk.fused_decode_token.launches
+        infer.main(["--random-init", "--device", "cuda", "--max-new-tokens",
+                    "64", *extra])
+        if dsk.fused_decode_token.launches == before:
+            raise AssertionError(f"infer CLI {extra} did not run the kernel")
     phase("4 main path", t0)
 
     # 4b. the serving path
@@ -1767,7 +2046,7 @@ def main() -> int:
     t0 = time.perf_counter()
     ms = {}
     with torch.no_grad():
-        for fmt in ("bf16", "bf16-int8head"):
+        for fmt in ("bf16", "bf16-int8head", "bf16-int8", "bf16-int4"):
             dtype, quant = FORMATS[fmt]
             w = model._fused_weights(dtype, quant)
             ck, cv = random_caches(model, dtype, 1)
@@ -1802,7 +2081,8 @@ def main() -> int:
                   f"{ms[f'K2 B={batch}'][1] * 1e3:.1f} us, bound "
                   f"{ms[f'K2 B={batch}'][2] * 1e3:.1f} us")
             del ck, cv
-    tok_s = {None: [], "int8-head": []}
+        ms.update(time_head_and_step(model, card))
+    tok_s = {quant: [] for quant in B1_QUANTS}
     for _ in range(REPEATS):  # the formats in turns
         for quant, rates in tok_s.items():
             start = time.perf_counter()
@@ -1867,6 +2147,14 @@ def main() -> int:
         entry("decode_token", "decode_token.cu",
               "pydynet_tpu/ops/decode_step.py:160", main_launches,
               max_err["f32"], ms["bf16"] + (None,)),
+        entry("lm_head_argmax", "decode_token.cu",
+              "pydynet_tpu/ops/decode_step.py:102",
+              step_launches["lm_head_argmax"], step_err["lm_head_argmax"],
+              ms["K9 bf16"]),
+        entry("fused_decode_step", "decode_step.cu",
+              "pydynet_tpu/ops/decode_step.py:1575",
+              step_launches["fused_decode_step"],
+              step_err["fused_decode_step"], ms["K10 bf16"]),
         entry("decode_token_batched", "decode_token_batched.cu",
               "pydynet_tpu/ops/decode_step.py:509", serve_launches,
               max_err_b["f32"], ms["K2 B=8"] + (None,))] + [

@@ -1,9 +1,12 @@
-// One greedy B=1 Llama decode step on NVIDIA Hopper (sm_90a).
+// One greedy B=1 Llama decode step on NVIDIA Hopper (sm_90a), and the
+// greedy head alone.
 //
-// Replaces the Pallas TPU kernel `_token_kernel`
+// Replaces the Pallas TPU kernels `_token_kernel`
 // (pydynet_tpu/ops/decode_step.py:160, launched by `fused_decode_token`
-// at :1346). It computes the same step: gather emb[tok]; per layer RMSNorm,
-// q/k/v, interleaved RoPE, the K/V row write at pos (clamped to S-1), causal
+// at :1346; K1) and `_lm_head_kernel` (:102, launched by `lm_head_argmax`
+// at :129; K9, which is K1's head without the final RMSNorm: `head_tile`
+// in common.cuh serves both, one tie rule). K1 computes the same step:
+// gather emb[tok]; per layer RMSNorm, q/k/v, interleaved RoPE, the K/V row write at pos (clamped to S-1), causal
 // online-softmax attention over rows [0, pos], wo + residual, RMSNorm,
 // SwiGLU + residual; then the final RMSNorm, the lm_head GEMV + bias and a
 // greedy argmax whose ties go to the lowest index. The TPU layout tricks
@@ -20,8 +23,8 @@
 //   4. RMSNorm + gate/up GEMV + SiLU * up,
 //   5. down GEMV + residual,
 // then 6. final RMSNorm + head GEMV + bias with a (max, index) pair per
-// vocab tile (the int8 head quantises the activations per block, exactly as
-// the TPU kernel's `qvec`), and 7. a one-block argmax over the tiles. `pos`
+// vocab tile, and 7. a one-block argmax over the tiles (K9 is 6 on h as
+// given, without the norm, then 7). `pos`
 // and `tok` are read from device memory, so no step syncs with the host and
 // the chain can later be captured in a CUDA graph.
 //
@@ -36,36 +39,53 @@
 //
 // Types: the residual stream is f32; every matmul input is rounded to the
 // weight type T (f32 or bf16) and accumulated in f32; the caches are T.
-// The int8 head accumulates exactly in int32.
+// Quantized weights (the TPU kernel's `qhead`, `qlayers` and `q4` modes):
+// the int8 head, int8 layers with the int8 head, or int4 layers with the
+// int4 head. Each of their matmuls quantizes its f32 activation vector per
+// block (the normed h for q/k/v, the attention output for wo, the normed z
+// for gate/up, the SwiGLU output for down, the final normed h for the head;
+// none rounded to T first), accumulates exactly in int32 and rescales by
+// its weight row's scale times amax / 127, as the TPU kernel's qvec/qmm do.
 
 #include "common.cuh"
 
 namespace {
 
+// layer l's matrix of `rows_cols` weights of format Q, and its scales
+template <int Q, typename T>
+const void* layer_w(const void* w, int l, size_t rows_cols) {
+  return static_cast<const char*>(w) + l * fmt_bytes<Q, T>(rows_cols);
+}
+const float* layer_s(const float* s, int l, int rows) {
+  return s == nullptr ? nullptr : s + (size_t)l * rows;
+}
+
 // 1. RMSNorm + q/k/v + RoPE + K/V row write. A warp owns one (even, odd)
 // feature pair of the concatenated [q; k; v] rows, so RoPE needs no
 // exchange between warps.
-template <typename T>
+template <typename T, int Q>
 __global__ void __launch_bounds__(kThreads)
 qkv_rope_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok_p,
                 const T* __restrict__ emb, int first, float* __restrict__ h,
-                const T* __restrict__ in_norm, const T* __restrict__ wq,
-                const T* __restrict__ wk, const T* __restrict__ wv,
-                const T* __restrict__ cos_t, const T* __restrict__ sin_t,
-                float* __restrict__ q_out, T* __restrict__ ck,
-                T* __restrict__ cv, int D, int S, int V) {
+                const T* __restrict__ in_norm, const void* __restrict__ wq,
+                const void* __restrict__ wk, const void* __restrict__ wv,
+                const float* __restrict__ s_q, const float* __restrict__ s_k,
+                const float* __restrict__ s_v, const T* __restrict__ cos_t,
+                const T* __restrict__ sin_t, float* __restrict__ q_out,
+                T* __restrict__ ck, T* __restrict__ cv, int D, int S, int V) {
   extern __shared__ float smem[];
   float* x_s = smem;
   float* red = smem + D;
   const int pos = min(*pos_p, S - 1);
+  float sx;
   if (first) {
     const int tok = min(max(*tok_p, 0), V - 1);
     const T* e = emb + (size_t)tok * D;
-    load_normed<T>(e, in_norm, D, x_s, red);
+    sx = load_normed_act<Q, T>(e, in_norm, D, x_s, red);
     if (blockIdx.x == 0)
       for (int i = threadIdx.x; i < D; i += blockDim.x) h[i] = to_f(e[i]);
   } else {
-    load_normed<T>(h, in_norm, D, x_s, red);
+    sx = load_normed_act<Q, T>(h, in_norm, D, x_s, red);
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int npairs = 3 * D / 2;
@@ -73,9 +93,10 @@ qkv_rope_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok_p,
        p += gridDim.x * kWarps) {
     const int which = (2 * p) / D;  // 0 q, 1 k, 2 v
     const int j = 2 * p - which * D;
-    const T* w = which == 0 ? wq : (which == 1 ? wk : wv);
-    float a = warp_dot(w + (size_t)j * D, x_s, D);
-    float b = warp_dot(w + (size_t)(j + 1) * D, x_s, D);
+    const void* w = which == 0 ? wq : (which == 1 ? wk : wv);
+    const float* sc = which == 0 ? s_q : (which == 1 ? s_k : s_v);
+    float a = row_dot<Q, T>(w, j, x_s, D, sc, sx);
+    float b = row_dot<Q, T>(w, j + 1, x_s, D, sc, sx);
     if (lane == 0) {
       const size_t r = (size_t)pos * D + j;
       if (which < 2) {  // rotate the interleaved pair (2i, 2i+1)
@@ -171,29 +192,21 @@ attention_kernel(const int* __restrict__ pos_p, const float* __restrict__ q,
   }
 }
 
-// h[r] += dot(w[r, 0:K], x_s) for r < D, a warp per output row
-template <typename T>
-__device__ __forceinline__ void gemv_residual(const float* x_s, int K,
-                                              const T* w, float* h, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = blockIdx.x * kWarps + warp; r < D; r += gridDim.x * kWarps) {
-    const float a = warp_dot(w + (size_t)r * K, x_s, K);
-    if (lane == 0) h[r] += a;
-  }
-}
-
 // 3. Merge the attention partials of every head (online-softmax rescale to
-// the common max), round the D-wide result to T, then wo GEMV + residual.
-// Each block redoes the small merge so that no extra launch is needed.
-template <typename T>
+// the common max) into the D-wide result, the matmul input of wo (rounded
+// to T, or quantized), then wo GEMV + residual. Each block redoes the small
+// merge so that no extra launch is needed.
+template <typename T, int Q>
 __global__ void __launch_bounds__(kThreads)
 attn_out_kernel(const int* __restrict__ pos_p,
                 const float* __restrict__ part_m,
                 const float* __restrict__ part_l,
                 const float* __restrict__ part_acc, int nsplit, int hd,
-                const T* __restrict__ wo, float* __restrict__ h, int D,
-                int S) {
-  extern __shared__ float x_s[];
+                const void* __restrict__ wo, const float* __restrict__ s_o,
+                float* __restrict__ h, int D, int S) {
+  extern __shared__ float smem[];
+  float* x_s = smem;
+  float* red = smem + D;
   const int n = min(*pos_p, S - 1) + 1;
   const int used = (n + kAttnRows - 1) / kAttnRows;
   for (int i = threadIdx.x; i < D; i += blockDim.x) {
@@ -207,104 +220,41 @@ attn_out_kernel(const int* __restrict__ pos_p,
       num += c * part_acc[(size_t)(base + s) * hd + d];
       den += c * part_l[base + s];
     }
-    x_s[i] = round_to<T>(num / fmaxf(den, 1e-30f));
+    x_s[i] = num / fmaxf(den, 1e-30f);
   }
-  __syncthreads();
-  gemv_residual(x_s, D, wo, h, D);
-}
-
-// 5. h[r] += dot(down[r, 0:F], T(ff)) for r < D
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-down_residual_kernel(const float* __restrict__ ff, int F,
-                     const T* __restrict__ w, float* __restrict__ h, int D) {
-  extern __shared__ float x_s[];
-  for (int i = threadIdx.x; i < F; i += blockDim.x)
-    x_s[i] = round_to<T>(ff[i]);
-  __syncthreads();
-  gemv_residual(x_s, F, w, h, D);
-}
-
-// 4. RMSNorm + gate/up + SiLU(gate) * up -> ff (f32, F wide)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gate_up_kernel(const float* __restrict__ h, const T* __restrict__ post_norm,
-               const T* __restrict__ gate_w, const T* __restrict__ up_w,
-               float* __restrict__ ff, int D, int F) {
-  extern __shared__ float smem[];
-  float* x_s = smem;
-  float* red = smem + D;
-  load_normed<T>(h, post_norm, D, x_s, red);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int j = blockIdx.x * kWarps + warp; j < F; j += gridDim.x * kWarps) {
-    const float gv = warp_dot(gate_w + (size_t)j * D, x_s, D);
-    const float uv = warp_dot(up_w + (size_t)j * D, x_s, D);
-    if (lane == 0) ff[j] = gv * (1.f / (1.f + expf(-gv))) * uv;
-  }
+  const float sx = prepare_act<Q, T>(x_s, D, red);
+  gemv_residual<Q, T>(x_s, D, wo, s_o, sx, h, D);
 }
 
 // 6. Final RMSNorm + head GEMV + bias over kHeadRows vocab rows, reduced to
-// one (max, index) pair per block. HW is T, or int8_t for the int8 head
-// (per-row f32 scales `head_s`, activations quantised as the TPU's qvec).
-template <typename T, typename HW>
+// one (max, index) pair per block. HQ is the head's format: T rows, int8
+// rows (the int8 head and the int8 layers) or int4 rows (the int4 layers),
+// with per-row f32 scales `head_s`.
+template <typename T, int HQ>
 __global__ void __launch_bounds__(kThreads)
 head_kernel(const float* __restrict__ h, const T* __restrict__ final_norm,
-            const HW* __restrict__ head_w, const float* __restrict__ head_s,
+            const void* __restrict__ head_w, const float* __restrict__ head_s,
             const T* __restrict__ head_b, float* __restrict__ tile_val,
             int* __restrict__ tile_idx, int D, int V) {
-  constexpr bool kInt8 = std::is_same<HW, int8_t>::value;
   extern __shared__ float smem[];
   float* x_s = smem;
   float* red = smem + D;
-  __shared__ float wv[kWarps];
-  __shared__ int wi[kWarps];
-  float sx = 0.f;
-  if constexpr (kInt8) {
-    load_normed<float>(h, final_norm, D, x_s, red);
-    float amax = 0.f;
-    for (int i = threadIdx.x; i < D; i += blockDim.x)
-      amax = fmaxf(amax, fabsf(x_s[i]));
-    amax = fmaxf(block_max(amax, red), 1e-30f);
-    const float inv = 127.0f / amax;
-    for (int i = threadIdx.x; i < D; i += blockDim.x)
-      x_s[i] = rintf(x_s[i] * inv);  // round half to even
-    sx = amax * (1.0f / 127.0f);
-    __syncthreads();
-  } else {
-    load_normed<T>(h, final_norm, D, x_s, red);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float bv = -INFINITY;
-  int bi = INT_MAX;
-  const int r0 = blockIdx.x * kHeadRows + warp * kHeadRowsPerWarp;
-  for (int r = r0; r < min(r0 + kHeadRowsPerWarp, V); ++r) {
-    const HW* row = head_w + (size_t)r * D;
-    float logit;
-    if constexpr (kInt8) {
-      const int acc = warp_sum_i(lane_dot<int>(row, x_s, D));
-      logit = (float)acc * (head_s[r] * sx) + to_f(head_b[r]);
-    } else {
-      logit = warp_dot(row, x_s, D) + to_f(head_b[r]);
-    }
-    if (better(logit, r, bv, bi)) {
-      bv = logit;
-      bi = r;
-    }
-  }
-  if (lane == 0) {
-    wv[warp] = bv;
-    wi[warp] = bi;
-  }
+  const float sx = load_normed_act<HQ, T>(h, final_norm, D, x_s, red);
+  head_tile<HQ, T>(x_s, sx, head_w, head_s, head_b, tile_val, tile_idx, D,
+                   V);
+}
+
+// K9: the head of h (1, D) alone, h as it is (f32 or bf16, widened to f32,
+// not rounded to the weights' type: jnp.dot promotes both to f32)
+template <typename H, typename W>
+__global__ void __launch_bounds__(kThreads)
+lm_head_kernel(const H* __restrict__ h, const W* __restrict__ w,
+               const W* __restrict__ b, float* __restrict__ tile_val,
+               int* __restrict__ tile_idx, int D, int V) {
+  extern __shared__ float x_s[];
+  for (int i = threadIdx.x; i < D; i += blockDim.x) x_s[i] = to_f(h[i]);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < kWarps; ++w)
-      if (better(wv[w], wi[w], bv, bi)) {
-        bv = wv[w];
-        bi = wi[w];
-      }
-    tile_val[blockIdx.x] = bv;
-    tile_idx[blockIdx.x] = bi;
-  }
+  head_tile<kFmtFloat, W>(x_s, 1.f, w, nullptr, b, tile_val, tile_idx, D, V);
 }
 
 struct Args {
@@ -316,13 +266,15 @@ struct Args {
   const void *in_norm, *post_norm, *head_w;
   const float* head_s;
   const void* head_b;
+  const float *s_q, *s_k, *s_v, *s_o, *s_gate, *s_up, *s_down;
   void *ck, *cv;
   float* scratch;
   int N, D, H, F, V, S;
   float scale;
 };
 
-template <typename T, typename HW>
+// Q: the layers' format, HQ: the head's
+template <typename T, int Q, int HQ>
 cudaError_t run(const Args& a, cudaStream_t st) {
   const int D = a.D, F = a.F, S = a.S, hd = a.D / a.H;
   const int ntiles = head_tiles(a.V);
@@ -340,13 +292,6 @@ cudaError_t run(const Args& a, cudaStream_t st) {
   const T* sin_t = static_cast<const T*>(a.sin);
   const T* in_norm = static_cast<const T*>(a.in_norm);
   const T* post_norm = static_cast<const T*>(a.post_norm);
-  const T* wq = static_cast<const T*>(a.wq);
-  const T* wk = static_cast<const T*>(a.wk);
-  const T* wv = static_cast<const T*>(a.wv);
-  const T* wo = static_cast<const T*>(a.wo);
-  const T* gate_w = static_cast<const T*>(a.gate_w);
-  const T* up_w = static_cast<const T*>(a.up_w);
-  const T* down_w = static_cast<const T*>(a.down_w);
   T* ck = static_cast<T*>(a.ck);
   T* cv = static_cast<T*>(a.cv);
   const size_t LDD = (size_t)D * D, LFD = (size_t)F * D, LSD = (size_t)S * D;
@@ -355,35 +300,54 @@ cudaError_t run(const Args& a, cudaStream_t st) {
   const int grid_d = (D + kWarps - 1) / kWarps;
   const int grid_f = (F + kWarps - 1) / kWarps;
   const size_t sm_norm = (size_t)(D + kWarps) * sizeof(float);
+  const size_t sm_ff = (size_t)(F + kWarps) * sizeof(float);
   const size_t sm_attn = (size_t)(hd + kAttnRows + kThreads + 2) *
                          sizeof(float);
   for (int l = 0; l < a.N; ++l) {
-    qkv_rope_kernel<T><<<grid_qkv, kThreads, sm_norm, st>>>(
-        a.pos, a.tok, emb, l == 0, h, in_norm + (size_t)l * D, wq + l * LDD,
-        wk + l * LDD, wv + l * LDD, cos_t, sin_t, q, ck + l * LSD,
-        cv + l * LSD, D, S, a.V);
+    qkv_rope_kernel<T, Q><<<grid_qkv, kThreads, sm_norm, st>>>(
+        a.pos, a.tok, emb, l == 0, h, in_norm + (size_t)l * D,
+        layer_w<Q, T>(a.wq, l, LDD), layer_w<Q, T>(a.wk, l, LDD),
+        layer_w<Q, T>(a.wv, l, LDD), layer_s(a.s_q, l, D),
+        layer_s(a.s_k, l, D), layer_s(a.s_v, l, D), cos_t, sin_t, q,
+        ck + l * LSD, cv + l * LSD, D, S, a.V);
     PDT_CHECK();
     attention_kernel<T><<<dim3(a.H, nsplit), kThreads, sm_attn, st>>>(
         a.pos, q, ck + l * LSD, cv + l * LSD, part_m, part_l, part_acc, D,
         hd, S, a.scale);
     PDT_CHECK();
-    attn_out_kernel<T><<<grid_d, kThreads, D * sizeof(float), st>>>(
-        a.pos, part_m, part_l, part_acc, nsplit, hd, wo + l * LDD, h, D, S);
+    attn_out_kernel<T, Q><<<grid_d, kThreads, sm_norm, st>>>(
+        a.pos, part_m, part_l, part_acc, nsplit, hd,
+        layer_w<Q, T>(a.wo, l, LDD), layer_s(a.s_o, l, D), h, D, S);
     PDT_CHECK();
-    gate_up_kernel<T><<<grid_f, kThreads, sm_norm, st>>>(
-        h, post_norm + (size_t)l * D, gate_w + l * LFD, up_w + l * LFD, ff,
-        D, F);
+    gate_up_kernel<T, Q><<<grid_f, kThreads, sm_norm, st>>>(
+        h, post_norm + (size_t)l * D, layer_w<Q, T>(a.gate_w, l, LFD),
+        layer_w<Q, T>(a.up_w, l, LFD), layer_s(a.s_gate, l, F),
+        layer_s(a.s_up, l, F), ff, D, F);
     PDT_CHECK();
-    down_residual_kernel<T><<<grid_d, kThreads, F * sizeof(float), st>>>(
-        ff, F, down_w + l * LFD, h, D);
+    down_residual_kernel<T, Q><<<grid_d, kThreads, sm_ff, st>>>(
+        ff, F, layer_w<Q, T>(a.down_w, l, LFD), layer_s(a.s_down, l, D), h,
+        D);
     PDT_CHECK();
   }
-  head_kernel<T, HW><<<ntiles, kThreads, sm_norm, st>>>(
-      h, static_cast<const T*>(a.final_norm),
-      static_cast<const HW*>(a.head_w), a.head_s,
+  head_kernel<T, HQ><<<ntiles, kThreads, sm_norm, st>>>(
+      h, static_cast<const T*>(a.final_norm), a.head_w, a.head_s,
       static_cast<const T*>(a.head_b), tile_val, tile_idx, D, a.V);
   PDT_CHECK();
   argmax_kernel<<<1, kThreads, 0, st>>>(tile_val, tile_idx, ntiles, a.out);
+  return cudaGetLastError();
+}
+
+template <typename H, typename W>
+cudaError_t run_head(const void* h, const void* w, const void* b, int* out,
+                     float* scratch, int D, int V, cudaStream_t st) {
+  const int ntiles = head_tiles(V);
+  float* tile_val = scratch;
+  int* tile_idx = reinterpret_cast<int*>(scratch + ntiles);
+  lm_head_kernel<H, W><<<ntiles, kThreads, D * sizeof(float), st>>>(
+      static_cast<const H*>(h), static_cast<const W*>(w),
+      static_cast<const W*>(b), tile_val, tile_idx, D, V);
+  PDT_CHECK();
+  argmax_kernel<<<1, kThreads, 0, st>>>(tile_val, tile_idx, ntiles, out);
   return cudaGetLastError();
 }
 
@@ -400,36 +364,78 @@ int pdt_decode_token_scratch_floats(int dim, int n_heads, int ffn, int vocab,
          attn_splits(seq) * (2 * n_heads + dim);
 }
 
-// wdtype 0: float32 weights and caches, 1: bfloat16. qhead 1: head_w is
-// int8 (V, D) with float32 per-row scales head_s. Returns the CUDA error
-// of the first launch that failed, or cudaSuccess.
-int pdt_decode_token(int wdtype, int qhead, const void* pos, const void* tok,
-                     void* out, const void* emb, const void* cos,
-                     const void* sin, const void* final_norm, const void* wq,
-                     const void* wk, const void* wv, const void* wo,
-                     const void* gate_w, const void* up_w,
+// wdtype 0: float32 weights and caches, 1: bfloat16. lfmt / hfmt: the
+// formats of the layer matmuls and of the head (0 the weight type, 1 int8,
+// 2 int4 packed along the contraction axis), one of (0, 0), (0, 1), (1, 1),
+// (2, 2); a quantized matrix has float32 scales per output row: head_s
+// (V,), s_q .. s_down (N, out). Returns the CUDA error of the first launch
+// that failed, or cudaSuccess.
+int pdt_decode_token(int wdtype, int lfmt, int hfmt, const void* pos,
+                     const void* tok, void* out, const void* emb,
+                     const void* cos, const void* sin, const void* final_norm,
+                     const void* wq, const void* wk, const void* wv,
+                     const void* wo, const void* gate_w, const void* up_w,
                      const void* down_w, const void* in_norm,
                      const void* post_norm, const void* head_w,
-                     const void* head_s, const void* head_b, void* ck,
-                     void* cv, void* scratch, int n_layers, int dim,
-                     int n_heads, int ffn, int vocab, int seq, float scale,
-                     void* stream) {
+                     const void* head_s, const void* head_b, const void* s_q,
+                     const void* s_k, const void* s_v, const void* s_o,
+                     const void* s_gate, const void* s_up,
+                     const void* s_down, void* ck, void* cv, void* scratch,
+                     int n_layers, int dim, int n_heads, int ffn, int vocab,
+                     int seq, float scale, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
   Args a{static_cast<const int*>(pos),
          static_cast<const int*>(tok),
          static_cast<int*>(out),
          emb, cos, sin, final_norm,
          wq, wk, wv, wo, gate_w, up_w, down_w,
-         in_norm, post_norm, head_w,
-         static_cast<const float*>(head_s),
-         head_b, ck, cv,
+         in_norm, post_norm, head_w, f(head_s), head_b,
+         f(s_q), f(s_k), f(s_v), f(s_o), f(s_gate), f(s_up), f(s_down),
+         ck, cv,
          static_cast<float*>(scratch),
          n_layers, dim, n_heads, ffn, vocab, seq, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wdtype == 0)
-    return qhead ? run<float, int8_t>(a, st) : run<float, float>(a, st);
-  if (wdtype == 1)
-    return qhead ? run<__nv_bfloat16, int8_t>(a, st)
-                 : run<__nv_bfloat16, __nv_bfloat16>(a, st);
+  const int mode = lfmt * 3 + hfmt;
+  if (wdtype == 0) {
+    switch (mode) {
+      case 0: return run<float, kFmtFloat, kFmtFloat>(a, st);
+      case 1: return run<float, kFmtFloat, kFmtInt8>(a, st);
+      case 4: return run<float, kFmtInt8, kFmtInt8>(a, st);
+      case 8: return run<float, kFmtInt4, kFmtInt4>(a, st);
+    }
+  } else if (wdtype == 1) {
+    using bf = __nv_bfloat16;
+    switch (mode) {
+      case 0: return run<bf, kFmtFloat, kFmtFloat>(a, st);
+      case 1: return run<bf, kFmtFloat, kFmtInt8>(a, st);
+      case 4: return run<bf, kFmtInt8, kFmtInt8>(a, st);
+      case 8: return run<bf, kFmtInt4, kFmtInt4>(a, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Floats of scratch for lm_head_argmax: a (max, index) pair per head tile.
+int pdt_lm_head_argmax_scratch_floats(int vocab) {
+  return 2 * head_tiles(vocab);
+}
+
+// K9: out[0] = argmax over v < V of dot(h, w[v]) + b[v] (ties to the lowest
+// v), h (D,) of type hdtype, w (V, D) and b (V,) of type wdtype (0 float32,
+// 1 bfloat16), f32 accumulation.
+int pdt_lm_head_argmax(int hdtype, int wdtype, const void* h, const void* w,
+                       const void* b, void* out, void* scratch, int dim,
+                       int vocab, void* stream) {
+  using bf = __nv_bfloat16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* o = static_cast<int*>(out);
+  float* sc = static_cast<float*>(scratch);
+  switch (hdtype * 2 + wdtype) {
+    case 0: return run_head<float, float>(h, w, b, o, sc, dim, vocab, st);
+    case 1: return run_head<float, bf>(h, w, b, o, sc, dim, vocab, st);
+    case 2: return run_head<bf, float>(h, w, b, o, sc, dim, vocab, st);
+    case 3: return run_head<bf, bf>(h, w, b, o, sc, dim, vocab, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -98,14 +98,6 @@ __device__ __forceinline__ void transpose4(unsigned r0, unsigned r1,
   c[3] = (int)__byte_perm(e, f, 0x7632);
 }
 
-// the signed low and high nibbles of each byte of p, as int8 bytes
-__device__ __forceinline__ unsigned nibbles_lo(unsigned p) {
-  return __vsub4((p & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
-__device__ __forceinline__ unsigned nibbles_hi(unsigned p) {
-  return __vsub4(((p >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
-
 __device__ __forceinline__ unsigned load_word(const int8_t* w, size_t off) {
   return __ldg(reinterpret_cast<const unsigned*>(w + off));
 }

@@ -59,7 +59,11 @@ def main(argv=None) -> float:
     parser.add_argument("--max-new-tokens", type=int, default=1024,
                         help="bound on the total length, prompt included")
     parser.add_argument("--dtype", choices=list(DTYPES), default="float32")
-    parser.add_argument("--quant", choices=["int8-head"], default=None)
+    parser.add_argument("--quant", choices=["int8-head", "int8", "int4"],
+                        default=None,
+                        help="int8-head: the lm_head as int8; int8/int4: "
+                             "every matmul weight (the fused kernel at "
+                             "stories15M width)")
     parser.add_argument("--chunk", type=int, default=None,
                         help="decode steps between reads back to the host")
     parser.add_argument("--seed", type=int, default=0,

@@ -24,7 +24,9 @@ are torch's (out, in). Four ways through the model:
 * the fused lane: the same dense prefill, then one call per token of
   ``ops.decode_step.fused_decode_token`` at B=1 or
   ``fused_decode_token_batched`` at B>1, which launch the hand-written CUDA
-  kernel chains on a GPU (weights f32/bf16, optionally the int8 head).
+  kernel chains on a GPU (weights f32/bf16, optionally the int8 head; at
+  B=1 also int8 or int4 layers and head, the prefill token staying on the
+  float weights as in the JAX package).
 
 ``fused=None`` routes: the fused lane wherever the port's fused kernels
 take the model, weight format and batch; else the scan lane where the JAX
@@ -97,16 +99,33 @@ def not_ported(what: str, item: str):
         f"{what} is not ported yet (ROADMAP.md queue 1, '{item}')")
 
 
+# the B=1 step's seven layer matrices, in its argument order (the key of
+# each in a ``_fused_weights`` snapshot; a quantized one adds ``_q`` and
+# ``_s``)
+FUSED_MATS = ("wq", "wk", "wv", "wo", "gate_w", "up_w", "down")
+
+
 def decode_weight_args(weights):
     """The decode steps' weight arguments, ``emb`` to ``head_b``, from a
-    :meth:`Llama._fused_weights` snapshot (its int8 head when it has one)."""
+    :meth:`Llama._fused_weights` snapshot: its quantized layer matrices and
+    head when it has them (``wq_q``.., ``head_wq``)."""
     qhead = "head_s" in weights
+    q = "_q" if "wq_s" in weights else ""
     return (weights["tok"], weights["cosD"], weights["sinD"], weights["norm"],
-            weights["wq"], weights["wk"], weights["wv"], weights["wo"],
-            weights["gate_w"], weights["up_w"], weights["down"],
+            *(weights[name + q] for name in FUSED_MATS),
             weights["in_norm"], weights["post_norm"],
             weights["head_wq"] if qhead else weights["head_w"],
             weights["head_b"])
+
+
+def decode_quant_kwargs(weights):
+    """The B=1 step's keyword arguments for the snapshot's weight format:
+    ``head_s``, and for quantized layers ``scales`` and ``q4``."""
+    kw = dict(head_s=weights.get("head_s"))
+    if "wq_s" in weights:
+        kw.update(scales=tuple(weights[name + "_s"] for name in FUSED_MATS),
+                  q4="q4" in weights)
+    return kw
 
 
 def bucket_prompt(input_ids, L: int, max_seq_len: int):
@@ -607,11 +626,15 @@ class Llama(nn.Module):
         ``tile(repeat(cos, 2), H)`` in the weight type, and for
         ``quant="int8-head"`` the int8 head with per-row float32 scales
         (the JAX package's ``quantize_int8(head_w, axis=0)`` in torch's
-        layout). The plain head stays for the prefill token;
+        layout). ``"int8"`` and ``"int4"`` quantize each layer matrix along
+        its ``in`` axis too (``ops/quant.py``; int4 packs it to in / 2)
+        into ``<name>_q`` with (N, out) scales ``<name>_s``, and the head
+        into ``head_wq``/``head_s``; ``"q4"`` marks int4. The float
+        matrices and head stay for the prefill token, which runs at full
+        precision as in the JAX package (``model.py:1180-1186``);
         :func:`decode_weight_args` picks the decode steps' arguments."""
-        if quant not in (None, "int8-head"):
-            not_ported(f"quant={quant!r} on the fused lane",
-                       "Remaining weight formats")
+        if quant not in QUANTS:
+            raise ValueError(f"unsupported quant mode: {quant!r}")
         key = (dtype, "fused", quant)
         if key in self._weights_cache:
             return self._weights_cache[key]
@@ -631,15 +654,26 @@ class Llama(nn.Module):
             "cosD": expand(base["cos"]),
             "sinD": expand(base["sin"]),
         })
-        if quant == "int8-head":
-            hq, hs = quantize_int8(base["head_w"], axis=1)
-            w["head_wq"] = hq                  # int8 (V, D)
+        qfn = quantize_int4 if quant == "int4" else quantize_int8
+        if quant in ("int8", "int4"):
+            for name in FUSED_MATS:
+                q, sc = qfn(w[name], axis=2)
+                w[name + "_q"] = q.contiguous()
+                w[name + "_s"] = sc.reshape(sc.shape[:2]).contiguous()
+            if quant == "int4":
+                w["q4"] = True
+        if quant is not None:
+            hq, hs = qfn(base["head_w"], axis=1)
+            w["head_wq"] = hq.contiguous()     # int8 (V, D), int4 (V, D/2)
             w["head_s"] = hs.reshape(-1)       # float32 (V,)
         self._weights_cache[key] = w
         return w
 
-    def _fused_decode_supported(self, quant=None, batch: int = 1) -> bool:
-        """Whether the fused lane can run this model at ``batch`` rows.
+    def _fused_decode_supported(self, quant=None, batch: int = 1,
+                                batched: bool = False) -> bool:
+        """Whether the fused lane can run this model at ``batch`` rows
+        (through the batched kernel at any B when ``batched``, as
+        ``LlamaServer`` does).
 
         The JAX package bounds its kernel by TPU VMEM (100 MB): the Pallas
         kernel keeps every per-layer weight matrix resident in a
@@ -655,13 +689,18 @@ class Llama(nn.Module):
         all B activation rows in shared memory, opting in up to 227 KB, and
         a warp keeps row b's sums in lane b, so B <= 32
         (``ops.decode_step.batched_kernel_takes``). Narrow GQA caches are
-        not ported, so n_kv_heads must equal n_heads.
+        not ported, so n_kv_heads must equal n_heads. int8 and int4 layers
+        run on the B=1 kernel only, and only where the JAX package's rule
+        (:meth:`_tpu_fused_supported`) puts them on its fused kernel: a
+        Llama-2-7B model with them stays on the scan lane, as there.
         """
         D, H, Fd = self.embed_dim, self.n_heads, self.ffn_dim
-        takes = (dsk.kernel_takes(D, H, Fd) if batch == 1
+        one = batch == 1 and not batched
+        takes = (dsk.kernel_takes(D, H, Fd, quant == "int4") if one
                  else dsk.batched_kernel_takes(D, H, Fd, batch))
-        return (quant in (None, "int8-head")
-                and self.n_kv_heads == self.n_heads and takes)
+        fmt = (quant in (None, "int8-head")
+               or (one and self._tpu_fused_supported(quant)))
+        return fmt and self.n_kv_heads == self.n_heads and takes
 
     def _tpu_fused_supported(self, quant=None) -> bool:
         """The JAX package's routing rule, ``_fused_decode_supported``
@@ -683,36 +722,38 @@ class Llama(nn.Module):
                 and dsk.pick_sb(S) > 0 and V % 8 == 0
                 and vmem <= (100 << 20))
 
-    def _fused_refusal(self, quant, batch):
+    def _fused_refusal(self, quant, batch, batched=False):
         """None when the port's fused kernels take the weight format, the
-        model and ``batch`` rows; else ``(what, ROADMAP item)`` naming what
-        is missing."""
-        if quant not in (None, "int8-head"):
-            return (f"quant={quant!r} on the fused lane (fused=False runs "
-                    "the scan lane)", "Remaining weight formats")
+        model and ``batch`` rows (the batched kernel's when ``batched``);
+        else ``(what, ROADMAP item)`` naming what is missing."""
+        if quant in ("int8", "int4") and (batch > 1 or batched):
+            return (f"quant={quant!r} on the batched fused lane (fused=False "
+                    "runs the scan lane)", "Remaining weight formats")
         if self.n_kv_heads != self.n_heads:
             return ("narrow GQA caches on the fused lane (fused=False runs "
                     "the scan lane)", "Narrow GQA")
         if batch > dsk.MAX_BATCH:
             return (f"the batched kernel above B={dsk.MAX_BATCH} "
                     "(fused=False runs the scan lane)", "Batched decode")
-        if not self._fused_decode_supported(quant, batch):
+        if not self._fused_decode_supported(quant, batch, batched):
             return ("a fused decode kernel for these dims (fused=False runs "
                     "the scan lane)", "Big-dims lane")
         return None
 
-    def use_fused(self, quant, batch: int, fused=None) -> bool:
+    def use_fused(self, quant, batch: int, fused=None,
+                  batched: bool = False) -> bool:
         """Resolve the lane of ``generate`` and ``LlamaServer``: ``fused``
         True or False asks for a lane; None takes the fused lane where the
-        port's fused kernels take the model, format and batch, else the scan
-        lane where the JAX package's rule (:meth:`_tpu_fused_supported`)
-        sends the model there. Raises ``NotImplementedError`` naming the
-        ROADMAP.md item for a fused lane the port cannot run."""
+        port's fused kernels take the model, format and batch (the batched
+        kernel's at any B when ``batched``), else the scan lane where the
+        JAX package's rule (:meth:`_tpu_fused_supported`) sends the model
+        there. Raises ``NotImplementedError`` naming the ROADMAP.md item
+        for a fused lane the port cannot run."""
         if quant not in QUANTS:
             raise ValueError(f"unsupported quant mode: {quant!r}")
         if fused is not None and not fused:
             return False
-        refusal = self._fused_refusal(quant, batch)
+        refusal = self._fused_refusal(quant, batch, batched)
         if refusal is None:
             return True
         if fused is None and not self._tpu_fused_supported(quant):
@@ -720,11 +761,12 @@ class Llama(nn.Module):
         not_ported(*refusal)
 
     def fused_step(self, weights, ck, cv, tok, pos, out=None):
-        """One ``fused_decode_token`` call: ``tok``/``pos`` (1,) int32 on
-        the device, caches (N, S, D) updated in place; returns (1,) int32."""
+        """One ``fused_decode_token`` call in the snapshot's weight format:
+        ``tok``/``pos`` (1,) int32 on the device, caches (N, S, D) updated
+        in place; returns (1,) int32."""
         return dsk.fused_decode_token(
             pos, tok, *decode_weight_args(weights), ck, cv,
-            n_heads=self.n_heads, head_s=weights.get("head_s"), out=out)
+            n_heads=self.n_heads, out=out, **decode_quant_kwargs(weights))
 
     def fused_step_batched(self, weights, ck, cv, tok, pos, starts=None,
                            out=None):
@@ -804,8 +846,10 @@ class Llama(nn.Module):
         length (prompt included) and is capped at ``max_seq_len``; a total
         at or below the prompt length yields nothing. ``dtype`` (float32 or
         bfloat16) casts the weights and caches; ``quant="int8-head"`` stores
-        the lm_head as int8, ``"int8"`` and ``"int4"`` (scan lane) every
-        matmul weight as well. ``fused`` picks the lane (module doc): on
+        the lm_head as int8, ``"int8"`` and ``"int4"`` every matmul weight
+        as well (the fused lane at B=1, the scan lane at any B; the prefill
+        token stays on the float weights on the fused lane). ``fused``
+        picks the lane (module doc): on
         the fused lane one B=1 kernel chain a token at B=1, one batched
         chain a token for all rows at B>1; on the scan lane one dense
         forward a token, its matmuls quantized with ``quant``."""

@@ -37,7 +37,7 @@ with int8 or int4 weights).
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): sampling and speculative serving, the int8 KV cache, int8 and int4
-layers on the fused lane, the scan lane's prefix cache, flash prefill.
+layers on the batched fused lane, the scan lane's prefix cache, flash prefill.
 """
 from __future__ import annotations
 
@@ -205,7 +205,8 @@ class LlamaServer(_FleetScheduler):
             raise NotImplementedError(f"dtype {dtype}: use float32 or "
                                       "bfloat16")
         fused = model.use_fused(quant, batch_size,
-                                None if lane is None else lane == "fused")
+                                None if lane is None else lane == "fused",
+                                batched=True)
         self._lane = "fused" if fused else "xla"
         model.eval()
         self.model = model

@@ -6,9 +6,12 @@ bias; pooling pads with zeros before the window reduction, so a padded zero
 can win a max; ``softmax``, ``log_softmax`` and the losses reduce over every
 axis unless told an axis; ``nll_loss`` is the mean (or sum) of
 ``-y_pred * y_true`` over every element; ``relu(x)`` passes the gradient at
-x = 0 (the JAX package's max gives it to both operands at a tie). Attention
-routes to the flash kernels (K3/K4) as there. Convolution and pooling call
-PyTorch's operators: the JAX package leaves them to XLA, not to Pallas.
+x = 0 and ``leaky_relu`` both operands' gradients at x = 0 (the JAX
+package's maximum gives the full gradient to each operand of a tie); max
+pooling splits a tied window's gradient evenly, as ``jnp.max`` over the
+window does. Attention routes to the flash kernels (K3/K4) as there.
+Convolution and average pooling call PyTorch's operators: the JAX package
+leaves them to XLA, not to Pallas.
 """
 from __future__ import annotations
 
@@ -50,8 +53,27 @@ def relu(x):
     return x.clamp_min(0.0)
 
 
+class _Maximum(torch.autograd.Function):
+    """Elementwise max(a, b) of one shape whose gradient reaches every
+    operand equal to the result: both of a tie get all of it
+    (``pydynet_tpu/core/tensor.py:maximum``), where ``torch.maximum`` gives
+    each half."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.maximum(a, b)
+        ctx.save_for_backward(a == out, b == out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        on_a, on_b = ctx.saved_tensors
+        return g * on_a, g * on_b
+
+
 def leaky_relu(x, alpha: float):
-    return torch.maximum(x, alpha * x)
+    """max(x, alpha * x); at x = 0 the gradient is 1 + alpha."""
+    return _Maximum.apply(x, alpha * x)
 
 
 def silu(x):
@@ -128,29 +150,36 @@ def conv2d(x, kernel, padding: int = 0, stride: int = 1):
     return tF.conv2d(x, kernel, stride=stride, padding=padding)
 
 
-def _pool(pool, x, kernel_size, stride, padding, ndim_sp):
-    """Zero-pad the spatial axes, then pool with no padding of its own: a
-    padded zero counts in an average and can win a max (PyTorch's own
-    max-pool padding is -inf)."""
-    if padding:
-        x = tF.pad(x, (padding, padding) * ndim_sp)
-    return pool(x, kernel_size, stride)
+def _pad(x, padding, ndim_sp):
+    """Zero-pad the spatial axes: a padded zero counts in an average and can
+    win a max (PyTorch's own max-pool padding is -inf)."""
+    return tF.pad(x, (padding, padding) * ndim_sp) if padding else x
+
+
+def _max_pool(x, kernel_size, stride, padding, ndim_sp):
+    """The max over each zero-padded window: ``amax`` of the unfolded
+    windows, whose gradient is split evenly among a window's tied
+    maxima."""
+    x = _pad(x, padding, ndim_sp)
+    for axis in range(2, 2 + ndim_sp):
+        x = x.unfold(axis, kernel_size, stride)
+    return x.amax(dim=tuple(range(-ndim_sp, 0)))
 
 
 def max_pool1d(x, kernel_size: int, stride: int, padding: int = 0):
-    return _pool(tF.max_pool1d, x, kernel_size, stride, padding, 1)
+    return _max_pool(x, kernel_size, stride, padding, 1)
 
 
 def avg_pool1d(x, kernel_size: int, stride: int, padding: int = 0):
-    return _pool(tF.avg_pool1d, x, kernel_size, stride, padding, 1)
+    return tF.avg_pool1d(_pad(x, padding, 1), kernel_size, stride)
 
 
 def max_pool2d(x, kernel_size: int, stride: int, padding: int = 0):
-    return _pool(tF.max_pool2d, x, kernel_size, stride, padding, 2)
+    return _max_pool(x, kernel_size, stride, padding, 2)
 
 
 def avg_pool2d(x, kernel_size: int, stride: int, padding: int = 0):
-    return _pool(tF.avg_pool2d, x, kernel_size, stride, padding, 2)
+    return tF.avg_pool2d(_pad(x, padding, 2), kernel_size, stride)
 
 
 # -------------------------------- losses ---------------------------------

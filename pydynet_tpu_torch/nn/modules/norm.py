@@ -138,23 +138,29 @@ class LayerNorm(_RunningNorm):
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    """``x / sqrt(mean(x^2) + eps) * weight`` over the last axis, computed
-    in float32 and returned in float32 (``decode_step.py:_rms``)."""
+    """``x / sqrt(mean(x^2) + eps) * weight``, the mean over the trailing
+    ``weight.dim()`` axes (the last one for the Llama's (D,) weights),
+    computed in float32 and returned in float32 (``decode_step.py:_rms``)."""
     x32 = x.float()
-    return x32 / torch.sqrt(x32.pow(2).mean(-1, keepdim=True) + eps) \
+    axes = tuple(range(-weight.dim(), 0))
+    return x32 / torch.sqrt(x32.pow(2).mean(axes, keepdim=True) + eps) \
         * weight.float()
 
 
 class RMSNorm(nn.Module):
-    """Weight-only RMS normalization over the last axis. The arithmetic is
-    float32 whatever the input type; the result has the input's type."""
+    """Weight-only RMS normalization over the trailing ``normalized_shape``
+    axes (an int is one axis). The arithmetic is float32 whatever the input
+    type; the result has the input's type."""
 
-    def __init__(self, dim: int, eps: float = 1e-6, device=None,
+    def __init__(self, normalized_shape, eps: float = 1e-6, device=None,
                  dtype=None) -> None:
         super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, device=device,
-                                              dtype=dtype))
+        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
+                                              device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.weight, self.eps).to(x.dtype)

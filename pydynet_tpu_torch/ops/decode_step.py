@@ -1,16 +1,20 @@
 """Greedy Llama decode steps: the ports of the Pallas TPU kernels
-``_token_kernel`` (B=1; ``pydynet_tpu/ops/decode_step.py:160``, launched by
-``fused_decode_token`` at :1346) and ``_token_kernel_batched`` (B rows
-sharing one weight stream; :509, launched by ``fused_decode_token_batched``
-at :1027).
+``_token_kernel`` (B=1, K1; ``pydynet_tpu/ops/decode_step.py:160``, launched
+by ``fused_decode_token`` at :1346), ``_token_kernel_batched`` (B rows
+sharing one weight stream, K2; :509, launched by
+``fused_decode_token_batched`` at :1027), ``_lm_head_kernel`` (the greedy
+head alone, K9; :102, launched by ``lm_head_argmax`` at :129) and
+``_kernel`` (the older layers-only B=1 step, K10; :1575, launched by
+``fused_decode_step`` at :1657).
 
-``fused_decode_token`` and ``fused_decode_token_batched`` are the wrappers.
-For CUDA tensors they launch the hand-written Hopper kernel chains in
-``csrc/decode_token.cu`` and ``csrc/decode_token_batched.cu``; for CPU
-tensors they run ``fused_decode_token_ref`` and
-``fused_decode_token_batched_ref``, the same steps in plain PyTorch. They
-never move data between devices and never fall back: a CUDA input a kernel
-does not take raises.
+``fused_decode_token``, ``fused_decode_token_batched``, ``lm_head_argmax``
+and ``fused_decode_step`` are the wrappers. For CUDA tensors they launch
+the hand-written Hopper kernels in ``csrc/decode_token.cu`` (K1, K9),
+``csrc/decode_token_batched.cu`` (K2) and ``csrc/decode_step.cu`` (K10);
+for CPU tensors they run the same functions in plain PyTorch (the ``_ref``
+functions). They never move data between devices and never fall back: a
+CUDA input a kernel does not take raises. Each wrapper counts its kernel
+launches in its ``launches`` attribute.
 
 Layouts (T is the weight type, float32 or bfloat16; N layers, S cache rows,
 D model width, F ffn width, V vocab):
@@ -30,6 +34,17 @@ Returns ``out``, a (1,) int32 tensor holding the next token (allocated when
 not given). The residual stream is float32; each matmul input is rounded to
 T and accumulated in float32; argmax ties go to the lowest index.
 
+K1 also takes quantized layers (the TPU kernel's ``qlayers`` and ``q4``
+modes): with ``scales`` (seven float32 (N, out) tensors, one per matrix in
+the order wq, wk, wv, wo, gate_w, up_w, down_w) the seven layer matrices are
+int8 (N, out, in), or with ``q4`` int4 packed along ``in`` (N, out, in / 2)
+(``ops/quant.py``), and the head is quantized the same way with ``head_s``.
+Each quantized matmul quantizes its float32 activation vector per call
+(``amax = max(max |x|, 1e-30)``, ``rint(x * 127 / amax)``, no clip; the
+normed h, the attention output, the normed z and the SwiGLU output, none
+rounded to T), accumulates exactly and rescales by ``scale * amax / 127``.
+The caches stay T.
+
 The batched step takes the same arguments except: ``tok`` (B,) int32;
 ``ck``, ``cv`` (N, B, S, D) T, row b's cache at ``[:, b]``; ``starts`` (B,)
 int32 or None (zeros): row b attends its cache rows
@@ -47,6 +62,7 @@ import torch
 
 from ..nn.modules.norm import rms_norm
 from . import _build
+from .quant import unpack_int4
 
 _THREADS = 256  # block size of every launch (kThreads in common.cuh)
 _SMEM_FLOATS = 48 * 1024 // 4  # shared memory a block gets without opt-in
@@ -55,14 +71,16 @@ MAX_BATCH = 32  # kMaxBatch in decode_token_batched.cu
 _WDTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def kernel_takes(dim: int, n_heads: int, ffn: int) -> bool:
+def kernel_takes(dim: int, n_heads: int, ffn: int, q4: bool = False) -> bool:
     """Whether the CUDA kernel takes these model widths. An attention block
     spreads one head's features over its threads, so head_dim <= 256, and
     even for RoPE's pairs; the norm and projection blocks hold one D- or
-    F-wide activation vector plus a few reduction slots in shared memory."""
+    F-wide activation vector plus a few reduction slots in shared memory;
+    int4 packs pairs of contraction rows, so ``q4`` needs D and F even."""
     hd = dim // n_heads
     return (dim % n_heads == 0 and hd % 2 == 0 and hd <= _THREADS
-            and max(dim, ffn) + 64 <= _SMEM_FLOATS)
+            and max(dim, ffn) + 64 <= _SMEM_FLOATS
+            and not (q4 and (dim % 2 or ffn % 2)))
 
 
 def batched_kernel_takes(dim: int, n_heads: int, ffn: int,
@@ -114,10 +132,29 @@ def _rope_pairs(x, cos, sin):
     return out
 
 
+def _qmm(w, scale, x, q4):
+    """The TPU kernel's qvec + qmm for one (out, in) int8 matrix, or an int4
+    one packed to (out, in / 2), and a float32 activation vector x (in,):
+    the activations quantized per call, the product summed exactly (float64
+    holds these int sums exactly) and rescaled by ``scale * amax / 127``."""
+    amax = torch.clamp(x.abs().max(), min=1e-30)
+    # an IEEE 127 / amax as the kernel and jnp take it: a Python scalar over
+    # a tensor is 127 * (1 / amax) in torch, an ulp off a quarter of the time
+    xq = torch.round(x * (amax.new_tensor(127.0) / amax)).double()
+    if q4:
+        lo, hi = unpack_int4(w)
+        k2 = w.shape[-1]
+        acc = torch.mv(lo.double(), xq[:k2]) + torch.mv(hi.double(), xq[k2:])
+    else:
+        acc = torch.mv(w.double(), xq)
+    return acc.float() * (scale.reshape(-1).float() * (amax * (1.0 / 127.0)))
+
+
 def decode_token_logits_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
                             wo, gate_w, up_w, down_w, in_norm, post_norm,
                             head_w, head_b, ck, cv, *, n_heads: int,
-                            head_s=None, start: int = 0):
+                            head_s=None, scales=None, q4: bool = False,
+                            start: int = 0):
     """The plain-PyTorch step up to the float32 logits (V,), caches updated
     in place; :func:`fused_decode_token_ref` takes their argmax. Attention
     reads cache rows ``[start, p]`` (``start`` clipped to ``[0, p]``). Runs
@@ -132,45 +169,50 @@ def decode_token_logits_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
     def mm(w, x):  # input rounded to the weight type, f32 accumulation
         return torch.mv(w.float(), x.to(wdt).float())
 
+    if scales is None:
+        def lmm(i, layer, x):
+            return mm((wq, wk, wv, wo, gate_w, up_w, down_w)[i][layer], x)
+    else:
+        def lmm(i, layer, x):  # quantized layers: x stays float32
+            w = (wq, wk, wv, wo, gate_w, up_w, down_w)[i][layer]
+            return _qmm(w, scales[i][layer], x, q4)
+
     c, s = cos[p].float(), sin[p].float()
     h = emb[t].float()
     for layer in range(N):
         x = rms_norm(h, in_norm[layer])
-        q = _rope_pairs(mm(wq[layer], x), c, s)
-        k = _rope_pairs(mm(wk[layer], x), c, s)
+        q = _rope_pairs(lmm(0, layer, x), c, s)
+        k = _rope_pairs(lmm(1, layer, x), c, s)
         ck[layer, p] = k.to(wdt)
-        cv[layer, p] = mm(wv[layer], x).to(wdt)
+        cv[layer, p] = lmm(2, layer, x).to(wdt)
         keys = ck[layer, lo:p + 1].float().view(p + 1 - lo, n_heads, hd)
         vals = cv[layer, lo:p + 1].float().view(p + 1 - lo, n_heads, hd)
         qh = q.to(wdt).float().view(n_heads, hd)
         scores = torch.einsum("nhd,hd->hn", keys, qh) * (1.0 / math.sqrt(hd))
         att = torch.einsum("hn,nhd->hd", torch.softmax(scores, -1), vals)
-        z = h + mm(wo[layer], att.reshape(D))
+        z = h + lmm(3, layer, att.reshape(D))
         zn = rms_norm(z, post_norm[layer])
-        g, u = mm(gate_w[layer], zn), mm(up_w[layer], zn)
-        h = z + mm(down_w[layer], g * torch.sigmoid(g) * u)
+        g, u = lmm(4, layer, zn), lmm(5, layer, zn)
+        h = z + lmm(6, layer, g * torch.sigmoid(g) * u)
     hf = rms_norm(h, final_norm)
     if head_s is None:
         logits = mm(head_w, hf) + head_b.float()
-    else:  # int8 head: per-call activation quantisation (TPU kernel's qvec)
-        amax = torch.clamp(hf.abs().max(), min=1e-30)
-        xq = torch.round(hf * (127.0 / amax))
-        acc = torch.mv(head_w.double(), xq.double()).float()  # exact
-        logits = acc * (head_s.reshape(-1).float() * (amax * (1.0 / 127.0))) \
-            + head_b.float()
+    else:  # quantized head: per-call activation quantisation (qvec)
+        logits = _qmm(head_w, head_s, hf, q4) + head_b.float()
     return logits
 
 
 def fused_decode_token_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
                            wo, gate_w, up_w, down_w, in_norm, post_norm,
                            head_w, head_b, ck, cv, *, n_heads: int,
-                           head_s=None, out=None):
+                           head_s=None, scales=None, q4: bool = False,
+                           out=None):
     """The plain-PyTorch version of :func:`fused_decode_token`: same
     arguments, same results, on any device."""
     logits = decode_token_logits_ref(
         pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
         down_w, in_norm, post_norm, head_w, head_b, ck, cv, n_heads=n_heads,
-        head_s=head_s)
+        head_s=head_s, scales=scales, q4=q4)
     if out is None:
         out = torch.empty(1, dtype=torch.int32, device=emb.device)
     out[0] = torch.argmax(logits)  # first maximal index
@@ -211,9 +253,12 @@ def fused_decode_token_batched_ref(pos, tok, emb, cos, sin, final_norm, wq,
     return out
 
 
+_MATS = ("wq", "wk", "wv", "wo", "gate_w", "up_w", "down_w")
+
+
 def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
            down_w, in_norm, post_norm, head_w, head_b, ck, cv, n_heads,
-           head_s, out, starts=None, batched=False):
+           head_s, out, starts=None, batched=False, scales=None, q4=False):
     """Raise unless the arguments have the layouts of the module doc (the
     batched step's when ``batched``). Returns (B, N, S, D, F, V), B = 1 for
     the B=1 step."""
@@ -227,43 +272,66 @@ def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
         (N, S, D), B = ck.shape, 1
         rows, cache = (1,), (N, S, D)
     V = emb.shape[0]
-    F = gate_w.shape[1]
+    F = up_w.shape[1]
     wdt = emb.dtype
     if wdt not in _WDTYPES:
         raise TypeError(f"weights must be float32 or bfloat16, got {wdt}")
     if N < 1 or D % n_heads or (D // n_heads) % 2:
         raise ValueError(f"need >= 1 layer and an even head_dim: N={N}, "
                          f"D={D}, n_heads={n_heads}")
+    if q4 and scales is None:
+        raise ValueError("q4 packs the quantized layers: it needs scales")
+    if scales is not None and head_s is None:
+        raise ValueError("quantized layers need the quantized head (head_s)")
+    if scales is not None and len(scales) != len(_MATS):
+        raise ValueError(f"scales: expected {len(_MATS)} tensors, one per "
+                         f"matrix {_MATS}")
+    if q4 and (D % 2 or F % 2):
+        raise ValueError(f"int4 packs pairs of rows: D={D} and F={F} must "
+                         "be even")
+    qdt = wdt if scales is None else torch.int8
+    div = 2 if q4 else 1  # int4 packs the contraction axis
     shapes = {
         "emb": (emb, (V, D), wdt), "cos": (cos, (S, D), wdt),
         "sin": (sin, (S, D), wdt), "final_norm": (final_norm, (D,), wdt),
-        "wq": (wq, (N, D, D), wdt), "wk": (wk, (N, D, D), wdt),
-        "wv": (wv, (N, D, D), wdt), "wo": (wo, (N, D, D), wdt),
-        "gate_w": (gate_w, (N, F, D), wdt), "up_w": (up_w, (N, F, D), wdt),
-        "down_w": (down_w, (N, D, F), wdt),
+        "wq": (wq, (N, D, D // div), qdt), "wk": (wk, (N, D, D // div), qdt),
+        "wv": (wv, (N, D, D // div), qdt), "wo": (wo, (N, D, D // div), qdt),
+        "gate_w": (gate_w, (N, F, D // div), qdt),
+        "up_w": (up_w, (N, F, D // div), qdt),
+        "down_w": (down_w, (N, D, F // div), qdt),
         "in_norm": (in_norm, (N, D), wdt),
         "post_norm": (post_norm, (N, D), wdt),
-        "head_w": (head_w, (V, D), wdt if head_s is None else torch.int8),
+        "head_w": (head_w, (V, D // div),
+                   wdt if head_s is None else torch.int8),
         "head_b": (head_b, (V,), wdt), "ck": (ck, cache, wdt),
         "cv": (cv, cache, wdt), "pos": (pos, (1,), torch.int32),
         "tok": (tok, rows, torch.int32),
     }
     if head_s is not None:
         shapes["head_s"] = (head_s, (V,), torch.float32)
+    for name, sc, (_, shape, _) in zip(
+            _MATS, scales or (), (shapes[m] for m in _MATS)):
+        shapes[f"scales[{name}]"] = (sc, shape[:2], torch.float32)
     if starts is not None:
         shapes["starts"] = (starts, rows, torch.int32)
     if out is not None:
         shapes["out"] = (out, rows, torch.int32)
+    _check_tensors(shapes, emb.device)
+    return B, N, S, D, F, V
+
+
+def _check_tensors(shapes, device):
+    """Raise unless each ``name: (tensor, shape, dtype)`` has that shape and
+    type, lies on ``device`` and is contiguous."""
     for name, (t, shape, dtype) in shapes.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-        if t.device != emb.device:
+        if t.device != device:
             raise ValueError(f"{name} is on {t.device}, weights on "
-                             f"{emb.device}")
+                             f"{device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return B, N, S, D, F, V
 
 
 def _check_cuda(emb, takes, what):
@@ -278,17 +346,18 @@ def _check_cuda(emb, takes, what):
 def fused_decode_token(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo,
                        gate_w, up_w, down_w, in_norm, post_norm, head_w,
                        head_b, ck, cv, *, n_heads: int, head_s=None,
-                       out=None):
+                       scales=None, q4: bool = False, out=None):
     """One greedy decode step (see the module doc for the layouts). CUDA
     tensors launch ``csrc/decode_token.cu``; CPU tensors run
     :func:`fused_decode_token_ref`."""
     args = (pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w,
             up_w, down_w, in_norm, post_norm, head_w, head_b, ck, cv)
-    _, N, S, D, F, V = _check(*args, n_heads, head_s, out)
+    _, N, S, D, F, V = _check(*args, n_heads, head_s, out, scales=scales,
+                              q4=q4)
     if emb.device.type == "cpu":
         return fused_decode_token_ref(*args, n_heads=n_heads, head_s=head_s,
-                                      out=out)
-    _check_cuda(emb, kernel_takes(D, n_heads, F),
+                                      scales=scales, q4=q4, out=out)
+    _check_cuda(emb, kernel_takes(D, n_heads, F, q4),
                 f"D={D}, n_heads={n_heads}, F={F}")
     lib = _build.load()
     hd = D // n_heads
@@ -297,17 +366,19 @@ def fused_decode_token(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo,
     scratch = torch.empty(
         lib.pdt_decode_token_scratch_floats(D, n_heads, F, V, S),
         dtype=torch.float32, device=emb.device)
-    dummy = head_w if head_s is None else head_s
-    ptrs = [t.data_ptr() for t in (pos, tok, out, emb, cos, sin, final_norm,
-                                   wq, wk, wv, wo, gate_w, up_w, down_w,
-                                   in_norm, post_norm, head_w, dummy, head_b,
-                                   ck, cv, scratch)]
+    lfmt = 0 if scales is None else (2 if q4 else 1)
+    hfmt = lfmt if scales is not None else int(head_s is not None)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (pos, tok, out, emb, cos, sin, final_norm, wq, wk, wv,
+                      wo, gate_w, up_w, down_w, in_norm, post_norm, head_w,
+                      head_s, head_b, *(scales or (None,) * len(_MATS)), ck,
+                      cv, scratch)]
     with torch.cuda.device(emb.device):  # launch on the tensors' GPU
         stream = torch.cuda.current_stream().cuda_stream
         fused_decode_token.launches += 1
         err = lib.pdt_decode_token(
-            _WDTYPES[emb.dtype], int(head_s is not None), *ptrs, N, D,
-            n_heads, F, V, S, ctypes.c_float(1.0 / math.sqrt(hd)), stream)
+            _WDTYPES[emb.dtype], lfmt, hfmt, *ptrs, N, D, n_heads, F, V, S,
+            ctypes.c_float(1.0 / math.sqrt(hd)), stream)
     if err != 0:
         raise RuntimeError(f"decode_token launch failed: CUDA error {err}")
     return out
@@ -358,3 +429,204 @@ def fused_decode_token_batched(pos, tok, emb, cos, sin, final_norm, wq, wk,
 
 
 fused_decode_token_batched.launches = 0
+
+
+# --------------------------- K9: the greedy head ---------------------------
+def lm_head_argmax_ref(h, w, b, out=None):
+    """The plain-PyTorch version of :func:`lm_head_argmax`: same arguments,
+    same result, on any device."""
+    logits = torch.mv(w.float(), h.reshape(-1).float()) + b.float()
+    if out is None:
+        out = torch.empty(1, 1, dtype=torch.int32, device=w.device)
+    out[0, 0] = torch.argmax(logits)  # first maximal index
+    return out
+
+
+def lm_head_argmax(h, w, b, out=None):
+    """Greedy next token, ``argmax(w @ h + b)`` over the vocabulary, as an
+    int32 (1, 1) tensor (the JAX package's ``lm_head_argmax``). ``h`` (1, D)
+    float32 or bfloat16; ``w`` (V, D), the port's (out, in) layout, and ``b``
+    (V,), both float32 or both bfloat16. Both operands are widened to
+    float32, as ``jnp.dot`` promotes them (a float32 ``h`` is not rounded to
+    bfloat16 weights), and the products summed in float32 with the bias;
+    ties go to the lowest index. Any V >= 1: the TPU kernel's vocab tile is
+    its own tiling. CUDA tensors launch ``lm_head_kernel`` of
+    ``csrc/decode_token.cu`` (K1's head tiles without the final RMSNorm);
+    CPU tensors run :func:`lm_head_argmax_ref`."""
+    V, D = w.shape if w.dim() == 2 else (-1, -1)
+    if w.dtype not in _WDTYPES or h.dtype not in _WDTYPES:
+        raise TypeError(f"h and w must be float32 or bfloat16, got "
+                        f"{h.dtype} and {w.dtype}")
+    if w.dim() != 2 or V < 1 or D < 1:
+        raise ValueError(f"w: expected (V, D) with V, D >= 1, got "
+                         f"{tuple(w.shape)}")
+    shapes = {"h": (h, (1, D), h.dtype), "w": (w, (V, D), w.dtype),
+              "b": (b, (V,), w.dtype)}
+    if out is not None:
+        shapes["out"] = (out, (1, 1), torch.int32)
+    _check_tensors(shapes, w.device)
+    if w.device.type == "cpu":
+        return lm_head_argmax_ref(h, w, b, out=out)
+    _check_cuda(w, D <= _SMEM_FLOATS, f"D={D}")
+    lib = _build.load()
+    if out is None:
+        out = torch.empty(1, 1, dtype=torch.int32, device=w.device)
+    scratch = torch.empty(lib.pdt_lm_head_argmax_scratch_floats(V),
+                          dtype=torch.float32, device=w.device)
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        lm_head_argmax.launches += 1
+        err = lib.pdt_lm_head_argmax(
+            _WDTYPES[h.dtype], _WDTYPES[w.dtype], h.data_ptr(), w.data_ptr(),
+            b.data_ptr(), out.data_ptr(), scratch.data_ptr(), D, V, stream)
+    if err != 0:
+        raise RuntimeError(f"lm_head_argmax launch failed: CUDA error {err}")
+    return out
+
+
+lm_head_argmax.launches = 0
+
+
+# ---------------------- K10: the layers-only B=1 step ----------------------
+MAX_STEP_HEADS = 64  # kMaxHeads in decode_step.cu
+
+
+def rope_pair_swap_matrix(dim: int, dtype=torch.float32):
+    """R such that (x @ R)[2i] = -x[2i+1], (x @ R)[2i+1] = x[2i]
+    (``pydynet_tpu/ops/decode_step.py:63``)."""
+    R = torch.zeros(dim, dim, dtype=dtype)
+    i = torch.arange(dim // 2)
+    R[2 * i + 1, 2 * i] = -1.0
+    R[2 * i, 2 * i + 1] = 1.0
+    return R
+
+
+def head_mask_matrix(dim: int, n_heads: int, dtype=torch.float32):
+    """M[d, h] = 1 iff feature d belongs to head h (:72)."""
+    hd = dim // n_heads
+    M = torch.zeros(dim, n_heads, dtype=dtype)
+    for h in range(n_heads):
+        M[h * hd:(h + 1) * hd, h] = 1.0
+    return M
+
+
+def step_kernel_takes(dim: int, n_heads: int, ffn: int) -> bool:
+    """Whether ``csrc/decode_step.cu`` takes these widths: the norm, RoPE
+    and projection blocks hold D- or F-wide vectors (2 D for RoPE) in the
+    48 KB of shared memory a block gets without opting in, and the p @ V
+    block holds 64 rows and 64 columns of H head values."""
+    return (1 <= n_heads <= min(dim, MAX_STEP_HEADS)
+            and max(2 * dim + 512, ffn + 64) <= _SMEM_FLOATS)
+
+
+def fused_decode_step_ref(pos, h0, cos, sin, rot, hmask, final_norm, wq, wk,
+                          wv, wo, gate_w, up_w, down_w, in_norm, post_norm,
+                          ck, cv, *, alias: bool = True):
+    """The plain-PyTorch version of :func:`fused_decode_step`: same
+    arguments, same results, on any device (it reads ``pos`` back)."""
+    if not alias:
+        ck, cv = ck.clone(), cv.clone()
+    N, S, D = ck.shape
+    H = hmask.shape[1]
+    cdt = ck.dtype
+    p = min(max(int(pos.reshape(-1)[0]), 0), S - 1)
+    scale = 1.0 / math.sqrt(D // H)
+
+    def mm(w, x):  # the input rounded to the cache type, f32 accumulation
+        return torch.mv(w.float(), x.to(cdt).float())
+
+    c, s = cos.reshape(D).float(), sin.reshape(D).float()
+    rot32, hm = rot.float(), hmask.float()
+    hmt = hm.t().to(cdt).float()
+    h = h0.reshape(D).float()
+    for layer in range(N):
+        hn = rms_norm(h, in_norm[layer])
+        q, k = mm(wq[layer], hn), mm(wk[layer], hn)
+        q = q * c + (q @ rot32) * s
+        k = k * c + (k @ rot32) * s
+        ck[layer, p] = k.to(cdt)
+        cv[layer, p] = mm(wv[layer], hn).to(cdt)
+        qm = (q[:, None] * hm).to(cdt).float()                  # (D, H)
+        scores = (ck[layer].float() @ qm) * scale                # (S, H)
+        scores[p + 1:] = float("-inf")
+        prob = torch.softmax(scores, dim=0).to(cdt).float()
+        att = ((prob @ hmt) * cv[layer].float()).sum(0)          # (D,)
+        z = h + mm(wo[layer], att)
+        zn = rms_norm(z, post_norm[layer])
+        g, u = mm(gate_w[layer], zn), mm(up_w[layer], zn)
+        h = z + mm(down_w[layer], g * torch.sigmoid(g) * u)
+    return rms_norm(h, final_norm).reshape(1, D), ck, cv
+
+
+def fused_decode_step(pos, h0, cos, sin, rot, hmask, final_norm, wq, wk, wv,
+                      wo, gate_w, up_w, down_w, in_norm, post_norm, ck, cv,
+                      *, alias: bool = True):
+    """One layers-only greedy decode step from a hidden state (the JAX
+    package's ``fused_decode_step``): per layer RMSNorm, q/k/v, RoPE as
+    ``q * cos + (q @ rot) * sin``, the K/V row write at ``min(pos, S - 1)``,
+    a plain softmax over all S rows with rows after pos masked (per-head
+    scores ``ck @ T(q * hmask) / sqrt(D // H)``, probabilities rounded to T
+    and expanded by ``T(hmask).T``), wo + residual, RMSNorm, SwiGLU +
+    residual. Returns ``(h_out, ck, cv)``: the final-RMSNormed hidden state
+    (1, D) float32 and the caches, updated in place, or in copies when
+    ``alias`` is false.
+
+    Layouts (T float32 or bfloat16): ``pos`` (1,) int32; ``h0``, ``cos``,
+    ``sin`` (1, D), ``rot`` (D, D) and ``hmask`` (D, H) float32, each used as
+    given; ``final_norm`` (D,) T; ``wq``..``wo`` (N, D, D), ``gate_w``,
+    ``up_w`` (N, F, D), ``down_w`` (N, D, F) in the (out, in) layout, T;
+    ``in_norm``, ``post_norm`` (N, D) T; ``ck``, ``cv`` (N, S, D) T. Each
+    matmul input is rounded to T and accumulated in float32, the residual
+    float32. CUDA tensors launch ``csrc/decode_step.cu``; CPU tensors run
+    :func:`fused_decode_step_ref`."""
+    if ck.dim() != 3 or hmask.dim() != 2:
+        raise ValueError(f"ck (N, S, D) and hmask (D, H): got "
+                         f"{tuple(ck.shape)} and {tuple(hmask.shape)}")
+    N, S, D = ck.shape
+    H = hmask.shape[1]
+    F = up_w.shape[1] if up_w.dim() == 3 else -1
+    T = ck.dtype
+    if T not in _WDTYPES:
+        raise TypeError(f"caches must be float32 or bfloat16, got {T}")
+    if N < 1 or not 1 <= H <= D:
+        raise ValueError(f"need >= 1 layer and 1 <= H <= D: N={N}, H={H}, "
+                         f"D={D}")
+    f32 = torch.float32
+    _check_tensors({
+        "pos": (pos, (1,), torch.int32), "h0": (h0, (1, D), f32),
+        "cos": (cos, (1, D), f32), "sin": (sin, (1, D), f32),
+        "rot": (rot, (D, D), f32), "hmask": (hmask, (D, H), f32),
+        "final_norm": (final_norm, (D,), T), "wq": (wq, (N, D, D), T),
+        "wk": (wk, (N, D, D), T), "wv": (wv, (N, D, D), T),
+        "wo": (wo, (N, D, D), T), "gate_w": (gate_w, (N, F, D), T),
+        "up_w": (up_w, (N, F, D), T), "down_w": (down_w, (N, D, F), T),
+        "in_norm": (in_norm, (N, D), T), "post_norm": (post_norm, (N, D), T),
+        "ck": (ck, (N, S, D), T), "cv": (cv, (N, S, D), T)}, ck.device)
+    if not alias:
+        ck, cv = ck.clone(), cv.clone()
+    if ck.device.type == "cpu":
+        return fused_decode_step_ref(pos, h0, cos, sin, rot, hmask,
+                                     final_norm, wq, wk, wv, wo, gate_w,
+                                     up_w, down_w, in_norm, post_norm, ck,
+                                     cv)
+    _check_cuda(ck, step_kernel_takes(D, H, F), f"D={D}, H={H}, F={F}")
+    lib = _build.load()
+    h_out = torch.empty(1, D, dtype=f32, device=ck.device)
+    scratch = torch.empty(lib.pdt_decode_step_scratch_floats(D, H, F, S),
+                          dtype=f32, device=ck.device)
+    ptrs = [t.data_ptr() for t in (pos, h0, cos, sin, rot, hmask, final_norm,
+                                   wq, wk, wv, wo, gate_w, up_w, down_w,
+                                   in_norm, post_norm, ck, cv, h_out,
+                                   scratch)]
+    with torch.cuda.device(ck.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        fused_decode_step.launches += 1
+        err = lib.pdt_decode_step(_WDTYPES[T], *ptrs, N, D, H, F, S,
+                                  ctypes.c_float(1.0 / math.sqrt(D // H)),
+                                  stream)
+    if err != 0:
+        raise RuntimeError(f"decode_step launch failed: CUDA error {err}")
+    return h_out, ck, cv
+
+
+fused_decode_step.launches = 0

@@ -9,6 +9,8 @@ under ``strict`` a missing or an unexpected name raises ``KeyError``. The
 port's layers keep the JAX package's names and layouts, so
 ``load_state_dict(port_net, jax_net.state_dict())`` copies a JAX net into
 its twin and ``jax_net.load_state_dict(state_dict(port_net))`` the reverse.
+A module's decode-weight snapshots (``Llama._weights_cache``) are dropped on
+load, as there, so a model decodes the weights it was given.
 """
 from __future__ import annotations
 
@@ -50,4 +52,7 @@ def load_state_dict(module: torch.nn.Module, state: dict,
                 f"unexpected entries in state dict: {unexpected[:5]}"
                 f"{'...' if len(unexpected) > 5 else ''} — pass "
                 "strict=False to load the intersection")
+    cache = getattr(module, "_weights_cache", None)
+    if isinstance(cache, dict):
+        cache.clear()
     return module

@@ -82,13 +82,16 @@ def _confident(margins, tops, margin, rel):
 @torch.no_grad()
 def gate_fused_argmax(model, prompt_ids, truth, margins, tops=None, *,
                       dtype=None, quant=None, margin: float = MARGIN,
-                      rel: float = REL_MARGIN):
+                      rel: float = REL_MARGIN, min_agree: float = None):
     """``(checked, ok, agree)`` for one weight format on the model's device:
     the dense prefill's token and then the fused step's token, fed the
     ``truth`` stream, must equal it at every confident step of every row.
     B=1 drives the B=1 kernel (``fused_step``), B>1 the batched one
     (``fused_step_batched``) on all rows at once. Zero confident steps is
-    not a pass. ``agree`` is the agreeing share of the checked steps."""
+    not a pass. ``agree`` is the agreeing share of the checked steps.
+    ``min_agree`` makes it the JAX package's majority gate for lossy
+    formats (int4): every step is checked and the agreeing share must reach
+    ``min_agree``."""
     prompt_ids = np.asarray(prompt_ids)
     B, L = prompt_ids.shape
     w = model._fused_weights(dtype, quant)
@@ -108,6 +111,9 @@ def gate_fused_argmax(model, prompt_ids, truth, margins, tops=None, *,
             model.fused_step_batched(w, ck, cv, toks_in[i],
                                      positions[i:i + 1], out=outs[i])
     got = np.concatenate([first[None], outs.cpu().numpy()])  # (steps, B)
+    if min_agree is not None:
+        frac = float((got == truth).mean()) if truth.size else 0.0
+        return truth.size, truth.size > 0 and frac >= min_agree, frac
     conf = _confident(margins, tops, margin, rel)
     checked = int(conf.sum())  # per row and step, as the JAX gate counts
     ok = int((got[conf] == truth[conf]).sum())

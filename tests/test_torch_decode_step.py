@@ -1,0 +1,266 @@
+"""The port's greedy head (K9, ``lm_head_argmax``) and layers-only decode
+step (K10, ``fused_decode_step``) against the JAX package's Pallas kernels
+in interpret mode, on the CPU.
+
+Inputs are made with NumPy from a seed and handed to both packages; the
+port's wrappers run their plain versions because the tensors are on the
+CPU. The port keeps torch's (out, in) weight layout and (N, D) norms, so
+its matrices are the JAX ones transposed.
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from pydynet_tpu.ops import decode_step as jds
+
+from pydynet_tpu_torch.ops import decode_step as tds
+
+# test_ops_kernels.py's tiny decode-step size
+N, H, D, S, F = 2, 2, 16, 32, 24
+HD = D // H
+
+
+def t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _head_case(seed=0, D=32, V=256):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((1, D)).astype(np.float32)
+    w = rng.standard_normal((D, V)).astype(np.float32)   # JAX's (D, V)
+    b = rng.standard_normal((1, V)).astype(np.float32)
+    return h, w, b
+
+
+def _jax_head(h, w, b, vt=128):
+    return int(jds.lm_head_argmax(jnp.asarray(h), jnp.asarray(w),
+                                  jnp.asarray(b), vt=vt,
+                                  interpret=True)[0, 0])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lm_head_argmax_matches_jax(seed):
+    """test_ops_kernels.py:269's case (D 32, V 256, two 128-wide tiles):
+    the same index, int32 (1, 1)."""
+    h, w, b = _head_case(seed)
+    got = tds.lm_head_argmax(t(h), t(w.T), t(b[0]))
+    assert got.dtype == torch.int32 and got.shape == (1, 1)
+    assert int(got[0, 0]) == _jax_head(h, w, b)
+    assert int(got[0, 0]) == int(np.argmax(h @ w + b))
+
+
+def test_lm_head_argmax_tie_across_tiles_goes_low():
+    """Rows 10 and 200 (different 128-row tiles) tie for the maximum: both
+    packages return 10, exactly."""
+    h, w, b = _head_case(3)
+    w[:, 10] = w[:, 200] = np.sign(h[0]) * 2.0
+    b[0, 10] = b[0, 200] = 1.0
+    assert _jax_head(h, w, b) == 10
+    assert int(tds.lm_head_argmax(t(h), t(w.T), t(b[0]))[0, 0]) == 10
+
+
+def test_lm_head_argmax_f32_h_is_not_rounded_to_bf16_weights():
+    """jnp.dot promotes an f32 h against bf16 weights to f32: rounding h to
+    bf16 would tie rows 0 and 1 (both 1.0) and pick 0; unrounded, row 1's
+    1 + 2**-8 beats row 0's 1 + 2**-9."""
+    D, V = 2, 128
+    h = np.array([[1 + 2**-9, 1 + 2**-8]], np.float32)
+    w = np.zeros((D, V), np.float32)
+    w[0, 0] = w[1, 1] = 1.0
+    b = np.zeros((1, V), np.float32)
+    wb = w.astype(ml_dtypes.bfloat16)
+    want = int(jds.lm_head_argmax(jnp.asarray(h), jnp.asarray(wb),
+                                  jnp.asarray(b.astype(ml_dtypes.bfloat16)),
+                                  vt=128, interpret=True)[0, 0])
+    tw = t(w.T).to(torch.bfloat16)
+    tb = t(b[0]).to(torch.bfloat16)
+    assert want == 1
+    assert int(tds.lm_head_argmax(t(h), tw, tb)[0, 0]) == 1
+    rounded = t(h).to(torch.bfloat16)
+    assert int(tds.lm_head_argmax(rounded, tw, tb)[0, 0]) == 0
+
+
+def test_lm_head_argmax_takes_any_vocab_and_rejects_bad_arguments():
+    """The TPU kernel's vt tiling is its own: V = 7 works; mismatched
+    shapes and types raise."""
+    h, w, b = _head_case(4, D=8, V=7)
+    assert int(tds.lm_head_argmax(t(h), t(w.T), t(b[0]))[0, 0]) == \
+        int(np.argmax(h @ w + b))
+    with pytest.raises(ValueError, match="h"):
+        tds.lm_head_argmax(t(h[:, :7]), t(w.T), t(b[0]))
+    with pytest.raises(ValueError, match="b"):
+        tds.lm_head_argmax(t(h), t(w.T), t(b[0, :6]))
+    with pytest.raises(ValueError, match="b"):
+        tds.lm_head_argmax(t(h), t(w.T), t(b[0]).double())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tds.lm_head_argmax(t(h), t(w.T).half(), t(b[0]).half())
+
+
+def test_rope_and_head_mask_matrices_equal_jax():
+    for dim, heads in ((16, 2), (288, 6), (10, 5)):
+        np.testing.assert_array_equal(tds.rope_pair_swap_matrix(dim).numpy(),
+                                      np.asarray(jds.rope_pair_swap_matrix(
+                                          dim)))
+        np.testing.assert_array_equal(
+            tds.head_mask_matrix(dim, heads).numpy(),
+            np.asarray(jds.head_mask_matrix(dim, heads)))
+
+
+def _step_case(seed=0, structured=True):
+    """test_ops_kernels.py:75's inputs at pos 5 (its tiny fixture's
+    weights, seed 0, its h0 and caches, seed 1), and optionally a random
+    rot and hmask in place of the pair swap and the head mask."""
+    rng = np.random.default_rng(seed)
+    p = {
+        "wq": rng.standard_normal((N, D, D)) * 0.2,
+        "wk": rng.standard_normal((N, D, D)) * 0.2,
+        "wv": rng.standard_normal((N, D, D)) * 0.2,
+        "wo": rng.standard_normal((N, D, D)) * 0.2,
+        "gate": rng.standard_normal((N, D, F)) * 0.2,
+        "up": rng.standard_normal((N, D, F)) * 0.2,
+        "down": rng.standard_normal((N, F, D)) * 0.2,
+        "in_norm": np.abs(rng.standard_normal((N, 1, D))) + 0.5,
+        "post_norm": np.abs(rng.standard_normal((N, 1, D))) + 0.5,
+        "final_norm": np.abs(rng.standard_normal((1, D))) + 0.5,
+    }
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    rng = np.random.default_rng(seed + 1)
+    pos = 5
+    h0 = (rng.standard_normal((1, D)) * 0.5).astype(np.float32)
+    ck = (rng.standard_normal((N, S, D)) * 0.3).astype(np.float32)
+    cv = (rng.standard_normal((N, S, D)) * 0.3).astype(np.float32)
+    inv = 1.0 / (10000 ** (np.arange(0, HD, 2) / HD))
+    cosd = np.tile(np.repeat(np.cos(pos * inv), 2), H)[None].astype(
+        np.float32)
+    sind = np.tile(np.repeat(np.sin(pos * inv), 2), H)[None].astype(
+        np.float32)
+    if structured:
+        rot = np.asarray(jds.rope_pair_swap_matrix(D))
+        hmask = np.asarray(jds.head_mask_matrix(D, H))
+    else:
+        rot = (rng.standard_normal((D, D)) * 0.3).astype(np.float32)
+        hmask = rng.uniform(0, 1, (D, H)).astype(np.float32)
+    return pos, h0, cosd, sind, rot, hmask, p, ck, cv
+
+
+def _run_both(case, dtype=np.float32, pos=None):
+    """Both packages' step on ``case`` with weights, norms and caches in
+    ``dtype`` (h0, cos, sin, rot and hmask float32), caches not aliased.
+    Returns ((h, ck, cv) of JAX, of the port) as float32 numpy arrays."""
+    p0, h0, cosd, sind, rot, hmask, p, ck, cv = case
+    pos = p0 if pos is None else pos
+    names = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+
+    def cast(a):
+        return a.astype(dtype)
+
+    jw = [jnp.asarray(cast(p[k])) for k in names]
+    jout = jds.fused_decode_step(
+        pos, jnp.asarray(h0), jnp.asarray(cosd), jnp.asarray(sind),
+        jnp.asarray(rot), jnp.asarray(hmask), jnp.asarray(cast(p["final_norm"])),
+        *jw, jnp.asarray(cast(p["in_norm"])), jnp.asarray(cast(p["post_norm"])),
+        jnp.asarray(cast(ck)), jnp.asarray(cast(cv)), interpret=True,
+        alias=False)
+    tdt = torch.bfloat16 if dtype != np.float32 else torch.float32
+
+    def tt(a):
+        return t(a.astype(np.float32)).to(tdt)
+
+    tw = [tt(p[k].transpose(0, 2, 1)) for k in names]
+    tck, tcv = tt(ck), tt(cv)
+    tout = tds.fused_decode_step(
+        torch.tensor([pos], dtype=torch.int32), t(h0), t(cosd), t(sind),
+        t(rot), t(hmask), tt(p["final_norm"][0]), *tw, tt(p["in_norm"][:, 0]),
+        tt(p["post_norm"][:, 0]), tck, tcv, alias=False)
+    # alias=False leaves the inputs as they were
+    assert torch.equal(tck, tt(ck)) and torch.equal(tcv, tt(cv))
+    return ([np.asarray(a, np.float32) for a in jout],
+            [a.float().numpy() for a in tout])
+
+
+def _untouched(new, old, pos):
+    keep = np.ones(S, bool)
+    keep[pos] = False
+    np.testing.assert_array_equal(new[:, keep], old[:, keep])
+
+
+def test_fused_decode_step_matches_jax_f32():
+    """h_out to 1e-4 (test_ops_kernels.py:107's tolerance against its
+    reference; both are float32 and differ in summation order only), the
+    new cache row to 1e-5, every other row bit-equal."""
+    case = _step_case()
+    (jh, jck, jcv), (th, tck, tcv) = _run_both(case)
+    assert th.shape == (1, D)
+    np.testing.assert_allclose(th, jh, atol=1e-4)
+    np.testing.assert_allclose(tck, jck, atol=1e-5)
+    np.testing.assert_allclose(tcv, jcv, atol=1e-5)
+    _untouched(tck, case[7], 5)
+    _untouched(tcv, case[8], 5)
+    assert not np.allclose(tck[:, 5], case[7][:, 5])
+
+
+def test_fused_decode_step_matches_jax_bf16():
+    """bf16 weights and caches: both round hn, zn, ff, att, qM and the
+    probabilities to bf16 at the same points, so they differ only where a
+    float32 summation-order difference moves a rounded value to the
+    neighbouring bf16 value (2**-8 relative): h_out within 2**-5, the new
+    cache row within one bf16 ulp at |x| < 4 (2**-6), the rest bit-equal."""
+    case = _step_case()
+    (jh, jck, jcv), (th, tck, tcv) = _run_both(case, ml_dtypes.bfloat16)
+    np.testing.assert_allclose(th, jh, atol=2.0**-5)
+    np.testing.assert_allclose(tck, jck, atol=2.0**-6)
+    np.testing.assert_allclose(tcv, jcv, atol=2.0**-6)
+    bf = case[7].astype(ml_dtypes.bfloat16).astype(np.float32)
+    _untouched(tck, bf, 5)
+
+
+def test_fused_decode_step_takes_any_rot_and_hmask():
+    """A random rot and a random non-binary hmask, applied as given by both
+    packages: float32, the same tolerances as the structured case."""
+    case = _step_case(structured=False)
+    (jh, jck, jcv), (th, tck, tcv) = _run_both(case)
+    np.testing.assert_allclose(th, jh, atol=1e-4)
+    np.testing.assert_allclose(tck, jck, atol=1e-5)
+    np.testing.assert_allclose(tcv, jcv, atol=1e-5)
+    _untouched(tcv, case[8], 5)
+
+
+@pytest.mark.parametrize("pos", [0, S - 1, S + 3])
+def test_fused_decode_step_positions_and_clamp_match_jax(pos):
+    """pos 0 (one row), the last row, and pos >= S acting as S - 1."""
+    case = _step_case(2)
+    (jh, jck, _), (th, tck, _) = _run_both(case, pos=pos)
+    np.testing.assert_allclose(th, jh, atol=1e-4)
+    np.testing.assert_allclose(tck, jck, atol=1e-5)
+    _untouched(tck, case[7], min(pos, S - 1))
+
+
+def test_fused_decode_step_aliases_caches_by_default():
+    pos, h0, cosd, sind, rot, hmask, p, ck, cv = _step_case(3)
+    names = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+    tw = [t(p[k].transpose(0, 2, 1)) for k in names]
+    tck, tcv = t(ck.copy()), t(cv.copy())
+    h, ock, ocv = tds.fused_decode_step(
+        torch.tensor([pos], dtype=torch.int32), t(h0), t(cosd), t(sind),
+        t(rot), t(hmask), t(p["final_norm"][0]), *tw, t(p["in_norm"][:, 0]),
+        t(p["post_norm"][:, 0]), tck, tcv)
+    assert ock is tck and ocv is tcv
+    assert not np.array_equal(tck.numpy(), ck)
+
+
+def test_fused_decode_step_rejects_bad_arguments():
+    pos, h0, cosd, sind, rot, hmask, p, ck, cv = _step_case(4)
+    names = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+    args = [torch.tensor([pos], dtype=torch.int32), t(h0), t(cosd), t(sind),
+            t(rot), t(hmask), t(p["final_norm"][0]),
+            *(t(p[k].transpose(0, 2, 1)) for k in names),
+            t(p["in_norm"][:, 0]), t(p["post_norm"][:, 0]), t(ck), t(cv)]
+    for i, name, bad in ((1, "h0", t(h0).double()), (4, "rot", t(rot[:4])),
+                         (7, "wq", args[7][:, :, :3].contiguous()),
+                         (17, "cv", args[17].to(torch.bfloat16))):
+        with pytest.raises(ValueError, match=name):
+            tds.fused_decode_step(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(ValueError, match="pos"):
+        tds.fused_decode_step(torch.tensor([pos]), *args[1:])

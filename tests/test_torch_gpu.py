@@ -27,16 +27,18 @@ def model():
 
 
 @pytest.mark.parametrize("pos", [0, 1, 17, 255, 1023, 1030])
-@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head"])
+@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "f32-int8",
+                                 "bf16-int8", "bf16-int4"])
 def test_kernel_matches_plain(model, fmt, pos):
     """Tokens equal (bf16: where the plain top-2 margin is confident) and
-    caches within chip_smoke's stated tolerance."""
-    from chip_smoke import CACHE_ATOL, FORMATS, kernel_vs_plain
+    caches within chip_smoke's stated tolerance, with float, int8 and int4
+    layers."""
+    from chip_smoke import FORMATS, cache_atol, kernel_vs_plain
 
     with torch.no_grad():
         got, want, confident, err = kernel_vs_plain(model, fmt, pos)
-    assert err <= CACHE_ATOL[FORMATS[fmt][0]]
-    if fmt == "f32" or confident:
+    assert err <= cache_atol(fmt)
+    if FORMATS[fmt][0] == torch.float32 or confident:
         assert got == want
 
 
@@ -425,3 +427,142 @@ def test_batchnorm_cuda_inputs_never_fall_back(gpu):
         bn.batch_norm_train(torch.zeros(8, 4, device="cuda").t(), g, g)
     with pytest.raises(ValueError, match="is on cpu"):
         bn.batch_norm_train(torch.zeros(4, 8, device="cuda"), g.cpu(), g)
+
+
+# ------------- K9, K10 and K1's int8/int4 layers (the last slice) -------------
+TINY = dict(vocab_size=256, embed_dim=32, n_heads=2, ffn_dim=64,
+            max_seq_len=32, max_batch_size=1, n_layers=2)
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the decode kernels run only on the "
+                    "card")
+    from pydynet_tpu_torch.models.llama import Llama
+
+    return Llama(**TINY, device="cuda",
+                 generator=torch.Generator().manual_seed(4)).eval()
+
+
+@pytest.mark.parametrize("pos", [0, 5, 31, 40])
+@pytest.mark.parametrize("fmt", ["f32", "f32-int8", "bf16-int8", "bf16-int4"])
+def test_tiny_kernel_matches_plain(tiny, fmt, pos):
+    """K1 with float, int8 and int4 layers at the tiny size."""
+    from chip_smoke import FORMATS, cache_atol, kernel_vs_plain
+
+    with torch.no_grad():
+        got, want, confident, err = kernel_vs_plain(tiny, fmt, pos, tok=77)
+    assert err <= cache_atol(fmt)
+    if FORMATS[fmt][0] == torch.float32 or confident:
+        assert got == want
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_tiny_quant_generate_runs_k1(tiny, quant):
+    """generate(quant=int8|int4) at B=1 takes K1 once a decode step; at
+    B>1 it still refuses the fused lane."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    before = dsk.fused_decode_token.launches
+    toks = list(tiny.generate(np.array([[1, 5, 9]]), 20, quant=quant))
+    assert len(toks) == 17
+    assert dsk.fused_decode_token.launches - before == 16
+    with pytest.raises(NotImplementedError, match="weight formats"):
+        next(tiny.generate(np.array([[1, 5], [2, 3]]), 8, quant=quant))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_head_kernel_matches_plain(model, tiny, dtype, seed):
+    """K9 at stories15M's head and the tiny one: the plain version's
+    token."""
+    from chip_smoke import FLASH_DTYPES, head_vs_plain
+
+    for m in (model, tiny):
+        got, want, short = head_vs_plain(m, FLASH_DTYPES[dtype], seed)
+        assert got == want and short == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_head_kernel_cross_tile_tie_goes_low(model, dtype):
+    from chip_smoke import FLASH_DTYPES, HEAD_TIE, head_vs_plain
+
+    got, want, _ = head_vs_plain(model, FLASH_DTYPES[dtype], 7, tie=True)
+    assert got == want == HEAD_TIE[0]
+
+
+@pytest.mark.parametrize("pos", [0, 511, 1023, 1030])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_step_kernel_matches_plain(model, dtype, pos):
+    """K10 at stories15M width: h_out and the caches within chip_smoke's
+    tolerances, the other cache rows untouched."""
+    from chip_smoke import CACHE_ATOL, FLASH_DTYPES, STEP_ATOL, step_vs_plain
+
+    dt = FLASH_DTYPES[dtype]
+    with torch.no_grad():
+        h_err, c_err, kept, _ = step_vs_plain(model, dt, pos)
+    assert h_err <= STEP_ATOL[dt] and c_err <= CACHE_ATOL[dt] and kept
+
+
+@pytest.mark.parametrize("pos", [0, 5, 31, 40])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tiny_step_kernel_matches_plain(tiny, dtype, pos):
+    from chip_smoke import CACHE_ATOL, FLASH_DTYPES, STEP_ATOL, step_vs_plain
+
+    dt = FLASH_DTYPES[dtype]
+    with torch.no_grad():
+        h_err, c_err, kept, _ = step_vs_plain(tiny, dt, pos)
+    assert h_err <= STEP_ATOL[dt] and c_err <= CACHE_ATOL[dt] and kept
+
+
+def test_step_kernel_takes_any_rot_and_hmask(tiny):
+    """K10 applies rot and hmask as given, not as the pair swap and the
+    head mask: random ones against the plain version."""
+    from chip_smoke import step_inputs
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    args = list(step_inputs(tiny, torch.float32, 9))
+    args[4] = torch.randn(32, 32, generator=g, device="cuda") * 0.3
+    args[5] = torch.rand(32, 2, generator=g, device="cuda")
+    h, ck, cv = dsk.fused_decode_step(*args, alias=False)
+    rh, rck, rcv = dsk.fused_decode_step_ref(*args, alias=False)
+    assert float((h - rh).abs().max()) <= 1e-4
+    assert float((ck - rck).abs().max()) <= 1e-4
+    assert float((cv - rcv).abs().max()) <= 1e-4
+
+
+def test_head_and_step_launch_counters_count_kernel_launches_only(tiny):
+    from chip_smoke import head_inputs, step_inputs
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    h, w, b = head_inputs(tiny, torch.float32)
+    args = step_inputs(tiny, torch.float32, 3)
+    k9, k10 = dsk.lm_head_argmax.launches, dsk.fused_decode_step.launches
+    for _ in range(2):
+        dsk.lm_head_argmax(h, w, b)
+        dsk.fused_decode_step(*args)
+    dsk.lm_head_argmax_ref(h, w, b)
+    dsk.fused_decode_step_ref(*args)
+    assert dsk.lm_head_argmax.launches - k9 == 2
+    assert dsk.fused_decode_step.launches - k10 == 2
+
+
+def test_head_and_step_cuda_inputs_never_fall_back(tiny):
+    from chip_smoke import head_inputs, step_inputs
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    h, w, b = head_inputs(tiny, torch.float32)
+    with pytest.raises(ValueError, match="limits"):
+        dsk.lm_head_argmax(torch.zeros(1, 20000, device="cuda"),
+                           torch.zeros(4, 20000, device="cuda"),
+                           torch.zeros(4, device="cuda"))
+    with pytest.raises(ValueError, match="b"):
+        dsk.lm_head_argmax(h, w, b.to(torch.bfloat16))
+    args = list(step_inputs(tiny, torch.float32, 3))
+    args[5] = torch.ones(32, 32, device="cuda")  # 32 heads of 1 feature
+    dsk.fused_decode_step(*args)  # H = D is taken
+    args[5] = torch.ones(32, 33, device="cuda")
+    with pytest.raises(ValueError, match="H <= D"):
+        dsk.fused_decode_step(*args)

@@ -184,17 +184,23 @@ def test_generate_unported_options_raise():
     tm = Llama(**TINY, device="cpu")
     ids = np.array([[1, 5, 9]])
     cases = [dict(temperature=0.8), dict(top_k=5), dict(kv_quant="int8"),
-             dict(quant="int8"), dict(quant="int4"), dict(flash_prefill=True),
-             dict(fused="numpy"), dict(quant="int4", fused=True),
+             dict(flash_prefill=True), dict(fused="numpy"),
              dict(dtype=torch.float16)]
     for kw in cases:
         with pytest.raises(NotImplementedError):
             next(tm.generate(ids, 8, **kw))
-    # int8/int4 layers at a width the JAX package runs on its fused kernel
-    # are K1/K2's `qlayers`/`q4`; the scan lane runs them when asked for
+    # int8/int4 layers at a width the JAX package runs on its fused kernel:
+    # K1's `qlayers`/`q4` at B=1; K2's are not ported, so B>1 raises unless
+    # the scan lane is asked for
     for quant in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="weight formats"):
-            next(tm.generate(ids, 8, quant=quant))
+        for fused in (None, True):
+            assert len(stream(tm.generate(ids, 8, quant=quant,
+                                          fused=fused))) == 5
+            with pytest.raises(NotImplementedError, match="weight formats"):
+                next(tm.generate(np.array([[1, 2], [3, 4]]), 8, quant=quant,
+                                 fused=fused))
+        assert len(list(tm.generate(np.array([[1, 2], [3, 4]]), 5,
+                                    quant=quant, fused=False))) == 3
     for quant in ("int8", "int8-head", "int4"):
         assert len(stream(tm.generate(ids, 8, quant=quant, fused=False))) == 5
     with pytest.raises(ValueError, match="quant"):
@@ -366,3 +372,29 @@ def test_weight_snapshots_follow_load_state_dict():
     assert stream(a.generate(ids, 12)) == stream(b.generate(ids, 12))
     assert stream(a.generate(ids, 12, fused=False)) == \
         stream(b.generate(ids, 12, fused=False))
+
+
+def test_checkpoint_load_state_dict_drops_decode_snapshots_like_jax():
+    """utils.checkpoint.load_state_dict into a model that has decoded (its
+    decode-weight snapshot built) must leave it decoding the new weights,
+    as the JAX function does: seed 0 decodes on the scan lane, loads seed
+    1's state, then streams what seed 1 streams (it once streamed seed 0's
+    layers behind seed 1's prefill token)."""
+    from pydynet_tpu.utils import checkpoint as jckpt
+
+    from pydynet_tpu_torch.utils import checkpoint as tckpt
+
+    j0, j1 = jax_model(TINY, seed=0), jax_model(TINY, seed=1)
+    t0, t1 = port_of(j0, TINY), port_of(j1, TINY)
+    ids = np.array([[1, 5, 9]])
+    with pdn.no_grad():
+        want = stream(j1.generate(ids, 16, fused=False))
+        stream(j0.generate(ids, 16, fused=False))
+        jckpt.load_state_dict(j0, jckpt.state_dict(j1))
+        assert stream(j0.generate(ids, 16, fused=False)) == want
+    assert stream(t1.generate(ids, 16, fused=False)) == want
+    for fused in (False, True):
+        assert stream(t0.generate(ids, 16, fused=fused)) != want
+        tckpt.load_state_dict(t0, tckpt.state_dict(t1))
+        assert stream(t0.generate(ids, 16, fused=fused)) == want
+        t0 = port_of(jax_model(TINY, seed=0), TINY)  # seed 0 again

@@ -5,10 +5,10 @@ Each JAX layer is built from a numpy seed and its weights are carried into
 the port's twin by ``utils/checkpoint.load_state_dict``; both get the same
 numpy inputs. Forward outputs and the gradients of ``sum(out * w)`` for a
 numpy-drawn ``w`` are held to 1e-5 (absolute and relative): both packages
-compute in float32 and differ only in summation order. Max pooling is
-checked for gradients on continuous normal draws, which have no ties: the
-JAX package splits a max's gradient among tied elements, torch gives it to
-one.
+compute in float32 and differ only in summation order. Ties are held too:
+a tied max-pool window splits its gradient evenly in both, and
+``leaky_relu`` at exactly 0 passes its gradient to both operands of its
+max, as the JAX package's maximum does.
 """
 import subprocess
 import sys
@@ -141,6 +141,52 @@ def test_relu_passes_the_gradient_at_zero():
     jnn.ReLU()(xj).sum().backward()
     tnn.ReLU()(xt).sum().backward()
     np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(xj.grad))
+
+
+def test_leaky_relu_gradient_at_zero_matches_jax():
+    """At exactly 0 both operands of max(x, alpha x) tie: the JAX package
+    gives each the full gradient, 1 + alpha = 1.2, not torch's half each."""
+    x = np.array([[-1.0, 0.0, 2.0, 0.0], [0.0, -3.0, 0.0, 5.0]], F32)
+    out = run_both(jnn.LeakyReLU(0.2), tnn.LeakyReLU(0.2), x)
+    xt = torch.from_numpy(x).requires_grad_()
+    F.leaky_relu(xt, 0.2).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy()[x == 0], 1.2, rtol=1e-6)
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  np.where(x > 0, x, 0.2 * x))
+
+
+@pytest.mark.parametrize("kind", ["max1d", "max2d"])
+def test_max_pool_ties_split_the_gradient_like_jax(kind):
+    """A window of equal values (zeros, and the zero padding beside them)
+    splits its gradient evenly, as jnp.max over the window does: 0.25 a
+    cell for a 2x2 window, 0.5 for a 2-wide one."""
+    jcls, tcls, shape = POOLS[kind]
+    x = np.zeros(shape, F32)
+    x[..., :1] = draw(shape[:-1] + (1,), 11)  # one untied column
+    for kernel, stride, padding in ((2, 2, 0), (3, 2, 1)):
+        run_both(jcls(kernel, stride, padding), tcls(kernel, stride,
+                                                     padding), x)
+    xt = torch.zeros((1, 1) + shape[2:], requires_grad=True)
+    tcls(2, 2, 0)(xt).sum().backward()
+    want = 0.25 if kind == "max2d" else 0.5
+    covered = xt.grad[..., :shape[-2] // 2 * 2, :shape[-1] // 2 * 2] \
+        if kind == "max2d" else xt.grad[..., :shape[-1] // 2 * 2]
+    np.testing.assert_allclose(covered.numpy(), want)
+
+
+@pytest.mark.parametrize("shape,x_shape", [((4, 8), (2, 4, 8)),
+                                           (8, (2, 3, 8)),
+                                           ((2, 4, 8), (3, 2, 4, 8))])
+def test_rmsnorm_over_trailing_axes_matches_jax(shape, x_shape):
+    """RMSNorm(normalized_shape) normalizes over the trailing
+    len(normalized_shape) axes, as the JAX layer does (a (4, 8) norm on a
+    (2, 4, 8) input once differed by 0.78), forward and gradients, with the
+    same non-unit weights."""
+    jm = jnn.RMSNorm(shape, dtype=F32)
+    jm.weight.data = draw(jm.weight.shape, 13, 0.5, 1.0)
+    jm, tm = twin(jm, tnn.RMSNorm(shape))
+    assert tm.weight.shape == tuple(jm.weight.shape)
+    run_both(jm, tm, draw(x_shape, 14, 2.0))
 
 
 @pytest.mark.parametrize("stride,padding", [(1, 0), (1, 1), (2, 1)])

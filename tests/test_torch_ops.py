@@ -415,7 +415,8 @@ def test_build_paths_are_keyed_by_sources(monkeypatch, tmp_path):
     from pydynet_tpu_torch.ops import _build
 
     srcs = _build.sources()
-    assert [p.name for p in srcs] == ["batchnorm.cu", "decode_token.cu",
+    assert [p.name for p in srcs] == ["batchnorm.cu", "decode_step.cu",
+                                      "decode_token.cu",
                                       "decode_token_batched.cu",
                                       "flash_attention.cu", "gemv_quant.cu"]
     path = _build.library_path()
