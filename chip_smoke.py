@@ -17,8 +17,11 @@ the run with a nonzero exit and no result line:
    255, 1023 and 1030 (the last one exercises the clamp to S - 1);
 3b. the batched decode-step kernel (K2) against its plain version the same
    way at B = 4 and 32, positions 1, 17, 255, 1023 and 1030, with per-row
-   ``starts`` (one row starting at pos), and each K2 row at B = 8 against
-   K1 on that row alone;
+   ``starts`` (one row starting at pos), in float32, bfloat16, bfloat16 with
+   the int8 head, int8 and int4 layers and head (bfloat16) and the int8 KV
+   cache (float32 and bfloat16 weights; its int8 entries at most one apart,
+   its scales within a relative tolerance), and each K2 row at B = 8
+   against K1 on that row alone (the int8 KV cache's against K2 at B = 1);
 3c. the quantized-matmul kernels against their plain versions, bit for
    bit: the activation quantization, the decode kernel (K5) and the prefill
    kernel (K6) at M in {1, 2, 3, 4, 5, 12, 16, 32, 33, 256, 1000} rows
@@ -47,14 +50,21 @@ the run with a nonzero exit and no result line:
    argmax gate against a float32 truth stream (int8: against the stream of
    a copy whose weights went through int8 and back; int4: majority
    agreement with the int4 round trip's), and the ``infer`` CLI once plain
-   and once with ``--quant int8``;
-4b. the serving path: ``LlamaServer`` (B = 8, bfloat16, with and without
-   the int8 head) serving 24 requests with slot recycling, shifted
-   admissions and truncation at the cache end, through K2 (its launch
-   counter must equal the steps the server dispatched); a float32 server
-   whose streams equal standalone float32 ``generate`` (K1) up to the first
-   near-tie; the batched argmax gates at B = 4 and 32; ``generate`` of a
-   1024-token request at B = 8 through K2; and the ``serve_cli`` once;
+   and once with ``--quant int8``; then ``generate`` of a 1024-token
+   request with ``kv_quant="int8"``, which runs K2 at B = 1 (its launch
+   counter must equal the decode steps), the ``b1-kvint8`` gate (majority
+   agreement with the float32 stream) and ``infer --kv-quant int8``;
+4b. the serving path: ``LlamaServer`` (B = 8, bfloat16; plain, with the
+   int8 head, with int8 and int4 layers, and with the int8 KV cache)
+   serving 24 requests with slot recycling, shifted admissions and
+   truncation at the cache end, through K2 (its launch counter must equal
+   the steps the server dispatched); a float32 server whose streams equal
+   standalone float32 ``generate`` (K1) up to the first near-tie; the
+   batched argmax gates at B = 4 and 32 (bench.py's ``batched-b4-int8``
+   and ``-kvint8`` by majority agreement with the float32 stream,
+   ``-int4`` with the int4 round trip's); ``generate`` of a 1024-token
+   request at B = 8 through K2; and the ``serve_cli`` once plain and once
+   with ``--kv-quant int8``;
 4c. the training path: the flash-attention forward (K3) and its dq and
    dk/dv backward kernels (K4) against their plain versions at
    (B, L, 6, 48), B in {1, 8}, L in {1, 7, 64, 1000, 1024}, in float32 and
@@ -83,12 +93,13 @@ the run with a nonzero exit and no result line:
    2 x 160 and every net's mean loss must fall); the MNIST ConvNet at its
    defaults (test accuracy above 0.5); and both CLIs once;
 5. timings: tokens per second of the 1024-token request in each format
-   (bfloat16, int8-head, int8, int4), timed ``REPEATS`` times in turns,
-   K1's (also with int8 and int4 layers) and K2's time per step beside
-   their plain versions' and their bounds, K9's beside its bound and
-   ``torch.argmax(head_w @ h + b)``, K10's beside its bound and its plain
-   version's, the serving run's generated tokens per second
-   (``REPEATS`` times, the formats in turns) and the B = 8 request's; K3's
+   (bfloat16, int8-head, int8, int4, and the int8 KV cache through K2),
+   timed ``REPEATS`` times in turns, K1's (also with int8 and int4 layers)
+   and K2's (at B = 8 and 32, bfloat16, int8 and int4 layers, the int8 KV
+   cache) time per step beside their plain versions' and their bounds,
+   K9's beside its bound and ``torch.argmax(head_w @ h + b)``, K10's beside
+   its bound and its plain version's, the serving run's generated tokens per second in each of
+   4b's formats (``REPEATS`` times, in turns) and the B = 8 request's; K3's
    and K4's times beside their plain versions' at (1, 1024, 6, 48) and
    (8, 1024, 6, 48), and the training step's time and training tokens per
    second at B = 1 and 8, L = 1024 (``REPEATS`` steps in turns); the 7B
@@ -133,7 +144,19 @@ FORMATS = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
            "f32-int8": (torch.float32, "int8"),
            "bf16-int8": (torch.bfloat16, "int8"),
            "bf16-int4": (torch.bfloat16, "int4")}
-BATCHED_FORMATS = ("f32", "bf16", "bf16-int8head")  # what K2 takes
+# K2's int8 KV cache (float weights only): its formats' weight types
+KV8_FORMATS = {"f32-kv8": torch.float32, "bf16-kv8": torch.bfloat16}
+BATCHED_FORMATS = ("f32", "bf16", "bf16-int8head", "bf16-int8", "bf16-int4",
+                   "f32-kv8", "bf16-kv8")  # what K2 takes
+# int8 KV caches, kernel vs plain: both quantize the same new K/V rows, whose
+# float32 values differ by summation order (and, in bf16, by a matmul input
+# rounded to a neighbouring bf16 value), so an entry may land one step apart.
+# A query element or cache entry one step apart moves a score by about 1/127
+# of one element's share, and the layers after it carry that on (as for
+# QUANT_CACHE_ATOL), so a row's scale (its amax / 127) may move by ~1e-4 of
+# itself (1.7e-4 seen at f32, B=32); one bf16 ulp, 2**-7, bounds that and
+# keeps a row's entries within one step of each other
+KV8_SCALE_RTOL = {torch.float32: 2.0**-7, torch.bfloat16: 2.0**-7}
 # cache tolerance, kernel vs plain: f32 differs only in summation order
 # (values are O(1), so 1e-4 is ~1000 f32 ulps); bf16 rows may round to a
 # neighbouring bf16 value (one ulp at |x| < 8 is at most 2**-5)
@@ -153,10 +176,15 @@ STEP_POSITIONS = (0, 511, 1023, 1030)  # 1030 >= S acts as S - 1
 HEAD_TIE = (100, 20000)  # vocab rows in different head tiles
 PATH_STEPS = 64  # truth tokens of the K10 + K9 path and the gates
 B1_QUANTS = (None, "int8-head", "int8", "int4")  # phase 4's requests
+K2_TIMED = ("bf16", "bf16-int8", "bf16-int4", "bf16-kv8")  # phase 5
 PROMPT = np.array([[1, 243, 532, 991]])
 REQUEST = 1024  # total length of the main-path request
 REPEATS = 5  # timed requests (or serving runs) per format in phase 5
 SERVE = dict(batch_size=8, chunk=128, eos_id=-1)  # the phase-4b server
+SERVE_FORMATS = {"bf16": {}, "bf16-int8head": dict(quant="int8-head"),
+                 "bf16-int8": dict(quant="int8"),
+                 "bf16-int4": dict(quant="int4"),
+                 "bf16-kv8": dict(kv_quant="int8")}  # the server's formats
 N_REQUESTS = 24
 MAX_NEW = (64, 256, 700)  # cycled over the requests
 F32_MARGIN = 1e-3  # f32 server vs f32 generate: they differ by rounding of
@@ -257,24 +285,75 @@ def cache_atol(fmt):
         CACHE_ATOL[dtype]
 
 
+def fmt_of(fmt):
+    """(weight type, quant) of a K1 or K2 format."""
+    return (KV8_FORMATS[fmt], None) if fmt in KV8_FORMATS else FORMATS[fmt]
+
+
+def cache_diff(ck, rck):
+    """Max |difference| of two caches; of two int8 KV caches, (max int8
+    difference, max relative difference of the scales)."""
+    if isinstance(ck, tuple):
+        return (max_diff(ck[0], rck[0]),
+                float(((ck[1] - rck[1]).abs() / rck[1]).max()))
+    return max_diff(ck, rck)
+
+
+def worst(*errs):
+    """The largest of several cache_diffs, element by element."""
+    if isinstance(errs[0], tuple):
+        return tuple(max(e[i] for e in errs) for i in range(len(errs[0])))
+    return max(errs)
+
+
+def cache_ok(fmt, err):
+    """Whether a cache_diff is within the format's stated tolerance."""
+    if fmt in KV8_FORMATS:
+        return err[0] <= 1 and err[1] <= KV8_SCALE_RTOL[KV8_FORMATS[fmt]]
+    return err <= cache_atol(fmt)
+
+
 def batched_args(model, weights, ck, cv, pos, toks, starts=None):
-    from pydynet_tpu_torch.models.llama.model import decode_weight_args
+    """K2's arguments in the snapshot's weight format; ``ck``/``cv`` may be
+    the int8 KV cache's (rows, scales) pairs."""
+    from pydynet_tpu_torch.models.llama.model import (decode_quant_kwargs,
+                                                      decode_weight_args)
 
     dev = model.device
+    kv = {}
+    if isinstance(ck, tuple):
+        (ck, sk), (cv, sv) = ck, cv
+        kv = dict(sk=sk, sv=sv)
     return ((i32([pos], dev), i32(list(toks), dev),
              *decode_weight_args(weights), ck, cv),
-            dict(n_heads=model.n_heads, head_s=weights.get("head_s"),
-                 starts=None if starts is None else i32(list(starts), dev)))
+            dict(n_heads=model.n_heads, **decode_quant_kwargs(weights),
+                 starts=None if starts is None else i32(list(starts), dev),
+                 **kv))
 
 
-def random_caches(model, dtype, seed, batch=None):
-    """Seeded random caches: (N, S, D), or (N, B, S, D) for ``batch``."""
+def random_caches(model, dtype, seed, batch=None, kv8=False):
+    """Seeded random caches: (N, S, D), or (N, B, S, D) for ``batch``; with
+    ``kv8`` their int8 rows and scales (``quantize_kv``)."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
     g = torch.Generator(device=model.device).manual_seed(seed)
     shape = (model.n_layers, model.max_seq_len, model.embed_dim)
     if batch is not None:
         shape = (model.n_layers, batch) + shape[1:]
-    return [torch.randn(shape, generator=g, device=model.device)
-            .mul_(0.5).to(dtype) for _ in range(2)]
+    caches = [torch.randn(shape, generator=g, device=model.device)
+              .mul_(0.5).to(dtype) for _ in range(2)]
+    return [dsk.quantize_kv(c) for c in caches] if kv8 else caches
+
+
+def clone_caches(ck, cv):
+    if isinstance(ck, tuple):
+        return tuple(c.clone() for c in ck), tuple(c.clone() for c in cv)
+    return ck.clone(), cv.clone()
+
+
+def batched_caches(model, fmt, seed, batch):
+    return random_caches(model, fmt_of(fmt)[0], seed, batch,
+                         fmt in KV8_FORMATS)
 
 
 def confident_rows(logits):
@@ -314,48 +393,58 @@ def batched_vs_plain(model, fmt, batch, pos, seed=0):
     """One batched step of ``batch`` rows through K2 and through its plain
     version on the same inputs, rows starting at seeded ``starts`` in
     [0, min(pos, S - 1)] (row 0 at pos itself). Returns (kernel tokens,
-    plain tokens, confident rows, max |cache difference|)."""
+    plain tokens, confident rows, cache_diff)."""
     from pydynet_tpu_torch.ops import decode_step as dsk
 
-    dtype, quant = FORMATS[fmt]
-    w = model._fused_weights(dtype, quant)
-    ck, cv = random_caches(model, dtype, seed, batch)
+    w = model._fused_weights(*fmt_of(fmt))
+    ck, cv = batched_caches(model, fmt, seed, batch)
+    rck, rcv = clone_caches(ck, cv)
     rng = np.random.default_rng(seed)
     p = min(pos, model.max_seq_len - 1)
     starts = rng.integers(0, p + 1, size=batch)
     starts[0] = p
     toks = rng.integers(0, model.vocab_size, size=batch)
     args, kw = batched_args(model, w, ck, cv, pos, toks, starts)
-    rck, rcv = ck.clone(), cv.clone()
+    rargs, rkw = batched_args(model, w, rck, rcv, pos, toks, starts)
     got = dsk.fused_decode_token_batched(*args, **kw).cpu()
-    logits = dsk.decode_token_batched_logits_ref(*args[:-2], rck, rcv, **kw)
+    logits = dsk.decode_token_batched_logits_ref(*rargs, **rkw)
     torch.cuda.synchronize()
-    err = max(max_diff(ck, rck), max_diff(cv, rcv))
+    err = worst(cache_diff(ck, rck), cache_diff(cv, rcv))
     return got, logits.argmax(-1).cpu().int(), confident_rows(logits), err
 
 
-def batched_rows_vs_k1(model, fmt, batch=8, pos=512, seed=5):
-    """K2 over ``batch`` rows starting at 0 against K1 on each row alone.
-    Returns (tokens equal, max |cache difference|)."""
+def batched_rows_vs_one(model, fmt, batch=8, pos=512, seed=5):
+    """K2 over ``batch`` rows starting at 0 against each row alone: through
+    K1 (which has no int8 KV cache: K2 at B=1 for that). Returns (tokens
+    equal, cache_diff)."""
     from pydynet_tpu_torch.ops import decode_step as dsk
 
-    dtype, quant = FORMATS[fmt]
-    w = model._fused_weights(dtype, quant)
-    ck, cv = random_caches(model, dtype, seed, batch)
+    w = model._fused_weights(*fmt_of(fmt))
+    ck, cv = batched_caches(model, fmt, seed, batch)
+    kv8 = fmt in KV8_FORMATS
+    one = ((lambda c, b: tuple(t[:, b:b + 1].clone() for t in c)) if kv8
+           else (lambda c, b: c[:, b].clone()))
+    rows = [(one(ck, b), one(cv, b)) for b in range(batch)]
     toks = np.random.default_rng(seed).integers(0, model.vocab_size,
                                                 size=batch)
-    rows_k = [ck[:, b].clone() for b in range(batch)]
-    rows_v = [cv[:, b].clone() for b in range(batch)]
     args, kw = batched_args(model, w, ck, cv, pos, toks)
     got = dsk.fused_decode_token_batched(*args, **kw).tolist()
-    one = []
-    for b in range(batch):
-        a1, k1 = step_args(model, w, rows_k[b], rows_v[b], pos, int(toks[b]))
-        one.append(int(dsk.fused_decode_token(*a1, **k1)[0]))
-    err = max(max(max_diff(ck[:, b], rows_k[b]), max_diff(cv[:, b],
-                                                          rows_v[b]))
-              for b in range(batch))
-    return got == one, err
+    alone = []
+    for b, (rk, rv) in enumerate(rows):
+        if kv8:
+            a1, k1 = batched_args(model, w, rk, rv, pos, [int(toks[b])])
+            alone.append(int(dsk.fused_decode_token_batched(*a1, **k1)[0]))
+        else:
+            a1, k1 = step_args(model, w, rk, rv, pos, int(toks[b]))
+            alone.append(int(dsk.fused_decode_token(*a1, **k1)[0]))
+    if kv8:
+        err = worst(*(cache_diff(tuple(t[:, b:b + 1] for t in c), r)
+                      for b, (rk, rv) in enumerate(rows)
+                      for c, r in ((ck, rk), (cv, rv))))
+    else:
+        err = max(max(max_diff(ck[:, b], rk), max_diff(cv[:, b], rv))
+                  for b, (rk, rv) in enumerate(rows))
+    return got == alone, err
 
 
 def head_inputs(model, dtype, seed=0, tie=False):
@@ -767,23 +856,23 @@ def profile_big(model):
 
 def check_serving(model):
     """Phase 4b: the serving path through K2. Returns K2's launches."""
-    from pydynet_tpu_torch.models.llama import serve_cli
+    from pydynet_tpu_torch.models.llama import Llama, serve_cli
     from pydynet_tpu_torch.ops import decode_step as dsk
     from pydynet_tpu_torch.utils import fidelity
 
     k2 = dsk.fused_decode_token_batched
     requests = serve_requests(model)
-    serve(model, requests[:2], dtype=torch.bfloat16, **SERVE)  # warm-up
+    for kw in SERVE_FORMATS.values():  # warm-up
+        serve(model, requests[:2], dtype=torch.bfloat16, **kw, **SERVE)
     k2.launches = 0
-    for quant in (None, "int8-head"):
+    for name, kw in SERVE_FORMATS.items():
         before = k2.launches
         start = time.perf_counter()
-        srv, done = serve(model, requests, dtype=torch.bfloat16,
-                          quant=quant, **SERVE)
+        srv, done = serve(model, requests, dtype=torch.bfloat16, **kw,
+                          **SERVE)
         wall = time.perf_counter() - start
         launched = k2.launches - before
         n_tok = sum(len(r.tokens) for r in done)
-        name = f"bf16{'-' + quant if quant else ''}"
         print(f"[chip_smoke] serve {name} B=8: {len(done)} requests, "
               f"{n_tok} tokens, {sum(r.truncated for r in done)} truncated, "
               f"{srv.dispatched_steps} steps dispatched, {launched} K2 "
@@ -824,19 +913,38 @@ def check_serving(model):
     if compared < 100:
         raise AssertionError(f"only {compared} f32 tokens compared")
 
-    # the batched argmax gates (bench.py's batched-b4, -b32, -b4-int8head)
-    for batch, quants in ((4, (None, "int8-head")), (32, (None,))):
+    # the batched argmax gates (bench.py's batched-b4, -b32, -b4-int8head;
+    # -b4-int8 and -b4-kvint8 by majority agreement with the f32 stream)
+    gates = ((4, dict(quant=None)), (4, dict(quant="int8-head")),
+             (4, dict(quant="int8", min_agree=INT4_MIN_AGREE)),
+             (4, dict(kv_quant="int8", min_agree=INT4_MIN_AGREE)),
+             (32, dict(quant=None)))
+    for batch in (4, 32):
         prompt = batch_prompt(batch)
         truth, margins, tops = fidelity.greedy_truth(model, prompt, 64)
-        for quant in quants:
+        for kw in (kw for b, kw in gates if b == batch):
             checked, ok, agree = fidelity.gate_fused_argmax(
                 model, prompt, truth, margins, tops, dtype=torch.bfloat16,
-                quant=quant)
-            print(f"[chip_smoke] gate B={batch} bf16 quant={quant}: checked "
+                **kw)
+            print(f"[chip_smoke] gate B={batch} bf16 {kw}: checked "
                   f"{checked} ok {ok} agree {agree:.3f}")
             if not (checked > 0 and ok):
-                raise AssertionError(f"batched gate failed: B={batch}, "
-                                     f"quant={quant}")
+                raise AssertionError(f"batched gate failed: B={batch}, {kw}")
+    # batched-b4-int4: majority agreement with the int4 round trip's stream
+    rt = fidelity.dequant_inplace(
+        Llama(**CFG, device="cuda",
+              generator=torch.Generator().manual_seed(0)).eval(), "int4")
+    prompt = batch_prompt(4)
+    t_rt, m_rt, top_rt = fidelity.greedy_truth(rt, prompt, 64)
+    checked, ok, agree = fidelity.gate_fused_argmax(
+        rt, prompt, t_rt, m_rt, top_rt, dtype=torch.bfloat16, quant="int4",
+        min_agree=INT4_MIN_AGREE)
+    print(f"[chip_smoke] gate B=4 bf16 quant=int4 (against the int4 "
+          f"round-trip truth, majority): checked {checked} ok {ok} agree "
+          f"{agree:.3f}")
+    if not (checked > 0 and ok):
+        raise AssertionError("batched gate failed: B=4, quant=int4")
+    del rt
 
     # generate at B=8 through K2
     steps = REQUEST - PROMPT.shape[1] - 1
@@ -851,11 +959,13 @@ def check_serving(model):
         raise AssertionError(f"generate B=8: {launched} launches, "
                              f"{len(rows)} rows; want {steps} steps")
 
-    before = k2.launches
-    serve_cli.main(["--random-init", "--device", "cuda", "--batch-size", "8",
-                    "--max-new-tokens", "64"])
-    if k2.launches == before:
-        raise AssertionError("serve CLI did not run the batched kernel")
+    for extra in ([], ["--kv-quant", "int8"]):
+        before = k2.launches
+        serve_cli.main(["--random-init", "--device", "cuda", "--batch-size",
+                        "8", "--max-new-tokens", "64", *extra])
+        if k2.launches == before:
+            raise AssertionError(f"serve CLI {extra} did not run the batched "
+                                 "kernel")
     return serve_launches
 
 
@@ -1107,24 +1217,29 @@ def decode_step_bound(w, ck, pos, rows):
     """K1/K2's bound at ``pos`` for ``rows`` rows: every weight once, as
     stored (int8, or int4 two a byte, with its scales), the embedding's
     ``rows`` rows, each row's cache rows [0, pos] read and its new row
-    written, in the cache type; operations two a weight and two a cache
-    element a row."""
+    written, in the cache type (the int8 KV cache's rows with their float32
+    scales); operations two a weight and two a cache element a row, at the
+    weight type's peak."""
     from pydynet_tpu_torch.models.llama.model import FUSED_MATS
 
+    kv8 = isinstance(ck, tuple)
+    if kv8:
+        ck = ck[0]
     N, D = ck.shape[0], ck.shape[-1]
     q = "_q" if "wq_s" in w else ""
     mats = [w[k + q] for k in FUSED_MATS]
     scales = [w[k + "_s"] for k in FUSED_MATS] if q else []
     head = [w["head_wq"], w["head_s"]] if "head_s" in w else [w["head_w"]]
     small = [w[k] for k in ("norm", "in_norm", "post_norm", "head_b")]
-    it = ck.element_size()
-    kv = rows * N * D * 2 * it * (pos + 2)  # pos + 1 rows read, one written
+    it = w["tok"].element_size()
+    row_bytes = D * ck.element_size() + (4 if kv8 else 0)
+    kv = rows * N * 2 * row_bytes * (pos + 2)  # pos + 1 rows read, 1 written
     n_bytes = nbytes(*mats, *scales, *head, *small) + rows * D * it * 3 + kv
     per_byte = 2 if "q4" in w else 1  # weights a stored element holds
     n_ops = 2 * rows * per_byte * (sum(m.numel() for m in mats)
                                    + head[0].numel()) \
         + 4 * rows * N * D * (pos + 1)
-    return bound(n_bytes, n_ops, ck.dtype)
+    return bound(n_bytes, n_ops, w["tok"].dtype)
 
 
 def flash_bound(q, products):
@@ -1914,13 +2029,14 @@ def main() -> int:
                 max_err[fmt] = max(max_err[fmt], err)
     phase("3 kernel vs plain", t0)
 
-    # 3b. K2 against plain, and K2 rows against K1
+    # 3b. K2 against plain, and K2 rows against K1 (the int8 KV cache's
+    # against K2 on each row alone)
     t0 = time.perf_counter()
     max_err_b = {}
     with torch.no_grad():
         for fmt in BATCHED_FORMATS:
-            dtype = FORMATS[fmt][0]
-            max_err_b[fmt] = 0.0
+            dtype = fmt_of(fmt)[0]
+            errs = []
             for batch in BATCHES:
                 for pos in BATCH_POSITIONS:
                     got, want, conf, err = batched_vs_plain(model, fmt,
@@ -1928,24 +2044,25 @@ def main() -> int:
                     same = got == want
                     print(f"[chip_smoke] K2 {fmt} B={batch} pos {pos}: "
                           f"{int(same.sum())}/{batch} tokens equal, "
-                          f"{int(conf.sum())} confident, cache err "
-                          f"{err:.3g}")
-                    if err > CACHE_ATOL[dtype]:
+                          f"{int(conf.sum())} confident, cache err {err}")
+                    if not cache_ok(fmt, err):
                         raise AssertionError(
                             f"K2 {fmt} B={batch} pos {pos}: cache error "
-                            f"{err} > {CACHE_ATOL[dtype]}")
+                            f"{err} beyond its tolerance")
                     must = torch.ones_like(conf) if dtype == torch.float32 \
                         else conf
                     if not same[must].all():
                         raise AssertionError(
                             f"K2 {fmt} B={batch} pos {pos}: tokens "
                             f"{got.tolist()} != plain {want.tolist()}")
-                    max_err_b[fmt] = max(max_err_b[fmt], err)
-            equal, err = batched_rows_vs_k1(model, fmt)
-            print(f"[chip_smoke] K2 {fmt} B=8 rows vs K1: tokens equal "
-                  f"{equal}, cache err {err:.3g}")
-            if not equal or err > CACHE_ATOL[dtype]:
-                raise AssertionError(f"K2 {fmt}: rows differ from K1")
+                    errs.append(err)
+            max_err_b[fmt] = worst(*errs)
+            equal, err = batched_rows_vs_one(model, fmt)
+            alone = "K2 at B=1" if fmt in KV8_FORMATS else "K1"
+            print(f"[chip_smoke] K2 {fmt} B=8 rows vs {alone}: tokens equal "
+                  f"{equal}, cache err {err}")
+            if not equal or not cache_ok(fmt, err):
+                raise AssertionError(f"K2 {fmt}: rows differ from {alone}")
     phase("3b batched kernel vs plain", t0)
 
     # 3c. the quantized matmuls (K5, K6, K7) against plain
@@ -2014,11 +2131,35 @@ def main() -> int:
         if not (checked > 0 and ok):
             raise AssertionError(f"fidelity gate failed for quant={quant}")
         del rt
-    for extra in ([], ["--quant", "int8"]):
-        before = dsk.fused_decode_token.launches
+    # the int8 KV cache at B=1: the batched kernel, one launch a step
+    list(model.generate(PROMPT, PROMPT.shape[1] + 3, dtype=torch.bfloat16,
+                        kv_quant="int8"))  # warm-up
+    torch.cuda.synchronize()
+    dsk.fused_decode_token_batched.launches = 0
+    toks = [int(t[0, 0]) for t in model.generate(
+        PROMPT, REQUEST, dtype=torch.bfloat16, kv_quant="int8")]
+    kv8_launches = dsk.fused_decode_token_batched.launches
+    print(f"[chip_smoke] generate bf16-kv8: {len(toks)} tokens, "
+          f"{kv8_launches} K2 launches")
+    if kv8_launches != steps or len(toks) != steps + 1 \
+            or not all(0 <= x < CFG["vocab_size"] for x in toks):
+        raise AssertionError(f"bf16-kv8: {kv8_launches} launches, "
+                             f"{len(toks)} tokens; want {steps} steps")
+    # bench.py's b1-kvint8: majority agreement with the f32 stream
+    checked, ok, agree = fidelity.gate_fused_argmax(
+        model, PROMPT, truth, margins, tops, dtype=torch.bfloat16,
+        kv_quant="int8", min_agree=INT4_MIN_AGREE)
+    print(f"[chip_smoke] gate b1-kvint8 bf16 (majority): checked {checked} "
+          f"ok {ok} agree {agree:.3f}")
+    if not (checked > 0 and ok):
+        raise AssertionError("fidelity gate b1-kvint8 failed")
+    for extra in ([], ["--quant", "int8"], ["--kv-quant", "int8"]):
+        k = (dsk.fused_decode_token_batched if "--kv-quant" in extra
+             else dsk.fused_decode_token)
+        before = k.launches
         infer.main(["--random-init", "--device", "cuda", "--max-new-tokens",
                     "64", *extra])
-        if dsk.fused_decode_token.launches == before:
+        if k.launches == before:
             raise AssertionError(f"infer CLI {extra} did not run the kernel")
     phase("4 main path", t0)
 
@@ -2064,50 +2205,52 @@ def main() -> int:
             print(f"[chip_smoke] {card}: {fmt} step at pos 512: kernel "
                   f"{ms[fmt][0] * 1e3:.1f} us, plain {ms[fmt][1] * 1e3:.1f} "
                   f"us, bound {ms[fmt][2] * 1e3:.1f} us ({ms[fmt][3]})")
-        w = model._fused_weights(torch.bfloat16, None)
-        for batch in (8, 32):
-            ck, cv = random_caches(model, torch.bfloat16, 1, batch)
-            args, kw = batched_args(model, w, ck, cv, 512,
-                                    range(100, 100 + batch))
-            kern = lambda: dsk.fused_decode_token_batched(*args, **kw)
-            ref = lambda: dsk.fused_decode_token_batched_ref(*args, **kw)
-            plain, kernel = time_step(ref, 3), time_step(kern, 200)
-            plain2, kernel2 = time_step(ref, 3), time_step(kern, 200)
-            ms[f"K2 B={batch}"] = (min(kernel, kernel2),
-                                   min(plain, plain2)) \
-                + decode_step_bound(w, ck, 512, batch)
-            print(f"[chip_smoke] {card}: K2 bf16 B={batch} step at pos 512: "
-                  f"kernel {ms[f'K2 B={batch}'][0] * 1e3:.1f} us, plain "
-                  f"{ms[f'K2 B={batch}'][1] * 1e3:.1f} us, bound "
-                  f"{ms[f'K2 B={batch}'][2] * 1e3:.1f} us")
-            del ck, cv
+        for fmt in K2_TIMED:
+            w = model._fused_weights(*fmt_of(fmt))
+            for batch in (8, 32):
+                ck, cv = batched_caches(model, fmt, 1, batch)
+                args, kw = batched_args(model, w, ck, cv, 512,
+                                        range(100, 100 + batch))
+                kern = lambda: dsk.fused_decode_token_batched(*args, **kw)
+                ref = lambda: dsk.fused_decode_token_batched_ref(*args, **kw)
+                plain, kernel = time_step(ref, 3), time_step(kern, 200)
+                plain2, kernel2 = time_step(ref, 3), time_step(kern, 200)
+                key = "K2 B=%d" % batch + ("" if fmt == "bf16" else " " + fmt)
+                ms[key] = (min(kernel, kernel2), min(plain, plain2)) \
+                    + decode_step_bound(w, ck, 512, batch)
+                print(f"[chip_smoke] {card}: K2 {fmt} B={batch} step at pos "
+                      f"512: kernel {ms[key][0] * 1e3:.1f} us, plain "
+                      f"{ms[key][1] * 1e3:.1f} us, bound "
+                      f"{ms[key][2] * 1e3:.1f} us ({ms[key][3]})")
+                del ck, cv
         ms.update(time_head_and_step(model, card))
-    tok_s = {quant: [] for quant in B1_QUANTS}
+    b1_runs = {f"bf16{'-' + q if q else ''}": dict(quant=q)
+               for q in B1_QUANTS}
+    b1_runs["bf16-kv8"] = dict(kv_quant="int8")
+    tok_s = {name: [] for name in b1_runs}
     for _ in range(REPEATS):  # the formats in turns
-        for quant, rates in tok_s.items():
+        for name, rates in tok_s.items():
             start = time.perf_counter()
             n = sum(1 for _ in model.generate(PROMPT, REQUEST,
                                               dtype=torch.bfloat16,
-                                              quant=quant))
+                                              **b1_runs[name]))
             torch.cuda.synchronize()
             rates.append(n / (time.perf_counter() - start))
-    for quant, rates in tok_s.items():
-        name = f"bf16{'-' + quant if quant else ''}"
+    for name, rates in tok_s.items():
         print(f"[chip_smoke] {card}: generate {name} {REQUEST}-token "
               f"request, tok/s of {REPEATS} runs: "
               f"{', '.join(f'{r:.1f}' for r in rates)}; median "
               f"{float(np.median(rates)):.1f}")
     requests = serve_requests(model)
-    serve_rates = {None: [], "int8-head": []}
+    serve_rates = {name: [] for name in SERVE_FORMATS}
     for _ in range(REPEATS):  # the formats in turns
-        for quant, rates in serve_rates.items():
+        for name, rates in serve_rates.items():
             start = time.perf_counter()
             _, done = serve(model, requests, dtype=torch.bfloat16,
-                            quant=quant, **SERVE)
+                            **SERVE_FORMATS[name], **SERVE)
             rates.append(sum(len(r.tokens) for r in done)
                          / (time.perf_counter() - start))
-    for quant, rates in serve_rates.items():
-        name = f"bf16{'-' + quant if quant else ''}"
+    for name, rates in serve_rates.items():
         print(f"[chip_smoke] {card}: serve {name} B=8, {N_REQUESTS} "
               f"requests, generated tok/s of {REPEATS} runs: "
               f"{', '.join(f'{r:.1f}' for r in rates)}; median "

@@ -215,6 +215,15 @@ __host__ __device__ __forceinline__ size_t fmt_bytes(size_t n) {
   return Q == kFmtFloat ? n * sizeof(T) : (Q == kFmtInt8 ? n : n / 2);
 }
 
+// layer l's matrix of `rows_cols` weights of format Q, and its scales
+template <int Q, typename T>
+const void* layer_w(const void* w, int l, size_t rows_cols) {
+  return static_cast<const char*>(w) + l * fmt_bytes<Q, T>(rows_cols);
+}
+inline const float* layer_s(const float* s, int l, int rows) {
+  return s == nullptr ? nullptr : s + (size_t)l * rows;
+}
+
 // Quantize the block's activation vector x_s[0:K] in place as the TPU
 // kernel's qvec does: amax = max(max |x|, 1e-30), x = rint(x * (127 /
 // amax)) (round half to even, no clip). Returns amax / 127. Ends

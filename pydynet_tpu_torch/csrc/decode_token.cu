@@ -51,15 +51,6 @@
 
 namespace {
 
-// layer l's matrix of `rows_cols` weights of format Q, and its scales
-template <int Q, typename T>
-const void* layer_w(const void* w, int l, size_t rows_cols) {
-  return static_cast<const char*>(w) + l * fmt_bytes<Q, T>(rows_cols);
-}
-const float* layer_s(const float* s, int l, int rows) {
-  return s == nullptr ? nullptr : s + (size_t)l * rows;
-}
-
 // 1. RMSNorm + q/k/v + RoPE + K/V row write. A warp owns one (even, odd)
 // feature pair of the concatenated [q; k; v] rows, so RoPE needs no
 // exchange between warps.

@@ -4,11 +4,15 @@
     python -m pydynet_tpu_torch.models.llama.infer --random-init
     python -m pydynet_tpu_torch.models.llama.infer --weights stories15M.npz \
         --tokenizer tokenizer.model.np --dtype bfloat16 --quant int8-head
+    python -m pydynet_tpu_torch.models.llama.infer --random-init \
+        --kv-quant int8
 
 ``--device cuda`` (the default) needs a GPU and raises without one;
 ``--device cpu`` runs the kernels' plain versions. Without a checkpoint the
 stories15M configuration is built with random weights from ``--seed``.
-Prints the text as it streams and then tokens per second.
+``--kv-quant int8`` keeps the KV cache as int8 rows with per-row scales
+and cannot be combined with ``--quant`` (``ValueError``, as in the JAX
+package's CLI). Prints the text as it streams and then tokens per second.
 """
 from __future__ import annotations
 
@@ -64,6 +68,9 @@ def main(argv=None) -> float:
                         help="int8-head: the lm_head as int8; int8/int4: "
                              "every matmul weight (the fused kernel at "
                              "stories15M width)")
+    parser.add_argument("--kv-quant", choices=["int8"], default=None,
+                        help="int8 KV cache with per-row scales (the "
+                             "batched kernel, at B=1 too); takes no --quant")
     parser.add_argument("--chunk", type=int, default=None,
                         help="decode steps between reads back to the host")
     parser.add_argument("--seed", type=int, default=0,
@@ -73,7 +80,8 @@ def main(argv=None) -> float:
     device = resolve(args.device)
     tokenizer = Tokenizer(args.tokenizer)
     model = build_model(args, device).eval()
-    gen_kwargs = {"dtype": DTYPES[args.dtype], "quant": args.quant}
+    gen_kwargs = {"dtype": DTYPES[args.dtype], "quant": args.quant,
+                  "kv_quant": args.kv_quant}
     if args.chunk:
         gen_kwargs["chunk"] = args.chunk
     input_ids = np.array([tokenizer.encode(args.prompt)])

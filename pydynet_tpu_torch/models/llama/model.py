@@ -24,9 +24,10 @@ are torch's (out, in). Four ways through the model:
 * the fused lane: the same dense prefill, then one call per token of
   ``ops.decode_step.fused_decode_token`` at B=1 or
   ``fused_decode_token_batched`` at B>1, which launch the hand-written CUDA
-  kernel chains on a GPU (weights f32/bf16, optionally the int8 head; at
-  B=1 also int8 or int4 layers and head, the prefill token staying on the
-  float weights as in the JAX package).
+  kernel chains on a GPU (weights f32/bf16, optionally the int8 head, or
+  int8 or int4 layers and head, the prefill token staying on the float
+  weights as in the JAX package; ``kv_quant="int8"`` takes the batched
+  kernel's int8 KV cache, at B=1 too).
 
 ``fused=None`` routes: the fused lane wherever the port's fused kernels
 take the model, weight format and batch; else the scan lane where the JAX
@@ -119,13 +120,26 @@ def decode_weight_args(weights):
 
 
 def decode_quant_kwargs(weights):
-    """The B=1 step's keyword arguments for the snapshot's weight format:
-    ``head_s``, and for quantized layers ``scales`` and ``q4``."""
+    """The decode steps' keyword arguments for the snapshot's weight
+    format: ``head_s``, and for quantized layers ``scales`` and ``q4``."""
     kw = dict(head_s=weights.get("head_s"))
     if "wq_s" in weights:
         kw.update(scales=tuple(weights[name + "_s"] for name in FUSED_MATS),
                   q4="q4" in weights)
     return kw
+
+
+def check_kv_quant(kv_quant, quant, fused: bool):
+    """Raise for an int8 KV cache this port does not run, as the JAX
+    package's ``generate`` and ``LlamaServer`` do: with any weight ``quant``
+    on the fused lane (``ValueError``: int8 caches and int8 weights disagree
+    on the kernel's compute type), and on the scan lane, whose tuple caches
+    are not ported."""
+    if kv_quant and not fused:
+        not_ported(f"kv_quant={kv_quant!r} on the scan lane", "Big-dims lane")
+    if kv_quant and quant:
+        raise ValueError("kv_quant and (weight) quant are mutually exclusive "
+                         "on the fused kernel")
 
 
 def bucket_prompt(input_ids, L: int, max_seq_len: int):
@@ -690,16 +704,16 @@ class Llama(nn.Module):
         a warp keeps row b's sums in lane b, so B <= 32
         (``ops.decode_step.batched_kernel_takes``). Narrow GQA caches are
         not ported, so n_kv_heads must equal n_heads. int8 and int4 layers
-        run on the B=1 kernel only, and only where the JAX package's rule
+        run on both kernels, but only where the JAX package's rule
         (:meth:`_tpu_fused_supported`) puts them on its fused kernel: a
         Llama-2-7B model with them stays on the scan lane, as there.
         """
         D, H, Fd = self.embed_dim, self.n_heads, self.ffn_dim
-        one = batch == 1 and not batched
-        takes = (dsk.kernel_takes(D, H, Fd, quant == "int4") if one
-                 else dsk.batched_kernel_takes(D, H, Fd, batch))
+        q4 = quant == "int4"
+        takes = (dsk.kernel_takes(D, H, Fd, q4) if batch == 1 and not batched
+                 else dsk.batched_kernel_takes(D, H, Fd, batch, q4))
         fmt = (quant in (None, "int8-head")
-               or (one and self._tpu_fused_supported(quant)))
+               or self._tpu_fused_supported(quant))
         return fmt and self.n_kv_heads == self.n_heads and takes
 
     def _tpu_fused_supported(self, quant=None) -> bool:
@@ -726,9 +740,6 @@ class Llama(nn.Module):
         """None when the port's fused kernels take the weight format, the
         model and ``batch`` rows (the batched kernel's when ``batched``);
         else ``(what, ROADMAP item)`` naming what is missing."""
-        if quant in ("int8", "int4") and (batch > 1 or batched):
-            return (f"quant={quant!r} on the batched fused lane (fused=False "
-                    "runs the scan lane)", "Remaining weight formats")
         if self.n_kv_heads != self.n_heads:
             return ("narrow GQA caches on the fused lane (fused=False runs "
                     "the scan lane)", "Narrow GQA")
@@ -770,21 +781,28 @@ class Llama(nn.Module):
 
     def fused_step_batched(self, weights, ck, cv, tok, pos, starts=None,
                            out=None):
-        """One ``fused_decode_token_batched`` call: ``tok`` (B,) and ``pos``
-        (1,) int32 on the device, caches (N, B, S, D) updated in place,
+        """One ``fused_decode_token_batched`` call in the snapshot's weight
+        format: ``tok`` (B,) and ``pos`` (1,) int32 on the device, caches
+        (N, B, S, D) updated in place, or for the int8 KV cache ``(int8
+        rows, (N, B, S) float32 scales)`` pairs (:func:`quantize_kv`'s);
         ``starts`` (B,) int32 per-row attention lower bounds or None;
         returns (B,) int32."""
+        kv = {}
+        if isinstance(ck, tuple):
+            (ck, sk), (cv, sv) = ck, cv
+            kv = dict(sk=sk, sv=sv)
         return dsk.fused_decode_token_batched(
             pos, tok, *decode_weight_args(weights), ck, cv,
-            n_heads=self.n_heads, head_s=weights.get("head_s"),
-            starts=starts, out=out)
+            n_heads=self.n_heads, starts=starts, out=out,
+            **decode_quant_kwargs(weights), **kv)
 
     def decode_chunk(self, weights, ck, cv, tok, pos: int, n_steps: int,
                      starts=None):
         """``n_steps`` fused greedy steps from ``tok`` (B,) int32 at the
         shared ``pos``: flat caches (N, S, D) take the B=1 kernel, batched
-        caches (N, B, S, D) the batched one, whose rows may start their
-        attention at ``starts`` (B,) int32 on the device. Positions and
+        caches (N, B, S, D), or the int8 KV cache's (rows, scales) pairs,
+        the batched one, whose rows may start their attention at
+        ``starts`` (B,) int32 on the device. Positions and
         tokens stay on the device: step i reads step i-1's output in place,
         so no step waits for the host. Returns the (n_steps, B) int32
         tokens."""
@@ -793,7 +811,7 @@ class Llama(nn.Module):
         positions = torch.arange(pos, pos + n_steps, dtype=torch.int32,
                                  device=tok.device)
         for i in range(n_steps):
-            if ck.dim() == 4:
+            if isinstance(ck, tuple) or ck.dim() == 4:
                 self.fused_step_batched(weights, ck, cv, tok,
                                         positions[i:i + 1], starts=starts,
                                         out=toks[i])
@@ -822,8 +840,8 @@ class Llama(nn.Module):
         if (temperature or 0) > 0 or top_k is not None or top_p is not None \
                 or repetition_penalty is not None:
             not_ported("sampling", "Sampling")
-        if kv_quant is not None:
-            not_ported(f"kv_quant={kv_quant!r}", "Batched decode")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
         if flash_prefill:
             not_ported("flash prefill", "Long-prompt prefill")
         if dtype not in (None, torch.float32, torch.bfloat16):
@@ -831,7 +849,10 @@ class Llama(nn.Module):
                                       "bfloat16")
         if fused == "numpy":
             not_ported("the NumPy CPU decode lane", "CPU decode lane")
-        return self.use_fused(quant, B, fused)
+        # the int8 KV cache lives in the batched kernel, at B=1 too
+        fused = self.use_fused(quant, B, fused, batched=bool(kv_quant))
+        check_kv_quant(kv_quant, quant, fused)
+        return fused
 
     @torch.no_grad()
     def generate(self, input_ids, max_new_tokens: int,
@@ -847,12 +868,17 @@ class Llama(nn.Module):
         at or below the prompt length yields nothing. ``dtype`` (float32 or
         bfloat16) casts the weights and caches; ``quant="int8-head"`` stores
         the lm_head as int8, ``"int8"`` and ``"int4"`` every matmul weight
-        as well (the fused lane at B=1, the scan lane at any B; the prefill
-        token stays on the float weights on the fused lane). ``fused``
-        picks the lane (module doc): on
+        as well (the prefill token stays on the float weights on the fused
+        lane). ``kv_quant="int8"`` keeps the fused lane's KV cache as int8
+        rows with per-row float32 scales (:func:`quantize_kv` of the dense
+        prefill's caches, then the batched kernel's int8 KV mode, at B=1
+        too, as in the JAX package); it takes float weights (a ``quant``
+        raises ``ValueError``) and is not ported on the scan lane.
+        ``fused`` picks the lane (module doc): on
         the fused lane one B=1 kernel chain a token at B=1, one batched
-        chain a token for all rows at B>1; on the scan lane one dense
-        forward a token, its matmuls quantized with ``quant``."""
+        chain a token for all rows at B>1 or with ``kv_quant``; on the scan
+        lane one dense forward a token, its matmuls quantized with
+        ``quant``."""
         ids = np.asarray(input_ids)
         B, L = ids.shape
         fused = self._check_generate(B, dtype, fused, quant, temperature,
@@ -873,6 +899,10 @@ class Llama(nn.Module):
         tok = tok.to(torch.int32)
         if fused:
             ck, cv = self._flat_caches(ck, cv)
+            if kv_quant:  # int8 rows and scales, (N, B, S, D) even at B=1
+                if B == 1:
+                    ck, cv = ck[:, None], cv[:, None]
+                ck, cv = dsk.quantize_kv(ck), dsk.quantize_kv(cv)
         rows, pos = tok[None], L  # (1, B): the prefill token
         while True:
             n = min(chunk, total - pos - 1)

@@ -35,9 +35,15 @@ port's batched kernel takes the model, format and batch, the scan lane
 where the JAX package's rule sends the model there (Llama-2-7B geometry
 with int8 or int4 weights).
 
+On the fused lane ``quant="int8"``/``"int4"`` run the batched kernel's
+quantized layers, and ``kv_quant="int8"`` keeps the fleet's caches as int8
+rows with per-row float32 scales: an admission wave's rows are quantized by
+``quantize_kv``, K from its float32 rotated rows, as the kernel quantizes
+the rows it writes, so admitted and decoded rows are alike.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): sampling and speculative serving, the int8 KV cache, int8 and int4
-layers on the batched fused lane, the scan lane's prefix cache, flash prefill.
+item): sampling and speculative serving, the int8 KV cache on the scan lane,
+the scan lane's prefix cache, flash prefill.
 """
 from __future__ import annotations
 
@@ -49,7 +55,7 @@ import numpy as np
 import torch
 
 from ...ops import decode_step as dsk
-from .model import _rope_pure, bucket_prompt, not_ported
+from .model import _rope_pure, bucket_prompt, check_kv_quant, not_ported
 
 
 @dataclass
@@ -171,15 +177,17 @@ class LlamaServer(_FleetScheduler):
 
     ``quant="int8-head"`` stores the lm_head as int8 with per-row scales
     (the batched kernel quantises each row's activations with its own
-    scale); ``"int8"`` and ``"int4"`` quantize every matmul on the scan
-    lane. ``lane`` is ``"fused"``, ``"xla"`` (the scan lane) or None (routed
-    as ``generate`` routes, see the module doc). ``chunk`` is the number of
-    decode steps a dispatch runs: a finished request's slot is recycled at
-    the next chunk boundary, one chunk late under ``run``'s pipeline. The
-    constructor keeps the JAX package's keyword names; the options not
-    ported yet raise ``NotImplementedError`` naming their ROADMAP.md item.
-    ``dispatched_steps`` counts the decode steps dispatched so far, clamped
-    filler steps included.
+    scale); ``"int8"`` and ``"int4"`` quantize every matmul, on either
+    lane. ``kv_quant="int8"`` keeps the fused lane's caches int8 (module
+    doc); it takes float weights (a ``quant`` raises ``ValueError``, as in
+    the JAX package). ``lane`` is ``"fused"``, ``"xla"`` (the scan lane) or
+    None (routed as ``generate`` routes, see the module doc). ``chunk`` is
+    the number of decode steps a dispatch runs: a finished request's slot
+    is recycled at the next chunk boundary, one chunk late under ``run``'s
+    pipeline. The constructor keeps the JAX package's keyword names; the
+    options not ported yet raise ``NotImplementedError`` naming their
+    ROADMAP.md item. ``dispatched_steps`` counts the decode steps
+    dispatched so far, clamped filler steps included.
     """
 
     def __init__(self, model, batch_size: int = 8, dtype=None,
@@ -193,8 +201,8 @@ class LlamaServer(_FleetScheduler):
             not_ported("sampled serving", "Sampling")
         if speculative:
             not_ported("speculative serving", "Sampling")
-        if kv_quant is not None:
-            not_ported(f"kv_quant={kv_quant!r}", "Batched decode")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
         if lane not in (None, "fused", "xla"):
             raise ValueError(f"unknown lane: {lane!r}")
         if prefix_cache:
@@ -207,7 +215,9 @@ class LlamaServer(_FleetScheduler):
         fused = model.use_fused(quant, batch_size,
                                 None if lane is None else lane == "fused",
                                 batched=True)
+        check_kv_quant(kv_quant, quant, fused)
         self._lane = "fused" if fused else "xla"
+        self._kv_quant = kv_quant
         model.eval()
         self.model = model
         self.B = batch_size
@@ -219,7 +229,13 @@ class LlamaServer(_FleetScheduler):
         N, S, D = model.n_layers, model.max_seq_len, model.embed_dim
         self.S = S
         dev, cdt = model.device, self._w["tok"].dtype
-        if fused:
+        self._cdt = cdt
+        if kv_quant:  # int8 rows and their scales, floored as quantize_kv's
+            self._ck, self._cv = (
+                (torch.zeros(N, self.B, S, D, dtype=torch.int8, device=dev),
+                 torch.full((N, self.B, S), 1e-10, device=dev))
+                for _ in range(2))
+        elif fused:
             self._ck = torch.zeros(N, self.B, S, D, dtype=cdt, device=dev)
             self._cv = torch.zeros(N, self.B, S, D, dtype=cdt, device=dev)
         else:  # the scan lane's (N, B, S, Hkv, hd) layout
@@ -256,11 +272,12 @@ class LlamaServer(_FleetScheduler):
         rotations compose additively, so a row rotated for position p and
         again by row ``pos0`` of the table carries the rotation for p + pos0.
         The rotation is in float32 from the weight-type tables; V rows are
-        not rotated."""
+        not rotated. The int8 KV cache takes the float32 rotated K rows and
+        the prefill's V rows through ``quantize_kv``."""
         model, w = self.model, self._w
         k, L = prompts.shape
         ids, last_idx = bucket_prompt(prompts, L, self.S)
-        ck5, cv5 = model._empty_caches(k, self._ck.dtype)
+        ck5, cv5 = model._empty_caches(k, self._cdt)
         tok1 = model.prefill(w, ck5, cv5, ids, last_idx).to(torch.int32)
         if self._lane == "fused":
             N, D = model.n_layers, model.embed_dim
@@ -273,10 +290,16 @@ class LlamaServer(_FleetScheduler):
             rows_k = _rope_pure(ck5[:, :, :L].float(),
                                 w["cos"][pos0:pos0 + 1].float(),
                                 w["sin"][pos0:pos0 + 1].float())
-        rows_k = rows_k.to(self._ck.dtype)
         idx = torch.as_tensor(slots, dtype=torch.long, device=tok1.device)
-        self._ck[:, idx, pos0:pos0 + L] = rows_k
-        self._cv[:, idx, pos0:pos0 + L] = rows_v
+        if self._kv_quant:
+            for (data, scales), rows in ((self._ck, rows_k),
+                                         (self._cv, rows_v)):
+                q, sc = dsk.quantize_kv(rows)
+                data[:, idx, pos0:pos0 + L] = q
+                scales[:, idx, pos0:pos0 + L] = sc
+        else:
+            self._ck[:, idx, pos0:pos0 + L] = rows_k.to(self._cdt)
+            self._cv[:, idx, pos0:pos0 + L] = rows_v
         self._tok[idx] = tok1
         self._starts_dev[idx] = pos0
         return tok1

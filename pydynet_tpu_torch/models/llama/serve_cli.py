@@ -12,9 +12,11 @@ aggregate throughput.
 stories15M configuration is built with random weights from ``--seed``.
 ``--prompts-file`` reads one prompt per line; ``--stream`` prints tokens as
 chunks are read back; ``--quant int8-head`` stores the lm_head as int8,
-``int8``/``int4`` every matmul weight (on the scan lane). ``--lane`` picks
-the decode engine, ``fused`` (the batched decode kernel) or ``xla`` (the
-scan lane); by default it is routed as ``Llama.generate`` routes.
+``int8``/``int4`` every matmul weight; ``--kv-quant int8`` keeps the fleet's
+KV caches as int8 rows with per-row scales (the fused lane; mutually
+exclusive with ``--quant``, a ``ValueError``). ``--lane`` picks the decode
+engine, ``fused`` (the batched decode kernel) or ``xla`` (the scan lane); by
+default it is routed as ``Llama.generate`` routes.
 """
 from __future__ import annotations
 
@@ -60,6 +62,9 @@ def main(argv=None) -> float:
     parser.add_argument("--dtype", choices=list(DTYPES), default="bfloat16")
     parser.add_argument("--quant", choices=["int8-head", "int8", "int4"],
                         default=None)
+    parser.add_argument("--kv-quant", choices=["int8"], default=None,
+                        help="int8 KV cache on the fused lane (mutually "
+                        "exclusive with --quant)")
     parser.add_argument("--lane", choices=["fused", "xla"], default=None,
                         help="decode engine (default: routed as generate "
                         "routes: the fused kernels where they take the "
@@ -83,7 +88,7 @@ def main(argv=None) -> float:
     srv = LlamaServer(model, batch_size=args.batch_size,
                       dtype=DTYPES[args.dtype], chunk=args.chunk,
                       eos_id=tokenizer.eos_id, quant=args.quant,
-                      lane=args.lane)
+                      kv_quant=args.kv_quant, lane=args.lane)
     encoded = [tokenizer.encode(p) for p in prompts]
     rids = [srv.submit(ids, max_new_tokens=args.max_new_tokens)
             for ids in encoded]

@@ -38,7 +38,7 @@ SIGNATURES = {
     "pdt_decode_step": (_I, [_I] + [_P] * 20 + [_I] * 5
                         + [ctypes.c_float, _P]),
     "pdt_decode_step_scratch_floats": (_I, [_I] * 4),
-    "pdt_decode_token_batched": (_I, [_I, _I] + [_P] * 23 + [_I] * 7
+    "pdt_decode_token_batched": (_I, [_I] * 4 + [_P] * 32 + [_I] * 7
                                  + [ctypes.c_float, _P]),
     "pdt_decode_token_batched_scratch_floats": (_I, [_I] * 6),
     "pdt_flash_fwd": (_I, [_I] + [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]),

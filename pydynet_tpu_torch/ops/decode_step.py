@@ -49,9 +49,20 @@ The batched step takes the same arguments except: ``tok`` (B,) int32;
 ``ck``, ``cv`` (N, B, S, D) T, row b's cache at ``[:, b]``; ``starts`` (B,)
 int32 or None (zeros): row b attends its cache rows
 ``[starts[b], min(pos, S - 1)]``, its new row always included; ``out`` (B,)
-int32. ``pos`` is shared by the rows. The int8 head quantises each row's
-activations with its own scale. Each row gets what the B=1 step gives on
-that row alone with ``starts[b] = 0``.
+int32. ``pos`` is shared by the rows. The int8 head and the int8 and int4
+layers quantise each row's activations with its own scale (the TPU kernel's
+``qvec_b``). Each row gets what the B=1 step gives on that row alone with
+``starts[b] = 0``.
+
+The batched step also takes an int8 KV cache (the TPU kernel's ``kv_int8``
+mode; float weights only): ``ck``, ``cv`` (N, B, S, D) int8 with float32
+per-row scales ``sk``, ``sv`` (N, B, S), as :func:`quantize_kv` makes them.
+The new K and V rows are quantized by that scheme over the whole D-wide row
+and written with their scales at ``min(pos, S - 1)``. The query is quantized
+per row the same way; a cached row's score is the exact integer dot per head
+times its ``sk`` times the query's scale times ``1 / sqrt(head_dim)``; the
+new row scores its dequantized key against the exact float32 query. Values
+are ``cv * sv``, the new row's dequantized.
 """
 from __future__ import annotations
 
@@ -83,18 +94,19 @@ def kernel_takes(dim: int, n_heads: int, ffn: int, q4: bool = False) -> bool:
             and not (q4 and (dim % 2 or ffn % 2)))
 
 
-def batched_kernel_takes(dim: int, n_heads: int, ffn: int,
-                         batch: int) -> bool:
+def batched_kernel_takes(dim: int, n_heads: int, ffn: int, batch: int,
+                         q4: bool = False) -> bool:
     """Whether the batched CUDA kernel takes these widths and rows. Its
     blocks hold all B activation rows (D or F wide, float32) in shared
     memory, opting in above 48 KB, so B * max(D, F) plus the head block's
     per-row reduction slots must fit the 227 KB a block may opt in to; a
     warp keeps row b's sums in lane b, so B <= 32; the attention block is
-    K1's (head_dim <= 256 and even)."""
+    K1's (head_dim <= 256 and even); ``q4`` needs D and F even."""
     hd = dim // n_heads
     return (dim % n_heads == 0 and hd % 2 == 0 and hd <= _THREADS
             and 1 <= batch <= MAX_BATCH
-            and batch * max(dim, ffn) + 1024 <= _SMEM_OPTIN_FLOATS)
+            and batch * max(dim, ffn) + 1024 <= _SMEM_OPTIN_FLOATS
+            and not (q4 and (dim % 2 or ffn % 2)))
 
 
 def lane_pad_dim(d: int) -> int:
@@ -150,15 +162,57 @@ def _qmm(w, scale, x, q4):
     return acc.float() * (scale.reshape(-1).float() * (amax * (1.0 / 127.0)))
 
 
+def quantize_kv(c):
+    """(..., W) KV rows -> (int8 rows, (...) float32 per-row scales), the JAX
+    package's ``quantize_kv`` (``pydynet_tpu/ops/decode_step.py:1260``):
+    ``s = max(max |x| / 127, 1e-10)`` over the last axis (all-zero rows stay
+    zero) and ``q = clip(round(x / s), -127, 127)``, round half to even, both
+    true divisions as the kernel takes them (a Python scalar would make
+    ``amax / 127`` a product with 1 / 127 on a GPU)."""
+    x = c.float()
+    amax = x.abs().amax(-1)
+    s = torch.clamp(amax / amax.new_tensor(127.0), min=1e-10)
+    q = torch.clamp(torch.round(x / s[..., None]), -127, 127)
+    return q.to(torch.int8), s
+
+
+def _attend_kv8(ck, cv, sk, sv, p, lo, q, k, v, n_heads):
+    """The ``kv_int8`` attention of one row over one layer's int8 caches
+    (S, D) with scales (S,): the new K and V rows quantized into row ``p``,
+    cached rows ``[lo, p)`` scored by the exact integer dot with the
+    quantized query, the new row by its dequantized key against the exact
+    float32 query ``q``. Returns the (D,) float32 attention output."""
+    D = q.shape[0]
+    hd = D // n_heads
+    scale = 1.0 / math.sqrt(hd)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    ck[p], sk[p], cv[p], sv[p] = kq, ks, vq, vs
+    qq, qs = quantize_kv(q)
+    n = p - lo
+    keys = ck[lo:p].double().view(n, n_heads, hd)  # integer sums: exact
+    dots = torch.einsum("nhd,hd->nh", keys,
+                        qq.double().view(n_heads, hd)).float()
+    s_cache = dots * sk[lo:p, None] * qs * scale
+    kself = (kq.float() * ks).view(n_heads, hd)
+    s_self = (kself * q.view(n_heads, hd)).sum(-1) * scale
+    scores = torch.cat([s_cache, s_self[None]]).t()             # (H, n + 1)
+    vals = torch.cat([cv[lo:p].float() * sv[lo:p, None],
+                      (vq.float() * vs)[None]]).view(n + 1, n_heads, hd)
+    att = torch.einsum("hn,nhd->hd", torch.softmax(scores, -1), vals)
+    return att.reshape(D)
+
+
 def decode_token_logits_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
                             wo, gate_w, up_w, down_w, in_norm, post_norm,
                             head_w, head_b, ck, cv, *, n_heads: int,
                             head_s=None, scales=None, q4: bool = False,
-                            start: int = 0):
+                            start: int = 0, sk=None, sv=None):
     """The plain-PyTorch step up to the float32 logits (V,), caches updated
     in place; :func:`fused_decode_token_ref` takes their argmax. Attention
-    reads cache rows ``[start, p]`` (``start`` clipped to ``[0, p]``). Runs
-    on any device (it reads ``pos`` and ``tok`` back to the host)."""
+    reads cache rows ``[start, p]`` (``start`` clipped to ``[0, p]``); with
+    ``sk``/``sv`` (N, S) the caches are int8 (the batched step's
+    ``kv_int8`` mode on one row). Runs on any device (it reads ``pos`` and
+    ``tok`` back to the host)."""
     N, S, D = ck.shape
     hd = D // n_heads
     wdt = emb.dtype
@@ -183,13 +237,19 @@ def decode_token_logits_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
         x = rms_norm(h, in_norm[layer])
         q = _rope_pairs(lmm(0, layer, x), c, s)
         k = _rope_pairs(lmm(1, layer, x), c, s)
-        ck[layer, p] = k.to(wdt)
-        cv[layer, p] = lmm(2, layer, x).to(wdt)
-        keys = ck[layer, lo:p + 1].float().view(p + 1 - lo, n_heads, hd)
-        vals = cv[layer, lo:p + 1].float().view(p + 1 - lo, n_heads, hd)
-        qh = q.to(wdt).float().view(n_heads, hd)
-        scores = torch.einsum("nhd,hd->hn", keys, qh) * (1.0 / math.sqrt(hd))
-        att = torch.einsum("hn,nhd->hd", torch.softmax(scores, -1), vals)
+        v = lmm(2, layer, x)
+        if sk is not None:
+            att = _attend_kv8(ck[layer], cv[layer], sk[layer], sv[layer], p,
+                              lo, q, k, v, n_heads)
+        else:
+            ck[layer, p] = k.to(wdt)
+            cv[layer, p] = v.to(wdt)
+            keys = ck[layer, lo:p + 1].float().view(p + 1 - lo, n_heads, hd)
+            vals = cv[layer, lo:p + 1].float().view(p + 1 - lo, n_heads, hd)
+            qh = q.to(wdt).float().view(n_heads, hd)
+            scores = torch.einsum("nhd,hd->hn", keys, qh) * (
+                1.0 / math.sqrt(hd))
+            att = torch.einsum("hn,nhd->hd", torch.softmax(scores, -1), vals)
         z = h + lmm(3, layer, att.reshape(D))
         zn = rms_norm(z, post_norm[layer])
         g, u = lmm(4, layer, zn), lmm(5, layer, zn)
@@ -223,30 +283,36 @@ def decode_token_batched_logits_ref(pos, tok, emb, cos, sin, final_norm, wq,
                                     wk, wv, wo, gate_w, up_w, down_w,
                                     in_norm, post_norm, head_w, head_b, ck,
                                     cv, *, n_heads: int, head_s=None,
-                                    starts=None):
+                                    scales=None, q4: bool = False, sk=None,
+                                    sv=None, starts=None):
     """The plain-PyTorch batched step up to the float32 logits (B, V),
     caches updated in place: each row through :func:`decode_token_logits_ref`
-    on its own cache ``[:, b]`` from its own ``starts[b]``."""
+    on its own cache ``[:, b]`` (and scales ``sk[:, b]``, ``sv[:, b]``) from
+    its own ``starts[b]``, its activations quantized on their own."""
     lows = [0] * tok.shape[0] if starts is None else starts.tolist()
     return torch.stack([
         decode_token_logits_ref(
             pos, tok[b:b + 1], emb, cos, sin, final_norm, wq, wk, wv, wo,
             gate_w, up_w, down_w, in_norm, post_norm, head_w, head_b,
-            ck[:, b], cv[:, b], n_heads=n_heads, head_s=head_s, start=lo)
+            ck[:, b], cv[:, b], n_heads=n_heads, head_s=head_s,
+            scales=scales, q4=q4, start=lo,
+            sk=None if sk is None else sk[:, b],
+            sv=None if sv is None else sv[:, b])
         for b, lo in enumerate(lows)])
 
 
 def fused_decode_token_batched_ref(pos, tok, emb, cos, sin, final_norm, wq,
                                    wk, wv, wo, gate_w, up_w, down_w, in_norm,
                                    post_norm, head_w, head_b, ck, cv, *,
-                                   n_heads: int, head_s=None, starts=None,
-                                   out=None):
+                                   n_heads: int, head_s=None, scales=None,
+                                   q4: bool = False, sk=None, sv=None,
+                                   starts=None, out=None):
     """The plain-PyTorch version of :func:`fused_decode_token_batched`: same
     arguments, same results, on any device."""
     logits = decode_token_batched_logits_ref(
         pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
         down_w, in_norm, post_norm, head_w, head_b, ck, cv, n_heads=n_heads,
-        head_s=head_s, starts=starts)
+        head_s=head_s, scales=scales, q4=q4, sk=sk, sv=sv, starts=starts)
     if out is None:
         out = torch.empty(tok.shape[0], dtype=torch.int32, device=emb.device)
     out[:] = torch.argmax(logits, dim=-1)  # first maximal index per row
@@ -258,7 +324,8 @@ _MATS = ("wq", "wk", "wv", "wo", "gate_w", "up_w", "down_w")
 
 def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
            down_w, in_norm, post_norm, head_w, head_b, ck, cv, n_heads,
-           head_s, out, starts=None, batched=False, scales=None, q4=False):
+           head_s, out, starts=None, batched=False, scales=None, q4=False,
+           sk=None, sv=None):
     """Raise unless the arguments have the layouts of the module doc (the
     batched step's when ``batched``). Returns (B, N, S, D, F, V), B = 1 for
     the B=1 step."""
@@ -286,10 +353,17 @@ def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
     if scales is not None and len(scales) != len(_MATS):
         raise ValueError(f"scales: expected {len(_MATS)} tensors, one per "
                          f"matrix {_MATS}")
+    if (sk is None) != (sv is None) or (sk is not None and not batched):
+        raise ValueError("the int8 KV cache takes sk and sv, on the batched "
+                         "step")
+    if sk is not None and (scales is not None or head_s is not None):
+        raise ValueError("the int8 KV cache needs float weights: weight "
+                         "int8 and KV int8 are mutually exclusive")
     if q4 and (D % 2 or F % 2):
         raise ValueError(f"int4 packs pairs of rows: D={D} and F={F} must "
                          "be even")
     qdt = wdt if scales is None else torch.int8
+    cdt = wdt if sk is None else torch.int8
     div = 2 if q4 else 1  # int4 packs the contraction axis
     shapes = {
         "emb": (emb, (V, D), wdt), "cos": (cos, (S, D), wdt),
@@ -303,8 +377,8 @@ def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
         "post_norm": (post_norm, (N, D), wdt),
         "head_w": (head_w, (V, D // div),
                    wdt if head_s is None else torch.int8),
-        "head_b": (head_b, (V,), wdt), "ck": (ck, cache, wdt),
-        "cv": (cv, cache, wdt), "pos": (pos, (1,), torch.int32),
+        "head_b": (head_b, (V,), wdt), "ck": (ck, cache, cdt),
+        "cv": (cv, cache, cdt), "pos": (pos, (1,), torch.int32),
         "tok": (tok, rows, torch.int32),
     }
     if head_s is not None:
@@ -312,6 +386,9 @@ def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
     for name, sc, (_, shape, _) in zip(
             _MATS, scales or (), (shapes[m] for m in _MATS)):
         shapes[f"scales[{name}]"] = (sc, shape[:2], torch.float32)
+    if sk is not None:
+        shapes["sk"] = (sk, cache[:3], torch.float32)
+        shapes["sv"] = (sv, cache[:3], torch.float32)
     if starts is not None:
         shapes["starts"] = (starts, rows, torch.int32)
     if out is not None:
@@ -390,20 +467,24 @@ fused_decode_token.launches = 0
 def fused_decode_token_batched(pos, tok, emb, cos, sin, final_norm, wq, wk,
                                wv, wo, gate_w, up_w, down_w, in_norm,
                                post_norm, head_w, head_b, ck, cv, *,
-                               n_heads: int, head_s=None, starts=None,
-                               out=None):
+                               n_heads: int, head_s=None, scales=None,
+                               q4: bool = False, sk=None, sv=None,
+                               starts=None, out=None):
     """One greedy decode step for B rows (see the module doc for the
-    layouts). CUDA tensors launch ``csrc/decode_token_batched.cu``, one
-    weight stream for all rows; CPU tensors run
-    :func:`fused_decode_token_batched_ref`."""
+    layouts): float, int8-head, int8 or int4 weights, float caches or the
+    int8 KV cache with ``sk``/``sv``. CUDA tensors launch
+    ``csrc/decode_token_batched.cu``, one weight stream for all rows; CPU
+    tensors run :func:`fused_decode_token_batched_ref`."""
     args = (pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w,
             up_w, down_w, in_norm, post_norm, head_w, head_b, ck, cv)
     B, N, S, D, F, V = _check(*args, n_heads, head_s, out, starts,
-                              batched=True)
+                              batched=True, scales=scales, q4=q4, sk=sk,
+                              sv=sv)
     if emb.device.type == "cpu":
         return fused_decode_token_batched_ref(
-            *args, n_heads=n_heads, head_s=head_s, starts=starts, out=out)
-    _check_cuda(emb, batched_kernel_takes(D, n_heads, F, B),
+            *args, n_heads=n_heads, head_s=head_s, scales=scales, q4=q4,
+            sk=sk, sv=sv, starts=starts, out=out)
+    _check_cuda(emb, batched_kernel_takes(D, n_heads, F, B, q4),
                 f"B={B}, D={D}, n_heads={n_heads}, F={F}")
     lib = _build.load()
     hd = D // n_heads
@@ -412,16 +493,21 @@ def fused_decode_token_batched(pos, tok, emb, cos, sin, final_norm, wq, wk,
     scratch = torch.empty(
         lib.pdt_decode_token_batched_scratch_floats(B, D, n_heads, F, V, S),
         dtype=torch.float32, device=emb.device)
+    lfmt = 0 if scales is None else (2 if q4 else 1)
+    hfmt = lfmt if scales is not None else int(head_s is not None)
     ptrs = [None if t is None else t.data_ptr()
             for t in (pos, tok, starts, out, emb, cos, sin, final_norm, wq,
                       wk, wv, wo, gate_w, up_w, down_w, in_norm, post_norm,
-                      head_w, head_s, head_b, ck, cv, scratch)]
+                      head_w, head_s, head_b,
+                      *(scales or (None,) * len(_MATS)), ck, cv, sk, sv,
+                      scratch)]
     with torch.cuda.device(emb.device):  # launch on the tensors' GPU
         stream = torch.cuda.current_stream().cuda_stream
         fused_decode_token_batched.launches += 1
         err = lib.pdt_decode_token_batched(
-            _WDTYPES[emb.dtype], int(head_s is not None), *ptrs, B, N, D,
-            n_heads, F, V, S, ctypes.c_float(1.0 / math.sqrt(hd)), stream)
+            _WDTYPES[emb.dtype], lfmt, hfmt, int(sk is not None), *ptrs, B,
+            N, D, n_heads, F, V, S, ctypes.c_float(1.0 / math.sqrt(hd)),
+            stream)
     if err != 0:
         raise RuntimeError(f"decode_token_batched launch failed: CUDA error "
                            f"{err}")

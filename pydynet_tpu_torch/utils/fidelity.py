@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import decode_step as dsk
 from ..ops import quant as Q
 
 MARGIN = 0.05      # absolute floor: bf16 rounding at |logit| ~ 5 is ~ 0.04
@@ -81,30 +82,37 @@ def _confident(margins, tops, margin, rel):
 
 @torch.no_grad()
 def gate_fused_argmax(model, prompt_ids, truth, margins, tops=None, *,
-                      dtype=None, quant=None, margin: float = MARGIN,
-                      rel: float = REL_MARGIN, min_agree: float = None):
+                      dtype=None, quant=None, kv_quant=None,
+                      margin: float = MARGIN, rel: float = REL_MARGIN,
+                      min_agree: float = None):
     """``(checked, ok, agree)`` for one weight format on the model's device:
     the dense prefill's token and then the fused step's token, fed the
     ``truth`` stream, must equal it at every confident step of every row.
     B=1 drives the B=1 kernel (``fused_step``), B>1 the batched one
-    (``fused_step_batched``) on all rows at once. Zero confident steps is
-    not a pass. ``agree`` is the agreeing share of the checked steps.
-    ``min_agree`` makes it the JAX package's majority gate for lossy
-    formats (int4): every step is checked and the agreeing share must reach
-    ``min_agree``."""
+    (``fused_step_batched``) on all rows at once. ``kv_quant="int8"``
+    quantizes the prefill's caches (``quantize_kv``) and drives the batched
+    kernel's int8 KV mode at every B, as ``generate`` does. Zero confident
+    steps is not a pass. ``agree`` is the agreeing share of the checked
+    steps. ``min_agree`` makes it the JAX package's majority gate for lossy
+    formats (int8, int4, the int8 KV cache): every step is checked and the
+    agreeing share must reach ``min_agree``."""
     prompt_ids = np.asarray(prompt_ids)
     B, L = prompt_ids.shape
     w = model._fused_weights(dtype, quant)
     ck5, cv5 = model._empty_caches(B, w["tok"].dtype)
     first = model.prefill(w, ck5, cv5, prompt_ids).cpu().numpy()
     ck, cv = model._flat_caches(ck5, cv5)
+    if kv_quant:
+        if B == 1:  # the batched kernel's (N, 1, S, D) layout
+            ck, cv = ck[:, None], cv[:, None]
+        ck, cv = dsk.quantize_kv(ck), dsk.quantize_kv(cv)
     steps = truth.shape[0]
     dev = model.device
     toks_in = torch.as_tensor(truth[:-1], dtype=torch.int32, device=dev)
     positions = torch.arange(L, L + steps - 1, dtype=torch.int32, device=dev)
     outs = torch.empty(steps - 1, B, dtype=torch.int32, device=dev)
     for i in range(steps - 1):
-        if B == 1:
+        if B == 1 and not kv_quant:
             model.fused_step(w, ck, cv, toks_in[i], positions[i:i + 1],
                              out=outs[i])
         else:

@@ -306,22 +306,16 @@ def test_routing_rule_is_the_jax_rule(cfg, quant):
 
 def test_routing_at_stories15m_and_7b():
     """``fused=None``: the fused lane where the port's kernels take the
-    model, format and batch (int8/int4 on K1 at B=1 only); the scan lane
-    where the JAX rule sends it (7B with int8/int4, or a batch K2 does not
-    take at 7B); else raise."""
+    model, format and batch (int8/int4 on K1 at B=1, on K2 at B>1 and in a
+    server); the scan lane where the JAX rule sends it (7B with int8/int4,
+    or a batch K2 does not take at 7B); else raise."""
     small, big = _dims(STORIES15M), _dims(LLAMA2_7B)
     for B in (1, 4, 32):
         assert small.use_fused(None, B) and small.use_fused("int8-head", B)
         for quant in ("int8", "int4"):
-            if B == 1:  # K1's qlayers / q4; a server always runs K2
-                assert small.use_fused(quant, B)
-                with pytest.raises(NotImplementedError,
-                                   match="weight formats"):
-                    small.use_fused(quant, B, batched=True)
-            else:
-                with pytest.raises(NotImplementedError,
-                                   match="weight formats"):
-                    small.use_fused(quant, B)
+            # K1's qlayers / q4 at B=1, K2's at B>1 and in a server
+            assert small.use_fused(quant, B)
+            assert small.use_fused(quant, B, batched=True)
             assert not small.use_fused(quant, B, fused=False)
             assert not big.use_fused(quant, B)
             assert not big.use_fused(quant, B, batched=True)

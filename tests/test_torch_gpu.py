@@ -94,28 +94,32 @@ def test_cpu_inputs_never_launch(model):
 
 @pytest.mark.parametrize("batch", [4, 32])
 @pytest.mark.parametrize("pos", [17, 1030])
-@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head"])
+@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
+                                 "bf16-int4", "f32-kv8", "bf16-kv8"])
 def test_batched_kernel_matches_plain(model, fmt, pos, batch):
-    """K2 with per-row starts (row 0 starting at pos): tokens equal (bf16:
-    at confident rows) and caches within chip_smoke's tolerance."""
-    from chip_smoke import CACHE_ATOL, FORMATS, batched_vs_plain
+    """K2 with per-row starts (row 0 starting at pos), with float, int8 and
+    int4 layers and the int8 KV cache: tokens equal (float32 weights: every
+    row; bf16: at confident rows) and caches within chip_smoke's stated
+    tolerance."""
+    from chip_smoke import batched_vs_plain, cache_ok, fmt_of
 
     with torch.no_grad():
         got, want, conf, err = batched_vs_plain(model, fmt, batch, pos)
-    assert err <= CACHE_ATOL[FORMATS[fmt][0]]
-    must = torch.ones_like(conf) if fmt == "f32" else conf
+    assert cache_ok(fmt, err), err
+    must = torch.ones_like(conf) if fmt_of(fmt)[0] == torch.float32 else conf
     assert torch.equal(got[must], want[must])
 
 
-@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head"])
+@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
+                                 "bf16-int4", "f32-kv8", "bf16-kv8"])
 def test_batched_rows_match_k1(model, fmt):
     """Each K2 row starting at 0 gives K1's token and cache row on that row
-    alone."""
-    from chip_smoke import CACHE_ATOL, FORMATS, batched_rows_vs_k1
+    alone (the int8 KV cache, which K1 lacks: K2's at B=1)."""
+    from chip_smoke import batched_rows_vs_one, cache_ok
 
     with torch.no_grad():
-        equal, err = batched_rows_vs_k1(model, fmt)
-    assert equal and err <= CACHE_ATOL[FORMATS[fmt][0]]
+        equal, err = batched_rows_vs_one(model, fmt)
+    assert equal and cache_ok(fmt, err), err
 
 
 @pytest.mark.parametrize("qhead", [False, True], ids=["bf16", "int8-head"])
@@ -181,13 +185,19 @@ def test_batched_launch_counter_counts_kernel_launches_only(model):
     rows = list(model.generate(np.array([[1, 243, 532, 991]] * 3), 20,
                                dtype=torch.bfloat16))
     assert len(rows) == 16 and k2.launches - before == 15
+    for kw in ({}, dict(quant="int8"), dict(quant="int4"),
+               dict(kv_quant="int8")):
+        before = k2.launches
+        srv = LlamaServer(model, batch_size=2, dtype=torch.bfloat16, chunk=8,
+                          eos_id=-1, **kw)
+        for prompt in ([1, 5, 9], [2, 7, 3, 11], [30, 20]):
+            srv.submit(prompt, max_new_tokens=12)
+        assert all(r.done for r in srv.run().values())
+        assert k2.launches - before == srv.dispatched_steps > 0
     before = k2.launches
-    srv = LlamaServer(model, batch_size=2, dtype=torch.bfloat16, chunk=8,
-                      eos_id=-1)
-    for prompt in ([1, 5, 9], [2, 7, 3, 11], [30, 20]):
-        srv.submit(prompt, max_new_tokens=12)
-    assert all(r.done for r in srv.run().values())
-    assert k2.launches - before == srv.dispatched_steps > 0
+    rows = list(model.generate(np.array([[1, 243, 532, 991]]), 20,
+                               dtype=torch.bfloat16, kv_quant="int8"))
+    assert len(rows) == 16 and k2.launches - before == 15
 
 
 @pytest.fixture(scope="module")
@@ -461,15 +471,17 @@ def test_tiny_kernel_matches_plain(tiny, fmt, pos):
 @pytest.mark.parametrize("quant", ["int8", "int4"])
 def test_tiny_quant_generate_runs_k1(tiny, quant):
     """generate(quant=int8|int4) at B=1 takes K1 once a decode step; at
-    B>1 it still refuses the fused lane."""
+    B>1 K2 once a decode step."""
     from pydynet_tpu_torch.ops import decode_step as dsk
 
     before = dsk.fused_decode_token.launches
     toks = list(tiny.generate(np.array([[1, 5, 9]]), 20, quant=quant))
     assert len(toks) == 17
     assert dsk.fused_decode_token.launches - before == 16
-    with pytest.raises(NotImplementedError, match="weight formats"):
-        next(tiny.generate(np.array([[1, 5], [2, 3]]), 8, quant=quant))
+    before = dsk.fused_decode_token_batched.launches
+    rows = list(tiny.generate(np.array([[1, 5], [2, 3]]), 8, quant=quant))
+    assert len(rows) == 6 and all(r.shape == (2, 1) for r in rows)
+    assert dsk.fused_decode_token_batched.launches - before == 5
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -180,25 +180,31 @@ def test_generate_length_edges_match_jax(max_new):
     assert stream(tm.generate(ids, max_new, fused=False)) == want
 
 
-def test_generate_unported_options_raise():
+def test_generate_unported_options_raise(batched_calls, step_calls):
     tm = Llama(**TINY, device="cpu")
     ids = np.array([[1, 5, 9]])
-    cases = [dict(temperature=0.8), dict(top_k=5), dict(kv_quant="int8"),
-             dict(flash_prefill=True), dict(fused="numpy"),
-             dict(dtype=torch.float16)]
+    cases = [dict(temperature=0.8), dict(top_k=5), dict(flash_prefill=True),
+             dict(fused="numpy"), dict(dtype=torch.float16)]
     for kw in cases:
         with pytest.raises(NotImplementedError):
             next(tm.generate(ids, 8, **kw))
+    # the int8 KV cache runs on the batched step, at B=1 too (as in the JAX
+    # package), one call a decode token; the B=1 step is not called
+    for fused in (None, True):
+        del batched_calls[:]
+        assert len(stream(tm.generate(ids, 8, kv_quant="int8",
+                                      fused=fused))) == 5
+        assert batched_calls == [1] * 4 and not step_calls
     # int8/int4 layers at a width the JAX package runs on its fused kernel:
-    # K1's `qlayers`/`q4` at B=1; K2's are not ported, so B>1 raises unless
-    # the scan lane is asked for
+    # K1's `qlayers`/`q4` at B=1, K2's at B>1; the scan lane when asked for
     for quant in ("int8", "int4"):
         for fused in (None, True):
             assert len(stream(tm.generate(ids, 8, quant=quant,
                                           fused=fused))) == 5
-            with pytest.raises(NotImplementedError, match="weight formats"):
-                next(tm.generate(np.array([[1, 2], [3, 4]]), 8, quant=quant,
-                                 fused=fused))
+            del batched_calls[:]
+            assert len(list(tm.generate(np.array([[1, 2], [3, 4]]), 8,
+                                        quant=quant, fused=fused))) == 6
+            assert batched_calls == [2] * 5
         assert len(list(tm.generate(np.array([[1, 2], [3, 4]]), 5,
                                     quant=quant, fused=False))) == 3
     for quant in ("int8", "int8-head", "int4"):

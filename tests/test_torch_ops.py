@@ -418,6 +418,7 @@ def test_build_paths_are_keyed_by_sources(monkeypatch, tmp_path):
     assert [p.name for p in srcs] == ["batchnorm.cu", "decode_step.cu",
                                       "decode_token.cu",
                                       "decode_token_batched.cu",
+                                      "decode_token_batched_bf16.cu",
                                       "flash_attention.cu", "gemv_quant.cu"]
     path = _build.library_path()
     assert path == _build.library_path()

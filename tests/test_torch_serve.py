@@ -290,17 +290,26 @@ def test_server_dispatches_one_batched_step_per_token(batched_calls):
     assert batched_calls == [2] * srv.dispatched_steps
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(batched_calls):
     _, tm = models(20)
     cases = [dict(temperature=0.8), dict(top_k=5), dict(top_p=0.9),
-             dict(seed=3), dict(speculative=4), dict(kv_quant="int8"),
-             dict(quant="int8"), dict(quant="int4"),
-             dict(lane="fused", quant="int4"), dict(prefix_cache=True),
+             dict(seed=3), dict(speculative=4),
+             dict(kv_quant="int8", lane="xla"), dict(prefix_cache=True),
              dict(flash_prefill=True),
              dict(batch_size=33), dict(dtype=torch.float16)]
     for kw in cases:
         with pytest.raises(NotImplementedError):
             LlamaServer(tm, **kw)
+    # the int8 KV cache and int8/int4 layers run on the batched step, one
+    # call a dispatched step
+    for kw in (dict(kv_quant="int8"), dict(quant="int8"), dict(quant="int4"),
+               dict(lane="fused", quant="int4")):
+        del batched_calls[:]
+        srv = LlamaServer(tm, batch_size=2, chunk=4, eos_id=-1, **kw)
+        assert srv._lane == "fused"
+        rid = srv.submit([1, 5, 9], max_new_tokens=6)
+        assert len(srv.run()[rid].tokens) == 6
+        assert batched_calls == [2] * srv.dispatched_steps > []
     gqa = Llama(**dict(CFG, n_kv_heads=1), device="cpu")
     with pytest.raises(NotImplementedError, match="GQA"):
         LlamaServer(gqa)
@@ -314,10 +323,13 @@ def test_unported_options_raise():
     # generate at B>1: options not ported raise, B above the kernel's rows
     # raises, and nothing reroutes to the plain lane
     ids = np.array([[1, 5, 9], [2, 7, 3]])
-    for kw in (dict(kv_quant="int8"), dict(temperature=0.5),
-               dict(quant="int8"), dict(flash_prefill=True)):
+    for kw in (dict(temperature=0.5), dict(flash_prefill=True)):
         with pytest.raises(NotImplementedError):
             next(tm.generate(ids, 8, **kw))
+    for kw in (dict(kv_quant="int8"), dict(quant="int8")):
+        del batched_calls[:]
+        assert len(list(tm.generate(ids, 8, **kw))) == 5
+        assert batched_calls == [2] * 4
     with pytest.raises(NotImplementedError, match="B=32"):
         next(tm.generate(np.ones((33, 3), np.int64), 8))
     with pytest.raises(NotImplementedError, match="GQA"):

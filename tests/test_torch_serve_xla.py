@@ -147,8 +147,11 @@ def test_xla_lane_unported_options_raise():
         LlamaServer(tm, lane="scan")
     with pytest.raises(ValueError, match="quant"):
         LlamaServer(tm, lane="xla", quant="int2")
-    # the fused lane at a format only the scan lane runs
-    with pytest.raises(NotImplementedError, match="weight formats"):
-        LlamaServer(tm, lane="fused", quant="int8")
+    # int8 layers run on either lane at this width: the batched step's
+    # quantized mode on the fused lane, the quantized matmuls on the scan
+    srv = LlamaServer(tm, batch_size=2, chunk=4, eos_id=-1, lane="fused",
+                      quant="int8")
+    rid = srv.submit([1, 5, 9], max_new_tokens=5)
+    assert srv._lane == "fused" and len(srv.run()[rid].tokens) == 5
     assert LlamaServer(tm, batch_size=2, quant="int8", lane="xla",
                        dtype=torch.bfloat16)._lane == "xla"
