@@ -14,7 +14,11 @@ the run with a nonzero exit and no result line:
    stories15M width with seeded random weights, in float32, bfloat16,
    bfloat16 with the int8 head, and with int8 layers and head (float32 and
    bfloat16) and int4 layers and head (bfloat16), at positions 0, 1, 17,
-   255, 1023 and 1030 (the last one exercises the clamp to S - 1);
+   255, 1023 and 1030 (the last one exercises the clamp to S - 1); then
+   K1's ``emit_logits`` mode at the same formats and positions: its (1, V)
+   logits against the plain logits (``EMIT_RTOL``), its argmax equal to
+   the argmax mode's token on the same inputs, its caches as the plain
+   step's;
 3b. the batched decode-step kernel (K2) against its plain version the same
    way at B = 4 and 32, positions 1, 17, 255, 1023 and 1030, with per-row
    ``starts`` (one row starting at pos), in float32, bfloat16, bfloat16 with
@@ -22,6 +26,8 @@ the run with a nonzero exit and no result line:
    cache (float32 and bfloat16 weights; its int8 entries at most one apart,
    its scales within a relative tolerance), and each K2 row at B = 8
    against K1 on that row alone (the int8 KV cache's against K2 at B = 1);
+   then K2's ``emit_logits`` mode in every one of these formats at B = 4
+   and 32, positions 17 and 1030, as K1's;
 3c. the quantized-matmul kernels against their plain versions, bit for
    bit: the activation quantization, the decode kernel (K5) and the prefill
    kernel (K6) at M in {1, 2, 3, 4, 5, 12, 16, 32, 33, 256, 1000} rows
@@ -54,6 +60,16 @@ the run with a nonzero exit and no result line:
    request with ``kv_quant="int8"``, which runs K2 at B = 1 (its launch
    counter must equal the decode steps), the ``b1-kvint8`` gate (majority
    agreement with the float32 stream) and ``infer --kv-quant int8``;
+4s. the sampled path: the threefry key stream on the card against the CPU
+   (bits equal, Gumbel within 2e-6); bench.py's ``logits-head-f32`` and
+   ``sampled-t0.8-k50-p0.9`` gates (float32, B = 1, 64 steps); a sampled
+   bfloat16 1024-token request (t 0.8, k 50, p 0.9) through K1's emit mode
+   (its emit launches must equal the decode steps, the argmax mode
+   unused), the same seed twice giving the same stream, ``top_k=1`` giving
+   the greedy stream (256 tokens); 8,192 draws from one logits row against
+   the filtered softmax (chi-square p > 1e-3); sampled 256-token
+   ``generate`` at B = 8 and with the int8 KV cache at B = 1 through K2's
+   emit mode;
 4b. the serving path: ``LlamaServer`` (B = 8, bfloat16; plain, with the
    int8 head, with int8 and int4 layers, and with the int8 KV cache)
    serving 24 requests with slot recycling, shifted admissions and
@@ -64,7 +80,12 @@ the run with a nonzero exit and no result line:
    and ``-kvint8`` by majority agreement with the float32 stream,
    ``-int4`` with the int4 round trip's); ``generate`` of a 1024-token
    request at B = 8 through K2; and the ``serve_cli`` once plain and once
-   with ``--kv-quant int8``;
+   with ``--kv-quant int8``; then a sampling B = 8 server (t 0.8, k 50,
+   p 0.9) over the 24 requests, every odd one seeded and every fourth
+   greedy, whose K2 emit launches must equal the steps of its sampled
+   chunks and its argmax launches the rest; a seeded request's tokens
+   equal in two fleets; ``infer`` and ``serve_cli`` with ``--temperature
+   0.8 --top-k 50 --top-p 0.9``;
 4c. the training path: the flash-attention forward (K3) and its dq and
    dk/dv backward kernels (K4) against their plain versions at
    (B, L, 6, 48), B in {1, 8}, L in {1, 7, 64, 1000, 1024}, in float32 and
@@ -99,7 +120,12 @@ the run with a nonzero exit and no result line:
    cache) time per step beside their plain versions' and their bounds,
    K9's beside its bound and ``torch.argmax(head_w @ h + b)``, K10's beside
    its bound and its plain version's, the serving run's generated tokens per second in each of
-   4b's formats (``REPEATS`` times, in turns) and the B = 8 request's; K3's
+   4b's formats (``REPEATS`` times, in turns) and the B = 8 request's; the
+   sampled request's and the sampling server's tokens per second beside
+   the greedy bf16 ones (in the same turns); K1's and K2's (B = 8) emit
+   step beside the argmax mode at pos 512, the emit head's device time
+   beside ``F.linear(h, head_w, head_b)``, and the sampling stage's
+   launches, device time and elapsed time a step at B = 1 and 8; K3's
    and K4's times beside their plain versions' at (1, 1024, 6, 48) and
    (8, 1024, 6, 48), and the training step's time and training tokens per
    second at B = 1 and 8, L = 1024 (``REPEATS`` steps in turns); the 7B
@@ -167,6 +193,21 @@ CACHE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-5}
 # the layers after it carry the change on through the residual, so a
 # cache row may move by several such steps; bf16's bound holds that
 QUANT_CACHE_ATOL = 2.0**-5
+# the sampled path (bench.py's sampled-t0.8-k50-p0.9 gate's parameters)
+SAMPLE = dict(temperature=0.8, top_k=50, top_p=0.9)
+SAMPLE_SEED = 7
+SAMPLED_SHORT = 256  # total length of phase 4s's other sampled streams: the
+# sampling stage costs about 8 ms a token (PERF.md), so only the main
+# request runs 1024 tokens
+GUMBEL_ATOL = 2e-6  # -log(-log(u)): the card's float32 log against the CPU's
+LAW_DRAWS, LAW_SEED, LAW_P_MIN = 8192, 3, 1e-3  # the law check
+EMIT_POSITIONS_B = (17, 1030)  # K2 emit vs plain (rows start in [0, pos])
+# emit_logits vs plain, as a share of the plain logits' largest |value|:
+# float32 differs in summation order only; bfloat16 rounds every matmul
+# input, and the int8/int4 formats quantize every activation vector, so an
+# input landing on the neighbouring value moves the logits by a few
+# bfloat16 ulps: the logits gate's 2e-2 (utils/fidelity.gate_fused_logits)
+EMIT_RTOL = {"f32": 1e-4, "other": 2e-2}
 # K10 vs plain: h_out (1, D) is RMS-normed, O(1): float32 differs in
 # summation order only (the JAX package's 1e-4 for its kernel,
 # tests/test_ops_kernels.py:107); bf16 rounds every matmul input and the
@@ -411,6 +452,66 @@ def batched_vs_plain(model, fmt, batch, pos, seed=0):
     torch.cuda.synchronize()
     err = worst(cache_diff(ck, rck), cache_diff(cv, rcv))
     return got, logits.argmax(-1).cpu().int(), confident_rows(logits), err
+
+
+def emit_ok(fmt, err, scale):
+    """Whether emitted logits are within the stated tolerance of the plain
+    version's: float32 EMIT_RTOL[f32] of the logit scale, bfloat16 and the
+    quantized formats EMIT_RTOL[other]."""
+    rtol = EMIT_RTOL["f32" if fmt in ("f32", "f32-kv8") else "other"]
+    return err <= rtol * scale
+
+
+def emit_vs_plain(model, fmt, pos, tok=1234, seed=0):
+    """One K1 step in ``emit_logits`` mode, one in argmax mode and the
+    plain version, on the same inputs. Returns (max |logit difference| to
+    the plain logits, the plain logits' largest |value|, whether the
+    emitted row's argmax is the argmax mode's token, max |cache difference|
+    of the emitting step to the plain one)."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    dtype, quant = FORMATS[fmt]
+    w = model._fused_weights(dtype, quant)
+    ck, cv = random_caches(model, dtype, seed)
+    gck, gcv = ck.clone(), cv.clone()
+    rck, rcv = ck.clone(), cv.clone()
+    args, kw = step_args(model, w, ck, cv, pos, tok)
+    lg = dsk.fused_decode_token(*args, emit_logits=True, **kw)
+    greedy = dsk.fused_decode_token(*args[:-2], gck, gcv, **kw)
+    ref = dsk.decode_token_logits_ref(*args[:-2], rck, rcv, **kw)
+    torch.cuda.synchronize()
+    same = int(torch.argmax(lg[0])) == int(greedy[0])
+    err = max(max_diff(ck, rck), max_diff(cv, rcv))
+    return (max_diff(lg[0], ref), float(ref.abs().max()), same, err)
+
+
+def batched_emit_vs_plain(model, fmt, batch, pos, seed=0):
+    """``batched_vs_plain`` for K2's ``emit_logits`` mode: the (B, V)
+    logits against the plain version's and against K2's argmax mode on the
+    same inputs. Returns (max |logit difference|, the plain logits' largest
+    |value|, whether every row's argmax is the argmax mode's token,
+    cache_diff of the emitting step to the plain one)."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    w = model._fused_weights(*fmt_of(fmt))
+    ck, cv = batched_caches(model, fmt, seed, batch)
+    gck, gcv = clone_caches(ck, cv)
+    rck, rcv = clone_caches(ck, cv)
+    rng = np.random.default_rng(seed)
+    p = min(pos, model.max_seq_len - 1)
+    starts = rng.integers(0, p + 1, size=batch)
+    starts[0] = p
+    toks = rng.integers(0, model.vocab_size, size=batch)
+    args, kw = batched_args(model, w, ck, cv, pos, toks, starts)
+    gargs, gkw = batched_args(model, w, gck, gcv, pos, toks, starts)
+    rargs, rkw = batched_args(model, w, rck, rcv, pos, toks, starts)
+    lg = dsk.fused_decode_token_batched(*args, emit_logits=True, **kw)
+    greedy = dsk.fused_decode_token_batched(*gargs, **gkw)
+    ref = dsk.decode_token_batched_logits_ref(*rargs, **rkw)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(lg.argmax(-1).int(), greedy))
+    err = worst(cache_diff(ck, rck), cache_diff(cv, rcv))
+    return max_diff(lg, ref), float(ref.abs().max()), same, err
 
 
 def batched_rows_vs_one(model, fmt, batch=8, pos=512, seed=5):
@@ -658,14 +759,26 @@ def serve_requests(model, seed=0):
 
 
 def serve(model, requests, **kw):
-    """One server run over ``requests``; returns (server, requests done)."""
+    """One server run over ``requests``, (prompt, max_new_tokens) or
+    (prompt, max_new_tokens, sampling overrides); returns (server, requests
+    done)."""
     from pydynet_tpu_torch.models.llama.serve import LlamaServer
 
     srv = LlamaServer(model, **kw)
-    rids = [srv.submit(p, max_new_tokens=n) for p, n in requests]
+    rids = [srv.submit(r[0], max_new_tokens=r[1], **(r[2:] or ({},))[0])
+            for r in requests]
     done = srv.run()
     torch.cuda.synchronize()
     return srv, [done[r] for r in rids]
+
+
+def sampled_requests(model):
+    """The serving mix with per-request sampling overrides: every odd
+    request seeded, every fourth overriding to greedy, the rest drawing
+    from the server's defaults and keys."""
+    return [(p, n, dict(temperature=0.0) if i % 4 == 0 else
+             dict(seed=1000 + i) if i % 2 else {})
+            for i, (p, n) in enumerate(serve_requests(model))]
 
 
 def batch_prompt(batch):
@@ -1213,13 +1326,14 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def decode_step_bound(w, ck, pos, rows):
+def decode_step_bound(w, ck, pos, rows, emit=False):
     """K1/K2's bound at ``pos`` for ``rows`` rows: every weight once, as
     stored (int8, or int4 two a byte, with its scales), the embedding's
     ``rows`` rows, each row's cache rows [0, pos] read and its new row
     written, in the cache type (the int8 KV cache's rows with their float32
-    scales); operations two a weight and two a cache element a row, at the
-    weight type's peak."""
+    scales), and with ``emit`` the float32 (rows, V) logits written;
+    operations two a weight and two a cache element a row, at the weight
+    type's peak."""
     from pydynet_tpu_torch.models.llama.model import FUSED_MATS
 
     kv8 = isinstance(ck, tuple)
@@ -1235,6 +1349,8 @@ def decode_step_bound(w, ck, pos, rows):
     row_bytes = D * ck.element_size() + (4 if kv8 else 0)
     kv = rows * N * 2 * row_bytes * (pos + 2)  # pos + 1 rows read, 1 written
     n_bytes = nbytes(*mats, *scales, *head, *small) + rows * D * it * 3 + kv
+    if emit:
+        n_bytes += 4 * rows * w["head_b"].numel()
     per_byte = 2 if "q4" in w else 1  # weights a stored element holds
     n_ops = 2 * rows * per_byte * (sum(m.numel() for m in mats)
                                    + head[0].numel()) \
@@ -1427,8 +1543,7 @@ def check_big_dims():
         raise AssertionError(f"7B int4 server on lane {srv._lane}")
     waves = []
     admit = srv._admit_many
-    srv._admit_many = lambda p, pos0, slots: waves.append(1) or admit(
-        p, pos0, slots)
+    srv._admit_many = lambda *a, **kw: waves.append(1) or admit(*a, **kw)
     rids = [srv.submit(p, max_new_tokens=n) for p, n in requests]
     zero_qmm_counters()
     start = time.perf_counter()
@@ -1974,6 +2089,275 @@ def profile_nn(card):
           f"{100 - 100 * busy / wall:.1f} %")
 
 
+
+# ------------------------- the sampled decode path -------------------------
+def check_key_stream():
+    """Phase 4: the threefry key stream on the card against the CPU: keys,
+    splits, fold-ins and bits equal, uniforms equal, Gumbel draws within
+    GUMBEL_ATOL (the two devices' float32 log). Returns the largest Gumbel
+    difference."""
+    from pydynet_tpu_torch import random as prandom
+
+    worst_g = 0.0
+    for seed in (0, 7, -3, 2**33 + 5):
+        keys = [prandom.PRNGKey(seed, dev) for dev in ("cpu", "cuda")]
+        pairs = [(keys[1], keys[0]),
+                 (prandom.split(keys[1], 5), prandom.split(keys[0], 5)),
+            (prandom.fold_in(keys[1], torch.tensor([0, -7, 2**31 - 1],
+                                                   device="cuda")),
+             prandom.fold_in(keys[0], torch.tensor([0, -7, 2**31 - 1])))]
+        for shape in ((3, 5), (8, 32000)):
+            pairs += [(prandom.bits(keys[1], shape),
+                       prandom.bits(keys[0], shape)),
+                      (prandom.uniform(keys[1], shape),
+                       prandom.uniform(keys[0], shape))]
+            g = prandom.gumbel(keys[1], shape).cpu()
+            worst_g = max(worst_g, max_diff(g, prandom.gumbel(keys[0],
+                                                              shape)))
+        for card, cpu in pairs:
+            if not torch.equal(card.cpu(), cpu):
+                raise AssertionError(f"key stream seed {seed}: the card's "
+                                     f"{tuple(card.shape)} draw differs "
+                                     "from the CPU's")
+    print(f"[chip_smoke] key stream on the card: keys, splits, fold-ins, "
+          f"bits and uniforms equal to the CPU's; Gumbel within "
+          f"{worst_g:.3g}")
+    if worst_g > GUMBEL_ATOL:
+        raise AssertionError(f"Gumbel draws {worst_g} apart > {GUMBEL_ATOL}")
+    return worst_g
+
+
+def law_check(logits):
+    """LAW_DRAWS draws from one fixed (V,) logits row through the sampling
+    stage at bench.py's t 0.8, k 50, p 0.9 (the filters once, then Gumbel
+    draws with LAW_DRAWS keys) against the filtered softmax: Pearson's
+    chi-square, bins expected below 5 draws merged. Returns its p-value."""
+    from scipy.stats import chi2
+    from pydynet_tpu_torch import random as prandom
+    from pydynet_tpu_torch.models.llama.model import filter_logits
+
+    f = filter_logits(logits[None].float(), SAMPLE["temperature"],
+                      SAMPLE["top_k"], SAMPLE["top_p"])
+    keys = prandom.fold_in(prandom.PRNGKey(LAW_SEED, "cuda"),
+                           torch.arange(LAW_DRAWS, device="cuda"))
+    draws = torch.cat([prandom.categorical(k, f.expand(len(k), -1))
+                       for k in keys.split(1024)])
+    counts = torch.bincount(draws, minlength=f.shape[1]).double().cpu()
+    expect = torch.softmax(f[0].double(), -1).cpu() * LAW_DRAWS
+    if (counts[expect == 0] > 0).any():
+        raise AssertionError("law check: a filtered-out token was drawn")
+    big = expect >= 5
+    obs = torch.cat([counts[big], counts[~big & (expect > 0)].sum()[None]])
+    exp = torch.cat([expect[big], expect[~big & (expect > 0)].sum()[None]])
+    keep = exp > 0
+    stat = float(((obs - exp) ** 2 / exp)[keep].sum())
+    dof = int(keep.sum()) - 1
+    p = float(chi2.sf(stat, dof))
+    print(f"[chip_smoke] law check: {LAW_DRAWS} draws over "
+          f"{int((expect > 0).sum())} kept tokens ({dof + 1} bins), "
+          f"chi-square {stat:.1f}, p = {p:.3g}")
+    if not p > LAW_P_MIN:
+        raise AssertionError(f"law check: p = {p} <= {LAW_P_MIN}")
+    return p
+
+
+def check_sampled(model, truth):
+    """Phase 4's sampled part: the key stream, bench.py's logits and
+    sampled gates (float32, B=1, along the f32 truth), a sampled bf16
+    1024-token request through K1's emit mode (its emit launches equal the
+    decode steps, the argmax mode unused; the same seed twice the same
+    stream; top_k = 1 the greedy stream), the law check, sampled
+    ``generate`` at B=8 and with the int8 KV cache at B=1 through K2's emit
+    mode. Returns K1's emit launches of the sampled request."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+    from pydynet_tpu_torch.utils import fidelity
+
+    k1, k2 = dsk.fused_decode_token, dsk.fused_decode_token_batched
+    check_key_stream()
+    diff, ok = fidelity.gate_fused_logits(model, PROMPT, truth)
+    print(f"[chip_smoke] gate logits-head-f32: {PATH_STEPS - 1} steps, max "
+          f"|diff| {diff:.3g}, ok {ok}")
+    if not ok:
+        raise AssertionError("gate logits-head-f32 failed")
+    checked, ok, agree = fidelity.gate_fused_sampled(model, PROMPT, truth)
+    print(f"[chip_smoke] gate sampled-t0.8-k50-p0.9: checked {checked} ok "
+          f"{ok} agree {agree:.3f}")
+    if not (checked > 0 and ok):
+        raise AssertionError("gate sampled-t0.8-k50-p0.9 failed")
+    steps = REQUEST - PROMPT.shape[1] - 1
+    kw = dict(dtype=torch.bfloat16, **SAMPLE)
+    list(model.generate(PROMPT, PROMPT.shape[1] + 3, seed=1, **kw))
+    torch.cuda.synchronize()
+    k1.launches = k1.emit_launches = 0
+    toks = [int(t[0, 0]) for t in model.generate(PROMPT, REQUEST,
+                                                 seed=SAMPLE_SEED, **kw)]
+    emit_launches = k1.emit_launches
+    print(f"[chip_smoke] generate bf16 sampled (t 0.8, k 50, p 0.9, seed "
+          f"{SAMPLE_SEED}): {len(toks)} tokens, {emit_launches} emit "
+          f"launches, {k1.launches} argmax-mode launches, "
+          f"{len(set(toks))} distinct tokens")
+    if emit_launches != steps or k1.launches or len(toks) != steps + 1 \
+            or not all(0 <= x < CFG["vocab_size"] for x in toks):
+        raise AssertionError(f"sampled request: {emit_launches} emit "
+                             f"launches, {k1.launches} argmax launches, "
+                             f"{len(toks)} tokens; want {steps} steps")
+    again = [int(t[0, 0]) for t in model.generate(PROMPT, REQUEST,
+                                                  seed=SAMPLE_SEED, **kw)]
+    if again != toks:
+        raise AssertionError("the same seed gave another stream")
+    greedy = [int(t[0, 0]) for t in model.generate(PROMPT, SAMPLED_SHORT,
+                                                   dtype=torch.bfloat16)]
+    top1 = [int(t[0, 0]) for t in model.generate(
+        PROMPT, SAMPLED_SHORT, dtype=torch.bfloat16, temperature=0.8,
+        top_k=1, seed=SAMPLE_SEED)]
+    same = next((i for i, (a, b) in enumerate(zip(top1, greedy)) if a != b),
+                len(greedy))
+    print(f"[chip_smoke] generate bf16 top_k=1: equal to the greedy stream "
+          f"for {same} of {len(greedy)} tokens")
+    if same != len(greedy):
+        raise AssertionError(f"top_k=1 left the greedy stream at {same}")
+    lg = fidelity._teacher_forced_logits(model, PROMPT, truth[:2])[0][0]
+    law_check(lg)
+    for name, ids, extra, k in (("B=8", batch_prompt(8), {}, k2),
+                                ("kv8 B=1", PROMPT,
+                                 dict(kv_quant="int8"), k2)):
+        before = k.emit_launches
+        rows = list(model.generate(ids, SAMPLED_SHORT, seed=SAMPLE_SEED,
+                                   **kw, **extra))
+        launched = k.emit_launches - before
+        short = SAMPLED_SHORT - PROMPT.shape[1] - 1
+        print(f"[chip_smoke] generate bf16 sampled {name}: {len(rows)} "
+              f"rows, {launched} K2 emit launches")
+        if launched != short or len(rows) != short + 1 or any(
+                r.shape != (ids.shape[0], 1) or r.min() < 0
+                or r.max() >= CFG["vocab_size"] for r in rows):
+            raise AssertionError(f"sampled generate {name}: {launched} "
+                                 f"launches, {len(rows)} rows")
+    return emit_launches
+
+
+def check_sampled_serving(model):
+    """Phase 4b's sampled part: a B=8 server at t 0.8, k 50, p 0.9 over the
+    24-request mix with per-request overrides (``sampled_requests``):
+    K2's emit launches equal the steps of its sampled chunks and its
+    argmax launches the rest; a seeded request admitted first gives the
+    same tokens in two different fleets; the CLIs with the sampling flags.
+    Returns K2's emit launches of the server run."""
+    from pydynet_tpu_torch.models.llama import infer, serve_cli
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    k1, k2 = dsk.fused_decode_token, dsk.fused_decode_token_batched
+    requests = sampled_requests(model)
+    kw = dict(dtype=torch.bfloat16, **SAMPLE, **SERVE)
+    serve(model, requests[:2], **kw)  # warm-up
+    k2.launches = k2.emit_launches = 0
+    srv, done = serve(model, requests, **kw)
+    emit_launches = k2.emit_launches
+    n_tok = sum(len(r.tokens) for r in done)
+    print(f"[chip_smoke] serve bf16 sampled B=8: {len(done)} requests, "
+          f"{n_tok} tokens, {srv.dispatched_steps} steps dispatched, "
+          f"{srv.sampled_steps} sampled, {emit_launches} K2 emit launches, "
+          f"{k2.launches} argmax-mode launches")
+    if not all(r.done and r.tokens for r in done) or not all(
+            0 <= t < model.vocab_size for r in done for t in r.tokens):
+        raise AssertionError("sampled serve: a request did not finish")
+    if emit_launches != srv.sampled_steps or emit_launches == 0 \
+            or k2.launches != srv.dispatched_steps - srv.sampled_steps:
+        raise AssertionError(f"sampled serve: {emit_launches} emit and "
+                             f"{k2.launches} argmax launches for "
+                             f"{srv.sampled_steps} sampled of "
+                             f"{srv.dispatched_steps} steps")
+    # 17 tokens: longer than every prompt of the mix, so the target is
+    # admitted first, at row 0, and prefilled alone in both fleets
+    target = ((PROMPT[0].tolist() * 5)[:17], 200, dict(seed=4242))
+    _, a = serve(model, [target] + requests[:7], **kw)
+    _, b = serve(model, [target] + [(p, n, dict(temperature=0.0))
+                                    for p, n, _ in requests[7:10]], **kw)
+    print(f"[chip_smoke] seeded request in two fleets (8 and 4 requests): "
+          f"{len(a[0].tokens)} tokens, equal {a[0].tokens == b[0].tokens}")
+    if a[0].tokens != b[0].tokens or len(a[0].tokens) != 200:
+        raise AssertionError("a seeded request's stream depends on its "
+                             "fleet")
+    flags = ["--temperature", "0.8", "--top-k", "50", "--top-p", "0.9"]
+    for cli, k, extra in ((infer, k1, ["--max-new-tokens", "64"]),
+                          (serve_cli, k2, ["--batch-size", "8",
+                                           "--max-new-tokens", "64"])):
+        before = k.emit_launches
+        cli.main(["--random-init", "--device", "cuda", *extra, *flags])
+        if k.emit_launches == before:
+            raise AssertionError(f"{cli.__name__} with the sampling flags "
+                                 "did not run the emit mode")
+    return emit_launches
+
+
+def time_sampling(model, card):
+    """Phase 5's sampled part: K1's and K2's (B=8) bf16 step at pos 512 in
+    emit mode beside the argmax mode (CUDA events, in turns) and the plain
+    logits; the emit head's device time (``torch.profiler``) beside
+    ``F.linear(h, head_w, head_b)``; the sampling stage's launches, device
+    time and elapsed time a step at B=1 and 8 (``Sampler.draw`` at t 0.8,
+    k 50, p 0.9). Returns kernel-line entries for the emit modes."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from pydynet_tpu_torch.models.llama.model import Sampler
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    out = {}
+    w = model._fused_weights(torch.bfloat16, None)
+    for B in (1, 8):
+        if B == 1:
+            ck, cv = random_caches(model, torch.bfloat16, 1)
+            args, kw = step_args(model, w, ck, cv, 512, 1234)
+            k, ref = dsk.fused_decode_token, dsk.decode_token_logits_ref
+        else:
+            ck, cv = random_caches(model, torch.bfloat16, 1, B)
+            args, kw = batched_args(model, w, ck, cv, 512, range(100, 108))
+            k = dsk.fused_decode_token_batched
+            ref = dsk.decode_token_batched_logits_ref
+        emit = lambda: k(*args, emit_logits=True, **kw)
+        greedy = lambda: k(*args, **kw)
+        e1, g1, e2, g2 = (time_step(f, 200) for f in (emit, greedy, emit,
+                                                      greedy))
+        plain = time_step(lambda: ref(*args, **kw), 3 if B > 1 else 20)
+        b_ms, b_by = decode_step_bound(w, ck, 512, B, emit=True)
+        name = "K1" if B == 1 else "K2 B=8"
+        out[name] = (min(e1, e2), plain, b_ms, b_by, None)
+        print(f"[chip_smoke] {card}: {name} bf16 step at pos 512: "
+              f"emit_logits {min(e1, e2) * 1e3:.1f} us, argmax mode "
+              f"{min(g1, g2) * 1e3:.1f} us, plain logits {plain * 1e3:.1f} "
+              f"us, bound {b_ms * 1e3:.1f} us ({b_by})")
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                emit()
+            torch.cuda.synchronize()
+        head = [e for e in kernel_events(prof) if "head" in e.name]
+        head_us = sum(e.time_range.elapsed_us() for e in head) / 20
+        n_k = len(kernel_events(prof)) // 20
+        h = torch.randn(B, model.embed_dim, device="cuda",
+                        dtype=torch.bfloat16)
+        lin = time_step(lambda: F.linear(h, w["head_w"], w["head_b"]), 200)
+        print(f"[chip_smoke] {card}: {name} emit head (final norm, "
+              f"{model.embed_dim} -> {model.vocab_size}, f32 logits) "
+              f"{head_us:.1f} us device time ({n_k} launches a step); "
+              f"F.linear(h, head_w, head_b) {lin * 1e3:.1f} us")
+        logits = emit().float()
+        s = Sampler(B, model.vocab_size, "cuda", seed=1, **SAMPLE)
+        draw = lambda: s.draw(logits)
+        elapsed = time_step(draw, 50)
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                draw()
+            torch.cuda.synchronize()
+        ev = kernel_events(prof)
+        dev_us = sum(e.time_range.elapsed_us() for e in ev) / 20
+        print(f"[chip_smoke] {card}: sampling stage B={B} (t 0.8, k 50, "
+              f"p 0.9): {len(ev) // 20} launches a step, {dev_us:.1f} us "
+              f"device time, {elapsed * 1e3:.1f} us elapsed a step")
+        del ck, cv
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA GPU: nothing to check", file=sys.stderr)
@@ -2027,6 +2411,18 @@ def main() -> int:
                     raise AssertionError(f"{fmt} pos {pos}: kernel token "
                                          f"{got} != plain {want}")
                 max_err[fmt] = max(max_err[fmt], err)
+        emit_err = {}
+        for fmt in FORMATS:  # the emit_logits mode
+            for pos in POSITIONS:
+                err, scale, same, cerr = emit_vs_plain(model, fmt, pos)
+                print(f"[chip_smoke] {fmt} pos {pos} emit_logits: max "
+                      f"|logit diff| {err:.3g} of scale {scale:.3g}, argmax "
+                      f"= argmax-mode token {same}, cache err {cerr:.3g}")
+                if not (emit_ok(fmt, err, scale) and same
+                        and cerr <= cache_atol(fmt)):
+                    raise AssertionError(f"{fmt} pos {pos}: emit_logits "
+                                         "differs from plain or argmax mode")
+                emit_err[fmt] = max(emit_err.get(fmt, 0.0), err)
     phase("3 kernel vs plain", t0)
 
     # 3b. K2 against plain, and K2 rows against K1 (the int8 KV cache's
@@ -2063,6 +2459,22 @@ def main() -> int:
                   f"{equal}, cache err {err}")
             if not equal or not cache_ok(fmt, err):
                 raise AssertionError(f"K2 {fmt}: rows differ from {alone}")
+        emit_err_b = {}
+        for fmt in BATCHED_FORMATS:  # the emit_logits mode
+            for batch in BATCHES:
+                for pos in EMIT_POSITIONS_B:
+                    err, scale, same, cerr = batched_emit_vs_plain(
+                        model, fmt, batch, pos)
+                    print(f"[chip_smoke] K2 {fmt} B={batch} pos {pos} "
+                          f"emit_logits: max |logit diff| {err:.3g} of "
+                          f"scale {scale:.3g}, argmax = argmax-mode tokens "
+                          f"{same}, cache err {cerr}")
+                    if not (emit_ok(fmt, err, scale) and same
+                            and cache_ok(fmt, cerr)):
+                        raise AssertionError(
+                            f"K2 {fmt} B={batch} pos {pos}: emit_logits "
+                            "differs from plain or argmax mode")
+                    emit_err_b[fmt] = max(emit_err_b.get(fmt, 0.0), err)
     phase("3b batched kernel vs plain", t0)
 
     # 3c. the quantized matmuls (K5, K6, K7) against plain
@@ -2163,9 +2575,16 @@ def main() -> int:
             raise AssertionError(f"infer CLI {extra} did not run the kernel")
     phase("4 main path", t0)
 
+    # 4s. the sampled path: K1's and K2's emit_logits modes
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        emit_launches = check_sampled(model, truth)
+    phase("4s sampled path", t0)
+
     # 4b. the serving path
     t0 = time.perf_counter()
     serve_launches = check_serving(model)
+    emit_launches_b = check_sampled_serving(model)
     phase("4b serving path", t0)
 
     # 4c. the training path
@@ -2224,9 +2643,11 @@ def main() -> int:
                       f"{ms[key][2] * 1e3:.1f} us ({ms[key][3]})")
                 del ck, cv
         ms.update(time_head_and_step(model, card))
+        emit_ms = time_sampling(model, card)
     b1_runs = {f"bf16{'-' + q if q else ''}": dict(quant=q)
                for q in B1_QUANTS}
     b1_runs["bf16-kv8"] = dict(kv_quant="int8")
+    b1_runs["bf16-sampled"] = dict(seed=SAMPLE_SEED, **SAMPLE)
     tok_s = {name: [] for name in b1_runs}
     for _ in range(REPEATS):  # the formats in turns
         for name, rates in tok_s.items():
@@ -2241,13 +2662,15 @@ def main() -> int:
               f"request, tok/s of {REPEATS} runs: "
               f"{', '.join(f'{r:.1f}' for r in rates)}; median "
               f"{float(np.median(rates)):.1f}")
-    requests = serve_requests(model)
-    serve_rates = {name: [] for name in SERVE_FORMATS}
+    runs = {name: (serve_requests(model), kw)
+            for name, kw in SERVE_FORMATS.items()}
+    runs["bf16-sampled"] = (sampled_requests(model), SAMPLE)
+    serve_rates = {name: [] for name in runs}
     for _ in range(REPEATS):  # the formats in turns
         for name, rates in serve_rates.items():
             start = time.perf_counter()
-            _, done = serve(model, requests, dtype=torch.bfloat16,
-                            **SERVE_FORMATS[name], **SERVE)
+            _, done = serve(model, runs[name][0], dtype=torch.bfloat16,
+                            **runs[name][1], **SERVE)
             rates.append(sum(len(r.tokens) for r in done)
                          / (time.perf_counter() - start))
     for name, rates in serve_rates.items():
@@ -2298,9 +2721,15 @@ def main() -> int:
               "pydynet_tpu/ops/decode_step.py:1575",
               step_launches["fused_decode_step"],
               step_err["fused_decode_step"], ms["K10 bf16"]),
+        entry("decode_token[emit_logits]", "decode_token.cu",
+              "pydynet_tpu/ops/decode_step.py:487", emit_launches,
+              emit_err["f32"], emit_ms["K1"]),
         entry("decode_token_batched", "decode_token_batched.cu",
               "pydynet_tpu/ops/decode_step.py:509", serve_launches,
-              max_err_b["f32"], ms["K2 B=8"] + (None,))] + [
+              max_err_b["f32"], ms["K2 B=8"] + (None,)),
+        entry("decode_token_batched[emit_logits]", "decode_token_batched.cu",
+              "pydynet_tpu/ops/decode_step.py:1010", emit_launches_b,
+              emit_err_b["f32"], emit_ms["K2 B=8"])] + [
         entry(name, "flash_attention.cu",
               f"pydynet_tpu/ops/flash_attention.py:{line}",
               train_launches[name], flash_err[name], ms[name, 1])

@@ -293,10 +293,13 @@ __device__ __forceinline__ float row_dot(const void* w, int r,
 // [kHeadRows * blockIdx.x, + kHeadRows) as row_dot<Q, W> + bias, reduced to
 // their (max, lowest index) pair in tile_val/tile_idx[blockIdx.x] for
 // argmax_kernel. K1's head and K9 share it, so they share the tie rule.
+// With `logits` (K1's emit_logits mode) each row's float32 logit is also
+// written to logits[r], the very value the argmax compares.
 template <int Q, typename W, typename B>
 __device__ void head_tile(const float* x_s, float sx, const void* head_w,
                           const float* head_s, const B* head_b,
-                          float* tile_val, int* tile_idx, int D, int V) {
+                          float* tile_val, int* tile_idx, int D, int V,
+                          float* logits = nullptr) {
   __shared__ float wv[kWarps];
   __shared__ int wi[kWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -306,6 +309,7 @@ __device__ void head_tile(const float* x_s, float sx, const void* head_w,
   for (int r = r0; r < min(r0 + kHeadRowsPerWarp, V); ++r) {
     const float logit = row_dot<Q, W>(head_w, r, x_s, D, head_s, sx) +
                         to_f(head_b[r]);
+    if (logits != nullptr && lane == 0) logits[r] = logit;
     if (better(logit, r, bv, bi)) {
       bv = logit;
       bi = r;

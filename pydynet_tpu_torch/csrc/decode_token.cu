@@ -24,7 +24,11 @@
 //   5. down GEMV + residual,
 // then 6. final RMSNorm + head GEMV + bias with a (max, index) pair per
 // vocab tile, and 7. a one-block argmax over the tiles (K9 is 6 on h as
-// given, without the norm, then 7). `pos`
+// given, without the norm, then 7). In the TPU kernel's `emit_logits` mode
+// (the sampled decode's, ops/decode_step.py:487-491 there) stage 6 also
+// writes each vocab row's f32 logit, bias added and int8/int4 scale
+// applied by the very arithmetic the argmax compares, to a (V,) output,
+// and 7 is not launched: 5 * n_layers + 1 launches. `pos`
 // and `tok` are read from device memory, so no step syncs with the host and
 // the chain can later be captured in a CUDA graph.
 //
@@ -226,13 +230,14 @@ __global__ void __launch_bounds__(kThreads)
 head_kernel(const float* __restrict__ h, const T* __restrict__ final_norm,
             const void* __restrict__ head_w, const float* __restrict__ head_s,
             const T* __restrict__ head_b, float* __restrict__ tile_val,
-            int* __restrict__ tile_idx, int D, int V) {
+            int* __restrict__ tile_idx, float* __restrict__ logits, int D,
+            int V) {
   extern __shared__ float smem[];
   float* x_s = smem;
   float* red = smem + D;
   const float sx = load_normed_act<HQ, T>(h, final_norm, D, x_s, red);
   head_tile<HQ, T>(x_s, sx, head_w, head_s, head_b, tile_val, tile_idx, D,
-                   V);
+                   V, logits);
 }
 
 // K9: the head of h (1, D) alone, h as it is (f32 or bf16, widened to f32,
@@ -252,6 +257,7 @@ struct Args {
   const int* pos;
   const int* tok;
   int* out;
+  float* logits;  // emit_logits: the (V,) f32 logits instead of out
   const void *emb, *cos, *sin, *final_norm;
   const void *wq, *wk, *wv, *wo, *gate_w, *up_w, *down_w;
   const void *in_norm, *post_norm, *head_w;
@@ -322,9 +328,10 @@ cudaError_t run(const Args& a, cudaStream_t st) {
   }
   head_kernel<T, HQ><<<ntiles, kThreads, sm_norm, st>>>(
       h, static_cast<const T*>(a.final_norm), a.head_w, a.head_s,
-      static_cast<const T*>(a.head_b), tile_val, tile_idx, D, a.V);
+      static_cast<const T*>(a.head_b), tile_val, tile_idx, a.logits, D, a.V);
   PDT_CHECK();
-  argmax_kernel<<<1, kThreads, 0, st>>>(tile_val, tile_idx, ntiles, a.out);
+  if (a.logits == nullptr)
+    argmax_kernel<<<1, kThreads, 0, st>>>(tile_val, tile_idx, ntiles, a.out);
   return cudaGetLastError();
 }
 
@@ -359,10 +366,13 @@ int pdt_decode_token_scratch_floats(int dim, int n_heads, int ffn, int vocab,
 // formats of the layer matmuls and of the head (0 the weight type, 1 int8,
 // 2 int4 packed along the contraction axis), one of (0, 0), (0, 1), (1, 1),
 // (2, 2); a quantized matrix has float32 scales per output row: head_s
-// (V,), s_q .. s_down (N, out). Returns the CUDA error of the first launch
-// that failed, or cudaSuccess.
+// (V,), s_q .. s_down (N, out). With `logits` non-null (the emit_logits
+// mode) the step writes the (V,) f32 logits there and launches no argmax
+// (`out` is not written); else the greedy token goes to out[0]. Returns
+// the CUDA error of the first launch that failed, or cudaSuccess.
 int pdt_decode_token(int wdtype, int lfmt, int hfmt, const void* pos,
-                     const void* tok, void* out, const void* emb,
+                     const void* tok, void* out, void* logits,
+                     const void* emb,
                      const void* cos, const void* sin, const void* final_norm,
                      const void* wq, const void* wk, const void* wv,
                      const void* wo, const void* gate_w, const void* up_w,
@@ -378,6 +388,7 @@ int pdt_decode_token(int wdtype, int lfmt, int hfmt, const void* pos,
   Args a{static_cast<const int*>(pos),
          static_cast<const int*>(tok),
          static_cast<int*>(out),
+         static_cast<float*>(logits),
          emb, cos, sin, final_norm,
          wq, wk, wv, wo, gate_w, up_w, down_w,
          in_norm, post_norm, head_w, f(head_s), head_b,

@@ -49,7 +49,10 @@
 //   4. RMSNorm + gate/up GEMV + SiLU * up,
 //   5. down GEMV + residual,
 // then 6. final RMSNorm + head GEMV + bias with a (max, index) pair per row
-// and vocab tile, and 7. one block per row: argmax over its tiles. `pos`,
+// and vocab tile, and 7. one block per row: argmax over its tiles. In the
+// TPU kernel's `emit_logits` mode (the sampled decode's, :1010-1011 there)
+// stage 6 also writes the (B, V) f32 logits, the very values the argmax
+// compares, and 7 is not launched: 5 * n_layers + 1 launches. `pos`,
 // `tok` and `starts` are read from device memory, so a chunk of steps never
 // waits for the host. Each row does K1's arithmetic in K1's order, so row b
 // with starts[b] = 0 gives the token and cache row that K1 gives on that row
@@ -98,13 +101,16 @@ int pdt_decode_token_batched_scratch_floats(int batch, int dim, int n_heads,
 // s_down (N, out). kv8 1: ck, cv are int8 (N, B, S, D) with float32
 // per-row scales sk, sv (N, B, S), with (lfmt, hfmt) = (0, 0); else the
 // caches have the weight type and sk, sv are null. starts may be null
-// (every row attends from row 0). Returns the CUDA error of the first call
-// that failed, or cudaSuccess; cudaErrorInvalidValue for a batch outside
-// [1, 32], a mode outside these, or widths whose activation rows do not fit
-// in shared memory.
+// (every row attends from row 0). With `logits` non-null (the emit_logits
+// mode, any of these modes) the step writes the (B, V) f32 logits there and
+// launches no argmax (`out` is not written). Returns the CUDA error of the
+// first call that failed, or cudaSuccess; cudaErrorInvalidValue for a
+// batch outside [1, 32], a mode outside these, or widths whose activation
+// rows do not fit in shared memory.
 int pdt_decode_token_batched(int wdtype, int lfmt, int hfmt, int kv8,
                              const void* pos, const void* tok,
-                             const void* starts, void* out, const void* emb,
+                             const void* starts, void* out, void* logits,
+                             const void* emb,
                              const void* cos, const void* sin,
                              const void* final_norm, const void* wq,
                              const void* wk, const void* wv, const void* wo,
@@ -125,6 +131,7 @@ int pdt_decode_token_batched(int wdtype, int lfmt, int hfmt, int kv8,
          static_cast<const int*>(tok),
          static_cast<const int*>(starts),
          static_cast<int*>(out),
+         static_cast<float*>(logits),
          emb, cos, sin, final_norm,
          wq, wk, wv, wo, gate_w, up_w, down_w,
          in_norm, post_norm, head_w, f(head_s), head_b,

@@ -18,6 +18,7 @@ struct Args {
   const int* tok;
   const int* starts;  // nullptr: every row starts at 0
   int* out;
+  float* logits;  // emit_logits: the (B, V) f32 logits instead of out
   const void *emb, *cos, *sin, *final_norm;
   const void *wq, *wk, *wv, *wo, *gate_w, *up_w, *down_w;
   const void *in_norm, *post_norm, *head_w;
@@ -605,14 +606,16 @@ down_residual_b_kernel(const float* __restrict__ ff, int F,
 // HQ is the head's format: T rows, int8 rows (the int8 head and the int8
 // layers) or int4 rows (the int4 layers), with per-row f32 scales `head_s`;
 // a quantized head quantises each activation row with its own scale (the
-// TPU kernel's qvec_b).
+// TPU kernel's qvec_b). With `logits` (the emit_logits mode) row b's f32
+// logit of vocab row r, the very value the argmax compares, is also
+// written to logits[b * V + r].
 template <typename T, int HQ, int BM>
 __global__ void __launch_bounds__(kThreads)
 head_b_kernel(const float* __restrict__ h, const T* __restrict__ final_norm,
               const void* __restrict__ head_w,
               const float* __restrict__ head_s, const T* __restrict__ head_b,
-              float* __restrict__ tile_val, int* __restrict__ tile_idx, int B,
-              int D, int V) {
+              float* __restrict__ tile_val, int* __restrict__ tile_idx,
+              float* __restrict__ logits, int B, int D, int V) {
   extern __shared__ __align__(16) float smem[];
   float* x_s = smem;  // (B, D)
   float* red = smem + (size_t)B * D;
@@ -628,6 +631,7 @@ head_b_kernel(const float* __restrict__ h, const T* __restrict__ final_norm,
   for (int r = r0; r < min(r0 + kHeadRowsPerWarp, V); ++r) {
     const float logit = row_dot_rows<HQ, T, BM>(head_w, r, x_s, D, B, head_s,
                                                 sx) + to_f(head_b[r]);
+    if (logits != nullptr && lane < B) logits[(size_t)lane * V + r] = logit;
     if (lane < B && better(logit, r, bv, bi)) {
       bv = logit;
       bi = r;
@@ -745,9 +749,11 @@ cudaError_t run(const Args& a, cudaStream_t st) {
   }
   head_b_kernel<T, HQ, BM><<<ntiles, kThreads, sm_norm, st>>>(
       h, static_cast<const T*>(a.final_norm), a.head_w, a.head_s,
-      static_cast<const T*>(a.head_b), tile_val, tile_idx, B, D, a.V);
+      static_cast<const T*>(a.head_b), tile_val, tile_idx, a.logits, B, D,
+      a.V);
   PDT_CHECK();
-  argmax_kernel<<<B, kThreads, 0, st>>>(tile_val, tile_idx, ntiles, a.out);
+  if (a.logits == nullptr)
+    argmax_kernel<<<B, kThreads, 0, st>>>(tile_val, tile_idx, ntiles, a.out);
   return cudaGetLastError();
 }
 

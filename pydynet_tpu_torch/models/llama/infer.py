@@ -1,18 +1,22 @@
-"""Greedy Llama decode from the command line (port of
-``llm/llama/infer.py``):
+"""Llama decode from the command line (port of ``llm/llama/infer.py``):
 
     python -m pydynet_tpu_torch.models.llama.infer --random-init
     python -m pydynet_tpu_torch.models.llama.infer --weights stories15M.npz \
         --tokenizer tokenizer.model.np --dtype bfloat16 --quant int8-head
     python -m pydynet_tpu_torch.models.llama.infer --random-init \
         --kv-quant int8
+    python -m pydynet_tpu_torch.models.llama.infer --random-init \
+        --temperature 0.8 --top-k 50 --top-p 0.9 --seed 7
 
 ``--device cuda`` (the default) needs a GPU and raises without one;
 ``--device cpu`` runs the kernels' plain versions. Without a checkpoint the
-stories15M configuration is built with random weights from ``--seed``.
-``--kv-quant int8`` keeps the KV cache as int8 rows with per-row scales
-and cannot be combined with ``--quant`` (``ValueError``, as in the JAX
-package's CLI). Prints the text as it streams and then tokens per second.
+stories15M configuration is built with random weights from the fixed seed
+``WEIGHTS_SEED``. ``--kv-quant int8`` keeps the KV cache as int8 rows with
+per-row scales and cannot be combined with ``--quant`` (``ValueError``, as
+in the JAX package's CLI). ``--temperature`` above 0 samples, with
+``--top-k``, ``--top-p``, ``--repetition-penalty`` and the sampler's
+``--seed`` (``Llama.generate``); 0 is greedy. Prints the text as it streams
+and then tokens per second.
 """
 from __future__ import annotations
 
@@ -36,23 +40,24 @@ VOCAB_SIZE = 32000
 MAX_SEQ_LEN = 1024
 MAX_BATCH = 1
 FFN_DIM = 768
+WEIGHTS_SEED = 0  # the random weights' seed (``--seed`` seeds the sampler)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_model(args, device) -> Llama:
-    gen = torch.Generator().manual_seed(args.seed)
+    gen = torch.Generator().manual_seed(WEIGHTS_SEED)
     if os.path.exists(args.weights) and not args.random_init:
         cfg = infer_config(args.weights, MAX_SEQ_LEN, MAX_BATCH)
         return load_model(Llama(device=device, generator=gen, **cfg),
                           args.weights)
     print(f"[infer] checkpoint {args.weights!r} not used -> random weights "
-          f"from seed {args.seed}")
+          f"from seed {WEIGHTS_SEED}")
     return Llama(VOCAB_SIZE, DIM, N_HEADS, FFN_DIM, MAX_SEQ_LEN, MAX_BATCH,
                  N_LAYERS, device=device, generator=gen)
 
 
 def main(argv=None) -> float:
-    parser = argparse.ArgumentParser(description="Greedy Llama decode")
+    parser = argparse.ArgumentParser(description="Llama decode")
     parser.add_argument("--prompt", type=str, default="There was a boy")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("--weights", type=str,
@@ -73,8 +78,16 @@ def main(argv=None) -> float:
                              "batched kernel, at B=1 too); takes no --quant")
     parser.add_argument("--chunk", type=int, default=None,
                         help="decode steps between reads back to the host")
+    parser.add_argument("--temperature", type=float, default=0.0,
+                        help="0 = greedy; > 0 samples (the kernel emits "
+                             "the logits, the sampling stage draws)")
+    parser.add_argument("--top-k", type=int, default=None)
+    parser.add_argument("--top-p", type=float, default=None)
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the random weights")
+                        help="the sampler's seed")
+    parser.add_argument("--repetition-penalty", type=float, default=None,
+                        help="HF-style penalty (> 1) on the tokens seen so "
+                             "far (sampling only)")
     args = parser.parse_args(argv)
 
     device = resolve(args.device)
@@ -84,6 +97,10 @@ def main(argv=None) -> float:
                   "kv_quant": args.kv_quant}
     if args.chunk:
         gen_kwargs["chunk"] = args.chunk
+    if args.temperature > 0:
+        gen_kwargs.update(temperature=args.temperature, top_k=args.top_k,
+                          top_p=args.top_p, seed=args.seed,
+                          repetition_penalty=args.repetition_penalty)
     input_ids = np.array([tokenizer.encode(args.prompt)])
     L = input_ids.shape[1]
     if device.type == "cuda":  # build the kernels outside the timed run

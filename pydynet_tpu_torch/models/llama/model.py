@@ -41,6 +41,12 @@ prefill read at ``last_idx - 1``; decoding starts at ``pos = L`` on the
 prefill token; ``max_new_tokens`` bounds the total length, capped at
 ``max_seq_len``. bf16 rounds differently per lane, as there: the scan lane
 rounds per layer in bf16, the fused lane keeps the residual in f32.
+
+Sampling (``generate(temperature > 0)``) runs on either lane: the fused
+lane's kernels emit the float32 logits (their ``emit_logits`` mode) and the
+sampling stage below draws from them, from the JAX package's threefry key
+stream, so a sampled stream is the JAX package's for the same seed up to
+float rounding at near-ties.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ... import random as prandom
 from ...device import resolve
 from ...nn.functional import scaled_dot_product_attention
 from ...nn.modules.loss import CrossEntropyLoss
@@ -91,6 +98,191 @@ def _rope_pure(x, cos, sin):
     cos, sin = cos[..., None, :], sin[..., None, :]
     return torch.stack([xr * cos - xi * sin, xr * sin + xi * cos],
                        dim=-1).reshape(x.shape)
+
+
+# ------------------------------- sampling ---------------------------------
+# The JAX package's sampling stage (``pydynet_tpu/models/llama/model.py:
+# 86-233``) is XLA code around its decode kernels, so here it is plain torch
+# on the device: the repetition penalty, temperature, the top-k and nucleus
+# cutoffs by a sort-free radix select, and a Gumbel draw from the threefry
+# key stream of ``random.py``, which reproduces ``jax.random``'s bits. Every
+# scalar that reaches a device tensor is a Python number or a tensor already
+# on the device, so a step copies nothing from the host.
+_M32 = 0xFFFFFFFF
+
+
+def _radix_cutoff(logits, weight, thresh, strict: bool):
+    """Exact per-row threshold select without a sort (the JAX package's
+    ``_radix_cutoff``). Returns (B, 1) float32: the largest value ``c``
+    present in each (B, V) float32 ``logits`` row such that
+    ``sum(weight * (logits >= c)) >= thresh`` (``> thresh`` when
+    ``strict``), or -inf when no value qualifies (keep everything). With
+    ``weight = 1`` and ``thresh = k`` it is the k-th largest value,
+    duplicates counted; with ``weight = probs`` and ``thresh = top_p``
+    (strict) it is the nucleus cutoff, ties kept. ``thresh`` is a Python
+    number or a (B, 1) float32 tensor.
+
+    A 4-bit-at-a-time descent over the monotone keys of the float32 bit
+    patterns (the int32 view lifted to int64 and masked to 32 bits): 8
+    rounds of 16 compare-and-sum passes over the row."""
+    bits = logits.float().contiguous().view(torch.int32).to(torch.int64) \
+        & _M32
+    keys = torch.where(bits >> 31 == 0, bits | 0x80000000, ~bits & _M32)
+    nib = torch.arange(16, dtype=torch.int64, device=logits.device)
+    base = torch.zeros(logits.shape[0], 1, dtype=torch.int64,
+                       device=logits.device)
+    for shift in range(28, -1, -4):
+        cand = base | (nib << shift)                           # (B, 16)
+        mass = torch.where(keys[:, :, None] >= cand[:, None, :],
+                           weight[:, :, None], 0.0).sum(1)
+        ok = mass > thresh if strict else mass >= thresh  # non-increasing
+        # the largest qualifying nibble; none -> 0 (the keep-all case)
+        j = (ok.sum(1, keepdim=True) - 1).clamp_(min=0)
+        base = cand.gather(1, j)
+    fmass = torch.where(keys >= base, weight, 0.0).sum(1, keepdim=True)
+    vbits = torch.where(base >> 31 != 0, base & 0x7FFFFFFF, ~base & _M32)
+    vbits = torch.where(vbits >= 1 << 31, vbits - (1 << 32), vbits)
+    val = vbits.to(torch.int32).view(torch.float32)
+    dead = fmass <= thresh if strict else fmass < thresh
+    return torch.where(dead, float("-inf"), val)
+
+
+def _divisor(x, like):
+    """``x`` as a float32 divisor on ``like``'s device: a tensor is used as
+    it is; a Python number becomes a float32 tensor, so the quotient is a
+    true division as in jnp (a Python scalar divisor is a product with its
+    reciprocal on a GPU)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _penalize(logits, seen, repetition_penalty):
+    """HF repetition penalty on the ``seen`` tokens: positive logits divided
+    by the penalty, negative multiplied."""
+    rp = _divisor(repetition_penalty, logits)
+    pen = torch.where(logits > 0, logits / rp, logits * rp)
+    return torch.where(seen, pen, logits)
+
+
+def filter_logits(logits, temperature, top_k=None, top_p=None, seen=None,
+                  repetition_penalty=None):
+    """The filtering stage of :func:`sample_logits` (the JAX package's
+    ``filter_logits``): (B, V) float32 logits -> temperature-scaled logits
+    with every filtered-out token at -inf. ``temperature`` and
+    ``repetition_penalty`` are Python numbers or float32 tensors on the
+    device; ``top_k``/``top_p`` Python numbers or None. Both filters mask
+    the logits below an exact per-row cutoff (:func:`_radix_cutoff`); every
+    token equal to the cutoff is kept, and the nucleus rule is strict, so
+    ``top_p = 0`` keeps the best token alone."""
+    if repetition_penalty is not None and seen is not None:
+        logits = _penalize(logits, seen, repetition_penalty)
+    t = _divisor(temperature, logits)
+    logits = logits / torch.clamp(t, min=1e-6)
+    if top_k is not None:
+        kth = _radix_cutoff(logits, torch.ones_like(logits),
+                            float(int(top_k)), strict=False)
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    if top_p is not None:
+        probs = torch.exp(logits - torch.logsumexp(logits, -1, keepdim=True))
+        cutoff = _radix_cutoff(logits, probs, float(top_p), strict=True)
+        logits = torch.where(logits < cutoff, float("-inf"), logits)
+    return logits
+
+
+def sample_logits(logits, key, temperature, top_k=None, top_p=None,
+                  seen=None, repetition_penalty=None):
+    """Next-token ids (B,) from (B, V) float32 logits (the JAX package's
+    ``sample_logits``): :func:`filter_logits`, then one Gumbel draw with
+    the (2,) threefry ``key`` over the whole (B, V) array
+    (``random.categorical``)."""
+    logits = filter_logits(logits, temperature, top_k, top_p, seen,
+                           repetition_penalty)
+    return prandom.categorical(key, logits)
+
+
+def filter_logits_per_row(logits, temperature, top_k, top_p, seen=None,
+                          repetition_penalty=None):
+    """:func:`filter_logits` with per-row (B,) tensor parameters on the
+    device (the server's per-request sampling): ``temperature`` float32
+    (rows <= 0 clamp to 1e-6 here and take the exact argmax in
+    :func:`sample_logits_per_row`), ``top_k`` int (V keeps all), ``top_p``
+    float32 (1.0 keeps all: ``p >= 1`` is an explicit off-switch, since
+    rounding can push the total mass an ulp past 1)."""
+    if repetition_penalty is not None and seen is not None:
+        logits = _penalize(logits, seen, repetition_penalty[:, None])
+    logits = logits / torch.clamp(temperature, min=1e-6)[:, None]
+    kth = _radix_cutoff(logits, torch.ones_like(logits),
+                        top_k.float()[:, None], strict=False)
+    logits = torch.where(logits < kth, float("-inf"), logits)
+    probs = torch.exp(logits - torch.logsumexp(logits, -1, keepdim=True))
+    cutoff = _radix_cutoff(logits, probs, top_p.float()[:, None], strict=True)
+    cutoff = torch.where(top_p[:, None] >= 1.0, float("-inf"), cutoff)
+    return torch.where(logits < cutoff, float("-inf"), logits)
+
+
+def sample_logits_per_row(logits, key, temperature, top_k, top_p, seen=None,
+                          repetition_penalty=None):
+    """:func:`sample_logits` with per-row (B,) parameters: rows with
+    ``temperature > 0`` draw from the filtered distribution, the others
+    take the exact argmax of ``logits`` (ties to the lowest index, as the
+    greedy kernels). ``key`` is one (2,) key for the whole array or (B, 2)
+    per-row keys, each row drawing from its own (``vmap(categorical)``), so
+    a served request's stream depends only on its prompt, parameters and
+    key."""
+    greedy = torch.argmax(logits, dim=-1)
+    f = filter_logits_per_row(logits, temperature, top_k, top_p, seen,
+                              repetition_penalty)
+    return torch.where(temperature > 0, prandom.categorical(key, f), greedy)
+
+
+def _mark_seen(seen, toks):
+    """``seen[b, toks[b]] = True`` for every row, in place (the JAX
+    package's functional ``_mark_seen``); returns ``seen``."""
+    seen[torch.arange(seen.shape[0], device=seen.device), toks.long()] = True
+    return seen
+
+
+class Sampler:
+    """The sampled decode's state for ``generate``, on the model's device:
+    the threefry key (``PRNGKey(seed)``), the temperature and repetition
+    penalty as float32 device tensors, and the (B, V) ``seen`` marks of the
+    repetition penalty. :meth:`draw` splits the key as the JAX package's
+    scans do (``key, sub = split(key)``), draws with ``sub`` through
+    :func:`sample_logits` and marks the drawn tokens, so the port's sampled
+    stream is the JAX package's for the same seed, token for token wherever
+    no two perturbed scores are within the two frameworks' rounding."""
+
+    def __init__(self, batch: int, vocab: int, device, temperature: float,
+                 top_k=None, top_p=None, seed: int = 0,
+                 repetition_penalty=None):
+        self.key = prandom.PRNGKey(seed, device)
+        self.temperature = torch.tensor(float(temperature),
+                                        dtype=torch.float32, device=device)
+        self.top_k, self.top_p = top_k, top_p
+        self.rep = None if repetition_penalty is None else torch.tensor(
+            float(repetition_penalty), dtype=torch.float32, device=device)
+        # seen only feeds the repetition penalty
+        self.seen = None if self.rep is None else torch.zeros(
+            batch, vocab, dtype=torch.bool, device=device)
+
+    def mark_prompt(self, ids, last_idx=None):
+        """Mark the prompt's tokens seen, the bucket padding past
+        ``last_idx`` excluded."""
+        if self.seen is not None:
+            ids = torch.as_tensor(np.asarray(ids)[:, :last_idx],
+                                  dtype=torch.long, device=self.seen.device)
+            self.seen.scatter_(1, ids, True)
+
+    def draw(self, logits):
+        """The next tokens (B,) int32 from (B, V) float32 logits."""
+        keys = prandom.split(self.key)
+        self.key = keys[0]
+        nxt = sample_logits(logits.float(), keys[1], self.temperature,
+                            self.top_k, self.top_p, self.seen, self.rep)
+        if self.seen is not None:
+            _mark_seen(self.seen, nxt)
+        return nxt.to(torch.int32)
 
 
 def not_ported(what: str, item: str):
@@ -612,25 +804,37 @@ class Llama(nn.Module):
             logits = F.linear(hl, W["head_w"]).float()
         return logits + W["head_b"].float()
 
-    def prefill(self, weights, ck, cv, ids, last_idx=None):
-        """Greedy token after the prompt ``ids`` (B, L), caches filled."""
+    def prefill_logits(self, weights, ck, cv, ids, last_idx=None):
+        """Float32 logits (B, V) after the prompt ``ids`` (B, L), caches
+        filled (read at ``last_idx - 1`` for a bucket-padded prompt)."""
         tokens = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-        logits = self.forward_logits_one(weights, ck, cv, tokens, 0,
-                                         last_idx)
-        return logits.argmax(-1)
+        return self.forward_logits_one(weights, ck, cv, tokens, 0, last_idx)
+
+    def prefill(self, weights, ck, cv, ids, last_idx=None, sampler=None):
+        """The token after the prompt ``ids`` (B, L), caches filled: the
+        greedy one, or drawn by ``sampler`` (a :class:`Sampler`, whose
+        ``seen`` first marks the prompt's tokens, bucket padding
+        excluded)."""
+        logits = self.prefill_logits(weights, ck, cv, ids, last_idx)
+        if sampler is None:
+            return logits.argmax(-1)
+        sampler.mark_prompt(ids, last_idx)
+        return sampler.draw(logits)
 
     def decode_chunk_plain(self, weights, ck, cv, tok, pos: int,
-                           n_steps: int, starts=None):
-        """``n_steps`` greedy tokens on the scan lane from ``tok`` (B,) at
-        ``pos``, rows attending from ``starts`` (see
-        :meth:`forward_logits_one`); returns them as (n_steps, B) int32,
-        still on the device."""
+                           n_steps: int, starts=None, sampler=None):
+        """``n_steps`` tokens on the scan lane from ``tok`` (B,) at ``pos``,
+        rows attending from ``starts`` (see :meth:`forward_logits_one`):
+        greedy, or drawn by ``sampler`` from each step's logits (a
+        :class:`Sampler`, or a server's per-row ``draw``). Returns them as
+        (n_steps, B) int32, still on the device."""
         toks = torch.empty(n_steps, tok.shape[0], dtype=torch.int32,
                            device=tok.device)
         for i in range(n_steps):
             logits = self.forward_logits_one(weights, ck, cv, tok[:, None],
                                              pos + i, starts=starts)
-            tok = toks[i] = logits.argmax(-1)
+            tok = toks[i] = (logits.argmax(-1) if sampler is None
+                             else sampler.draw(logits))
         return toks
 
     # ------------------------------ fused lane ------------------------------
@@ -771,53 +975,64 @@ class Llama(nn.Module):
             return False
         not_ported(*refusal)
 
-    def fused_step(self, weights, ck, cv, tok, pos, out=None):
+    def fused_step(self, weights, ck, cv, tok, pos, emit_logits=False,
+                   out=None):
         """One ``fused_decode_token`` call in the snapshot's weight format:
         ``tok``/``pos`` (1,) int32 on the device, caches (N, S, D) updated
-        in place; returns (1,) int32."""
+        in place; returns (1,) int32, or with ``emit_logits`` the (1, V)
+        float32 logits."""
         return dsk.fused_decode_token(
             pos, tok, *decode_weight_args(weights), ck, cv,
-            n_heads=self.n_heads, out=out, **decode_quant_kwargs(weights))
+            n_heads=self.n_heads, emit_logits=emit_logits, out=out,
+            **decode_quant_kwargs(weights))
 
     def fused_step_batched(self, weights, ck, cv, tok, pos, starts=None,
-                           out=None):
+                           emit_logits=False, out=None):
         """One ``fused_decode_token_batched`` call in the snapshot's weight
         format: ``tok`` (B,) and ``pos`` (1,) int32 on the device, caches
         (N, B, S, D) updated in place, or for the int8 KV cache ``(int8
         rows, (N, B, S) float32 scales)`` pairs (:func:`quantize_kv`'s);
         ``starts`` (B,) int32 per-row attention lower bounds or None;
-        returns (B,) int32."""
+        returns (B,) int32, or with ``emit_logits`` the (B, V) float32
+        logits."""
         kv = {}
         if isinstance(ck, tuple):
             (ck, sk), (cv, sv) = ck, cv
             kv = dict(sk=sk, sv=sv)
         return dsk.fused_decode_token_batched(
             pos, tok, *decode_weight_args(weights), ck, cv,
-            n_heads=self.n_heads, starts=starts, out=out,
-            **decode_quant_kwargs(weights), **kv)
+            n_heads=self.n_heads, starts=starts, emit_logits=emit_logits,
+            out=out, **decode_quant_kwargs(weights), **kv)
 
     def decode_chunk(self, weights, ck, cv, tok, pos: int, n_steps: int,
-                     starts=None):
-        """``n_steps`` fused greedy steps from ``tok`` (B,) int32 at the
-        shared ``pos``: flat caches (N, S, D) take the B=1 kernel, batched
-        caches (N, B, S, D), or the int8 KV cache's (rows, scales) pairs,
-        the batched one, whose rows may start their attention at
-        ``starts`` (B,) int32 on the device. Positions and
-        tokens stay on the device: step i reads step i-1's output in place,
-        so no step waits for the host. Returns the (n_steps, B) int32
-        tokens."""
-        toks = torch.empty(n_steps, tok.shape[0], dtype=torch.int32,
-                           device=tok.device)
+                     starts=None, sampler=None):
+        """``n_steps`` fused steps from ``tok`` (B,) int32 at the shared
+        ``pos``: flat caches (N, S, D) take the B=1 kernel, batched caches
+        (N, B, S, D), or the int8 KV cache's (rows, scales) pairs, the
+        batched one, whose rows may start their attention at ``starts``
+        (B,) int32 on the device. Greedy steps take the kernel's token;
+        with ``sampler`` (see :meth:`decode_chunk_plain`) the kernel emits
+        the logits and the sampler draws the token. Positions, tokens and
+        the sampler's state stay on the device: step i reads step i-1's
+        output in place, so no step waits for the host. Returns the
+        (n_steps, B) int32 tokens."""
+        B = tok.shape[0]
+        toks = torch.empty(n_steps, B, dtype=torch.int32, device=tok.device)
         positions = torch.arange(pos, pos + n_steps, dtype=torch.int32,
                                  device=tok.device)
+        batched = isinstance(ck, tuple) or ck.dim() == 4
+        step = self.fused_step_batched if batched else self.fused_step
+        kw = dict(starts=starts) if batched else {}
+        if sampler is not None:  # one logits buffer for the whole chunk
+            kw.update(emit_logits=True, out=torch.empty(
+                B, self.vocab_size, dtype=torch.float32, device=tok.device))
         for i in range(n_steps):
-            if isinstance(ck, tuple) or ck.dim() == 4:
-                self.fused_step_batched(weights, ck, cv, tok,
-                                        positions[i:i + 1], starts=starts,
-                                        out=toks[i])
+            if sampler is None:
+                step(weights, ck, cv, tok, positions[i:i + 1], out=toks[i],
+                     **kw)
             else:
-                self.fused_step(weights, ck, cv, tok, positions[i:i + 1],
-                                out=toks[i])
+                toks[i] = sampler.draw(step(weights, ck, cv, tok,
+                                            positions[i:i + 1], **kw))
             tok = toks[i]
         return toks
 
@@ -829,17 +1044,14 @@ class Llama(nn.Module):
         return ck5.view(shape), cv5.view(shape)
 
     # ------------------------------- generate -------------------------------
-    def _check_generate(self, B, dtype, fused, quant, temperature, top_k,
-                        top_p, repetition_penalty, kv_quant, flash_prefill):
+    def _check_generate(self, B, dtype, fused, quant, kv_quant,
+                        flash_prefill):
         """Resolve the lane (:meth:`use_fused`) and raise for whatever this
         port does not run yet, naming its ROADMAP.md item. Nothing is
         rerouted silently: a model, format or batch that neither the port's
         fused kernels take nor the JAX package's rule sends to the scan lane
         raises unless the caller asks for the scan lane with
         ``fused=False``."""
-        if (temperature or 0) > 0 or top_k is not None or top_p is not None \
-                or repetition_penalty is not None:
-            not_ported("sampling", "Sampling")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
         if flash_prefill:
@@ -858,10 +1070,12 @@ class Llama(nn.Module):
     def generate(self, input_ids, max_new_tokens: int,
                  chunk: int = DECODE_CHUNK, dtype=None, fused=None,
                  quant=None, temperature: float = 0.0, top_k: int = None,
-                 top_p: float = None, repetition_penalty: float = None,
-                 kv_quant=None, flash_prefill=None):
-        """Greedy generation. Yields (B, 1) int32 CPU tensors one token at a
-        time: first the prefill token, then one per decode step. Tokens are
+                 top_p: float = None, seed: int = 0,
+                 repetition_penalty: float = None, kv_quant=None,
+                 flash_prefill=None):
+        """Greedy or sampled generation. Yields (B, 1) int32 CPU tensors one
+        token at a time: first the prefill token, then one per decode step.
+        Tokens are
         read back from the device once per ``chunk`` steps, the prefill
         token with the first chunk. ``max_new_tokens`` bounds the total
         length (prompt included) and is capped at ``max_seq_len``; a total
@@ -878,12 +1092,25 @@ class Llama(nn.Module):
         the fused lane one B=1 kernel chain a token at B=1, one batched
         chain a token for all rows at B>1 or with ``kv_quant``; on the scan
         lane one dense forward a token, its matmuls quantized with
-        ``quant``."""
+        ``quant``.
+
+        ``temperature > 0`` samples (the JAX package's sampled path, token
+        for token with it up to the two frameworks' rounding at near-ties):
+        the HF ``repetition_penalty`` over the prompt's and the generated
+        tokens, temperature, then the ``top_k`` and nucleus ``top_p``
+        filters, then a Gumbel draw from the threefry key stream of
+        ``PRNGKey(seed)``, split once a token (:class:`Sampler`). On the
+        fused lane the kernel runs in its ``emit_logits`` mode, one launch
+        a token, and the sampling stage draws from its logits; the scan
+        lane draws from its forward's. The key, the ``seen`` marks, the
+        positions and the tokens stay on the device: tokens are read back
+        once a chunk, as on the greedy path. ``temperature <= 0`` is greedy,
+        and then ``top_k``, ``top_p``, ``seed`` and ``repetition_penalty``
+        do nothing."""
         ids = np.asarray(input_ids)
         B, L = ids.shape
-        fused = self._check_generate(B, dtype, fused, quant, temperature,
-                                     top_k, top_p, repetition_penalty,
-                                     kv_quant, flash_prefill)
+        fused = self._check_generate(B, dtype, fused, quant, kv_quant,
+                                     flash_prefill)
         total = min(max_new_tokens, self.max_seq_len)
         if total <= L:
             return
@@ -894,8 +1121,13 @@ class Llama(nn.Module):
         else:
             weights = self._weights(dtype)
         ck, cv = self._empty_caches(B, weights["tok"].dtype)
+        sampler = None
+        if temperature is not None and temperature > 0:
+            sampler = Sampler(B, self.vocab_size, self.device, temperature,
+                              top_k, top_p, seed, repetition_penalty)
         tok = self.prefill(weights, ck, cv,
-                           *bucket_prompt(ids, L, self.max_seq_len))
+                           *bucket_prompt(ids, L, self.max_seq_len),
+                           sampler=sampler)
         tok = tok.to(torch.int32)
         if fused:
             ck, cv = self._flat_caches(ck, cv)
@@ -909,7 +1141,8 @@ class Llama(nn.Module):
             if n > 0:
                 decode = (self.decode_chunk if fused
                           else self.decode_chunk_plain)
-                toks = decode(weights, ck, cv, tok, pos, n).reshape(n, B)
+                toks = decode(weights, ck, cv, tok, pos, n,
+                              sampler=sampler).reshape(n, B)
                 tok, pos = toks[-1], pos + n
                 rows = torch.cat([rows, toks])
             yield from rows.cpu()[:, :, None]

@@ -1,5 +1,5 @@
-"""Continuous-batching greedy decode server over the batched decode kernel:
-the port of ``pydynet_tpu/models/llama/serve.py`` (its fused lane).
+"""Continuous-batching decode server over the batched decode kernel: the
+port of ``pydynet_tpu/models/llama/serve.py`` (its fused and scan lanes).
 
 ``B`` cache slots decode in lockstep at ONE shared position, one batched
 kernel step (``ops.decode_step.fused_decode_token_batched``) per fleet token,
@@ -41,9 +41,21 @@ rows with per-row float32 scales: an admission wave's rows are quantized by
 ``quantize_kv``, K from its float32 rotated rows, as the kernel quantizes
 the rows it writes, so admitted and decoded rows are alike.
 
+Sampling, server-wide (``temperature``, ``top_k``, ``top_p``) or per
+request (``submit(..., temperature=, top_k=, top_p=, seed=)``), is the JAX
+package's: every slot carries its own threefry key, made at admission from
+the request's ``seed`` (``fold_in(PRNGKey(0x5EED), seed)``) or, unseeded,
+from the server's ``seed`` and the request id, and split once a step; each
+row draws with its own key (``sample_logits_per_row``), so a seeded
+request's tokens depend only on its prompt, parameters and seed, not on the
+fleet it joined. The admission's first token is drawn too. A chunk runs the
+kernel's ``emit_logits`` mode and the sampling stage only when an active
+slot samples; a fleet of greedy rows keeps the kernel's argmax mode, on a
+sampling server too. Rows whose temperature is 0 take the exact argmax.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): sampling and speculative serving, the int8 KV cache on the scan lane,
-the scan lane's prefix cache, flash prefill.
+item): speculative serving, the int8 KV cache on the scan lane, the scan
+lane's prefix cache, flash prefill.
 """
 from __future__ import annotations
 
@@ -54,8 +66,14 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ... import random as prandom
 from ...ops import decode_step as dsk
-from .model import _rope_pure, bucket_prompt, check_kv_quant, not_ported
+from .model import (_rope_pure, bucket_prompt, check_kv_quant, not_ported,
+                    sample_logits_per_row)
+
+# seeded requests derive their keys from this fixed key, not the server's,
+# so a (prompt, parameters, seed) triple gives the same stream on any server
+SEEDED_KEY = 0x5EED
 
 
 @dataclass
@@ -66,6 +84,11 @@ class Request:
     tokens: list = field(default_factory=list)  # generated ids
     done: bool = False
     truncated: bool = False
+    # per-request sampling overrides (None: the server's defaults)
+    temperature: float = None
+    top_k: int = None
+    top_p: float = None
+    seed: int = None  # None: derived from the server's seed and the rid
 
 
 class _FleetScheduler:
@@ -84,17 +107,58 @@ class _FleetScheduler:
         self._finished: dict = {}
         self._admit_credits: list = []  # (rid, [first_token]) for stream()
 
-    def submit(self, prompt_ids, max_new_tokens: int = 256) -> int:
+    def _init_sampling_state(self, V, temperature, top_k, top_p):
+        """The server's default sampling parameters and the per-slot
+        vectors of the parameters in force (a row with temperature <= 0 is
+        greedy, ``top_k = V`` and ``top_p = 1`` keep every token)."""
+        self._temp = float(temperature or 0.0)
+        self._top_k, self._top_p = top_k, top_p
+        self._V = V
+        self._ptemp = np.full(self.B, self._temp, np.float32)
+        self._ptopk = np.full(self.B, top_k if top_k is not None else V,
+                              np.int32)
+        self._ptopp = np.full(self.B, top_p if top_p is not None else 1.0,
+                              np.float32)
+
+    def submit(self, prompt_ids, max_new_tokens: int = 256,
+               temperature: float = None, top_k: int = None,
+               top_p: float = None, seed: int = None) -> int:
         """Queue one prompt (list or array of token ids); returns its
         request id. ``max_new_tokens`` counts the generated tokens, the
-        admission token included."""
+        admission token included. ``temperature``/``top_k``/``top_p``
+        override the server's defaults for this request; ``seed`` (an
+        int32) pins its key stream, so its sampled tokens depend only on
+        its prompt, parameters and seed."""
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not 0 < len(prompt) < self.S:
             raise ValueError(f"prompt length {len(prompt)} outside "
                              f"[1, {self.S - 1}]")
+        if temperature is not None and temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if top_k is not None and not 0 < top_k:
+            raise ValueError(f"top_k must be positive, got {top_k}")
+        if top_p is not None and not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if seed is not None and not -2**31 <= int(seed) < 2**31:
+            # the admission wave carries the seeds as int32: fail here, not
+            # mid-serving after the slot was assigned
+            raise ValueError(f"seed must fit int32, got {seed}")
         rid = next(self._rid)
-        self._queue.append(Request(rid, prompt, int(max_new_tokens)))
+        self._queue.append(Request(rid, prompt, int(max_new_tokens),
+                                   temperature=temperature, top_k=top_k,
+                                   top_p=top_p, seed=seed))
         return rid
+
+    def _slot_params(self, slot, req) -> bool:
+        """Put a request's sampling parameters in force in its slot's
+        vectors; True when the row samples."""
+        t = self._temp if req.temperature is None else float(req.temperature)
+        k = self._top_k if req.top_k is None else req.top_k
+        p = self._top_p if req.top_p is None else req.top_p
+        self._ptemp[slot] = t
+        self._ptopk[slot] = k if k is not None else self._V
+        self._ptopp[slot] = p if p is not None else 1.0
+        return t > 0
 
     @property
     def active(self) -> int:
@@ -123,6 +187,16 @@ class _FleetScheduler:
             self._slots[slot] = req
             plan.append((slot, req))
         return plan
+
+    @staticmethod
+    def _wave_arrays(sub):
+        """One admission sub-wave's host arrays: (prompts (k, L), slots,
+        seeds int32 (0 when unseeded), has_seed, rids)."""
+        return (np.array([r.prompt for _, r in sub], np.int64),
+                [s for s, _ in sub],
+                np.array([r.seed or 0 for _, r in sub], np.int32),
+                np.array([r.seed is not None for _, r in sub]),
+                np.array([r.rid for _, r in sub], np.int32))
 
     @staticmethod
     def _pow2_subwaves(group):
@@ -169,7 +243,7 @@ class _FleetScheduler:
 
 
 class LlamaServer(_FleetScheduler):
-    """Greedy continuous-batching decode for one Llama model.
+    """Continuous-batching decode for one Llama model, greedy or sampled.
 
     >>> srv = LlamaServer(model, batch_size=8, dtype=torch.bfloat16)
     >>> rid = srv.submit(tokenizer.encode(prompt))
@@ -180,25 +254,26 @@ class LlamaServer(_FleetScheduler):
     scale); ``"int8"`` and ``"int4"`` quantize every matmul, on either
     lane. ``kv_quant="int8"`` keeps the fused lane's caches int8 (module
     doc); it takes float weights (a ``quant`` raises ``ValueError``, as in
-    the JAX package). ``lane`` is ``"fused"``, ``"xla"`` (the scan lane) or
+    the JAX package). ``temperature`` (0: greedy), ``top_k`` and ``top_p``
+    are the requests' default sampling parameters, which ``submit`` may
+    override; ``seed`` keys the unseeded requests' streams (module doc).
+    ``lane`` is ``"fused"``, ``"xla"`` (the scan lane) or
     None (routed as ``generate`` routes, see the module doc). ``chunk`` is
     the number of decode steps a dispatch runs: a finished request's slot
     is recycled at the next chunk boundary, one chunk late under ``run``'s
     pipeline. The constructor keeps the JAX package's keyword names; the
     options not ported yet raise ``NotImplementedError`` naming their
     ROADMAP.md item. ``dispatched_steps`` counts the decode steps
-    dispatched so far, clamped filler steps included.
+    dispatched so far, clamped filler steps included, and
+    ``sampled_steps`` those of them in sampled chunks.
     """
 
     def __init__(self, model, batch_size: int = 8, dtype=None,
                  chunk: int = 128, eos_id: int = 2, temperature: float = 0.0,
-                 top_k: int = None, top_p: float = None, seed: int = None,
+                 top_k: int = None, top_p: float = None, seed: int = 0,
                  kv_quant=None, quant=None, lane: str = None,
                  prefix_cache: bool = False, flash_prefill=None,
                  speculative=None):
-        if (temperature or 0) > 0 or top_k is not None or top_p is not None \
-                or seed is not None:
-            not_ported("sampled serving", "Sampling")
         if speculative:
             not_ported("speculative serving", "Sampling")
         if kv_quant not in (None, "int8"):
@@ -241,11 +316,21 @@ class LlamaServer(_FleetScheduler):
         else:  # the scan lane's (N, B, S, Hkv, hd) layout
             self._ck, self._cv = model._empty_caches(self.B, cdt)
         self._tok = torch.ones(self.B, dtype=torch.int32, device=dev)
-        # the decode steps' copy of _starts, written at admission only, so a
-        # decode dispatch copies nothing from the host
+        # the decode steps' copies of _starts and of the per-slot sampling
+        # vectors, written at admission only, so a decode dispatch copies
+        # nothing from the host
         self._starts_dev = torch.zeros(self.B, dtype=torch.int32, device=dev)
         self._init_fleet_state()
-        self.dispatched_steps = 0
+        self._init_sampling_state(model.vocab_size, temperature, top_k, top_p)
+        self._params_dev = [torch.from_numpy(v).to(dev) for v in
+                            (self._ptemp, self._ptopk, self._ptopp)]
+        # per-slot keys on the device: fold_in(PRNGKey(seed), slot), then at
+        # admission the request's own (derive_keys), split once a step
+        self._base_key = prandom.PRNGKey(seed, dev)
+        self._fixed_key = prandom.PRNGKey(SEEDED_KEY, dev)
+        self._pkeys = prandom.fold_in(
+            self._base_key, torch.arange(self.B, device=dev))
+        self.dispatched_steps = self.sampled_steps = 0
 
     # ------------------------------ device ------------------------------ #
     def _refresh_weights(self):
@@ -261,11 +346,39 @@ class LlamaServer(_FleetScheduler):
         else:
             self._w = m._weights(self._dtype)
 
+    def _derive_keys(self, seeds, has_seed, rids):
+        """The admitted requests' keys, split once: (draw keys (k, 2) for
+        the first token, the keys the slots carry on (k, 2)). A seeded
+        request's key is ``fold_in(PRNGKey(0x5EED), seed)``, an unseeded
+        one's ``fold_in(PRNGKey(server seed), rid)``."""
+        dev = self._pkeys.device
+        k_seed = prandom.fold_in(self._fixed_key,
+                                 torch.from_numpy(seeds).to(dev))
+        k_rid = prandom.fold_in(self._base_key,
+                                torch.from_numpy(rids).to(dev))
+        keys = torch.where(torch.from_numpy(has_seed).to(dev)[:, None],
+                           k_seed, k_rid)
+        ks = prandom.split(keys)  # (k, 2, 2)
+        return ks[:, 0], ks[:, 1]
+
+    def draw(self, logits):
+        """The fleet's next tokens (B,) int32 from its (B, V) logits: each
+        row's key split, the row drawing with the first half
+        (``sample_logits_per_row`` with the slots' parameters) and carrying
+        the second on, as the JAX server's sampled chunk does."""
+        ks = prandom.split(self._pkeys)  # (B, 2, 2)
+        self._pkeys = ks[:, 1]
+        return sample_logits_per_row(logits.float(), ks[:, 0],
+                                     *self._params_dev).to(torch.int32)
+
     @torch.no_grad()
-    def _admit_many(self, prompts, pos0: int, slots):
+    def _admit_many(self, prompts, pos0: int, slots, seeds, has_seed, rids,
+                    sample: bool):
         """Prefill a wave of k same-length prompts (k, L) into ``slots`` at
         absolute rows ``[pos0, pos0 + L)`` of the fleet's caches; returns
-        their first tokens (k,) int32 on the device.
+        their first tokens (k,) int32 on the device: greedy, or with
+        ``sample`` drawn per row with the requests' parameters and keys
+        (:meth:`_derive_keys`). The slots' keys become the requests'.
 
         The prefill runs at position 0 (``generate``'s bucketed dense
         prefill), and its K rows are then rotated on by ``pos0``: rotary
@@ -278,7 +391,15 @@ class LlamaServer(_FleetScheduler):
         k, L = prompts.shape
         ids, last_idx = bucket_prompt(prompts, L, self.S)
         ck5, cv5 = model._empty_caches(k, self._cdt)
-        tok1 = model.prefill(w, ck5, cv5, ids, last_idx).to(torch.int32)
+        logits1 = model.prefill_logits(w, ck5, cv5, ids, last_idx)
+        idx = torch.as_tensor(slots, dtype=torch.long, device=logits1.device)
+        draw_k, self._pkeys[idx] = self._derive_keys(seeds, has_seed, rids)
+        if sample:
+            tok1 = sample_logits_per_row(
+                logits1, draw_k, *(v[idx] for v in self._params_dev))
+        else:
+            tok1 = logits1.argmax(-1)
+        tok1 = tok1.to(torch.int32)
         if self._lane == "fused":
             N, D = model.n_layers, model.embed_dim
             rows_k = ck5[:, :, :L].reshape(N, k, L, D).float()
@@ -290,7 +411,6 @@ class LlamaServer(_FleetScheduler):
             rows_k = _rope_pure(ck5[:, :, :L].float(),
                                 w["cos"][pos0:pos0 + 1].float(),
                                 w["sin"][pos0:pos0 + 1].float())
-        idx = torch.as_tensor(slots, dtype=torch.long, device=tok1.device)
         if self._kv_quant:
             for (data, scales), rows in ((self._ck, rows_k),
                                          (self._cv, rows_v)):
@@ -307,11 +427,19 @@ class LlamaServer(_FleetScheduler):
     @torch.no_grad()
     def _decode(self, n: int):
         """Dispatch ``n`` decode steps from the fleet's position; returns
-        the (n, B) int32 tokens on the device, not yet read back."""
+        the (n, B) int32 tokens on the device, not yet read back. The steps
+        sample (:meth:`draw`) only when an active slot samples: the slot
+        vectors already hold the inherited defaults, so a fleet whose rows
+        all override to greedy runs the greedy chunk, on a sampling server
+        too."""
         decode = (self.model.decode_chunk if self._lane == "fused"
                   else self.model.decode_chunk_plain)
+        sampled = any(self._ptemp[i] > 0 for i in range(self.B)
+                      if self._slots[i] is not None)
+        self.sampled_steps += n if sampled else 0
         toks = decode(self._w, self._ck, self._cv, self._tok, self._pos, n,
-                      starts=self._starts_dev)
+                      starts=self._starts_dev,
+                      sampler=self if sampled else None)
         self._tok.copy_(toks[-1])  # a copy: admission writes _tok in place
         return toks
 
@@ -324,15 +452,20 @@ class LlamaServer(_FleetScheduler):
         # power-of-two sub-batches: one prefill per sub-batch, and one host
         # read back for every admission's first token at the end
         by_len: dict = {}
+        samples = {slot: self._slot_params(slot, req) for slot, req in plan}
+        for dev_v, host_v in zip(self._params_dev,
+                                 (self._ptemp, self._ptopk, self._ptopp)):
+            dev_v.copy_(torch.from_numpy(host_v))
         for slot, req in plan:
             by_len.setdefault(len(req.prompt), []).append((slot, req))
         waves, firsts_dev = [], []
         for L, group in sorted(by_len.items()):
             pos0 = self._pos - L
             for sub in self._pow2_subwaves(group):
-                prompts = np.array([r.prompt for _, r in sub], np.int64)
-                slots = [s for s, _ in sub]
-                firsts_dev.append(self._admit_many(prompts, pos0, slots))
+                prompts, slots, seeds, has_seed, rids = self._wave_arrays(sub)
+                firsts_dev.append(self._admit_many(
+                    prompts, pos0, slots, seeds, has_seed, rids,
+                    sample=any(samples[s] for s in slots)))
                 self._starts[slots] = pos0
                 waves.append(sub)
         self._credit_firsts(waves, firsts_dev)

@@ -9,7 +9,10 @@ aggregate throughput.
 
 ``--device cuda`` (the default) needs a GPU and raises without one;
 ``--device cpu`` runs the kernels' plain versions. Without a checkpoint the
-stories15M configuration is built with random weights from ``--seed``.
+stories15M configuration is built with random weights from a fixed seed
+(``infer.WEIGHTS_SEED``). ``--temperature`` above 0 makes the server
+sample, with ``--top-k``, ``--top-p`` and the unseeded requests' ``--seed``
+(``LlamaServer``); 0 is greedy.
 ``--prompts-file`` reads one prompt per line; ``--stream`` prints tokens as
 chunks are read back; ``--quant int8-head`` stores the lm_head as int8,
 ``int8``/``int4`` every matmul weight; ``--kv-quant int8`` keeps the fleet's
@@ -57,8 +60,12 @@ def main(argv=None) -> float:
                         default="llm/llama/data/stories15M.model.npz")
     parser.add_argument("--tokenizer", type=str,
                         default="llm/llama/data/tokenizer.model.np")
+    parser.add_argument("--temperature", type=float, default=0.0,
+                        help="0 = greedy; > 0 samples")
+    parser.add_argument("--top-k", type=int, default=None)
+    parser.add_argument("--top-p", type=float, default=None)
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the random weights")
+                        help="the server's sampling seed")
     parser.add_argument("--dtype", choices=list(DTYPES), default="bfloat16")
     parser.add_argument("--quant", choices=["int8-head", "int8", "int4"],
                         default=None)
@@ -87,7 +94,9 @@ def main(argv=None) -> float:
     model = build_model(args, device).eval()
     srv = LlamaServer(model, batch_size=args.batch_size,
                       dtype=DTYPES[args.dtype], chunk=args.chunk,
-                      eos_id=tokenizer.eos_id, quant=args.quant,
+                      eos_id=tokenizer.eos_id,
+                      temperature=args.temperature, top_k=args.top_k,
+                      top_p=args.top_p, seed=args.seed, quant=args.quant,
                       kv_quant=args.kv_quant, lane=args.lane)
     encoded = [tokenizer.encode(p) for p in prompts]
     rids = [srv.submit(ids, max_new_tokens=args.max_new_tokens)

@@ -1,4 +1,4 @@
-"""Greedy Llama decode steps: the ports of the Pallas TPU kernels
+"""Llama decode steps: the ports of the Pallas TPU kernels
 ``_token_kernel`` (B=1, K1; ``pydynet_tpu/ops/decode_step.py:160``, launched
 by ``fused_decode_token`` at :1346), ``_token_kernel_batched`` (B rows
 sharing one weight stream, K2; :509, launched by
@@ -33,6 +33,14 @@ D model width, F ffn width, V vocab):
 Returns ``out``, a (1,) int32 tensor holding the next token (allocated when
 not given). The residual stream is float32; each matmul input is rounded to
 T and accumulated in float32; argmax ties go to the lowest index.
+
+With ``emit_logits=True`` (the TPU kernels' ``emit_logits`` mode, which the
+sampled decode runs) a step returns the float32 logits instead of the token:
+``out`` is then a (1, V) float32 tensor (the batched step's (B, V)). They
+are the values the greedy mode's argmax compares, bias added and the
+quantized head's scales applied, so their argmax is its token. The step
+skips the argmax launch. Each wrapper counts these launches apart, in its
+``emit_launches`` attribute.
 
 K1 also takes quantized layers (the TPU kernel's ``qlayers`` and ``q4``
 modes): with ``scales`` (seven float32 (N, out) tensors, one per matrix in
@@ -325,10 +333,11 @@ _MATS = ("wq", "wk", "wv", "wo", "gate_w", "up_w", "down_w")
 def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
            down_w, in_norm, post_norm, head_w, head_b, ck, cv, n_heads,
            head_s, out, starts=None, batched=False, scales=None, q4=False,
-           sk=None, sv=None):
+           sk=None, sv=None, emit_logits=False):
     """Raise unless the arguments have the layouts of the module doc (the
-    batched step's when ``batched``). Returns (B, N, S, D, F, V), B = 1 for
-    the B=1 step."""
+    batched step's when ``batched``; ``out`` the logits' when
+    ``emit_logits``). Returns (B, N, S, D, F, V), B = 1 for the B=1
+    step."""
     if ck.dim() != (4 if batched else 3):
         raise ValueError(f"ck: expected {4 if batched else 3} dims, got "
                          f"{tuple(ck.shape)}")
@@ -392,7 +401,8 @@ def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
     if starts is not None:
         shapes["starts"] = (starts, rows, torch.int32)
     if out is not None:
-        shapes["out"] = (out, rows, torch.int32)
+        shapes["out"] = ((out, (B, V), torch.float32) if emit_logits
+                         else (out, rows, torch.int32))
     _check_tensors(shapes, emb.device)
     return B, N, S, D, F, V
 
@@ -423,36 +433,53 @@ def _check_cuda(emb, takes, what):
 def fused_decode_token(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo,
                        gate_w, up_w, down_w, in_norm, post_norm, head_w,
                        head_b, ck, cv, *, n_heads: int, head_s=None,
-                       scales=None, q4: bool = False, out=None):
-    """One greedy decode step (see the module doc for the layouts). CUDA
-    tensors launch ``csrc/decode_token.cu``; CPU tensors run
-    :func:`fused_decode_token_ref`."""
+                       scales=None, q4: bool = False,
+                       emit_logits: bool = False, out=None):
+    """One decode step (see the module doc for the layouts): the greedy
+    token, or with ``emit_logits`` the (1, V) float32 logits. CUDA tensors
+    launch ``csrc/decode_token.cu``; CPU tensors run
+    :func:`fused_decode_token_ref` (:func:`decode_token_logits_ref` for the
+    logits)."""
     args = (pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w,
             up_w, down_w, in_norm, post_norm, head_w, head_b, ck, cv)
     _, N, S, D, F, V = _check(*args, n_heads, head_s, out, scales=scales,
-                              q4=q4)
+                              q4=q4, emit_logits=emit_logits)
     if emb.device.type == "cpu":
-        return fused_decode_token_ref(*args, n_heads=n_heads, head_s=head_s,
-                                      scales=scales, q4=q4, out=out)
+        if not emit_logits:
+            return fused_decode_token_ref(*args, n_heads=n_heads,
+                                          head_s=head_s, scales=scales, q4=q4,
+                                          out=out)
+        logits = decode_token_logits_ref(*args, n_heads=n_heads,
+                                         head_s=head_s, scales=scales, q4=q4)
+        if out is None:
+            return logits[None]
+        out[0] = logits
+        return out
     _check_cuda(emb, kernel_takes(D, n_heads, F, q4),
                 f"D={D}, n_heads={n_heads}, F={F}")
     lib = _build.load()
     hd = D // n_heads
     if out is None:
-        out = torch.empty(1, dtype=torch.int32, device=emb.device)
+        out = (torch.empty(1, V, dtype=torch.float32, device=emb.device)
+               if emit_logits else
+               torch.empty(1, dtype=torch.int32, device=emb.device))
     scratch = torch.empty(
         lib.pdt_decode_token_scratch_floats(D, n_heads, F, V, S),
         dtype=torch.float32, device=emb.device)
     lfmt = 0 if scales is None else (2 if q4 else 1)
     hfmt = lfmt if scales is not None else int(head_s is not None)
+    token, logits = (None, out) if emit_logits else (out, None)
     ptrs = [None if t is None else t.data_ptr()
-            for t in (pos, tok, out, emb, cos, sin, final_norm, wq, wk, wv,
-                      wo, gate_w, up_w, down_w, in_norm, post_norm, head_w,
-                      head_s, head_b, *(scales or (None,) * len(_MATS)), ck,
-                      cv, scratch)]
+            for t in (pos, tok, token, logits, emb, cos, sin, final_norm, wq,
+                      wk, wv, wo, gate_w, up_w, down_w, in_norm, post_norm,
+                      head_w, head_s, head_b,
+                      *(scales or (None,) * len(_MATS)), ck, cv, scratch)]
     with torch.cuda.device(emb.device):  # launch on the tensors' GPU
         stream = torch.cuda.current_stream().cuda_stream
-        fused_decode_token.launches += 1
+        if emit_logits:
+            fused_decode_token.emit_launches += 1
+        else:
+            fused_decode_token.launches += 1
         err = lib.pdt_decode_token(
             _WDTYPES[emb.dtype], lfmt, hfmt, *ptrs, N, D, n_heads, F, V, S,
             ctypes.c_float(1.0 / math.sqrt(hd)), stream)
@@ -462,6 +489,7 @@ def fused_decode_token(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo,
 
 
 fused_decode_token.launches = 0
+fused_decode_token.emit_launches = 0
 
 
 def fused_decode_token_batched(pos, tok, emb, cos, sin, final_norm, wq, wk,
@@ -469,41 +497,56 @@ def fused_decode_token_batched(pos, tok, emb, cos, sin, final_norm, wq, wk,
                                post_norm, head_w, head_b, ck, cv, *,
                                n_heads: int, head_s=None, scales=None,
                                q4: bool = False, sk=None, sv=None,
-                               starts=None, out=None):
-    """One greedy decode step for B rows (see the module doc for the
-    layouts): float, int8-head, int8 or int4 weights, float caches or the
-    int8 KV cache with ``sk``/``sv``. CUDA tensors launch
+                               starts=None, emit_logits: bool = False,
+                               out=None):
+    """One decode step for B rows (see the module doc for the layouts):
+    float, int8-head, int8 or int4 weights, float caches or the int8 KV
+    cache with ``sk``/``sv``; the greedy tokens, or with ``emit_logits`` the
+    (B, V) float32 logits. CUDA tensors launch
     ``csrc/decode_token_batched.cu``, one weight stream for all rows; CPU
-    tensors run :func:`fused_decode_token_batched_ref`."""
+    tensors run :func:`fused_decode_token_batched_ref`
+    (:func:`decode_token_batched_logits_ref` for the logits)."""
     args = (pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w,
             up_w, down_w, in_norm, post_norm, head_w, head_b, ck, cv)
     B, N, S, D, F, V = _check(*args, n_heads, head_s, out, starts,
                               batched=True, scales=scales, q4=q4, sk=sk,
-                              sv=sv)
+                              sv=sv, emit_logits=emit_logits)
     if emb.device.type == "cpu":
-        return fused_decode_token_batched_ref(
-            *args, n_heads=n_heads, head_s=head_s, scales=scales, q4=q4,
-            sk=sk, sv=sv, starts=starts, out=out)
+        kw = dict(n_heads=n_heads, head_s=head_s, scales=scales, q4=q4,
+                  sk=sk, sv=sv, starts=starts)
+        if not emit_logits:
+            return fused_decode_token_batched_ref(*args, out=out, **kw)
+        logits = decode_token_batched_logits_ref(*args, **kw)
+        if out is None:
+            return logits
+        out.copy_(logits)
+        return out
     _check_cuda(emb, batched_kernel_takes(D, n_heads, F, B, q4),
                 f"B={B}, D={D}, n_heads={n_heads}, F={F}")
     lib = _build.load()
     hd = D // n_heads
     if out is None:
-        out = torch.empty(B, dtype=torch.int32, device=emb.device)
+        out = (torch.empty(B, V, dtype=torch.float32, device=emb.device)
+               if emit_logits else
+               torch.empty(B, dtype=torch.int32, device=emb.device))
     scratch = torch.empty(
         lib.pdt_decode_token_batched_scratch_floats(B, D, n_heads, F, V, S),
         dtype=torch.float32, device=emb.device)
     lfmt = 0 if scales is None else (2 if q4 else 1)
     hfmt = lfmt if scales is not None else int(head_s is not None)
+    token, logits = (None, out) if emit_logits else (out, None)
     ptrs = [None if t is None else t.data_ptr()
-            for t in (pos, tok, starts, out, emb, cos, sin, final_norm, wq,
-                      wk, wv, wo, gate_w, up_w, down_w, in_norm, post_norm,
-                      head_w, head_s, head_b,
+            for t in (pos, tok, starts, token, logits, emb, cos, sin,
+                      final_norm, wq, wk, wv, wo, gate_w, up_w, down_w,
+                      in_norm, post_norm, head_w, head_s, head_b,
                       *(scales or (None,) * len(_MATS)), ck, cv, sk, sv,
                       scratch)]
     with torch.cuda.device(emb.device):  # launch on the tensors' GPU
         stream = torch.cuda.current_stream().cuda_stream
-        fused_decode_token_batched.launches += 1
+        if emit_logits:
+            fused_decode_token_batched.emit_launches += 1
+        else:
+            fused_decode_token_batched.launches += 1
         err = lib.pdt_decode_token_batched(
             _WDTYPES[emb.dtype], lfmt, hfmt, int(sk is not None), *ptrs, B,
             N, D, n_heads, F, V, S, ctypes.c_float(1.0 / math.sqrt(hd)),
@@ -515,6 +558,7 @@ def fused_decode_token_batched(pos, tok, emb, cos, sin, final_norm, wq, wk,
 
 
 fused_decode_token_batched.launches = 0
+fused_decode_token_batched.emit_launches = 0
 
 
 # --------------------------- K9: the greedy head ---------------------------

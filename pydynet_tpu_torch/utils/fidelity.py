@@ -1,5 +1,6 @@
-"""Fidelity gates for the decode lanes (port of the argmax gates and the
-dequantized truth of ``pydynet_tpu/utils/fidelity.py``).
+"""Fidelity gates for the decode lanes (port of the argmax, logits and
+sampled gates and the dequantized truth of
+``pydynet_tpu/utils/fidelity.py``).
 
 A lane is driven teacher-forced along a greedy token stream from a truth
 model, and its per-step token must equal that stream at every step whose
@@ -9,7 +10,10 @@ or, for a lossy weight format, agree with it on a majority of steps
 the gate checks the lane's arithmetic, not the chaos of a random-weight
 stream. ``dequant_inplace`` makes the truth of a lossy format: the weights
 round-tripped through it, so the quantized lane differs from the truth only
-by the per-call activation quantization.
+by the per-call activation quantization. ``gate_fused_logits`` and
+``gate_fused_sampled`` hold the B=1 kernel's ``emit_logits`` mode, which the
+sampled decode runs, against the scan lane's logits, as logits and as the
+tokens the sampling stage draws from them.
 """
 from __future__ import annotations
 
@@ -195,3 +199,86 @@ def gate_scan_argmax(model, prompt_ids, truth, margins, tops=None, *,
     ok = int((got[conf] == truth[conf]).sum())
     frac = ok / checked if checked else 0.0
     return checked, checked > 0 and ok == checked, frac
+
+
+@torch.no_grad()
+def _teacher_forced_logits(model, prompt_ids, truth, dtype=None, quant=None):
+    """``(fused_lg, scan_lg)``, both (steps - 1, V) float32 on the model's
+    device: the B=1 fused kernel's ``emit_logits`` output and the scan
+    lane's forward logits (float weights in ``dtype``), each teacher-forced
+    along the same ``truth`` stream after its own dense prefill of the
+    prompt. Shared by the logits gate and the sampled-stream gate."""
+    prompt_ids = np.asarray(prompt_ids)
+    B, L = prompt_ids.shape
+    if B != 1:
+        raise ValueError(f"the logits gates are B=1, got B={B}")
+    w = model._fused_weights(dtype, quant)
+    dev = model.device
+    steps = truth.shape[0]
+    toks_in = torch.as_tensor(truth[:-1], dtype=torch.int32,
+                              device=dev).reshape(steps - 1, 1)
+    positions = torch.arange(L, L + steps - 1, dtype=torch.int32, device=dev)
+    ck5, cv5 = model._empty_caches(1, w["tok"].dtype)
+    model.prefill(w, ck5, cv5, prompt_ids)
+    ck, cv = model._flat_caches(ck5, cv5)
+    fused_lg = torch.empty(steps - 1, 1, model.vocab_size,
+                           dtype=torch.float32, device=dev)
+    for i in range(steps - 1):
+        model.fused_step(w, ck, cv, toks_in[i], positions[i:i + 1],
+                         emit_logits=True, out=fused_lg[i])
+    ck5, cv5 = model._empty_caches(1, w["tok"].dtype)
+    model.prefill(w, ck5, cv5, prompt_ids)
+    scan_lg = torch.stack([
+        model.forward_logits_one(w, ck5, cv5, toks_in[i][:, None].long(),
+                                 L + i)[0]
+        for i in range(steps - 1)])
+    return fused_lg[:, 0], scan_lg
+
+
+def gate_fused_logits(model, prompt_ids, truth, *, dtype=None, quant=None,
+                      rel_tol: float = 2e-2, margin: float = MARGIN):
+    """``(max_abs_diff, ok)`` (bench.py's ``logits-head-f32`` gate): the
+    fused kernel's ``emit_logits`` output, teacher-forced along ``truth``,
+    against the scan lane's logits along the same stream on the same
+    device and weights. A tile-indexing slip in the emitting head shows as
+    differences the size of the logit range, so ``ok`` asks for the largest
+    difference below ``rel_tol`` of the logit scale and for the same
+    argmax at every step whose scan-lane top-2 margin clears ``margin``
+    (at least one such step)."""
+    fused_lg, scan_lg = (t.cpu().numpy() for t in _teacher_forced_logits(
+        model, prompt_ids, truth, dtype, quant))
+    diff = float(np.abs(fused_lg - scan_lg).max())
+    scale = float(np.abs(scan_lg).max()) or 1.0
+    srt = np.sort(scan_lg, axis=-1)
+    confident = _confident(srt[:, -1] - srt[:, -2], srt[:, -1], margin,
+                           REL_MARGIN)
+    am_ok = bool(confident.any()) and bool(np.all(
+        fused_lg[confident].argmax(-1) == scan_lg[confident].argmax(-1)))
+    return diff, (diff < rel_tol * scale) and am_ok
+
+
+def gate_fused_sampled(model, prompt_ids, truth, *, dtype=None, quant=None,
+                       temperature: float = 0.8, top_k: int = 50,
+                       top_p: float = 0.9, seed: int = 0,
+                       min_agree: float = 0.8):
+    """``(checked, ok, agree)`` (bench.py's ``sampled-t0.8-k50-p0.9``
+    gate): the fused kernel's ``emit_logits`` stream and the scan lane's
+    logits stream, both teacher-forced along ``truth``, go through the same
+    sampling stage (``sample_logits``: temperature, top-k, nucleus, the
+    Gumbel draw) under the same key, the steps axis as the batch axis, and
+    the drawn tokens must agree on at least ``min_agree`` of the steps. The
+    two streams differ only by the two lanes' rounding, which moves a
+    draw only where it sits on a filter or CDF boundary; a filter or
+    indexing fault drives the agreement towards one in the nucleus
+    size."""
+    from ..models.llama.model import sample_logits
+    from ..random import PRNGKey
+
+    fused_lg, scan_lg = _teacher_forced_logits(model, prompt_ids, truth,
+                                               dtype, quant)
+    key = PRNGKey(seed, fused_lg.device)
+    tf, tx = (sample_logits(lg, key, temperature, top_k, top_p).cpu().numpy()
+              for lg in (fused_lg, scan_lg))
+    checked = int(tf.size)
+    frac = float((tf == tx).mean()) if checked else 0.0
+    return checked, checked > 0 and frac >= min_agree, frac

@@ -578,3 +578,51 @@ def test_head_and_step_cuda_inputs_never_fall_back(tiny):
     args[5] = torch.ones(32, 33, device="cuda")
     with pytest.raises(ValueError, match="H <= D"):
         dsk.fused_decode_step(*args)
+
+
+@pytest.mark.parametrize("pos", [0, 17, 1023, 1030])
+@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "f32-int8",
+                                 "bf16-int8", "bf16-int4"])
+def test_emit_logits_matches_plain_and_argmax_mode(model, fmt, pos):
+    """K1's emit_logits mode: the (1, V) logits within chip_smoke's stated
+    tolerance of the plain version's, their argmax the argmax mode's token,
+    and the caches as the plain step leaves them."""
+    from chip_smoke import cache_atol, emit_ok, emit_vs_plain
+
+    with torch.no_grad():
+        err, scale, same, cerr = emit_vs_plain(model, fmt, pos)
+    assert emit_ok(fmt, err, scale), (err, scale)
+    assert same and cerr <= cache_atol(fmt)
+
+
+@pytest.mark.parametrize("batch", [4, 32])
+@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
+                                 "bf16-int4", "f32-kv8", "bf16-kv8"])
+def test_batched_emit_logits_matches_plain_and_argmax_mode(model, fmt,
+                                                           batch):
+    """K2's emit_logits mode with per-row starts, in every K2 format."""
+    from chip_smoke import batched_emit_vs_plain, cache_ok, emit_ok
+
+    with torch.no_grad():
+        err, scale, same, cerr = batched_emit_vs_plain(model, fmt, batch,
+                                                       1030)
+    assert emit_ok(fmt, err, scale), (err, scale)
+    assert same and cache_ok(fmt, cerr), cerr
+
+
+def test_emit_launch_counters_count_emit_launches_only(model):
+    """The emit mode counts in emit_launches, the argmax mode in launches;
+    a sampled request runs the emit mode once a decode step and never the
+    argmax mode."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    ids = np.array([[1, 243, 532, 991]])
+    for k, B in ((dsk.fused_decode_token, 1),
+                 (dsk.fused_decode_token_batched, 3)):
+        greedy, emit = k.launches, k.emit_launches
+        toks = list(model.generate(np.repeat(ids, B, 0), 20,
+                                   dtype=torch.bfloat16, temperature=0.8,
+                                   top_k=50, top_p=0.9, seed=1))
+        assert len(toks) == 16 and all(t.shape == (B, 1) for t in toks)
+        assert k.emit_launches - emit == 15 and k.launches == greedy
+

@@ -139,10 +139,9 @@ def test_xla_lane_quant_runs_the_quantized_matmuls(monkeypatch):
 def test_xla_lane_unported_options_raise():
     _, tm = models(20)
     for kw in (dict(prefix_cache=True), dict(kv_quant="int8"),
-               dict(lane="xla", temperature=0.5)):
+               dict(speculative=4)):
         with pytest.raises(NotImplementedError):
-            LlamaServer(tm, lane="xla", **{k: v for k, v in kw.items()
-                                           if k != "lane"})
+            LlamaServer(tm, lane="xla", **kw)
     with pytest.raises(ValueError, match="lane"):
         LlamaServer(tm, lane="scan")
     with pytest.raises(ValueError, match="quant"):
