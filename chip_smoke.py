@@ -28,6 +28,14 @@ the run with a nonzero exit and no result line:
    against K1 on that row alone (the int8 KV cache's against K2 at B = 1);
    then K2's ``emit_logits`` mode in every one of these formats at B = 4
    and 32, positions 17 and 1030, as K1's;
+3n. the narrow mode: phases 3 and 3b again on bench.py's ``GQA_15M``
+   (stories15M with 2 KV heads, 96-wide caches): K1 and K2 with float
+   weights and the int8 head on the narrow cache (K2 also with the int8 KV
+   cache, ``starts`` and ``emit_logits``), with int8/int4 layers on the
+   expanded layout;
+3w. K2 above 32 rows (its row groups): phase 3b's checks at B = 33, 48 and
+   64 in every format, the argmax mode at position 1030 and the emit mode
+   at 17, and each row of a B = 64 step against K1 on that row alone;
 3c. the quantized-matmul kernels against their plain versions, bit for
    bit: the activation quantization, the decode kernel (K5) and the prefill
    kernel (K6) at M in {1, 2, 3, 4, 5, 12, 16, 32, 33, 256, 1000} rows
@@ -86,6 +94,16 @@ the run with a nonzero exit and no result line:
    chunks and its argmax launches the rest; a seeded request's tokens
    equal in two fleets; ``infer`` and ``serve_cli`` with ``--temperature
    0.8 --top-k 50 --top-p 0.9``;
+4g. the grouped-query path: ``generate`` of a 1024-token bfloat16 request
+   on ``GQA_15M`` routed by ``fused=None`` (K1's narrow launches must equal
+   the decode steps, every K1 call's caches 96 wide; their bytes beside
+   MHA's), bench.py's ``gqa-6q2kv-narrow`` gate, a sampled request through
+   the narrow emit mode, and ``quant="int8"`` on the expanded layout;
+4w. grouped-query and wide fleets: a B = 8 ``GQA_15M`` server over the 24
+   requests in bfloat16 and with the int8 KV cache (K2's narrow launches
+   must equal the dispatched steps), its float32 twin against standalone
+   float32 ``generate``; a 64-slot stories15M server over 96 requests and
+   a B = 64 1024-token ``generate`` through K2's row groups;
 4c. the training path: the flash-attention forward (K3) and its dq and
    dk/dv backward kernels (K4) against their plain versions at
    (B, L, 6, 48), B in {1, 8}, L in {1, 7, 64, 1000, 1024}, in float32 and
@@ -121,8 +139,9 @@ the run with a nonzero exit and no result line:
    K9's beside its bound and ``torch.argmax(head_w @ h + b)``, K10's beside
    its bound and its plain version's, the serving run's generated tokens per second in each of
    4b's formats (``REPEATS`` times, in turns) and the B = 8 request's; the
-   sampled request's and the sampling server's tokens per second beside
-   the greedy bf16 ones (in the same turns); K1's and K2's (B = 8) emit
+   sampled request's (256 tokens) and the sampling server's (its requests
+   capped at 256 new tokens) tokens per second beside the greedy bf16 ones
+   (in the same turns); K1's and K2's (B = 8) emit
    step beside the argmax mode at pos 512, the emit head's device time
    beside ``F.linear(h, head_w, head_b)``, and the sampling stage's
    launches, device time and elapsed time a step at B = 1 and 8; K3's
@@ -138,7 +157,12 @@ the run with a nonzero exit and no result line:
    and backward; K8's time at (40, 512), (40, 128), (1024, 1024) and
    (8192, 1024) beside its plain version, its bound and ``F.batch_norm``,
    the dropout_bn train step in steps/s and the MNIST ConvNet's epochs in
-   steps/s and samples/s; all with the card's name and power limit;
+   steps/s and samples/s; K1 narrow against K1 MHA (bf16, pos 512), K2
+   narrow B = 8 against MHA B = 8, K2 at B = 64 against B = 32 (bf16 and
+   int8 layers), each in turns beside its plain version and bound, and the
+   tokens per second of the ``GQA_15M`` request, the ``GQA_15M`` B = 8
+   server and the 64-slot server; all with the card's name and power
+   limit;
 6. only with ``--profile``: for K1 the step by CUDA events and the host's
    enqueue time per call at positions 0, 512 and 1023, and for K1 and K2
    the device time of each kernel of the chain from ``torch.profiler``;
@@ -165,6 +189,10 @@ CFG = dict(vocab_size=32000, embed_dim=288, n_heads=6, ffn_dim=768,
 POSITIONS = (0, 1, 17, 255, 1023, 1030)
 BATCH_POSITIONS = (1, 17, 255, 1023, 1030)
 BATCHES = (4, 32)  # K2 against its plain version
+WIDE_BATCHES = (33, 48, 64)  # K2 above one group of 32 rows
+WIDE_REQUESTS = 96  # the 64-slot server's requests (SERVE's mix)
+# bench.py's GQA_15M: stories15M with 2 KV heads (head_dim 48, Dkv 96)
+GQA_CFG = dict(CFG, n_kv_heads=2)
 FORMATS = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
            "bf16-int8head": (torch.bfloat16, "int8-head"),
            "f32-int8": (torch.float32, "int8"),
@@ -268,7 +296,7 @@ QMM_ROWS = (1, 2, 3, 4, 5, 12, 16, 32, 33, 256, 1000)
 BIG_NEW = 64  # tokens of the 7B request (prefill token included)
 BIG_SERVE = dict(batch_size=4, chunk=32, eos_id=-1)
 BIG_REQUESTS, BIG_MAX_NEW = 8, (48, 64, 24, 40)
-BIG_TIME_REQUESTS = 32  # the timed server: decode steps outweigh admission
+BIG_TIME_REQUESTS = 16  # the timed server: four admission waves
 BIG_REPEATS = 3
 LONG_PROMPT = 40  # a stories15M scan-lane prompt past 32 rows: the K6 path
 INT4_MIN_AGREE = 0.75  # bench.py's majority floor for the lossy formats
@@ -372,13 +400,21 @@ def batched_args(model, weights, ck, cv, pos, toks, starts=None):
                  **kv))
 
 
-def random_caches(model, dtype, seed, batch=None, kv8=False):
-    """Seeded random caches: (N, S, D), or (N, B, S, D) for ``batch``; with
-    ``kv8`` their int8 rows and scales (``quantize_kv``)."""
+def cache_width(model, weights):
+    """The fused lane's cache width for a snapshot: a grouped-query model's
+    narrow Hkv * hd, else D (MHA, or the expanded layout)."""
+    return (model.n_kv_heads * model.head_dim if "n_kv_heads" in weights
+            else model.embed_dim)
+
+
+def random_caches(model, dtype, seed, batch=None, kv8=False, width=None):
+    """Seeded random caches: (N, S, W), or (N, B, S, W) for ``batch``, W
+    ``width`` (D when not given); with ``kv8`` their int8 rows and scales
+    (``quantize_kv``)."""
     from pydynet_tpu_torch.ops import decode_step as dsk
 
     g = torch.Generator(device=model.device).manual_seed(seed)
-    shape = (model.n_layers, model.max_seq_len, model.embed_dim)
+    shape = (model.n_layers, model.max_seq_len, width or model.embed_dim)
     if batch is not None:
         shape = (model.n_layers, batch) + shape[1:]
     caches = [torch.randn(shape, generator=g, device=model.device)
@@ -393,8 +429,11 @@ def clone_caches(ck, cv):
 
 
 def batched_caches(model, fmt, seed, batch):
-    return random_caches(model, fmt_of(fmt)[0], seed, batch,
-                         fmt in KV8_FORMATS)
+    """Random caches for K2 in ``fmt`` at the width of its snapshot."""
+    dtype, quant = fmt_of(fmt)
+    return random_caches(model, dtype, seed, batch, fmt in KV8_FORMATS,
+                         cache_width(model, model._fused_weights(dtype,
+                                                                 quant)))
 
 
 def confident_rows(logits):
@@ -418,7 +457,7 @@ def kernel_vs_plain(model, fmt, pos, tok=1234, seed=0):
 
     dtype, quant = FORMATS[fmt]
     w = model._fused_weights(dtype, quant)
-    ck, cv = random_caches(model, dtype, seed)
+    ck, cv = random_caches(model, dtype, seed, width=cache_width(model, w))
     args, kw = step_args(model, w, ck, cv, pos, tok)
     rck, rcv = ck.clone(), cv.clone()
     got = int(dsk.fused_decode_token(*args, **kw)[0])
@@ -472,7 +511,7 @@ def emit_vs_plain(model, fmt, pos, tok=1234, seed=0):
 
     dtype, quant = FORMATS[fmt]
     w = model._fused_weights(dtype, quant)
-    ck, cv = random_caches(model, dtype, seed)
+    ck, cv = random_caches(model, dtype, seed, width=cache_width(model, w))
     gck, gcv = ck.clone(), cv.clone()
     rck, rcv = ck.clone(), cv.clone()
     args, kw = step_args(model, w, ck, cv, pos, tok)
@@ -665,7 +704,7 @@ def check_head_and_step(model, truth, margins, tops):
     dev, D, L = model.device, model.embed_dim, PROMPT.shape[1]
     rot = dsk.rope_pair_swap_matrix(D).to(dev)
     hmask = dsk.head_mask_matrix(D, model.n_heads).to(dev)
-    ck, cv = model._flat_caches(*model._empty_caches(1, torch.float32))
+    ck, cv = model._flat_caches(*model._empty_caches(1, torch.float32), w)
     feed = list(PROMPT[0]) + [int(t) for t in truth[:PATH_STEPS - 1, 0]]
     toks = torch.tensor(feed, dtype=torch.long, device=dev)
     positions = torch.arange(len(feed), dtype=torch.int32, device=dev)
@@ -749,13 +788,13 @@ def time_head_and_step(model, card):
     return out
 
 
-def serve_requests(model, seed=0):
-    """Seeded (prompt, max_new_tokens) requests: prompt lengths in
+def serve_requests(model, seed=0, n=N_REQUESTS):
+    """``n`` seeded (prompt, max_new_tokens) requests: prompt lengths in
     [2, 16], max_new_tokens cycling over MAX_NEW."""
     rng = np.random.default_rng(seed)
     return [(rng.integers(1, model.vocab_size,
                           size=int(rng.integers(2, 17))).tolist(),
-             MAX_NEW[i % len(MAX_NEW)]) for i in range(N_REQUESTS)]
+             MAX_NEW[i % len(MAX_NEW)]) for i in range(n)]
 
 
 def serve(model, requests, **kw):
@@ -772,11 +811,12 @@ def serve(model, requests, **kw):
     return srv, [done[r] for r in rids]
 
 
-def sampled_requests(model):
+def sampled_requests(model, cap=None):
     """The serving mix with per-request sampling overrides: every odd
     request seeded, every fourth overriding to greedy, the rest drawing
-    from the server's defaults and keys."""
-    return [(p, n, dict(temperature=0.0) if i % 4 == 0 else
+    from the server's defaults and keys; ``max_new_tokens`` capped at
+    ``cap`` when given."""
+    return [(p, min(n, cap or n), dict(temperature=0.0) if i % 4 == 0 else
              dict(seed=1000 + i) if i % 2 else {})
             for i, (p, n) in enumerate(serve_requests(model))]
 
@@ -967,6 +1007,36 @@ def profile_big(model):
             del ck, cv
 
 
+def check_f32_server(model, label=""):
+    """A float32 B=4 server against standalone float32 ``generate`` (K1) on
+    each of 8 prompts, both against the eager float32 stream, up to each
+    stream's first near-tie."""
+    from pydynet_tpu_torch.utils import fidelity
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, model.vocab_size,
+                            size=int(rng.integers(2, 17))).tolist()
+               for _ in range(8)]
+    _, done = serve(model, [(p, 48) for p in prompts], dtype=torch.float32,
+                    batch_size=4, chunk=128, eos_id=-1)
+    compared = 0
+    for p, req in zip(prompts, done):
+        truth, margins, _ = fidelity.greedy_truth(model, np.array([p]), 48)
+        conf = fidelity._confident(margins[:, 0], None, F32_MARGIN, 0.0)
+        k = int(np.argmin(conf)) if not conf.all() else len(conf)
+        alone = [int(t[0, 0]) for t in model.generate(
+            np.array([p]), len(p) + 48, dtype=torch.float32)]
+        if req.tokens[:k] != alone[:k] or alone[:k] != truth[:k, 0].tolist():
+            raise AssertionError(f"f32 server stream {req.tokens[:k]} != "
+                                 f"generate {alone[:k]} (truth "
+                                 f"{truth[:k, 0].tolist()})")
+        compared += k
+    print(f"[chip_smoke] {label}f32 server B=4 vs standalone f32 generate: "
+          f"{compared} tokens equal up to each stream's first near-tie")
+    if compared < 100:
+        raise AssertionError(f"only {compared} f32 tokens compared")
+
+
 def check_serving(model):
     """Phase 4b: the serving path through K2. Returns K2's launches."""
     from pydynet_tpu_torch.models.llama import Llama, serve_cli
@@ -1001,30 +1071,7 @@ def check_serving(model):
             raise AssertionError(f"serve {name}: {launched} launches for "
                                  f"{srv.dispatched_steps} dispatched steps")
     serve_launches = k2.launches
-
-    # f32 server against standalone f32 generate (K1) on each prompt
-    rng = np.random.default_rng(3)
-    prompts = [rng.integers(1, model.vocab_size,
-                            size=int(rng.integers(2, 17))).tolist()
-               for _ in range(8)]
-    _, done = serve(model, [(p, 48) for p in prompts], dtype=torch.float32,
-                    batch_size=4, chunk=128, eos_id=-1)
-    compared = 0
-    for p, req in zip(prompts, done):
-        truth, margins, _ = fidelity.greedy_truth(model, np.array([p]), 48)
-        conf = fidelity._confident(margins[:, 0], None, F32_MARGIN, 0.0)
-        k = int(np.argmin(conf)) if not conf.all() else len(conf)
-        alone = [int(t[0, 0]) for t in model.generate(
-            np.array([p]), len(p) + 48, dtype=torch.float32)]
-        if req.tokens[:k] != alone[:k] or alone[:k] != truth[:k, 0].tolist():
-            raise AssertionError(f"f32 server stream {req.tokens[:k]} != "
-                                 f"generate {alone[:k]} (truth "
-                                 f"{truth[:k, 0].tolist()})")
-        compared += k
-    print(f"[chip_smoke] f32 server B=4 vs standalone f32 generate: "
-          f"{compared} tokens equal up to each stream's first near-tie")
-    if compared < 100:
-        raise AssertionError(f"only {compared} f32 tokens compared")
+    check_f32_server(model)
 
     # the batched argmax gates (bench.py's batched-b4, -b32, -b4-int8head;
     # -b4-int8 and -b4-kvint8 by majority agreement with the f32 stream)
@@ -1334,19 +1381,20 @@ def decode_step_bound(w, ck, pos, rows, emit=False):
     scales), and with ``emit`` the float32 (rows, V) logits written;
     operations two a weight and two a cache element a row, at the weight
     type's peak."""
-    from pydynet_tpu_torch.models.llama.model import FUSED_MATS
+    from pydynet_tpu_torch.models.llama.model import (FUSED_MATS,
+                                                      decode_weight_args)
 
     kv8 = isinstance(ck, tuple)
     if kv8:
         ck = ck[0]
-    N, D = ck.shape[0], ck.shape[-1]
-    q = "_q" if "wq_s" in w else ""
-    mats = [w[k + q] for k in FUSED_MATS]
-    scales = [w[k + "_s"] for k in FUSED_MATS] if q else []
+    N, W = ck.shape[0], ck.shape[-1]  # W: the cache width (narrow: Dkv)
+    D = w["tok"].shape[1]
+    mats = list(decode_weight_args(w)[4:4 + len(FUSED_MATS)])
+    scales = [w[k + "_s"] for k in FUSED_MATS] if "wq_s" in w else []
     head = [w["head_wq"], w["head_s"]] if "head_s" in w else [w["head_w"]]
     small = [w[k] for k in ("norm", "in_norm", "post_norm", "head_b")]
     it = w["tok"].element_size()
-    row_bytes = D * ck.element_size() + (4 if kv8 else 0)
+    row_bytes = W * ck.element_size() + (4 if kv8 else 0)
     kv = rows * N * 2 * row_bytes * (pos + 2)  # pos + 1 rows read, 1 written
     n_bytes = nbytes(*mats, *scales, *head, *small) + rows * D * it * 3 + kv
     if emit:
@@ -1354,7 +1402,7 @@ def decode_step_bound(w, ck, pos, rows, emit=False):
     per_byte = 2 if "q4" in w else 1  # weights a stored element holds
     n_ops = 2 * rows * per_byte * (sum(m.numel() for m in mats)
                                    + head[0].numel()) \
-        + 4 * rows * N * D * (pos + 1)
+        + 4 * rows * N * D * (pos + 1)  # every query head's scores and p @ V
     return bound(n_bytes, n_ops, w["tok"].dtype)
 
 
@@ -2358,6 +2406,309 @@ def time_sampling(model, card):
     return out
 
 
+def check_k1(model, label=""):
+    """Phase 3 (and 3n on a grouped-query model): K1 against its plain
+    version in every format at POSITIONS, then its emit_logits mode.
+    Returns (cache errors, emit errors) by format."""
+    max_err, emit_err = {}, {}
+    for fmt, (dtype, _) in FORMATS.items():
+        max_err[fmt] = 0.0
+        for pos in POSITIONS:
+            got, want, confident, err = kernel_vs_plain(model, fmt, pos)
+            print(f"[chip_smoke] {label}{fmt} pos {pos}: kernel {got} plain "
+                  f"{want} confident {confident} cache err {err:.3g}")
+            if err > cache_atol(fmt):
+                raise AssertionError(f"{label}{fmt} pos {pos}: cache error "
+                                     f"{err} > {cache_atol(fmt)}")
+            if got != want and (dtype == torch.float32 or confident):
+                raise AssertionError(f"{label}{fmt} pos {pos}: kernel token "
+                                     f"{got} != plain {want}")
+            max_err[fmt] = max(max_err[fmt], err)
+    for fmt in FORMATS:  # the emit_logits mode
+        for pos in POSITIONS:
+            err, scale, same, cerr = emit_vs_plain(model, fmt, pos)
+            print(f"[chip_smoke] {label}{fmt} pos {pos} emit_logits: max "
+                  f"|logit diff| {err:.3g} of scale {scale:.3g}, argmax "
+                  f"= argmax-mode token {same}, cache err {cerr:.3g}")
+            if not (emit_ok(fmt, err, scale) and same
+                    and cerr <= cache_atol(fmt)):
+                raise AssertionError(f"{label}{fmt} pos {pos}: emit_logits "
+                                     "differs from plain or argmax mode")
+            emit_err[fmt] = max(emit_err.get(fmt, 0.0), err)
+    return max_err, emit_err
+
+
+def check_k2(model, batches, positions, label="", rows_batch=8,
+             emit_positions=EMIT_POSITIONS_B):
+    """Phase 3b (3n, 3w): K2 against its plain version in every format at
+    ``batches`` x ``positions`` with per-row starts, each row of a
+    ``rows_batch``-row step against K1 on that row alone (the int8 KV
+    cache's against K2 at B=1), then K2's emit_logits mode at ``batches``
+    x ``emit_positions``. Returns (cache errors, emit errors) by format."""
+    max_err_b, emit_err_b = {}, {}
+    for fmt in BATCHED_FORMATS:
+        dtype = fmt_of(fmt)[0]
+        errs = []
+        for batch in batches:
+            for pos in positions:
+                got, want, conf, err = batched_vs_plain(model, fmt, batch,
+                                                        pos)
+                same = got == want
+                print(f"[chip_smoke] {label}K2 {fmt} B={batch} pos {pos}: "
+                      f"{int(same.sum())}/{batch} tokens equal, "
+                      f"{int(conf.sum())} confident, cache err {err}")
+                if not cache_ok(fmt, err):
+                    raise AssertionError(
+                        f"{label}K2 {fmt} B={batch} pos {pos}: cache error "
+                        f"{err} beyond its tolerance")
+                must = torch.ones_like(conf) if dtype == torch.float32 \
+                    else conf
+                if not same[must].all():
+                    raise AssertionError(
+                        f"{label}K2 {fmt} B={batch} pos {pos}: tokens "
+                        f"{got.tolist()} != plain {want.tolist()}")
+                errs.append(err)
+        max_err_b[fmt] = worst(*errs)
+        equal, err = batched_rows_vs_one(model, fmt, rows_batch)
+        alone = "K2 at B=1" if fmt in KV8_FORMATS else "K1"
+        print(f"[chip_smoke] {label}K2 {fmt} B={rows_batch} rows vs {alone}: "
+              f"tokens equal {equal}, cache err {err}")
+        if not equal or not cache_ok(fmt, err):
+            raise AssertionError(f"{label}K2 {fmt}: rows differ from "
+                                 f"{alone}")
+    for fmt in BATCHED_FORMATS:  # the emit_logits mode
+        for batch in batches:
+            for pos in emit_positions:
+                err, scale, same, cerr = batched_emit_vs_plain(
+                    model, fmt, batch, pos)
+                print(f"[chip_smoke] {label}K2 {fmt} B={batch} pos {pos} "
+                      f"emit_logits: max |logit diff| {err:.3g} of "
+                      f"scale {scale:.3g}, argmax = argmax-mode tokens "
+                      f"{same}, cache err {cerr}")
+                if not (emit_ok(fmt, err, scale) and same
+                        and cache_ok(fmt, cerr)):
+                    raise AssertionError(
+                        f"{label}K2 {fmt} B={batch} pos {pos}: emit_logits "
+                        "differs from plain or argmax mode")
+                emit_err_b[fmt] = max(emit_err_b.get(fmt, 0.0), err)
+    return max_err_b, emit_err_b
+
+
+def zero_decode_counters():
+    """Every K1/K2 launch counter to 0."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    for k in (dsk.fused_decode_token, dsk.fused_decode_token_batched):
+        k.launches = k.emit_launches = k.narrow_launches = 0
+
+
+def kv_bytes(model, width):
+    """Bytes of one row's full bf16 K and V caches at ``width``."""
+    return 2 * 2 * model.n_layers * model.max_seq_len * width
+
+
+def check_gqa(gqa):
+    """Phase 4g: the grouped-query path (bench.py's GQA_15M) through K1's
+    narrow mode. Returns K1's narrow launches on its main path, the
+    1024-token bf16 request."""
+    from pydynet_tpu_torch.models.llama.model import Llama
+    from pydynet_tpu_torch.ops import decode_step as dsk
+    from pydynet_tpu_torch.utils import fidelity
+
+    k1 = dsk.fused_decode_token
+    steps = REQUEST - PROMPT.shape[1] - 1
+    widths = []  # the cache width of every K1 call, through a method spy
+
+    def spy(weights, ck, cv, *args, **kw):
+        widths.append(ck.shape[-1])
+        return Llama.fused_step(gqa, weights, ck, cv, *args, **kw)
+
+    gqa.fused_step = spy
+    for kw in ({}, dict(quant="int8"), dict(seed=SAMPLE_SEED, **SAMPLE)):
+        list(gqa.generate(PROMPT, PROMPT.shape[1] + 3, dtype=torch.bfloat16,
+                          **kw))  # warm-up
+    torch.cuda.synchronize()
+    del widths[:]
+    zero_decode_counters()
+    toks = [int(t[0, 0]) for t in gqa.generate(PROMPT, REQUEST,
+                                               dtype=torch.bfloat16)]
+    narrow = k1.narrow_launches
+    dkv = gqa.n_kv_heads * gqa.head_dim
+    print(f"[chip_smoke] GQA generate bf16: {len(toks)} tokens, {k1.launches}"
+          f" K1 launches, {narrow} narrow, cache widths {sorted(set(widths))}"
+          f", K/V cache {kv_bytes(gqa, dkv) / 1e6:.2f} MB (MHA "
+          f"{kv_bytes(gqa, gqa.embed_dim) / 1e6:.2f} MB)")
+    if not (narrow == k1.launches == steps == len(toks) - 1
+            and widths == [dkv] * steps):
+        raise AssertionError(f"GQA generate: {narrow} narrow launches of "
+                             f"{k1.launches}, widths {set(widths)}; want "
+                             f"{steps} at {dkv}")
+    if not all(0 <= x < gqa.vocab_size for x in toks):
+        raise AssertionError("GQA generate: token out of range")
+    # bench.py's gqa-6q2kv-narrow: every confident step of the f32 stream
+    truth, margins, tops = fidelity.greedy_truth(gqa, PROMPT, PATH_STEPS)
+    checked, ok, agree = fidelity.gate_fused_argmax(
+        gqa, PROMPT, truth, margins, tops, dtype=torch.bfloat16)
+    print(f"[chip_smoke] gate gqa-6q2kv-narrow bf16: checked {checked} ok "
+          f"{ok} agree {agree:.3f}")
+    if not (checked > 0 and ok):
+        raise AssertionError("fidelity gate gqa-6q2kv-narrow failed")
+    # a sampled request through the narrow emit mode
+    short = SAMPLED_SHORT - PROMPT.shape[1] - 1
+    zero_decode_counters()
+    toks = [int(t[0, 0]) for t in gqa.generate(
+        PROMPT, SAMPLED_SHORT, dtype=torch.bfloat16, seed=SAMPLE_SEED,
+        **SAMPLE)]
+    print(f"[chip_smoke] GQA sampled generate: {len(toks)} tokens, "
+          f"{k1.emit_launches} emit launches, {k1.narrow_launches} narrow")
+    if not (k1.emit_launches == k1.narrow_launches == short == len(toks) - 1
+            and k1.launches == 0):
+        raise AssertionError("GQA sampled generate: not one narrow emit "
+                             "launch a decode step")
+    # int8 layers: the expanded (MHA) layout through K1's qlayers mode
+    del widths[:]
+    zero_decode_counters()
+    toks = [int(t[0, 0]) for t in gqa.generate(
+        PROMPT, REQUEST, dtype=torch.bfloat16, quant="int8")]
+    print(f"[chip_smoke] GQA generate int8: {len(toks)} tokens, "
+          f"{k1.launches} K1 launches, {k1.narrow_launches} narrow, cache "
+          f"widths {sorted(set(widths))}")
+    if not (k1.launches == steps and k1.narrow_launches == 0
+            and widths == [gqa.embed_dim] * steps):
+        raise AssertionError("GQA int8: not the expanded layout's K1")
+    del gqa.fused_step
+    return narrow
+
+
+def check_wide_fleets(model, gqa, model64):
+    """Phase 4w: a B=8 server on the grouped-query model (bf16 and the int8
+    KV cache, K2's narrow mode) and its float32 twin against standalone
+    float32 generate; a 64-slot stories15M server over 96 requests and a
+    B=64 1024-token generate through K2's row groups. Returns (K2's narrow
+    launches, K2's launches at B=64)."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    k2 = dsk.fused_decode_token_batched
+    requests = serve_requests(gqa)
+    for kw in ({}, dict(kv_quant="int8")):  # warm-up
+        serve(gqa, requests[:2], dtype=torch.bfloat16, **kw, **SERVE)
+    zero_decode_counters()
+    for name, kw in (("bf16", {}), ("bf16-kv8", dict(kv_quant="int8"))):
+        before = k2.narrow_launches
+        srv, done = serve(gqa, requests, dtype=torch.bfloat16, **kw,
+                          **SERVE)
+        launched = k2.narrow_launches - before
+        ck = srv._ck[0] if kw else srv._ck
+        print(f"[chip_smoke] GQA serve {name} B=8: {len(done)} requests, "
+              f"{sum(len(r.tokens) for r in done)} tokens, "
+              f"{srv.dispatched_steps} steps dispatched, {launched} narrow "
+              f"K2 launches, caches {tuple(ck.shape)}")
+        if not all(r.done and r.tokens for r in done) or not any(
+                r.truncated for r in done):
+            raise AssertionError(f"GQA serve {name}: a request did not "
+                                 "finish, or none reached the cache end")
+        if launched != srv.dispatched_steps or ck.shape[-1] != 96:
+            raise AssertionError(f"GQA serve {name}: {launched} narrow "
+                                 f"launches for {srv.dispatched_steps} steps")
+    narrow = k2.narrow_launches
+    check_f32_server(gqa, "GQA ")
+    wide = dict(SERVE, batch_size=max(WIDE_BATCHES))
+    wide_requests = serve_requests(model64, n=WIDE_REQUESTS)
+    serve(model64, wide_requests[:2], dtype=torch.bfloat16, **wide)
+    zero_decode_counters()
+    srv, done = serve(model64, wide_requests, dtype=torch.bfloat16, **wide)
+    print(f"[chip_smoke] serve bf16 B={wide['batch_size']}: {len(done)} "
+          f"requests, {sum(len(r.tokens) for r in done)} tokens, "
+          f"{srv.dispatched_steps} steps dispatched, {k2.launches} K2 "
+          f"launches")
+    if not all(r.done and r.tokens for r in done) \
+            or k2.launches != srv.dispatched_steps:
+        raise AssertionError("serve B=64: unfinished requests or launches "
+                             "!= dispatched steps")
+    if not all(0 <= t < model64.vocab_size for r in done for t in r.tokens):
+        raise AssertionError("serve B=64: token out of range")
+    steps = REQUEST - PROMPT.shape[1] - 1
+    before = k2.launches
+    rows = list(model64.generate(batch_prompt(64), REQUEST,
+                                 dtype=torch.bfloat16))
+    launched = k2.launches - before
+    print(f"[chip_smoke] generate bf16 B=64: {len(rows)} rows, {launched} "
+          f"K2 launches")
+    if launched != steps or any(r.shape != (64, 1) for r in rows):
+        raise AssertionError(f"generate B=64: {launched} launches")
+    return narrow, k2.launches
+
+
+def time_gqa_and_wide(model, gqa, model64, card):
+    """Phase 5's grouped-query and wide-batch rows: K1 narrow against K1
+    MHA (bf16 step at pos 512), K2 narrow B=8 against MHA B=8, K2 B=64
+    against B=32 (bf16, int8 layers), each in turns beside its plain
+    version and bound; then tokens per second of the GQA 1024-token
+    request, the GQA B=8 server and the 64-slot server."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    ms = {}
+
+    def k1_case(m):
+        w = m._fused_weights(torch.bfloat16)
+        ck, cv = random_caches(m, torch.bfloat16, 1,
+                               width=cache_width(m, w))
+        args, kw = step_args(m, w, ck, cv, 512, 1234)
+        return (lambda: dsk.fused_decode_token(*args, **kw),
+                lambda: dsk.fused_decode_token_ref(*args, **kw),
+                decode_step_bound(w, ck, 512, 1))
+
+    def k2_case(m, fmt, batch):
+        w = m._fused_weights(*fmt_of(fmt))
+        ck, cv = batched_caches(m, fmt, 1, batch)
+        args, kw = batched_args(m, w, ck, cv, 512, range(100, 100 + batch))
+        return (lambda: dsk.fused_decode_token_batched(*args, **kw),
+                lambda: dsk.fused_decode_token_batched_ref(*args, **kw),
+                decode_step_bound(w, ck, 512, batch))
+
+    groups = {"K1": (("K1 MHA", k1_case(model)), ("K1 narrow", k1_case(gqa))),
+              "K2 B=8": (("K2 MHA B=8", k2_case(model, "bf16", 8)),
+                         ("K2 narrow B=8", k2_case(gqa, "bf16", 8))),
+              "K2 wide": tuple((f"K2 B={b}" + ("" if f == "bf16" else " int8"),
+                                k2_case(model, f, b))
+                               for f in ("bf16", "bf16-int8")
+                               for b in (32, max(WIDE_BATCHES)))}
+    for cases in groups.values():
+        kern = {name: [] for name, _ in cases}
+        plain = {name: [] for name, _ in cases}
+        for _ in range(2):  # in turns
+            for name, (k, ref, _) in cases:
+                kern[name].append(time_step(k, 200))
+                plain[name].append(time_step(ref, 1 if "B=" in name else 10))
+        for name, (_, _, bnd) in cases:
+            ms[name] = (min(kern[name]), min(plain[name])) + bnd
+            print(f"[chip_smoke] {card}: {name} step at pos 512: kernel "
+                  f"{ms[name][0] * 1e3:.1f} us, plain "
+                  f"{ms[name][1] * 1e3:.1f} us, bound "
+                  f"{ms[name][2] * 1e3:.1f} us ({ms[name][3]})")
+    wide = dict(SERVE, batch_size=max(WIDE_BATCHES))
+    wide_requests = serve_requests(model64, n=WIDE_REQUESTS)
+    runs = {"GQA generate": lambda: sum(1 for _ in gqa.generate(
+                PROMPT, REQUEST, dtype=torch.bfloat16)),
+            "GQA serve B=8": lambda: sum(len(r.tokens) for r in serve(
+                gqa, serve_requests(gqa), dtype=torch.bfloat16,
+                **SERVE)[1]),
+            "serve B=64": lambda: sum(len(r.tokens) for r in serve(
+                model64, wide_requests, dtype=torch.bfloat16, **wide)[1])}
+    rates = {name: [] for name in runs}
+    for _ in range(3):  # in turns
+        for name, run in runs.items():
+            start = time.perf_counter()
+            n = run()
+            torch.cuda.synchronize()
+            rates[name].append(n / (time.perf_counter() - start))
+    for name, r in rates.items():
+        print(f"[chip_smoke] {card}: {name} tok/s of 3 runs: "
+              f"{', '.join(f'{x:.1f}' for x in r)}; median "
+              f"{float(np.median(r)):.1f}")
+    return ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA GPU: nothing to check", file=sys.stderr)
@@ -2372,7 +2723,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
@@ -2396,86 +2747,38 @@ def main() -> int:
     t0 = time.perf_counter()
     model = Llama(**CFG, device="cuda",
                   generator=torch.Generator().manual_seed(0)).eval()
-    max_err = {}
     with torch.no_grad():
-        for fmt, (dtype, _) in FORMATS.items():
-            max_err[fmt] = 0.0
-            for pos in POSITIONS:
-                got, want, confident, err = kernel_vs_plain(model, fmt, pos)
-                print(f"[chip_smoke] {fmt} pos {pos}: kernel {got} plain "
-                      f"{want} confident {confident} cache err {err:.3g}")
-                if err > cache_atol(fmt):
-                    raise AssertionError(f"{fmt} pos {pos}: cache error "
-                                         f"{err} > {cache_atol(fmt)}")
-                if got != want and (dtype == torch.float32 or confident):
-                    raise AssertionError(f"{fmt} pos {pos}: kernel token "
-                                         f"{got} != plain {want}")
-                max_err[fmt] = max(max_err[fmt], err)
-        emit_err = {}
-        for fmt in FORMATS:  # the emit_logits mode
-            for pos in POSITIONS:
-                err, scale, same, cerr = emit_vs_plain(model, fmt, pos)
-                print(f"[chip_smoke] {fmt} pos {pos} emit_logits: max "
-                      f"|logit diff| {err:.3g} of scale {scale:.3g}, argmax "
-                      f"= argmax-mode token {same}, cache err {cerr:.3g}")
-                if not (emit_ok(fmt, err, scale) and same
-                        and cerr <= cache_atol(fmt)):
-                    raise AssertionError(f"{fmt} pos {pos}: emit_logits "
-                                         "differs from plain or argmax mode")
-                emit_err[fmt] = max(emit_err.get(fmt, 0.0), err)
+        max_err, emit_err = check_k1(model)
     phase("3 kernel vs plain", t0)
 
     # 3b. K2 against plain, and K2 rows against K1 (the int8 KV cache's
     # against K2 on each row alone)
     t0 = time.perf_counter()
-    max_err_b = {}
     with torch.no_grad():
-        for fmt in BATCHED_FORMATS:
-            dtype = fmt_of(fmt)[0]
-            errs = []
-            for batch in BATCHES:
-                for pos in BATCH_POSITIONS:
-                    got, want, conf, err = batched_vs_plain(model, fmt,
-                                                            batch, pos)
-                    same = got == want
-                    print(f"[chip_smoke] K2 {fmt} B={batch} pos {pos}: "
-                          f"{int(same.sum())}/{batch} tokens equal, "
-                          f"{int(conf.sum())} confident, cache err {err}")
-                    if not cache_ok(fmt, err):
-                        raise AssertionError(
-                            f"K2 {fmt} B={batch} pos {pos}: cache error "
-                            f"{err} beyond its tolerance")
-                    must = torch.ones_like(conf) if dtype == torch.float32 \
-                        else conf
-                    if not same[must].all():
-                        raise AssertionError(
-                            f"K2 {fmt} B={batch} pos {pos}: tokens "
-                            f"{got.tolist()} != plain {want.tolist()}")
-                    errs.append(err)
-            max_err_b[fmt] = worst(*errs)
-            equal, err = batched_rows_vs_one(model, fmt)
-            alone = "K2 at B=1" if fmt in KV8_FORMATS else "K1"
-            print(f"[chip_smoke] K2 {fmt} B=8 rows vs {alone}: tokens equal "
-                  f"{equal}, cache err {err}")
-            if not equal or not cache_ok(fmt, err):
-                raise AssertionError(f"K2 {fmt}: rows differ from {alone}")
-        emit_err_b = {}
-        for fmt in BATCHED_FORMATS:  # the emit_logits mode
-            for batch in BATCHES:
-                for pos in EMIT_POSITIONS_B:
-                    err, scale, same, cerr = batched_emit_vs_plain(
-                        model, fmt, batch, pos)
-                    print(f"[chip_smoke] K2 {fmt} B={batch} pos {pos} "
-                          f"emit_logits: max |logit diff| {err:.3g} of "
-                          f"scale {scale:.3g}, argmax = argmax-mode tokens "
-                          f"{same}, cache err {cerr}")
-                    if not (emit_ok(fmt, err, scale) and same
-                            and cache_ok(fmt, cerr)):
-                        raise AssertionError(
-                            f"K2 {fmt} B={batch} pos {pos}: emit_logits "
-                            "differs from plain or argmax mode")
-                    emit_err_b[fmt] = max(emit_err_b.get(fmt, 0.0), err)
+        max_err_b, emit_err_b = check_k2(model, BATCHES, BATCH_POSITIONS)
     phase("3b batched kernel vs plain", t0)
+
+    # 3n. the narrow mode: K1 and K2 on a grouped-query model (bench.py's
+    # GQA_15M) against their plain versions, its int8/int4 layers on the
+    # expanded layout
+    t0 = time.perf_counter()
+    gqa = Llama(**GQA_CFG, device="cuda",
+                generator=torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        narrow_err, _ = check_k1(gqa, "GQA ")
+        narrow_err_b, _ = check_k2(gqa, BATCHES, BATCH_POSITIONS, "GQA ")
+    phase("3n narrow kernels vs plain", t0)
+
+    # 3w. K2 above 32 rows: row groups, every mode, and each row of a B=64
+    # step against K1 on that row alone
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        # the plain version takes 0.5-1.6 s a B=64 step: the argmax mode at
+        # the clamped position, the emit mode at a short one
+        wide_err_b, _ = check_k2(model, WIDE_BATCHES, (1030,),
+                                 rows_batch=max(WIDE_BATCHES),
+                                 emit_positions=(17,))
+    phase("3w batched kernel above 32 rows vs plain", t0)
 
     # 3c. the quantized matmuls (K5, K6, K7) against plain
     t0 = time.perf_counter()
@@ -2587,6 +2890,23 @@ def main() -> int:
     emit_launches_b = check_sampled_serving(model)
     phase("4b serving path", t0)
 
+    # 4g. the grouped-query path: K1's narrow mode
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        narrow_launches = check_gqa(gqa)
+    phase("4g grouped-query path", t0)
+
+    # 4w. the grouped-query fleet (K2's narrow mode) and fleets above 32
+    # rows (K2's row groups)
+    t0 = time.perf_counter()
+    model64 = Llama(**dict(CFG, max_batch_size=max(WIDE_BATCHES)),
+                    device="cuda",
+                    generator=torch.Generator().manual_seed(0)).eval()
+    with torch.no_grad():
+        narrow_launches_b, wide_launches = check_wide_fleets(model, gqa,
+                                                             model64)
+    phase("4w grouped-query and wide fleets", t0)
+
     # 4c. the training path
     t0 = time.perf_counter()
     train_launches, flash_err = check_training()
@@ -2644,27 +2964,32 @@ def main() -> int:
                 del ck, cv
         ms.update(time_head_and_step(model, card))
         emit_ms = time_sampling(model, card)
+        ms.update(time_gqa_and_wide(model, gqa, model64, card))
     b1_runs = {f"bf16{'-' + q if q else ''}": dict(quant=q)
                for q in B1_QUANTS}
     b1_runs["bf16-kv8"] = dict(kv_quant="int8")
     b1_runs["bf16-sampled"] = dict(seed=SAMPLE_SEED, **SAMPLE)
+    # the sampled request is host-bound at about 10 ms a token: 256 tokens
+    length = {name: SAMPLED_SHORT if "sampled" in name else REQUEST
+              for name in b1_runs}
     tok_s = {name: [] for name in b1_runs}
     for _ in range(REPEATS):  # the formats in turns
         for name, rates in tok_s.items():
             start = time.perf_counter()
-            n = sum(1 for _ in model.generate(PROMPT, REQUEST,
+            n = sum(1 for _ in model.generate(PROMPT, length[name],
                                               dtype=torch.bfloat16,
                                               **b1_runs[name]))
             torch.cuda.synchronize()
             rates.append(n / (time.perf_counter() - start))
     for name, rates in tok_s.items():
-        print(f"[chip_smoke] {card}: generate {name} {REQUEST}-token "
+        print(f"[chip_smoke] {card}: generate {name} {length[name]}-token "
               f"request, tok/s of {REPEATS} runs: "
               f"{', '.join(f'{r:.1f}' for r in rates)}; median "
               f"{float(np.median(rates)):.1f}")
     runs = {name: (serve_requests(model), kw)
             for name, kw in SERVE_FORMATS.items()}
-    runs["bf16-sampled"] = (sampled_requests(model), SAMPLE)
+    # the sampling server's requests capped at SAMPLED_SHORT new tokens
+    runs["bf16-sampled"] = (sampled_requests(model, SAMPLED_SHORT), SAMPLE)
     serve_rates = {name: [] for name in runs}
     for _ in range(REPEATS):  # the formats in turns
         for name, rates in serve_rates.items():
@@ -2707,6 +3032,7 @@ def main() -> int:
                 "max_abs_err": err, "ms": t[0], "plain_ms": t[1],
                 "bound_ms": t[2], "bound_by": t[3], "library_ms": t[4]}
 
+    print(f"[chip_smoke] all phases: {time.perf_counter() - t_start:.1f} s")
     gq_file = "pydynet_tpu/ops/gemv_quant.py"
     wgu1, wgu256 = big_ms["int8", "wgu", 1], big_ms["int8", "wgu", 256]
     print(json.dumps({"kernels": [
@@ -2729,7 +3055,16 @@ def main() -> int:
               max_err_b["f32"], ms["K2 B=8"] + (None,)),
         entry("decode_token_batched[emit_logits]", "decode_token_batched.cu",
               "pydynet_tpu/ops/decode_step.py:1010", emit_launches_b,
-              emit_err_b["f32"], emit_ms["K2 B=8"])] + [
+              emit_err_b["f32"], emit_ms["K2 B=8"]),
+        entry("decode_token[narrow]", "decode_token.cu",
+              "pydynet_tpu/ops/decode_step.py:201", narrow_launches,
+              narrow_err["f32"], ms["K1 narrow"] + (None,)),
+        entry("decode_token_batched[narrow]", "decode_token_batched.cu",
+              "pydynet_tpu/ops/decode_step.py:560", narrow_launches_b,
+              narrow_err_b["f32"], ms["K2 narrow B=8"] + (None,)),
+        entry("decode_token_batched[B=64]", "decode_token_batched.cu",
+              "pydynet_tpu/ops/decode_step.py:1027", wide_launches,
+              wide_err_b["f32"], ms["K2 B=64"] + (None,))] + [
         entry(name, "flash_attention.cu",
               f"pydynet_tpu/ops/flash_attention.py:{line}",
               train_launches[name], flash_err[name], ms[name, 1])

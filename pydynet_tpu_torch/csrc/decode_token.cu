@@ -6,13 +6,19 @@
 // at :1346; K1) and `_lm_head_kernel` (:102, launched by `lm_head_argmax`
 // at :129; K9, which is K1's head without the final RMSNorm: `head_tile`
 // in common.cuh serves both, one tie rule). K1 computes the same step:
-// gather emb[tok]; per layer RMSNorm, q/k/v, interleaved RoPE, the K/V row write at pos (clamped to S-1), causal
-// online-softmax attention over rows [0, pos], wo + residual, RMSNorm,
-// SwiGLU + residual; then the final RMSNorm, the lm_head GEMV + bias and a
-// greedy argmax whose ties go to the lowest index. The TPU layout tricks
-// (128-lane padding, 16-row read-modify-write cache tiles, head-mask and
-// pair-swap matmuls, scalar prefetch) are gone: weights are (out, in) rows so
-// a warp reads one row as contiguous bytes, and caches are (N, S, D).
+// gather emb[tok]; per layer RMSNorm, q/k/v, interleaved RoPE, the K/V row
+// write at pos (clamped to S-1), causal online-softmax attention over rows
+// [0, pos], wo + residual, RMSNorm, SwiGLU + residual; then the final
+// RMSNorm, the lm_head GEMV + bias and a greedy argmax whose ties go to the
+// lowest index. The TPU layout tricks (128-lane padding, 16-row
+// read-modify-write cache tiles, head-mask and pair-swap matmuls, scalar
+// prefetch) are gone: weights are (out, in) rows so a warp reads one row as
+// contiguous bytes, and caches are (N, S, Dkv). Dkv = D for MHA; in the TPU
+// kernel's `narrow` mode (a grouped-query model, :201-206 there) Dkv =
+// Hkv * head_dim and query head h reads KV head h / (H / Hkv), which the TPU
+// kernel does through its 0/1 expansion matrix `egqa`: here the attention
+// block of head h just reads that head's columns, so the cache is streamed
+// at its narrow width.
 //
 // One token is a chain of 5 * n_layers + 2 launches on the caller's stream:
 //   1. RMSNorm + q/k/v GEMV + RoPE + K/V row write (each block renormalises
@@ -56,8 +62,10 @@
 namespace {
 
 // 1. RMSNorm + q/k/v + RoPE + K/V row write. A warp owns one (even, odd)
-// feature pair of the concatenated [q; k; v] rows, so RoPE needs no
-// exchange between warps.
+// feature pair of the concatenated [q (D); k (Dkv); v (Dkv)] rows, so RoPE
+// needs no exchange between warps. k's pair j < Dkv is rotated by column j
+// of the (S, D) tables (the pattern repeats per head) and written to the
+// Dkv-wide cache row.
 template <typename T, int Q>
 __global__ void __launch_bounds__(kThreads)
 qkv_rope_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok_p,
@@ -67,7 +75,8 @@ qkv_rope_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok_p,
                 const float* __restrict__ s_q, const float* __restrict__ s_k,
                 const float* __restrict__ s_v, const T* __restrict__ cos_t,
                 const T* __restrict__ sin_t, float* __restrict__ q_out,
-                T* __restrict__ ck, T* __restrict__ cv, int D, int S, int V) {
+                T* __restrict__ ck, T* __restrict__ cv, int D, int Dkv,
+                int S, int V) {
   extern __shared__ float smem[];
   float* x_s = smem;
   float* red = smem + D;
@@ -83,11 +92,12 @@ qkv_rope_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok_p,
     sx = load_normed_act<Q, T>(h, in_norm, D, x_s, red);
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int npairs = 3 * D / 2;
+  const int npairs = D / 2 + Dkv;
   for (int p = blockIdx.x * kWarps + warp; p < npairs;
        p += gridDim.x * kWarps) {
-    const int which = (2 * p) / D;  // 0 q, 1 k, 2 v
-    const int j = 2 * p - which * D;
+    const int f = 2 * p;  // 0 q, 1 k, 2 v; j: the feature in its rows
+    const int which = f < D ? 0 : (f < D + Dkv ? 1 : 2);
+    const int j = which == 0 ? f : f - D - (which - 1) * Dkv;
     const void* w = which == 0 ? wq : (which == 1 ? wk : wv);
     const float* sc = which == 0 ? s_q : (which == 1 ? s_k : s_v);
     float a = row_dot<Q, T>(w, j, x_s, D, sc, sx);
@@ -104,7 +114,7 @@ qkv_rope_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok_p,
         q_out[j] = a;
         q_out[j + 1] = b;
       } else {
-        T* c = (which == 1 ? ck : cv) + r;
+        T* c = (which == 1 ? ck : cv) + (size_t)pos * Dkv + j;
         c[0] = from_f<T>(a);
         c[1] = from_f<T>(b);
       }
@@ -112,18 +122,20 @@ qkv_rope_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok_p,
   }
 }
 
-// 2. Attention of one head (blockIdx.x) over one block of kAttnRows cache
-// rows (blockIdx.y) within [0, pos]: four threads score a row, one warp
-// takes the block's max and sum of exp, then threads split as (feature d,
-// row group g) to accumulate p @ V. The block writes its partial (max m,
-// sum l, p @ V) for attn_out_kernel's merge; blocks past pos write nothing.
+// 2. Attention of one query head (blockIdx.x) over one block of kAttnRows
+// cache rows (blockIdx.y) within [0, pos]: four threads score a row, one
+// warp takes the block's max and sum of exp, then threads split as
+// (feature d, row group g) to accumulate p @ V. Query head h reads KV head
+// h / group of the Dkv-wide cache rows (group 1: MHA). The block writes its
+// partial (max m, sum l, p @ V) for attn_out_kernel's merge; blocks past
+// pos write nothing.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const int* __restrict__ pos_p, const float* __restrict__ q,
                  const T* __restrict__ ck, const T* __restrict__ cv,
                  float* __restrict__ part_m, float* __restrict__ part_l,
-                 float* __restrict__ part_acc, int D, int hd, int S,
-                 float scale) {
+                 float* __restrict__ part_acc, int Dkv, int group, int hd,
+                 int S, float scale) {
   extern __shared__ float smem[];
   float* q_s = smem;             // hd
   float* p_s = q_s + hd;         // kAttnRows
@@ -137,15 +149,15 @@ attention_kernel(const int* __restrict__ pos_p, const float* __restrict__ q,
   for (int d = tid; d < hd; d += blockDim.x)
     q_s[d] = round_to<T>(q[head * hd + d]);
   __syncthreads();
-  const T* kb = ck + (size_t)r0 * D + head * hd;
-  const T* vb = cv + (size_t)r0 * D + head * hd;
+  const T* kb = ck + (size_t)r0 * Dkv + (head / group) * hd;
+  const T* vb = cv + (size_t)r0 * Dkv + (head / group) * hd;
   {  // scores: threads (4 row, sub) with sub = tid % 4 in one warp
     constexpr int kTpr = kThreads / kAttnRows;
     const int row = tid / kTpr, sub = tid % kTpr;
     const int seg = (hd + kTpr - 1) / kTpr;
     float dot = 0.f;
     if (row < len) {
-      const T* k = kb + (size_t)row * D;
+      const T* k = kb + (size_t)row * Dkv;
       for (int e = sub * seg; e < min(hd, sub * seg + seg); ++e)
         dot += to_f(k[e]) * q_s[e];
     }
@@ -172,7 +184,7 @@ attention_kernel(const int* __restrict__ pos_p, const float* __restrict__ q,
   float pv = 0.f;
   if (g < groups)
     for (int r = g; r < len; r += groups)
-      pv += p_s[r] * to_f(vb[(size_t)r * D + d]);
+      pv += p_s[r] * to_f(vb[(size_t)r * Dkv + d]);
   part[tid] = pv;
   __syncthreads();
   const int slot = head * gridDim.y + blockIdx.y;
@@ -266,14 +278,14 @@ struct Args {
   const float *s_q, *s_k, *s_v, *s_o, *s_gate, *s_up, *s_down;
   void *ck, *cv;
   float* scratch;
-  int N, D, H, F, V, S;
+  int N, D, H, Hkv, F, V, S;
   float scale;
 };
 
 // Q: the layers' format, HQ: the head's
 template <typename T, int Q, int HQ>
 cudaError_t run(const Args& a, cudaStream_t st) {
-  const int D = a.D, F = a.F, S = a.S, hd = a.D / a.H;
+  const int D = a.D, F = a.F, S = a.S, hd = a.D / a.H, Dkv = a.Hkv * hd;
   const int ntiles = head_tiles(a.V);
   const int nsplit = attn_splits(S);
   float* h = a.scratch;
@@ -291,9 +303,10 @@ cudaError_t run(const Args& a, cudaStream_t st) {
   const T* post_norm = static_cast<const T*>(a.post_norm);
   T* ck = static_cast<T*>(a.ck);
   T* cv = static_cast<T*>(a.cv);
-  const size_t LDD = (size_t)D * D, LFD = (size_t)F * D, LSD = (size_t)S * D;
+  const size_t LDD = (size_t)D * D, LKD = (size_t)Dkv * D;
+  const size_t LFD = (size_t)F * D, LSD = (size_t)S * Dkv;
 
-  const int grid_qkv = (3 * D / 2 + kWarps - 1) / kWarps;
+  const int grid_qkv = (D / 2 + Dkv + kWarps - 1) / kWarps;
   const int grid_d = (D + kWarps - 1) / kWarps;
   const int grid_f = (F + kWarps - 1) / kWarps;
   const size_t sm_norm = (size_t)(D + kWarps) * sizeof(float);
@@ -303,14 +316,14 @@ cudaError_t run(const Args& a, cudaStream_t st) {
   for (int l = 0; l < a.N; ++l) {
     qkv_rope_kernel<T, Q><<<grid_qkv, kThreads, sm_norm, st>>>(
         a.pos, a.tok, emb, l == 0, h, in_norm + (size_t)l * D,
-        layer_w<Q, T>(a.wq, l, LDD), layer_w<Q, T>(a.wk, l, LDD),
-        layer_w<Q, T>(a.wv, l, LDD), layer_s(a.s_q, l, D),
-        layer_s(a.s_k, l, D), layer_s(a.s_v, l, D), cos_t, sin_t, q,
-        ck + l * LSD, cv + l * LSD, D, S, a.V);
+        layer_w<Q, T>(a.wq, l, LDD), layer_w<Q, T>(a.wk, l, LKD),
+        layer_w<Q, T>(a.wv, l, LKD), layer_s(a.s_q, l, D),
+        layer_s(a.s_k, l, Dkv), layer_s(a.s_v, l, Dkv), cos_t, sin_t, q,
+        ck + l * LSD, cv + l * LSD, D, Dkv, S, a.V);
     PDT_CHECK();
     attention_kernel<T><<<dim3(a.H, nsplit), kThreads, sm_attn, st>>>(
-        a.pos, q, ck + l * LSD, cv + l * LSD, part_m, part_l, part_acc, D,
-        hd, S, a.scale);
+        a.pos, q, ck + l * LSD, cv + l * LSD, part_m, part_l, part_acc, Dkv,
+        a.H / a.Hkv, hd, S, a.scale);
     PDT_CHECK();
     attn_out_kernel<T, Q><<<grid_d, kThreads, sm_norm, st>>>(
         a.pos, part_m, part_l, part_acc, nsplit, hd,
@@ -370,6 +383,9 @@ int pdt_decode_token_scratch_floats(int dim, int n_heads, int ffn, int vocab,
 // mode) the step writes the (V,) f32 logits there and launches no argmax
 // (`out` is not written); else the greedy token goes to out[0]. Returns
 // the CUDA error of the first launch that failed, or cudaSuccess.
+// n_kv_heads < n_heads (the narrow mode, a grouped-query model): wk, wv are
+// (N, Hkv * head_dim, D) and the caches (N, S, Hkv * head_dim), query head h
+// reading KV head h / (n_heads / n_kv_heads); float layers only.
 int pdt_decode_token(int wdtype, int lfmt, int hfmt, const void* pos,
                      const void* tok, void* out, void* logits,
                      const void* emb,
@@ -382,8 +398,12 @@ int pdt_decode_token(int wdtype, int lfmt, int hfmt, const void* pos,
                      const void* s_k, const void* s_v, const void* s_o,
                      const void* s_gate, const void* s_up,
                      const void* s_down, void* ck, void* cv, void* scratch,
-                     int n_layers, int dim, int n_heads, int ffn, int vocab,
-                     int seq, float scale, void* stream) {
+                     int n_layers, int dim, int n_heads, int n_kv_heads,
+                     int ffn, int vocab, int seq, float scale,
+                     void* stream) {
+  if (n_kv_heads < 1 || n_heads % n_kv_heads != 0 ||
+      (n_kv_heads != n_heads && lfmt != 0))
+    return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   Args a{static_cast<const int*>(pos),
          static_cast<const int*>(tok),
@@ -395,7 +415,7 @@ int pdt_decode_token(int wdtype, int lfmt, int hfmt, const void* pos,
          f(s_q), f(s_k), f(s_v), f(s_o), f(s_gate), f(s_up), f(s_down),
          ck, cv,
          static_cast<float*>(scratch),
-         n_layers, dim, n_heads, ffn, vocab, seq, scale};
+         n_layers, dim, n_heads, n_kv_heads, ffn, vocab, seq, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int mode = lfmt * 3 + hfmt;
   if (wdtype == 0) {

@@ -14,7 +14,13 @@
 // old request's rows below its admission row invisible. The TPU layout
 // tricks (128-lane padding, 16-row read-modify-write tiles, head-mask and
 // pair-swap matmuls, the B x B diagonal-block score matmul) are gone:
-// weights are (out, in) rows and caches are (N, B, S, D).
+// weights are (out, in) rows and caches are (N, B, S, Dkv). Dkv = D for MHA;
+// in the TPU kernel's `narrow` mode (a grouped-query model, :560-939 there)
+// Dkv = Hkv * head_dim, wk/wv are (N, Dkv, D), and query head h reads KV
+// head h / (H / Hkv) where the TPU kernel multiplies by its 0/1 expansion
+// matrix `egqa`: each attention block reads its KV head's columns, so the
+// cache streams at its narrow width. Narrow composes with every mode below
+// except the int8/int4 layers (the TPU kernel asserts that too).
 //
 // Modes, as the TPU kernel's: float weights (T, f32 or bf16) with T caches;
 // the int8 head (`qhead`); int8 layers and head (`qlayers`) or int4 layers
@@ -30,13 +36,16 @@
 // its scale times the query's, and the new row scores its dequantized key
 // against the exact f32 query.
 //
-// The chain is K1's, with every GEMV block applying each weight row to all
-// B activation rows: a warp loads a 16-byte piece of a row once and
-// accumulates it into B per-row sums held in registers (BM of them, BM the
-// smallest of 4, 8, 16, 32 that holds B), then lane b keeps row b's sum. So
-// each weight matrix is read from device memory once per token for the whole
-// fleet. Per token, 5 * n_layers + 2 launches on the caller's stream, in
-// every mode:
+// The chain is K1's, with every GEMV block applying each weight row to a
+// group of up to 32 activation rows (blockIdx.y picks the group, rows
+// [32 * blockIdx.y, + 32)): a warp loads a 16-byte piece of a row once and
+// accumulates it into the group's per-row sums held in registers (BM of
+// them, BM the smallest of 4, 8, 16, 32 that holds min(B, 32)), then lane b
+// keeps row b of the group's sum. So each weight matrix is read from device
+// memory once per token for a fleet of up to 32 rows; above that each group
+// reads it again, from L2 (a stories15M layer is about 2 MB of bf16). Any
+// B >= 1 takes the same launches: per token, 5 * n_layers + 2 on the
+// caller's stream, in every mode:
 //   1. RMSNorm + q/k/v GEMV + RoPE + K/V row write (layer 0 gathers the
 //      embedding rows), B activation rows in shared memory; with the int8
 //      KV cache the f32 K and V rows go to scratch instead,
@@ -69,11 +78,12 @@
 // chain stay latency-bound as in K1. A CUDA graph over a chunk and fused
 // launches come later.
 //
-// Shared memory grows with B: B activation rows of width max(D, F) are 96 KB
-// at B = 32, F = 768, above the 48 KB a block gets without opting in, so the
-// launches above 48 KB opt in to dynamic shared memory (up to 227 KB). The
-// wrapper (ops/decode_step.batched_kernel_takes) refuses a B or widths that
-// do not fit.
+// Shared memory grows with the group: 32 activation rows of width
+// max(D, F) are 96 KB at F = 768, above the 48 KB a block gets without
+// opting in, so the launches above 48 KB opt in to dynamic shared memory (up
+// to 227 KB). The wrapper (ops/decode_step.batched_kernel_takes) refuses
+// widths that do not fit; B itself is bounded by device memory and by the
+// attention grid's z extent (65535).
 //
 // The kernels and the chain are in decode_token_batched.cuh. This file
 // instantiates them for float32 weights and holds the C entry points;
@@ -103,10 +113,12 @@ int pdt_decode_token_batched_scratch_floats(int batch, int dim, int n_heads,
 // caches have the weight type and sk, sv are null. starts may be null
 // (every row attends from row 0). With `logits` non-null (the emit_logits
 // mode, any of these modes) the step writes the (B, V) f32 logits there and
-// launches no argmax (`out` is not written). Returns the CUDA error of the
-// first call that failed, or cudaSuccess; cudaErrorInvalidValue for a
-// batch outside [1, 32], a mode outside these, or widths whose activation
-// rows do not fit in shared memory.
+// launches no argmax (`out` is not written). n_kv_heads < n_heads (the
+// narrow mode): wk, wv are (N, Hkv * head_dim, D) and the caches (N, B, S,
+// Hkv * head_dim); float layers only. Returns the CUDA error of the first
+// call that failed, or cudaSuccess; cudaErrorInvalidValue for a batch
+// outside [1, 65535], KV heads that do not divide the heads, a mode outside
+// these, or widths whose activation rows do not fit in shared memory.
 int pdt_decode_token_batched(int wdtype, int lfmt, int hfmt, int kv8,
                              const void* pos, const void* tok,
                              const void* starts, void* out, void* logits,
@@ -123,9 +135,12 @@ int pdt_decode_token_batched(int wdtype, int lfmt, int hfmt, int kv8,
                              const void* s_gate, const void* s_up,
                              const void* s_down, void* ck, void* cv,
                              void* sk, void* sv, void* scratch, int batch,
-                             int n_layers, int dim, int n_heads, int ffn,
-                             int vocab, int seq, float scale, void* stream) {
-  if (batch < 1 || batch > kMaxBatch) return (int)cudaErrorInvalidValue;
+                             int n_layers, int dim, int n_heads,
+                             int n_kv_heads, int ffn, int vocab, int seq,
+                             float scale, void* stream) {
+  if (batch < 1 || batch > 65535 || n_kv_heads < 1 ||
+      n_heads % n_kv_heads != 0 || (n_kv_heads != n_heads && lfmt != 0))
+    return (int)cudaErrorInvalidValue;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   Args a{static_cast<const int*>(pos),
          static_cast<const int*>(tok),
@@ -139,7 +154,7 @@ int pdt_decode_token_batched(int wdtype, int lfmt, int hfmt, int kv8,
          ck, cv,
          static_cast<float*>(sk), static_cast<float*>(sv),
          static_cast<float*>(scratch),
-         batch, n_layers, dim, n_heads, ffn, vocab, seq, scale};
+         batch, n_layers, dim, n_heads, n_kv_heads, ffn, vocab, seq, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wdtype == 0) return (int)run_mode<float>(lfmt, hfmt, kv8, a, st);
   if (wdtype == 1) return pdt_k2::run_bf16(lfmt, hfmt, kv8, a, st);

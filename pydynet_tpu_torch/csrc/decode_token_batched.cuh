@@ -28,7 +28,7 @@ struct Args {
   void *ck, *cv;
   float *sk, *sv;  // the int8 KV cache's scales, else nullptr
   float* scratch;
-  int B, N, D, H, F, V, S;
+  int B, N, D, H, Hkv, F, V, S;
   float scale;
 };
 
@@ -39,7 +39,8 @@ int run_bf16(int lfmt, int hfmt, int kv8, const Args& a, cudaStream_t st);
 
 namespace {
 
-constexpr int kMaxBatch = 32;  // lane b of a warp keeps row b's sums
+constexpr int kRowGroup = 32;  // rows a GEMV block takes: lane b of a warp
+                               // keeps row b of the group's sums
 constexpr int kMaxSmem = 232448;  // bytes a block may opt in to on sm_90
 
 // acc[b] = this lane's share of dot(row[0:K], x_s[b*K : b*K+K]) for b < B:
@@ -215,11 +216,21 @@ __device__ __forceinline__ int row_start(const int* starts, int b, int p) {
   return starts == nullptr ? 0 : min(max(starts[b], 0), p);
 }
 
-// 1. RMSNorm + q/k/v + RoPE + K/V row write for B rows, layer weights of
-// format Q. A warp owns one (even, odd) feature pair of the concatenated
-// [q; k; v] rows; lane b rotates and writes row b's pair. h, q_out: (B, D)
-// f32; ck, cv: the layer's (B, S, D) T caches, or with KV8 (the int8 KV
-// cache) kv_out: the f32 K rows (B, D) then the V rows (B, D), which
+// The rows a GEMV block of a step of B rows takes: group blockIdx.y,
+// rows [b0, b0 + count) with b0 = 32 * blockIdx.y
+struct RowGroup {
+  int b0, count;
+  __device__ explicit RowGroup(int B)
+      : b0(blockIdx.y * kRowGroup), count(min(kRowGroup, B - b0)) {}
+};
+
+// 1. RMSNorm + q/k/v + RoPE + K/V row write for one group of rows, layer
+// weights of format Q. A warp owns one (even, odd) feature pair of the
+// concatenated [q (D); k (Dkv); v (Dkv)] rows; lane b rotates and writes
+// pair of row b of the group. k's pair j < Dkv is rotated by column j of the
+// (S, D) tables (the pattern repeats per head). h, q_out: (B, D) f32; ck, cv:
+// the layer's (B, S, Dkv) T caches, or with KV8 (the int8 KV cache) kv_out:
+// the f32 K rows (B, Dkv) then the V rows (B, Dkv), which
 // attention_kv8_kernel quantizes.
 template <typename T, int Q, bool KV8, int BM>
 __global__ void __launch_bounds__(kThreads)
@@ -232,14 +243,20 @@ qkv_rope_b_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok,
                   const float* __restrict__ s_v, const T* __restrict__ cos_t,
                   const T* __restrict__ sin_t, float* __restrict__ q_out,
                   T* __restrict__ ck, T* __restrict__ cv,
-                  float* __restrict__ kv_out, int B, int D, int S, int V) {
+                  float* __restrict__ kv_out, int B, int D, int Dkv, int S,
+                  int V) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float sx_s[BM];
-  float* x_s = smem;  // (B, D)
-  float* red = smem + (size_t)B * D;
+  const RowGroup g(B);
+  const int G = g.count;
+  tok += g.b0;
+  h += (size_t)g.b0 * D;
+  q_out += (size_t)g.b0 * D;
+  float* x_s = smem;  // (G, D)
+  float* red = smem + (size_t)G * D;
   const int pos = min(*pos_p, S - 1);
   if (first) {
-    for (int b = 0; b < B; ++b) {
+    for (int b = 0; b < G; ++b) {
       const T* e = emb + (size_t)min(max(tok[b], 0), V - 1) * D;
       const float sx = load_normed_act<Q, T>(e, in_norm, D,
                                              x_s + (size_t)b * D, red);
@@ -250,20 +267,22 @@ qkv_rope_b_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok,
     }
     __syncthreads();
   } else {
-    load_normed_rows<Q, T>(h, in_norm, D, B, x_s, red, sx_s);
+    load_normed_rows<Q, T>(h, in_norm, D, G, x_s, red, sx_s);
   }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float sx = lane < B ? sx_s[lane] : 0.f;
-  const int npairs = 3 * D / 2;
+  const float sx = lane < G ? sx_s[lane] : 0.f;
+  const int npairs = D / 2 + Dkv;
   for (int p = blockIdx.x * kWarps + warp; p < npairs;
        p += gridDim.x * kWarps) {
-    const int which = (2 * p) / D;  // 0 q, 1 k, 2 v
-    const int j = 2 * p - which * D;
+    const int f = 2 * p;  // 0 q, 1 k, 2 v; j: the feature in its rows
+    const int which = f < D ? 0 : (f < D + Dkv ? 1 : 2);
+    const int j = which == 0 ? f : f - D - (which - 1) * Dkv;
     const void* w = which == 0 ? wq : (which == 1 ? wk : wv);
     const float* sc = which == 0 ? s_q : (which == 1 ? s_k : s_v);
-    float a = row_dot_rows<Q, T, BM>(w, j, x_s, D, B, sc, sx);
-    float b = row_dot_rows<Q, T, BM>(w, j + 1, x_s, D, B, sc, sx);
-    if (lane < B) {
+    float a = row_dot_rows<Q, T, BM>(w, j, x_s, D, G, sc, sx);
+    float b = row_dot_rows<Q, T, BM>(w, j + 1, x_s, D, G, sc, sx);
+    if (lane < G) {
+      const int row = g.b0 + lane;  // in the whole batch
       const size_t r = (size_t)pos * D + j;
       if (which < 2) {  // rotate the interleaved pair (2i, 2i+1)
         const float ra = a * to_f(cos_t[r]) - b * to_f(sin_t[r]);
@@ -275,11 +294,11 @@ qkv_rope_b_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok,
         q_out[(size_t)lane * D + j] = a;
         q_out[(size_t)lane * D + j + 1] = b;
       } else if constexpr (KV8) {
-        float* o = kv_out + ((size_t)(which - 1) * B + lane) * D + j;
+        float* o = kv_out + ((size_t)(which - 1) * B + row) * Dkv + j;
         o[0] = a;
         o[1] = b;
       } else {
-        T* c = (which == 1 ? ck : cv) + (size_t)lane * S * D + r;
+        T* c = (which == 1 ? ck : cv) + ((size_t)row * S + pos) * Dkv + j;
         c[0] = from_f<T>(a);
         c[1] = from_f<T>(b);
       }
@@ -287,18 +306,19 @@ qkv_rope_b_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok,
   }
 }
 
-// 2. Attention of row b (blockIdx.z), one head (blockIdx.x), over one block
-// of kAttnRows cache rows (blockIdx.y) clipped to [starts[b], pos]: K1's
-// attention_kernel on row b's cache. The block writes its partial (max m,
-// sum l, p @ V); blocks with no row in the range write nothing.
+// 2. Attention of row b (blockIdx.z), one query head (blockIdx.x), over one
+// block of kAttnRows cache rows (blockIdx.y) clipped to [starts[b], pos]:
+// K1's attention_kernel on row b's Dkv-wide cache, query head h reading KV
+// head h / group. The block writes its partial (max m, sum l, p @ V);
+// blocks with no row in the range write nothing.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_b_kernel(const int* __restrict__ pos_p,
                    const int* __restrict__ starts, const float* __restrict__ q,
                    const T* __restrict__ ck, const T* __restrict__ cv,
                    float* __restrict__ part_m, float* __restrict__ part_l,
-                   float* __restrict__ part_acc, int D, int hd, int S,
-                   float scale) {
+                   float* __restrict__ part_acc, int D, int Dkv, int group,
+                   int hd, int S, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;             // hd
   float* p_s = q_s + hd;         // kAttnRows
@@ -315,8 +335,8 @@ attention_b_kernel(const int* __restrict__ pos_p,
   for (int d = tid; d < hd; d += blockDim.x)
     q_s[d] = round_to<T>(q[(size_t)b * D + head * hd + d]);
   __syncthreads();
-  const T* kb = ck + ((size_t)b * S + r0) * D + head * hd;
-  const T* vb = cv + ((size_t)b * S + r0) * D + head * hd;
+  const T* kb = ck + ((size_t)b * S + r0) * Dkv + (head / group) * hd;
+  const T* vb = cv + ((size_t)b * S + r0) * Dkv + (head / group) * hd;
   {  // scores: threads (4 row, sub) with sub = tid % 4 in one warp
     constexpr int kTpr = kThreads / kAttnRows;
     const int row = tid / kTpr, sub = tid % kTpr;
@@ -324,7 +344,7 @@ attention_b_kernel(const int* __restrict__ pos_p,
     const bool valid = row >= rlo && row < len;
     float dot = 0.f;
     if (valid) {
-      const T* k = kb + (size_t)row * D;
+      const T* k = kb + (size_t)row * Dkv;
       for (int e = sub * seg; e < min(hd, sub * seg + seg); ++e)
         dot += to_f(k[e]) * q_s[e];
     }
@@ -347,11 +367,11 @@ attention_b_kernel(const int* __restrict__ pos_p,
   }
   __syncthreads();
   const int groups = blockDim.x / hd;
-  const int d = tid % hd, g = tid / hd;
+  const int d = tid % hd, gi = tid / hd;
   float pv = 0.f;
-  if (g < groups)
-    for (int r = rlo + g; r < len; r += groups)
-      pv += p_s[r] * to_f(vb[(size_t)r * D + d]);
+  if (gi < groups)
+    for (int r = rlo + gi; r < len; r += groups)
+      pv += p_s[r] * to_f(vb[(size_t)r * Dkv + d]);
   part[tid] = pv;
   __syncthreads();
   const int slot = (b * gridDim.x + head) * gridDim.y + blockIdx.y;
@@ -366,11 +386,11 @@ attention_b_kernel(const int* __restrict__ pos_p,
   }
 }
 
-// quantize_kv's scale of the D-wide f32 row x, taken by the whole block:
+// quantize_kv's scale of the W-wide f32 row x, taken by the whole block:
 // max(max |x| / 127, 1e-10), an IEEE division as the plain version's
-__device__ float kv_scale(const float* x, int D, float* red) {
+__device__ float kv_scale(const float* x, int W, float* red) {
   float amax = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x)
+  for (int i = threadIdx.x; i < W; i += blockDim.x)
     amax = fmaxf(amax, fabsf(x[i]));
   return fmaxf(__fdiv_rn(block_max(amax, red), 127.f), 1e-10f);
 }
@@ -380,15 +400,16 @@ __device__ __forceinline__ float kv_quant(float x, float s) {
   return fminf(fmaxf(rintf(__fdiv_rn(x, s)), -127.f), 127.f);
 }
 
-// 2'. attention_b_kernel over the int8 KV cache: ck, cv the layer's (B, S, D)
-// int8 rows, sk, sv their (B, S) f32 scales, kv_new the f32 K and V rows of
-// stage 1. The query row is quantized per row over all D features; cached
-// rows [starts[b], pos) score their exact int32 dot per head times sk[row]
-// times the query's scale times `scale`, and contribute cv * sv. The block
-// holding row pos (always in range) quantizes the new K and V rows, writes
-// its head's features of them at row pos (head 0 writes their scales), and
-// scores them as the self row: its dequantized key against the exact f32
-// query, its dequantized value. No other block reads row pos.
+// 2'. attention_b_kernel over the int8 KV cache: ck, cv the layer's
+// (B, S, Dkv) int8 rows, sk, sv their (B, S) f32 scales, kv_new the f32 K and
+// V rows of stage 1. The query row is quantized per row over all D features;
+// cached rows [starts[b], pos) score their exact int32 dot per head times
+// sk[row] times the query's scale times `scale`, and contribute cv * sv.
+// The block holding row pos (always in range) quantizes the new K and V rows
+// over their Dkv features and scores them as the self row: its dequantized
+// key against the exact f32 query, its dequantized value. The first query
+// head of each KV head's group writes that KV head's features at row pos,
+// head 0 the scales. No block reads row pos from the cache.
 __global__ void __launch_bounds__(kThreads)
 attention_kv8_kernel(const int* __restrict__ pos_p,
                      const int* __restrict__ starts,
@@ -397,8 +418,8 @@ attention_kv8_kernel(const int* __restrict__ pos_p,
                      int8_t* __restrict__ ck, int8_t* __restrict__ cv,
                      float* __restrict__ sk, float* __restrict__ sv,
                      float* __restrict__ part_m, float* __restrict__ part_l,
-                     float* __restrict__ part_acc, int B, int D, int hd,
-                     int S, float scale) {
+                     float* __restrict__ part_acc, int B, int D, int Dkv,
+                     int group, int hd, int S, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;             // hd: the f32 query
   float* qq_s = q_s + hd;        // hd: the quantized query (integers)
@@ -409,6 +430,7 @@ attention_kv8_kernel(const int* __restrict__ pos_p,
   float* ml = part + kThreads;   // 2
   float* red = ml + 2;           // kWarps
   const int head = blockIdx.x, b = blockIdx.z, tid = threadIdx.x;
+  const int kvh = head / group;  // the KV head this query head reads
   const int p = min(*pos_p, S - 1);
   const int n = p + 1;
   const int r0 = blockIdx.y * kAttnRows;
@@ -425,17 +447,20 @@ attention_kv8_kernel(const int* __restrict__ pos_p,
     qq_s[d] = kv_quant(x, qs);
   }
   if (rp < kAttnRows) {
-    const float* kn = kv_new + (size_t)b * D;
-    const float* vn = kv_new + ((size_t)B + b) * D;
-    const float ks = kv_scale(kn, D, red), vs = kv_scale(vn, D, red);
-    const size_t at = ((size_t)b * S + p) * D + head * hd;
+    const float* kn = kv_new + (size_t)b * Dkv;
+    const float* vn = kv_new + ((size_t)B + b) * Dkv;
+    const float ks = kv_scale(kn, Dkv, red), vs = kv_scale(vn, Dkv, red);
+    const size_t at = ((size_t)b * S + p) * Dkv + kvh * hd;
+    const bool writer = head % group == 0;
     for (int d = tid; d < hd; d += blockDim.x) {
-      const float kq = kv_quant(kn[head * hd + d], ks);
-      const float vq = kv_quant(vn[head * hd + d], vs);
+      const float kq = kv_quant(kn[kvh * hd + d], ks);
+      const float vq = kv_quant(vn[kvh * hd + d], vs);
       kself[d] = kq * ks;
       vself[d] = vq * vs;
-      ck[at + d] = (int8_t)kq;
-      cv[at + d] = (int8_t)vq;
+      if (writer) {
+        ck[at + d] = (int8_t)kq;
+        cv[at + d] = (int8_t)vq;
+      }
     }
     if (head == 0 && tid == 0) {
       sk[(size_t)b * S + p] = ks;
@@ -443,8 +468,8 @@ attention_kv8_kernel(const int* __restrict__ pos_p,
     }
   }
   __syncthreads();
-  const int8_t* kb = ck + ((size_t)b * S + r0) * D + head * hd;
-  const int8_t* vb = cv + ((size_t)b * S + r0) * D + head * hd;
+  const int8_t* kb = ck + ((size_t)b * S + r0) * Dkv + kvh * hd;
+  const int8_t* vb = cv + ((size_t)b * S + r0) * Dkv + kvh * hd;
   const float* skb = sk + (size_t)b * S + r0;
   const float* svb = sv + (size_t)b * S + r0;
   {  // scores: threads (4 row, sub) with sub = tid % 4 in one warp
@@ -458,7 +483,7 @@ attention_kv8_kernel(const int* __restrict__ pos_p,
     if (valid && row == rp) {
       for (int e = e0; e < e1; ++e) fdot += kself[e] * q_s[e];
     } else if (valid) {
-      const int8_t* k = kb + (size_t)row * D;
+      const int8_t* k = kb + (size_t)row * Dkv;
       for (int e = e0; e < e1; ++e) idot += (int)k[e] * (int)qq_s[e];
     }
     for (int o = 1; o < kTpr; o <<= 1) {
@@ -485,12 +510,12 @@ attention_kv8_kernel(const int* __restrict__ pos_p,
   }
   __syncthreads();
   const int groups = blockDim.x / hd;
-  const int d = tid % hd, g = tid / hd;
+  const int d = tid % hd, gi = tid / hd;
   float pv = 0.f;
-  if (g < groups)
-    for (int r = rlo + g; r < len; r += groups)
+  if (gi < groups)
+    for (int r = rlo + gi; r < len; r += groups)
       pv += p_s[r] * (r == rp ? vself[d]
-                              : (float)vb[(size_t)r * D + d] * svb[r]);
+                              : (float)vb[(size_t)r * Dkv + d] * svb[r]);
   part[tid] = pv;
   __syncthreads();
   const int slot = (b * gridDim.x + head) * gridDim.y + blockIdx.y;
@@ -505,27 +530,28 @@ attention_kv8_kernel(const int* __restrict__ pos_p,
   }
 }
 
-// h[b, r] += dot(w[r, 0:K], x_s row b) for r < D and b < B, w of format Q
-// (scale: its per-row scales, sx_s: the activation rows' scales), a warp per
-// output row r applying it to every activation row
+// h[b, r] += dot(w[r, 0:K], x_s row b) for r < D and b < G (the group's
+// rows), w of format Q (scale: its per-row scales, sx_s: the activation
+// rows' scales), a warp per output row r applying it to every activation
+// row
 template <int Q, typename T, int BM>
 __device__ __forceinline__ void gemv_residual_b(const float* x_s, int K,
                                                 const void* w,
                                                 const float* scale,
                                                 const float* sx_s, float* h,
-                                                int D, int B) {
+                                                int D, int G) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float sx = lane < B ? sx_s[lane] : 0.f;
+  const float sx = lane < G ? sx_s[lane] : 0.f;
   for (int r = blockIdx.x * kWarps + warp; r < D; r += gridDim.x * kWarps) {
-    const float a = row_dot_rows<Q, T, BM>(w, r, x_s, K, B, scale, sx);
-    if (lane < B) h[(size_t)lane * D + r] += a;
+    const float a = row_dot_rows<Q, T, BM>(w, r, x_s, K, G, scale, sx);
+    if (lane < G) h[(size_t)lane * D + r] += a;
   }
 }
 
 // 3. Merge each row's attention partials of every head (online-softmax
-// rescale to the common max) over the row's blocks into the (B, D) result,
-// made wo's input row by row (rounded to T or quantized), then wo GEMV +
-// residual. Each block redoes the small merge.
+// rescale to the common max) over the row's blocks into the group's (G, D)
+// result, made wo's input row by row (rounded to T or quantized), then wo
+// GEMV + residual. Each block redoes the small merge for its group.
 template <typename T, int Q, int BM>
 __global__ void __launch_bounds__(kThreads)
 attn_out_b_kernel(const int* __restrict__ pos_p,
@@ -538,12 +564,14 @@ attn_out_b_kernel(const int* __restrict__ pos_p,
                   int D, int S) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float sx_s[BM];
-  float* x_s = smem;  // (B, D)
-  float* red = smem + (size_t)B * D;
+  const RowGroup g(B);
+  const int G = g.count;
+  float* x_s = smem;  // (G, D)
+  float* red = smem + (size_t)G * D;
   const int p = min(*pos_p, S - 1);
   const int s1 = (p + kAttnRows) / kAttnRows;  // blocks up to row p
-  for (int idx = threadIdx.x; idx < B * D; idx += blockDim.x) {
-    const int b = idx / D, i = idx - b * D;
+  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
+    const int b = g.b0 + idx / D, i = idx % D;
     const int head = i / hd, d = i - head * hd;
     const int base = (b * H + head) * nsplit;
     const int s0 = row_start(starts, b, p) / kAttnRows;
@@ -557,11 +585,12 @@ attn_out_b_kernel(const int* __restrict__ pos_p,
     }
     x_s[idx] = num / fmaxf(den, 1e-30f);
   }
-  prepare_rows<Q, T>(x_s, D, B, red, sx_s);
-  gemv_residual_b<Q, T, BM>(x_s, D, wo, s_o, sx_s, h, D, B);
+  prepare_rows<Q, T>(x_s, D, G, red, sx_s);
+  gemv_residual_b<Q, T, BM>(x_s, D, wo, s_o, sx_s, h + (size_t)g.b0 * D, D,
+                            G);
 }
 
-// 4. RMSNorm + gate/up + SiLU(gate) * up -> ff (B, F) f32
+// 4. RMSNorm + gate/up + SiLU(gate) * up -> ff (B, F) f32, one group of rows
 template <typename T, int Q, int BM>
 __global__ void __launch_bounds__(kThreads)
 gate_up_b_kernel(const float* __restrict__ h, const T* __restrict__ post_norm,
@@ -572,20 +601,25 @@ gate_up_b_kernel(const float* __restrict__ h, const T* __restrict__ post_norm,
                  int B, int D, int F) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float sx_s[BM];
-  float* x_s = smem;  // (B, D)
-  float* red = smem + (size_t)B * D;
-  load_normed_rows<Q, T>(h, post_norm, D, B, x_s, red, sx_s);
+  const RowGroup g(B);
+  const int G = g.count;
+  h += (size_t)g.b0 * D;
+  ff += (size_t)g.b0 * F;
+  float* x_s = smem;  // (G, D)
+  float* red = smem + (size_t)G * D;
+  load_normed_rows<Q, T>(h, post_norm, D, G, x_s, red, sx_s);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float sx = lane < B ? sx_s[lane] : 0.f;
+  const float sx = lane < G ? sx_s[lane] : 0.f;
   for (int j = blockIdx.x * kWarps + warp; j < F; j += gridDim.x * kWarps) {
-    const float gv = row_dot_rows<Q, T, BM>(gate_w, j, x_s, D, B, s_gate, sx);
-    const float uv = row_dot_rows<Q, T, BM>(up_w, j, x_s, D, B, s_up, sx);
-    if (lane < B)
+    const float gv = row_dot_rows<Q, T, BM>(gate_w, j, x_s, D, G, s_gate, sx);
+    const float uv = row_dot_rows<Q, T, BM>(up_w, j, x_s, D, G, s_up, sx);
+    if (lane < G)
       ff[(size_t)lane * F + j] = gv * (1.f / (1.f + expf(-gv))) * uv;
   }
 }
 
-// 5. h[b, r] += dot(down[r, 0:F], ff[b] as the matmul input) for r < D
+// 5. h[b, r] += dot(down[r, 0:F], ff[b] as the matmul input) for r < D, one
+// group of rows
 template <typename T, int Q, int BM>
 __global__ void __launch_bounds__(kThreads)
 down_residual_b_kernel(const float* __restrict__ ff, int F,
@@ -594,21 +628,25 @@ down_residual_b_kernel(const float* __restrict__ ff, int F,
                        float* __restrict__ h, int B, int D) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float sx_s[BM];
-  float* x_s = smem;  // (B, F)
-  float* red = smem + (size_t)B * F;
-  for (int i = threadIdx.x; i < B * F; i += blockDim.x) x_s[i] = ff[i];
-  prepare_rows<Q, T>(x_s, F, B, red, sx_s);
-  gemv_residual_b<Q, T, BM>(x_s, F, w, s_down, sx_s, h, D, B);
+  const RowGroup g(B);
+  const int G = g.count;
+  ff += (size_t)g.b0 * F;
+  float* x_s = smem;  // (G, F)
+  float* red = smem + (size_t)G * F;
+  for (int i = threadIdx.x; i < G * F; i += blockDim.x) x_s[i] = ff[i];
+  prepare_rows<Q, T>(x_s, F, G, red, sx_s);
+  gemv_residual_b<Q, T, BM>(x_s, F, w, s_down, sx_s, h + (size_t)g.b0 * D, D,
+                            G);
 }
 
-// 6. Final RMSNorm + head GEMV + bias over kHeadRows vocab rows, reduced to
-// one (max, index) pair per row b and block: tile_val/tile_idx (B, ntiles).
-// HQ is the head's format: T rows, int8 rows (the int8 head and the int8
-// layers) or int4 rows (the int4 layers), with per-row f32 scales `head_s`;
-// a quantized head quantises each activation row with its own scale (the
-// TPU kernel's qvec_b). With `logits` (the emit_logits mode) row b's f32
-// logit of vocab row r, the very value the argmax compares, is also
-// written to logits[b * V + r].
+// 6. Final RMSNorm + head GEMV + bias over kHeadRows vocab rows for one group
+// of rows, reduced to one (max, index) pair per row b and block:
+// tile_val/tile_idx (B, ntiles). HQ is the head's format: T rows, int8 rows
+// (the int8 head and the int8 layers) or int4 rows (the int4 layers), with
+// per-row f32 scales `head_s`; a quantized head quantises each activation
+// row with its own scale (the TPU kernel's qvec_b). With `logits` (the
+// emit_logits mode) row b's f32 logit of vocab row r, the very value the
+// argmax compares, is also written to logits[b * V + r].
 template <typename T, int HQ, int BM>
 __global__ void __launch_bounds__(kThreads)
 head_b_kernel(const float* __restrict__ h, const T* __restrict__ final_norm,
@@ -617,32 +655,38 @@ head_b_kernel(const float* __restrict__ h, const T* __restrict__ final_norm,
               float* __restrict__ tile_val, int* __restrict__ tile_idx,
               float* __restrict__ logits, int B, int D, int V) {
   extern __shared__ __align__(16) float smem[];
-  float* x_s = smem;  // (B, D)
-  float* red = smem + (size_t)B * D;
+  const RowGroup g(B);
+  const int G = g.count;
+  h += (size_t)g.b0 * D;
+  tile_val += (size_t)g.b0 * gridDim.x;
+  tile_idx += (size_t)g.b0 * gridDim.x;
+  if (logits != nullptr) logits += (size_t)g.b0 * V;
+  float* x_s = smem;  // (G, D)
+  float* red = smem + (size_t)G * D;
   __shared__ float wv[kWarps][BM];
   __shared__ int wi[kWarps][BM];
   __shared__ float sx_s[BM];
-  load_normed_rows<HQ, T>(h, final_norm, D, B, x_s, red, sx_s);
+  load_normed_rows<HQ, T>(h, final_norm, D, G, x_s, red, sx_s);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float sx = lane < B ? sx_s[lane] : 0.f;
+  const float sx = lane < G ? sx_s[lane] : 0.f;
   float bv = -INFINITY;
   int bi = INT_MAX;
   const int r0 = blockIdx.x * kHeadRows + warp * kHeadRowsPerWarp;
   for (int r = r0; r < min(r0 + kHeadRowsPerWarp, V); ++r) {
-    const float logit = row_dot_rows<HQ, T, BM>(head_w, r, x_s, D, B, head_s,
+    const float logit = row_dot_rows<HQ, T, BM>(head_w, r, x_s, D, G, head_s,
                                                 sx) + to_f(head_b[r]);
-    if (logits != nullptr && lane < B) logits[(size_t)lane * V + r] = logit;
-    if (lane < B && better(logit, r, bv, bi)) {
+    if (logits != nullptr && lane < G) logits[(size_t)lane * V + r] = logit;
+    if (lane < G && better(logit, r, bv, bi)) {
       bv = logit;
       bi = r;
     }
   }
-  if (lane < B) {
+  if (lane < G) {
     wv[warp][lane] = bv;
     wi[warp][lane] = bi;
   }
   __syncthreads();
-  if (threadIdx.x < B) {
+  if (threadIdx.x < G) {
     const int b = threadIdx.x;
     bv = -INFINITY;
     bi = INT_MAX;
@@ -678,6 +722,7 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
 template <typename T, int Q, int HQ, bool KV8, int BM>
 cudaError_t run(const Args& a, cudaStream_t st) {
   const int B = a.B, D = a.D, F = a.F, S = a.S, H = a.H, hd = a.D / a.H;
+  const int Dkv = a.Hkv * hd, group = a.H / a.Hkv;
   const int ntiles = head_tiles(a.V);
   const int nsplit = attn_splits(S);
   float* h = a.scratch;                      // (B, D)
@@ -688,21 +733,26 @@ cudaError_t run(const Args& a, cudaStream_t st) {
   float* part_m = tile_val + (size_t)2 * B * ntiles;  // (B, H, nsplit)
   float* part_l = part_m + (size_t)B * H * nsplit;
   float* part_acc = part_l + (size_t)B * H * nsplit;  // (B, H, nsplit, hd)
-  float* kv_new = part_acc + (size_t)B * H * nsplit * hd;  // (2, B, D)
+  float* kv_new = part_acc + (size_t)B * H * nsplit * hd;  // (2, B, Dkv)
   const T* emb = static_cast<const T*>(a.emb);
   const T* cos_t = static_cast<const T*>(a.cos);
   const T* sin_t = static_cast<const T*>(a.sin);
   const T* in_norm = static_cast<const T*>(a.in_norm);
   const T* post_norm = static_cast<const T*>(a.post_norm);
-  const size_t LDD = (size_t)D * D, LFD = (size_t)F * D;
-  const size_t LBSD = (size_t)B * S * D;  // one layer of the caches
-  const size_t LBS = (size_t)B * S;       // one layer of the scales
+  const size_t LDD = (size_t)D * D, LKD = (size_t)Dkv * D;
+  const size_t LFD = (size_t)F * D;
+  const size_t LBSD = (size_t)B * S * Dkv;  // one layer of the caches
+  const size_t LBS = (size_t)B * S;         // one layer of the scales
 
-  const int grid_qkv = (3 * D / 2 + kWarps - 1) / kWarps;
-  const int grid_d = (D + kWarps - 1) / kWarps;
-  const int grid_f = (F + kWarps - 1) / kWarps;
-  const size_t sm_norm = ((size_t)B * D + kWarps) * sizeof(float);
-  const size_t sm_ff = ((size_t)B * F + kWarps) * sizeof(float);
+  // GEMV grids: (output-row blocks, row groups); a block holds one group
+  const int ngroups = (B + kRowGroup - 1) / kRowGroup;
+  const int G = min(B, kRowGroup);
+  const dim3 grid_qkv((D / 2 + Dkv + kWarps - 1) / kWarps, ngroups);
+  const dim3 grid_d((D + kWarps - 1) / kWarps, ngroups);
+  const dim3 grid_f((F + kWarps - 1) / kWarps, ngroups);
+  const dim3 grid_head(ntiles, ngroups);
+  const size_t sm_norm = ((size_t)G * D + kWarps) * sizeof(float);
+  const size_t sm_ff = ((size_t)G * F + kWarps) * sizeof(float);
   const size_t sm_attn =
       (size_t)((KV8 ? 4 * hd + kWarps : hd) + kAttnRows + kThreads + 2) *
       sizeof(float);
@@ -717,20 +767,21 @@ cudaError_t run(const Args& a, cudaStream_t st) {
     T* cv = KV8 ? nullptr : static_cast<T*>(a.cv) + l * LBSD;
     qkv_rope_b_kernel<T, Q, KV8, BM><<<grid_qkv, kThreads, sm_norm, st>>>(
         a.pos, a.tok, emb, l == 0, h, in_norm + (size_t)l * D,
-        layer_w<Q, T>(a.wq, l, LDD), layer_w<Q, T>(a.wk, l, LDD),
-        layer_w<Q, T>(a.wv, l, LDD), layer_s(a.s_q, l, D),
-        layer_s(a.s_k, l, D), layer_s(a.s_v, l, D), cos_t, sin_t, q, ck, cv,
-        kv_new, B, D, S, a.V);
+        layer_w<Q, T>(a.wq, l, LDD), layer_w<Q, T>(a.wk, l, LKD),
+        layer_w<Q, T>(a.wv, l, LKD), layer_s(a.s_q, l, D),
+        layer_s(a.s_k, l, Dkv), layer_s(a.s_v, l, Dkv), cos_t, sin_t, q, ck,
+        cv, kv_new, B, D, Dkv, S, a.V);
     PDT_CHECK();
     if constexpr (KV8) {
       attention_kv8_kernel<<<dim3(H, nsplit, B), kThreads, sm_attn, st>>>(
           a.pos, a.starts, q, kv_new, static_cast<int8_t*>(a.ck) + l * LBSD,
           static_cast<int8_t*>(a.cv) + l * LBSD, a.sk + l * LBS,
-          a.sv + l * LBS, part_m, part_l, part_acc, B, D, hd, S, a.scale);
+          a.sv + l * LBS, part_m, part_l, part_acc, B, D, Dkv, group, hd, S,
+          a.scale);
     } else {
       attention_b_kernel<T><<<dim3(H, nsplit, B), kThreads, sm_attn, st>>>(
-          a.pos, a.starts, q, ck, cv, part_m, part_l, part_acc, D, hd, S,
-          a.scale);
+          a.pos, a.starts, q, ck, cv, part_m, part_l, part_acc, D, Dkv, group,
+          hd, S, a.scale);
     }
     PDT_CHECK();
     attn_out_b_kernel<T, Q, BM><<<grid_d, kThreads, sm_norm, st>>>(
@@ -747,7 +798,7 @@ cudaError_t run(const Args& a, cudaStream_t st) {
         B, D);
     PDT_CHECK();
   }
-  head_b_kernel<T, HQ, BM><<<ntiles, kThreads, sm_norm, st>>>(
+  head_b_kernel<T, HQ, BM><<<grid_head, kThreads, sm_norm, st>>>(
       h, static_cast<const T*>(a.final_norm), a.head_w, a.head_s,
       static_cast<const T*>(a.head_b), tile_val, tile_idx, a.logits, B, D,
       a.V);
@@ -757,13 +808,13 @@ cudaError_t run(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// the smallest register tile of rows that holds B
+// the smallest register tile of rows that holds a group of min(B, 32) rows
 template <typename T, int Q, int HQ, bool KV8>
 cudaError_t run_b(const Args& a, cudaStream_t st) {
   if (a.B <= 4) return run<T, Q, HQ, KV8, 4>(a, st);
   if (a.B <= 8) return run<T, Q, HQ, KV8, 8>(a, st);
   if (a.B <= 16) return run<T, Q, HQ, KV8, 16>(a, st);
-  return run<T, Q, HQ, KV8, kMaxBatch>(a, st);
+  return run<T, Q, HQ, KV8, kRowGroup>(a, st);
 }
 
 // the modes of the module doc: (layers, head) formats (0, 0), (0, 1),

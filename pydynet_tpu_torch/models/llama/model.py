@@ -27,7 +27,9 @@ are torch's (out, in). Four ways through the model:
   kernel chains on a GPU (weights f32/bf16, optionally the int8 head, or
   int8 or int4 layers and head, the prefill token staying on the float
   weights as in the JAX package; ``kv_quant="int8"`` takes the batched
-  kernel's int8 KV cache, at B=1 too).
+  kernel's int8 KV cache, at B=1 too; any B). A grouped-query model
+  decodes on the kernels' narrow cache, (N, [B,] S, Hkv * hd), or with
+  int8/int4 layers on the expanded (MHA) layout, as in the JAX package.
 
 ``fused=None`` routes: the fused lane wherever the port's fused kernels
 take the model, weight format and batch; else the scan lane where the JAX
@@ -301,11 +303,16 @@ FUSED_MATS = ("wq", "wk", "wv", "wo", "gate_w", "up_w", "down")
 def decode_weight_args(weights):
     """The decode steps' weight arguments, ``emb`` to ``head_b``, from a
     :meth:`Llama._fused_weights` snapshot: its quantized layer matrices and
-    head when it has them (``wq_q``.., ``head_wq``)."""
+    head when it has them (``wq_q``.., ``head_wq``), and a grouped-query
+    model's narrow ``wk_n``/``wv_n`` when it has those."""
     qhead = "head_s" in weights
     q = "_q" if "wq_s" in weights else ""
+
+    def mat(name):
+        return weights.get(name + "_n", weights.get(name + q))
+
     return (weights["tok"], weights["cosD"], weights["sinD"], weights["norm"],
-            *(weights[name + q] for name in FUSED_MATS),
+            *(mat(name) for name in FUSED_MATS),
             weights["in_norm"], weights["post_norm"],
             weights["head_wq"] if qhead else weights["head_w"],
             weights["head_b"])
@@ -313,11 +320,14 @@ def decode_weight_args(weights):
 
 def decode_quant_kwargs(weights):
     """The decode steps' keyword arguments for the snapshot's weight
-    format: ``head_s``, and for quantized layers ``scales`` and ``q4``."""
+    format: ``head_s``, for quantized layers ``scales`` and ``q4``, and for
+    the narrow cache ``n_kv_heads``."""
     kw = dict(head_s=weights.get("head_s"))
     if "wq_s" in weights:
         kw.update(scales=tuple(weights[name + "_s"] for name in FUSED_MATS),
                   q4="q4" in weights)
+    if "n_kv_heads" in weights:
+        kw.update(n_kv_heads=weights["n_kv_heads"])
     return kw
 
 
@@ -850,7 +860,16 @@ class Llama(nn.Module):
         into ``head_wq``/``head_s``; ``"q4"`` marks int4. The float
         matrices and head stay for the prefill token, which runs at full
         precision as in the JAX package (``model.py:1180-1186``);
-        :func:`decode_weight_args` picks the decode steps' arguments."""
+        :func:`decode_weight_args` picks the decode steps' arguments.
+
+        A grouped-query model (``n_kv_heads < n_heads``) with float layers
+        decodes on the narrow cache: ``wk_n``/``wv_n`` (N, Hkv * hd, D),
+        torch's layout of the JAX package's ``wk_n`` without its lane
+        padding, and ``n_kv_heads``. With int8/int4 layers it decodes on the
+        expanded (MHA) layout, as the JAX package does (its ``kv_expand``,
+        ``model.py:1126-1135``): ``wk``/``wv`` repeat each KV head's rows
+        to its query group before they are quantized, so the scales are
+        the JAX package's."""
         if quant not in QUANTS:
             raise ValueError(f"unsupported quant mode: {quant!r}")
         key = (dtype, "fused", quant)
@@ -858,22 +877,35 @@ class Llama(nn.Module):
             return self._weights_cache[key]
         base = self._weights(dtype)
         D, H, Fd = self.embed_dim, self.n_heads, self.ffn_dim
+        Dkv = self.n_kv_heads * self.head_dim
+        qlayers = quant in ("int8", "int4")
 
         def expand(t):  # (S, hd/2) -> (S, D): each pair's angle, per head
             return t.repeat_interleave(2, dim=-1).repeat(1, H).contiguous()
 
+        def kv_rows(a, b):  # wk or wv (N, Dkv, D), expanded for qlayers
+            m = base["wqkv"][:, a:b]
+            if qlayers and Dkv != D:
+                m = m.reshape(m.shape[0], self.n_kv_heads, self.head_dim, D) \
+                    .repeat_interleave(H // self.n_kv_heads, dim=1) \
+                    .reshape(m.shape[0], D, D)
+            return m.contiguous()
+
+        kv = (("wk", "wv") if qlayers or Dkv == D else ("wk_n", "wv_n"))
         w = dict(base)
         w.update({
             "wq": base["wqkv"][:, :D].contiguous(),
-            "wk": base["wqkv"][:, D:2 * D].contiguous(),
-            "wv": base["wqkv"][:, 2 * D:].contiguous(),
+            kv[0]: kv_rows(D, D + Dkv),
+            kv[1]: kv_rows(D + Dkv, D + 2 * Dkv),
             "gate_w": base["wgu"][:, :Fd].contiguous(),
             "up_w": base["wgu"][:, Fd:].contiguous(),
             "cosD": expand(base["cos"]),
             "sinD": expand(base["sin"]),
         })
+        if kv[0] == "wk_n":
+            w["n_kv_heads"] = self.n_kv_heads
         qfn = quantize_int4 if quant == "int4" else quantize_int8
-        if quant in ("int8", "int4"):
+        if qlayers:
             for name in FUSED_MATS:
                 q, sc = qfn(w[name], axis=2)
                 w[name + "_q"] = q.contiguous()
@@ -904,21 +936,24 @@ class Llama(nn.Module):
         reduction slots must fit in 12,288 floats; the attention block
         (256 threads) needs head_dim <= 256; RoPE needs an even head_dim
         (``ops.decode_step.kernel_takes``). At B>1 the batched chain keeps
-        all B activation rows in shared memory, opting in up to 227 KB, and
-        a warp keeps row b's sums in lane b, so B <= 32
-        (``ops.decode_step.batched_kernel_takes``). Narrow GQA caches are
-        not ported, so n_kv_heads must equal n_heads. int8 and int4 layers
-        run on both kernels, but only where the JAX package's rule
-        (:meth:`_tpu_fused_supported`) puts them on its fused kernel: a
-        Llama-2-7B model with them stays on the scan lane, as there.
+        a group of up to 32 activation rows in shared memory, opting in up
+        to 227 KB, and takes any number of groups
+        (``ops.decode_step.batched_kernel_takes``). A grouped-query model
+        decodes on the narrow cache with float layers, on the expanded
+        layout with int8/int4 layers (:meth:`_fused_weights`). int8 and
+        int4 layers run on both kernels, but only where the JAX package's
+        rule (:meth:`_tpu_fused_supported`) puts them on its fused kernel:
+        a Llama-2-7B model with them stays on the scan lane, as there.
         """
         D, H, Fd = self.embed_dim, self.n_heads, self.ffn_dim
         q4 = quant == "int4"
-        takes = (dsk.kernel_takes(D, H, Fd, q4) if batch == 1 and not batched
-                 else dsk.batched_kernel_takes(D, H, Fd, batch, q4))
+        hkv = None if quant in ("int8", "int4") else self.n_kv_heads
+        takes = (dsk.kernel_takes(D, H, Fd, q4, hkv)
+                 if batch == 1 and not batched
+                 else dsk.batched_kernel_takes(D, H, Fd, batch, q4, hkv))
         fmt = (quant in (None, "int8-head")
                or self._tpu_fused_supported(quant))
-        return fmt and self.n_kv_heads == self.n_heads and takes
+        return fmt and takes
 
     def _tpu_fused_supported(self, quant=None) -> bool:
         """The JAX package's routing rule, ``_fused_decode_supported``
@@ -940,21 +975,6 @@ class Llama(nn.Module):
                 and dsk.pick_sb(S) > 0 and V % 8 == 0
                 and vmem <= (100 << 20))
 
-    def _fused_refusal(self, quant, batch, batched=False):
-        """None when the port's fused kernels take the weight format, the
-        model and ``batch`` rows (the batched kernel's when ``batched``);
-        else ``(what, ROADMAP item)`` naming what is missing."""
-        if self.n_kv_heads != self.n_heads:
-            return ("narrow GQA caches on the fused lane (fused=False runs "
-                    "the scan lane)", "Narrow GQA")
-        if batch > dsk.MAX_BATCH:
-            return (f"the batched kernel above B={dsk.MAX_BATCH} "
-                    "(fused=False runs the scan lane)", "Batched decode")
-        if not self._fused_decode_supported(quant, batch, batched):
-            return ("a fused decode kernel for these dims (fused=False runs "
-                    "the scan lane)", "Big-dims lane")
-        return None
-
     def use_fused(self, quant, batch: int, fused=None,
                   batched: bool = False) -> bool:
         """Resolve the lane of ``generate`` and ``LlamaServer``: ``fused``
@@ -968,19 +988,20 @@ class Llama(nn.Module):
             raise ValueError(f"unsupported quant mode: {quant!r}")
         if fused is not None and not fused:
             return False
-        refusal = self._fused_refusal(quant, batch, batched)
-        if refusal is None:
+        if self._fused_decode_supported(quant, batch, batched):
             return True
         if fused is None and not self._tpu_fused_supported(quant):
             return False
-        not_ported(*refusal)
+        not_ported("a fused decode kernel for these dims (fused=False runs "
+                   "the scan lane)", "Big-dims lane")
 
     def fused_step(self, weights, ck, cv, tok, pos, emit_logits=False,
                    out=None):
-        """One ``fused_decode_token`` call in the snapshot's weight format:
-        ``tok``/``pos`` (1,) int32 on the device, caches (N, S, D) updated
-        in place; returns (1,) int32, or with ``emit_logits`` the (1, V)
-        float32 logits."""
+        """One ``fused_decode_token`` call in the snapshot's weight format
+        (the narrow mode for a grouped-query snapshot): ``tok``/``pos`` (1,)
+        int32 on the device, caches (N, S, W) (:meth:`_flat_caches`)
+        updated in place; returns (1,) int32, or with ``emit_logits`` the
+        (1, V) float32 logits."""
         return dsk.fused_decode_token(
             pos, tok, *decode_weight_args(weights), ck, cv,
             n_heads=self.n_heads, emit_logits=emit_logits, out=out,
@@ -990,7 +1011,7 @@ class Llama(nn.Module):
                            emit_logits=False, out=None):
         """One ``fused_decode_token_batched`` call in the snapshot's weight
         format: ``tok`` (B,) and ``pos`` (1,) int32 on the device, caches
-        (N, B, S, D) updated in place, or for the int8 KV cache ``(int8
+        (N, B, S, W) updated in place, or for the int8 KV cache ``(int8
         rows, (N, B, S) float32 scales)`` pairs (:func:`quantize_kv`'s);
         ``starts`` (B,) int32 per-row attention lower bounds or None;
         returns (B,) int32, or with ``emit_logits`` the (B, V) float32
@@ -1007,8 +1028,8 @@ class Llama(nn.Module):
     def decode_chunk(self, weights, ck, cv, tok, pos: int, n_steps: int,
                      starts=None, sampler=None):
         """``n_steps`` fused steps from ``tok`` (B,) int32 at the shared
-        ``pos``: flat caches (N, S, D) take the B=1 kernel, batched caches
-        (N, B, S, D), or the int8 KV cache's (rows, scales) pairs, the
+        ``pos``: flat caches (N, S, W) take the B=1 kernel, batched caches
+        (N, B, S, W), or the int8 KV cache's (rows, scales) pairs, the
         batched one, whose rows may start their attention at ``starts``
         (B,) int32 on the device. Greedy steps take the kernel's token;
         with ``sampler`` (see :meth:`decode_chunk_plain`) the kernel emits
@@ -1036,11 +1057,18 @@ class Llama(nn.Module):
             tok = toks[i]
         return toks
 
-    def _flat_caches(self, ck5, cv5):
-        """(N, B, S, H, hd) dense caches as the fused lane's views of the
-        same memory: (N, S, D) at B=1, (N, B, S, D) at B>1."""
+    def _flat_caches(self, ck5, cv5, weights):
+        """(N, B, S, Hkv, hd) dense caches in the fused lane's layout for
+        the ``weights`` snapshot (the JAX package's ``_kv_flat``): (N, S, W)
+        at B=1, (N, B, S, W) at B>1. For MHA and the narrow cache (W = Hkv
+        * hd) they are views of the same memory; for a grouped-query model
+        on the expanded layout (int8/int4 layers) each KV head is repeated
+        to its query group (W = D), a copy."""
         N, B, S = ck5.shape[:3]
         shape = (N, S, -1) if B == 1 else (N, B, S, -1)
+        if self.n_kv_heads != self.n_heads and "n_kv_heads" not in weights:
+            g = self.n_heads // self.n_kv_heads
+            ck5, cv5 = (c.repeat_interleave(g, dim=3) for c in (ck5, cv5))
         return ck5.view(shape), cv5.view(shape)
 
     # ------------------------------- generate -------------------------------
@@ -1130,7 +1158,7 @@ class Llama(nn.Module):
                            sampler=sampler)
         tok = tok.to(torch.int32)
         if fused:
-            ck, cv = self._flat_caches(ck, cv)
+            ck, cv = self._flat_caches(ck, cv, weights)
             if kv_quant:  # int8 rows and scales, (N, B, S, D) even at B=1
                 if B == 1:
                     ck, cv = ck[:, None], cv[:, None]

@@ -39,7 +39,12 @@ On the fused lane ``quant="int8"``/``"int4"`` run the batched kernel's
 quantized layers, and ``kv_quant="int8"`` keeps the fleet's caches as int8
 rows with per-row float32 scales: an admission wave's rows are quantized by
 ``quantize_kv``, K from its float32 rotated rows, as the kernel quantizes
-the rows it writes, so admitted and decoded rows are alike.
+the rows it writes, so admitted and decoded rows are alike. A grouped-query
+model's fleet keeps the kernel's narrow (N, B, S, Hkv * hd) caches, with
+float weights, the int8 head or the int8 KV cache; its K rows are rotated
+by the first Hkv * hd columns of the (S, D) tables. With int8/int4 layers
+it keeps the expanded (N, B, S, D) layout, as ``generate`` does. Any
+``batch_size`` runs: the batched kernel takes its rows in groups of 32.
 
 Sampling, server-wide (``temperature``, ``top_k``, ``top_p``) or per
 request (``submit(..., temperature=, top_k=, top_p=, seed=)``), is the JAX
@@ -301,18 +306,23 @@ class LlamaServer(_FleetScheduler):
         self._dtype = dtype
         self._quant = quant
         self._refresh_weights()
-        N, S, D = model.n_layers, model.max_seq_len, model.embed_dim
+        N, S = model.n_layers, model.max_seq_len
+        # the fused lane's cache width (JAX: serve.py:422-427): a
+        # grouped-query model's narrow Hkv * hd, else D (MHA, or the
+        # expanded layout of int8/int4 layers)
+        W = (model.n_kv_heads * model.head_dim if "n_kv_heads" in self._w
+             else model.embed_dim)
         self.S = S
         dev, cdt = model.device, self._w["tok"].dtype
         self._cdt = cdt
         if kv_quant:  # int8 rows and their scales, floored as quantize_kv's
             self._ck, self._cv = (
-                (torch.zeros(N, self.B, S, D, dtype=torch.int8, device=dev),
+                (torch.zeros(N, self.B, S, W, dtype=torch.int8, device=dev),
                  torch.full((N, self.B, S), 1e-10, device=dev))
                 for _ in range(2))
         elif fused:
-            self._ck = torch.zeros(N, self.B, S, D, dtype=cdt, device=dev)
-            self._cv = torch.zeros(N, self.B, S, D, dtype=cdt, device=dev)
+            self._ck = torch.zeros(N, self.B, S, W, dtype=cdt, device=dev)
+            self._cv = torch.zeros(N, self.B, S, W, dtype=cdt, device=dev)
         else:  # the scan lane's (N, B, S, Hkv, hd) layout
             self._ck, self._cv = model._empty_caches(self.B, cdt)
         self._tok = torch.ones(self.B, dtype=torch.int32, device=dev)
@@ -400,12 +410,15 @@ class LlamaServer(_FleetScheduler):
         else:
             tok1 = logits1.argmax(-1)
         tok1 = tok1.to(torch.int32)
-        if self._lane == "fused":
-            N, D = model.n_layers, model.embed_dim
-            rows_k = ck5[:, :, :L].reshape(N, k, L, D).float()
-            rows_v = cv5[:, :, :L].reshape(N, k, L, D)
-            rows_k = dsk._rope_pairs(rows_k, w["cosD"][pos0].float(),
-                                     w["sinD"][pos0].float())
+        if self._lane == "fused":  # (N, k, L, W) rows in the fleet layout
+            fk, fv = model._flat_caches(ck5, cv5, w)
+            if k == 1:  # _flat_caches drops a unit batch axis
+                fk, fv = fk[:, None], fv[:, None]
+            W = fk.shape[-1]  # the first W columns: the pattern repeats
+            rows_k = dsk._rope_pairs(fk[:, :, :L].float(),
+                                     w["cosD"][pos0, :W].float(),
+                                     w["sinD"][pos0, :W].float())
+            rows_v = fv[:, :, :L]
         else:  # (N, k, L, Hkv, hd) rows, one table row for every head
             rows_v = cv5[:, :, :L]
             rows_k = _rope_pure(ck5[:, :, :L].float(),

@@ -30,7 +30,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> (restype, argtypes) of every C entry point in csrc/
 SIGNATURES = {
-    "pdt_decode_token": (_I, [_I] * 3 + [_P] * 30 + [_I] * 6
+    "pdt_decode_token": (_I, [_I] * 3 + [_P] * 30 + [_I] * 7
                          + [ctypes.c_float, _P]),
     "pdt_decode_token_scratch_floats": (_I, [_I] * 5),
     "pdt_lm_head_argmax": (_I, [_I, _I] + [_P] * 5 + [_I] * 2 + [_P]),
@@ -38,7 +38,7 @@ SIGNATURES = {
     "pdt_decode_step": (_I, [_I] + [_P] * 20 + [_I] * 5
                         + [ctypes.c_float, _P]),
     "pdt_decode_step_scratch_floats": (_I, [_I] * 4),
-    "pdt_decode_token_batched": (_I, [_I] * 4 + [_P] * 33 + [_I] * 7
+    "pdt_decode_token_batched": (_I, [_I] * 4 + [_P] * 33 + [_I] * 8
                                  + [ctypes.c_float, _P]),
     "pdt_decode_token_batched_scratch_floats": (_I, [_I] * 6),
     "pdt_flash_fwd": (_I, [_I] + [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]),

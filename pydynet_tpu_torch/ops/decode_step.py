@@ -71,6 +71,19 @@ per row the same way; a cached row's score is the exact integer dot per head
 times its ``sk`` times the query's scale times ``1 / sqrt(head_dim)``; the
 new row scores its dequantized key against the exact float32 query. Values
 are ``cv * sv``, the new row's dequantized.
+
+Both steps take a grouped-query model's narrow cache (the TPU kernels'
+``narrow`` mode): with ``n_kv_heads`` = Hkv < ``n_heads`` = H, ``wk`` and
+``wv`` are (N, Dkv, D), Dkv = Hkv * head_dim, and the caches (N, [B,] S,
+Dkv), so cache traffic scales with Hkv. Query head h reads KV head
+``h // (H / Hkv)``; k is rotated by the first Dkv columns of ``cos``/``sin``
+(the table repeats per head). The narrow cache combines with float weights,
+the int8 head, the int8 KV cache (scales over the Dkv-wide rows; the query's
+still over its D features), ``starts`` and ``emit_logits``, never with
+int8/int4 layers: a grouped-query model runs those on the expanded (MHA)
+layout, each KV head's rows repeated to its query group, as the JAX package
+does. Each wrapper counts its narrow launches, of either mode, also in its
+``narrow_launches`` attribute.
 """
 from __future__ import annotations
 
@@ -86,34 +99,47 @@ from .quant import unpack_int4
 _THREADS = 256  # block size of every launch (kThreads in common.cuh)
 _SMEM_FLOATS = 48 * 1024 // 4  # shared memory a block gets without opt-in
 _SMEM_OPTIN_FLOATS = 232448 // 4  # what it may opt in to on sm_90
-MAX_BATCH = 32  # kMaxBatch in decode_token_batched.cu
+ROW_GROUP = 32  # kRowGroup in decode_token_batched.cuh
+_MAX_GRID_Z = 65535  # the attention grid's rows, one a z index
 _WDTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def kernel_takes(dim: int, n_heads: int, ffn: int, q4: bool = False) -> bool:
-    """Whether the CUDA kernel takes these model widths. An attention block
-    spreads one head's features over its threads, so head_dim <= 256, and
-    even for RoPE's pairs; the norm and projection blocks hold one D- or
-    F-wide activation vector plus a few reduction slots in shared memory;
-    int4 packs pairs of contraction rows, so ``q4`` needs D and F even."""
+def _heads_take(dim: int, n_heads: int, n_kv_heads=None) -> bool:
+    """An attention block spreads one head's features over its threads, so
+    head_dim <= 256, and even for RoPE's pairs; the KV heads divide the
+    query heads."""
+    hkv = n_kv_heads or n_heads
     hd = dim // n_heads
     return (dim % n_heads == 0 and hd % 2 == 0 and hd <= _THREADS
+            and 1 <= hkv <= n_heads and n_heads % hkv == 0)
+
+
+def kernel_takes(dim: int, n_heads: int, ffn: int, q4: bool = False,
+                 n_kv_heads: int = None) -> bool:
+    """Whether the CUDA kernel takes these model widths (``n_kv_heads``:
+    the narrow cache's KV heads, None for MHA): the heads as
+    :func:`_heads_take` asks; the norm and projection blocks hold one D- or
+    F-wide activation vector plus a few reduction slots in shared memory;
+    int4 packs pairs of contraction rows, so ``q4`` needs D and F even."""
+    return (_heads_take(dim, n_heads, n_kv_heads)
             and max(dim, ffn) + 64 <= _SMEM_FLOATS
             and not (q4 and (dim % 2 or ffn % 2)))
 
 
 def batched_kernel_takes(dim: int, n_heads: int, ffn: int, batch: int,
-                         q4: bool = False) -> bool:
+                         q4: bool = False, n_kv_heads: int = None) -> bool:
     """Whether the batched CUDA kernel takes these widths and rows. Its
-    blocks hold all B activation rows (D or F wide, float32) in shared
-    memory, opting in above 48 KB, so B * max(D, F) plus the head block's
-    per-row reduction slots must fit the 227 KB a block may opt in to; a
-    warp keeps row b's sums in lane b, so B <= 32; the attention block is
-    K1's (head_dim <= 256 and even); ``q4`` needs D and F even."""
-    hd = dim // n_heads
-    return (dim % n_heads == 0 and hd % 2 == 0 and hd <= _THREADS
-            and 1 <= batch <= MAX_BATCH
-            and batch * max(dim, ffn) + 1024 <= _SMEM_OPTIN_FLOATS
+    GEMV blocks each take one group of at most ``ROW_GROUP`` rows (a warp
+    keeps row b of its group's sums in lane b) and hold the group's
+    activation rows (D or F wide, float32) in shared memory, opting in above
+    48 KB, so min(B, 32) * max(D, F) plus the head block's per-row
+    reduction slots must fit the 227 KB a block may opt in to; the attention
+    grid has a row a z index (B <= 65535); above that B is bounded by device
+    memory only; the heads as K1's; ``q4`` needs D and F even."""
+    return (_heads_take(dim, n_heads, n_kv_heads)
+            and 1 <= batch <= _MAX_GRID_Z
+            and min(batch, ROW_GROUP) * max(dim, ffn) + 1024
+            <= _SMEM_OPTIN_FLOATS
             and not (q4 and (dim % 2 or ffn % 2)))
 
 
@@ -184,28 +210,37 @@ def quantize_kv(c):
     return q.to(torch.int8), s
 
 
+def _by_query_head(x, n_heads, hd):
+    """(..., Hkv * hd) rows -> (..., H, hd): each KV head repeated to the
+    H / Hkv query heads of its group (MHA: a view, no copy)."""
+    hkv = x.shape[-1] // hd
+    x = x.reshape(x.shape[:-1] + (hkv, hd))
+    return x if hkv == n_heads else x.repeat_interleave(n_heads // hkv, -2)
+
+
 def _attend_kv8(ck, cv, sk, sv, p, lo, q, k, v, n_heads):
     """The ``kv_int8`` attention of one row over one layer's int8 caches
-    (S, D) with scales (S,): the new K and V rows quantized into row ``p``,
-    cached rows ``[lo, p)`` scored by the exact integer dot with the
-    quantized query, the new row by its dequantized key against the exact
-    float32 query ``q``. Returns the (D,) float32 attention output."""
+    (S, Dkv) with scales (S,): the new K and V rows quantized into row
+    ``p``, cached rows ``[lo, p)`` scored by the exact integer dot with the
+    quantized query (its scale over all D features), the new row by its
+    dequantized key against the exact float32 query ``q``; query head h
+    reads KV head ``h // (H / Hkv)``. Returns the (D,) float32 attention
+    output."""
     D = q.shape[0]
     hd = D // n_heads
     scale = 1.0 / math.sqrt(hd)
     (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
     ck[p], sk[p], cv[p], sv[p] = kq, ks, vq, vs
     qq, qs = quantize_kv(q)
-    n = p - lo
-    keys = ck[lo:p].double().view(n, n_heads, hd)  # integer sums: exact
+    keys = _by_query_head(ck[lo:p].double(), n_heads, hd)  # exact sums
     dots = torch.einsum("nhd,hd->nh", keys,
                         qq.double().view(n_heads, hd)).float()
     s_cache = dots * sk[lo:p, None] * qs * scale
-    kself = (kq.float() * ks).view(n_heads, hd)
+    kself = _by_query_head(kq.float() * ks, n_heads, hd)
     s_self = (kself * q.view(n_heads, hd)).sum(-1) * scale
     scores = torch.cat([s_cache, s_self[None]]).t()             # (H, n + 1)
-    vals = torch.cat([cv[lo:p].float() * sv[lo:p, None],
-                      (vq.float() * vs)[None]]).view(n + 1, n_heads, hd)
+    vals = _by_query_head(torch.cat([cv[lo:p].float() * sv[lo:p, None],
+                                     (vq.float() * vs)[None]]), n_heads, hd)
     att = torch.einsum("hn,nhd->hd", torch.softmax(scores, -1), vals)
     return att.reshape(D)
 
@@ -214,15 +249,22 @@ def decode_token_logits_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
                             wo, gate_w, up_w, down_w, in_norm, post_norm,
                             head_w, head_b, ck, cv, *, n_heads: int,
                             head_s=None, scales=None, q4: bool = False,
-                            start: int = 0, sk=None, sv=None):
+                            start: int = 0, sk=None, sv=None,
+                            n_kv_heads: int = None):
     """The plain-PyTorch step up to the float32 logits (V,), caches updated
     in place; :func:`fused_decode_token_ref` takes their argmax. Attention
     reads cache rows ``[start, p]`` (``start`` clipped to ``[0, p]``); with
     ``sk``/``sv`` (N, S) the caches are int8 (the batched step's
-    ``kv_int8`` mode on one row). Runs on any device (it reads ``pos`` and
-    ``tok`` back to the host)."""
-    N, S, D = ck.shape
+    ``kv_int8`` mode on one row). The caches are (N, S, Hkv * head_dim),
+    Hkv = ``n_kv_heads`` (``n_heads`` when None): narrow for a
+    grouped-query model. Runs on any device (it reads ``pos`` and ``tok``
+    back to the host)."""
+    N, S, Dkv = ck.shape
+    D = emb.shape[1]
     hd = D // n_heads
+    if Dkv != (n_kv_heads or n_heads) * hd:
+        raise ValueError(f"caches {Dkv} wide, want n_kv_heads * head_dim = "
+                         f"{(n_kv_heads or n_heads) * hd}")
     wdt = emb.dtype
     p = min(int(pos.reshape(-1)[0]), S - 1)
     lo = min(max(start, 0), p)
@@ -244,7 +286,7 @@ def decode_token_logits_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
     for layer in range(N):
         x = rms_norm(h, in_norm[layer])
         q = _rope_pairs(lmm(0, layer, x), c, s)
-        k = _rope_pairs(lmm(1, layer, x), c, s)
+        k = _rope_pairs(lmm(1, layer, x), c[:Dkv], s[:Dkv])
         v = lmm(2, layer, x)
         if sk is not None:
             att = _attend_kv8(ck[layer], cv[layer], sk[layer], sv[layer], p,
@@ -252,8 +294,8 @@ def decode_token_logits_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
         else:
             ck[layer, p] = k.to(wdt)
             cv[layer, p] = v.to(wdt)
-            keys = ck[layer, lo:p + 1].float().view(p + 1 - lo, n_heads, hd)
-            vals = cv[layer, lo:p + 1].float().view(p + 1 - lo, n_heads, hd)
+            keys = _by_query_head(ck[layer, lo:p + 1].float(), n_heads, hd)
+            vals = _by_query_head(cv[layer, lo:p + 1].float(), n_heads, hd)
             qh = q.to(wdt).float().view(n_heads, hd)
             scores = torch.einsum("nhd,hd->hn", keys, qh) * (
                 1.0 / math.sqrt(hd))
@@ -274,13 +316,13 @@ def fused_decode_token_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
                            wo, gate_w, up_w, down_w, in_norm, post_norm,
                            head_w, head_b, ck, cv, *, n_heads: int,
                            head_s=None, scales=None, q4: bool = False,
-                           out=None):
+                           n_kv_heads: int = None, out=None):
     """The plain-PyTorch version of :func:`fused_decode_token`: same
     arguments, same results, on any device."""
     logits = decode_token_logits_ref(
         pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
         down_w, in_norm, post_norm, head_w, head_b, ck, cv, n_heads=n_heads,
-        head_s=head_s, scales=scales, q4=q4)
+        head_s=head_s, scales=scales, q4=q4, n_kv_heads=n_kv_heads)
     if out is None:
         out = torch.empty(1, dtype=torch.int32, device=emb.device)
     out[0] = torch.argmax(logits)  # first maximal index
@@ -292,7 +334,8 @@ def decode_token_batched_logits_ref(pos, tok, emb, cos, sin, final_norm, wq,
                                     in_norm, post_norm, head_w, head_b, ck,
                                     cv, *, n_heads: int, head_s=None,
                                     scales=None, q4: bool = False, sk=None,
-                                    sv=None, starts=None):
+                                    sv=None, starts=None,
+                                    n_kv_heads: int = None):
     """The plain-PyTorch batched step up to the float32 logits (B, V),
     caches updated in place: each row through :func:`decode_token_logits_ref`
     on its own cache ``[:, b]`` (and scales ``sk[:, b]``, ``sv[:, b]``) from
@@ -305,7 +348,7 @@ def decode_token_batched_logits_ref(pos, tok, emb, cos, sin, final_norm, wq,
             ck[:, b], cv[:, b], n_heads=n_heads, head_s=head_s,
             scales=scales, q4=q4, start=lo,
             sk=None if sk is None else sk[:, b],
-            sv=None if sv is None else sv[:, b])
+            sv=None if sv is None else sv[:, b], n_kv_heads=n_kv_heads)
         for b, lo in enumerate(lows)])
 
 
@@ -314,13 +357,15 @@ def fused_decode_token_batched_ref(pos, tok, emb, cos, sin, final_norm, wq,
                                    post_norm, head_w, head_b, ck, cv, *,
                                    n_heads: int, head_s=None, scales=None,
                                    q4: bool = False, sk=None, sv=None,
-                                   starts=None, out=None):
+                                   starts=None, n_kv_heads: int = None,
+                                   out=None):
     """The plain-PyTorch version of :func:`fused_decode_token_batched`: same
     arguments, same results, on any device."""
     logits = decode_token_batched_logits_ref(
         pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
         down_w, in_norm, post_norm, head_w, head_b, ck, cv, n_heads=n_heads,
-        head_s=head_s, scales=scales, q4=q4, sk=sk, sv=sv, starts=starts)
+        head_s=head_s, scales=scales, q4=q4, sk=sk, sv=sv, starts=starts,
+        n_kv_heads=n_kv_heads)
     if out is None:
         out = torch.empty(tok.shape[0], dtype=torch.int32, device=emb.device)
     out[:] = torch.argmax(logits, dim=-1)  # first maximal index per row
@@ -333,21 +378,20 @@ _MATS = ("wq", "wk", "wv", "wo", "gate_w", "up_w", "down_w")
 def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
            down_w, in_norm, post_norm, head_w, head_b, ck, cv, n_heads,
            head_s, out, starts=None, batched=False, scales=None, q4=False,
-           sk=None, sv=None, emit_logits=False):
+           sk=None, sv=None, emit_logits=False, n_kv_heads=None):
     """Raise unless the arguments have the layouts of the module doc (the
     batched step's when ``batched``; ``out`` the logits' when
-    ``emit_logits``). Returns (B, N, S, D, F, V), B = 1 for the B=1
-    step."""
-    if ck.dim() != (4 if batched else 3):
+    ``emit_logits``; the narrow cache's when ``n_kv_heads`` < ``n_heads``).
+    Returns (B, N, S, D, F, V, Hkv), B = 1 for the B=1 step."""
+    if ck.dim() != (4 if batched else 3) or emb.dim() != 2:
         raise ValueError(f"ck: expected {4 if batched else 3} dims, got "
                          f"{tuple(ck.shape)}")
+    V, D = emb.shape
+    hkv = n_kv_heads or n_heads
     if batched:
-        N, B, S, D = ck.shape
-        rows, cache = (B,), (N, B, S, D)
+        N, B, S = ck.shape[:3]
     else:
-        (N, S, D), B = ck.shape, 1
-        rows, cache = (1,), (N, S, D)
-    V = emb.shape[0]
+        (N, S), B = ck.shape[:2], 1
     F = up_w.shape[1]
     wdt = emb.dtype
     if wdt not in _WDTYPES:
@@ -355,6 +399,13 @@ def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
     if N < 1 or D % n_heads or (D // n_heads) % 2:
         raise ValueError(f"need >= 1 layer and an even head_dim: N={N}, "
                          f"D={D}, n_heads={n_heads}")
+    if not 1 <= hkv <= n_heads or n_heads % hkv:
+        raise ValueError(f"n_kv_heads={hkv} must divide n_heads={n_heads}")
+    if hkv != n_heads and scales is not None:
+        raise ValueError("a narrow GQA cache takes float layers: int8/int4 "
+                         "layers run on the expanded (MHA) layout")
+    Dkv = hkv * (D // n_heads)
+    rows, cache = ((B,), (N, B, S, Dkv)) if batched else ((1,), (N, S, Dkv))
     if q4 and scales is None:
         raise ValueError("q4 packs the quantized layers: it needs scales")
     if scales is not None and head_s is None:
@@ -377,8 +428,9 @@ def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
     shapes = {
         "emb": (emb, (V, D), wdt), "cos": (cos, (S, D), wdt),
         "sin": (sin, (S, D), wdt), "final_norm": (final_norm, (D,), wdt),
-        "wq": (wq, (N, D, D // div), qdt), "wk": (wk, (N, D, D // div), qdt),
-        "wv": (wv, (N, D, D // div), qdt), "wo": (wo, (N, D, D // div), qdt),
+        "wq": (wq, (N, D, D // div), qdt),
+        "wk": (wk, (N, Dkv, D // div), qdt),
+        "wv": (wv, (N, Dkv, D // div), qdt), "wo": (wo, (N, D, D // div), qdt),
         "gate_w": (gate_w, (N, F, D // div), qdt),
         "up_w": (up_w, (N, F, D // div), qdt),
         "down_w": (down_w, (N, D, F // div), qdt),
@@ -404,7 +456,7 @@ def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
         shapes["out"] = ((out, (B, V), torch.float32) if emit_logits
                          else (out, rows, torch.int32))
     _check_tensors(shapes, emb.device)
-    return B, N, S, D, F, V
+    return B, N, S, D, F, V, hkv
 
 
 def _check_tensors(shapes, device):
@@ -434,29 +486,32 @@ def fused_decode_token(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo,
                        gate_w, up_w, down_w, in_norm, post_norm, head_w,
                        head_b, ck, cv, *, n_heads: int, head_s=None,
                        scales=None, q4: bool = False,
-                       emit_logits: bool = False, out=None):
+                       emit_logits: bool = False, n_kv_heads: int = None,
+                       out=None):
     """One decode step (see the module doc for the layouts): the greedy
-    token, or with ``emit_logits`` the (1, V) float32 logits. CUDA tensors
-    launch ``csrc/decode_token.cu``; CPU tensors run
+    token, or with ``emit_logits`` the (1, V) float32 logits; the narrow
+    cache with ``n_kv_heads`` < ``n_heads``. CUDA tensors launch
+    ``csrc/decode_token.cu``; CPU tensors run
     :func:`fused_decode_token_ref` (:func:`decode_token_logits_ref` for the
     logits)."""
     args = (pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w,
             up_w, down_w, in_norm, post_norm, head_w, head_b, ck, cv)
-    _, N, S, D, F, V = _check(*args, n_heads, head_s, out, scales=scales,
-                              q4=q4, emit_logits=emit_logits)
+    _, N, S, D, F, V, hkv = _check(*args, n_heads, head_s, out,
+                                   scales=scales, q4=q4,
+                                   emit_logits=emit_logits,
+                                   n_kv_heads=n_kv_heads)
     if emb.device.type == "cpu":
+        kw = dict(n_heads=n_heads, head_s=head_s, scales=scales, q4=q4,
+                  n_kv_heads=hkv)
         if not emit_logits:
-            return fused_decode_token_ref(*args, n_heads=n_heads,
-                                          head_s=head_s, scales=scales, q4=q4,
-                                          out=out)
-        logits = decode_token_logits_ref(*args, n_heads=n_heads,
-                                         head_s=head_s, scales=scales, q4=q4)
+            return fused_decode_token_ref(*args, out=out, **kw)
+        logits = decode_token_logits_ref(*args, **kw)
         if out is None:
             return logits[None]
         out[0] = logits
         return out
-    _check_cuda(emb, kernel_takes(D, n_heads, F, q4),
-                f"D={D}, n_heads={n_heads}, F={F}")
+    _check_cuda(emb, kernel_takes(D, n_heads, F, q4, hkv),
+                f"D={D}, n_heads={n_heads}, n_kv_heads={hkv}, F={F}")
     lib = _build.load()
     hd = D // n_heads
     if out is None:
@@ -480,9 +535,10 @@ def fused_decode_token(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo,
             fused_decode_token.emit_launches += 1
         else:
             fused_decode_token.launches += 1
+        fused_decode_token.narrow_launches += hkv != n_heads
         err = lib.pdt_decode_token(
-            _WDTYPES[emb.dtype], lfmt, hfmt, *ptrs, N, D, n_heads, F, V, S,
-            ctypes.c_float(1.0 / math.sqrt(hd)), stream)
+            _WDTYPES[emb.dtype], lfmt, hfmt, *ptrs, N, D, n_heads, hkv, F, V,
+            S, ctypes.c_float(1.0 / math.sqrt(hd)), stream)
     if err != 0:
         raise RuntimeError(f"decode_token launch failed: CUDA error {err}")
     return out
@@ -490,6 +546,7 @@ def fused_decode_token(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo,
 
 fused_decode_token.launches = 0
 fused_decode_token.emit_launches = 0
+fused_decode_token.narrow_launches = 0
 
 
 def fused_decode_token_batched(pos, tok, emb, cos, sin, final_norm, wq, wk,
@@ -498,22 +555,24 @@ def fused_decode_token_batched(pos, tok, emb, cos, sin, final_norm, wq, wk,
                                n_heads: int, head_s=None, scales=None,
                                q4: bool = False, sk=None, sv=None,
                                starts=None, emit_logits: bool = False,
-                               out=None):
-    """One decode step for B rows (see the module doc for the layouts):
-    float, int8-head, int8 or int4 weights, float caches or the int8 KV
-    cache with ``sk``/``sv``; the greedy tokens, or with ``emit_logits`` the
-    (B, V) float32 logits. CUDA tensors launch
-    ``csrc/decode_token_batched.cu``, one weight stream for all rows; CPU
-    tensors run :func:`fused_decode_token_batched_ref`
+                               n_kv_heads: int = None, out=None):
+    """One decode step for B rows, any B >= 1 (see the module doc for the
+    layouts): float, int8-head, int8 or int4 weights, float caches or the
+    int8 KV cache with ``sk``/``sv``, the narrow cache with ``n_kv_heads``
+    < ``n_heads``; the greedy tokens, or with ``emit_logits`` the (B, V)
+    float32 logits. CUDA tensors launch ``csrc/decode_token_batched.cu``,
+    one weight stream a group of 32 rows; CPU tensors run
+    :func:`fused_decode_token_batched_ref`
     (:func:`decode_token_batched_logits_ref` for the logits)."""
     args = (pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w,
             up_w, down_w, in_norm, post_norm, head_w, head_b, ck, cv)
-    B, N, S, D, F, V = _check(*args, n_heads, head_s, out, starts,
-                              batched=True, scales=scales, q4=q4, sk=sk,
-                              sv=sv, emit_logits=emit_logits)
+    B, N, S, D, F, V, hkv = _check(*args, n_heads, head_s, out, starts,
+                                   batched=True, scales=scales, q4=q4, sk=sk,
+                                   sv=sv, emit_logits=emit_logits,
+                                   n_kv_heads=n_kv_heads)
     if emb.device.type == "cpu":
         kw = dict(n_heads=n_heads, head_s=head_s, scales=scales, q4=q4,
-                  sk=sk, sv=sv, starts=starts)
+                  sk=sk, sv=sv, starts=starts, n_kv_heads=hkv)
         if not emit_logits:
             return fused_decode_token_batched_ref(*args, out=out, **kw)
         logits = decode_token_batched_logits_ref(*args, **kw)
@@ -521,8 +580,8 @@ def fused_decode_token_batched(pos, tok, emb, cos, sin, final_norm, wq, wk,
             return logits
         out.copy_(logits)
         return out
-    _check_cuda(emb, batched_kernel_takes(D, n_heads, F, B, q4),
-                f"B={B}, D={D}, n_heads={n_heads}, F={F}")
+    _check_cuda(emb, batched_kernel_takes(D, n_heads, F, B, q4, hkv),
+                f"B={B}, D={D}, n_heads={n_heads}, n_kv_heads={hkv}, F={F}")
     lib = _build.load()
     hd = D // n_heads
     if out is None:
@@ -547,9 +606,10 @@ def fused_decode_token_batched(pos, tok, emb, cos, sin, final_norm, wq, wk,
             fused_decode_token_batched.emit_launches += 1
         else:
             fused_decode_token_batched.launches += 1
+        fused_decode_token_batched.narrow_launches += hkv != n_heads
         err = lib.pdt_decode_token_batched(
             _WDTYPES[emb.dtype], lfmt, hfmt, int(sk is not None), *ptrs, B,
-            N, D, n_heads, F, V, S, ctypes.c_float(1.0 / math.sqrt(hd)),
+            N, D, n_heads, hkv, F, V, S, ctypes.c_float(1.0 / math.sqrt(hd)),
             stream)
     if err != 0:
         raise RuntimeError(f"decode_token_batched launch failed: CUDA error "
@@ -559,6 +619,7 @@ def fused_decode_token_batched(pos, tok, emb, cos, sin, final_norm, wq, wk,
 
 fused_decode_token_batched.launches = 0
 fused_decode_token_batched.emit_launches = 0
+fused_decode_token_batched.narrow_launches = 0
 
 
 # --------------------------- K9: the greedy head ---------------------------

@@ -105,7 +105,7 @@ def gate_fused_argmax(model, prompt_ids, truth, margins, tops=None, *,
     w = model._fused_weights(dtype, quant)
     ck5, cv5 = model._empty_caches(B, w["tok"].dtype)
     first = model.prefill(w, ck5, cv5, prompt_ids).cpu().numpy()
-    ck, cv = model._flat_caches(ck5, cv5)
+    ck, cv = model._flat_caches(ck5, cv5, w)
     if kv_quant:
         if B == 1:  # the batched kernel's (N, 1, S, D) layout
             ck, cv = ck[:, None], cv[:, None]
@@ -220,7 +220,7 @@ def _teacher_forced_logits(model, prompt_ids, truth, dtype=None, quant=None):
     positions = torch.arange(L, L + steps - 1, dtype=torch.int32, device=dev)
     ck5, cv5 = model._empty_caches(1, w["tok"].dtype)
     model.prefill(w, ck5, cv5, prompt_ids)
-    ck, cv = model._flat_caches(ck5, cv5)
+    ck, cv = model._flat_caches(ck5, cv5, w)
     fused_lg = torch.empty(steps - 1, 1, model.vocab_size,
                            dtype=torch.float32, device=dev)
     for i in range(steps - 1):

@@ -626,3 +626,102 @@ def test_emit_launch_counters_count_emit_launches_only(model):
         assert len(toks) == 16 and all(t.shape == (B, 1) for t in toks)
         assert k.emit_launches - emit == 15 and k.launches == greedy
 
+
+
+@pytest.fixture(scope="module")
+def gqa():
+    """bench.py's GQA_15M on the card: stories15M with 2 KV heads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the decode kernels run only on the "
+                    "card")
+    from pydynet_tpu_torch.models.llama import Llama
+    from chip_smoke import GQA_CFG
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return Llama(**GQA_CFG, device="cuda",
+                 generator=torch.Generator().manual_seed(0)).eval()
+
+
+@pytest.mark.parametrize("pos", [0, 17, 1023, 1030])
+@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "f32-int8",
+                                 "bf16-int8", "bf16-int4"])
+def test_narrow_kernel_matches_plain(gqa, fmt, pos):
+    """K1 on a grouped-query model: the narrow mode (96-wide caches) with
+    float weights and the int8 head, the expanded layout with int8/int4
+    layers; tokens, emitted logits and caches as chip_smoke holds them."""
+    from chip_smoke import (FORMATS, cache_atol, emit_ok, emit_vs_plain,
+                            kernel_vs_plain)
+
+    with torch.no_grad():
+        got, want, confident, err = kernel_vs_plain(gqa, fmt, pos)
+        eerr, scale, same, cerr = emit_vs_plain(gqa, fmt, pos)
+    assert err <= cache_atol(fmt) and cerr <= cache_atol(fmt)
+    if FORMATS[fmt][0] == torch.float32 or confident:
+        assert got == want
+    assert emit_ok(fmt, eerr, scale) and same, (eerr, scale)
+
+
+@pytest.mark.parametrize("batch", [4, 32])
+@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
+                                 "bf16-int4", "f32-kv8", "bf16-kv8"])
+def test_narrow_batched_kernel_matches_plain(gqa, fmt, batch):
+    """K2 on a grouped-query model with per-row starts, every mode (the
+    int8 KV cache on the narrow rows), argmax and emit_logits."""
+    from chip_smoke import (batched_emit_vs_plain, batched_vs_plain,
+                            cache_ok, emit_ok, fmt_of)
+
+    with torch.no_grad():
+        got, want, conf, err = batched_vs_plain(gqa, fmt, batch, 255)
+        eerr, scale, same, cerr = batched_emit_vs_plain(gqa, fmt, batch,
+                                                        1030)
+    assert cache_ok(fmt, err) and cache_ok(fmt, cerr), (err, cerr)
+    must = torch.ones_like(conf) if fmt_of(fmt)[0] == torch.float32 else conf
+    assert torch.equal(got[must], want[must])
+    assert emit_ok(fmt, eerr, scale) and same, (eerr, scale)
+
+
+@pytest.mark.parametrize("batch", [33, 48, 64])
+@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
+                                 "bf16-int4", "f32-kv8", "bf16-kv8"])
+def test_batched_kernel_above_32_rows_matches_plain(model, fmt, batch):
+    """K2's row groups in every mode with per-row starts, argmax and
+    emit_logits."""
+    from chip_smoke import (batched_emit_vs_plain, batched_vs_plain,
+                            cache_ok, emit_ok, fmt_of)
+
+    with torch.no_grad():
+        got, want, conf, err = batched_vs_plain(model, fmt, batch, 17)
+        eerr, scale, same, cerr = batched_emit_vs_plain(model, fmt, batch,
+                                                        1030)
+    assert cache_ok(fmt, err) and cache_ok(fmt, cerr), (err, cerr)
+    must = torch.ones_like(conf) if fmt_of(fmt)[0] == torch.float32 else conf
+    assert torch.equal(got[must], want[must])
+    assert emit_ok(fmt, eerr, scale) and same, (eerr, scale)
+
+
+@pytest.mark.parametrize("fmt", ["bf16", "bf16-int8", "bf16-kv8"])
+def test_batched_rows_above_32_match_k1(model, gqa, fmt):
+    """Each row of a B=64 step (row groups) gives K1's token and cache row
+    on that row alone (the int8 KV cache: K2's at B=1), on stories15M and
+    on the grouped-query model."""
+    from chip_smoke import batched_rows_vs_one, cache_ok
+
+    with torch.no_grad():
+        for m in (model, gqa):
+            equal, err = batched_rows_vs_one(m, fmt, 64)
+            assert equal and cache_ok(fmt, err), err
+
+
+def test_narrow_launch_counters(gqa):
+    """A grouped-query request counts one narrow launch a decode step in
+    K1's argmax or emit mode; int8 layers (the expanded layout) none."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    ids = np.array([[1, 243, 532, 991]])
+    k1 = dsk.fused_decode_token
+    for kw, narrow in (({}, 15), (dict(temperature=0.8, seed=1), 15),
+                       (dict(quant="int8"), 0)):
+        before = k1.narrow_launches
+        assert len(list(gqa.generate(ids, 20, dtype=torch.bfloat16,
+                                     **kw))) == 16
+        assert k1.narrow_launches - before == narrow

@@ -211,15 +211,23 @@ def test_generate_unported_options_raise(batched_calls, step_calls):
         assert len(stream(tm.generate(ids, 8, quant=quant, fused=False))) == 5
     with pytest.raises(ValueError, match="quant"):
         next(tm.generate(ids, 8, quant="int2", fused=False))
-    for fused in (None, True):  # B>1 above the batched kernel's rows
-        with pytest.raises(NotImplementedError, match="B=32"):
-            next(tm.generate(np.ones((33, 2), np.int64), 8, fused=fused))
+    for fused in (None, True):  # B>32: the batched kernel's row groups
+        del batched_calls[:]
+        assert len(list(tm.generate(np.ones((33, 2), np.int64), 4,
+                                    fused=fused))) == 2
+        assert batched_calls == [33]
+    # a grouped-query model: the narrow mode of the fused lane at B=1 (one
+    # B=1 step a decode token, (N, S, Hkv * hd) caches); the scan lane only
+    # when asked for
     gqa = Llama(**dict(TINY, n_kv_heads=1), device="cpu")
-    assert not gqa._fused_decode_supported()
-    for fused in (None, True):  # B=1 is never rerouted to the plain lane
-        with pytest.raises(NotImplementedError, match="GQA"):
-            next(gqa.generate(ids, 8, fused=fused))
+    assert gqa._fused_decode_supported()
+    for fused in (None, True):
+        del step_calls[:], batched_calls[:]
+        assert len(stream(gqa.generate(ids, 8, fused=fused))) == 5
+        assert len(step_calls) == 4 and not batched_calls
+    del step_calls[:]
     assert len(stream(gqa.generate(ids, 8, fused=False))) == 5
+    assert not step_calls and not batched_calls
     odd = Llama(**dict(TINY, embed_dim=512, n_heads=1),  # head_dim > 256
                 device="cpu")
     assert not odd._fused_decode_supported()
@@ -230,9 +238,11 @@ def test_generate_unported_options_raise(batched_calls, step_calls):
     # B>1 runs the plain lane only when asked for it
     assert len(list(tm.generate(np.array([[1, 2], [3, 4]]), 5,
                                 fused=False))) == 3
-    for fused in (None, True):
-        with pytest.raises(NotImplementedError, match="GQA"):
-            next(gqa.generate(np.array([[1, 2], [3, 4]]), 8, fused=fused))
+    for fused in (None, True):  # the grouped-query model's narrow K2
+        del batched_calls[:]
+        assert len(list(gqa.generate(np.array([[1, 2], [3, 4]]), 8,
+                                     fused=fused))) == 6
+        assert batched_calls == [2] * 5
 
 
 def test_generate_default_lane_is_batched_kernel_at_b_gt_1(batched_calls,

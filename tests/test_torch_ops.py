@@ -355,10 +355,11 @@ def test_fused_decode_token_batched_rejects_bad_arguments():
         tds.fused_decode_token_batched(
             _i32(0), torch.tensor([1, 2], dtype=torch.int32), *c, ta["ck"],
             ta["cv"], n_heads=H, out=torch.empty(1, dtype=torch.int32))
-    # the batched kernel's limits: rows held in lanes, activations in
-    # shared memory
+    # the batched kernel's limits: a group of 32 rows' activations in
+    # shared memory, any number of groups up to the attention grid's z
     assert tds.batched_kernel_takes(288, 6, 768, 32)
-    assert not tds.batched_kernel_takes(288, 6, 768, 33)
+    assert tds.batched_kernel_takes(288, 6, 768, 33)
+    assert not tds.batched_kernel_takes(288, 6, 768, 65536)
     assert not tds.batched_kernel_takes(288, 6, 768, 0)
     assert not tds.batched_kernel_takes(4096, 32, 11008, 8)
 

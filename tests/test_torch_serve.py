@@ -293,8 +293,7 @@ def test_server_dispatches_one_batched_step_per_token(batched_calls):
 def test_unported_options_raise(batched_calls):
     _, tm = models(20)
     cases = [dict(kv_quant="int8", lane="xla"), dict(prefix_cache=True),
-             dict(flash_prefill=True),
-             dict(batch_size=33), dict(dtype=torch.float16)]
+             dict(flash_prefill=True), dict(dtype=torch.float16)]
     for kw in cases:
         with pytest.raises(NotImplementedError):
             LlamaServer(tm, **kw)
@@ -310,9 +309,17 @@ def test_unported_options_raise(batched_calls):
         rid = srv.submit([1, 5, 9], max_new_tokens=6)
         assert len(srv.run()[rid].tokens) == 6
         assert batched_calls == [2] * srv.dispatched_steps > []
+    # a grouped-query model and a fleet above 32 slots: the batched step
+    # (the narrow mode; K2's row groups), one call over all slots a step
     gqa = Llama(**dict(CFG, n_kv_heads=1), device="cpu")
-    with pytest.raises(NotImplementedError, match="GQA"):
-        LlamaServer(gqa)
+    for model, batch in ((gqa, 2), (tm, 33)):
+        del batched_calls[:]
+        srv = LlamaServer(model, batch_size=batch, chunk=1, eos_id=-1)
+        assert srv._lane == "fused"
+        assert srv._ck.shape[-1] == model.n_kv_heads * model.head_dim
+        rid = srv.submit([1, 5, 9], max_new_tokens=2)
+        assert len(srv.run()[rid].tokens) == 2
+        assert batched_calls == [batch] * srv.dispatched_steps > []
     wide = Llama(**dict(CFG, embed_dim=512, n_heads=1),  # head_dim > 256
                  device="cpu")
     with pytest.raises(NotImplementedError, match="Big-dims"):
@@ -329,11 +336,15 @@ def test_unported_options_raise(batched_calls):
         del batched_calls[:]
         assert len(list(tm.generate(ids, 8, **kw))) == 5
         assert batched_calls == [2] * 4
-    with pytest.raises(NotImplementedError, match="B=32"):
-        next(tm.generate(np.ones((33, 3), np.int64), 8))
-    with pytest.raises(NotImplementedError, match="GQA"):
-        next(gqa.generate(ids, 8))
+    del batched_calls[:]
+    assert len(list(tm.generate(np.ones((33, 3), np.int64), 5))) == 2
+    assert batched_calls == [33]
+    del batched_calls[:]
+    assert len(list(gqa.generate(ids, 8))) == 5
+    assert batched_calls == [2] * 4
+    del batched_calls[:]
     assert len(list(gqa.generate(ids, 8, fused=False))) == 5
+    assert not batched_calls
 
 
 def test_serve_cli_runs_on_cpu_and_refuses_missing_gpu(tmp_path, capsys,
