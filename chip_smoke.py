@@ -149,12 +149,16 @@ the run with a nonzero exit and no result line:
    (8, 1024, 6, 48), and the training step's time and training tokens per
    second at B = 1 and 8, L = 1024 (``REPEATS`` steps in turns); the 7B
    request's tokens per second in int8 and int4 and the B=4 server's over
-   ``BIG_TIME_REQUESTS`` requests, and each quantized matmul at the 7B
-   shapes (M = 1, 4 and 256) beside its plain version, ``torch._int_mm``
-   (int8, M > 16) and its bound; each
-   kernel's bound (bytes over 3.35 TB/s or operations over the peak for
-   its type) and, for K3/K4, ``F.scaled_dot_product_attention``'s forward
-   and backward; K8's time at (40, 512), (40, 128), (1024, 1024) and
+   ``BIG_TIME_REQUESTS`` requests, the milliseconds to the first token of a
+   ``TTFT_PROMPT``-token prompt in int8 and int4 (its 4 x 32 layer products
+   through the prefill kernel; ``BIG_REPEATS`` runs in turns), and each
+   quantized matmul at the 7B shapes (M = 1, 4 and 256) beside its plain
+   version, ``torch._int_mm`` (int8, M > 16) on the weights as stored,
+   row-major, and on a column-major copy, and its bound; each kernel's
+   bound (bytes over 3.35 TB/s or operations over the peak for its type;
+   K4's float32 products at float32 accuracy on the tensor cores, a third
+   of the TF32 peak) and, for K3/K4, ``F.scaled_dot_product_attention``'s
+   forward and backward; K8's time at (40, 512), (40, 128), (1024, 1024) and
    (8192, 1024) beside its plain version, its bound and ``F.batch_norm``,
    the dropout_bn train step in steps/s and the MNIST ConvNet's epochs in
    steps/s and samples/s; K1 narrow against K1 MHA (bf16, pos 512), K2
@@ -299,6 +303,7 @@ BIG_REQUESTS, BIG_MAX_NEW = 8, (48, 64, 24, 40)
 BIG_TIME_REQUESTS = 16  # the timed server: four admission waves
 BIG_REPEATS = 3
 LONG_PROMPT = 40  # a stories15M scan-lane prompt past 32 rows: the K6 path
+TTFT_PROMPT = 512  # the 7B prompt whose time to the first token is timed
 INT4_MIN_AGREE = 0.75  # bench.py's majority floor for the lossy formats
 QMM_KERNELS = ("quantize_rows", "qmatmul", "qmatmul_prefill",
                "qmatmul_stacked")
@@ -326,7 +331,10 @@ MNIST_MIN_ACC = 0.5  # chance is 0.1; tests/test_utils_examples.py:128
 # over the card's peak for their type (NVIDIA's H100 SXM data sheet, dense)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
-              torch.int8: 1979e12}
+              torch.int8: 1979e12,
+              # float32 products at float32 accuracy on the tensor cores:
+              # three TF32 products each (3xTF32), a third of 495 TFLOP/s
+              "3xtf32": 495e12 / 3}
 
 
 def phase(name, t0):
@@ -1139,21 +1147,22 @@ def flash_counters():
     return [getattr(fa, name) for name in FLASH_KERNELS]
 
 
-def flash_inputs(B, L, dtype, seed=0):
-    """Seeded q, k, v and dO, (B, L, 6, 48) on the card."""
+def flash_inputs(B, L, dtype, seed=0, d=48, heads=CFG["n_heads"]):
+    """Seeded q, k, v and dO, (B, L, heads, d) on the card: (B, L, 6, 48)
+    unless told otherwise."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn((B, L, CFG["n_heads"], 48), generator=g,
+    return [torch.randn((B, L, heads, d), generator=g,
                         device="cuda").to(dtype) for _ in range(4)]
 
 
-def flash_vs_plain(B, L, dtype, seed=0):
+def flash_vs_plain(B, L, dtype, seed=0, d=48, heads=CFG["n_heads"]):
     """K3 and both K4 kernels against their plain versions on the same
     inputs (the backward ones given the kernel forward's o and lse). Raises
     beyond ``FLASH_ATOL``; returns {output: max |kernel - plain|}."""
     from pydynet_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = flash_inputs(B, L, dtype, seed)
-    scale = 48 ** -0.5
+    q, k, v, do = flash_inputs(B, L, dtype, seed, d, heads)
+    scale = d ** -0.5
     o, lse = fa.flash_attention_fwd(q, k, v)
     dd = fa.attention_dd(o, do)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, dd)
@@ -1171,9 +1180,9 @@ def flash_vs_plain(B, L, dtype, seed=0):
         tol = FLASH_ATOL[name] + (BF16_ULP * want.abs()
                                   if got.dtype == torch.bfloat16 else 0.0)
         if got.shape != want.shape or not bool((err <= tol).all()):
-            raise AssertionError(f"flash {name} B={B} L={L} {dtype}: max "
-                                 f"error {float(err.max())} beyond "
-                                 f"tolerance")
+            raise AssertionError(f"flash {name} B={B} L={L} d={d} "
+                                 f"{dtype}: max error {float(err.max())} "
+                                 f"beyond tolerance")
         errs[name] = float(err.max())
     return errs
 
@@ -1328,7 +1337,8 @@ def time_training(card):
         for name, (kern, ref) in pairs.items():
             plain, kernel = time_step(ref, 10), time_step(kern, 50)
             kernel2, plain2 = time_step(kern, 50), time_step(ref, 10)
-            b_ms, b_by = flash_bound(q, FLASH_PRODUCTS[name])
+            b_ms, b_by = flash_bound(q, FLASH_PRODUCTS[name],
+                                     name != "flash_attention_fwd")
             ms[name, B] = (min(kernel, kernel2), min(plain, plain2), b_ms,
                            b_by, lib[name != "flash_attention_fwd"])
             way = "forward" if name == "flash_attention_fwd" else "backward"
@@ -1363,7 +1373,7 @@ def time_training(card):
 
 def bound(n_bytes, n_ops, dtype):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the peak for ``dtype``."""
+    operations over the peak for ``dtype`` (a key of ``PEAK_OPS_S``)."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / PEAK_OPS_S[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -1406,14 +1416,18 @@ def decode_step_bound(w, ck, pos, rows, emit=False):
     return bound(n_bytes, n_ops, w["tok"].dtype)
 
 
-def flash_bound(q, products):
+def flash_bound(q, products, tensor_cores=False):
     """K3/K4's bound on (B, L, H, d) inputs: q, k, v (and dO, o) read once,
     outputs written once; ``products`` matrix products of the causal
-    L (L + 1) / 2 query-key pairs, two operations a multiply-add."""
+    L (L + 1) / 2 query-key pairs, two operations a multiply-add, at the
+    float32 peak, or with ``tensor_cores`` (K4) at float32 accuracy on the
+    tensor cores (3xTF32) for float32 inputs."""
     B, L, H, d = q.shape
     n_bytes = nbytes(q) * {2: 4, 3: 6, 4: 7}[products]
     n_ops = 2 * products * B * H * d * L * (L + 1) // 2
-    return bound(n_bytes, n_ops, q.dtype)
+    rate = "3xtf32" if tensor_cores and q.dtype == torch.float32 \
+        else q.dtype
+    return bound(n_bytes, n_ops, rate)
 
 
 def qmm_bound(x, wq, M, N):
@@ -1758,6 +1772,44 @@ def time_big_dims(model, card):
               f"{', '.join(f'{x:.2f}' for x in r)}; median "
               f"{float(np.median(r)):.2f} ({1e3 / float(np.median(r)):.2f} "
               f"ms/token)")
+    # time to the first token of a TTFT_PROMPT-token prompt on the scan
+    # lane: its prefill runs the 4 x 32 layer products through K7's
+    # prefill kernel (M = TTFT_PROMPT rows > MAX_DECODE_ROWS), the head
+    # through K5 (the last row)
+    prompt = np.random.default_rng(2).integers(1, model.vocab_size,
+                                               (1, TTFT_PROMPT))
+    ttft = {"int8": [], "int4": []}
+
+    def first_token(quant):
+        gen = model.generate(prompt, TTFT_PROMPT + 1, dtype=bf16,
+                             quant=quant)
+        tok = next(gen)
+        gen.close()
+        return tok
+
+    for quant in ttft:  # warm-up
+        first_token(quant)
+    L = model.n_layers
+    for _ in range(BIG_REPEATS):  # the formats in turns
+        for quant, r in ttft.items():
+            torch.cuda.synchronize()
+            zero_qmm_counters()
+            start = time.perf_counter()
+            first_token(quant)
+            torch.cuda.synchronize()
+            r.append(time.perf_counter() - start)
+            ran = qmm_counters()
+            if ran["qmatmul_stacked"] != 4 * L or ran["qmatmul"] != 1 \
+                    or ran["qmatmul_prefill"] != 0:
+                raise AssertionError(f"7B {TTFT_PROMPT}-token prefill "
+                                     f"{quant}: launches {ran}")
+    for quant, r in ttft.items():
+        print(f"[chip_smoke] {card}: 7B scan lane {quant}, "
+              f"{TTFT_PROMPT}-token prompt: ms to the first token of "
+              f"{BIG_REPEATS} runs {', '.join(f'{x * 1e3:.2f}' for x in r)}; "
+              f"median {float(np.median(r)) * 1e3:.2f} ({4 * L} stacked "
+              f"products of {TTFT_PROMPT} rows through the prefill kernel, "
+              f"the head through the decode kernel)")
     print(f"[chip_smoke] {card}: 7B serve int4 B=4, {BIG_TIME_REQUESTS} "
           f"requests, {n_tok} tokens, {srv.dispatched_steps} steps, generated "
           f"tok/s of {BIG_REPEATS} runs: "
@@ -1798,12 +1850,22 @@ def time_big_dims(model, card):
                 k2 = time_graph(kern, n, reps)
                 s2 = time_graph(stack, n, reps) if stack else None
                 p2 = time_step(plain, 2)
-                lib = None
+                lib, libs = None, ""
                 if M > 16 and not q4:  # torch._int_mm takes M > 16
+                    # the weights as the port stores them, (K, N) row-major,
+                    # and a column-major copy made here, outside the timing:
+                    # cuBLASLt's int8 tensor-core products want that layout
                     xq = gq.quantize_rows(x)[0]
-                    lib = time_graph(
-                        lambda i: torch._int_mm(xq, wq[i] if stacked
-                                                else wq), n, reps)
+                    wt = wq.transpose(-1, -2).contiguous()
+                    row = time_graph(lambda i: torch._int_mm(
+                        xq, wq[i] if stacked else wq), n, reps)
+                    col = time_graph(lambda i: torch._int_mm(
+                        xq, (wt[i] if stacked else wt).t()), n, reps)
+                    del wt
+                    lib = min(row, col)
+                    libs = (f"{row * 1e3:.1f} us row-major, "
+                            f"{col * 1e3:.1f} us column-major (faster: "
+                            f"{'row' if row <= col else 'column'}-major)")
                 kms, pms = min(k1, k2), min(p1, p2)
                 sms = min(s1, s2) if stack else None
                 gbs = nbytes(w1) / (kms * 1e-3) / 1e9
@@ -1814,7 +1876,7 @@ def time_big_dims(model, card):
                       + (f", stacked {sms * 1e3:.1f} us" if stack else "")
                       + f", bound {b_ms * 1e3:.1f} us ({b_by}), plain "
                       f"{pms * 1e3:.1f} us, torch._int_mm "
-                      + (f"{lib * 1e3:.1f} us" if lib else "none"))
+                      + (libs or "none"))
                 out[quant, name, M] = (kms, sms, pms, b_ms, b_by, lib)
     D = model.embed_dim
     for quant in ("int8", "int4"):  # K11's counterpart: the probes' shape

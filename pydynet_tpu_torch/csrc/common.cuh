@@ -1,8 +1,8 @@
 // Device helpers shared by the kernel sources (decode_token.cu: K1, the
 // B=1 step, and K9, the greedy head; decode_token_batched.cu: K2, the
 // batched step; decode_step.cu: K10, the layers-only step; gemv_quant.cu:
-// K5-K7). Everything here has internal linkage, so each kernel source is
-// compiled on its own.
+// K5-K7; flash_attention.cu: K3/K4). Everything here has internal linkage,
+// so each kernel source is compiled on its own.
 //
 // Types: the residual stream is f32; every matmul input is rounded to the
 // weight type T (f32 or bf16) and accumulated in f32; the caches are T.
@@ -429,5 +429,30 @@ int attn_splits(int seq) { return (seq + kAttnRows - 1) / kAttnRows; }
     cudaError_t e_ = cudaGetLastError();     \
     if (e_ != cudaSuccess) return e_;        \
   } while (0)
+
+// Asynchronous copies to shared memory (cp.async; gemv_quant.cu,
+// flash_attention.cu)
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// `bytes` of 16 (or 4) from src to shared dst, the rest zero-filled
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 }  // namespace

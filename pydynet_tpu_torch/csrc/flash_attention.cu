@@ -20,27 +20,56 @@
 // layout (the block for head (b, h) reads rows with a stride of H * d), so
 // the wrapper transposes nothing; lse and dd are (B * H, L) float32.
 //
-// Types: q, k, v, o, dO and the gradients are T (float32 or bfloat16); every
-// tile is widened to float32 in shared memory and all arithmetic is float32,
-// as in the TPU kernels (`preferred_element_type=jnp.float32`). The forward
-// scales q once when it loads it (as `_fa_kernel` does); the backward scales
-// s, and dq and dk again at the end (as the TPU's backward kernels do).
+// Types: q, k, v, o, dO and the gradients are T (float32 or bfloat16); all
+// arithmetic is float32 as in the TPU kernels
+// (`preferred_element_type=jnp.float32`). The forward scales q once when it
+// loads it (as `_fa_kernel` does); the backward scales s, and dq and dk
+// again at the end (as the TPU's backward kernels do).
 //
 // What bounds them on an H100: at stories15M's shapes (B * H = 6 to 48
 // heads, L = 1024, d = 48) a head's q, k and v are 3 x 196 KB in float32, so
-// the traffic is small and the kernels are bound by the float32 FMAs and the
-// shared-memory reads that feed them (about L^2 / 2 x d x 2 FMAs a head for
-// the forward, twice that for each backward kernel). The design keeps every
-// operand of the inner products in shared memory, computes a 4 x 4 (or
-// 4 x 2) register tile of scores per thread so each shared load feeds
-// several FMAs, keeps the 16 threads that share a row in one half-warp so
-// the softmax needs only shuffles, and pads the shared row stride to an odd
-// number of floats so the 16 rows a half-warp reads fall in 16 banks. The
-// tensor cores (wgmma) and TMA are left for a later change.
+// the traffic is small and the kernels are bound by arithmetic: about
+// L^2 / 2 x d multiply-adds a product, two products in the forward, three
+// in dq and four in dk/dv.
 //
-// Blocks are 256 threads, seen as 16 x 16: thread (ty, tx) owns the query
-// rows ty * RQ + i of a tile and the key columns tx + 16 * j, and in the
-// accumulations the output columns tx + 16 * c (c < NC, d <= 16 * NC).
+// The forward (K3) runs on CUDA cores: every operand in shared memory as
+// float32, a 4 x 4 register tile of scores a thread so each shared load
+// feeds several FMAs, the 16 threads of a row in one half-warp so the
+// softmax needs only shuffles, and an odd shared row stride. Blocks are
+// 256 threads, seen as 16 x 16: thread (ty, tx) owns the query rows
+// ty * RQ + i of a tile and the key columns tx + 16 * j, and in the
+// accumulation the output columns tx + 16 * c (c < NC, d <= 16 * NC).
+//
+// The backward (K4) runs on the tensor cores at float32 accuracy:
+//   * every product is `mma.sync.m16n8k8` TF32 with f32 accumulators, each
+//     float32 operand split as a = hi + lo (hi = tf32(a) rounded to nearest,
+//     ties away, as `cvt.rna.tf32.f32` rounds; lo = tf32(a - hi)) and a b
+//     summed as a_lo b_hi + a_hi b_lo + a_hi b_hi (3xTF32, about 2^-22
+//     relative, as CUTLASS's fast-f32 product). A bfloat16 input is exact in
+//     TF32, so its lo is 0 and those products are skipped: q k^T and dO v^T
+//     are one exact product, and the products with p or ds (kept float32,
+//     never rounded to the input type) two;
+//   * each warp owns 16 rows and keeps its scores and dP as accumulator
+//     fragments; p = 2^(s scale log2(e) - lse log2(e)) and
+//     ds = p (dP - dd) are formed in registers and fed back as the A
+//     operand of ds K, ds^T Q and p^T dO without a trip through shared
+//     memory (BwdCfg below);
+//   * the streamed tiles (K and V for dq; Q, dO, lse and dd for dk/dv) go
+//     through two shared-memory stages by cp.async, the next stage copied
+//     while the last one is multiplied; tiles stay in T, rows padded so a
+//     warp's fragment reads hit 32 banks. The float32 tiles a block keeps
+//     for its whole walk (q and dO in dq, k and v in dk/dv) are split into
+//     their TF32 parts once, up to d = 128;
+//   * at the training shape (1, 1024, 6, 48) each kernel launches 16 x 6 =
+//     96 blocks of 16 warps (4 row groups x 4 shares of each stage), the
+//     heaviest first: the dq block of the last query tile walks 16 key
+//     stages of 64, the dk/dv block of key tile 0 16 query stages, each
+//     warp 16 rows of every stage. dq and dk/dv sum no float across
+//     blocks: no atomics, the same bits every call.
+// What bounds the backward now is mma.sync's TF32 rate, three products for
+// each float32 one, and the latency of the chain from the scores through
+// the exponential to the next products with one 16-warp block an SM;
+// `wgmma` and TMA are the next step for both halves.
 
 #include "common.cuh"
 
@@ -49,21 +78,11 @@ namespace {
 constexpr int kFaThreads = 256;
 constexpr int kFwdQ = 64, kFwdK = 64;  // forward: query rows a block, key
                                        // rows a tile
-constexpr int kBwdQ = 64, kBwdK = 32;  // backward: 32 key rows keep the
-                                       // dk/dv kernel's two accumulators in
-                                       // registers and its tiles within
-                                       // 227 KB at d = 256
 constexpr int kMaxHeadDim = 256;
 
 // floats of dynamic shared memory each kernel takes for head_dim d
 int fwd_smem_floats(int d) {
   return (kFwdQ + 2 * kFwdK) * (d | 1) + kFwdQ * (kFwdK + 1);
-}
-int dq_smem_floats(int d) {
-  return (2 * kBwdQ + 2 * kBwdK) * (d | 1) + kBwdQ * (kBwdK + 1);
-}
-int dkv_smem_floats(int d) {
-  return (2 * kBwdQ + 2 * kBwdK) * (d | 1) + 2 * kBwdQ * (kBwdK + 1);
 }
 
 // Rows [row0, row0 + rows) of one head of a (B, L, H, d) tensor into shared
@@ -208,197 +227,490 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// dq: one block per (64-row query tile, b * H + h), over the 32-row key
-// tiles up to the diagonal.
-template <typename T, int NC>
-__global__ void __launch_bounds__(kFaThreads)
-fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ dd,
-                 T* __restrict__ dq, int L, int H, int d, float scale) {
-  constexpr int BQ = kBwdQ, BK = kBwdK, RQ = BQ / 16, RK = BK / 16;
-  extern __shared__ float smem[];
-  const int st = d | 1;
-  float* qs = smem;             // BQ x st
-  float* dos = qs + BQ * st;    // BQ x st
-  float* ks = dos + BQ * st;    // BK x st
-  float* vs = ks + BK * st;     // BK x st
-  float* dss = vs + BK * st;    // BQ x (BK + 1), this tile's ds
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t rs = (size_t)H * d;
-  const size_t base = (size_t)(bh / H) * L * rs + (size_t)(bh % H) * d;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_rows(qs, q, base, rs, q0, BQ, L, d, st, 1.f);
-  load_rows(dos, dout, base, rs, q0, BQ, L, d, st, 1.f);
-  float lse_r[RQ], dd_r[RQ], acc[RQ][NC];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int row = q0 + ty * RQ + i;
-    lse_r[i] = row < L ? lse[(size_t)bh * L + row] : 0.f;
-    dd_r[i] = row < L ? dd[(size_t)bh * L + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-  const int n_tiles = (min(q0 + BQ, L) + BK - 1) / BK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();
-    load_rows(ks, k, base, rs, k0, BK, L, d, st, 1.f);
-    load_rows(vs, v, base, rs, k0, BK, L, d, st, 1.f);
-    __syncthreads();
-    float s[RQ][RK], dp[RQ][RK];
-    tile_dot<RQ, RK>(qs, ks, st, d, ty, tx, s);
-    tile_dot<RQ, RK>(dos, vs, st, d, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int r = ty * RQ + i, row = q0 + r;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const float p = (col <= row && row < L)
-                            ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-        dss[r * (BK + 1) + tx + 16 * j] = p * (dp[i][j] - dd_r[i]);
+// ---- K4: the backward on the tensor cores ----
+//
+// Tiles: a dq block owns 64 query rows, a dk/dv block 64 key rows; warp
+// (rg, ch, sp) takes the 16 rows 16 rg of them, the 8 FT output features
+// from 64 ch, and share sp of each stage's KB streamed rows (key rows for
+// dq, query rows for dk/dv). Each warp keeps its scores and dP as mma
+// accumulators, forms p and ds there, and feeds them straight back as the A
+// operand of the next product: an accumulator of m16n8k8 holds columns
+// 2q, 2q + 1 of row g, which is the A fragment of the same row for the k
+// order (2q, 2q + 1) <- (q, q + 4), so the B operand is read from shared
+// memory in that order and nothing goes through shared memory in between.
+// Warps of shares 1, 2, ... hand their sums to share 0 through shared
+// memory at the end, added in that fixed order: no atomics, the same bits
+// every call. One configuration for each head_dim bound (48: the training
+// shape's; 64, 128, 256), each within 128 registers a thread at 512
+// threads (256 at d <= 64, whose two 64-feature accumulators would spill).
+template <int D>
+struct BwdCfg {
+  static constexpr int FT = (D < 64 ? D : 64) / 8;  // n8 output tiles
+  static constexpr int NCH = D <= 64 ? 1 : D / 64;  // warps across features
+  static constexpr int SPL = D == 48 ? 4 : (D == 256 ? 1 : 2);  // shares
+  static constexpr int KB = D <= 64 ? 64 : (D == 128 ? 32 : 16);  // rows a
+                                                    // stage streams
+  static constexpr int KW = KB / SPL;               // a warp's rows of it
+  static constexpr int NT = KW / 8;                 // its n8 score tiles
+  static constexpr int THREADS = 32 * 4 * NCH * SPL;
+  // float32: split the kept tiles once (their lo parts fit in shared
+  // memory up to d = 128)
+  static constexpr bool PRESPLIT = D <= 128;
+};
+constexpr int kBwdRows = 64;  // query rows of a dq block, keys of a dk/dv
+
+// elements a shared row: T = float, d rounded to 8 plus 4 (a multiple of 4
+// and 4 mod 8); bfloat16, d rounded to 16 plus 8 (a multiple of 8 and 8 mod
+// 16): 16-byte aligned rows, and the fragment reads of a warp (8 rows x 4
+// neighbouring columns, or 4 rows 2 apart x 8 columns) fall in 32 banks
+template <typename T>
+__host__ __device__ __forceinline__ int bwd_stride(int d) {
+  return sizeof(T) == 4 ? (d + 7) / 8 * 8 + 4 : (d + 15) / 16 * 16 + 8;
+}
+
+// Rows [row0, row0 + rows) of one head of a (B, L, H, d) tensor into shared
+// memory as T, `st` elements a row, by cp.async (16-byte chunks if `vec`:
+// d a multiple of 16 bytes and the tensors 16-byte aligned; else 4-byte
+// floats, or plain copies of bfloat16 elements); zero at rows >= L and
+// features [d, d rounded to 8) that the 8-wide k steps read. 16 threads a
+// row (nthreads a multiple of 16), so no thread divides.
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, const T* __restrict__ src,
+                                          size_t base, size_t rs, int row0,
+                                          int rows, int L, int d, int st,
+                                          bool vec, int nthreads) {
+  constexpr int E = 16 / sizeof(T);
+  const int dp = (d + 7) / 8 * 8, c0 = threadIdx.x & 15;
+  for (int r = threadIdx.x >> 4; r < rows; r += nthreads >> 4) {
+    const int row = row0 + r;
+    const T* from = src + base + (size_t)row * rs;
+    T* to = dst + r * st;
+    if (vec) {
+      for (int c = c0 * E; c < dp; c += 16 * E) {
+        const bool ok = row < L && c < d;
+        cp_async16(smem_u32(to + c), ok ? from + c : src, ok ? 16 : 0);
       }
-    }
-    __syncwarp();  // a row's ds comes from its own half-warp
-    for (int j = 0; j < BK; ++j) {
-      float kv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        kv[c] = col < d ? ks[j * st + col] : 0.f;
+    } else {
+      for (int c = c0; c < dp; c += 16) {
+        const bool ok = row < L && c < d;
+        if constexpr (sizeof(T) == 4)
+          cp_async4(smem_u32(to + c), ok ? from + c : src, ok ? 4 : 0);
+        else
+          to[c] = ok ? from[c] : from_f<T>(0.f);
       }
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        const float ds = dss[(ty * RQ + i) * (BK + 1) + j];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int row = q0 + ty * RQ + i;
-    if (row >= L) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d)
-        dq[base + (size_t)row * rs + col] = from_f<T>(acc[i][c] * scale);
     }
   }
 }
 
-// dk and dv: one block per (32-row key tile, b * H + h), over the 64-row
-// query tiles from the one holding the tile's first key row to the end.
-// Scores are (query row, key column) as in the other kernels; the
-// accumulation then gives thread (ty, tx) the key rows ty * RA + a.
-template <typename T, int NC>
-__global__ void __launch_bounds__(kFaThreads)
+// x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away from
+// zero, as `cvt.rna.tf32.f32` rounds it, in two integer operations (the
+// conversion instruction costs more): half a unit of the last kept bit
+// added to the magnitude's bits, the 13 bits below it cleared
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// x = hi + lo, both TF32 (LO), or hi = x exactly (a widened bfloat16, which
+// TF32 holds: lo = 0 and its products are skipped)
+template <bool LO, int N>
+__device__ __forceinline__ void split(const float (&x)[N], unsigned (&hi)[N],
+                                      unsigned (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hi[i] = LO ? tf32_rna(x[i]) : __float_as_uint(x[i]);
+    lo[i] = LO ? tf32_rna(x[i] - __uint_as_float(hi[i])) : 0u;
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b at float32 accuracy (3xTF32): a_lo b_hi + a_hi b_lo + a_hi b_hi,
+// the small terms first; a_lo b_lo (2^-22 relative) is dropped
+template <bool ALO, bool BLO>
+__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4],
+                                     const unsigned (&bh)[2],
+                                     const unsigned (&bl)[2]) {
+  if constexpr (ALO) mma_tf32(c, al, bh);
+  if constexpr (BLO) mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// Split rows [0, rows) of a float32 tile in place into their TF32 hi parts
+// and, `lo` floats on, their lo parts; 16 threads a row. For the tiles a
+// block keeps for its whole walk (q and dO in dq, k and v in dk/dv), so
+// their fragments are read, not split, at every stage.
+__device__ __forceinline__ void presplit(float* s, int lo, int rows, int d,
+                                         int st, int nthreads) {
+  const int dp = (d + 7) / 8 * 8;
+  for (int r = threadIdx.x >> 4; r < rows; r += nthreads >> 4)
+    for (int c = threadIdx.x & 15; c < dp; c += 16) {
+      const float x = s[r * st + c];
+      const unsigned h = tf32_rna(x);
+      s[r * st + c] = __uint_as_float(h);
+      s[r * st + c + lo] = __uint_as_float(tf32_rna(x - __uint_as_float(h)));
+    }
+}
+
+// x[j] = a b^T and y[j] = c e^T over d features: rows ra + (0..15) of a
+// and c, rows 8 j + (0..7) of b and e, `st` elements a row; a and c
+// pre-split when PRE (presplit, lo parts `lo` floats on)
+template <bool F32, bool PRE, int NT, typename T>
+__device__ __forceinline__ void scores(const T* sa, const T* sb, const T* sc,
+                                       const T* se, int st, int lo, int ra,
+                                       int d, int g, int q,
+                                       float (&x)[NT][4],
+                                       float (&y)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.f;
+  const int s8 = 8 * st;
+  const T* pa = sa + (ra + g) * st + q;  // A: rows g, g + 8; k q, q + 4
+  const T* pc = sc + (ra + g) * st + q;
+  const T* pb = sb + g * st + q;  // B^T: row 8 j + g; k q, q + 4
+  const T* pe = se + g * st + q;
+  for (int k0 = 0; k0 < d; k0 += 8) {
+    unsigned ah[4], al[4], ch[4], cl[4];
+    const int ka[4] = {k0, k0 + s8, k0 + 4, k0 + s8 + 4};
+    if constexpr (PRE) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ah[i] = __float_as_uint(to_f(pa[ka[i]]));
+        al[i] = __float_as_uint(to_f(pa[ka[i] + lo]));
+        ch[i] = __float_as_uint(to_f(pc[ka[i]]));
+        cl[i] = __float_as_uint(to_f(pc[ka[i] + lo]));
+      }
+    } else {
+      split<F32>({to_f(pa[ka[0]]), to_f(pa[ka[1]]), to_f(pa[ka[2]]),
+                  to_f(pa[ka[3]])}, ah, al);
+      split<F32>({to_f(pc[ka[0]]), to_f(pc[ka[1]]), to_f(pc[ka[2]]),
+                  to_f(pc[ka[3]])}, ch, cl);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      unsigned bh[2], bl[2], eh[2], el[2];
+      split<F32>({to_f(pb[j * s8 + k0]), to_f(pb[j * s8 + k0 + 4])}, bh, bl);
+      split<F32>({to_f(pe[j * s8 + k0]), to_f(pe[j * s8 + k0 + 4])}, eh, el);
+      mma3<F32, F32>(x[j], ah, al, bh, bl);
+      mma3<F32, F32>(y[j], ch, cl, eh, el);
+    }
+  }
+}
+
+// out[n] += x (16 x 8 NT, accumulator fragments) times rows [0, 8 NT) of
+// sb, features f0 + 8 n, for the n with f0 + 8 n < d
+template <bool F32, int NT, int FT, typename T>
+__device__ __forceinline__ void accumulate(const float (&x)[NT][4],
+                                           const T* sb, int st, int f0,
+                                           int d, int g, int q,
+                                           float (&out)[FT][4]) {
+  const int nn = (d - f0 + 7) / 8;  // tiles holding features below d
+  const T* pb = sb + 2 * q * st + f0 + g;  // B: rows 2q, 2q + 1; column g
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    unsigned ah[4], al[4];
+    split<true>({x[j][0], x[j][2], x[j][1], x[j][3]}, ah, al);
+    const T* p0 = pb + j * 8 * st;
+    const T* p1 = p0 + st;
+#pragma unroll
+    for (int n = 0; n < FT; ++n) {
+      if (n >= nn) break;
+      unsigned bh[2], bl[2];
+      split<F32>({to_f(p0[8 * n]), to_f(p1[8 * n])}, bh, bl);
+      mma3<true, F32>(out[n], ah, al, bh, bl);
+    }
+  }
+}
+
+// Warps of shares 1, 2, ... add their out[FT][4] to share 0's through
+// shared memory `red`, in that order. Ends synchronised; only share 0
+// holds the sum.
+template <int SPL, int FT>
+__device__ __forceinline__ void reduce_shares(float (&out)[FT][4], float* red,
+                                              int slot, int sp, int lane) {
+#pragma unroll 1
+  for (int from = 1; from < SPL; ++from) {
+    if (sp == from)
+#pragma unroll
+      for (int n = 0; n < FT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          red[((slot * FT + n) * 4 + e) * 32 + lane] = out[n][e];
+    __syncthreads();
+    if (sp == 0)
+#pragma unroll
+      for (int n = 0; n < FT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          out[n][e] += red[((slot * FT + n) * 4 + e) * 32 + lane];
+    __syncthreads();
+  }
+}
+
+// dq: one block per (64-row query tile, b * H + h), the heaviest (last)
+// query tile first, over the KB-row key stages up to the diagonal; K and V
+// stream through two stages while the last one is multiplied.
+template <typename T, int D>
+__global__ void __launch_bounds__(BwdCfg<D>::THREADS)
+fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ dd,
+                 T* __restrict__ dq, int L, int H, int d, float scale,
+                 int vec) {
+  using C = BwdCfg<D>;
+  constexpr bool F32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int st = bwd_stride<T>(d);
+  T* qs = reinterpret_cast<T*>(smem_raw);  // 64 x st
+  T* dos = qs + kBwdRows * st;
+  T* kvs = dos + kBwdRows * st;  // [stage][K, V][KB x st]
+  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * kBwdRows;
+  const size_t rs = (size_t)H * d;
+  const size_t base = (size_t)(bh / H) * L * rs + (size_t)(bh % H) * d;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, qq = lane & 3;
+  const int rg = warp & 3, ch = (warp >> 2) % C::NCH, sp = warp / (4 * C::NCH);
+  copy_rows(qs, q, base, rs, q0, kBwdRows, L, d, st, vec, C::THREADS);
+  copy_rows(dos, dout, base, rs, q0, kBwdRows, L, d, st, vec, C::THREADS);
+  copy_rows(kvs, k, base, rs, 0, C::KB, L, d, st, vec, C::THREADS);
+  copy_rows(kvs + C::KB * st, v, base, rs, 0, C::KB, L, d, st, vec,
+            C::THREADS);
+  cp_async_commit();
+  const int lo = (2 * kBwdRows + 4 * C::KB) * st;  // q, dO lo parts
+  constexpr bool PRE = F32 && C::PRESPLIT;
+  if constexpr (PRE) {
+    cp_async_wait<0>();
+    __syncthreads();
+    presplit(qs, lo, 2 * kBwdRows, d, st, C::THREADS);
+  }
+
+  const int r_lo = q0 + 16 * rg + g, r_hi = r_lo + 8;
+  const size_t lrow = (size_t)bh * L;
+  // p = exp(s scale - lse) = 2^(s scale log2(e) - lse log2(e))
+  const float scale2 = scale * kLog2e;
+  const float lse0 = r_lo < L ? lse[lrow + r_lo] * kLog2e : 0.f;
+  const float lse1 = r_hi < L ? lse[lrow + r_hi] * kLog2e : 0.f;
+  const float dd0 = r_lo < L ? dd[lrow + r_lo] : 0.f;
+  const float dd1 = r_hi < L ? dd[lrow + r_hi] : 0.f;
+  float acc[C::FT][4];
+#pragma unroll
+  for (int n = 0; n < C::FT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int n_st = (min(q0 + kBwdRows, L) + C::KB - 1) / C::KB;
+  for (int t = 0; t < n_st; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage t is in; stage t - 1 is consumed
+    if (t + 1 < n_st) {
+      T* nxt = kvs + ((t + 1) & 1) * 2 * C::KB * st;
+      copy_rows(nxt, k, base, rs, (t + 1) * C::KB, C::KB, L, d, st, vec,
+                C::THREADS);
+      copy_rows(nxt + C::KB * st, v, base, rs, (t + 1) * C::KB, C::KB, L, d,
+                st, vec, C::THREADS);
+    }
+    cp_async_commit();
+    const int kw0 = t * C::KB + sp * C::KW;  // this warp's first key
+    if (kw0 > q0 + 16 * rg + 15) continue;   // above the diagonal
+    const T* ks = kvs + (t & 1) * 2 * C::KB * st + sp * C::KW * st;
+    const T* vs = ks + C::KB * st;
+    float s[C::NT][4], dp[C::NT][4];
+    scores<F32, PRE>(qs, ks, dos, vs, st, lo, 16 * rg, d, g, qq, s, dp);
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? r_lo : r_hi;
+        const int col = kw0 + 8 * j + 2 * qq + (e & 1);
+        const float p = (col <= row && row < L)
+                            ? exp2f(s[j][e] * scale2 - (e < 2 ? lse0 : lse1))
+                            : 0.f;
+        s[j][e] = p * (dp[j][e] - (e < 2 ? dd0 : dd1));  // ds
+      }
+    accumulate<F32>(s, ks, st, 64 * ch, d, g, qq, acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the tiles are consumed: `red` may reuse them
+  reduce_shares<C::SPL, C::FT>(acc, reinterpret_cast<float*>(smem_raw),
+                                warp % (4 * C::NCH), sp, lane);
+  if (sp != 0) return;
+#pragma unroll
+  for (int n = 0; n < C::FT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = e < 2 ? r_lo : r_hi;
+      const int col = 64 * ch + 8 * n + 2 * qq + (e & 1);
+      if (row < L && col < d)
+        dq[base + (size_t)row * rs + col] = from_f<T>(acc[n][e] * scale);
+    }
+}
+
+// dk and dv: one block per (64-row key tile, b * H + h), key tile 0 (the
+// heaviest) first, over the KB-row query stages from the one holding the
+// tile's first key to the end; Q, dO and the stage's lse and dd stream
+// through two stages. Scores are computed transposed (key rows, query
+// columns), so p^T and ds^T are the A operands of dv and dk.
+template <typename T, int D>
+__global__ void __launch_bounds__(BwdCfg<D>::THREADS)
 fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ dd,
                   T* __restrict__ dk, T* __restrict__ dv, int L, int H, int d,
-                  float scale) {
-  constexpr int BQ = kBwdQ, BK = kBwdK, RQ = BQ / 16, RK = BK / 16;
-  constexpr int RA = BK / 16;  // key rows a thread accumulates
-  extern __shared__ float smem[];
-  const int st = d | 1;
-  float* ks = smem;             // BK x st
-  float* vs = ks + BK * st;     // BK x st
-  float* qs = vs + BK * st;     // BQ x st
-  float* dos = qs + BQ * st;    // BQ x st
-  float* ps = dos + BQ * st;    // BQ x (BK + 1)
-  float* dss = ps + BQ * (BK + 1);
-  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
+                  float scale, int vec) {
+  using C = BwdCfg<D>;
+  constexpr bool F32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int st = bwd_stride<T>(d);
+  T* ks = reinterpret_cast<T*>(smem_raw);  // 64 x st
+  T* vs = ks + kBwdRows * st;
+  T* qds = vs + kBwdRows * st;  // [stage][Q, dO][KB x st]
+  float* lds = reinterpret_cast<float*>(qds + 4 * C::KB * st);  // [stage]
+                                                    // [lse, dd][KB]
+  const int bh = blockIdx.y, k0 = blockIdx.x * kBwdRows;
   const size_t rs = (size_t)H * d;
   const size_t base = (size_t)(bh / H) * L * rs + (size_t)(bh % H) * d;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_rows(ks, k, base, rs, k0, BK, L, d, st, 1.f);
-  load_rows(vs, v, base, rs, k0, BK, L, d, st, 1.f);
-  float adk[RA][NC], adv[RA][NC];
-#pragma unroll
-  for (int a = 0; a < RA; ++a)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) adk[a][c] = adv[a][c] = 0.f;
-  // only query rows >= k0 see this tile: start at the query tile holding
-  // row k0, whatever the ratio of the two tile sizes
-  const int n_tiles = (L + BQ - 1) / BQ;
-  for (int t = k0 / BQ; t < n_tiles; ++t) {
-    const int q0 = t * BQ;
+  const size_t lrow = (size_t)bh * L;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, qq = lane & 3;
+  const int rg = warp & 3, ch = (warp >> 2) % C::NCH, sp = warp / (4 * C::NCH);
+  const int t0 = k0 / C::KB, n_st = (L + C::KB - 1) / C::KB;
+  auto stage = [&](int t) {  // Q, dO, lse and dd rows of stage t
+    T* dst = qds + (t & 1) * 2 * C::KB * st;
+    copy_rows(dst, q, base, rs, t * C::KB, C::KB, L, d, st, vec, C::THREADS);
+    copy_rows(dst + C::KB * st, dout, base, rs, t * C::KB, C::KB, L, d, st,
+              vec, C::THREADS);
+    float* l = lds + (t & 1) * 2 * C::KB;
+    for (int i = threadIdx.x; i < 2 * C::KB; i += C::THREADS) {
+      const int row = t * C::KB + (i % C::KB);
+      const bool ok = row < L;
+      cp_async4(smem_u32(l + i),
+                ok ? (i < C::KB ? lse : dd) + lrow + row : lse, ok ? 4 : 0);
+    }
+  };
+  copy_rows(ks, k, base, rs, k0, kBwdRows, L, d, st, vec, C::THREADS);
+  copy_rows(vs, v, base, rs, k0, kBwdRows, L, d, st, vec, C::THREADS);
+  stage(t0);
+  cp_async_commit();
+  // k, v lo parts, after the tiles and lse/dd
+  const int lo = (2 * kBwdRows + 4 * C::KB) * st + 4 * C::KB;
+  constexpr bool PRE = F32 && C::PRESPLIT;
+  if constexpr (PRE) {
+    cp_async_wait<0>();
     __syncthreads();
-    load_rows(qs, q, base, rs, q0, BQ, L, d, st, 1.f);
-    load_rows(dos, dout, base, rs, q0, BQ, L, d, st, 1.f);
+    presplit(ks, lo, 2 * kBwdRows, d, st, C::THREADS);
+  }
+
+  const int key_lo = k0 + 16 * rg + g, key_hi = key_lo + 8;
+  const float scale2 = scale * kLog2e;  // p = 2^(s scale2 - lse log2(e))
+  float adk[C::FT][4], adv[C::FT][4];
+#pragma unroll
+  for (int n = 0; n < C::FT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
+
+  for (int t = t0; t < n_st; ++t) {
+    cp_async_wait<0>();
     __syncthreads();
-    float s[RQ][RK], dp[RQ][RK];
-    tile_dot<RQ, RK>(qs, ks, st, d, ty, tx, s);
-    tile_dot<RQ, RK>(dos, vs, st, d, ty, tx, dp);
+    if (t + 1 < n_st) stage(t + 1);
+    cp_async_commit();
+    const int qw0 = t * C::KB + sp * C::KW;  // this warp's first query
+    if (qw0 + C::KW - 1 < k0 + 16 * rg) continue;  // above the diagonal
+    const T* qs = qds + (t & 1) * 2 * C::KB * st + sp * C::KW * st;
+    const T* dos = qs + C::KB * st;
+    const float* ls = lds + (t & 1) * 2 * C::KB + sp * C::KW;
+    float s[C::NT][4], dp[C::NT][4];
+    scores<F32, PRE>(ks, qs, vs, dos, st, lo, 16 * rg, d, g, qq, s, dp);
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int r = ty * RQ + i, row = q0 + r;
-      const bool in = row < L;
-      const float lse_i = in ? lse[(size_t)bh * L + row] : 0.f;
-      const float dd_i = in ? dd[(size_t)bh * L + row] : 0.f;
+    for (int j = 0; j < C::NT; ++j)
 #pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const float p = (col <= row && in && col < L)
-                            ? expf(s[i][j] * scale - lse_i) : 0.f;
-        ps[r * (BK + 1) + tx + 16 * j] = p;
-        dss[r * (BK + 1) + tx + 16 * j] = p * (dp[i][j] - dd_i);
+      for (int e = 0; e < 4; ++e) {
+        const int key = e < 2 ? key_lo : key_hi;
+        const int c = 8 * j + 2 * qq + (e & 1), col = qw0 + c;
+        const float p = (col >= key && col < L)
+                            ? exp2f(s[j][e] * scale2 - ls[c] * kLog2e)
+                            : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - ls[C::KB + c]);  // ds
       }
-    }
-    __syncthreads();  // the accumulation reads every row of ps and dss
-    const int rows = min(BQ, L - q0);
-    for (int r = 0; r < rows; ++r) {
-      float qv[NC], dov[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        qv[c] = col < d ? qs[r * st + col] : 0.f;
-        dov[c] = col < d ? dos[r * st + col] : 0.f;
-      }
-#pragma unroll
-      for (int a = 0; a < RA; ++a) {
-        const float p = ps[r * (BK + 1) + ty * RA + a];
-        const float ds = dss[r * (BK + 1) + ty * RA + a];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          adv[a][c] = fmaf(p, dov[c], adv[a][c]);
-          adk[a][c] = fmaf(ds, qv[c], adk[a][c]);
-        }
-      }
-    }
+    accumulate<F32>(s, dos, st, 64 * ch, d, g, qq, adv);
+    accumulate<F32>(dp, qs, st, 64 * ch, d, g, qq, adk);
   }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_raw);
+  const int slot = warp % (4 * C::NCH);
+  reduce_shares<C::SPL, C::FT>(adk, red, slot, sp, lane);
+  reduce_shares<C::SPL, C::FT>(adv, red, slot, sp, lane);
+  if (sp != 0) return;
 #pragma unroll
-  for (int a = 0; a < RA; ++a) {
-    const int row = k0 + ty * RA + a;
-    if (row >= L) continue;
+  for (int n = 0; n < C::FT; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d) {
-        dk[base + (size_t)row * rs + col] = from_f<T>(adk[a][c] * scale);
-        dv[base + (size_t)row * rs + col] = from_f<T>(adv[a][c]);
+    for (int e = 0; e < 4; ++e) {
+      const int row = e < 2 ? key_lo : key_hi;
+      const int col = 64 * ch + 8 * n + 2 * qq + (e & 1);
+      if (row < L && col < d) {
+        dk[base + (size_t)row * rs + col] = from_f<T>(adk[n][e] * scale);
+        dv[base + (size_t)row * rs + col] = from_f<T>(adv[n][e]);
       }
     }
-  }
 }
 
-// Let `kernel` take `floats` of dynamic shared memory (opting in above the
-// 48 KB a block gets by default) and launch it on `st`.
+// Let `kernel` take `bytes` of dynamic shared memory (opting in above the
+// 48 KB a block gets by default) and launch it with `threads` on `st`.
 template <typename K, typename... Args>
-cudaError_t launch(K* kernel, dim3 grid, int floats, cudaStream_t st,
-                   Args... args) {
-  const size_t bytes = (size_t)floats * sizeof(float);
+cudaError_t launch_n(K* kernel, dim3 grid, int threads, size_t bytes,
+                     cudaStream_t st, Args... args) {
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         reinterpret_cast<const void*>(kernel),
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<grid, kFaThreads, bytes, st>>>(args...);
+  kernel<<<grid, threads, bytes, st>>>(args...);
   return cudaGetLastError();
+}
+
+template <typename K, typename... Args>
+cudaError_t launch(K* kernel, dim3 grid, int floats, cudaStream_t st,
+                   Args... args) {
+  return launch_n(kernel, grid, kFaThreads, (size_t)floats * sizeof(float),
+                  st, args...);
+}
+
+// bytes of dynamic shared memory of a backward kernel: its tiles (and the
+// dk/dv kernel's lse and dd, and for float32 the lo parts of the two tiles
+// it keeps), or the shares' hand-over, whichever is larger
+template <typename T, int D>
+size_t bwd_smem(int d, bool dkv) {
+  using C = BwdCfg<D>;
+  const size_t tiles =
+      (size_t)(2 * kBwdRows + 4 * C::KB) * bwd_stride<T>(d) * sizeof(T) +
+      (dkv ? 4 * C::KB * sizeof(float) : 0) +
+      (sizeof(T) == 4 && C::PRESPLIT
+           ? (size_t)2 * kBwdRows * bwd_stride<T>(d) * sizeof(float) : 0);
+  const size_t red =
+      C::SPL > 1 ? (size_t)4 * C::NCH * C::FT * 4 * 32 * sizeof(float) : 0;
+  return tiles > red ? tiles : red;
+}
+
+// 16-byte copies need d a multiple of 16 bytes and 16-byte aligned tensors
+template <typename T>
+int bwd_vec(int d, const void* q, const void* k, const void* v,
+            const void* dout) {
+  auto a16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return d % (16 / (int)sizeof(T)) == 0 && a16(q) && a16(k) && a16(v) &&
+         a16(dout);
 }
 
 bool bad_shape(int B, int L, int H, int d) {
@@ -416,33 +728,40 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 static_cast<T*>(o), static_cast<float*>(lse), L, H, d, scale);
 }
 
-template <typename T, int NC>
+// the backward kernels for head_dim up to D (48, 64, 128 or 256)
+template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* dd,
                    void* dq, int B, int L, int H, int d, float scale,
                    cudaStream_t st) {
-  return launch(fa_bwd_dq_kernel<T, NC>,
-                dim3((L + kBwdQ - 1) / kBwdQ, B * H), dq_smem_floats(d), st,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const float*>(lse), static_cast<const float*>(dd),
-                static_cast<T*>(dq), L, H, d, scale);
+  return launch_n(fa_bwd_dq_kernel<T, D>,
+                  dim3((L + kBwdRows - 1) / kBwdRows, B * H),
+                  BwdCfg<D>::THREADS, bwd_smem<T, D>(d, false), st,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(dout),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(dd), static_cast<T*>(dq), L, H,
+                  d, scale, bwd_vec<T>(d, q, k, v, dout));
 }
 
-template <typename T, int NC>
+template <typename T, int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* dd,
                     void* dk, void* dv, int B, int L, int H, int d,
                     float scale, cudaStream_t st) {
-  return launch(fa_bwd_dkv_kernel<T, NC>,
-                dim3((L + kBwdK - 1) / kBwdK, B * H), dkv_smem_floats(d), st,
-                static_cast<const T*>(q), static_cast<const T*>(k),
-                static_cast<const T*>(v), static_cast<const T*>(dout),
-                static_cast<const float*>(lse), static_cast<const float*>(dd),
-                static_cast<T*>(dk), static_cast<T*>(dv), L, H, d, scale);
+  return launch_n(fa_bwd_dkv_kernel<T, D>,
+                  dim3((L + kBwdRows - 1) / kBwdRows, B * H),
+                  BwdCfg<D>::THREADS, bwd_smem<T, D>(d, true), st,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<const T*>(dout),
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(dd), static_cast<T*>(dk),
+                  static_cast<T*>(dv), L, H, d, scale,
+                  bwd_vec<T>(d, q, k, v, dout));
 }
 
-// the smallest register tile of output columns (16 * NC) that holds d
+// the forward's smallest register tile of output columns (16 * NC)
+// that holds d
 #define PDT_FA_DISPATCH(fn, ...)                                        \
   do {                                                                  \
     if (dtype == 0) {                                                   \
@@ -454,6 +773,24 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
       if (d <= 64) return fn<__nv_bfloat16, 4>(__VA_ARGS__);            \
       if (d <= 128) return fn<__nv_bfloat16, 8>(__VA_ARGS__);           \
       return fn<__nv_bfloat16, 16>(__VA_ARGS__);                        \
+    }                                                                   \
+    return cudaErrorInvalidValue;                                       \
+  } while (0)
+
+// the backward's configuration for d (BwdCfg)
+#define PDT_FA_BWD_DISPATCH(fn, ...)                                    \
+  do {                                                                  \
+    if (dtype == 0) {                                                   \
+      if (d <= 48) return fn<float, 48>(__VA_ARGS__);                   \
+      if (d <= 64) return fn<float, 64>(__VA_ARGS__);                   \
+      if (d <= 128) return fn<float, 128>(__VA_ARGS__);                 \
+      return fn<float, 256>(__VA_ARGS__);                               \
+    }                                                                   \
+    if (dtype == 1) {                                                   \
+      if (d <= 48) return fn<__nv_bfloat16, 48>(__VA_ARGS__);           \
+      if (d <= 64) return fn<__nv_bfloat16, 64>(__VA_ARGS__);           \
+      if (d <= 128) return fn<__nv_bfloat16, 128>(__VA_ARGS__);         \
+      return fn<__nv_bfloat16, 256>(__VA_ARGS__);                       \
     }                                                                   \
     return cudaErrorInvalidValue;                                       \
   } while (0)
@@ -480,7 +817,8 @@ int pdt_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                      void* stream) {
   if (bad_shape(B, L, H, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PDT_FA_DISPATCH(bwd_dq, q, k, v, dout, lse, dd, dq, B, L, H, d, scale, st);
+  PDT_FA_BWD_DISPATCH(bwd_dq, q, k, v, dout, lse, dd, dq, B, L, H, d, scale,
+                      st);
 }
 
 int pdt_flash_bwd_dkv(int dtype, const void* q, const void* k,
@@ -489,8 +827,8 @@ int pdt_flash_bwd_dkv(int dtype, const void* q, const void* k,
                       int d, float scale, void* stream) {
   if (bad_shape(B, L, H, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PDT_FA_DISPATCH(bwd_dkv, q, k, v, dout, lse, dd, dk, dv, B, L, H, d, scale,
-                  st);
+  PDT_FA_BWD_DISPATCH(bwd_dkv, q, k, v, dout, lse, dd, dk, dv, B, L, H, d,
+                      scale, st);
 }
 
 }  // extern "C"

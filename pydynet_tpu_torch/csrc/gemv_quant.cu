@@ -57,11 +57,41 @@
 //     reads the same word: a broadcast), and rows are held in registers 8
 //     at a time (at M = 32, 4 columns x 32 rows of sums would spill), the
 //     weights of later row tiles coming from L1.
-// The prefill kernel (M > 32) is a tiled product on CUDA cores: 64 x 128
-// outputs a block, 32 packed weight rows a step, both tiles transposed into
-// shared memory as k-words so each thread runs 4 x 8 `__dp4a` a word. Any
-// M: no row slabs. Tensor-core products (IMMA / wgmma), TMA and a pipelined
-// weight stream are left for a later change.
+// The prefill kernel (M > 32) does 2 M K N int8 operations on K N weight
+// bytes: at M = 256 and (4096, 22016) that is 46 G operations against
+// 90 MB, about 23 us on the int8 tensor cores (1,979 TOP/s) and 27 us of
+// bytes, so the weight stream and how fast it reaches the tensor cores
+// bound it, never CUDA-core arithmetic. Its design:
+//   * the products run on the tensor cores: `mma.sync.m16n8k32` s8 x s8 ->
+//     s32 (IMMA; not `.satfinite`, so the int32 sums stay exact and the
+//     result bit-identical to the plain version). A block owns 64 rows x
+//     128 columns, each of its 4 warps 64 rows x 32 columns: 4 x 4 IMMA
+//     tiles, 64 int32 sums a thread;
+//   * both operands stream through a 4-stage ring in shared memory, 64
+//     packed weight rows a stage, by 16-byte `cp.async` (weights: 4-byte
+//     when N is not a multiple of 16; activations: 4-byte, or plain byte
+//     copies, when the packed K is not a multiple of 16, or of 4),
+//     zero-filled past M, K and N: three stages are in flight while one is
+//     multiplied;
+//   * IMMA wants B K-major (4 consecutive k of one column in a register)
+//     and the weights are (K, N) N-major, kept as the JAX package stores
+//     them (no second, transposed copy). The weight tile is staged raw;
+//     each lane reads one 4-column word from 4 consecutive k-rows and
+//     transposes the 4 words with `transpose4` (`__byte_perm`) into 4
+//     registers that are already B fragments: a lane's 4 columns are the
+//     same fragment column of 4 different n8 tiles, and the 4 lanes of a
+//     fragment column hold 4 k-groups, whose rows the tile's 16-byte
+//     chunks are swizzled for (conflict-free reads). The output columns
+//     come out in that permuted order, which makes each lane's 4 tiles 4
+//     neighbouring columns: the epilogue writes float4s. int4 words are
+//     unpacked in the same registers into the k and k + K/2 fragments,
+//     which meet the two halves of the xq row;
+//   * activations are read with `ldmatrix` from rows padded to 80 bytes;
+//   * the M tile is the fast grid index, so the blocks that share a
+//     column tile run together and the weights come from device memory
+//     about once: (4096, 22016) at M = 256 is 4 x 172 = 688 blocks.
+// `wgmma` (a warpgroup reading B from shared memory, which would need the
+// K-major tile written there first) and TMA are the next step.
 
 #include "common.cuh"
 
@@ -73,8 +103,11 @@ constexpr int kTileCols = 128;        // columns of a block: 32 lanes x 4
 constexpr int kMaxDecodeRows = 32;    // ops/gemv_quant.py MAX_DECODE_ROWS
 constexpr int kMaxSlice = 256;        // packed weight rows of a K slice
 constexpr int kTargetBlocks = 1024;   // about 8 blocks an SM on 132 SMs
-constexpr int kBM = 64, kBN = 128, kBK = 32;  // prefill tile; kBK packed rows
-constexpr int kBKW = kBK / 4 + 1;     // k-words a row of a tile, padded odd
+constexpr int kPM = 64, kPN = 128;   // prefill tile: rows, columns
+constexpr int kPThreads = 128;        // prefill block: 4 warps x 32 columns
+constexpr int kPK = 64;               // packed weight rows a prefill stage
+constexpr int kPStages = 4;           // stages of the shared-memory ring
+constexpr int kPRow = kPK + 16;       // bytes a row of an activation tile
 
 __device__ __forceinline__ int layer_of(const int* idx, int idx_host,
                                         int L) {
@@ -104,6 +137,24 @@ __device__ __forceinline__ unsigned load_word(const int8_t* w, size_t off) {
 
 __device__ __forceinline__ float epilogue(int acc, float ws, float sx) {
   return __fmul_rn(__fmul_rn((float)acc, ws), sx);
+}
+
+// the A fragment of a 16 x 32-byte int8 tile: lane l passes the address of
+// row l & 15, byte 16 (l >> 4)
+__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&a)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr) : "memory");
+}
+
+// c += a (16 x 32 int8, row-major) * b (32 x 8 int8, K-major), exact int32
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One block per row: xq = rint(x * (127 / amax)), sx = amax / 127
@@ -250,13 +301,92 @@ qmm_decode_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
   }
 }
 
-// Prefill rows (any M). Block (bx, by): rows [64 by, 64 by + 64) and columns
-// [128 bx, 128 bx + 128); thread (ty, tx) of 16 x 16 owns rows 4 ty + i and
-// columns tx + 16 j. Each step takes 32 packed weight rows: the weight tile
-// transposed to k-words a column (two, lo and hi, for int4) and the xq tile
-// as k-words a row, in shared memory with an odd row stride.
+// Prefill rows (any M). Block (bx, by): rows [64 bx, 64 bx + 64) and
+// columns [128 by, 128 by + 128); warp w the 32 columns from 32 w. A stage
+// is 64 packed weight rows: the raw (64, 128) weight tile and the (64, 64)
+// activation tile of each half, in a ring of kPStages stages in dynamic
+// shared memory. Lane l of a warp reads the 4-column word 4 (l >> 2) of the
+// warp's columns from the k-rows 4 (l & 3) + i (and + 16) of each 32-row k
+// step: transposed, word t is the B fragment of n8 tile t, whose fragment
+// column l >> 2 is the physical column 4 (l >> 2) + t.
+constexpr int kPBytes = kPK * kPN;  // raw weight tile of a stage
+
+template <int kHalves>
+__host__ __device__ constexpr int prefill_stage_bytes() {
+  return kPBytes + kHalves * kPM * kPRow;
+}
+
+// The 16-byte chunk c of weight-tile row r is stored at chunk c ^ 2 (r / 4
+// mod 4): the 4 k-groups of a warp's fragment read then fall in 4 different
+// 8-bank groups.
+__device__ __forceinline__ int chunk_swz(int r, int c) {
+  return c ^ (((r >> 2) & 3) << 1);
+}
+
+// Copy packed k [k0, k0 + kPK) of the block's rows of each half of xq into
+// `s` (kHalves tiles of kPM rows x kPRow bytes): thread t takes rows
+// (t >> 2) + 32 p, bytes 16 (t & 3) .. + 15; zero past M and past Kst.
+// `vec` 16 or 4: cp.async of that width (xq rows and halves aligned to it),
+// else plain byte copies.
+template <int kHalves>
+__device__ __forceinline__ void load_a(int8_t* s, const int8_t* xq, int m0,
+                                       int k0, int M, int K, int Kst,
+                                       int vec) {
+  const int c = 16 * (threadIdx.x & 3), k = k0 + c;
+#pragma unroll
+  for (int hp = 0; hp < kHalves * kPM / (kPThreads / 4); ++hp) {
+    const int h = hp / (kPM / (kPThreads / 4));
+    const int r = (threadIdx.x >> 2) + (kPThreads / 4) *
+                  (hp % (kPM / (kPThreads / 4)));
+    const int m = m0 + r;
+    int8_t* dst = s + (h * kPM + r) * kPRow + c;
+    const int8_t* src = xq + (size_t)m * K + (size_t)h * Kst + k;
+    if (vec == 16) {
+      const int n = (m < M && k < Kst) ? 16 : 0;
+      cp_async16(smem_u32(dst), n ? src : xq, n);
+    } else if (vec == 4) {
+#pragma unroll
+      for (int j = 0; j < 16; j += 4) {
+        const int n = (m < M && k + j < Kst) ? 4 : 0;
+        cp_async4(smem_u32(dst + j), n ? src + j : xq, n);
+      }
+    } else {
+#pragma unroll 4
+      for (int j = 0; j < 16; ++j)
+        dst[j] = (m < M && k + j < Kst) ? src[j] : (int8_t)0;
+    }
+  }
+}
+
+// Copy packed weight rows [k0, k0 + kPK), columns [nb, nb + kPN) raw into
+// `s` (row r at r * kPN, chunks swizzled), zero past Kst and N: 16-byte
+// cp.async when `wvec` (N a multiple of 16, w 16-byte aligned), else 4-byte.
+__device__ __forceinline__ void load_w(int8_t* s, const int8_t* w, int k0,
+                                       int nb, int Kst, int N, bool wvec) {
+  if (wvec) {  // 8 chunks a row, 16 rows a pass
+    const int c = threadIdx.x & 7;
+#pragma unroll
+    for (int r = threadIdx.x >> 3; r < kPK; r += kPThreads / 8) {
+      const bool ok = k0 + r < Kst && nb + 16 * c < N;
+      const int8_t* src = w + (size_t)(k0 + r) * N + nb + 16 * c;
+      cp_async16(smem_u32(s + r * kPN + 16 * chunk_swz(r, c)),
+                 ok ? src : w, ok ? 16 : 0);
+    }
+    return;
+  }
+  const int wd = threadIdx.x & 31;  // 32 words a row, 4 rows a pass
+#pragma unroll 4
+  for (int r = threadIdx.x >> 5; r < kPK; r += kPThreads / 32) {
+    const bool ok = k0 + r < Kst && nb + 4 * wd < N;
+    const int8_t* src = w + (size_t)(k0 + r) * N + nb + 4 * wd;
+    cp_async4(smem_u32(s + r * kPN + 16 * chunk_swz(r, wd >> 2) +
+                       4 * (wd & 3)),
+              ok ? src : w, ok ? 4 : 0);
+  }
+}
+
 template <bool Q4>
-__global__ void __launch_bounds__(kQThreads)
+__global__ void __launch_bounds__(kPThreads)
 qmm_prefill_kernel(const int8_t* __restrict__ xq,
                    const float* __restrict__ sx,
                    const int8_t* __restrict__ w,
@@ -264,92 +394,116 @@ qmm_prefill_kernel(const int8_t* __restrict__ xq,
                    int idx_host, int L, float* __restrict__ out, int M, int K,
                    int N) {
   constexpr int kHalves = Q4 ? 2 : 1;
-  __shared__ int s_w[kHalves][kBN][kBKW];
-  __shared__ int s_x[kHalves][kBM][kBKW];
+  constexpr int kStage = prefill_stage_bytes<kHalves>();
+  extern __shared__ __align__(16) int8_t s_ring[];  // [stage][w tile, xq]
   const int Kst = Q4 ? K / 2 : K;
   const int layer = layer_of(idx, idx_host, L);
   w += (size_t)layer * Kst * N;
   ws += (size_t)layer * N;
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const int m0 = blockIdx.y * kBM, nb = blockIdx.x * kBN;
-  int a[4][8];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int q = lane & 3, g = lane >> 2;
+  const int m0 = blockIdx.x * kPM, nb = blockIdx.y * kPN;
+  const int nw = nb + 32 * warp;  // the warp's first column
+  const int vec = Kst % 16 == 0 ? 16 : (Kst % 4 == 0 ? 4 : 1);
+  const bool wvec = N % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int steps = (Kst + kPK - 1) / kPK;
+  // this lane's weight word in a tile row whose k-group is q: chunk
+  // 2 warp + (g >> 2) swizzled by 2 q, byte 4 (g & 3) of it
+  const int wcol = 16 * ((2 * warp + (g >> 2)) ^ (2 * q)) + 4 * (g & 3);
+
+  int acc[4][4][4];  // [m16 tile][n8 tile][fragment]
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) a[i][j] = 0;
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][t][e] = 0;
 
-  for (int k0 = 0; k0 < Kst; k0 += kBK) {
-    {  // weights: thread -> rows k0 + 4 rg .. + 3, columns nb + 4 cw .. + 3
-      const int rg = t >> 5, cw = t & 31;
-      const int n = nb + 4 * cw, r = k0 + 4 * rg;
-      unsigned v[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        v[i] = (r + i < Kst && n < N) ? load_word(w, (size_t)(r + i) * N + n)
-                                      : 0u;
-      int c[4];
-      if constexpr (Q4) {
-        transpose4(nibbles_lo(v[0]), nibbles_lo(v[1]), nibbles_lo(v[2]),
-                   nibbles_lo(v[3]), c);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s_w[0][4 * cw + j][rg] = c[j];
-        transpose4(nibbles_hi(v[0]), nibbles_hi(v[1]), nibbles_hi(v[2]),
-                   nibbles_hi(v[3]), c);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s_w[kHalves - 1][4 * cw + j][rg] = c[j];
-      } else {
-        transpose4(v[0], v[1], v[2], v[3], c);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s_w[0][4 * cw + j][rg] = c[j];
-      }
+  for (int s = 0; s < kPStages - 1; ++s) {
+    if (s < steps) {
+      load_w(s_ring + s * kStage, w, s * kPK, nb, Kst, N, wvec);
+      load_a<kHalves>(s_ring + s * kStage + kPBytes, xq, m0, s * kPK, M, K,
+                      Kst, vec);
     }
-    {  // xq: thread -> row m0 + r, 8 bytes from column k0 + kb of each half
-      const int r = t >> 2, kb = 8 * (t & 3), m = m0 + r;
+    cp_async_commit();
+  }
+
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<kPStages - 2>();
+    __syncthreads();  // stage st is in; every warp is done with st - 1
+    const int nx = st + kPStages - 1;
+    if (nx < steps) {
+      int8_t* slot = s_ring + (nx % kPStages) * kStage;
+      load_w(slot, w, nx * kPK, nb, Kst, N, wvec);
+      load_a<kHalves>(slot + kPBytes, xq, m0, nx * kPK, M, K, Kst, vec);
+    }
+    cp_async_commit();
+    const int8_t* s_w = s_ring + (st % kPStages) * kStage;
+    const int8_t* s_x = s_w + kPBytes;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      unsigned b[2][4][2];  // [half][n8 tile][b0/b1]
+#pragma unroll
+      for (int gg = 0; gg < 2; ++gg) {
+        const int8_t* rw = s_w + (32 * s + 16 * gg + 4 * q) * kPN + wcol;
+        unsigned v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          v[i] = *reinterpret_cast<const unsigned*>(rw + i * kPN);
+        int c[4];
+        if constexpr (Q4) {
+          transpose4(nibbles_lo(v[0]), nibbles_lo(v[1]), nibbles_lo(v[2]),
+                     nibbles_lo(v[3]), c);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) b[0][t][gg] = (unsigned)c[t];
+          transpose4(nibbles_hi(v[0]), nibbles_hi(v[1]), nibbles_hi(v[2]),
+                     nibbles_hi(v[3]), c);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) b[1][t][gg] = (unsigned)c[t];
+        } else {
+          transpose4(v[0], v[1], v[2], v[3], c);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) b[0][t][gg] = (unsigned)c[t];
+        }
+      }
 #pragma unroll
       for (int h = 0; h < kHalves; ++h)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          unsigned word = 0;
+        for (int i = 0; i < 4; ++i) {
+          unsigned a[4];
+          ldmatrix_x4(smem_u32(s_x + (h * kPM + 16 * i + (lane & 15)) * kPRow +
+                               32 * s + 16 * (lane >> 4)), a);
 #pragma unroll
-          for (int b = 0; b < 4; ++b) {
-            const int k = k0 + kb + 4 * j + b;
-            const unsigned byte =
-                (m < M && k < Kst)
-                    ? (unsigned)(uint8_t)xq[(size_t)m * K + (size_t)h * Kst +
-                                            k]
-                    : 0u;
-            word |= byte << (8 * b);
-          }
-          s_x[h][r][kb / 4 + j] = (int)word;
+          for (int t = 0; t < 4; ++t) mma_s8(acc[i][t], a, b[h][t][0],
+                                             b[h][t][1]);
         }
     }
-    __syncthreads();
+  }
+  cp_async_wait<0>();
+
+  // fragment e of tile (i, t): row 16 i + g + 8 (e >> 1), physical column
+  // nw + 8 q + 4 (e & 1) + t, so tiles t = 0..3 are 4 neighbouring columns
 #pragma unroll
-    for (int h = 0; h < kHalves; ++h)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int kw = 0; kw < kBK / 4; ++kw) {
-        int xw[4], ww[8];
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + 16 * i + g + 8 * hr;
+      if (m >= M) continue;
+      const float s = sx[m];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) xw[i] = s_x[h][4 * ty + i][kw];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) ww[j] = s_w[h][tx + 16 * j][kw];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) a[i][j] = __dp4a(ww[j], xw[i], a[i][j]);
+      for (int e = 0; e < 2; ++e) {
+        const int c = nw + 8 * q + 4 * e;
+        if (c >= N) continue;
+        float4 o;
+        o.x = epilogue(acc[i][0][2 * hr + e], ws[c], s);
+        o.y = epilogue(acc[i][1][2 * hr + e], ws[c + 1], s);
+        o.z = epilogue(acc[i][2][2 * hr + e], ws[c + 2], s);
+        o.w = epilogue(acc[i][3][2 * hr + e], ws[c + 3], s);
+        *reinterpret_cast<float4*>(out + (size_t)m * N + c) = o;
       }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * ty + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = nb + tx + 16 * j;
-      if (n < N) out[(size_t)m * N + n] = epilogue(a[i][j], ws[n], sx[m]);
     }
-  }
 }
 
 template <int MT, bool Q4>
@@ -392,8 +546,13 @@ template <bool Q4>
 cudaError_t prefill(const int8_t* xq, const float* sx, const int8_t* w,
                     const float* ws, const int* idx, int idx_host, int L,
                     float* out, int M, int K, int N, cudaStream_t st) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  qmm_prefill_kernel<Q4><<<grid, kQThreads, 0, st>>>(
+  constexpr int bytes = kPStages * prefill_stage_bytes<Q4 ? 2 : 1>();
+  const cudaError_t e = cudaFuncSetAttribute(  // above the default 48 KB
+      reinterpret_cast<const void*>(qmm_prefill_kernel<Q4>),
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((M + kPM - 1) / kPM, (N + kPN - 1) / kPN);
+  qmm_prefill_kernel<Q4><<<grid, kPThreads, bytes, st>>>(
       xq, sx, w, ws, idx, idx_host, L, out, M, K, N);
   return cudaGetLastError();
 }
@@ -401,7 +560,7 @@ cudaError_t prefill(const int8_t* xq, const float* sx, const int8_t* w,
 bool bad_shape(int q4, int M, int K, int N, int L, int idx_host) {
   return M < 1 || K < 1 || N < 4 || N % 4 != 0 || L < 1 ||
          (q4 && K % 2 != 0) || idx_host < 0 || idx_host >= L ||
-         (M + kBM - 1) / kBM > 65535;
+         (N + kPN - 1) / kPN > 65535;
 }
 
 }  // namespace

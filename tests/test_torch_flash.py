@@ -246,3 +246,53 @@ def test_clip_grad_value_and_empty_norm_match_jax():
     tutils.clip_grad_value_(tp, 1.5)
     np.testing.assert_array_equal(tp.grad.numpy(), np.asarray(jp.grad))
     assert float(tutils.clip_grad_norm_([t(g, True)], 1.0)) == 0.0
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: the magnitude's bits plus half a
+    unit of the last kept bit, truncated."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the flash backward kernels multiply float32 on the tensor
+    cores: a = hi + lo with hi = tf32(a), lo = tf32(a - hi) (b alike), and
+    a_lo b_hi + a_hi b_lo + a_hi b_hi summed in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def test_k4_3xtf32_products_meet_the_card_tolerances():
+    """K4's numerical design, emulated on the CPU at the training shape
+    (1, 1024, 6, 48) in float32: every product of dq and dk/dv (q k^T,
+    dO v^T, ds k, ds^T q, p^T dO) split into TF32 parts as the kernels split
+    them. dq, dk and dv stay within chip_smoke's ``FLASH_ATOL`` of the plain
+    K4 and within ``TRAIN_GRAD_RTOL`` of each tensor's largest value, the
+    two gates the card is held to."""
+    from chip_smoke import FLASH_ATOL, TRAIN_GRAD_RTOL
+
+    q, k, v, do = (t(a) for a in qkv((1, 1024, 6, 48), 11))
+    scale = 48 ** -0.5
+    _, lse = tfa.flash_attention_fwd_ref(q, k, v, scale)
+    o = tfa.flash_attention_fwd_ref(q, k, v, scale)[0]
+    dd = tfa.attention_dd(o, do)
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    L = q.shape[1]
+    causal = torch.ones(L, L, dtype=torch.bool).tril()
+    s = _mm_3xtf32(qh, kh.transpose(-1, -2))
+    p = torch.where(causal, torch.exp(s * scale - lse[..., None]), 0.0)
+    ds = p * (_mm_3xtf32(doh, vh.transpose(-1, -2)) - dd[..., None])
+    got = {"dq": _mm_3xtf32(ds, kh) * scale,
+           "dk": _mm_3xtf32(ds.transpose(-1, -2), qh) * scale,
+           "dv": _mm_3xtf32(p.transpose(-1, -2), doh)}
+    want = dict(zip(("dk", "dv"), tfa.flash_attention_bwd_dkv_ref(
+        q, k, v, do, lse, dd, scale)))
+    want["dq"] = tfa.flash_attention_bwd_dq_ref(q, k, v, do, lse, dd, scale)
+    for name, g in got.items():
+        w = want[name]
+        err = float((g.transpose(1, 2) - w).abs().max())
+        assert err <= FLASH_ATOL[name], (name, err)
+        assert err <= TRAIN_GRAD_RTOL * float(w.abs().max()), (name, err)

@@ -238,6 +238,45 @@ def test_flash_kernels_take_every_head_dim(gpu, d):
         assert float((a - b).abs().max()) < 5e-4
 
 
+# K4's tilings: each head-dim chunking (d <= 64, 128, 256), head dims that
+# are no multiple of 8 or 16 (the narrow copies), L around the 16-row
+# fragments and the 64-row tiles
+FLASH_DIMS = [16, 32, 48, 64, 80, 100, 128, 256]
+FLASH_LENS = [1, 15, 16, 17, 63, 65, 1000, 1024]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("L", FLASH_LENS)
+@pytest.mark.parametrize("d", FLASH_DIMS)
+def test_flash_backward_tiles_match_plain(gpu, d, L, dtype):
+    """K3 and both K4 kernels within ``FLASH_ATOL`` of their plain versions
+    at (1, L, 3, d)."""
+    from chip_smoke import FLASH_DTYPES, flash_vs_plain
+
+    errs = flash_vs_plain(1, L, FLASH_DTYPES[dtype], seed=d + L, d=d,
+                          heads=3)
+    assert set(errs) == {"o", "lse", "dq", "dk", "dv"}
+
+
+@pytest.mark.parametrize("d", [48, 100, 256])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_flash_backward_is_deterministic(gpu, dtype, d):
+    """Two calls of each K4 kernel on the same inputs give the same bits:
+    no float is summed across blocks or with atomics."""
+    from chip_smoke import FLASH_DTYPES, flash_inputs
+    from pydynet_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = flash_inputs(8, 1024, FLASH_DTYPES[dtype], 3, d=d)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    dd = fa.attention_dd(o, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, dd)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd)
+    assert torch.equal(dq, fa.flash_attention_bwd_dq(q, k, v, do, lse, dd))
+    for a, b in zip((dk, dv), fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                          dd)):
+        assert torch.equal(a, b)
+
+
 def test_flash_cuda_inputs_never_fall_back(gpu):
     from pydynet_tpu_torch.ops import flash_attention as fa
 
@@ -313,6 +352,48 @@ def test_qmatmul_stacked_device_index(gpu, M, q4):
     big = torch.tensor(40, dtype=torch.int32, device="cuda")
     assert torch.equal(gq.qmatmul_stacked(x, w, ws, big, q4=q4),
                        gq.qmatmul_ref(x, w[31], ws[31], q4=q4))
+
+
+# K6's tile edges: M around the 64-row tile and the 16-row fragments, K
+# whose rows are no multiple of 16 or 4 bytes (the narrow copies; int4's
+# K / 2 = 145 odd), N = 4 and 292 (no multiple of the 256-column tile)
+K6_ROWS = [33, 64, 65, 127, 128, 129, 255, 257, 1000]
+K6_SHAPES = [(100, 4), (100, 292), (104, 292), (290, 4), (290, 292),
+             (288, 292)]
+
+
+@pytest.mark.parametrize("q4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("M", K6_ROWS)
+@pytest.mark.parametrize("shape", K6_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_prefill_kernel_tile_edges(gpu, shape, M, q4):
+    """K6 bit for bit against the plain version, float32 and bfloat16
+    rows."""
+    from chip_smoke import random_qweights, random_rows
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    K, N = shape
+    w, ws = random_qweights(K, N, q4, K + N + M)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = random_rows(M, K, dtype, M + K)
+        assert torch.equal(gq.qmatmul(x, w, ws, q4=q4),
+                           gq.qmatmul_ref(x, w, ws, q4=q4))
+
+
+@pytest.mark.parametrize("q4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("M", [65, 257, 1000])
+def test_prefill_stacked_device_index(gpu, M, q4):
+    """K7 above 32 rows (the prefill kernel) reads its layer from a device
+    tensor, ragged K and N included."""
+    from chip_smoke import random_qweights, random_rows
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    for K, N in ((512, 1024), (290, 292)):
+        w, ws = random_qweights(K, N, q4, M, layers=8)
+        x = random_rows(M, K, torch.bfloat16, M)
+        for layer in (0, 5, 7):
+            idx = torch.tensor(layer, dtype=torch.int32, device="cuda")
+            assert torch.equal(gq.qmatmul_stacked(x, w, ws, idx, q4=q4),
+                               gq.qmatmul_ref(x, w[layer], ws[layer], q4=q4))
 
 
 def test_qmatmul_launch_counters_count_kernel_launches_only(gpu):
