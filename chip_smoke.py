@@ -156,8 +156,8 @@ the run with a nonzero exit and no result line:
    version, ``torch._int_mm`` (int8, M > 16) on the weights as stored,
    row-major, and on a column-major copy, and its bound; each kernel's
    bound (bytes over 3.35 TB/s or operations over the peak for its type;
-   K4's float32 products at float32 accuracy on the tensor cores, a third
-   of the TF32 peak) and, for K3/K4, ``F.scaled_dot_product_attention``'s
+   K3's and K4's float32 products at float32 accuracy on the tensor cores,
+   a third of the TF32 peak) and, for K3/K4, ``F.scaled_dot_product_attention``'s
    forward and backward; K8's time at (40, 512), (40, 128), (1024, 1024) and
    (8192, 1024) beside its plain version, its bound and ``F.batch_norm``,
    the dropout_bn train step in steps/s and the MNIST ConvNet's epochs in
@@ -1337,8 +1337,7 @@ def time_training(card):
         for name, (kern, ref) in pairs.items():
             plain, kernel = time_step(ref, 10), time_step(kern, 50)
             kernel2, plain2 = time_step(kern, 50), time_step(ref, 10)
-            b_ms, b_by = flash_bound(q, FLASH_PRODUCTS[name],
-                                     name != "flash_attention_fwd")
+            b_ms, b_by = flash_bound(q, FLASH_PRODUCTS[name], True)
             ms[name, B] = (min(kernel, kernel2), min(plain, plain2), b_ms,
                            b_by, lib[name != "flash_attention_fwd"])
             way = "forward" if name == "flash_attention_fwd" else "backward"
@@ -1420,8 +1419,8 @@ def flash_bound(q, products, tensor_cores=False):
     """K3/K4's bound on (B, L, H, d) inputs: q, k, v (and dO, o) read once,
     outputs written once; ``products`` matrix products of the causal
     L (L + 1) / 2 query-key pairs, two operations a multiply-add, at the
-    float32 peak, or with ``tensor_cores`` (K4) at float32 accuracy on the
-    tensor cores (3xTF32) for float32 inputs."""
+    float32 peak, or with ``tensor_cores`` (K3 and K4) at float32 accuracy
+    on the tensor cores (3xTF32) for float32 inputs."""
     B, L, H, d = q.shape
     n_bytes = nbytes(q) * {2: 4, 3: 6, 4: 7}[products]
     n_ops = 2 * products * B * H * d * L * (L + 1) // 2

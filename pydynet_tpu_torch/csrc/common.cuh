@@ -421,6 +421,88 @@ argmax_kernel(const float* __restrict__ tile_val,
   }
 }
 
+// ---- tensor-core fragments (mma.sync; gemv_quant.cu, flash_attention.cu,
+// head.cuh) ----
+
+// Four 8 x 8 matrices of 16-bit elements (8 rows of 16 bytes each) from
+// shared memory, lane l passing the address of row l & 7 of matrix l >> 3:
+// the A fragment of a 16 x 32-byte tile when lane l passes row l & 15,
+// byte 16 (l >> 4)
+__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&a)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr) : "memory");
+}
+
+// c += a (16 x 32 int8, row-major) * b (32 x 8 int8, K-major), exact int32
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two 8 x 8 matrices of 16-bit elements, lanes 0-15 passing the addresses
+// of their rows: the B fragment (b0, b1) of a 32-byte x 8 K-major tile when
+// lane l passes row l & 7, byte 16 ((l >> 3) & 1)
+__device__ __forceinline__ void ldmatrix_x2(unsigned addr, unsigned (&b)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b[0]), "=r"(b[1])
+               : "r"(addr) : "memory");
+}
+
+// c += a (16 x 16 bfloat16, row-major) * b (16 x 8 bfloat16, K-major),
+// float32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away from
+// zero, as `cvt.rna.tf32.f32` rounds it, in two integer operations (the
+// conversion instruction costs more): half a unit of the last kept bit
+// added to the magnitude's bits, the 13 bits below it cleared
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32 (LO), or hi = x exactly (a widened bfloat16, which
+// TF32 holds: lo = 0 and its products are skipped)
+template <bool LO, int N>
+__device__ __forceinline__ void split(const float (&x)[N], unsigned (&hi)[N],
+                                      unsigned (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    hi[i] = LO ? tf32_rna(x[i]) : __float_as_uint(x[i]);
+    lo[i] = LO ? tf32_rna(x[i] - __uint_as_float(hi[i])) : 0u;
+  }
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b at float32 accuracy (3xTF32): a_lo b_hi + a_hi b_lo + a_hi b_hi,
+// the small terms first; a_lo b_lo (2^-22 relative) is dropped
+template <bool ALO, bool BLO>
+__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4],
+                                     const unsigned (&bh)[2],
+                                     const unsigned (&bl)[2]) {
+  if constexpr (ALO) mma_tf32(c, al, bh);
+  if constexpr (BLO) mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
 int head_tiles(int vocab) { return (vocab + kHeadRows - 1) / kHeadRows; }
 int attn_splits(int seq) { return (seq + kAttnRows - 1) / kAttnRows; }
 

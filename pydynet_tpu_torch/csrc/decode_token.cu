@@ -4,8 +4,9 @@
 // Replaces the Pallas TPU kernels `_token_kernel`
 // (pydynet_tpu/ops/decode_step.py:160, launched by `fused_decode_token`
 // at :1346; K1) and `_lm_head_kernel` (:102, launched by `lm_head_argmax`
-// at :129; K9, which is K1's head without the final RMSNorm: `head_tile`
-// in common.cuh serves both, one tie rule). K1 computes the same step:
+// at :129; K9, the head of an h given as it is, without the final RMSNorm
+// and without rounding h to the weights' type: `head_tile` in common.cuh).
+// K1 computes the same step:
 // gather emb[tok]; per layer RMSNorm, q/k/v, interleaved RoPE, the K/V row
 // write at pos (clamped to S-1), causal online-softmax attention over rows
 // [0, pos], wo + residual, RMSNorm, SwiGLU + residual; then the final
@@ -28,13 +29,15 @@
 //   3. the online-softmax merge of those partials + wo GEMV + residual,
 //   4. RMSNorm + gate/up GEMV + SiLU * up,
 //   5. down GEMV + residual,
-// then 6. final RMSNorm + head GEMV + bias with a (max, index) pair per
-// vocab tile, and 7. a one-block argmax over the tiles (K9 is 6 on h as
-// given, without the norm, then 7). In the TPU kernel's `emit_logits` mode
-// (the sampled decode's, ops/decode_step.py:487-491 there) stage 6 also
-// writes each vocab row's f32 logit, bias added and int8/int4 scale
-// applied by the very arithmetic the argmax compares, to a (V,) output,
-// and 7 is not launched: 5 * n_layers + 1 launches. `pos`
+// then 6. final RMSNorm + head product + bias with a (max, index) pair per
+// 128-row vocab block: K2's head stage on a group of one row (head.cuh, on
+// the tensor cores), so K1's logits are the bits K2 gives that row; and
+// 7. a one-block argmax over the blocks (K9 is head_tile's CUDA-core head
+// on h as given, then 7; both keep the tie rule). In the TPU kernel's
+// `emit_logits` mode (the sampled decode's, ops/decode_step.py:487-491
+// there) stage 6 also writes each vocab row's f32 logit, bias added and
+// int8/int4 scale applied by the very arithmetic the argmax compares, to a
+// (V,) output, and 7 is not launched: 5 * n_layers + 1 launches. `pos`
 // and `tok` are read from device memory, so no step syncs with the host and
 // the chain can later be captured in a CUDA graph.
 //
@@ -58,6 +61,7 @@
 // its weight row's scale times amax / 127, as the TPU kernel's qvec/qmm do.
 
 #include "common.cuh"
+#include "head.cuh"
 
 namespace {
 
@@ -233,25 +237,6 @@ attn_out_kernel(const int* __restrict__ pos_p,
   gemv_residual<Q, T>(x_s, D, wo, s_o, sx, h, D);
 }
 
-// 6. Final RMSNorm + head GEMV + bias over kHeadRows vocab rows, reduced to
-// one (max, index) pair per block. HQ is the head's format: T rows, int8
-// rows (the int8 head and the int8 layers) or int4 rows (the int4 layers),
-// with per-row f32 scales `head_s`.
-template <typename T, int HQ>
-__global__ void __launch_bounds__(kThreads)
-head_kernel(const float* __restrict__ h, const T* __restrict__ final_norm,
-            const void* __restrict__ head_w, const float* __restrict__ head_s,
-            const T* __restrict__ head_b, float* __restrict__ tile_val,
-            int* __restrict__ tile_idx, float* __restrict__ logits, int D,
-            int V) {
-  extern __shared__ float smem[];
-  float* x_s = smem;
-  float* red = smem + D;
-  const float sx = load_normed_act<HQ, T>(h, final_norm, D, x_s, red);
-  head_tile<HQ, T>(x_s, sx, head_w, head_s, head_b, tile_val, tile_idx, D,
-                   V, logits);
-}
-
 // K9: the head of h (1, D) alone, h as it is (f32 or bf16, widened to f32,
 // not rounded to the weights' type: jnp.dot promotes both to f32)
 template <typename H, typename W>
@@ -286,7 +271,7 @@ struct Args {
 template <typename T, int Q, int HQ>
 cudaError_t run(const Args& a, cudaStream_t st) {
   const int D = a.D, F = a.F, S = a.S, hd = a.D / a.H, Dkv = a.Hkv * hd;
-  const int ntiles = head_tiles(a.V);
+  const int ntiles = head_blocks(a.V);
   const int nsplit = attn_splits(S);
   float* h = a.scratch;
   float* q = h + D;
@@ -339,10 +324,11 @@ cudaError_t run(const Args& a, cudaStream_t st) {
         D);
     PDT_CHECK();
   }
-  head_kernel<T, HQ><<<ntiles, kThreads, sm_norm, st>>>(
+  const cudaError_t e = launch_head<T, HQ>(
       h, static_cast<const T*>(a.final_norm), a.head_w, a.head_s,
-      static_cast<const T*>(a.head_b), tile_val, tile_idx, a.logits, D, a.V);
-  PDT_CHECK();
+      static_cast<const T*>(a.head_b), tile_val, tile_idx, a.logits, 1, D,
+      a.V, st);
+  if (e != cudaSuccess) return e;
   if (a.logits == nullptr)
     argmax_kernel<<<1, kThreads, 0, st>>>(tile_val, tile_idx, ntiles, a.out);
   return cudaGetLastError();
@@ -367,11 +353,11 @@ cudaError_t run_head(const void* h, const void* w, const void* b, int* out,
 extern "C" {
 
 // Floats of scratch the wrapper allocates for one step: h, q (D each), ff
-// (F), a (max, index) pair per head tile, and the attention partials (m, l
+// (F), a (max, index) pair per head block, and the attention partials (m, l
 // and a head_dim vector per head and row block).
 int pdt_decode_token_scratch_floats(int dim, int n_heads, int ffn, int vocab,
                                     int seq) {
-  return 2 * dim + ffn + 2 * head_tiles(vocab) +
+  return 2 * dim + ffn + 2 * head_blocks(vocab) +
          attn_splits(seq) * (2 * n_heads + dim);
 }
 

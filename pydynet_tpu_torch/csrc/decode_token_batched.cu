@@ -57,26 +57,32 @@
 //   3. the online-softmax merge of the partials + wo GEMV + residual,
 //   4. RMSNorm + gate/up GEMV + SiLU * up,
 //   5. down GEMV + residual,
-// then 6. final RMSNorm + head GEMV + bias with a (max, index) pair per row
-// and vocab tile, and 7. one block per row: argmax over its tiles. In the
-// TPU kernel's `emit_logits` mode (the sampled decode's, :1010-1011 there)
-// stage 6 also writes the (B, V) f32 logits, the very values the argmax
-// compares, and 7 is not launched: 5 * n_layers + 1 launches. `pos`,
-// `tok` and `starts` are read from device memory, so a chunk of steps never
-// waits for the host. Each row does K1's arithmetic in K1's order, so row b
-// with starts[b] = 0 gives the token and cache row that K1 gives on that row
-// alone.
+// then 6. the head stage (head.cuh): final RMSNorm + head product + bias on
+// the tensor cores, a block per 128 vocab rows and row group, with a (max,
+// index) pair per row and block; and 7. one block per row: argmax over its
+// blocks. In the TPU kernel's `emit_logits` mode (the sampled decode's,
+// :1010-1011 there) stage 6 also writes the (B, V) f32 logits, the very
+// values the argmax compares, and 7 is not launched: 5 * n_layers + 1
+// launches. `pos`, `tok` and `starts` are read from device memory, so a
+// chunk of steps never waits for the host. Each row does K1's arithmetic in
+// K1's order (stages 1-5 sum a row's products as K1's lane_dot does; K1's
+// stage 6 is this head stage on a group of one row, and a tensor-core
+// product's element depends only on its own row and column), so row b with
+// starts[b] = 0 gives the token, logits and cache row that K1 gives on that
+// row alone.
 //
 // What bounds it on an H100: at stories15M width (D 288, F 768, 6 layers,
 // V 32000), B = 8, pos 512, a token reads about 12 MB of bf16 layer weights
 // (6 MB as int8, 3 MB as int4) and 18.4 MB of head (9.2 as int8) once for the
 // fleet, and about 29 MB of bf16 KV (8 rows x about 3.6 MB; 14.2 MB as int8
 // with its scales): about 18 us at 3.35 TB/s. Here the weight stream is
-// shared, which is the point of the kernel; the per-row products read the
-// activation rows from shared memory, whose traffic grows with B, and every
-// block normalises (and quantizes) all B rows itself; the 32 launches of the
-// chain stay latency-bound as in K1. A CUDA graph over a chunk and fused
-// launches come later.
+// shared, which is the point of the kernel; in stages 1-5 the per-row
+// products read the activation rows from shared memory, whose traffic grows
+// with B, and every block normalises (and quantizes) all B rows itself, one
+// row after another; the head stage normalises them a warp a row and
+// multiplies on the tensor cores (head.cuh); the 32 launches of the chain
+// stay latency-bound as in K1. A CUDA graph over a chunk and fused launches
+// come later.
 //
 // Shared memory grows with the group: 32 activation rows of width
 // max(D, F) are 96 KB at F = 768, above the 48 KB a block gets without
@@ -95,12 +101,12 @@
 extern "C" {
 
 // Floats of scratch the wrapper allocates for one step of B rows: h, q
-// (B x D each), ff (B x F), a (max, index) pair per row and head tile, the
+// (B x D each), ff (B x F), a (max, index) pair per row and head block, the
 // attention partials (m, l and a head_dim vector per row, head and row
 // block), and the new K and V rows of the int8 KV cache (2 x B x D).
 int pdt_decode_token_batched_scratch_floats(int batch, int dim, int n_heads,
                                             int ffn, int vocab, int seq) {
-  return batch * (4 * dim + ffn + 2 * head_tiles(vocab) +
+  return batch * (4 * dim + ffn + 2 * head_blocks(vocab) +
                   attn_splits(seq) * (2 * n_heads + dim));
 }
 

@@ -7,6 +7,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "head.cuh"
 
 namespace pdt_k2 {
 
@@ -639,67 +640,6 @@ down_residual_b_kernel(const float* __restrict__ ff, int F,
                             G);
 }
 
-// 6. Final RMSNorm + head GEMV + bias over kHeadRows vocab rows for one group
-// of rows, reduced to one (max, index) pair per row b and block:
-// tile_val/tile_idx (B, ntiles). HQ is the head's format: T rows, int8 rows
-// (the int8 head and the int8 layers) or int4 rows (the int4 layers), with
-// per-row f32 scales `head_s`; a quantized head quantises each activation
-// row with its own scale (the TPU kernel's qvec_b). With `logits` (the
-// emit_logits mode) row b's f32 logit of vocab row r, the very value the
-// argmax compares, is also written to logits[b * V + r].
-template <typename T, int HQ, int BM>
-__global__ void __launch_bounds__(kThreads)
-head_b_kernel(const float* __restrict__ h, const T* __restrict__ final_norm,
-              const void* __restrict__ head_w,
-              const float* __restrict__ head_s, const T* __restrict__ head_b,
-              float* __restrict__ tile_val, int* __restrict__ tile_idx,
-              float* __restrict__ logits, int B, int D, int V) {
-  extern __shared__ __align__(16) float smem[];
-  const RowGroup g(B);
-  const int G = g.count;
-  h += (size_t)g.b0 * D;
-  tile_val += (size_t)g.b0 * gridDim.x;
-  tile_idx += (size_t)g.b0 * gridDim.x;
-  if (logits != nullptr) logits += (size_t)g.b0 * V;
-  float* x_s = smem;  // (G, D)
-  float* red = smem + (size_t)G * D;
-  __shared__ float wv[kWarps][BM];
-  __shared__ int wi[kWarps][BM];
-  __shared__ float sx_s[BM];
-  load_normed_rows<HQ, T>(h, final_norm, D, G, x_s, red, sx_s);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float sx = lane < G ? sx_s[lane] : 0.f;
-  float bv = -INFINITY;
-  int bi = INT_MAX;
-  const int r0 = blockIdx.x * kHeadRows + warp * kHeadRowsPerWarp;
-  for (int r = r0; r < min(r0 + kHeadRowsPerWarp, V); ++r) {
-    const float logit = row_dot_rows<HQ, T, BM>(head_w, r, x_s, D, G, head_s,
-                                                sx) + to_f(head_b[r]);
-    if (logits != nullptr && lane < G) logits[(size_t)lane * V + r] = logit;
-    if (lane < G && better(logit, r, bv, bi)) {
-      bv = logit;
-      bi = r;
-    }
-  }
-  if (lane < G) {
-    wv[warp][lane] = bv;
-    wi[warp][lane] = bi;
-  }
-  __syncthreads();
-  if (threadIdx.x < G) {
-    const int b = threadIdx.x;
-    bv = -INFINITY;
-    bi = INT_MAX;
-    for (int w = 0; w < kWarps; ++w)
-      if (better(wv[w][b], wi[w][b], bv, bi)) {
-        bv = wv[w][b];
-        bi = wi[w][b];
-      }
-    tile_val[(size_t)b * gridDim.x + blockIdx.x] = bv;
-    tile_idx[(size_t)b * gridDim.x + blockIdx.x] = bi;
-  }
-}
-
 using pdt_k2::Args;
 
 // Let `kernel` take `bytes` of dynamic shared memory: the opt-in above the
@@ -723,7 +663,7 @@ template <typename T, int Q, int HQ, bool KV8, int BM>
 cudaError_t run(const Args& a, cudaStream_t st) {
   const int B = a.B, D = a.D, F = a.F, S = a.S, H = a.H, hd = a.D / a.H;
   const int Dkv = a.Hkv * hd, group = a.H / a.Hkv;
-  const int ntiles = head_tiles(a.V);
+  const int ntiles = head_blocks(a.V);
   const int nsplit = attn_splits(S);
   float* h = a.scratch;                      // (B, D)
   float* q = h + (size_t)B * D;              // (B, D)
@@ -750,7 +690,6 @@ cudaError_t run(const Args& a, cudaStream_t st) {
   const dim3 grid_qkv((D / 2 + Dkv + kWarps - 1) / kWarps, ngroups);
   const dim3 grid_d((D + kWarps - 1) / kWarps, ngroups);
   const dim3 grid_f((F + kWarps - 1) / kWarps, ngroups);
-  const dim3 grid_head(ntiles, ngroups);
   const size_t sm_norm = ((size_t)G * D + kWarps) * sizeof(float);
   const size_t sm_ff = ((size_t)G * F + kWarps) * sizeof(float);
   const size_t sm_attn =
@@ -761,7 +700,6 @@ cudaError_t run(const Args& a, cudaStream_t st) {
   PDT_TRY(allow_smem(attn_out_b_kernel<T, Q, BM>, sm_norm));
   PDT_TRY(allow_smem(gate_up_b_kernel<T, Q, BM>, sm_norm));
   PDT_TRY(allow_smem(down_residual_b_kernel<T, Q, BM>, sm_ff));
-  PDT_TRY(allow_smem(head_b_kernel<T, HQ, BM>, sm_norm));
   for (int l = 0; l < a.N; ++l) {
     T* ck = KV8 ? nullptr : static_cast<T*>(a.ck) + l * LBSD;
     T* cv = KV8 ? nullptr : static_cast<T*>(a.cv) + l * LBSD;
@@ -798,11 +736,10 @@ cudaError_t run(const Args& a, cudaStream_t st) {
         B, D);
     PDT_CHECK();
   }
-  head_b_kernel<T, HQ, BM><<<grid_head, kThreads, sm_norm, st>>>(
+  PDT_TRY((launch_head<T, HQ>(
       h, static_cast<const T*>(a.final_norm), a.head_w, a.head_s,
       static_cast<const T*>(a.head_b), tile_val, tile_idx, a.logits, B, D,
-      a.V);
-  PDT_CHECK();
+      a.V, st)));
   if (a.logits == nullptr)
     argmax_kernel<<<B, kThreads, 0, st>>>(tile_val, tile_idx, ntiles, a.out);
   return cudaGetLastError();

@@ -22,9 +22,10 @@
 //
 // Types: q, k, v, o, dO and the gradients are T (float32 or bfloat16); all
 // arithmetic is float32 as in the TPU kernels
-// (`preferred_element_type=jnp.float32`). The forward scales q once when it
-// loads it (as `_fa_kernel` does); the backward scales s, and dq and dk
-// again at the end (as the TPU's backward kernels do).
+// (`preferred_element_type=jnp.float32`). The TPU's forward scales q once
+// when it loads it; here the forward and the backward scale s (q scaled is
+// not bfloat16-exact, q is: one exact product instead of two), and the
+// backward dq and dk again at the end (as the TPU's backward kernels do).
 //
 // What bounds them on an H100: at stories15M's shapes (B * H = 6 to 48
 // heads, L = 1024, d = 48) a head's q, k and v are 3 x 196 KB in float32, so
@@ -32,15 +33,7 @@
 // L^2 / 2 x d multiply-adds a product, two products in the forward, three
 // in dq and four in dk/dv.
 //
-// The forward (K3) runs on CUDA cores: every operand in shared memory as
-// float32, a 4 x 4 register tile of scores a thread so each shared load
-// feeds several FMAs, the 16 threads of a row in one half-warp so the
-// softmax needs only shuffles, and an odd shared row stride. Blocks are
-// 256 threads, seen as 16 x 16: thread (ty, tx) owns the query rows
-// ty * RQ + i of a tile and the key columns tx + 16 * j, and in the
-// accumulation the output columns tx + 16 * c (c < NC, d <= 16 * NC).
-//
-// The backward (K4) runs on the tensor cores at float32 accuracy:
+// All three run on the tensor cores at float32 accuracy:
 //   * every product is `mma.sync.m16n8k8` TF32 with f32 accumulators, each
 //     float32 operand split as a = hi + lo (hi = tf32(a) rounded to nearest,
 //     ties away, as `cvt.rna.tf32.f32` rounds; lo = tf32(a - hi)) and a b
@@ -49,183 +42,35 @@
 //     TF32, so its lo is 0 and those products are skipped: q k^T and dO v^T
 //     are one exact product, and the products with p or ds (kept float32,
 //     never rounded to the input type) two;
-//   * each warp owns 16 rows and keeps its scores and dP as accumulator
-//     fragments; p = 2^(s scale log2(e) - lse log2(e)) and
-//     ds = p (dP - dd) are formed in registers and fed back as the A
-//     operand of ds K, ds^T Q and p^T dO without a trip through shared
-//     memory (BwdCfg below);
-//   * the streamed tiles (K and V for dq; Q, dO, lse and dd for dk/dv) go
-//     through two shared-memory stages by cp.async, the next stage copied
-//     while the last one is multiplied; tiles stay in T, rows padded so a
-//     warp's fragment reads hit 32 banks. The float32 tiles a block keeps
-//     for its whole walk (q and dO in dq, k and v in dk/dv) are split into
-//     their TF32 parts once, up to d = 128;
+//   * each warp owns 16 rows and keeps its scores (and dP) as accumulator
+//     fragments; p (the forward's 2^(s scale log2(e) - m), the backward's
+//     2^(s scale log2(e) - lse log2(e))) and ds = p (dP - dd) are formed in
+//     registers and fed back as the A operand of p V, ds K, ds^T Q and
+//     p^T dO without a trip through shared memory (FwdCfg, BwdCfg below);
+//   * the streamed tiles (K and V for the forward and dq; Q, dO, lse and dd
+//     for dk/dv) go through two shared-memory stages by cp.async, the next
+//     stage copied while the last one is multiplied; tiles stay in T, rows
+//     padded so a warp's fragment reads hit 32 banks. The float32 tiles a
+//     block keeps for its whole walk (q in the forward, q and dO in dq, k
+//     and v in dk/dv) are split into their TF32 parts once, up to d = 128;
 //   * at the training shape (1, 1024, 6, 48) each kernel launches 16 x 6 =
 //     96 blocks of 16 warps (4 row groups x 4 shares of each stage), the
-//     heaviest first: the dq block of the last query tile walks 16 key
-//     stages of 64, the dk/dv block of key tile 0 16 query stages, each
-//     warp 16 rows of every stage. dq and dk/dv sum no float across
-//     blocks: no atomics, the same bits every call.
-// What bounds the backward now is mma.sync's TF32 rate, three products for
-// each float32 one, and the latency of the chain from the scores through
-// the exponential to the next products with one 16-warp block an SM;
-// `wgmma` and TMA are the next step for both halves.
+//     heaviest first: the forward and dq block of the last query tile walks
+//     16 key stages of 64, the dk/dv block of key tile 0 16 query stages,
+//     each warp 16 rows of every stage. The forward's shares each run an
+//     online softmax and are merged as (m, l, acc) states, the backward's
+//     are added, in a fixed order: nothing sums a float across blocks or
+//     with atomics, the same bits every call.
+// What bounds them now is mma.sync's TF32 rate, three products for each
+// float32 one, and the latency of the chain from the scores through the
+// exponential to the next products with one 16-warp block an SM; `wgmma`
+// and TMA are the next step.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kFaThreads = 256;
-constexpr int kFwdQ = 64, kFwdK = 64;  // forward: query rows a block, key
-                                       // rows a tile
 constexpr int kMaxHeadDim = 256;
-
-// floats of dynamic shared memory each kernel takes for head_dim d
-int fwd_smem_floats(int d) {
-  return (kFwdQ + 2 * kFwdK) * (d | 1) + kFwdQ * (kFwdK + 1);
-}
-
-// Rows [row0, row0 + rows) of one head of a (B, L, H, d) tensor into shared
-// memory as float32 times `mul`, `st` floats a row; rows at or past L are 0.
-template <typename T>
-__device__ void load_rows(float* dst, const T* __restrict__ src, size_t base,
-                          size_t rs, int row0, int rows, int L, int d, int st,
-                          float mul) {
-  for (int i = threadIdx.x; i < rows * d; i += kFaThreads) {
-    const int r = i / d, c = i - r * d;
-    const int row = row0 + r;
-    dst[r * st + c] =
-        row < L ? to_f(src[base + (size_t)row * rs + c]) * mul : 0.f;
-  }
-}
-
-// s[i][j] = a[ty * RQ + i] . b[tx + 16 * j] over d features
-template <int RQ, int RK>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         int st, int d, int ty, int tx,
-                                         float (&s)[RQ][RK]) {
-#pragma unroll
-  for (int i = 0; i < RQ; ++i)
-#pragma unroll
-    for (int j = 0; j < RK; ++j) s[i][j] = 0.f;
-  for (int c = 0; c < d; ++c) {
-    float av[RQ], bv[RK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) av[i] = a[(ty * RQ + i) * st + c];
-#pragma unroll
-    for (int j = 0; j < RK; ++j) bv[j] = b[(tx + 16 * j) * st + c];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int j = 0; j < RK; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-// reductions over the 16 lanes of a half-warp (the threads sharing a row)
-__device__ __forceinline__ float half_max(float v) {
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float half_sum(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Forward: one block per (64-row query tile, b * H + h). Key/value tiles of
-// 64 rows are staged in shared memory; the online softmax state (m, l) and
-// the output rows stay in registers.
-template <typename T, int NC>
-__global__ void __launch_bounds__(kFaThreads)
-fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o,
-              float* __restrict__ lse, int L, int H, int d, float scale) {
-  constexpr int BQ = kFwdQ, BK = kFwdK, RQ = BQ / 16, RK = BK / 16;
-  extern __shared__ float smem[];
-  const int st = d | 1;
-  float* qs = smem;            // BQ x st, q * scale
-  float* ks = qs + BQ * st;    // BK x st
-  float* vs = ks + BK * st;    // BK x st
-  float* ps = vs + BK * st;    // BQ x (BK + 1), this tile's probabilities
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const size_t rs = (size_t)H * d;
-  const size_t base = (size_t)(bh / H) * L * rs + (size_t)(bh % H) * d;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  load_rows(qs, q, base, rs, q0, BQ, L, d, st, scale);
-
-  float m[RQ], l[RQ], acc[RQ][NC];
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
-  // key tiles covering [0, min(q0 + BQ, L)): the causal bound of the last
-  // query row of this tile, whatever the ratio of the two tile sizes
-  const int n_tiles = (min(q0 + BQ, L) + BK - 1) / BK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's ks, vs and ps are consumed
-    load_rows(ks, k, base, rs, k0, BK, L, d, st, 1.f);
-    load_rows(vs, v, base, rs, k0, BK, L, d, st, 1.f);
-    __syncthreads();
-    float s[RQ][RK];
-    tile_dot<RQ, RK>(qs, ks, st, d, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int r = ty * RQ + i, row = q0 + r;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const int col = k0 + tx + 16 * j;
-        if (col > row || col >= L) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_max(mx));
-      const float shift = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[i] - shift);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < RK; ++j) {
-        const float p = expf(s[i][j] - shift);
-        ps[r * (BK + 1) + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + half_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
-    __syncwarp();  // a row's probabilities come from its own half-warp
-    for (int j = 0; j < BK; ++j) {
-      float vv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        vv[c] = col < d ? vs[j * st + col] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RQ; ++i) {
-        const float p = ps[(ty * RQ + i) * (BK + 1) + j];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int row = q0 + ty * RQ + i;
-    if (row >= L) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d)
-        o[base + (size_t)row * rs + col] = from_f<T>(acc[i][c] / l[i]);
-    }
-    if (tx == 0) lse[(size_t)bh * L + row] = m[i] + logf(l[i]);
-  }
-}
 
 // ---- K4: the backward on the tensor cores ----
 //
@@ -264,7 +109,7 @@ constexpr int kBwdRows = 64;  // query rows of a dq block, keys of a dk/dv
 // 16): 16-byte aligned rows, and the fragment reads of a warp (8 rows x 4
 // neighbouring columns, or 4 rows 2 apart x 8 columns) fall in 32 banks
 template <typename T>
-__host__ __device__ __forceinline__ int bwd_stride(int d) {
+__host__ __device__ __forceinline__ int tile_stride(int d) {
   return sizeof(T) == 4 ? (d + 7) / 8 * 8 + 4 : (d + 15) / 16 * 16 + 8;
 }
 
@@ -302,47 +147,7 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* __restrict__ src,
   }
 }
 
-// x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away from
-// zero, as `cvt.rna.tf32.f32` rounds it, in two integer operations (the
-// conversion instruction costs more): half a unit of the last kept bit
-// added to the magnitude's bits, the 13 bits below it cleared
-__device__ __forceinline__ unsigned tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
 constexpr float kLog2e = 1.4426950408889634f;
-
-// x = hi + lo, both TF32 (LO), or hi = x exactly (a widened bfloat16, which
-// TF32 holds: lo = 0 and its products are skipped)
-template <bool LO, int N>
-__device__ __forceinline__ void split(const float (&x)[N], unsigned (&hi)[N],
-                                      unsigned (&lo)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    hi[i] = LO ? tf32_rna(x[i]) : __float_as_uint(x[i]);
-    lo[i] = LO ? tf32_rna(x[i] - __uint_as_float(hi[i])) : 0u;
-  }
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b at float32 accuracy (3xTF32): a_lo b_hi + a_hi b_lo + a_hi b_hi,
-// the small terms first; a_lo b_lo (2^-22 relative) is dropped
-template <bool ALO, bool BLO>
-__device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
-                                     const unsigned (&al)[4],
-                                     const unsigned (&bh)[2],
-                                     const unsigned (&bl)[2]) {
-  if constexpr (ALO) mma_tf32(c, al, bh);
-  if constexpr (BLO) mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
-}
 
 // Split rows [0, rows) of a float32 tile in place into their TF32 hi parts
 // and, `lo` floats on, their lo parts; 16 threads a row. For the tiles a
@@ -456,6 +261,240 @@ __device__ __forceinline__ void reduce_shares(float (&out)[FT][4], float* red,
   }
 }
 
+// ---- K3: the forward on the tensor cores ----
+//
+// A block owns 64 query rows; warp (rg, ch, sp) takes the 16 rows 16 rg of
+// them, the output features from 64 ch (FT n8 tiles), and share sp of each
+// stage's KB keys. Each warp runs its own online softmax over its keys:
+// scores as mma accumulators, in the log2 domain (s scale log2(e)), a row
+// max over the 4 lanes of a quad, p = 2^(s - m) fed straight back as the A
+// operand of p V (the fragment identity of K4 above), a running max m and
+// sum l a row; l is kept as each lane's partial sum of its own columns
+// (the quad's rescales are equal), added over the quad at the end. The
+// shares' states (m, l, acc) are then merged into share 0's in the fixed
+// order 1, 2, ...: no atomics, the same bits every call. One configuration
+// for each head_dim bound, as BwdCfg; above d = 64 the NCH feature warps of
+// a row group each compute its scores (the redundancy the backward has).
+template <int D>
+struct FwdCfg {
+  static constexpr int FT = (D < 64 ? D : 64) / 8;  // n8 output tiles
+  static constexpr int NCH = D <= 64 ? 1 : D / 64;  // warps across features
+  static constexpr int SPL = D <= 64 ? 4 : (D == 128 ? 2 : 1);  // shares
+  static constexpr int KB = D <= 64 ? 64 : (D == 128 ? 32 : 16);  // keys a
+                                                    // stage streams
+  static constexpr int KW = KB / SPL;               // a warp's keys of it
+  static constexpr int NT = KW / 8;                 // its n8 score tiles
+  static constexpr int THREADS = 32 * 4 * NCH * SPL;
+  static constexpr bool PRESPLIT = D <= 128;  // float32 q split once
+};
+constexpr int kFwdRows = 64;  // query rows of a forward block
+constexpr float kLn2 = 0.6931471805599453f;
+
+// x[j] = a b^T over d features: rows ra + (0..15) of a, rows 8 j + (0..7)
+// of b, `st` elements a row; a pre-split when PRE (presplit, lo parts `lo`
+// floats on): the one product of scores() above, which keeps K4's two in
+// one loop so that their loads interleave.
+template <bool F32, bool PRE, int NT, typename T>
+__device__ __forceinline__ void score_tile(const T* sa, const T* sb, int st,
+                                           int lo, int ra, int d, int g,
+                                           int q, float (&x)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+  const int s8 = 8 * st;
+  const T* pa = sa + (ra + g) * st + q;  // A: rows g, g + 8; k q, q + 4
+  const T* pb = sb + g * st + q;         // B^T: row 8 j + g; k q, q + 4
+  for (int k0 = 0; k0 < d; k0 += 8) {
+    unsigned ah[4], al[4];
+    const int ka[4] = {k0, k0 + s8, k0 + 4, k0 + s8 + 4};
+    if constexpr (PRE) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ah[i] = __float_as_uint(to_f(pa[ka[i]]));
+        al[i] = __float_as_uint(to_f(pa[ka[i] + lo]));
+      }
+    } else {
+      split<F32>({to_f(pa[ka[0]]), to_f(pa[ka[1]]), to_f(pa[ka[2]]),
+                  to_f(pa[ka[3]])}, ah, al);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      unsigned bh[2], bl[2];
+      split<F32>({to_f(pb[j * s8 + k0]), to_f(pb[j * s8 + k0 + 4])}, bh, bl);
+      mma3<F32, F32>(x[j], ah, al, bh, bl);
+    }
+  }
+}
+
+// The quad's maximum (the 4 lanes sharing a fragment row)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// The factor that takes a state of running max m to the max mn: 2^(m - mn),
+// with a row that has seen no key yet (mn = -inf) left at 0
+__device__ __forceinline__ float rescale(float m, float mn) {
+  return exp2f(m - (mn == -INFINITY ? 0.f : mn));
+}
+
+// Forward: one block per (64-row query tile, b * H + h), the heaviest
+// (last) query tile first, over the KB-key stages up to the diagonal; K and
+// V stream through two stages while the last one is multiplied.
+template <typename T, int D>
+__global__ void __launch_bounds__(FwdCfg<D>::THREADS)
+fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int L, int H, int d, float scale,
+              int vec) {
+  using C = FwdCfg<D>;
+  constexpr bool F32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int st = tile_stride<T>(d);
+  T* qs = reinterpret_cast<T*>(smem_raw);  // 64 x st
+  T* kvs = qs + kFwdRows * st;             // [stage][K, V][KB x st]
+  const int bh = blockIdx.y, q0 = (gridDim.x - 1 - blockIdx.x) * kFwdRows;
+  const size_t rs = (size_t)H * d;
+  const size_t base = (size_t)(bh / H) * L * rs + (size_t)(bh % H) * d;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, qq = lane & 3;
+  const int rg = warp & 3, ch = (warp >> 2) % C::NCH, sp = warp / (4 * C::NCH);
+  copy_rows(qs, q, base, rs, q0, kFwdRows, L, d, st, vec, C::THREADS);
+  copy_rows(kvs, k, base, rs, 0, C::KB, L, d, st, vec, C::THREADS);
+  copy_rows(kvs + C::KB * st, v, base, rs, 0, C::KB, L, d, st, vec,
+            C::THREADS);
+  cp_async_commit();
+  const int lo = (kFwdRows + 4 * C::KB) * st;  // q's lo parts
+  constexpr bool PRE = F32 && C::PRESPLIT;
+  if constexpr (PRE) {
+    cp_async_wait<0>();
+    __syncthreads();
+    presplit(qs, lo, kFwdRows, d, st, C::THREADS);
+  }
+
+  const int r_lo = q0 + 16 * rg + g, r_hi = r_lo + 8;
+  const float scale2 = scale * kLog2e;  // scores in the log2 domain
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[C::FT][4];
+#pragma unroll
+  for (int n = 0; n < C::FT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  const int n_st = (min(q0 + kFwdRows, L) + C::KB - 1) / C::KB;
+  for (int t = 0; t < n_st; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage t is in; stage t - 1 is consumed
+    if (t + 1 < n_st) {
+      T* nxt = kvs + ((t + 1) & 1) * 2 * C::KB * st;
+      copy_rows(nxt, k, base, rs, (t + 1) * C::KB, C::KB, L, d, st, vec,
+                C::THREADS);
+      copy_rows(nxt + C::KB * st, v, base, rs, (t + 1) * C::KB, C::KB, L, d,
+                st, vec, C::THREADS);
+    }
+    cp_async_commit();
+    const int kw0 = t * C::KB + sp * C::KW;  // this warp's first key
+    if (kw0 > q0 + 16 * rg + 15) continue;   // above the diagonal
+    const T* ks = kvs + (t & 1) * 2 * C::KB * st + sp * C::KW * st;
+    const T* vs = ks + C::KB * st;
+    float s[C::NT][4];
+    score_tile<F32, PRE>(qs, ks, st, lo, 16 * rg, d, g, qq, s);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? r_lo : r_hi;
+        const int col = kw0 + 8 * j + 2 * qq + (e & 1);
+        s[j][e] = (col <= row && col < L) ? s[j][e] * scale2 : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float a[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float mn = fmaxf(m[h], quad_max(mx[h]));
+      a[h] = rescale(m[h], mn);
+      m[h] = mn;
+    }
+#pragma unroll
+    for (int j = 0; j < C::NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mh = m[e >> 1];
+        s[j][e] = exp2f(s[j][e] - (mh == -INFINITY ? 0.f : mh));  // p
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * a[h] + sum[h];
+#pragma unroll
+    for (int n = 0; n < C::FT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= a[e >> 1];
+    accumulate<F32>(s, vs, st, 64 * ch, d, g, qq, acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the tiles are consumed: `red` may reuse them
+
+  // merge share 1, 2, ... into share 0, in that order
+  float* red = reinterpret_cast<float*>(smem_raw);
+  constexpr int kSlot = (C::FT * 4 + 4) * 32;  // floats a warp hands over
+  float* mine = red + (warp % (4 * C::NCH)) * kSlot + lane;
+#pragma unroll 1
+  for (int from = 1; from < C::SPL; ++from) {
+    if (sp == from) {
+#pragma unroll
+      for (int n = 0; n < C::FT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[(n * 4 + e) * 32] = acc[n][e];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mine[(C::FT * 4 + h) * 32] = m[h];
+        mine[(C::FT * 4 + 2 + h) * 32] = l[h];
+      }
+    }
+    __syncthreads();
+    if (sp == 0) {
+      float a[2], b[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float mo = mine[(C::FT * 4 + h) * 32];
+        const float mn = fmaxf(m[h], mo);
+        a[h] = rescale(m[h], mn);
+        b[h] = rescale(mo, mn);
+        l[h] = l[h] * a[h] + mine[(C::FT * 4 + 2 + h) * 32] * b[h];
+        m[h] = mn;
+      }
+#pragma unroll
+      for (int n = 0; n < C::FT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[n][e] = acc[n][e] * a[e >> 1] + mine[(n * 4 + e) * 32] * b[e >> 1];
+    }
+    __syncthreads();
+  }
+  if (sp != 0) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // the row sums over the quad's columns
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int n = 0; n < C::FT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = e < 2 ? r_lo : r_hi;
+      const int col = 64 * ch + 8 * n + 2 * qq + (e & 1);
+      if (row < L && col < d)
+        o[base + (size_t)row * rs + col] = from_f<T>(acc[n][e] / l[e >> 1]);
+    }
+  if (qq == 0 && ch == 0) {
+    const size_t lrow = (size_t)bh * L;
+    if (r_lo < L) lse[lrow + r_lo] = m[0] * kLn2 + logf(l[0]);
+    if (r_hi < L) lse[lrow + r_hi] = m[1] * kLn2 + logf(l[1]);
+  }
+}
+
 // dq: one block per (64-row query tile, b * H + h), the heaviest (last)
 // query tile first, over the KB-row key stages up to the diagonal; K and V
 // stream through two stages while the last one is multiplied.
@@ -469,7 +508,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using C = BwdCfg<D>;
   constexpr bool F32 = sizeof(T) == 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int st = bwd_stride<T>(d);
+  const int st = tile_stride<T>(d);
   T* qs = reinterpret_cast<T*>(smem_raw);  // 64 x st
   T* dos = qs + kBwdRows * st;
   T* kvs = dos + kBwdRows * st;  // [stage][K, V][KB x st]
@@ -569,7 +608,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using C = BwdCfg<D>;
   constexpr bool F32 = sizeof(T) == 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int st = bwd_stride<T>(d);
+  const int st = tile_stride<T>(d);
   T* ks = reinterpret_cast<T*>(smem_raw);  // 64 x st
   T* vs = ks + kBwdRows * st;
   T* qds = vs + kBwdRows * st;  // [stage][Q, dO][KB x st]
@@ -679,13 +718,6 @@ cudaError_t launch_n(K* kernel, dim3 grid, int threads, size_t bytes,
   return cudaGetLastError();
 }
 
-template <typename K, typename... Args>
-cudaError_t launch(K* kernel, dim3 grid, int floats, cudaStream_t st,
-                   Args... args) {
-  return launch_n(kernel, grid, kFaThreads, (size_t)floats * sizeof(float),
-                  st, args...);
-}
-
 // bytes of dynamic shared memory of a backward kernel: its tiles (and the
 // dk/dv kernel's lse and dd, and for float32 the lo parts of the two tiles
 // it keeps), or the shares' hand-over, whichever is larger
@@ -693,10 +725,10 @@ template <typename T, int D>
 size_t bwd_smem(int d, bool dkv) {
   using C = BwdCfg<D>;
   const size_t tiles =
-      (size_t)(2 * kBwdRows + 4 * C::KB) * bwd_stride<T>(d) * sizeof(T) +
+      (size_t)(2 * kBwdRows + 4 * C::KB) * tile_stride<T>(d) * sizeof(T) +
       (dkv ? 4 * C::KB * sizeof(float) : 0) +
       (sizeof(T) == 4 && C::PRESPLIT
-           ? (size_t)2 * kBwdRows * bwd_stride<T>(d) * sizeof(float) : 0);
+           ? (size_t)2 * kBwdRows * tile_stride<T>(d) * sizeof(float) : 0);
   const size_t red =
       C::SPL > 1 ? (size_t)4 * C::NCH * C::FT * 4 * 32 * sizeof(float) : 0;
   return tiles > red ? tiles : red;
@@ -704,8 +736,8 @@ size_t bwd_smem(int d, bool dkv) {
 
 // 16-byte copies need d a multiple of 16 bytes and 16-byte aligned tensors
 template <typename T>
-int bwd_vec(int d, const void* q, const void* k, const void* v,
-            const void* dout) {
+int tile_vec(int d, const void* q, const void* k, const void* v,
+             const void* dout) {
   auto a16 = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
@@ -718,14 +750,32 @@ bool bad_shape(int B, int L, int H, int d) {
          (long long)B * H > 65535;
 }
 
-template <typename T, int NC>
+// bytes of dynamic shared memory of the forward: its tiles (and for
+// float32 q's lo parts), or the shares' hand-over, whichever is larger
+template <typename T, int D>
+size_t fwd_smem(int d) {
+  using C = FwdCfg<D>;
+  const size_t tiles =
+      (size_t)(kFwdRows + 4 * C::KB) * tile_stride<T>(d) * sizeof(T) +
+      (sizeof(T) == 4 && C::PRESPLIT
+           ? (size_t)kFwdRows * tile_stride<T>(d) * sizeof(float) : 0);
+  const size_t red = C::SPL > 1
+      ? (size_t)4 * C::NCH * (C::FT * 4 + 4) * 32 * sizeof(float) : 0;
+  return tiles > red ? tiles : red;
+}
+
+// the forward for head_dim up to D (48, 64, 128 or 256)
+template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o,
                 void* lse, int B, int L, int H, int d, float scale,
                 cudaStream_t st) {
-  return launch(fa_fwd_kernel<T, NC>, dim3((L + kFwdQ - 1) / kFwdQ, B * H),
-                fwd_smem_floats(d), st, static_cast<const T*>(q),
-                static_cast<const T*>(k), static_cast<const T*>(v),
-                static_cast<T*>(o), static_cast<float*>(lse), L, H, d, scale);
+  return launch_n(fa_fwd_kernel<T, D>,
+                  dim3((L + kFwdRows - 1) / kFwdRows, B * H),
+                  FwdCfg<D>::THREADS, fwd_smem<T, D>(d), st,
+                  static_cast<const T*>(q), static_cast<const T*>(k),
+                  static_cast<const T*>(v), static_cast<T*>(o),
+                  static_cast<float*>(lse), L, H, d, scale,
+                  tile_vec<T>(d, q, k, v, v));
 }
 
 // the backward kernels for head_dim up to D (48, 64, 128 or 256)
@@ -741,7 +791,7 @@ cudaError_t bwd_dq(const void* q, const void* k, const void* v,
                   static_cast<const T*>(v), static_cast<const T*>(dout),
                   static_cast<const float*>(lse),
                   static_cast<const float*>(dd), static_cast<T*>(dq), L, H,
-                  d, scale, bwd_vec<T>(d, q, k, v, dout));
+                  d, scale, tile_vec<T>(d, q, k, v, dout));
 }
 
 template <typename T, int D>
@@ -757,28 +807,11 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v,
                   static_cast<const float*>(lse),
                   static_cast<const float*>(dd), static_cast<T*>(dk),
                   static_cast<T*>(dv), L, H, d, scale,
-                  bwd_vec<T>(d, q, k, v, dout));
+                  tile_vec<T>(d, q, k, v, dout));
 }
 
-// the forward's smallest register tile of output columns (16 * NC)
-// that holds d
-#define PDT_FA_DISPATCH(fn, ...)                                        \
-  do {                                                                  \
-    if (dtype == 0) {                                                   \
-      if (d <= 64) return fn<float, 4>(__VA_ARGS__);                    \
-      if (d <= 128) return fn<float, 8>(__VA_ARGS__);                   \
-      return fn<float, 16>(__VA_ARGS__);                                \
-    }                                                                   \
-    if (dtype == 1) {                                                   \
-      if (d <= 64) return fn<__nv_bfloat16, 4>(__VA_ARGS__);            \
-      if (d <= 128) return fn<__nv_bfloat16, 8>(__VA_ARGS__);           \
-      return fn<__nv_bfloat16, 16>(__VA_ARGS__);                        \
-    }                                                                   \
-    return cudaErrorInvalidValue;                                       \
-  } while (0)
-
-// the backward's configuration for d (BwdCfg)
-#define PDT_FA_BWD_DISPATCH(fn, ...)                                    \
+// the kernels' configuration for d (FwdCfg, BwdCfg)
+#define PDT_FA_DISPATCH(fn, ...)                                    \
   do {                                                                  \
     if (dtype == 0) {                                                   \
       if (d <= 48) return fn<float, 48>(__VA_ARGS__);                   \
@@ -817,7 +850,7 @@ int pdt_flash_bwd_dq(int dtype, const void* q, const void* k, const void* v,
                      void* stream) {
   if (bad_shape(B, L, H, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PDT_FA_BWD_DISPATCH(bwd_dq, q, k, v, dout, lse, dd, dq, B, L, H, d, scale,
+  PDT_FA_DISPATCH(bwd_dq, q, k, v, dout, lse, dd, dq, B, L, H, d, scale,
                       st);
 }
 
@@ -827,7 +860,7 @@ int pdt_flash_bwd_dkv(int dtype, const void* q, const void* k,
                       int d, float scale, void* stream) {
   if (bad_shape(B, L, H, d)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PDT_FA_BWD_DISPATCH(bwd_dkv, q, k, v, dout, lse, dd, dk, dv, B, L, H, d,
+  PDT_FA_DISPATCH(bwd_dkv, q, k, v, dout, lse, dd, dk, dv, B, L, H, d,
                       scale, st);
 }
 

@@ -139,24 +139,6 @@ __device__ __forceinline__ float epilogue(int acc, float ws, float sx) {
   return __fmul_rn(__fmul_rn((float)acc, ws), sx);
 }
 
-// the A fragment of a 16 x 32-byte int8 tile: lane l passes the address of
-// row l & 15, byte 16 (l >> 4)
-__device__ __forceinline__ void ldmatrix_x4(unsigned addr, unsigned (&a)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-               "[%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr) : "memory");
-}
-
-// c += a (16 x 32 int8, row-major) * b (32 x 8 int8, K-major), exact int32
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                       unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One block per row: xq = rint(x * (127 / amax)), sx = amax / 127
 template <typename T>
 __global__ void __launch_bounds__(kQThreads)

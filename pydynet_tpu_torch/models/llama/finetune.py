@@ -64,6 +64,9 @@ def main(argv=None) -> list:
     parser.add_argument("--random-init", action="store_true")
     parser.add_argument("--clip-norm", type=float, default=None,
                         help="global-norm gradient clipping in each step")
+    # build_model's other inputs: the JAX package's finetune CLI has no
+    # --finetuned or --n-heads
+    parser.set_defaults(finetuned=None, n_heads=None)
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random weights")
     args = parser.parse_args(argv)

@@ -11,7 +11,9 @@
 ``--device cuda`` (the default) needs a GPU and raises without one;
 ``--device cpu`` runs the kernels' plain versions. Without a checkpoint the
 stories15M configuration is built with random weights from the fixed seed
-``WEIGHTS_SEED``. ``--kv-quant int8`` keeps the KV cache as int8 rows with
+``WEIGHTS_SEED``; ``--n-heads`` sets a checkpoint's head count where its
+shapes leave it ambiguous, and ``--finetuned`` loads a ``finetune --save``
+npz over the weights. ``--kv-quant int8`` keeps the KV cache as int8 rows with
 per-row scales and cannot be combined with ``--quant`` (``ValueError``, as
 in the JAX package's CLI). ``--temperature`` above 0 samples, with
 ``--top-k``, ``--top-p``, ``--repetition-penalty`` and the sampler's
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from ...device import resolve
-from .io import infer_config, load_model
+from .io import infer_config, load_finetuned_parameters, load_model
 from .model import Llama
 from .tokenizer import Tokenizer
 
@@ -45,26 +47,45 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_model(args, device) -> Llama:
+    """The checkpoint's model (its head count from ``--n-heads`` where
+    given), else stories15M with random weights; then ``--finetuned``'s
+    parameters on top, as the JAX package's CLI loads them."""
     gen = torch.Generator().manual_seed(WEIGHTS_SEED)
     if os.path.exists(args.weights) and not args.random_init:
-        cfg = infer_config(args.weights, MAX_SEQ_LEN, MAX_BATCH)
-        return load_model(Llama(device=device, generator=gen, **cfg),
-                          args.weights)
-    print(f"[infer] checkpoint {args.weights!r} not used -> random weights "
-          f"from seed {WEIGHTS_SEED}")
-    return Llama(VOCAB_SIZE, DIM, N_HEADS, FFN_DIM, MAX_SEQ_LEN, MAX_BATCH,
-                 N_LAYERS, device=device, generator=gen)
+        cfg = infer_config(args.weights, MAX_SEQ_LEN, MAX_BATCH,
+                           n_heads=args.n_heads)
+        model = load_model(Llama(device=device, generator=gen, **cfg),
+                           args.weights)
+    else:
+        print(f"[infer] checkpoint {args.weights!r} not used -> random "
+              f"weights from seed {WEIGHTS_SEED}")
+        model = Llama(VOCAB_SIZE, DIM, N_HEADS, FFN_DIM, MAX_SEQ_LEN,
+                      MAX_BATCH, N_LAYERS, device=device, generator=gen)
+    if args.finetuned is not None:
+        model = load_finetuned_parameters(model, args.finetuned)
+    return model
+
+
+def add_model_flags(parser) -> None:
+    """The flags :func:`build_model` reads, shared with ``serve_cli``."""
+    parser.add_argument("--weights", type=str,
+                        default="llm/llama/data/stories15M.model.npz")
+    parser.add_argument("--random-init", action="store_true")
+    parser.add_argument("--finetuned", type=str, default=None,
+                        help="npz of fine-tuned parameters (``finetune "
+                             "--save``) loaded over the weights")
+    parser.add_argument("--n-heads", type=int, default=None,
+                        help="the checkpoint's head count, where its "
+                             "shapes leave it ambiguous")
 
 
 def main(argv=None) -> float:
     parser = argparse.ArgumentParser(description="Llama decode")
     parser.add_argument("--prompt", type=str, default="There was a boy")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    parser.add_argument("--weights", type=str,
-                        default="llm/llama/data/stories15M.model.npz")
+    add_model_flags(parser)
     parser.add_argument("--tokenizer", type=str,
                         default="llm/llama/data/tokenizer.model.np")
-    parser.add_argument("--random-init", action="store_true")
     parser.add_argument("--max-new-tokens", type=int, default=1024,
                         help="bound on the total length, prompt included")
     parser.add_argument("--dtype", choices=list(DTYPES), default="float32")

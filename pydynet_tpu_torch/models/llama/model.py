@@ -1100,7 +1100,7 @@ class Llama(nn.Module):
                  quant=None, temperature: float = 0.0, top_k: int = None,
                  top_p: float = None, seed: int = 0,
                  repetition_penalty: float = None, kv_quant=None,
-                 flash_prefill=None):
+                 bucket_prefill: bool = True, flash_prefill=None):
         """Greedy or sampled generation. Yields (B, 1) int32 CPU tensors one
         token at a time: first the prefill token, then one per decode step.
         Tokens are
@@ -1120,7 +1120,11 @@ class Llama(nn.Module):
         the fused lane one B=1 kernel chain a token at B=1, one batched
         chain a token for all rows at B>1 or with ``kv_quant``; on the scan
         lane one dense forward a token, its matmuls quantized with
-        ``quant``.
+        ``quant``. ``bucket_prefill`` (default on) pads the prompt to the
+        next power of two before the prefill, as the JAX package does; the
+        tokens are the same either way (the logits are read at the true
+        last position, and every padded cache row lies above the decode
+        position until the step that rewrites it).
 
         ``temperature > 0`` samples (the JAX package's sampled path, token
         for token with it up to the two frameworks' rounding at near-ties):
@@ -1154,7 +1158,8 @@ class Llama(nn.Module):
             sampler = Sampler(B, self.vocab_size, self.device, temperature,
                               top_k, top_p, seed, repetition_penalty)
         tok = self.prefill(weights, ck, cv,
-                           *bucket_prompt(ids, L, self.max_seq_len),
+                           *(bucket_prompt(ids, L, self.max_seq_len)
+                             if bucket_prefill else (ids, None)),
                            sampler=sampler)
         tok = tok.to(torch.int32)
         if fused:

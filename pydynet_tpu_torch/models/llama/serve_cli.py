@@ -10,7 +10,8 @@ aggregate throughput.
 ``--device cuda`` (the default) needs a GPU and raises without one;
 ``--device cpu`` runs the kernels' plain versions. Without a checkpoint the
 stories15M configuration is built with random weights from a fixed seed
-(``infer.WEIGHTS_SEED``). ``--temperature`` above 0 makes the server
+(``infer.WEIGHTS_SEED``); ``--n-heads`` and ``--finetuned`` act as in
+``infer``. ``--temperature`` above 0 makes the server
 sample, with ``--top-k``, ``--top-p`` and the unseeded requests' ``--seed``
 (``LlamaServer``); 0 is greedy.
 ``--prompts-file`` reads one prompt per line; ``--stream`` prints tokens as
@@ -28,7 +29,7 @@ import sys
 import time
 
 from ...device import resolve
-from .infer import DTYPES, build_model
+from .infer import DTYPES, add_model_flags, build_model
 from .serve import LlamaServer
 from .tokenizer import Tokenizer
 
@@ -55,9 +56,7 @@ def main(argv=None) -> float:
                         help="decode steps per dispatch")
     parser.add_argument("--max-new-tokens", type=int, default=256)
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    parser.add_argument("--random-init", action="store_true")
-    parser.add_argument("--weights", type=str,
-                        default="llm/llama/data/stories15M.model.npz")
+    add_model_flags(parser)
     parser.add_argument("--tokenizer", type=str,
                         default="llm/llama/data/tokenizer.model.np")
     parser.add_argument("--temperature", type=float, default=0.0,

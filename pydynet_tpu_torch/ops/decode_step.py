@@ -100,6 +100,7 @@ _THREADS = 256  # block size of every launch (kThreads in common.cuh)
 _SMEM_FLOATS = 48 * 1024 // 4  # shared memory a block gets without opt-in
 _SMEM_OPTIN_FLOATS = 232448 // 4  # what it may opt in to on sm_90
 ROW_GROUP = 32  # kRowGroup in decode_token_batched.cuh
+_HEAD_RING_FLOATS = 4 * 128 * 64 // 4  # kHeadRing in head.cuh
 _MAX_GRID_Z = 65535  # the attention grid's rows, one a z index
 _WDTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -132,14 +133,17 @@ def batched_kernel_takes(dim: int, n_heads: int, ffn: int, batch: int,
     GEMV blocks each take one group of at most ``ROW_GROUP`` rows (a warp
     keeps row b of its group's sums in lane b) and hold the group's
     activation rows (D or F wide, float32) in shared memory, opting in above
-    48 KB, so min(B, 32) * max(D, F) plus the head block's per-row
-    reduction slots must fit the 227 KB a block may opt in to; the attention
-    grid has a row a z index (B <= 65535); above that B is bounded by device
-    memory only; the heads as K1's; ``q4`` needs D and F even."""
+    48 KB, so min(B, 32) * max(D, F) plus a few reduction slots must fit
+    the 227 KB a block may opt in to, and so must the head block's weight
+    ring and its min(B, 32) activation rows of at most D + 36 floats
+    (``head_smem`` in ``csrc/head.cuh``); the attention grid has a row a z
+    index (B <= 65535); above that B is bounded by device memory only; the
+    heads as K1's; ``q4`` needs D and F even."""
+    rows = min(batch, ROW_GROUP)
     return (_heads_take(dim, n_heads, n_kv_heads)
             and 1 <= batch <= _MAX_GRID_Z
-            and min(batch, ROW_GROUP) * max(dim, ffn) + 1024
-            <= _SMEM_OPTIN_FLOATS
+            and rows * max(dim, ffn) + 1024 <= _SMEM_OPTIN_FLOATS
+            and _HEAD_RING_FLOATS + rows * (dim + 36) <= _SMEM_OPTIN_FLOATS
             and not (q4 and (dim % 2 or ffn % 2)))
 
 

@@ -264,3 +264,37 @@ def test_fused_decode_step_rejects_bad_arguments():
             tds.fused_decode_step(*args[:i], bad, *args[i + 1:])
     with pytest.raises(ValueError, match="pos"):
         tds.fused_decode_step(torch.tensor([pos]), *args[1:])
+
+
+def _tf32(x):
+    """x rounded to TF32 to nearest, ties away from zero (``tf32_rna`` in
+    ``csrc/common.cuh``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_f32_head_3xtf32_meets_the_emit_tolerance():
+    """The float32 head of K1/K2's head stage (``csrc/head.cuh``) on the
+    tensor cores, emulated on the CPU at stories15M's head (B=8 rows, D 288,
+    V 32000): the normed rows and the head split into TF32 hi and lo parts
+    and summed as x_lo w_hi + x_hi w_lo + x_hi w_hi, plus the bias, within
+    chip_smoke's ``EMIT_RTOL["f32"]`` of the logit scale of the plain head
+    (``decode_token_logits_ref``'s float32 product)."""
+    from chip_smoke import EMIT_RTOL
+    from pydynet_tpu_torch.nn.modules.norm import rms_norm
+
+    rng = np.random.default_rng(21)
+    h = t(rng.standard_normal((8, 288)).astype(np.float32) * 3)
+    norm = t(rng.uniform(0.5, 1.5, 288).astype(np.float32))
+    w = t(rng.standard_normal((32000, 288)).astype(np.float32) * 0.06)
+    b = t(rng.standard_normal(32000).astype(np.float32) * 0.1)
+    x = rms_norm(h, norm)
+    want = torch.stack([torch.mv(w, row) for row in x]) + b
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    got = (xl @ wh.T + xh @ wl.T + xh @ wh.T) + b
+    err = float((got - want).abs().max())
+    assert err <= EMIT_RTOL["f32"] * float(want.abs().max()), err
+    one = (_tf32(x) @ _tf32(w).T) + b  # one TF32 product would miss it
+    assert float((one - want).abs().max()) > \
+        EMIT_RTOL["f32"] * float(want.abs().max())

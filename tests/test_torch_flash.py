@@ -296,3 +296,69 @@ def test_k4_3xtf32_products_meet_the_card_tolerances():
         err = float((g.transpose(1, 2) - w).abs().max())
         assert err <= FLASH_ATOL[name], (name, err)
         assert err <= TRAIN_GRAD_RTOL * float(w.abs().max()), (name, err)
+
+
+def _k3_emulated(q, k, v, scale, kb=64, shares=4):
+    """K3's arithmetic (``fa_fwd_kernel``), emulated on the CPU in float32:
+    q k^T by 3xTF32 (q unscaled), the scores scaled into the log2 domain,
+    each of ``shares`` warps running its own online softmax over its
+    kb / shares keys of every kb-key stage with p = 2^(s - m) and p V by
+    3xTF32, then the shares' (m, l, acc) states merged into share 0's in
+    the order 1, 2, ...; returns (o in q's type, lse)."""
+    qh, kh, vh = (x.transpose(1, 2).float() for x in (q, k, v))
+    L = q.shape[1]
+    causal = torch.ones(L, L, dtype=torch.bool).tril()
+    scale2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    s = torch.where(causal, _mm_3xtf32(qh, kh.transpose(-1, -2)) * scale2,
+                    float("-inf"))
+
+    def rescale(m, mn):
+        return torch.exp2(m - torch.where(mn == float("-inf"), 0.0, mn))
+
+    kw, states = kb // shares, []
+    for sp in range(shares):
+        m = torch.full(s.shape[:-1], float("-inf"))
+        l = torch.zeros(s.shape[:-1])
+        acc = torch.zeros(qh.shape)
+        for k0 in range(sp * kw, L, kb):
+            x = s[..., k0:k0 + kw]
+            mn = torch.maximum(m, x.amax(-1))
+            a = rescale(m, mn)
+            p = rescale(x, mn[..., None])
+            l = l * a + p.sum(-1)
+            acc = acc * a[..., None] + _mm_3xtf32(p, vh[..., k0:k0 + kw, :])
+            m = mn
+        states.append((m, l, acc))
+    m, l, acc = states[0]
+    for mo, lo, acco in states[1:]:
+        mn = torch.maximum(m, mo)
+        a, b = rescale(m, mn), rescale(mo, mn)
+        l, acc, m = l * a + lo * b, acc * a[..., None] + acco * b[..., None], mn
+    o = (acc / l[..., None]).transpose(1, 2).to(q.dtype)
+    return o, m * 0.6931471805599453 + torch.log(l)
+
+
+@pytest.mark.parametrize("L", [77, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_k3_3xtf32_shares_meet_the_card_tolerances(dtype, L):
+    """K3's numerical design, emulated on the CPU at stories15M's heads (6
+    of 48 features) and a ragged L: 3xTF32 products, 64-key stages split
+    over 4 shares, each an online softmax in the log2 domain, merged in a
+    fixed order. o and lse stay within chip_smoke's ``FLASH_ATOL`` of the
+    plain K3 (a bfloat16 o within one of its units more, as on the card)."""
+    from chip_smoke import BF16_ULP, FLASH_ATOL
+
+    q, k, v = (t(a).to(dtype) for a in qkv((1, L, 6, 48), 12, 3))
+    scale = 48 ** -0.5
+    got = dict(zip(("o", "lse"), _k3_emulated(q, k, v, scale)))
+    want = dict(zip(("o", "lse"), tfa.flash_attention_fwd_ref(q, k, v,
+                                                              scale)))
+    for name in ("o", "lse"):
+        w = want[name].float()
+        err = (got[name].float() - w).abs()
+        tol = FLASH_ATOL[name] + (BF16_ULP * w.abs()
+                                  if got[name].dtype == torch.bfloat16
+                                  else 0.0)
+        assert bool((err <= tol).all()), (name, float(err.max()))

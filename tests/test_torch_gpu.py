@@ -92,7 +92,7 @@ def test_cpu_inputs_never_launch(model):
     assert dsk.fused_decode_token.launches == before
 
 
-@pytest.mark.parametrize("batch", [4, 32])
+@pytest.mark.parametrize("batch", [4, 32, 1, 3, 8, 33, 64])
 @pytest.mark.parametrize("pos", [17, 1030])
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
                                  "bf16-int4", "f32-kv8", "bf16-kv8"])
@@ -676,7 +676,7 @@ def test_emit_logits_matches_plain_and_argmax_mode(model, fmt, pos):
     assert same and cerr <= cache_atol(fmt)
 
 
-@pytest.mark.parametrize("batch", [4, 32])
+@pytest.mark.parametrize("batch", [4, 32, 1, 3, 8, 33, 64])
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
                                  "bf16-int4", "f32-kv8", "bf16-kv8"])
 def test_batched_emit_logits_matches_plain_and_argmax_mode(model, fmt,
@@ -742,7 +742,7 @@ def test_narrow_kernel_matches_plain(gqa, fmt, pos):
     assert emit_ok(fmt, eerr, scale) and same, (eerr, scale)
 
 
-@pytest.mark.parametrize("batch", [4, 32])
+@pytest.mark.parametrize("batch", [4, 32, 1, 3, 8, 33, 64])
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
                                  "bf16-int4", "f32-kv8", "bf16-kv8"])
 def test_narrow_batched_kernel_matches_plain(gqa, fmt, batch):
@@ -806,3 +806,111 @@ def test_narrow_launch_counters(gqa):
         assert len(list(gqa.generate(ids, 20, dtype=torch.bfloat16,
                                      **kw))) == 16
         assert k1.narrow_launches - before == narrow
+
+
+# ------------- the head stage on the tensor cores, and K3 ---------------------
+HEAD_TIES = [(10, 20000), (130, 200), (127, 128)]  # across blocks, inside
+                                                   # one, across its edge
+
+
+@pytest.mark.parametrize("batch", [1, 8, 33])
+@pytest.mark.parametrize("tie", HEAD_TIES, ids=["blocks", "inside", "edge"])
+@pytest.mark.parametrize("qhead", [False, True], ids=["bf16", "int8-head"])
+def test_head_ties_go_low(model, qhead, tie, batch):
+    """Two vocab rows with the same head row, scale and bias tie for the
+    maximum in every row: K2 (any B, every row) and K1 (B=1) pick the lower
+    one, in different 128-row head blocks, inside one and across its
+    edge."""
+    from chip_smoke import batched_args, random_caches, step_args
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    w = dict(model._fused_weights(torch.bfloat16,
+                                  "int8-head" if qhead else None))
+    key = "head_wq" if qhead else "head_w"
+    head = torch.zeros_like(w[key])
+    head[tie[0]] = head[tie[1]] = w[key][5]
+    bias = torch.zeros_like(w["head_b"])
+    bias[tie[0]] = bias[tie[1]] = 100.0
+    w[key], w["head_b"] = head, bias
+    if qhead:  # the int8 rows' scales too
+        w["head_s"] = w["head_s"].clone()
+        w["head_s"][tie[1]] = w["head_s"][tie[0]]
+    ck, cv = random_caches(model, torch.bfloat16, 2, batch)
+    toks = [(7 + 31 * b) % model.vocab_size for b in range(batch)]
+    args, kw = batched_args(model, w, ck, cv, 40, toks)
+    assert dsk.fused_decode_token_batched(*args, **kw).tolist() == \
+        [tie[0]] * batch
+    if batch == 1:
+        args, kw = step_args(model, w, ck[:, 0].contiguous(),
+                             cv[:, 0].contiguous(), 40, toks[0])
+        assert int(dsk.fused_decode_token(*args, **kw)[0]) == tie[0]
+
+
+def exact_head_weights(model, fmt):
+    """``fmt``'s snapshot with every layer matrix zero and the embedding
+    rows +-1/4 (seeded signs): the residual reaches the head as the token's
+    embedding row, whose RMSNorm is exact in any summation order (every
+    square 1/16), so the head's activations are the same bits in the
+    kernel and in the plain version."""
+    from chip_smoke import fmt_of
+    from pydynet_tpu_torch.models.llama.model import FUSED_MATS
+
+    w = dict(model._fused_weights(*fmt_of(fmt)))
+    for name in FUSED_MATS:
+        for key in (name, name + "_q", name + "_n"):
+            if key in w:
+                w[key] = torch.zeros_like(w[key])
+    g = torch.Generator(device="cuda").manual_seed(9)
+    signs = torch.randint(0, 2, w["tok"].shape, generator=g, device="cuda")
+    w["tok"] = ((signs * 2 - 1) * 0.25).to(w["tok"].dtype)
+    return w
+
+
+@pytest.mark.parametrize("fmt", ["bf16-int8head", "bf16-int8", "bf16-int4"])
+def test_quantized_head_logits_are_the_plain_bits(model, fmt):
+    """The int8 and int4 heads on the tensor cores sum exactly in int32 and
+    rescale as the plain version does, so on activations that are the same
+    bits (exact_head_weights) K2's emitted logits at B = 1, 3, 8, 33 and
+    K1's are the plain version's bit for bit."""
+    from chip_smoke import batched_args, batched_caches, step_args
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    w = exact_head_weights(model, fmt)
+    with torch.no_grad():
+        for batch in (1, 3, 8, 33):
+            ck, cv = batched_caches(model, fmt, 3, batch)
+            toks = [(11 + 97 * b) % model.vocab_size for b in range(batch)]
+            args, kw = batched_args(model, w, ck, cv, 300, toks)
+            got = dsk.fused_decode_token_batched(*args, emit_logits=True,
+                                                 **kw)
+            want = dsk.decode_token_batched_logits_ref(*args, **kw)
+            assert torch.equal(got, want), (batch, float(
+                (got - want).abs().max()))
+        args, kw = step_args(model, w, ck[:, 0].contiguous(),
+                             cv[:, 0].contiguous(), 300, toks[0])
+        got = dsk.fused_decode_token(*args, emit_logits=True, **kw)
+        assert torch.equal(got[0], dsk.decode_token_logits_ref(*args, **kw))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_head_stage_and_flash_forward_are_deterministic(model, gpu, dtype):
+    """Two K2 emit calls on the same inputs (B = 40, two row groups) give
+    the same logits, and two K3 calls the same o and lse."""
+    from chip_smoke import FLASH_DTYPES, batched_args, flash_inputs, \
+        random_caches
+    from pydynet_tpu_torch.ops import decode_step as dsk
+    from pydynet_tpu_torch.ops import flash_attention as fa
+
+    dt = FLASH_DTYPES[dtype]
+    w = model._fused_weights(dt, None)
+    logits = []
+    for _ in range(2):
+        ck, cv = random_caches(model, dt, 6, 40)
+        args, kw = batched_args(model, w, ck, cv, 700, range(300, 340))
+        logits.append(dsk.fused_decode_token_batched(*args, emit_logits=True,
+                                                     **kw))
+    assert torch.equal(*logits)
+    q, k, v, _ = flash_inputs(1, 1000, dt, 5)
+    (o1, l1), (o2, l2) = fa.flash_attention_fwd(q, k, v), \
+        fa.flash_attention_fwd(q, k, v)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)

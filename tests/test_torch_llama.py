@@ -140,6 +140,61 @@ def test_generate_fused_matches_jax_fused(L, quant, jax_interpret_kernel,
     assert len(step_calls) == 2 * (24 - L - 1)
 
 
+@pytest.fixture
+def draw_gaps(monkeypatch):
+    """Each port draw's gap between its two largest perturbed scores (row
+    0), in draw order: the two frameworks' float32 ``log`` differ by ulps,
+    so a sampled stream is compared up to its first draw below 1e-5."""
+    from pydynet_tpu_torch import random as prandom
+
+    rec = []
+    real = prandom.categorical
+
+    def spy(key, logits):
+        shape = (tuple(logits.shape) if key.dim() == 1
+                 else tuple(logits.shape[1:]))
+        top2 = (prandom.gumbel(key, shape) + logits).topk(2, -1).values
+        rec.append(float((top2[..., 0] - top2[..., 1]).reshape(-1)[0]))
+        return real(key, logits)
+
+    monkeypatch.setattr(prandom, "categorical", spy)
+    return rec
+
+
+def upto_near_tie(gaps):
+    """Tokens of a stream that precede its first draw below 1e-5 of gap."""
+    near = [i for i, g in enumerate(gaps) if g < 1e-5]
+    return near[0] if near else len(gaps)
+
+
+@pytest.mark.parametrize("sample", [None, dict(temperature=1.0, seed=7,
+                                               top_p=0.9,
+                                               repetition_penalty=1.3)],
+                         ids=["greedy", "sampled"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "plain"])
+def test_generate_unbucketed_prefill_matches_jax(fused, sample,
+                                                 jax_interpret_kernel,
+                                                 draw_gaps):
+    """``bucket_prefill=False`` prefills the 5-token prompt unpadded, as
+    the JAX package's ``generate`` does: the port's stream equals JAX's on
+    each lane (JAX's fused kernel in interpret mode), greedy and sampled,
+    and equals the port's bucketed stream (L=5 pads to 8)."""
+    jm = jax_model(TINY, seed=41)
+    tm = port_of(jm, TINY)
+    ids = np.array([[1, 5, 9, 4, 7]])
+    kw = dict(sample or {}, chunk=4, fused=fused)
+    with pdn.no_grad():
+        want = stream(jm.generate(ids, 22, bucket_prefill=False, **kw))
+    got = stream(tm.generate(ids, 22, bucket_prefill=False, **kw))
+    n = upto_near_tie(draw_gaps) if sample else len(got)
+    del draw_gaps[:]
+    bucketed = stream(tm.generate(ids, 22, **kw))
+    n = min(n, upto_near_tie(draw_gaps)) if sample else n
+    assert len(got) == len(want) == len(bucketed) == 22 - 5
+    assert n > len(got) // 2
+    assert got[:n] == want[:n] and bucketed[:n] == got[:n]
+
+
 @pytest.mark.parametrize("L", [3, 9])
 def test_generate_plain_matches_jax(L, step_calls):
     jm = jax_model(TINY, seed=10 + L)
@@ -297,14 +352,13 @@ def test_greedy_truth_and_gate_match_jax():
     assert checked > 0 and ok and frac == 1.0
 
 
-def test_load_model_and_infer_config_match_jax(tmp_path):
-    """One HF-named npz loads into both packages with the same numbers."""
-    cfg = dict(TINY, n_kv_heads=1)
-    jm = jax_model(cfg, seed=50)
-    P = {n: p.numpy() for n, p in jm._parameters.items()}
+def hf_checkpoint(P, path, **config):
+    """The JAX parameters ``P`` as an HF-named npz at ``path``, with
+    ``config.<name>`` entries."""
     hf = {"model.embed_tokens.weight": P["tok_embedding.weight"],
           "lm_head.weight": P["lm_head.weight"].T,
-          "model.norm.weight": P["norm.weight"], "config.n_heads": 2}
+          "model.norm.weight": P["norm.weight"]}
+    hf.update({f"config.{k}": v for k, v in config.items()})
     names = {"self_attn.q_proj": "attention.Q", "self_attn.k_proj":
              "attention.K", "self_attn.v_proj": "attention.V",
              "self_attn.o_proj": "attention.O", "mlp.up_proj": "ffn.up",
@@ -317,8 +371,16 @@ def test_load_model_and_infer_config_match_jax(tmp_path):
             P[f"layers.{i}.input_norm.weight"]
         hf[f"model.layers.{i}.post_attention_layernorm.weight"] = \
             P[f"layers.{i}.post_attn_norm.weight"]
-    path = tmp_path / "tiny.npz"
     np.savez(path, **hf)
+
+
+def test_load_model_and_infer_config_match_jax(tmp_path):
+    """One HF-named npz loads into both packages with the same numbers."""
+    cfg = dict(TINY, n_kv_heads=1)
+    jm = jax_model(cfg, seed=50)
+    P = {n: p.numpy() for n, p in jm._parameters.items()}
+    path = tmp_path / "tiny.npz"
+    hf_checkpoint(P, path, n_heads=2)
     jcfg = jio.infer_config(str(path), 32, 1)
     tcfg = tio.infer_config(str(path), 32, 1)
     assert tcfg == jcfg and tcfg["n_kv_heads"] == 1
@@ -414,3 +476,54 @@ def test_checkpoint_load_state_dict_drops_decode_snapshots_like_jax():
         tckpt.load_state_dict(t0, tckpt.state_dict(t1))
         assert stream(t0.generate(ids, 16, fused=fused)) == want
         t0 = port_of(jax_model(TINY, seed=0), TINY)  # seed 0 again
+
+
+def cli_text(out):
+    """What a decode CLI printed between the prompt and its token count."""
+    return out.split("Token count")[0].strip().splitlines()[-1]
+
+
+@pytest.mark.parametrize("heads", [None, 2, 4])
+def test_clis_take_finetuned_and_n_heads_like_jax(tmp_path, capsys, heads):
+    """The port's ``finetune --save`` npz, loaded by ``infer --finetuned``
+    and ``serve_cli --finetuned`` over an HF checkpoint without a head
+    count, decodes the tokens of the JAX package's CLIs on the same files;
+    ``--n-heads`` overrides the count both packages infer from the
+    shapes."""
+    from llm.llama import infer as jinfer
+    from llm.llama import serve as jserve
+    from pydynet_tpu_torch.models.llama import finetune, infer, serve_cli
+
+    jm = jax_model(TINY, seed=60)
+    path, ft = tmp_path / "tiny.npz", tmp_path / "ft.npz"
+    hf_checkpoint({n: p.numpy() for n, p in jm._parameters.items()}, path)
+    finetune.main(["--device", "cpu", "--weights", str(path), "--steps",
+                   "3", "--lr", "1e-2", "--text", "Once upon a time",
+                   "--trainable", "layers.0,lm_head", "--save", str(ft)])
+    with np.load(ft) as f:
+        assert "lm_head.bias" in f.files and len(f.files) > 2
+    flags = ["--weights", str(path), "--finetuned", str(ft),
+             "--max-new-tokens", "14", "--prompt", "Once"]
+    if heads:
+        flags += ["--n-heads", str(heads)]
+    capsys.readouterr()
+    with pdn.no_grad():
+        jinfer.main(flags + ["--no-cuda"])
+    want = cli_text(capsys.readouterr().out)
+    assert infer.main(flags + ["--device", "cpu"]) > 0
+    assert cli_text(capsys.readouterr().out) == want
+    without = infer.main(["--weights", str(path), "--device", "cpu",
+                          "--max-new-tokens", "14", "--prompt", "Once"]
+                         + flags[8:])
+    assert without > 0 and cli_text(capsys.readouterr().out) != want
+    serve_flags = flags[:4] + ["--max-new-tokens", "12", "--prompt", "Once",
+                               "--prompt", "Upon", "--batch-size", "2",
+                               "--chunk", "4", "--dtype", "float32",
+                               "--lane", "xla"] + flags[8:]
+    jserve.main(serve_flags + ["--no-cuda"])
+    want = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("--- [")]
+    serve_cli.main(serve_flags + ["--device", "cpu"])
+    got = [ln for ln in capsys.readouterr().out.splitlines()
+           if ln.startswith("--- [")]
+    assert len(got) == 2 and got == want
