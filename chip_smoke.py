@@ -169,7 +169,9 @@ the run with a nonzero exit and no result line:
    limit;
 6. only with ``--profile``: for K1 the step by CUDA events and the host's
    enqueue time per call at positions 0, 512 and 1023, and for K1 and K2
-   the device time of each kernel of the chain from ``torch.profiler``;
+   the device time of each kernel of the chain and of each stage (q/k/v,
+   attention, wo, gate/up, down, head, argmax) from ``torch.profiler``,
+   with the kernels a step;
    the device's busy share of a 1024-token request and of a serving run
    under the profiler; for the training step at B = 1 and 8 the device time
    of its largest kernels and the device's busy share; for a 7B int8 and
@@ -898,6 +900,22 @@ def by_kernel(prof, n, label, top=None):
     print(f"[chip_smoke]   device total {total:.1f} us/step")
 
 
+def by_stage(prof, n, label):
+    """Print the device time of each decode-step stage over ``n`` steps
+    (kernel_times.py's stages: q/k/v, attention, wo, gate/up, down, head,
+    argmax) and the kernels a step."""
+    from kernel_times import stage_of
+
+    events = kernel_events(prof)
+    stages = {}
+    for e in events:
+        stage = stage_of(e.name)
+        stages[stage] = stages.get(stage, 0.0) + e.time_range.elapsed_us() / n
+    print(f"[chip_smoke] profile {label}, device time by stage: " +
+          ", ".join(f"{k} {t:.1f} us" for k, t in stages.items()) +
+          f"; {len(events) / n:.0f} kernels a step")
+
+
 def profile(model, card):
     """Phase 6: where a decode step's time goes on the card."""
     from torch.profiler import ProfilerActivity
@@ -926,6 +944,7 @@ def profile(model, card):
                     dsk.fused_decode_token(*args, **kw)
                 torch.cuda.synchronize()
             by_kernel(prof, n, f"K1 {fmt} pos 512")
+            by_stage(prof, n, f"K1 {fmt} pos 512")
         w = model._fused_weights(torch.bfloat16, None)
         ck, cv = random_caches(model, torch.bfloat16, 1, 8)
         args, kw = batched_args(model, w, ck, cv, 512, range(100, 108))
@@ -938,6 +957,7 @@ def profile(model, card):
                 step()
             torch.cuda.synchronize()
         by_kernel(prof, n, "K2 bf16 B=8 pos 512")
+        by_stage(prof, n, "K2 bf16 B=8 pos 512")
         del ck, cv
         for quant in (None, "int8-head"):
             with torch_profile(activities=cuda) as prof:

@@ -14,14 +14,17 @@ limit in one JSON line of microseconds:
 * K3 and K4: the flash forward and the two backward wrappers on float32
   (B, 1024, 6, 48) at B = 1 and 8 by CUDA events, beside
   ``F.scaled_dot_product_attention(is_causal=True)``'s forward;
-* K2's head stage (the final RMSNorm, the (B, 288) x (288, 32000) head and
-  bias, and the argmax tiles or the emitted logits) at stories15M's head,
-  B = 8 and 32, bf16 and int8-head, emit and argmax mode: device time of
-  the step's kernels named ``head`` by ``torch.profiler``, beside
-  ``F.linear(h, head_w, head_b)`` and ``torch.argmax(F.linear(...), -1)``
-  on the same bf16 head; K1's head (B = 1) the same way;
-* K2's whole bf16 B = 8 step at pos 512, emit and argmax mode, by CUDA
-  events.
+* K1's and K2's steps at stories15M width, pos 512, seeded random weights
+  and caches: K1 in bf16, int8 and int4 (layers and head), K2 in bf16 at
+  B = 8, 32 and 64 and in int8, int4 and the int8 KV cache at B = 8, and
+  the bf16 emit_logits mode of K1 and of K2 at B = 8 and 64. For each, the
+  step by CUDA events, the device time of each stage by ``torch.profiler``
+  kernel name (q/k/v, attention, wo, gate/up, down, head, argmax; before
+  the layer stages moved to the tensor cores the wo kernel, `attn_out`,
+  also merged the attention partials) over 20 steps, and the kernels a
+  step;
+* ``F.linear(h, head_w, head_b)`` and ``torch.argmax(F.linear(...), -1)``
+  on the bf16 head at B = 1, 8 and 32, the head stage's yardsticks.
 
 ``--compare`` runs the two checkouts in separate processes, in the order
 DIR, this, this, DIR, and prints each time side by side. Needs a CUDA GPU.
@@ -117,13 +120,31 @@ def measure(tree: Path) -> dict:
     return out
 
 
-CFG = dict(vocab_size=32000, embed_dim=288, n_heads=6, ffn_dim=768,
-           max_seq_len=1024, max_batch_size=1, n_layers=6)  # stories15M
 POS = 512
+# (label, K1 format or K2 format, B; None: K1) of the timed decode steps
+DECODE_CASES = (("K1 bf16", "bf16", None), ("K1 int8", "bf16-int8", None),
+                ("K1 int4", "bf16-int4", None),
+                ("K2 bf16 B=8", "bf16", 8), ("K2 bf16 B=32", "bf16", 32),
+                ("K2 bf16 B=64", "bf16", 64), ("K2 int8 B=8", "bf16-int8", 8),
+                ("K2 int4 B=8", "bf16-int4", 8), ("K2 kv8 B=8", "bf16-kv8", 8))
+EMIT_CASES = ("K1 bf16", "K2 bf16 B=8", "K2 bf16 B=64")
+# a step's stages by kernel name, for these kernels and the CUDA-core ones
+# before them (whose wo kernel, attn_out, also merged the attention)
+STAGES = (("q/k/v", "qkv"), ("wo", "attn_out"), ("wo", "layer_wo"),
+          ("attention", "attention"), ("gate/up", "gate_up"),
+          ("down", "down"), ("head", "head"), ("argmax", "argmax"))
 
 
-def head_us(step, n=20):
-    """Device us a call of ``step`` spends in kernels named ``head``."""
+def stage_of(kernel: str) -> str:
+    """The stage of a kernel by its profiler name (the demangled signature,
+    argument list dropped)."""
+    name = kernel.replace("(anonymous namespace)::", "").split("(")[0]
+    return next((stage for stage, key in STAGES if key in name), "other")
+
+
+def stage_us(step, n=20):
+    """Device us a call of ``step`` spends in each stage's kernels, and the
+    kernels a call launches, by ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -133,55 +154,57 @@ def head_us(step, n=20):
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and "head" in e.name) / n
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for e in events:
+        stage = stage_of(e.name)
+        out[stage] = out.get(stage, 0.0) + e.time_range.elapsed_us() / n
+    out["kernels a step"] = len(events) / n
+    return out
 
 
 def decode_times() -> dict:
-    """K1's and K2's head stages and K2's B = 8 step (module doc)."""
+    """K1's and K2's steps and stages (module doc), and the head's
+    yardsticks."""
     import torch
     import torch.nn.functional as F
+    from chip_smoke import (CFG, batched_args, batched_caches, fmt_of,
+                            random_caches, step_args)
     from pydynet_tpu_torch.models.llama import Llama
-    from pydynet_tpu_torch.models.llama.model import (decode_quant_kwargs,
-                                                      decode_weight_args)
     from pydynet_tpu_torch.ops import decode_step as dsk
 
     model = Llama(**CFG, device="cuda",
                   generator=torch.Generator().manual_seed(0)).eval()
-    g = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    i32 = lambda xs: torch.tensor(xs, dtype=torch.int32, device="cuda")
-    for quant in (None, "int8-head"):
-        w = model._fused_weights(torch.bfloat16, quant)
-        kw = dict(n_heads=model.n_heads, **decode_quant_kwargs(w))
-        fmt = "bf16" if quant is None else "int8-head"
-        for B in (1, 8, 32):
-            shape = (model.n_layers, model.max_seq_len, model.embed_dim)
-            if B > 1:
-                shape = shape[:1] + (B,) + shape[1:]
-            ck, cv = (torch.randn(shape, generator=g, device="cuda")
-                      .mul_(0.5).to(torch.bfloat16) for _ in range(2))
-            args = (i32([POS]), i32(list(range(100, 100 + B))),
-                    *decode_weight_args(w), ck, cv)
-            k = dsk.fused_decode_token if B == 1 else \
-                dsk.fused_decode_token_batched
-            name = "K1" if B == 1 else f"K2 B={B}"
-            for emit in (False, True):
-                mode = "emit" if emit else "argmax"
+    with torch.no_grad():
+        for label, fmt, B in DECODE_CASES:
+            w = model._fused_weights(*fmt_of(fmt))
+            if B is None:
+                ck, cv = random_caches(model, fmt_of(fmt)[0], 1)
+                args, kw = step_args(model, w, ck, cv, POS, 1234)
+                k = dsk.fused_decode_token
+            else:
+                ck, cv = batched_caches(model, fmt, 1, B)
+                args, kw = batched_args(model, w, ck, cv, POS,
+                                        range(100, 100 + B))
+                k = dsk.fused_decode_token_batched
+            for emit in (False, True) if label in EMIT_CASES else (False,):
+                name = label + (" emit" if emit else "")
                 step = lambda: k(*args, emit_logits=emit, **kw)
-                out[f"{name} head {fmt} {mode}"] = head_us(step)
-                if B == 8 and quant is None:
-                    out[f"K2 B=8 step bf16 {mode}"] = events_us(step, 200)
+                out[f"{name} step"] = events_us(step, 200)
+                for stage, t in stage_us(step).items():
+                    out[f"{name} {stage}"] = t
             del ck, cv
-    w = model._fused_weights(torch.bfloat16, None)
-    for B in (1, 8, 32):
-        h = torch.randn(B, model.embed_dim, generator=g, device="cuda").to(
-            torch.bfloat16)
-        lin = lambda: F.linear(h, w["head_w"], w["head_b"])
-        out[f"F.linear head bf16 B={B}"] = events_us(lin, 200)
-        out[f"argmax(F.linear) head bf16 B={B}"] = events_us(
-            lambda: torch.argmax(lin(), -1), 200)
+        w = model._fused_weights(torch.bfloat16, None)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        for B in (1, 8, 32):
+            h = torch.randn(B, model.embed_dim, generator=g,
+                            device="cuda").to(torch.bfloat16)
+            lin = lambda: F.linear(h, w["head_w"], w["head_b"])
+            out[f"F.linear head bf16 B={B}"] = events_us(lin, 200)
+            out[f"argmax(F.linear) head bf16 B={B}"] = events_us(
+                lambda: torch.argmax(lin(), -1), 200)
     return out
 
 
@@ -194,9 +217,12 @@ def compare(other: Path) -> None:
             raise SystemExit(f"{tree}: {proc.stdout}{proc.stderr}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     print(runs[0]["card"])
-    for key in (k for k in runs[0] if k not in ("tree", "card")):
-        print(f"{key}: {other} {runs[0][key]:.1f} / {runs[3][key]:.1f} us, "
-              f"this checkout {runs[1][key]:.1f} / {runs[2][key]:.1f} us")
+    keys = [k for k in runs[1] if k not in ("tree", "card")]
+    keys += [k for k in runs[0] if k not in keys + ["tree", "card"]]
+    for key in keys:
+        t = [f"{r[key]:.1f}" if key in r else "-" for r in runs]
+        print(f"{key}: {other} {t[0]} / {t[3]}, this checkout {t[1]} / "
+              f"{t[2]}")
     print(json.dumps({"parent": [runs[0], runs[3]],
                       "this": [runs[1], runs[2]]}))
 

@@ -6,9 +6,6 @@
 //
 // Types: the residual stream is f32; every matmul input is rounded to the
 // weight type T (f32 or bf16) and accumulated in f32; the caches are T.
-// Quantized matmuls (int8 rows, or int4 rows packed two a byte) take their
-// activation vector quantized per call to integers in f32 and accumulate
-// exactly in int32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,11 +49,6 @@ __device__ __forceinline__ float round_to(float x) {
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum_i(int v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
@@ -112,27 +104,14 @@ __device__ void load_normed(const Src* src, const W* w, int D, float* x_s,
   __syncthreads();
 }
 
-__device__ __forceinline__ int to_i(int8_t x) { return x; }
-
-// One product of a weight and an activation: f32 for f32/bf16 weights, an
-// exact int product for int8 weights (the activation then holds an integer)
-template <typename Acc, typename W>
-__device__ __forceinline__ Acc mul(W w, float x) {
-  if constexpr (std::is_same<Acc, int>::value)
-    return to_i(w) * (int)x;
-  else
-    return to_f(w) * x;
-}
-
 // Accumulate row[k] * x_s[k] over the lane's share of k < K: 16-byte loads
 // of the row where it is 16-byte aligned, element loads for the rest.
-// Acc is float (f32/bf16 rows) or int (int8 rows, x_s holding integers).
-template <typename Acc, typename W>
-__device__ __forceinline__ Acc lane_dot(const W* row, const float* x_s,
-                                        int K) {
+template <typename W>
+__device__ __forceinline__ float lane_dot(const W* row, const float* x_s,
+                                          int K) {
   constexpr int kVec = 16 / sizeof(W);
   const int lane = threadIdx.x & 31;
-  Acc acc = 0;
+  float acc = 0.f;
   int k0 = 0;
   if ((reinterpret_cast<uintptr_t>(row) & 15) == 0) {
     const int nvec = K / kVec;
@@ -142,11 +121,11 @@ __device__ __forceinline__ Acc lane_dot(const W* row, const float* x_s,
       const W* e = reinterpret_cast<const W*>(&u);
       const float* xs = x_s + v * kVec;
 #pragma unroll
-      for (int i = 0; i < kVec; ++i) acc += mul<Acc>(e[i], xs[i]);
+      for (int i = 0; i < kVec; ++i) acc += to_f(e[i]) * xs[i];
     }
     k0 = nvec * kVec;
   }
-  for (int k = k0 + lane; k < K; k += 32) acc += mul<Acc>(row[k], x_s[k]);
+  for (int k = k0 + lane; k < K; k += 32) acc += to_f(row[k]) * x_s[k];
   return acc;
 }
 
@@ -154,7 +133,7 @@ __device__ __forceinline__ Acc lane_dot(const W* row, const float* x_s,
 template <typename W>
 __device__ __forceinline__ float warp_dot(const W* row, const float* x_s,
                                           int K) {
-  return warp_sum(lane_dot<float>(row, x_s, K));
+  return warp_sum(lane_dot(row, x_s, K));
 }
 
 // the signed low and high nibbles of each byte of p, as int8 bytes
@@ -163,45 +142,6 @@ __device__ __forceinline__ unsigned nibbles_lo(unsigned p) {
 }
 __device__ __forceinline__ unsigned nibbles_hi(unsigned p) {
   return __vsub4(((p >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
-
-// byte b of a word of int8 bytes, sign-extended
-__device__ __forceinline__ int sbyte(unsigned w, int b) {
-  return (int)(int8_t)(uint8_t)(w >> (8 * b));
-}
-
-// Exact int sum over the lane's share of an int4 row of K elements packed
-// as K/2 bytes (ops/quant.py's quantize_int4: byte j holds element j in its
-// low nibble and element j + K/2 in its high one) times x_s[0:K] (integers
-// held in f32): 16-byte loads where the row is 16-byte aligned.
-__device__ __forceinline__ int lane_dot_q4(const int8_t* row,
-                                           const float* x_s, int K) {
-  const int K2 = K / 2, lane = threadIdx.x & 31;
-  const float* xh = x_s + K2;
-  int acc = 0, j0 = 0;
-  if ((reinterpret_cast<uintptr_t>(row) & 15) == 0) {
-    const int nvec = K2 / 16;
-    const uint4* rv = reinterpret_cast<const uint4*>(row);
-    for (int v = lane; v < nvec; v += 32) {
-      const uint4 u = rv[v];
-      const unsigned words[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const unsigned lo = nibbles_lo(words[i]), hi = nibbles_hi(words[i]);
-        const int j = v * 16 + i * 4;
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          acc += sbyte(lo, b) * (int)x_s[j + b] + sbyte(hi, b) * (int)xh[j + b];
-      }
-    }
-    j0 = nvec * 16;
-  }
-  for (int j = j0 + lane; j < K2; j += 32) {
-    const unsigned p = (uint8_t)row[j];
-    acc += sbyte(nibbles_lo(p), 0) * (int)x_s[j] +
-           sbyte(nibbles_hi(p), 0) * (int)xh[j];
-  }
-  return acc;
 }
 
 // Weight formats of a matmul (ops/decode_step.py's _FMT): rows of the
@@ -224,82 +164,13 @@ inline const float* layer_s(const float* s, int l, int rows) {
   return s == nullptr ? nullptr : s + (size_t)l * rows;
 }
 
-// Quantize the block's activation vector x_s[0:K] in place as the TPU
-// kernel's qvec does: amax = max(max |x|, 1e-30), x = rint(x * (127 /
-// amax)) (round half to even, no clip). Returns amax / 127. Ends
-// synchronised.
-__device__ float quantize_act(float* x_s, int K, float* red) {
-  float amax = 0.f;
-  for (int i = threadIdx.x; i < K; i += blockDim.x)
-    amax = fmaxf(amax, fabsf(x_s[i]));
-  amax = fmaxf(block_max(amax, red), 1e-30f);
-  const float inv = 127.0f / amax;
-  for (int i = threadIdx.x; i < K; i += blockDim.x)
-    x_s[i] = rintf(x_s[i] * inv);
-  __syncthreads();
-  return amax * (1.0f / 127.0f);
-}
-
-// The block's matmul input from a D-wide vector: RMSNorm(src) * w rounded to
-// T for format Q = kFmtFloat (returns 1), or the f32 normed vector quantized
-// (returns its scale amax / 127). Ends synchronised.
-template <int Q, typename T, typename Src, typename W>
-__device__ float load_normed_act(const Src* src, const W* w, int D,
-                                 float* x_s, float* red) {
-  if constexpr (Q == kFmtFloat) {
-    load_normed<T>(src, w, D, x_s, red);
-    return 1.f;
-  } else {
-    load_normed<float>(src, w, D, x_s, red);
-    return quantize_act(x_s, D, red);
-  }
-}
-
-// The block's matmul input from f32 values already in x_s[0:K] (written by
-// this block, not yet synchronised): rounded to T, or quantized.
-template <int Q, typename T>
-__device__ float prepare_act(float* x_s, int K, float* red) {
-  if constexpr (Q == kFmtFloat) {
-    for (int i = threadIdx.x; i < K; i += blockDim.x)
-      x_s[i] = round_to<T>(x_s[i]);
-    __syncthreads();
-    return 1.f;
-  } else {
-    __syncthreads();
-    return quantize_act(x_s, K, red);
-  }
-}
-
-// dot(row r of a (rows, K) weight matrix of format Q, x_s) over one warp,
-// every lane gets it: f32 accumulation for T rows; for int8 and int4 rows
-// the exact int32 sum rescaled as the TPU kernel's qmm does,
-// float(acc) * (scale[r] * sx)
-template <int Q, typename T>
-__device__ __forceinline__ float row_dot(const void* w, int r,
-                                         const float* x_s, int K,
-                                         const float* scale, float sx) {
-  if constexpr (Q == kFmtFloat) {
-    return warp_dot(static_cast<const T*>(w) + (size_t)r * K, x_s, K);
-  } else {
-    const int8_t* row = static_cast<const int8_t*>(w) + fmt_bytes<Q, T>(
-        (size_t)r * K);
-    const int acc = warp_sum_i(Q == kFmtInt8 ? lane_dot<int>(row, x_s, K)
-                                             : lane_dot_q4(row, x_s, K));
-    return (float)acc * (scale[r] * sx);
-  }
-}
-
-// The head over the vocab tile of this block: logits of rows
-// [kHeadRows * blockIdx.x, + kHeadRows) as row_dot<Q, W> + bias, reduced to
+// K9's head over the vocab tile of this block: logits of rows
+// [kHeadRows * blockIdx.x, + kHeadRows) as dot(w[r], x_s) + b[r], reduced to
 // their (max, lowest index) pair in tile_val/tile_idx[blockIdx.x] for
-// argmax_kernel. K1's head and K9 share it, so they share the tie rule.
-// With `logits` (K1's emit_logits mode) each row's float32 logit is also
-// written to logits[r], the very value the argmax compares.
-template <int Q, typename W, typename B>
-__device__ void head_tile(const float* x_s, float sx, const void* head_w,
-                          const float* head_s, const B* head_b,
-                          float* tile_val, int* tile_idx, int D, int V,
-                          float* logits = nullptr) {
+// argmax_kernel, which keeps the tie rule.
+template <typename W>
+__device__ void head_tile(const float* x_s, const W* head_w, const W* head_b,
+                          float* tile_val, int* tile_idx, int D, int V) {
   __shared__ float wv[kWarps];
   __shared__ int wi[kWarps];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -307,9 +178,8 @@ __device__ void head_tile(const float* x_s, float sx, const void* head_w,
   int bi = INT_MAX;
   const int r0 = blockIdx.x * kHeadRows + warp * kHeadRowsPerWarp;
   for (int r = r0; r < min(r0 + kHeadRowsPerWarp, V); ++r) {
-    const float logit = row_dot<Q, W>(head_w, r, x_s, D, head_s, sx) +
+    const float logit = warp_dot(head_w + (size_t)r * D, x_s, D) +
                         to_f(head_b[r]);
-    if (logits != nullptr && lane == 0) logits[r] = logit;
     if (better(logit, r, bv, bi)) {
       bv = logit;
       bi = r;
@@ -331,55 +201,48 @@ __device__ void head_tile(const float* x_s, float sx, const void* head_w,
   }
 }
 
-// h[r] += dot(w[r, 0:K], x_s) for r < D, a warp per output row, w of
-// format Q (scale: its per-row scales, sx: the activations' scale)
-template <int Q, typename T>
+// h[r] += dot(w[r, 0:K], x_s) for r < D, a warp per output row
+template <typename T>
 __device__ __forceinline__ void gemv_residual(const float* x_s, int K,
-                                              const void* w,
-                                              const float* scale, float sx,
-                                              float* h, int D) {
+                                              const T* w, float* h, int D) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = blockIdx.x * kWarps + warp; r < D; r += gridDim.x * kWarps) {
-    const float a = row_dot<Q, T>(w, r, x_s, K, scale, sx);
+    const float a = warp_dot(w + (size_t)r * K, x_s, K);
     if (lane == 0) h[r] += a;
   }
 }
 
-// The FFN's first stage (K1's stage 4, K10's): RMSNorm + gate/up + SiLU(gate)
-// * up -> ff (f32, F wide); shared memory D + kWarps floats
-template <typename T, int Q>
+// K10's FFN, first stage: RMSNorm + gate/up + SiLU(gate) * up -> ff (f32,
+// F wide); shared memory D + kWarps floats
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gate_up_kernel(const float* __restrict__ h, const T* __restrict__ post_norm,
-               const void* __restrict__ gate_w, const void* __restrict__ up_w,
-               const float* __restrict__ s_gate,
-               const float* __restrict__ s_up, float* __restrict__ ff, int D,
-               int F) {
+               const T* __restrict__ gate_w, const T* __restrict__ up_w,
+               float* __restrict__ ff, int D, int F) {
   extern __shared__ float smem[];
   float* x_s = smem;
   float* red = smem + D;
-  const float sx = load_normed_act<Q, T>(h, post_norm, D, x_s, red);
+  load_normed<T>(h, post_norm, D, x_s, red);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int j = blockIdx.x * kWarps + warp; j < F; j += gridDim.x * kWarps) {
-    const float gv = row_dot<Q, T>(gate_w, j, x_s, D, s_gate, sx);
-    const float uv = row_dot<Q, T>(up_w, j, x_s, D, s_up, sx);
+    const float gv = warp_dot(gate_w + (size_t)j * D, x_s, D);
+    const float uv = warp_dot(up_w + (size_t)j * D, x_s, D);
     if (lane == 0) ff[j] = gv * (1.f / (1.f + expf(-gv))) * uv;
   }
 }
 
-// The FFN's second stage (K1's stage 5, K10's): h[r] += dot(down[r, 0:F],
-// ff as the matmul input) for r < D; shared memory F + kWarps floats
-template <typename T, int Q>
+// K10's FFN, second stage: h[r] += dot(down[r, 0:F], ff rounded to T) for
+// r < D; shared memory F floats
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 down_residual_kernel(const float* __restrict__ ff, int F,
-                     const void* __restrict__ w,
-                     const float* __restrict__ s_down, float* __restrict__ h,
-                     int D) {
+                     const T* __restrict__ w, float* __restrict__ h, int D) {
   extern __shared__ float smem[];
   float* x_s = smem;
-  float* red = smem + F;
-  for (int i = threadIdx.x; i < F; i += blockDim.x) x_s[i] = ff[i];
-  const float sx = prepare_act<Q, T>(x_s, F, red);
-  gemv_residual<Q, T>(x_s, F, w, s_down, sx, h, D);
+  for (int i = threadIdx.x; i < F; i += blockDim.x)
+    x_s[i] = round_to<T>(ff[i]);
+  __syncthreads();
+  gemv_residual<T>(x_s, F, w, h, D);
 }
 
 // One block per row: argmax over that row's n (max, index) tile pairs ->

@@ -227,7 +227,7 @@ step_wo_kernel(const int* __restrict__ pos_p,
     x_s[i] = round_to<T>(t);
   }
   __syncthreads();
-  gemv_residual<kFmtFloat, T>(x_s, D, wo, nullptr, 1.f, h, D);
+  gemv_residual<T>(x_s, D, wo, h, D);
 }
 
 // 9. h_out = RMSNorm(h) * final_norm in f32, one block
@@ -307,12 +307,12 @@ cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
     step_wo_kernel<T><<<grid_d, kThreads, D * sizeof(float), st>>>(
         a.pos, att_part, wo + l * LDD, h, D, S);
     PDT_CHECK();
-    gate_up_kernel<T, kFmtFloat><<<grid_f, kThreads, sm_norm, st>>>(
-        h, post_norm + (size_t)l * D, gate_w + l * LFD, up_w + l * LFD,
-        nullptr, nullptr, ff, D, F);
+    gate_up_kernel<T><<<grid_f, kThreads, sm_norm, st>>>(
+        h, post_norm + (size_t)l * D, gate_w + l * LFD, up_w + l * LFD, ff,
+        D, F);
     PDT_CHECK();
-    down_residual_kernel<T, kFmtFloat><<<grid_d, kThreads, sm_ff, st>>>(
-        ff, F, down_w + l * LFD, nullptr, h, D);
+    down_residual_kernel<T><<<grid_d, kThreads, sm_ff, st>>>(
+        ff, F, down_w + l * LFD, h, D);
     PDT_CHECK();
   }
   step_final_norm_kernel<T><<<1, kThreads, sm_norm, st>>>(

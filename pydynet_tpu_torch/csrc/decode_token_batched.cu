@@ -26,9 +26,9 @@
 // the int8 head (`qhead`); int8 layers and head (`qlayers`) or int4 layers
 // and head packed two a byte (`q4`), with T caches; float weights with the
 // int8 KV cache (`kv_int8`). Each quantized matmul quantizes each of its B
-// f32 activation rows with the row's own amax (the TPU kernel's qvec_b, K1's
-// quantize_act once a row), accumulates exactly in int32 and rescales by
-// the weight row's scale times the activation row's amax / 127. The int8 KV
+// f32 activation rows with the row's own amax (the TPU kernel's qvec_b),
+// accumulates exactly in int32 and rescales by the weight row's scale times
+// the activation row's amax / 127. The int8 KV
 // cache holds int8 rows with f32 per-row scales (ops/decode_step.quantize_kv:
 // s = max(amax / 127, 1e-10), q = clip(rint(x / s), +-127), IEEE divisions):
 // the new K and V rows are quantized over all D features, the query per row
@@ -36,27 +36,20 @@
 // its scale times the query's, and the new row scores its dequantized key
 // against the exact f32 query.
 //
-// The chain is K1's, with every GEMV block applying each weight row to a
-// group of up to 32 activation rows (blockIdx.y picks the group, rows
-// [32 * blockIdx.y, + 32)): a warp loads a 16-byte piece of a row once and
-// accumulates it into the group's per-row sums held in registers (BM of
-// them, BM the smallest of 4, 8, 16, 32 that holds min(B, 32)), then lane b
-// keeps row b of the group's sum. So each weight matrix is read from device
-// memory once per token for a fleet of up to 32 rows; above that each group
-// reads it again, from L2 (a stories15M layer is about 2 MB of bf16). Any
-// B >= 1 takes the same launches: per token, 5 * n_layers + 2 on the
-// caller's stream, in every mode:
-//   1. RMSNorm + q/k/v GEMV + RoPE + K/V row write (layer 0 gathers the
-//      embedding rows), B activation rows in shared memory; with the int8
-//      KV cache the f32 K and V rows go to scratch instead,
+// Any B >= 1 takes the same launches: per token, 5 * n_layers + 2 on the
+// caller's stream, in every mode (K1 runs this very chain on a group of one
+// row, so a row's token, logits and cache row are the bits K1 gives it):
+//   1. RMSNorm + q/k/v + RoPE + K/V row write (layer 0 gathers the
+//      embedding rows); with the int8 KV cache the f32 K and V rows go to
+//      scratch instead,
 //   2. attention split over (head, 64-row cache block, row b); a block
-//      whose rows all lie outside [starts[b], pos] exits at once; with the
-//      int8 KV cache the block holding row pos quantizes the new K and V
-//      rows (each block takes the amax of the whole D-wide row from scratch
-//      itself, so no launch is added) and writes its head's part of them,
-//   3. the online-softmax merge of the partials + wo GEMV + residual,
-//   4. RMSNorm + gate/up GEMV + SiLU * up,
-//   5. down GEMV + residual,
+//      whose rows all lie outside [starts[b], pos] exits at once; the last
+//      block of a (row, head) merges the blocks' online-softmax partials in
+//      block order; with the int8 KV cache the warp holding row pos
+//      quantizes the new K and V rows and writes its head's part of them,
+//   3. wo + residual over the merged attention output,
+//   4. RMSNorm + gate/up + SiLU * up,
+//   5. down + residual,
 // then 6. the head stage (head.cuh): final RMSNorm + head product + bias on
 // the tensor cores, a block per 128 vocab rows and row group, with a (max,
 // index) pair per row and block; and 7. one block per row: argmax over its
@@ -64,32 +57,48 @@
 // :1010-1011 there) stage 6 also writes the (B, V) f32 logits, the very
 // values the argmax compares, and 7 is not launched: 5 * n_layers + 1
 // launches. `pos`, `tok` and `starts` are read from device memory, so a
-// chunk of steps never waits for the host. Each row does K1's arithmetic in
-// K1's order (stages 1-5 sum a row's products as K1's lane_dot does; K1's
-// stage 6 is this head stage on a group of one row, and a tensor-core
-// product's element depends only on its own row and column), so row b with
-// starts[b] = 0 gives the token, logits and cache row that K1 gives on that
-// row alone.
+// chunk of steps never waits for the host.
 //
 // What bounds it on an H100: at stories15M width (D 288, F 768, 6 layers,
 // V 32000), B = 8, pos 512, a token reads about 12 MB of bf16 layer weights
 // (6 MB as int8, 3 MB as int4) and 18.4 MB of head (9.2 as int8) once for the
 // fleet, and about 29 MB of bf16 KV (8 rows x about 3.6 MB; 14.2 MB as int8
-// with its scales): about 18 us at 3.35 TB/s. Here the weight stream is
-// shared, which is the point of the kernel; in stages 1-5 the per-row
-// products read the activation rows from shared memory, whose traffic grows
-// with B, and every block normalises (and quantizes) all B rows itself, one
-// row after another; the head stage normalises them a warp a row and
-// multiplies on the tensor cores (head.cuh); the 32 launches of the chain
-// stay latency-bound as in K1. A CUDA graph over a chunk and fused launches
-// come later.
+// with its scales): about 18 us at 3.35 TB/s, against 32 launches of a few
+// microseconds each. So each stage is made short, and the chain is kept
+// (no grid-wide barrier, whose blocks would all have to be resident):
+//   * stages 1, 3, 4 and 5 are products on the tensor cores (mma_rows.cuh,
+//     the head's machinery): a block takes 16 weight rows (two 16-row tiles,
+//     gate's and up's, in stage 4) of one matrix and a group of up to 32
+//     rows (blockIdx.y), its 8 warps splitting the contraction into 64-byte
+//     stages, each warp streaming its stages through its own cp.async ring
+//     while the block makes the group's rows the product's input, a warp a
+//     row in parallel (RMSNorm * w of the rows and norm weights that
+//     cp.async copied in beside the ring's first stages, or the merged
+//     attention output or the SwiGLU output as they are; rounded to T or
+//     quantized per row); the warps' shares are summed in shared memory in
+//     warp order and one thread writes each output (RoPE pairs, cache rows,
+//     SwiGLU, residual adds). bfloat16 m16n8k16 with float32 sums, int8 and
+//     int4 m16n8k32 with exact int32 sums rescaled as float(acc) * (scale[r]
+//     * sx), each operation rounded on its own, float32 in 3xTF32 summed a
+//     k8 step at a time. So each weight matrix is read once a token for a
+//     group of up to 32 rows; above that each group reads it again, from L2
+//     (a stories15M layer is about 2 MB of bf16);
+//   * the attention block spreads each cache row over a quad of lanes along
+//     head_dim with 16-byte loads, so a warp takes its 8 of the block's 64
+//     rows at once with every load in flight, and keeps its own
+//     online-softmax state, merged once; the merge over the blocks of a
+//     (row, head) runs once, in the last of them to finish (int counters,
+//     no float atomics, a fixed order), not in every block of stage 3.
+// A CUDA graph over a chunk comes later.
 //
-// Shared memory grows with the group: 32 activation rows of width
-// max(D, F) are 96 KB at F = 768, above the 48 KB a block gets without
-// opting in, so the launches above 48 KB opt in to dynamic shared memory (up
-// to 227 KB). The wrapper (ops/decode_step.batched_kernel_takes) refuses
-// widths that do not fit; B itself is bounded by device memory and by the
-// attention grid's z extent (65535).
+// Shared memory grows with the group: a layer-stage block holds its warps'
+// rings (32 KB a weight tile) and the group's rows (up to 32 x F floats'
+// bytes for the float32 down stage, 99 KB at F = 768), above the 48 KB a
+// block gets without opting in, so those launches opt in to dynamic shared
+// memory (up to 227 KB). The wrapper (ops/decode_step.batched_kernel_takes,
+// whose layer_smem_bytes mirrors layer_smem) refuses widths that do not
+// fit; B itself is bounded by device memory and by the attention grid's z
+// extent (65535).
 //
 // The kernels and the chain are in decode_token_batched.cuh. This file
 // instantiates them for float32 weights and holds the C entry points;
@@ -98,16 +107,18 @@
 
 #include "decode_token_batched.cuh"
 
+int pdt_k2::run_f32(int lfmt, int hfmt, int kv8, const Args& a,
+                    cudaStream_t st) {
+  return (int)run_mode<float>(lfmt, hfmt, kv8, a, st);
+}
+
 extern "C" {
 
-// Floats of scratch the wrapper allocates for one step of B rows: h, q
-// (B x D each), ff (B x F), a (max, index) pair per row and head block, the
-// attention partials (m, l and a head_dim vector per row, head and row
-// block), and the new K and V rows of the int8 KV cache (2 x B x D).
+// Floats of scratch the wrapper allocates for one step of B rows
+// (scratch_floats in decode_token_batched.cuh).
 int pdt_decode_token_batched_scratch_floats(int batch, int dim, int n_heads,
                                             int ffn, int vocab, int seq) {
-  return batch * (4 * dim + ffn + 2 * head_blocks(vocab) +
-                  attn_splits(seq) * (2 * n_heads + dim));
+  return scratch_floats(batch, dim, n_heads, ffn, vocab, seq);
 }
 
 // wdtype 0: float32 weights, 1: bfloat16. lfmt / hfmt: the formats of the
@@ -162,7 +173,7 @@ int pdt_decode_token_batched(int wdtype, int lfmt, int hfmt, int kv8,
          static_cast<float*>(scratch),
          batch, n_layers, dim, n_heads, n_kv_heads, ffn, vocab, seq, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wdtype == 0) return (int)run_mode<float>(lfmt, hfmt, kv8, a, st);
+  if (wdtype == 0) return pdt_k2::run_f32(lfmt, hfmt, kv8, a, st);
   if (wdtype == 1) return pdt_k2::run_bf16(lfmt, hfmt, kv8, a, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -930,14 +930,13 @@ class Llama(nn.Module):
         double-buffered VMEM window. Re-derived for the H100: the CUDA
         chain streams weights from device memory through registers and
         keeps nothing per layer on chip, so weight size sets no bound. What
-        stays on chip is one activation vector per block in shared memory
-        (D floats in the norm kernels, F in the down projection) within the
-        48 KB a block gets without opting in, so max(D, F) plus a few
-        reduction slots must fit in 12,288 floats; the attention block
+        stays on chip is a block's weight ring and its group's activation
+        rows (D wide, F in the down projection): at B=1 max(D, F) plus a
+        few reduction slots must fit in 12,288 floats; the attention block
         (256 threads) needs head_dim <= 256; RoPE needs an even head_dim
-        (``ops.decode_step.kernel_takes``). At B>1 the batched chain keeps
-        a group of up to 32 activation rows in shared memory, opting in up
-        to 227 KB, and takes any number of groups
+        (``ops.decode_step.kernel_takes``). At B>1 a block keeps a group
+        of up to 32 activation rows beside its ring, opting in up to 227
+        KB, and the chain takes any number of groups
         (``ops.decode_step.batched_kernel_takes``). A grouped-query model
         decodes on the narrow cache with float layers, on the expanded
         layout with int8/int4 layers (:meth:`_fused_weights`). int8 and

@@ -98,11 +98,44 @@ from .quant import unpack_int4
 
 _THREADS = 256  # block size of every launch (kThreads in common.cuh)
 _SMEM_FLOATS = 48 * 1024 // 4  # shared memory a block gets without opt-in
-_SMEM_OPTIN_FLOATS = 232448 // 4  # what it may opt in to on sm_90
+_SMEM_OPTIN_BYTES = 232448  # what it may opt in to on sm_90
+_SMEM_OPTIN_FLOATS = _SMEM_OPTIN_BYTES // 4
 ROW_GROUP = 32  # kRowGroup in decode_token_batched.cuh
 _HEAD_RING_FLOATS = 4 * 128 * 64 // 4  # kHeadRing in head.cuh
 _MAX_GRID_Z = 65535  # the attention grid's rows, one a z index
 _WDTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# a layer-stage block (csrc/decode_token_batched.cuh): 8 warps, each with a
+# cp.async ring of 4 stages of 64 bytes of 16 weight rows a tile
+_WARPS, _TILE_STAGES, _STAGE_BYTES, _LAYER_ROWS = 8, 4, 64, 16
+
+
+def act_row_bytes(k: int, itemsize: int = 4, q4: bool = False) -> int:
+    """Bytes of one activation row of ``k`` elements in a product's shared
+    memory (``act_rows`` in ``csrc/mma_rows.cuh``): the 64-byte stages that
+    cover a weight row of ``itemsize`` bytes an element (4 float32, 2
+    bfloat16, 1 int8; ``q4``: int4, two a byte), padded for the banks."""
+    wbytes = k // 2 if q4 else k * itemsize
+    span = -(-wbytes // _STAGE_BYTES) * _STAGE_BYTES
+    if itemsize == 4:
+        return (-(-span // 4 // 32) * 32 + 4) * 4
+    if q4:
+        return -(-2 * span // 128) * 128 + 16
+    return -(-span // 128) * 128 + 16
+
+
+def layer_smem_bytes(k: int, rows: int, tiles: int, itemsize: int = 4,
+                     q4: bool = False, norm_itemsize: int = 0) -> int:
+    """Dynamic shared memory of a layer-stage block (``layer_smem`` in
+    ``csrc/decode_token_batched.cuh``): ``tiles`` 16-row weight tiles
+    (gate/up: 2) streamed through each warp's 4-stage ring, and ``rows``
+    activation rows of ``k`` elements (:func:`act_row_bytes`). A stage
+    that normalises its rows (``norm_smem``: q/k/v, gate/up) also holds the
+    raw rows, 4 bytes an element, and the norm weights of
+    ``norm_itemsize`` bytes each (the weight type's)."""
+    raw = rows * k * 4 + -(-k * norm_itemsize // 16) * 16 \
+        if norm_itemsize else 0
+    return (_WARPS * _TILE_STAGES * tiles * _LAYER_ROWS * _STAGE_BYTES
+            + rows * act_row_bytes(k, itemsize, q4) + raw)
 
 
 def _heads_take(dim: int, n_heads: int, n_kv_heads=None) -> bool:
@@ -119,9 +152,11 @@ def kernel_takes(dim: int, n_heads: int, ffn: int, q4: bool = False,
                  n_kv_heads: int = None) -> bool:
     """Whether the CUDA kernel takes these model widths (``n_kv_heads``:
     the narrow cache's KV heads, None for MHA): the heads as
-    :func:`_heads_take` asks; the norm and projection blocks hold one D- or
-    F-wide activation vector plus a few reduction slots in shared memory;
-    int4 packs pairs of contraction rows, so ``q4`` needs D and F even."""
+    :func:`_heads_take`; max(D, F) plus 64 floats within the 48 KB a block
+    gets without opting in (the bound K1 has had from the start; K1 runs
+    K2's stages on one row, whose blocks fit their opt-in at these widths:
+    :func:`batched_kernel_takes` at B = 1); int4 packs pairs of contraction
+    rows, so ``q4`` needs D and F even."""
     return (_heads_take(dim, n_heads, n_kv_heads)
             and max(dim, ffn) + 64 <= _SMEM_FLOATS
             and not (q4 and (dim % 2 or ffn % 2)))
@@ -130,19 +165,22 @@ def kernel_takes(dim: int, n_heads: int, ffn: int, q4: bool = False,
 def batched_kernel_takes(dim: int, n_heads: int, ffn: int, batch: int,
                          q4: bool = False, n_kv_heads: int = None) -> bool:
     """Whether the batched CUDA kernel takes these widths and rows. Its
-    GEMV blocks each take one group of at most ``ROW_GROUP`` rows (a warp
-    keeps row b of its group's sums in lane b) and hold the group's
-    activation rows (D or F wide, float32) in shared memory, opting in above
-    48 KB, so min(B, 32) * max(D, F) plus a few reduction slots must fit
-    the 227 KB a block may opt in to, and so must the head block's weight
-    ring and its min(B, 32) activation rows of at most D + 36 floats
-    (``head_smem`` in ``csrc/head.cuh``); the attention grid has a row a z
-    index (B <= 65535); above that B is bounded by device memory only; the
-    heads as K1's; ``q4`` needs D and F even."""
+    blocks each take one group of at most ``ROW_GROUP`` rows and hold the
+    group's activation rows in shared memory beside their warps' weight
+    rings, opting in above 48 KB. So each layer stage's block must fit the
+    227 KB a block may opt in to (:func:`layer_smem_bytes` for float32
+    weights, whose rows are the widest: the gate/up stage's two tiles over
+    D-wide rows with the raw rows and norm weights, the down stage over
+    F-wide rows), and so must the head block's weight ring and its
+    min(B, 32) activation rows of at most D + 36 floats (``head_smem`` in
+    ``csrc/head.cuh``); the attention grid has a row a z index (B <=
+    65535); above that B is bounded by device memory only; the heads as
+    K1's; ``q4`` needs D and F even."""
     rows = min(batch, ROW_GROUP)
     return (_heads_take(dim, n_heads, n_kv_heads)
             and 1 <= batch <= _MAX_GRID_Z
-            and rows * max(dim, ffn) + 1024 <= _SMEM_OPTIN_FLOATS
+            and max(layer_smem_bytes(dim, rows, 2, norm_itemsize=4),
+                    layer_smem_bytes(ffn, rows, 1)) <= _SMEM_OPTIN_BYTES
             and _HEAD_RING_FLOATS + rows * (dim + 36) <= _SMEM_OPTIN_FLOATS
             and not (q4 and (dim % 2 or ffn % 2)))
 

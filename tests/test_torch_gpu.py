@@ -26,7 +26,12 @@ def model():
                  generator=torch.Generator().manual_seed(0)).eval()
 
 
-@pytest.mark.parametrize("pos", [0, 1, 17, 255, 1023, 1030])
+# positions around the 64-row attention blocks: one row, a full block, one
+# row more, and the same at 512 and at the cache's end (1030 acts as 1023)
+STAGE_POSITIONS = [0, 63, 64, 511, 512, 1023]
+
+
+@pytest.mark.parametrize("pos", [1, 17, 255, 1030] + STAGE_POSITIONS)
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "f32-int8",
                                  "bf16-int8", "bf16-int4"])
 def test_kernel_matches_plain(model, fmt, pos):
@@ -92,15 +97,16 @@ def test_cpu_inputs_never_launch(model):
     assert dsk.fused_decode_token.launches == before
 
 
-@pytest.mark.parametrize("batch", [4, 32, 1, 3, 8, 33, 64])
-@pytest.mark.parametrize("pos", [17, 1030])
+@pytest.mark.parametrize("batch", [4, 32, 1, 3, 8, 33, 64, 31])
+@pytest.mark.parametrize("pos", [17, 1030] + STAGE_POSITIONS)
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
                                  "bf16-int4", "f32-kv8", "bf16-kv8"])
 def test_batched_kernel_matches_plain(model, fmt, pos, batch):
-    """K2 with per-row starts (row 0 starting at pos), with float, int8 and
-    int4 layers and the int8 KV cache: tokens equal (float32 weights: every
-    row; bf16: at confident rows) and caches within chip_smoke's stated
-    tolerance."""
+    """K2 with per-row starts (row 0 starting at pos, so all its 64-row
+    blocks but the last are empty), with float, int8 and int4 layers and the
+    int8 KV cache, at n8 tiles of 1, 4 and 4 rows and one and two row
+    groups: tokens equal (float32 weights: every row; bf16: at confident
+    rows) and caches within chip_smoke's stated tolerance."""
     from chip_smoke import batched_vs_plain, cache_ok, fmt_of
 
     with torch.no_grad():
@@ -661,7 +667,7 @@ def test_head_and_step_cuda_inputs_never_fall_back(tiny):
         dsk.fused_decode_step(*args)
 
 
-@pytest.mark.parametrize("pos", [0, 17, 1023, 1030])
+@pytest.mark.parametrize("pos", [17, 1030] + STAGE_POSITIONS)
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "f32-int8",
                                  "bf16-int8", "bf16-int4"])
 def test_emit_logits_matches_plain_and_argmax_mode(model, fmt, pos):
@@ -676,17 +682,18 @@ def test_emit_logits_matches_plain_and_argmax_mode(model, fmt, pos):
     assert same and cerr <= cache_atol(fmt)
 
 
-@pytest.mark.parametrize("batch", [4, 32, 1, 3, 8, 33, 64])
+@pytest.mark.parametrize("batch", [4, 32, 1, 3, 8, 33, 64, 31])
+@pytest.mark.parametrize("pos", [1030, 0, 64, 512])
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
                                  "bf16-int4", "f32-kv8", "bf16-kv8"])
-def test_batched_emit_logits_matches_plain_and_argmax_mode(model, fmt,
+def test_batched_emit_logits_matches_plain_and_argmax_mode(model, fmt, pos,
                                                            batch):
     """K2's emit_logits mode with per-row starts, in every K2 format."""
     from chip_smoke import batched_emit_vs_plain, cache_ok, emit_ok
 
     with torch.no_grad():
         err, scale, same, cerr = batched_emit_vs_plain(model, fmt, batch,
-                                                       1030)
+                                                       pos)
     assert emit_ok(fmt, err, scale), (err, scale)
     assert same and cache_ok(fmt, cerr), cerr
 
@@ -723,7 +730,7 @@ def gqa():
                  generator=torch.Generator().manual_seed(0)).eval()
 
 
-@pytest.mark.parametrize("pos", [0, 17, 1023, 1030])
+@pytest.mark.parametrize("pos", [17, 1030] + STAGE_POSITIONS)
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "f32-int8",
                                  "bf16-int8", "bf16-int4"])
 def test_narrow_kernel_matches_plain(gqa, fmt, pos):
@@ -742,7 +749,7 @@ def test_narrow_kernel_matches_plain(gqa, fmt, pos):
     assert emit_ok(fmt, eerr, scale) and same, (eerr, scale)
 
 
-@pytest.mark.parametrize("batch", [4, 32, 1, 3, 8, 33, 64])
+@pytest.mark.parametrize("batch", [4, 32, 1, 3, 8, 33, 64, 31])
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
                                  "bf16-int4", "f32-kv8", "bf16-kv8"])
 def test_narrow_batched_kernel_matches_plain(gqa, fmt, batch):
@@ -914,3 +921,81 @@ def test_head_stage_and_flash_forward_are_deterministic(model, gpu, dtype):
     (o1, l1), (o2, l2) = fa.flash_attention_fwd(q, k, v), \
         fa.flash_attention_fwd(q, k, v)
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+# ------------- the layer stages on the tensor cores (K1 and K2) --------------
+@pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8", "bf16-int4",
+                                 "bf16-kv8"])
+def test_layer_stages_are_deterministic(model, fmt):
+    """One step twice on the same inputs gives the same bits: K2 at B = 40
+    (two row groups, per-row starts) its logits and caches, K1 its logits
+    and caches. The warps' sums and the attention merges run in an order
+    the code fixes, and the merge counters start at zero every layer."""
+    from chip_smoke import (KV8_FORMATS, batched_args, batched_caches,
+                            fmt_of, step_args)
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    w = model._fused_weights(*fmt_of(fmt))
+    starts = [(37 * b) % 700 for b in range(40)]
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            ck, cv = batched_caches(model, fmt, 6, 40)
+            args, kw = batched_args(model, w, ck, cv, 700, range(300, 340),
+                                    starts)
+            lg = dsk.fused_decode_token_batched(*args, emit_logits=True, **kw)
+            runs.append((lg, ck, cv))
+        (l1, k1, v1), (l2, k2, v2) = runs
+        assert torch.equal(l1, l2)
+        for a, b in ((k1, k2), (v1, v2)):
+            for x, y in zip(*(t if fmt in KV8_FORMATS else (t,)
+                              for t in (a, b))):
+                assert torch.equal(x, y)
+        if fmt in KV8_FORMATS:
+            return
+        runs = []
+        for _ in range(2):
+            ck, cv = batched_caches(model, fmt, 7, 1)
+            ck, cv = ck[:, 0].contiguous(), cv[:, 0].contiguous()
+            args, kw = step_args(model, w, ck, cv, 700, 321)
+            runs.append((dsk.fused_decode_token(*args, emit_logits=True,
+                                                **kw), ck, cv))
+        (l1, k1, v1), (l2, k2, v2) = runs
+        assert torch.equal(l1, l2) and torch.equal(k1, k2) and \
+            torch.equal(v1, v2)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+def test_quantized_layer_products_are_the_plain_bits(model, quant):
+    """The int8 and int4 layer products on the tensor cores sum exactly in
+    int32 and rescale as the plain version does, so on the same prepared
+    rows they are its bits. Observed where the rows are the same bits in
+    both: layer 0's k and v products, which the step writes to the caches
+    (float32 weights and caches; embedding rows of +-1/4, whose RMSNorm is
+    exact in any summation order; at position 0, whose rotation is the
+    identity), at B = 1, 3, 8 and 33 (K2) and through K1."""
+    from chip_smoke import batched_args, random_caches, step_args
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    w = dict(model._fused_weights(torch.float32, quant))
+    g = torch.Generator(device="cuda").manual_seed(9)
+    signs = torch.randint(0, 2, w["tok"].shape, generator=g, device="cuda")
+    w["tok"] = ((signs * 2 - 1) * 0.25).to(w["tok"].dtype)
+    with torch.no_grad():
+        for batch in (1, 3, 8, 33):
+            ck, cv = random_caches(model, torch.float32, 3, batch)
+            rck, rcv = ck.clone(), cv.clone()
+            toks = [(11 + 97 * b) % model.vocab_size for b in range(batch)]
+            args, kw = batched_args(model, w, ck, cv, 0, toks)
+            dsk.fused_decode_token_batched(*args, **kw)
+            rargs, rkw = batched_args(model, w, rck, rcv, 0, toks)
+            dsk.decode_token_batched_logits_ref(*rargs, **rkw)
+            assert torch.equal(ck[0, :, 0], rck[0, :, 0]), batch
+            assert torch.equal(cv[0, :, 0], rcv[0, :, 0]), batch
+        ck, cv = random_caches(model, torch.float32, 4)
+        rck, rcv = ck.clone(), cv.clone()
+        args, kw = step_args(model, w, ck, cv, 0, toks[0])
+        dsk.fused_decode_token(*args, **kw)
+        dsk.decode_token_logits_ref(*args[:-2], rck, rcv, **kw)
+        assert torch.equal(ck[0, 0], rck[0, 0])
+        assert torch.equal(cv[0, 0], rcv[0, 0])
