@@ -4,6 +4,7 @@ another one, and compare two checkouts in turns on one card.
     python3 kernel_times.py                      # this checkout
     python3 kernel_times.py --tree DIR           # the checkout at DIR
     python3 kernel_times.py --compare DIR        # DIR, this, this, DIR
+    python3 kernel_times.py --compare DIR --request  # and the 7B request
 
 Each run imports ``pydynet_tpu_torch`` from its checkout (which builds its
 own kernels into its ``build/``) and times, with the card's name and power
@@ -11,6 +12,17 @@ limit in one JSON line of microseconds:
 
 * K6: ``qmatmul`` on (4096, 22016) Llama-2-7B gate/up weights at M = 256
   rows by CUDA-graph replay (int8 and int4);
+* K5/K7: the whole decode call at Llama-2-7B's five shapes (fused qkv, wo,
+  fused gate/up, down: ``qmatmul_stacked`` over 32 stacked layers with a
+  device index; the head: ``qmatmul`` over 4 copies), int8 and int4, M = 1
+  and 4 bfloat16 rows, by CUDA-graph replay of a pass over the layers (so
+  each call finds its weights cold in L2), with each shape's byte bound
+  and, as a yardstick of the read rate the card reaches, a PyTorch
+  reduction (``max``) over the same weight bytes as int32; where the
+  checkout has routes to pick (``gemv_quant._ROUTES``), also, at every
+  shape and M = 1 to 32, each route on the same rows: the decode kernel
+  with its fused row quantization, with ``quantize_rows`` first, and
+  ``quantize_rows`` with the prefill kernel (K6);
 * K3 and K4: the flash forward and the two backward wrappers on float32
   (B, 1024, 6, 48) at B = 1 and 8 by CUDA events, beside
   ``F.scaled_dot_product_attention(is_causal=True)``'s forward;
@@ -26,6 +38,12 @@ limit in one JSON line of microseconds:
 * ``F.linear(h, head_w, head_b)`` and ``torch.argmax(F.linear(...), -1)``
   on the bf16 head at B = 1, 8 and 32, the head stage's yardsticks.
 
+With ``--request``, also a Llama-2-7B-geometry model (32 layers, bf16,
+seeded random weights) on the scan lane: the B=1 request of 64 tokens from
+a 4-token prompt in int8 and int4, the formats in turns, ms a token (the
+request's wall time over its tokens) of 5 runs each: median, least and
+most. It is host-bound, so it moves with the launches a token.
+
 ``--compare`` runs the two checkouts in separate processes, in the order
 DIR, this, this, DIR, and prints each time side by side. Needs a CUDA GPU.
 """
@@ -35,6 +53,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -74,7 +93,49 @@ def events_us(fn, n=50):
     return start.elapsed_time(end) / n * 1e3
 
 
-def measure(tree: Path) -> dict:
+# the --request timing: Llama-2-7B's geometry, a prompt, the tokens a
+# request makes (the prefill's among them) and the timed runs a format
+LLAMA2_7B = dict(vocab_size=32000, embed_dim=4096, n_heads=32, ffn_dim=11008,
+                 max_seq_len=1024, max_batch_size=1, n_layers=32)
+REQUEST_PROMPT = [[1, 243, 532, 991]]
+REQUEST_NEW, REQUEST_RUNS = 64, 5
+
+
+def request_times() -> dict:
+    """The 7B request's ms a token on the scan lane (module doc)."""
+    import numpy as np
+    import torch
+    from pydynet_tpu_torch.models.llama import Llama
+
+    bf16 = torch.bfloat16
+    model = Llama(**LLAMA2_7B, dtype=bf16, device="cuda",
+                  generator=torch.Generator().manual_seed(0)).eval()
+    prompt = np.array(REQUEST_PROMPT)
+    total = prompt.shape[1] + REQUEST_NEW
+    ms = {"int8": [], "int4": []}
+    with torch.no_grad():
+        for quant in ms:  # warm-up: the weight snapshots
+            list(model.generate(prompt, prompt.shape[1] + 2, dtype=bf16,
+                                quant=quant))
+        for _ in range(REQUEST_RUNS):
+            for quant, runs in ms.items():
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                n = sum(1 for _ in model.generate(prompt, total, dtype=bf16,
+                                                  quant=quant))
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - start) / n * 1e3)
+    out = {}
+    for quant, runs in ms.items():
+        key = f"7B request {quant} ms a token"
+        out[key + " median"] = float(np.median(runs))
+        out[key + " least"], out[key + " most"] = min(runs), max(runs)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def measure(tree: Path, request: bool = False) -> dict:
     """The kernels of the checkout at ``tree``, timed on the card."""
     sys.path.insert(0, str(tree))
     import torch
@@ -116,7 +177,65 @@ def measure(tree: Path) -> dict:
             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dd))
         out[f"K4 dk/dv f32 ({B}, 1024, 6, 48)"] = events_us(
             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd))
+    out.update(qmm_times())
     out.update(decode_times())
+    if request:
+        out.update(request_times())
+    return out
+
+
+HBM_BYTES_S = 3.35e12  # an H100 SXM's memory rate
+# Llama-2-7B's decode products: (name, K, N, stacked)
+QMM_7B = (("wqkv", 4096, 12288, True), ("wo", 4096, 4096, True),
+          ("wgu", 4096, 22016, True), ("down", 11008, 4096, True),
+          ("head", 4096, 32000, False))
+LAYERS, HEADS = 32, 4  # stacked layers, head copies cycled
+
+
+def qmm_times() -> dict:
+    """K5/K7's decode calls at Llama-2-7B's shapes (module doc): us a call
+    and the byte bound (x, the weights and scales read once, the float32
+    result written once), and each route's time where there are routes."""
+    import torch
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    out = {}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    routes = getattr(gq, "_ROUTES", ())  # a checkout with routes to pick
+    for name, K, N, stacked in QMM_7B:
+        for q4 in (False, True):
+            fmt = "int4" if q4 else "int8"
+            n = LAYERS if stacked else HEADS
+            w = torch.randint(-128, 128, (n, K // 2 if q4 else K, N),
+                              generator=g, device="cuda", dtype=torch.int8)
+            ws = torch.rand((n, 1, N), generator=g, device="cuda") * 1e-3
+            ids = torch.arange(n, dtype=torch.int32, device="cuda")
+            wi = w.view(torch.int32)
+            out[f"K5/K7 {fmt} {name} ({K}, {N}) torch read"] = graph_us(
+                lambda: [wi[i].max() for i in range(n)]) / n
+            rows = (1, 2, 3, 4, 6, 8, 16, 32) if routes else (1, 4)
+            for M in rows:
+                x = (torch.randn((M, K), generator=g, device="cuda") * 3).to(
+                    torch.bfloat16)
+                if stacked:
+                    call = lambda i: gq.qmatmul_stacked(x, w, ws, ids[i],
+                                                        q4=q4)
+                else:
+                    call = lambda i: gq.qmatmul(x, w[i], ws[i], q4=q4)
+                key = f"K5/K7 {fmt} {name} ({K}, {N}) M={M}"
+                if M in (1, 4):
+                    out[key] = graph_us(
+                        lambda: [call(i) for i in range(n)]) / n
+                    out[key + " bound"] = (
+                        x.numel() * 2 + w[0].numel() + 4 * N + 4 * M * N) \
+                        / HBM_BYTES_S * 1e6
+                for route in routes:
+                    out[f"{key} {route}"] = graph_us(lambda: [
+                        gq._product(x, w, ws, q4, ids[i], n, route)
+                        if stacked else
+                        gq._product(x, w[i], ws[i], q4, 0, 1, route)
+                        for i in range(n)]) / n
+            del w, ws
     return out
 
 
@@ -208,11 +327,12 @@ def decode_times() -> dict:
     return out
 
 
-def compare(other: Path) -> None:
+def compare(other: Path, request: bool = False) -> None:
     runs = []
     for tree in (other, HERE, HERE, other):
         proc = subprocess.run([sys.executable, __file__, "--tree",
-                               str(tree)], capture_output=True, text=True)
+                               str(tree)] + ["--request"] * request,
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"{tree}: {proc.stdout}{proc.stderr}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
@@ -231,11 +351,13 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", type=Path, default=HERE)
     ap.add_argument("--compare", type=Path)
+    ap.add_argument("--request", action="store_true",
+                    help="also time the 7B request (module doc)")
     args = ap.parse_args(argv)
     if args.compare is not None:
-        compare(args.compare.resolve())
+        compare(args.compare.resolve(), args.request)
     else:
-        print(json.dumps(measure(args.tree.resolve())))
+        print(json.dumps(measure(args.tree.resolve(), args.request)))
 
 
 if __name__ == "__main__":

@@ -14,9 +14,9 @@
 //     themselves and offset the weight and scale pointers, so no call
 //     slices or copies the stacked weights.
 // `quantize_rows_kernel` is the activation quantization that the JAX package
-// leaves to XLA around the Pallas call (:309-315): a kernel here because as
-// about six torch ops a matmul it would cost more launches than the
-// matmuls themselves (4 matmuls x 32 layers a 7B token).
+// leaves to XLA around the Pallas call (:309-315). The decode kernel does it
+// itself (one launch a call); the prefill kernel's rows are quantized by
+// `quantize_rows_kernel` first.
 //
 // The arithmetic is the JAX package's, bit for bit (`qmatmul_ref` :453):
 //   amax = max(max_k |x[m, k]|, 1e-30); xq = rint(x * (127 / amax)) as int8;
@@ -24,9 +24,9 @@
 //   out[m, n] = (float(acc) * ws[n]) * sx[m].
 // rint is round half to even (`jnp.round`); 127 / amax is an IEEE division
 // (no fast math: the build passes no --use_fast_math); the two products of
-// the epilogue are rounded in that order. int32 sums are exact in any
-// order, so splitting K over blocks and adding with atomics gives the same
-// bits as one sequential sum.
+// the epilogue are rounded in that order. A max and an int32 sum are exact
+// in any order, so splitting K over blocks gives the same bits as one
+// sequential pass.
 //
 // Layouts (the JAX package's, kept at the public function): x (M, K)
 // float32 or bfloat16; w (K, N) int8, or (K/2, N) int4 packed two a byte
@@ -39,24 +39,40 @@
 // for a handful of rows, about 2 operations a byte, far below the ~600 int8
 // operations a byte where the card's arithmetic would bind. So K5/K7 are
 // bound by the weight bytes over 3.35 TB/s (a Llama-2-7B int8 token is
-// 6.6 GB of weights, 1.97 ms). The decode kernel's design for that:
-//   * neighbouring threads own neighbouring 4-column words of a weight row,
-//     so a warp reads 128 contiguous bytes a row, and every weight byte is
-//     read from device memory once a call, for all M rows;
-//   * blocks split K as well as N, so N = 4096 (wo, down) still puts about
-//     1024 blocks on 132 SMs; each block reduces its warps' int32 partial
-//     sums in shared memory, adds them to an int32 (M, N) buffer with
-//     atomics, and the last block of a column tile (a counter) writes the
-//     float32 epilogue, so the call is one launch after the quantization;
-//   * four rows of a thread's word are transposed with `__byte_perm` into
-//     one word a column, so one `__dp4a` does 4 multiply-adds of a column;
-//     int4 nibbles are unpacked a word at a time (mask, xor 8, per-byte
-//     subtract 8 with `__vsub4`: the signed nibble, as `(p << 28) >> 28`
-//     and `p >> 4` give it);
-//   * the activations of the block's K slice wait in shared memory (a warp
-//     reads the same word: a broadcast), and rows are held in registers 8
-//     at a time (at M = 32, 4 columns x 32 rows of sums would spill), the
-//     weights of later row tiles coming from L1.
+// 6.6 GB of weights, 1.97 ms). The decode kernel (M <= 32 rows) is one
+// launch that reads the float rows and the weights and writes the float32
+// result, with no scratch in device memory:
+//   * a block owns 128 columns (lane l of a warp the 4-column word l) and a
+//     K slice of `slice` packed weight rows; the blocks that split K for
+//     one column tile are a thread-block cluster (at most 8, `ops/
+//     gemv_quant.decode_plan` picks the split so every 7B shape puts 256 to
+//     500 blocks on the 132 SMs);
+//   * the weights stream through a ring of 64-row stages (8 KB) in shared
+//     memory by 16-byte `cp.async.cg` (not kept in L1; 4-byte copies when N
+//     is no multiple of 16), 3 stages deep (deeper rings measured slower),
+//     the first ones in flight while the rows are quantized;
+//   * the row quantization is fused: each block loads its K slice of the
+//     rows first (16-byte (f32) or 8-byte (bf16) loads, into registers up
+//     to 4 rows, before the weight loads, which they would otherwise queue
+//     behind), takes each row's absmax over it, the cluster exchanges the
+//     partial maxima through distributed shared memory (`map_shared_rank`
+//     after `cluster.sync()`), and each block quantizes its slice into
+//     shared memory. Nothing is written to device memory but the result;
+//   * 4 rows of a lane's word are transposed with `__byte_perm` into one
+//     word a column, so one `__dp4a` does 4 multiply-adds of a column; int4
+//     nibbles are shifted into the high half of their byte (16 x the
+//     signed nibble, two operations a word) and the sum divided by 16,
+//     exact, at the end;
+//   * warps split the stage's 4-row groups and, above 8 rows, the rows
+//     (tiles of up to 8 rows a warp, at most 32 int32 sums a thread); the
+//     warps' sums meet in shared memory; each block of the cluster owns a
+//     share of the columns, and every block stores its sums of each share
+//     into the owner's shared memory (distributed shared memory, 16 bytes a
+//     store); after one `cluster.sync()` each block adds them and writes
+//     the float32 epilogue of its own share. So a call depends on no state
+//     it does not make itself, and can be captured in a CUDA graph.
+// The same kernel also takes rows quantized beforehand (int8 with their
+// scales), the route `ops/gemv_quant.py` takes above FUSED_QUANT_MAX_ROWS.
 // The prefill kernel (M > 32) does 2 M K N int8 operations on K N weight
 // bytes: at M = 256 and (4096, 22016) that is 46 G operations against
 // 90 MB, about 23 us on the int8 tensor cores (1,979 TOP/s) and 27 us of
@@ -93,16 +109,28 @@
 // `wgmma` (a warpgroup reading B from shared memory, which would need the
 // K-major tile written there first) and TMA are the next step.
 
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kQThreads = 256;
-constexpr int kQWarps = kQThreads / 32;
-constexpr int kTileCols = 128;        // columns of a block: 32 lanes x 4
+constexpr int kDThreads = 256;        // decode block: 8 warps
+constexpr int kDWarps = kDThreads / 32;
+constexpr int kDCols = 128;           // columns of a block: 32 lanes x 4
+constexpr int kDStageRows = 64;       // packed weight rows a ring stage
+constexpr int kDMaxStages = 4;        // stages of the weight ring, at most
+constexpr int kXRegs = 8;             // 4-element groups of x a thread holds
+constexpr int kDStageBytes = kDStageRows * kDCols;
+constexpr int kMaxCluster = 8;        // a portable cluster
 constexpr int kMaxDecodeRows = 32;    // ops/gemv_quant.py MAX_DECODE_ROWS
-constexpr int kMaxSlice = 256;        // packed weight rows of a K slice
-constexpr int kTargetBlocks = 1024;   // about 8 blocks an SM on 132 SMs
+constexpr int kSmemMax = 232448;      // 227 KB, a block's shared memory
+// x of the decode kernel: float32 or bfloat16 rows it quantizes itself, or
+// int8 rows quantized beforehand with their scales
+constexpr int kXF32 = 0, kXBF16 = 1, kXInt8 = 2;
 constexpr int kPM = 64, kPN = 128;   // prefill tile: rows, columns
 constexpr int kPThreads = 128;        // prefill block: 4 warps x 32 columns
 constexpr int kPK = 64;               // packed weight rows a prefill stage
@@ -131,10 +159,6 @@ __device__ __forceinline__ void transpose4(unsigned r0, unsigned r1,
   c[3] = (int)__byte_perm(e, f, 0x7632);
 }
 
-__device__ __forceinline__ unsigned load_word(const int8_t* w, size_t off) {
-  return __ldg(reinterpret_cast<const unsigned*>(w + off));
-}
-
 __device__ __forceinline__ float epilogue(int acc, float ws, float sx) {
   return __fmul_rn(__fmul_rn((float)acc, ws), sx);
 }
@@ -157,128 +181,369 @@ quantize_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ xq,
   if (threadIdx.x == 0) sx[blockIdx.x] = __fmul_rn(amax, 1.0f / 127.0f);
 }
 
-// Packed weight rows a decode block takes: enough K splits for about
-// kTargetBlocks blocks, a multiple of 32 (8 warps x 4 rows), at most
-// kMaxSlice.
-int decode_slice(int Kst, int N) {
-  const int tiles = (N + kTileCols - 1) / kTileCols;
-  const int want = (kTargetBlocks + tiles - 1) / tiles;
-  int slice = (Kst + want - 1) / want;
-  slice = (slice + 31) / 32 * 32;
-  return slice > kMaxSlice ? kMaxSlice : slice;
+// Columns of a block's tile whose epilogue each block of a cluster of
+// `cluster` writes: a multiple of 4
+__host__ __device__ constexpr int decode_share(int cluster) {
+  return 4 * ((kDCols / 4 + cluster - 1) / cluster);
 }
 
-// Decode rows (M <= 32). Block (tile, s): columns [128 tile, 128 tile + 128)
-// and packed weight rows [s * slice, s * slice + slice); warp w takes the
-// groups of 4 rows w, w + 8, ...; lane l owns columns 4l..4l+3 of the tile.
-// Rows are computed MT at a time. Shared memory: the block's int32 sums
-// (M x 128) and its K slice of xq (two halves for int4), zero-padded.
-template <int MT, bool Q4>
-__global__ void __launch_bounds__(kQThreads)
-qmm_decode_kernel(const int8_t* __restrict__ xq, const float* __restrict__ sx,
+// Bytes of dynamic shared memory of a decode block: the weight ring of
+// `stages` stages, the int32 sums of its `mpad` rows x 128 columns, a
+// chunk of `chunk` packed rows of its int8 rows (two halves for int4) and
+// the sums its cluster's blocks send it for its share of the columns.
+// `decode_plan` in ops/gemv_quant.py mirrors it.
+__host__ __device__ constexpr int decode_smem(int stages, int mpad,
+                                              int halves, int chunk,
+                                              int cluster) {
+  return stages * kDStageBytes + mpad * kDCols * 4 + halves * mpad * chunk +
+         cluster * mpad * decode_share(cluster) * 4;
+}
+
+// cp.async.wait_group with a run-time count (the ring's depth is the
+// plan's): every group but the newest n is complete
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    default: cp_async_wait<kDMaxStages - 2>(); break;
+  }
+}
+
+// Copy packed weight rows [r0, r0 + kDStageRows), columns [col0, col0 + 128)
+// into stage `s` (row r at r * 128), zero past `rend` and N: 16-byte
+// cp.async.cg when `wvec` (N a multiple of 16, w 16-byte aligned), else
+// 4-byte copies.
+__device__ __forceinline__ void load_stage(int8_t* s, const int8_t* w, int r0,
+                                           int rend, int col0, int N,
+                                           bool wvec) {
+  if (wvec) {  // 8 chunks a row, 32 rows a pass
+    const int c = threadIdx.x & 7;
+#pragma unroll
+    for (int r = threadIdx.x >> 3; r < kDStageRows; r += kDThreads / 8) {
+      const bool ok = r0 + r < rend && col0 + 16 * c < N;
+      cp_async16(smem_u32(s + r * kDCols + 16 * c),
+                 ok ? w + (size_t)(r0 + r) * N + col0 + 16 * c : w,
+                 ok ? 16 : 0);
+    }
+    return;
+  }
+  const int wd = threadIdx.x & 31;  // 32 words a row, 8 rows a pass
+#pragma unroll
+  for (int r = threadIdx.x >> 5; r < kDStageRows; r += kDThreads / 32) {
+    const bool ok = r0 + r < rend && col0 + 4 * wd < N;
+    cp_async4(smem_u32(s + r * kDCols + 4 * wd),
+              ok ? w + (size_t)(r0 + r) * N + col0 + 4 * wd : w,
+              ok ? 4 : 0);
+  }
+}
+
+// x[0..3] as float32, 0 past the first `n`: one 16-byte (f32) or 8-byte
+// (bf16) load when `vec` (aligned) and all 4 are there
+__device__ __forceinline__ void load4(const float* p, int n, bool vec,
+                                      float (&v)[4]) {
+  if (vec && n >= 4) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = i < n ? __ldg(p + i) : 0.f;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, int n, bool vec,
+                                      float (&v)[4]) {
+  if (vec && n >= 4) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = __bfloat162float(e[i]);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = i < n ? __bfloat162float(p[i]) : 0.f;
+}
+
+// rint(v * q) as an int8 byte: the reference's IEEE product, then round
+// half to even
+__device__ __forceinline__ unsigned quant_byte(float v, float q) {
+  return (unsigned)__float2int_rn(__fmul_rn(v, q)) & 0xffu;
+}
+
+// 4 int8 rows of x quantized beforehand, as one word (little-endian), 0
+// past the first `n`
+__device__ __forceinline__ unsigned load4_i8(const int8_t* p, int n,
+                                             bool vec) {
+  if (vec && n >= 4) return __ldg(reinterpret_cast<const unsigned*>(p));
+  unsigned u = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < n) u |= ((unsigned)(uint8_t)p[i]) << (8 * i);
+  return u;
+}
+
+// Decode rows (M <= 32), one launch. Grid (cluster, column tiles), cluster
+// (cluster, 1, 1): block (r, t) takes columns [128 t, 128 t + 128) and
+// packed weight rows [r * slice, r * slice + slice) of layer *idx. Warp w
+// takes row tile w / (8 / wm) (MT rows) and the 4-row groups w % (8 / wm),
+// + 8 / wm, ... of each stage; lane l the columns 4l..4l+3. XT float or
+// bfloat16: the rows, quantized here (sx unused); int8: rows quantized
+// beforehand, with their scales sx.
+template <int MT, bool Q4, typename XT>
+__global__ void __launch_bounds__(kDThreads)
+qmm_decode_kernel(const XT* __restrict__ x, const float* __restrict__ sx,
                   const int8_t* __restrict__ w, const float* __restrict__ ws,
                   const int* __restrict__ idx, int idx_host, int L,
-                  int* __restrict__ acc, unsigned* __restrict__ count,
-                  float* __restrict__ out, int M, int K, int N, int slice) {
-  extern __shared__ int s_dyn[];
-  __shared__ bool s_last;
+                  float* __restrict__ out, int M, int K, int N, int slice,
+                  int chunk, int wm, int stages) {
+  extern __shared__ __align__(16) int8_t s_dyn[];
+  __shared__ float s_amax[kMaxDecodeRows], s_q[kMaxDecodeRows],
+      s_sx[kMaxDecodeRows];
+  constexpr bool kFused = !std::is_same<XT, int8_t>::value;
   constexpr int kHalves = Q4 ? 2 : 1;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int C = (int)cluster.num_blocks();
   const int Kst = Q4 ? K / 2 : K;
   const int layer = layer_of(idx, idx_host, L);
   w += (size_t)layer * Kst * N;
   ws += (size_t)layer * N;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col0 = blockIdx.x * kTileCols;
-  const int n0 = col0 + 4 * lane;
-  const int k0 = blockIdx.y * slice;
-  const int rows = min(slice, Kst - k0);
-  const int Mpad = (M + MT - 1) / MT * MT;
+  const int col0 = blockIdx.y * kDCols;
+  const int k0 = rank * slice;
+  const int rows = max(0, min(slice, Kst - k0));  // this block's K slice
+  const int mpad = MT * wm;
+  const int steps = (rows + kDStageRows - 1) / kDStageRows;
+  int8_t* s_ring = s_dyn;
+  int* s_acc = reinterpret_cast<int*>(s_dyn + stages * kDStageBytes);
+  int8_t* s_x = reinterpret_cast<int8_t*>(s_acc + mpad * kDCols);
+  const int share = decode_share(C);
+  int* s_part = reinterpret_cast<int*>(s_x + kHalves * mpad * chunk);
 
-  int* s_acc = s_dyn;                                  // [M][128]
-  int8_t* s_x = reinterpret_cast<int8_t*>(s_acc + M * kTileCols);
-  for (int i = threadIdx.x; i < M * kTileCols; i += kQThreads) s_acc[i] = 0;
-  // s_x[h][m][j] = xq[m, h * Kst + k0 + j], 0 past the slice or past M
-  for (int i = threadIdx.x; i < kHalves * Mpad * slice; i += kQThreads) {
-    const int j = i % slice, m = (i / slice) % Mpad, h = i / (slice * Mpad);
-    s_x[i] = (m < M && j < rows)
-                 ? xq[(size_t)m * K + (size_t)h * Kst + k0 + j]
-                 : (int8_t)0;
+  // whole 4-element groups of a row are aligned when K and Kst are
+  // multiples of 4 and x is aligned to 4 elements
+  const bool xvec = K % 4 == 0 && Kst % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(x) % (4 * sizeof(XT))) == 0;
+  // s_x[h][m][j] = xq[m, h * Kst + k0 + c0 + j] for j < chunk, 0 past the
+  // slice and for the padding rows m >= M
+  auto fill = [&](int c0) {
+    const int n = min(chunk, rows - c0);
+    const int words = chunk / 4;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kHalves * mpad * words; i += kDThreads) {
+      const int jw = i % words, m = (i / words) % mpad;
+      const int h = i / (words * mpad);
+      const int j = 4 * jw;
+      unsigned word = 0;
+      if (m < M && j < n) {
+        const XT* src = x + (size_t)m * K + (size_t)h * Kst + k0 + c0 + j;
+        if constexpr (kFused) {
+          float v[4];
+          load4(src, n - j, xvec, v);
+          const float q = s_q[m];
+          word = quant_byte(v[0], q) | quant_byte(v[1], q) << 8 |
+                 quant_byte(v[2], q) << 16 | quant_byte(v[3], q) << 24;
+        } else {
+          word = load4_i8(src, n - j, xvec);
+        }
+      }
+      *reinterpret_cast<unsigned*>(s_x + (size_t)(h * mpad + m) * chunk + j) =
+          word;
+    }
+  };
+  // the weights: stages - 1 stages in flight, issued after the loads of
+  // the rows, which would otherwise wait behind them
+  const bool wvec = N % 16 == 0 &&
+                    (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  auto prefetch = [&]() {
+    for (int s = 0; s < stages - 1; ++s) {
+      if (s < steps)
+        load_stage(s_ring + s * kDStageBytes, w, k0 + s * kDStageRows,
+                   k0 + rows, col0, N, wvec);
+      cp_async_commit();
+    }
+  };
+
+  if constexpr (kFused) {
+    // each row's absmax over this block's slice (8 / M warps a row up to 8
+    // rows; maxima of non-negative floats meet as int32 atomicMax), then
+    // over the cluster's slices, which cover the row. Up to 4 rows, when
+    // the slice is one chunk, a thread's share of the rows stays in
+    // registers from the absmax to the quantization; else `fill` reads the
+    // rows again.
+    if ((int)threadIdx.x < M) s_amax[threadIdx.x] = 0.f;
+    __syncthreads();
+    const int wpr = kDWarps / min(M, kDWarps);  // warps a row
+    const int seg = 4 * (lane + 32 * (warp % wpr));
+    const int per_h = (rows + 128 * wpr - 1) / (128 * wpr);
+    const bool in_regs = M <= 4 && kHalves * per_h <= kXRegs && chunk >= rows;
+    const int mr = warp / wpr;  // the warp's first row
+    float xr[kXRegs][4];
+    if (in_regs) {
+#pragma unroll
+      for (int t = 0; t < kXRegs; ++t) {
+        const int h = t / per_h, j = seg + (t % per_h) * 128 * wpr;
+        if (mr < M && h < kHalves && j < rows)
+          load4(x + (size_t)mr * K + (size_t)h * Kst + k0 + j, rows - j,
+                xvec, xr[t]);
+        else
+          xr[t][0] = xr[t][1] = xr[t][2] = xr[t][3] = 0.f;
+      }
+    }
+    prefetch();
+    for (int m = mr; m < M; m += kDWarps / wpr) {
+      float a = 0.f;
+      if (in_regs) {
+#pragma unroll
+        for (int t = 0; t < kXRegs; ++t)
+          a = fmaxf(a, fmaxf(fmaxf(fabsf(xr[t][0]), fabsf(xr[t][1])),
+                             fmaxf(fabsf(xr[t][2]), fabsf(xr[t][3]))));
+      } else {
+#pragma unroll
+        for (int h = 0; h < kHalves; ++h) {
+          const XT* row = x + (size_t)m * K + (size_t)h * Kst + k0;
+#pragma unroll 4
+          for (int j = seg; j < rows; j += 128 * wpr) {
+            float v[4];
+            load4(row + j, rows - j, xvec, v);
+            a = fmaxf(a, fmaxf(fmaxf(fabsf(v[0]), fabsf(v[1])),
+                               fmaxf(fabsf(v[2]), fabsf(v[3]))));
+          }
+        }
+      }
+      a = warp_max(a);
+      if (lane == 0)
+        atomicMax(reinterpret_cast<int*>(s_amax) + m, __float_as_int(a));
+    }
+    cluster.sync();
+    if ((int)threadIdx.x < M) {
+      float a = 0.f;
+      for (int r = 0; r < C; ++r)
+        a = fmaxf(a, cluster.map_shared_rank(s_amax, r)[threadIdx.x]);
+      a = fmaxf(a, 1e-30f);
+      s_q[threadIdx.x] = __fdiv_rn(127.0f, a);
+      s_sx[threadIdx.x] = __fmul_rn(a, 1.0f / 127.0f);
+    }
+    __syncthreads();
+    if (in_regs) {  // the registers' words, and zeros for the rest of s_x
+      if (mr < M) {
+        const float q = s_q[mr];
+#pragma unroll
+        for (int t = 0; t < kXRegs; ++t) {
+          const int h = t / per_h, j = seg + (t % per_h) * 128 * wpr;
+          if (h < kHalves && j < rows)
+            *reinterpret_cast<unsigned*>(
+                s_x + (size_t)(h * mpad + mr) * chunk + j) =
+                quant_byte(xr[t][0], q) | quant_byte(xr[t][1], q) << 8 |
+                quant_byte(xr[t][2], q) << 16 | quant_byte(xr[t][3], q) << 24;
+        }
+      }
+      const int words = chunk / 4;
+      for (int i = threadIdx.x; i < kHalves * mpad * words; i += kDThreads) {
+        const int j = 4 * (i % words), m = (i / words) % mpad;
+        if (m >= M || j >= rows)
+          *reinterpret_cast<unsigned*>(s_x + (size_t)(i / words) * chunk +
+                                       j) = 0u;
+      }
+    } else {
+      fill(0);
+    }
+  } else {
+    if ((int)threadIdx.x < M) s_sx[threadIdx.x] = sx[threadIdx.x];
+    fill(0);
+    prefetch();
   }
-  __syncthreads();
+  for (int i = threadIdx.x; i < mpad * kDCols; i += kDThreads) s_acc[i] = 0;
 
-  for (int mt0 = 0; mt0 < M; mt0 += MT) {
-    int a[MT][4];
+  const int wk = kDWarps / wm;  // warps along K
+  const int kw = warp % wk, m0 = (warp / wk) * MT;
+  int acc[MT][4];
 #pragma unroll
-    for (int m = 0; m < MT; ++m)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) a[m][c] = 0;
-#pragma unroll 2
-    for (int g = warp; 4 * g < rows; g += kQWarps) {
-      const int r = k0 + 4 * g;
+    for (int c = 0; c < 4; ++c) acc[m][c] = 0;
+
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait_n(stages - 2);
+    __syncthreads();  // stage st is in; every warp is done with st - 1
+    const int r0 = st * kDStageRows;
+    if (st > 0 && r0 % chunk == 0) {  // the next chunk of the rows
+      fill(r0);
+      __syncthreads();
+    }
+    const int nx = st + stages - 1;
+    if (nx < steps)
+      load_stage(s_ring + (nx % stages) * kDStageBytes, w,
+                 k0 + nx * kDStageRows, k0 + rows, col0, N, wvec);
+    cp_async_commit();
+    const int8_t* sw = s_ring + (st % stages) * kDStageBytes;
+    const int8_t* sxr = s_x + r0 % chunk;
+    for (int g = kw; g < kDStageRows / 4; g += wk) {
       unsigned v[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
-        v[i] = (r + i < Kst && n0 < N) ? load_word(w, (size_t)(r + i) * N + n0)
-                                       : 0u;
+        v[i] = *reinterpret_cast<const unsigned*>(sw + (4 * g + i) * kDCols +
+                                                  4 * lane);
       int cl[4], ch[4];
-      if constexpr (Q4) {
-        transpose4(nibbles_lo(v[0]), nibbles_lo(v[1]), nibbles_lo(v[2]),
-                   nibbles_lo(v[3]), cl);
-        transpose4(nibbles_hi(v[0]), nibbles_hi(v[1]), nibbles_hi(v[2]),
-                   nibbles_hi(v[3]), ch);
+      if constexpr (Q4) {  // 16 x the signed nibbles, as int8 bytes
+        transpose4(v[0] << 4 & 0xF0F0F0F0u, v[1] << 4 & 0xF0F0F0F0u,
+                   v[2] << 4 & 0xF0F0F0F0u, v[3] << 4 & 0xF0F0F0F0u, cl);
+        transpose4(v[0] & 0xF0F0F0F0u, v[1] & 0xF0F0F0F0u,
+                   v[2] & 0xF0F0F0F0u, v[3] & 0xF0F0F0F0u, ch);
       } else {
         transpose4(v[0], v[1], v[2], v[3], cl);
       }
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         const int xl = *reinterpret_cast<const int*>(
-            s_x + (size_t)(mt0 + m) * slice + 4 * g);
+            sxr + (size_t)(m0 + m) * chunk + 4 * g);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) a[m][c] = __dp4a(cl[c], xl, a[m][c]);
+        for (int c = 0; c < 4; ++c) acc[m][c] = __dp4a(cl[c], xl, acc[m][c]);
         if constexpr (Q4) {
           const int xh = *reinterpret_cast<const int*>(
-              s_x + (size_t)(Mpad + mt0 + m) * slice + 4 * g);
+              sxr + (size_t)(mpad + m0 + m) * chunk + 4 * g);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) a[m][c] = __dp4a(ch[c], xh, a[m][c]);
+          for (int c = 0; c < 4; ++c)
+            acc[m][c] = __dp4a(ch[c], xh, acc[m][c]);
         }
       }
     }
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-      if (mt0 + m < M)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          atomicAdd(&s_acc[(mt0 + m) * kTileCols + 4 * lane + c], a[m][c]);
   }
-  __syncthreads();
+  cp_async_wait<0>();
 
-  const int ncols = min(kTileCols, N - col0);
-  if (gridDim.y == 1) {  // the whole K in this block: write the result
-    for (int i = threadIdx.x; i < M * kTileCols; i += kQThreads) {
-      const int m = i / kTileCols, c = i % kTileCols;
-      if (c < ncols)
-        out[(size_t)m * N + col0 + c] = epilogue(s_acc[i], ws[col0 + c],
-                                                 sx[m]);
-    }
-    return;
+  // the warps' sums meet in shared memory (int4: divided by 16, exact);
+  // each block sends the sums of every block's share of the columns to
+  // that block (distributed shared memory stores, 16 bytes each), and
+  // after one cluster.sync() each block adds the cluster's sums of its own
+  // share and writes their epilogue. No block reads another's shared
+  // memory after the barrier, so each may leave then. The stores need
+  // every block of the cluster started: the fused route's absmax exchange
+  // passed a cluster.sync() already, the int8 route passes one here.
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+    if (m0 + m < M)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        atomicAdd(&s_acc[(m0 + m) * kDCols + 4 * lane + c],
+                  Q4 ? acc[m][c] >> 4 : acc[m][c]);
+  if constexpr (kFused)
+    __syncthreads();
+  else
+    cluster.sync();
+  for (int i = threadIdx.x; i < M * kDCols / 4; i += kDThreads) {
+    const int m = i / (kDCols / 4), col = 4 * (i % (kDCols / 4));
+    const int owner = col / share;
+    int* dst = cluster.map_shared_rank(s_part, owner) +
+               (rank * mpad + m) * share + col - owner * share;
+    *reinterpret_cast<int4*>(dst) =
+        *reinterpret_cast<const int4*>(&s_acc[m * kDCols + col]);
   }
-  for (int i = threadIdx.x; i < M * kTileCols; i += kQThreads) {
-    const int m = i / kTileCols, c = i % kTileCols;
-    if (c < ncols) atomicAdd(&acc[(size_t)m * N + col0 + c], s_acc[i]);
-  }
-  // the last block of the column tile to finish writes the epilogue
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    s_last = atomicAdd(&count[blockIdx.x], 1u) == gridDim.y - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
-  for (int i = threadIdx.x; i < M * kTileCols; i += kQThreads) {
-    const int m = i / kTileCols, c = i % kTileCols;
-    if (c < ncols) {
-      const size_t o = (size_t)m * N + col0 + c;
-      out[o] = epilogue(__ldcg(&acc[o]), ws[col0 + c], sx[m]);
+  cluster.sync();
+  const int c_lo = rank * share, width = min(kDCols, c_lo + share) - c_lo;
+  for (int i = threadIdx.x; i < M * width; i += kDThreads) {
+    const int m = i / width, j = i % width, n = col0 + c_lo + j;
+    if (n < N) {
+      int a = 0;
+      for (int r = 0; r < C; ++r) a += s_part[(r * mpad + m) * share + j];
+      out[(size_t)m * N + n] = epilogue(a, ws[n], s_sx[m]);
     }
   }
 }
@@ -488,40 +753,74 @@ qmm_prefill_kernel(const int8_t* __restrict__ xq,
     }
 }
 
-template <int MT, bool Q4>
-cudaError_t decode(const int8_t* xq, const float* sx, const int8_t* w,
-                   const float* ws, const int* idx, int idx_host, int L,
-                   int* scratch, float* out, int M, int K, int N,
-                   cudaStream_t st) {
-  const int Kst = Q4 ? K / 2 : K;
-  const int slice = decode_slice(Kst, N);
-  const int tiles = (N + kTileCols - 1) / kTileCols;
-  const int splits = (Kst + slice - 1) / slice;
-  const int Mpad = (M + MT - 1) / MT * MT;
-  const size_t smem = (size_t)M * kTileCols * sizeof(int) +
-                      (size_t)(Q4 ? 2 : 1) * Mpad * slice;
-  unsigned* count = reinterpret_cast<unsigned*>(scratch + (size_t)M * N);
-  qmm_decode_kernel<MT, Q4><<<dim3(tiles, splits), kQThreads, smem, st>>>(
-      xq, sx, w, ws, idx, idx_host, L, scratch, count, out, M, K, N, slice);
-  return cudaGetLastError();
+// Let `kern` take `bytes` of dynamic shared memory: the attribute is set
+// only when a call needs more than `done[device]`, the largest set so far
+// for that kernel instance (each instance passes its own `done`; a value
+// set is the instance's limit, the default 48 KB no longer holds for it).
+inline cudaError_t allow_smem(const void* kern, int bytes, int (&done)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && done[dev] >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e == cudaSuccess && dev < 64) done[dev] = bytes;
+  return e;
+}
+
+struct DecodeArgs {
+  const void* x;
+  const float* sx;
+  const int8_t* w;
+  const float* ws;
+  const int* idx;
+  int idx_host, L;
+  float* out;
+  int M, K, N, cluster, slice, chunk, wm, stages;
+};
+
+template <int MT, bool Q4, typename XT>
+cudaError_t decode(const DecodeArgs& a, cudaStream_t st) {
+  static int done[64] = {};
+  auto* kern = qmm_decode_kernel<MT, Q4, XT>;
+  const int smem = decode_smem(a.stages, MT * a.wm, Q4 ? 2 : 1, a.chunk,
+                               a.cluster);
+  cudaError_t e = allow_smem(reinterpret_cast<const void*>(kern), smem, done);
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cluster, (a.N + kDCols - 1) / kDCols);
+  cfg.blockDim = dim3(kDThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const XT*>(a.x), a.sx, a.w,
+                         a.ws, a.idx, a.idx_host, a.L, a.out, a.M, a.K, a.N,
+                         a.slice, a.chunk, a.wm, a.stages);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <bool Q4, typename XT>
+cudaError_t decode_mt(int mt, const DecodeArgs& a, cudaStream_t st) {
+  switch (mt) {
+    case 1: return decode<1, Q4, XT>(a, st);
+    case 2: return decode<2, Q4, XT>(a, st);
+    case 4: return decode<4, Q4, XT>(a, st);
+    default: return decode<8, Q4, XT>(a, st);
+  }
 }
 
 template <bool Q4>
-cudaError_t dispatch_decode(const int8_t* xq, const float* sx,
-                            const int8_t* w, const float* ws, const int* idx,
-                            int idx_host, int L, int* scratch, float* out,
-                            int M, int K, int N, cudaStream_t st) {
-  if (M == 1)
-    return decode<1, Q4>(xq, sx, w, ws, idx, idx_host, L, scratch, out, M, K,
-                         N, st);
-  if (M == 2)
-    return decode<2, Q4>(xq, sx, w, ws, idx, idx_host, L, scratch, out, M, K,
-                         N, st);
-  if (M <= 4)
-    return decode<4, Q4>(xq, sx, w, ws, idx, idx_host, L, scratch, out, M, K,
-                         N, st);
-  return decode<8, Q4>(xq, sx, w, ws, idx, idx_host, L, scratch, out, M, K,
-                       N, st);
+cudaError_t decode_x(int xtype, int mt, const DecodeArgs& a,
+                     cudaStream_t st) {
+  if (xtype == kXF32) return decode_mt<Q4, float>(mt, a, st);
+  if (xtype == kXBF16) return decode_mt<Q4, __nv_bfloat16>(mt, a, st);
+  return decode_mt<Q4, int8_t>(mt, a, st);
 }
 
 template <bool Q4>
@@ -529,9 +828,9 @@ cudaError_t prefill(const int8_t* xq, const float* sx, const int8_t* w,
                     const float* ws, const int* idx, int idx_host, int L,
                     float* out, int M, int K, int N, cudaStream_t st) {
   constexpr int bytes = kPStages * prefill_stage_bytes<Q4 ? 2 : 1>();
-  const cudaError_t e = cudaFuncSetAttribute(  // above the default 48 KB
-      reinterpret_cast<const void*>(qmm_prefill_kernel<Q4>),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static int done[64] = {};
+  const cudaError_t e = allow_smem(
+      reinterpret_cast<const void*>(qmm_prefill_kernel<Q4>), bytes, done);
   if (e != cudaSuccess) return e;
   const dim3 grid((M + kPM - 1) / kPM, (N + kPN - 1) / kPN);
   qmm_prefill_kernel<Q4><<<grid, kPThreads, bytes, st>>>(
@@ -567,25 +866,56 @@ int pdt_quantize_rows(int dtype, const void* x, void* xq, void* sx, int M,
   return (int)cudaGetLastError();
 }
 
-// int32s of zeroed scratch the product of M rows needs: the decode kernel's
-// (M, N) sums and its column-tile counters when it splits K; none for the
-// prefill kernel or a single K slice.
-int pdt_qmm_scratch_ints(int q4, int M, int K, int N) {
+// out (M, N) float32 = the product of M <= 32 rows x with layer `*idx` (or
+// `idx_host` when idx is null) of w (L, Kst, N) int8 with channel scales
+// ws (L, N); q4: Kst = K / 2 packed int4 rows. xtype 0: float32 rows,
+// 1: bfloat16, both quantized by the kernel (sx null); 2: int8 rows
+// quantized beforehand with their scales sx (M,). One launch of the decode
+// kernel with the plan of ops/gemv_quant.decode_plan: `cluster` blocks of
+// `slice` packed rows split K, their int8 rows staged `chunk` rows at a
+// time, `wm` row tiles of `mt` rows, a weight ring of `stages` stages.
+// Returns the CUDA error of the launch, or cudaErrorInvalidValue for a
+// shape or plan it does not take.
+int pdt_qmm_decode(int q4, int xtype, const void* x, const void* sx,
+                   const void* w, const void* ws, const void* idx,
+                   int idx_host, int L, void* out, int M, int K, int N,
+                   int cluster, int slice, int chunk, int mt, int wm,
+                   int stages, void* stream) {
   const int Kst = q4 ? K / 2 : K;
-  if (M > kMaxDecodeRows || Kst <= decode_slice(Kst, N)) return 0;
-  return M * N + (N + kTileCols - 1) / kTileCols;
+  const bool plan_ok =
+      cluster >= 1 && cluster <= kMaxCluster && slice >= kDStageRows &&
+      slice % kDStageRows == 0 && chunk >= kDStageRows &&
+      chunk % kDStageRows == 0 && chunk <= slice &&
+      (long long)cluster * slice >= Kst &&
+      (long long)(cluster - 1) * slice < Kst &&
+      (mt == 1 || mt == 2 || mt == 4 || mt == 8) &&
+      (wm == 1 || (mt == 8 && (wm == 2 || wm == 4))) && mt * wm >= M &&
+      stages >= 2 && stages <= kDMaxStages && chunk <= kSmemMax &&
+      decode_smem(stages, mt * wm, q4 ? 2 : 1, chunk, cluster) <= kSmemMax &&
+      (N + kDCols - 1) / kDCols <= 65535;
+  if (bad_shape(q4, M, K, N, L, idx_host) || M > kMaxDecodeRows ||
+      !plan_ok || xtype < kXF32 || xtype > kXInt8 ||
+      (xtype == kXInt8) != (sx != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const DecodeArgs a{x, static_cast<const float*>(sx),
+                     static_cast<const int8_t*>(w),
+                     static_cast<const float*>(ws),
+                     static_cast<const int*>(idx), idx_host, L,
+                     static_cast<float*>(out), M, K, N, cluster, slice,
+                     chunk, wm, stages};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(q4 ? decode_x<true>(xtype, mt, a, st)
+                  : decode_x<false>(xtype, mt, a, st));
 }
 
 // out (M, N) float32 = the product of xq (M, K) int8 with row scales sx (M,)
 // and layer `*idx` (or `idx_host` when idx is null) of w (L, Kst, N) int8
-// with channel scales ws (L, N); q4: Kst = K / 2 packed int4 rows. M <= 32
-// runs the decode kernel, which needs `scratch` zeroed
-// (pdt_qmm_scratch_ints); larger M the prefill kernel. Returns the CUDA
-// error of the launch, or cudaErrorInvalidValue for a shape it does not
-// take.
+// with channel scales ws (L, N): the prefill kernel, which takes any M
+// (ops/gemv_quant.py sends it M > 32 rows). Returns the CUDA error of the
+// launch, or cudaErrorInvalidValue for a shape it does not take.
 int pdt_qmm(int q4, const void* xq, const void* sx, const void* w,
-            const void* ws, const void* idx, int idx_host, int L,
-            void* scratch, void* out, int M, int K, int N, void* stream) {
+            const void* ws, const void* idx, int idx_host, int L, void* out,
+            int M, int K, int N, void* stream) {
   if (bad_shape(q4, M, K, N, L, idx_host)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* x8 = static_cast<const int8_t*>(xq);
@@ -594,18 +924,10 @@ int pdt_qmm(int q4, const void* xq, const void* sx, const void* w,
   const float* wsf = static_cast<const float*>(ws);
   const int* ip = static_cast<const int*>(idx);
   float* o = static_cast<float*>(out);
-  int* s = static_cast<int*>(scratch);
-  cudaError_t e;
-  if (M <= kMaxDecodeRows)
-    e = q4 ? dispatch_decode<true>(x8, sxf, w8, wsf, ip, idx_host, L, s, o,
-                                   M, K, N, st)
-           : dispatch_decode<false>(x8, sxf, w8, wsf, ip, idx_host, L, s, o,
-                                    M, K, N, st);
-  else
-    e = q4 ? prefill<true>(x8, sxf, w8, wsf, ip, idx_host, L, o, M, K, N, st)
-           : prefill<false>(x8, sxf, w8, wsf, ip, idx_host, L, o, M, K, N,
-                            st);
-  return (int)e;
+  return (int)(q4 ? prefill<true>(x8, sxf, w8, wsf, ip, idx_host, L, o, M, K,
+                                  N, st)
+                  : prefill<false>(x8, sxf, w8, wsf, ip, idx_host, L, o, M,
+                                   K, N, st));
 }
 
 }  // extern "C"

@@ -260,10 +260,11 @@ def _by_query_head(x, n_heads, hd):
     return x if hkv == n_heads else x.repeat_interleave(n_heads // hkv, -2)
 
 
-def _attend_kv8(ck, cv, sk, sv, p, lo, q, k, v, n_heads):
+def _attend_kv8(ck, cv, sk, sv, p, lo, q, k, v, n_heads, rows=None):
     """The ``kv_int8`` attention of one row over one layer's int8 caches
     (S, Dkv) with scales (S,): the new K and V rows quantized into row
-    ``p``, cached rows ``[lo, p)`` scored by the exact integer dot with the
+    ``p`` (or ``rows``, their int8 rows and scales (kq, ks, vq, vs), given),
+    cached rows ``[lo, p)`` scored by the exact integer dot with the
     quantized query (its scale over all D features), the new row by its
     dequantized key against the exact float32 query ``q``; query head h
     reads KV head ``h // (H / Hkv)``. Returns the (D,) float32 attention
@@ -271,7 +272,8 @@ def _attend_kv8(ck, cv, sk, sv, p, lo, q, k, v, n_heads):
     D = q.shape[0]
     hd = D // n_heads
     scale = 1.0 / math.sqrt(hd)
-    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    (kq, ks), (vq, vs) = ((quantize_kv(k), quantize_kv(v)) if rows is None
+                          else (rows[:2], rows[2:]))
     ck[p], sk[p], cv[p], sv[p] = kq, ks, vq, vs
     qq, qs = quantize_kv(q)
     keys = _by_query_head(ck[lo:p].double(), n_heads, hd)  # exact sums
@@ -292,15 +294,21 @@ def decode_token_logits_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
                             head_w, head_b, ck, cv, *, n_heads: int,
                             head_s=None, scales=None, q4: bool = False,
                             start: int = 0, sk=None, sv=None,
-                            n_kv_heads: int = None):
+                            n_kv_heads: int = None, forced=None,
+                            kv_rows=None):
     """The plain-PyTorch step up to the float32 logits (V,), caches updated
     in place; :func:`fused_decode_token_ref` takes their argmax. Attention
     reads cache rows ``[start, p]`` (``start`` clipped to ``[0, p]``); with
     ``sk``/``sv`` (N, S) the caches are int8 (the batched step's
     ``kv_int8`` mode on one row). The caches are (N, S, Hkv * head_dim),
     Hkv = ``n_kv_heads`` (``n_heads`` when None): narrow for a
-    grouped-query model. Runs on any device (it reads ``pos`` and ``tok``
-    back to the host)."""
+    grouped-query model. ``forced``, caches of the same layout (``(ck, cv,
+    sk, sv)``, the scales None for float caches), teacher-forces the step:
+    each layer's new K and V rows are their row p, not the rows computed
+    here (a check holds a kernel's step given the rows the kernel wrote).
+    ``kv_rows``, a list, receives each layer's new K and V rows as computed
+    here, float32 (Dkv,), as a pair (k, v), before they are cached. Runs on
+    any device (it reads ``pos`` and ``tok`` back to the host)."""
     N, S, Dkv = ck.shape
     D = emb.shape[1]
     hd = D // n_heads
@@ -330,12 +338,18 @@ def decode_token_logits_ref(pos, tok, emb, cos, sin, final_norm, wq, wk, wv,
         q = _rope_pairs(lmm(0, layer, x), c, s)
         k = _rope_pairs(lmm(1, layer, x), c[:Dkv], s[:Dkv])
         v = lmm(2, layer, x)
+        if kv_rows is not None:
+            kv_rows.append((k, v))
+        rows = None if forced is None else tuple(
+            f[layer, p] for f in forced if f is not None)
         if sk is not None:
             att = _attend_kv8(ck[layer], cv[layer], sk[layer], sv[layer], p,
-                              lo, q, k, v, n_heads)
+                              lo, q, k, v, n_heads,
+                              None if rows is None else
+                              (rows[0], rows[2], rows[1], rows[3]))
         else:
-            ck[layer, p] = k.to(wdt)
-            cv[layer, p] = v.to(wdt)
+            ck[layer, p] = k.to(wdt) if rows is None else rows[0]
+            cv[layer, p] = v.to(wdt) if rows is None else rows[1]
             keys = _by_query_head(ck[layer, lo:p + 1].float(), n_heads, hd)
             vals = _by_query_head(cv[layer, lo:p + 1].float(), n_heads, hd)
             qh = q.to(wdt).float().view(n_heads, hd)
@@ -377,12 +391,18 @@ def decode_token_batched_logits_ref(pos, tok, emb, cos, sin, final_norm, wq,
                                     cv, *, n_heads: int, head_s=None,
                                     scales=None, q4: bool = False, sk=None,
                                     sv=None, starts=None,
-                                    n_kv_heads: int = None):
+                                    n_kv_heads: int = None, forced=None,
+                                    kv_rows=None):
     """The plain-PyTorch batched step up to the float32 logits (B, V),
     caches updated in place: each row through :func:`decode_token_logits_ref`
     on its own cache ``[:, b]`` (and scales ``sk[:, b]``, ``sv[:, b]``) from
-    its own ``starts[b]``, its activations quantized on their own."""
+    its own ``starts[b]``, its activations quantized on their own;
+    ``forced`` (``(ck, cv, sk, sv)`` of the same layout) teacher-forces
+    each row's new K and V rows as there; ``kv_rows``, a list, receives
+    each row's list of its layers' new (k, v) rows."""
     lows = [0] * tok.shape[0] if starts is None else starts.tolist()
+    if kv_rows is not None:
+        kv_rows.extend([] for _ in lows)
     return torch.stack([
         decode_token_logits_ref(
             pos, tok[b:b + 1], emb, cos, sin, final_norm, wq, wk, wv, wo,
@@ -390,7 +410,10 @@ def decode_token_batched_logits_ref(pos, tok, emb, cos, sin, final_norm, wq,
             ck[:, b], cv[:, b], n_heads=n_heads, head_s=head_s,
             scales=scales, q4=q4, start=lo,
             sk=None if sk is None else sk[:, b],
-            sv=None if sv is None else sv[:, b], n_kv_heads=n_kv_heads)
+            sv=None if sv is None else sv[:, b], n_kv_heads=n_kv_heads,
+            forced=None if forced is None else tuple(
+                None if f is None else f[:, b] for f in forced),
+            kv_rows=None if kv_rows is None else kv_rows[b])
         for b, lo in enumerate(lows)])
 
 

@@ -16,14 +16,19 @@ quantized to int8 with its own scale (``quantize_rows``: absmax floored at
 exact int32 sum, and ``out = (float(acc) * ws) * sx``.
 
 For CUDA tensors the wrappers launch the hand-written kernels of
-``csrc/gemv_quant.cu``: the activation quantization, then the decode kernel
-(K5; K7 with a layer index) for M <= ``MAX_DECODE_ROWS`` rows or the prefill
-kernel (K6; K7 with an index) above, at any M. For CPU tensors they run the
-plain versions (``quantize_rows_ref``, ``qmatmul_ref``). They never move data
-between devices and never fall back: a CUDA input a kernel does not take
-raises. Each wrapper counts its kernel launches: ``quantize_rows.launches``,
+``csrc/gemv_quant.cu``: for M <= ``MAX_DECODE_ROWS`` rows one launch of the
+decode kernel (K5; K7 with a layer index), which quantizes the rows itself
+and needs no scratch (above ``FUSED_QUANT_MAX_ROWS`` rows the rows are
+quantized by ``quantize_rows`` first); for more rows the activation
+quantization, then the prefill kernel (K6; K7 with an index). For CPU
+tensors they run the plain versions (``quantize_rows_ref``,
+``qmatmul_ref``). They never move data between devices and never fall
+back: a CUDA input a kernel does not take raises. Each wrapper counts its
+kernel launches: ``quantize_rows.launches`` (the standalone quantization),
 ``qmatmul.launches`` (K5), ``qmatmul.prefill_launches`` (K6) and
-``qmatmul_stacked.launches`` (K7, either kernel).
+``qmatmul_stacked.launches`` (K7, either kernel). ``decode_plan`` is the
+decode kernel's launch plan: its K split (a thread-block cluster), its
+staging of the int8 rows and its shared memory.
 
 Not ported: ``_VMEM_BUDGET``, ``_auto_nt``, ``_pick_kt``, ``pick_nt`` and
 ``_M_SLAB``. They size tiles and row slabs to the TPU's VMEM; the CUDA
@@ -33,14 +38,74 @@ another layout.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _build
 from .quant import unpack_int4
 
 MAX_DECODE_ROWS = 32  # kMaxDecodeRows in csrc/gemv_quant.cu (K5's M bound)
+# The decode kernel quantizes its rows itself up to this many rows, one
+# launch a product; above it a quantize_rows launch comes first, which on
+# the H100 costs less device time from 6 rows on (PERF.md)
+FUSED_QUANT_MAX_ROWS = 4
 _XDTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_X_INT8 = 2  # kXInt8: rows quantized beforehand
+# the routes of a product on the card: the decode kernel quantizing its
+# rows itself, the decode kernel on rows that quantize_rows made, and the
+# prefill kernel on them (``_route`` picks one by M)
+_FUSED, _INT8_ROWS, _PREFILL = "fused", "quantize_rows first", "prefill"
+_ROUTES = (_FUSED, _INT8_ROWS, _PREFILL)
 _INT8_MAX = torch.tensor(127.0)
+
+# the decode kernel's geometry (csrc/gemv_quant.cu) and the card's limits
+DECODE_COLS = 128  # kDCols: columns of a block
+DECODE_STAGE_ROWS = 64  # kDStageRows: packed weight rows a ring stage
+DECODE_STAGES = 3  # the weight ring's depth (kDMaxStages at most): deeper
+# rings were slower at every 7B shape on the H100
+MAX_CLUSTER = 8  # kMaxCluster: a portable thread-block cluster
+SMEM_MAX = 232448  # kSmemMax: 227 KB of shared memory a block
+SMS = 132  # an H100 SXM's streaming multiprocessors
+# K split: about two blocks an SM (more blocks, or a split chosen to even
+# out the blocks an SM holds, were slower at the 7B shapes on the H100)
+DECODE_TARGET_BLOCKS = 2 * SMS
+DECODE_X_BYTES = 64 * 1024  # shared memory for a chunk of the int8 rows
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(q4: bool, M: int, K: int, N: int):
+    """The decode kernel's launch plan for M <= MAX_DECODE_ROWS rows of K
+    against (K, N) weights (q4: (K/2, N) packed): ``(cluster, slice, chunk,
+    mt, wm, stages, smem)``. ``cluster`` blocks (a thread-block cluster, at
+    most MAX_CLUSTER) split the packed rows of each 128-column tile,
+    ``slice`` rows each (a multiple of a stage), enough to put about
+    DECODE_TARGET_BLOCKS blocks on the card and no block without rows; the
+    int8 rows wait in shared memory ``chunk`` packed rows at a time; warps
+    take ``wm`` row tiles of ``mt`` rows; the weight ring has ``stages``
+    stages (DECODE_STAGES, 2 for a slice of one stage); ``smem`` bytes of
+    dynamic shared memory (``decode_smem`` in csrc/gemv_quant.cu)."""
+    kst = K // 2 if q4 else K
+    tiles = _cdiv(N, DECODE_COLS)
+    cluster = max(1, min(MAX_CLUSTER, _cdiv(DECODE_TARGET_BLOCKS, tiles),
+                         _cdiv(kst, DECODE_STAGE_ROWS)))
+    rows = DECODE_STAGE_ROWS * _cdiv(_cdiv(kst, cluster), DECODE_STAGE_ROWS)
+    cluster = _cdiv(kst, rows)
+    mt = 1 if M == 1 else 2 if M == 2 else 4 if M <= 4 else 8
+    wm = 1 if M <= 8 else 2 if M <= 16 else 4
+    halves = 2 if q4 else 1
+    fit = DECODE_X_BYTES // (halves * mt * wm)
+    chunk = min(rows, max(DECODE_STAGE_ROWS,
+                          fit // DECODE_STAGE_ROWS * DECODE_STAGE_ROWS))
+    share = 4 * _cdiv(DECODE_COLS // 4, cluster)  # decode_share
+    rest = mt * wm * (DECODE_COLS * 4 + halves * chunk + cluster * share * 4)
+    stages = max(2, min(DECODE_STAGES, _cdiv(rows, DECODE_STAGE_ROWS)))
+    return (cluster, rows, chunk, mt, wm, stages,
+            stages * DECODE_STAGE_ROWS * DECODE_COLS + rest)
 
 
 def quantize_rows_ref(x: torch.Tensor):
@@ -149,26 +214,46 @@ def quantize_rows(x: torch.Tensor):
 quantize_rows.launches = 0
 
 
-def _product(x, wq, ws, q4, idx, L):
-    """Quantize x's rows and launch the product kernel on layer ``idx`` of
-    wq; returns the (M, N) float32 result."""
+def _route(M: int) -> str:
+    """The route of a product of M rows: one launch of the decode kernel
+    up to FUSED_QUANT_MAX_ROWS rows, ``quantize_rows`` and the decode
+    kernel up to MAX_DECODE_ROWS, ``quantize_rows`` and the prefill kernel
+    above."""
+    if M <= FUSED_QUANT_MAX_ROWS:
+        return _FUSED
+    return _INT8_ROWS if M <= MAX_DECODE_ROWS else _PREFILL
+
+
+def _product(x, wq, ws, q4, idx, L, route):
+    """Launch the product of x's rows with layer ``idx`` of wq by ``route``
+    (one of ``_ROUTES``; the decode kernel's routes take M <=
+    MAX_DECODE_ROWS); returns the (M, N) float32 result. The wrappers pass
+    ``_route(M)``; a check of every route calls this directly."""
     M, K = x.shape
     N = wq.shape[-1]
-    xq, sx = quantize_rows(x)
+    if route not in _ROUTES or (route != _PREFILL and M > MAX_DECODE_ROWS):
+        raise ValueError(f"no route {route!r} for {M} rows")
+    decode = route != _PREFILL
+    xq, sx = (None, None) if route == _FUSED else quantize_rows(x)
     lib = _build.load()
-    n_scratch = lib.pdt_qmm_scratch_ints(int(q4), M, K, N)
-    scratch = (torch.zeros(n_scratch, dtype=torch.int32, device=x.device)
-               if n_scratch else None)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     dev_idx = isinstance(idx, torch.Tensor)
+    ip, ih = (idx.data_ptr(), 0) if dev_idx else (None, idx)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pdt_qmm(int(q4), xq.data_ptr(), sx.data_ptr(),
-                          wq.data_ptr(), ws.data_ptr(),
-                          idx.data_ptr() if dev_idx else None,
-                          0 if dev_idx else idx, L,
-                          None if scratch is None else scratch.data_ptr(),
-                          out.data_ptr(), M, K, N, stream)
+        if not decode:
+            err = lib.pdt_qmm(int(q4), xq.data_ptr(), sx.data_ptr(),
+                              wq.data_ptr(), ws.data_ptr(), ip, ih, L,
+                              out.data_ptr(), M, K, N, stream)
+        else:
+            cluster, rows, chunk, mt, wm, stages, _ = decode_plan(q4, M, K,
+                                                                  N)
+            xt, rows_in, scales = ((_XDTYPES[x.dtype], x, None) if xq is None
+                                   else (_X_INT8, xq, sx.data_ptr()))
+            err = lib.pdt_qmm_decode(int(q4), xt, rows_in.data_ptr(), scales,
+                                     wq.data_ptr(), ws.data_ptr(), ip, ih, L,
+                                     out.data_ptr(), M, K, N, cluster, rows,
+                                     chunk, mt, wm, stages, stream)
     if err != 0:
         raise RuntimeError(f"quantized matmul launch failed: CUDA error "
                            f"{err}")
@@ -183,7 +268,7 @@ def qmatmul(x, wq, ws, q4: bool = False):
     if x.device.type == "cpu":
         return qmatmul_ref(x, wq, ws, q4)
     _check_cuda(x, wq, ws, N)
-    out = _product(x, wq, ws, q4, 0, 1)
+    out = _product(x, wq, ws, q4, 0, 1, _route(M))
     if M <= MAX_DECODE_ROWS:
         qmatmul.launches += 1
     else:
@@ -214,7 +299,7 @@ def qmatmul_stacked(x, wq_all, ws_all, idx, q4: bool = False):
     if x.device.type == "cpu":
         return qmatmul_stacked_ref(x, wq_all, ws_all, idx, q4)
     _check_cuda(x, wq_all, ws_all, N)
-    out = _product(x, wq_all, ws_all, q4, idx, L)
+    out = _product(x, wq_all, ws_all, q4, idx, L, _route(M))
     qmatmul_stacked.launches += 1
     return out
 

@@ -148,6 +148,103 @@ def test_qmatmul_stacked_matches_jax_exactly(M):
             tgq.qmatmul_stacked(t(x), tw, ts, L, q4=q4)
 
 
+def half_step_rows(M, K, rng):
+    """Rows whose ``x * 127 / amax`` lands exactly on .5 steps in most
+    entries: amax 254 (a scale of 127 / 254 = 0.5, exact) and odd
+    integers, signed, so half to even and half away from zero differ;
+    row 1 is all zero (the 1e-30 floor) and a -0.0 sits in row 0."""
+    x = (2 * rng.integers(-127, 127, (M, K)) + 1).astype(np.float32)
+    x[:, 0] = 254.0
+    x[0, 1] = -0.0
+    if M > 1:
+        x[1] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("M", [1, 3, 4, 32])
+def test_half_steps_round_to_even_as_jax(M):
+    """Rows on exact .5 steps pin the rounding (half to even, as
+    ``jnp.round``): the port's row quantization and product equal JAX's
+    kernel in interpret mode bit for bit, int8 and int4, float32 and
+    bfloat16 rows (these integers are exact in bfloat16)."""
+    rng = np.random.default_rng(M)
+    K, N = 64, 96
+    x = half_step_rows(M, K, rng)
+    xq = tgq.quantize_rows_ref(t(x))[0].numpy()
+    assert xq[0, 0] == 127 and set(np.abs(xq[2:, 1:]).ravel() % 2) <= {0}
+    w = (rng.standard_normal((K, N)) * 0.05).astype(np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = t(x).to(dtype)
+        for q4, qfn in ((False, jquant.quantize_int8),
+                        (True, jquant.quantize_int4)):
+            jq, js = qfn(jnp.asarray(w), 0)
+            want = np.asarray(jgq.qmatmul(jnp.asarray(xt.float().numpy()),
+                                          jq, js, q4=q4, interpret=True))
+            got = tgq.qmatmul(xt, t(np.asarray(jq)), t(np.asarray(js)),
+                              q4=q4)
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("K, q4", [(65, False), (66, False), (67, False),
+                                   (66, True), (70, True), (74, True)])
+def test_k_tails_match_jax(K, q4):
+    """K with 1 to 3 bytes past a multiple of 4, and int4 halves (K / 2 =
+    33, 35, 37) that are no multiple of 4: the port against JAX's kernel
+    in interpret mode, bit for bit."""
+    rng = np.random.default_rng(K)
+    x = rng.standard_normal((3, K)).astype(np.float32)
+    w = (rng.standard_normal((K, 40)) * 0.05).astype(np.float32)
+    qfn = jquant.quantize_int4 if q4 else jquant.quantize_int8
+    jq, js = qfn(jnp.asarray(w), 0)
+    want = np.asarray(jgq.qmatmul(jnp.asarray(x), jq, js, q4=q4,
+                                  interpret=True))
+    got = tgq.qmatmul(t(x), t(np.asarray(jq)), t(np.asarray(js)), q4=q4)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# every quantized product of stories15M and Llama-2-7B: fused qkv, wo,
+# fused gate/up, down, head
+DECODE_SHAPES = {"stories15M": ((288, 864), (288, 288), (288, 1536),
+                                (768, 288), (288, 32000)),
+                 "7B": ((4096, 12288), (4096, 4096), (4096, 22016),
+                        (11008, 4096), (4096, 32000))}
+
+
+@pytest.mark.parametrize("q4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("model", list(DECODE_SHAPES))
+def test_decode_plan_within_the_card(model, q4):
+    """The decode kernel's launch plan at every shape of both models and
+    every M in 1..32: a portable cluster whose blocks each hold rows and
+    together cover K, whole ring stages, shared memory within a block's
+    227 KB, a grid the card takes, and row tiles covering M with at most
+    32 int32 sums a thread; at 7B every shape puts a block on each of the
+    132 SMs at least, none of them streaming under 16 KB of weights."""
+    for K, N in DECODE_SHAPES[model]:
+        kst = K // 2 if q4 else K
+        tiles = -(-N // tgq.DECODE_COLS)
+        for M in range(1, tgq.MAX_DECODE_ROWS + 1):
+            cluster, rows, chunk, mt, wm, stages, smem = tgq.decode_plan(
+                q4, M, K, N)
+            assert 1 <= cluster <= tgq.MAX_CLUSTER
+            assert rows % tgq.DECODE_STAGE_ROWS == 0
+            assert (cluster - 1) * rows < kst <= cluster * rows
+            assert tgq.DECODE_STAGE_ROWS <= chunk <= rows
+            assert chunk % tgq.DECODE_STAGE_ROWS == 0
+            assert stages in (2, tgq.DECODE_STAGES)
+            assert smem <= tgq.SMEM_MAX and tiles <= 65535
+            assert mt in (1, 2, 4, 8) and wm in (1, 2, 4)
+            assert M <= mt * wm <= max(8, 2 * M) and (wm == 1 or mt == 8)
+            assert mt * 4 <= 32
+            if model == "7B":
+                assert cluster * tiles >= tgq.SMS
+                last = kst - (cluster - 1) * rows
+                assert min(rows, last) * tgq.DECODE_COLS > 16 * 1024
+    # a K too long for one chunk of rows in shared memory is staged in
+    # several (at M = 32, 64 KB of int8 rows take 2048 packed rows)
+    cluster, rows, chunk, *_ = tgq.decode_plan(q4, 32, 32768, 256)
+    assert chunk < rows and rows % chunk == 0
+
+
 def test_qmatmul_rejects_bad_arguments():
     x = torch.zeros(2, 64)
     q, s = tquant.quantize_int8(torch.ones(64, 8), 0)

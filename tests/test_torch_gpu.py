@@ -418,7 +418,105 @@ def test_qmatmul_launch_counters_count_kernel_launches_only(gpu):
     gq.qmatmul_ref(random_rows(4, 288, torch.float32, 0), w, ws)
     gq.qmatmul(random_rows(4, 288, torch.float32, 0).cpu(), w.cpu(),
                ws.cpu())
-    assert [a - b for a, b in zip(counters(), before)] == [3, 1, 1, 1]
+    # quantize_rows counts only the prefill call's: the decode kernel
+    # quantizes its rows itself, in its one launch
+    assert [a - b for a, b in zip(counters(), before)] == [1, 1, 1, 1]
+
+
+# Llama-2-7B's five decode products (fused qkv, wo, fused gate/up, down,
+# head) and a K long enough that the decode kernel stages its int8 rows in
+# chunks at M = 32
+DECODE_7B = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
+             (4096, 32000)]
+
+
+@pytest.mark.parametrize("q4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("shape", DECODE_7B + [(32768, 256)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_decode_kernel_every_row_count(gpu, shape, q4):
+    """The one-launch decode kernel bit for bit against the plain version at
+    every M in 1..32, float32 and bfloat16 rows, with a host and a device
+    (clamped) layer index, through the wrappers and on both of its routes:
+    its own row quantization (which the wrappers take up to
+    FUSED_QUANT_MAX_ROWS rows) and rows quantized beforehand."""
+    from chip_smoke import random_qweights, random_rows
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    K, N = shape
+    w, ws = random_qweights(K, N, q4, K + N, layers=2)
+    last = torch.tensor(1, dtype=torch.int32, device="cuda")
+    past = torch.tensor(5, dtype=torch.int32, device="cuda")
+    for M in range(1, gq.MAX_DECODE_ROWS + 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = random_rows(M, K, dtype, M)
+            want0 = gq.qmatmul_ref(x, w[0], ws[0], q4=q4)
+            want1 = gq.qmatmul_ref(x, w[1], ws[1], q4=q4)
+            assert torch.equal(gq.qmatmul(x, w[0], ws[0], q4=q4), want0)
+            assert torch.equal(gq.qmatmul_stacked(x, w, ws, past, q4=q4),
+                               want1)
+            for route in (gq._FUSED, gq._INT8_ROWS):
+                assert torch.equal(
+                    gq._product(x, w[0], ws[0], q4, 0, 1, route), want0)
+                assert torch.equal(gq._product(x, w, ws, q4, 0, 2, route),
+                                   want0)
+                assert torch.equal(
+                    gq._product(x, w, ws, q4, last, 2, route), want1)
+                assert torch.equal(
+                    gq._product(x, w, ws, q4, past, 2, route), want1)
+
+
+def test_decode_kernel_calls_back_to_back(gpu):
+    """Calls of different shapes, formats and row counts, one after the
+    other on one stream with nothing in between, each equal to the plain
+    version: a call depends on no state that another leaves."""
+    from chip_smoke import random_qweights, random_rows
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    cases = [(4096, 4096, False, 1), (11008, 4096, True, 4),
+             (4096, 22016, False, 32), (288, 864, True, 3),
+             (4096, 4096, True, 12), (4096, 12288, False, 1)]
+    args = []
+    for K, N, q4, M in cases:
+        w, ws = random_qweights(K, N, q4, K + M)
+        args.append((random_rows(M, K, torch.bfloat16, N), w, ws, q4))
+    for _ in range(2):
+        got = [gq.qmatmul(x, w, ws, q4=q4) for x, w, ws, q4 in args]
+        for out, (x, w, ws, q4) in zip(got, args):
+            assert torch.equal(out, gq.qmatmul_ref(x, w, ws, q4=q4))
+
+
+@pytest.mark.parametrize("q4", [False, True], ids=["int8", "int4"])
+def test_decode_kernel_graph_replay(gpu, q4):
+    """The decode calls of a 7B layer, captured in a CUDA graph with a
+    device layer index and replayed for several layers and new rows, equal
+    the eager calls."""
+    from chip_smoke import random_qweights, random_rows
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    mats = [random_qweights(K, N, q4, K + N, layers=3)
+            for K, N in DECODE_7B[:4]]
+    x = random_rows(4, 4096, torch.bfloat16, 0)
+    xd = random_rows(4, 11008, torch.bfloat16, 1)
+    idx = torch.zeros((), dtype=torch.int32, device="cuda")
+
+    def calls():
+        return [gq.qmatmul_stacked(xd if w.shape[1] * (2 if q4 else 1)
+                                   == 11008 else x, w, ws, idx, q4=q4)
+                for w, ws in mats]
+
+    calls()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = calls()
+    for layer in (2, 0, 1):
+        idx.fill_(layer)
+        x.copy_(random_rows(4, 4096, torch.bfloat16, 10 + layer))
+        xd.copy_(random_rows(4, 11008, torch.bfloat16, 20 + layer))
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, want in zip(outs, calls()):
+            assert torch.equal(out, want)
 
 
 def test_qmatmul_cuda_inputs_never_fall_back(gpu):
