@@ -261,7 +261,9 @@ EMIT_RTOL = {"f32": 1e-4, "other": 2e-2}
 # tests/test_ops_kernels.py:107); bf16 rounds every matmul input and the
 # probabilities, one of which may land on a neighbouring bf16 value
 STEP_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-5}
-STEP_POSITIONS = (0, 511, 1023, 1030)  # 1030 >= S acts as S - 1
+# around the attention stage's 16-row tiles and its blocks' shares of
+# them; 1030 >= S acts as S - 1
+STEP_POSITIONS = (0, 63, 64, 65, 255, 256, 511, 1023, 1030)
 HEAD_TIE = (100, 20000)  # vocab rows in different head tiles
 PATH_STEPS = 64  # truth tokens of the K10 + K9 path and the gates
 B1_QUANTS = (None, "int8-head", "int8", "int4")  # phase 4's requests
@@ -339,6 +341,10 @@ BN_ATOL = {"out": 1e-5, "mean": 1e-6, "var": 1e-5}
 BN_BF16_STATS_ATOL = 1e-5
 BN_GRAD_RTOL = 1e-4
 BN_TIME_SHAPES = ((40, 512), (40, 128), (1024, 1024), (8192, 1024))
+# K8's four (x, gamma/beta) type pairs
+BN_TYPE_PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+                 (torch.bfloat16, torch.float32),
+                 (torch.bfloat16, torch.bfloat16))
 # the dropout_bn trainer at its published setting (examples/pydynet/
 # dropout_bn.py:128): 320 training faces at batch 40 are 8 steps an epoch,
 # each with two BatchNorm1d layers in train mode, so 2 K8 launches a step
@@ -2150,23 +2156,43 @@ def time_big_dims(model, card):
     return out
 
 
-def bn_inputs(N, C, dtype, seed=0, device="cuda"):
+def bn_inputs(N, C, dtype, seed=0, device="cuda", pdtype=torch.float32):
     """Seeded O(1) K8 inputs: x (N, C) normal in ``dtype``, gamma in
-    [0.5, 1.5] and beta normal / 2, (1, C) float32."""
+    [0.5, 1.5] and beta normal / 2, (1, C) in ``pdtype``."""
     g = torch.Generator(device=device).manual_seed(seed)
     x = torch.randn((N, C), generator=g, device=device).to(dtype)
     gamma = torch.rand((1, C), generator=g, device=device) + 0.5
     beta = torch.randn((1, C), generator=g, device=device) / 2
-    return x, gamma, beta
+    return x, gamma.to(pdtype), beta.to(pdtype)
 
 
-def bn_vs_plain(N, C, dtype, seed=0):
-    """K8 against its plain version on the same inputs, and the gradients
-    through the autograd op against autograd through the plain forward.
-    Raises beyond the stated tolerances; returns {output: max error}."""
+def bn_seam_shapes(itemsize):
+    """The (N, C) batches that cut K8 at its seams (``ops/batchnorm.py``'s
+    ``bn_plan``) for x of ``itemsize`` bytes: the first split of a strip
+    into two slabs (2 MIN_SLAB_ROWS - 1 and + 1 rows, the last slab one row
+    short or long), one slab short and long by a row at (1024, 1024), the
+    largest N a cluster holds in shared memory and the next one past it
+    (one strip), and C one column either side of the strip width."""
     from pydynet_tpu_torch.ops import batchnorm as bn
 
-    x, gamma, beta = bn_inputs(N, C, dtype, seed)
+    W = bn.STRIP_BYTES // itemsize
+    cut = 2 * bn.MIN_SLAB_ROWS
+    plan = bn.bn_plan(1024, 1024, itemsize)
+    full = plan["cluster"] * plan["rows"]
+    held = bn.MAX_CLUSTER * (bn.SLAB_BYTES // bn.STRIP_BYTES)
+    return ((cut - 1, 1024), (cut + 1, 1024), (full - 1, 1024),
+            (full + 1, 1024), (held, W), (held + 1, W), (1000, W - 1),
+            (1000, W + 1), (40, W + 1))
+
+
+def bn_vs_plain(N, C, dtype, seed=0, pdtype=torch.float32):
+    """K8 against its plain version on the same inputs, and the gradients
+    through the autograd op against autograd through the plain forward,
+    gamma and beta in ``pdtype``. Raises beyond the stated tolerances;
+    returns {output: max error}."""
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    x, gamma, beta = bn_inputs(N, C, dtype, seed, pdtype=pdtype)
     got = bn.batch_norm_train(x, gamma, beta)
     want = bn.batch_norm_train_ref(x, gamma, beta)
     xs = [t.detach().clone().requires_grad_() for t in (x, gamma, beta)]
@@ -2201,9 +2227,33 @@ def bn_vs_plain(N, C, dtype, seed=0):
     return errs
 
 
+def bn_same_bits(N, C, dtype, seed=0):
+    """Whether two K8 runs on the same inputs give the same bits of out,
+    mean and var."""
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    x, gamma, beta = bn_inputs(N, C, dtype, seed)
+    a, b = (bn.batch_norm_train(x, gamma, beta) for _ in range(2))
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def bn_plan_on_card(N, C, itemsize):
+    """``bn_plan`` as the CUDA source computes it."""
+    import ctypes
+
+    from pydynet_tpu_torch.ops import _build
+
+    out = (ctypes.c_int * 5)()
+    if _build.load().pdt_batch_norm_plan(N, C, itemsize, out) != 0:
+        raise ValueError(f"pdt_batch_norm_plan({N}, {C}, {itemsize})")
+    return dict(zip(("width", "strips", "cluster", "rows", "cached"), out))
+
+
 def check_batchnorm():
-    """Phase 3d: K8 against plain at BN_SHAPES in float32 and bfloat16, and
-    a float64 CUDA input raising. Returns the largest float32 error."""
+    """Phase 3d: K8 against plain at BN_SHAPES in float32 and bfloat16, at
+    its seams (bn_seam_shapes) in the four type pairs, two runs' bits equal,
+    ops/batchnorm.py's bn_plan equal to the CUDA source's, and a float64
+    CUDA input raising. Returns the largest float32 error."""
     from pydynet_tpu_torch.ops import batchnorm as bn
 
     worst = 0.0
@@ -2214,6 +2264,32 @@ def check_batchnorm():
                   f"error " + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
             if dtype == torch.float32:
                 worst = max(worst, e["out"], e["mean"], e["var"])
+    for dtype, pdtype in BN_TYPE_PAIRS:
+        size = torch.finfo(dtype).bits // 8
+        for N, C in bn_seam_shapes(size):
+            e = bn_vs_plain(N, C, dtype, pdtype=pdtype)
+            plan = bn.bn_plan(N, C, size)
+            print(f"[chip_smoke] batch_norm_train seam x {dtype} gamma "
+                  f"{pdtype} ({N}, {C}), plan {plan}: max error " +
+                  ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
+            if dtype == torch.float32:
+                worst = max(worst, e["out"], e["mean"], e["var"])
+    for dtype in FLASH_DTYPES.values():
+        size = torch.finfo(dtype).bits // 8
+        shapes = BN_SHAPES + bn_seam_shapes(size)
+        for N, C in shapes:
+            want = {k: v for k, v in bn.bn_plan(N, C, size).items()
+                    if k != "held_all"}
+            if bn_plan_on_card(N, C, size) != want:
+                raise AssertionError(f"bn_plan({N}, {C}, {size}) differs "
+                                     f"from the CUDA source's")
+        same = [(N, C) for N, C in ((8192, 1024),) + shapes[-5:]
+                if bn_same_bits(N, C, dtype, 11)]
+        print(f"[chip_smoke] batch_norm_train {dtype}: bn_plan equal to the "
+              f"CUDA source's at {len(shapes)} shapes; two runs' bits equal "
+              f"at {same}")
+        if len(same) != 6:
+            raise AssertionError(f"batch_norm_train {dtype}: two runs differ")
     x, gamma, beta = bn_inputs(8, 16, torch.float64)
     try:
         bn.batch_norm_train(x, gamma.double(), beta.double())
@@ -2372,8 +2448,9 @@ def mnist_runner(seed=42):
 
 def time_nn_training(card):
     """Phase 5's nn part: K8 at BN_TIME_SHAPES in float32 against its plain
-    version, its bound and ``F.batch_norm``; the dropout_bn step and the
-    MNIST ConvNet's epochs. Returns {(N, C): (ms, plain_ms, bound_ms,
+    version, its bound and ``F.batch_norm``, and in bfloat16 against its
+    bound and ``F.batch_norm``; the dropout_bn step and the MNIST ConvNet's
+    epochs. Returns {(N, C): (ms, plain_ms, bound_ms,
     bound_by, library_ms)}."""
     import torch.nn.functional as tF
     from pydynet_tpu_torch.ops import batchnorm as bn
@@ -2400,6 +2477,15 @@ def time_nn_training(card):
                   f"plain {out[N, C][1] * 1e3:.2f} us, bound "
                   f"{out[N, C][2] * 1e3:.3f} us ({out[N, C][3]}), "
                   f"F.batch_norm {library * 1e3:.2f} us")
+            xb = x.to(torch.bfloat16)
+            kern = lambda i: bn.batch_norm_train(xb, gamma, beta)
+            lib = lambda i: tF.batch_norm(xb, None, None, g, b,
+                                          training=True, eps=1e-6)
+            kernel, library = time_graph(kern, 20), time_graph(lib, 20)
+            print(f"[chip_smoke] {card}: batch_norm_train bf16 ({N}, {C}): "
+                  f"kernel {kernel * 1e3:.2f} us on the device, bound "
+                  f"{bn_bound(xb)[0] * 1e3:.3f} us, F.batch_norm "
+                  f"{library * 1e3:.2f} us")
     step = dbn_step_runner()
     for _ in range(3):  # warm-up
         step()

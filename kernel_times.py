@@ -5,6 +5,7 @@ another one, and compare two checkouts in turns on one card.
     python3 kernel_times.py --tree DIR           # the checkout at DIR
     python3 kernel_times.py --compare DIR        # DIR, this, this, DIR
     python3 kernel_times.py --compare DIR --request  # and the 7B request
+    python3 kernel_times.py --compare DIR --only k8,k10  # some groups
 
 Each run imports ``pydynet_tpu_torch`` from its checkout (which builds its
 own kernels into its ``build/``) and times, with the card's name and power
@@ -36,7 +37,17 @@ limit in one JSON line of microseconds:
   also merged the attention partials) over 20 steps, and the kernels a
   step;
 * ``F.linear(h, head_w, head_b)`` and ``torch.argmax(F.linear(...), -1)``
-  on the bf16 head at B = 1, 8 and 32, the head stage's yardsticks.
+  on the bf16 head at B = 1, 8 and 32, the head stage's yardsticks;
+* K10 (``fused_decode_step``) at stories15M width, pos 512, in bf16 and
+  f32 on ``chip_smoke.step_inputs``: the step by CUDA events and by
+  CUDA-graph replay, each stage's device time by ``torch.profiler`` kernel
+  name over 20 steps (q/k/v, attention, wo, gate/up, down, final norm;
+  for a checkout whose step has them, rope, scores, softmax and p @ V),
+  and the kernels a step;
+* K8 (``batch_norm_train``) at ``chip_smoke.BN_TIME_SHAPES`` in f32 and
+  bf16 (gamma and beta f32): a call by CUDA-graph replay of 20 calls,
+  beside ``F.batch_norm(training=True)`` timed the same way and the byte
+  bound (x read once, out written once).
 
 With ``--request``, also a Llama-2-7B-geometry model (32 layers, bf16,
 seeded random weights) on the scan lane: the B=1 request of 64 tokens from
@@ -135,8 +146,13 @@ def request_times() -> dict:
     return out
 
 
-def measure(tree: Path, request: bool = False) -> dict:
-    """The kernels of the checkout at ``tree``, timed on the card."""
+GROUPS = ("k6", "flash", "qmm", "decode", "k10", "k8")  # --only's choices
+
+
+def measure(tree: Path, request: bool = False, only=GROUPS) -> dict:
+    """The kernels of the checkout at ``tree``, timed on the card: the
+    groups in ``only`` (K6; K3/K4; K5/K7; K1/K2 and the head's yardsticks;
+    K10; K8)."""
     sys.path.insert(0, str(tree))
     import torch
     import torch.nn.functional as F
@@ -155,14 +171,14 @@ def measure(tree: Path, request: bool = False) -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     x = (torch.randn((256, 4096), generator=g, device="cuda") * 3).to(
         torch.bfloat16)
-    for q4 in (False, True):
+    for q4 in (False, True) if "k6" in only else ():
         w = torch.randint(-128, 128, (2048 if q4 else 4096, 22016),
                           generator=g, device="cuda", dtype=torch.int8)
         ws = torch.rand((1, 22016), generator=g, device="cuda") * 1e-3
         out[f"K6 {'int4' if q4 else 'int8'} (4096, 22016) M=256"] = \
             graph_us(lambda: gq.qmatmul(x, w, ws, q4=q4))
         del w, ws
-    for B in (1, 8):
+    for B in (1, 8) if "flash" in only else ():
         q, k, v, do = (torch.randn((B, 1024, 6, 48), generator=g,
                                    device="cuda") for _ in range(4))
         o, lse = fa.flash_attention_fwd(q, k, v)
@@ -177,8 +193,10 @@ def measure(tree: Path, request: bool = False) -> dict:
             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dd))
         out[f"K4 dk/dv f32 ({B}, 1024, 6, 48)"] = events_us(
             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd))
-    out.update(qmm_times())
-    out.update(decode_times())
+    for group, times in (("k8", bn_times), ("qmm", qmm_times),
+                         ("decode", decode_times), ("k10", step_times)):
+        if group in only:
+            out.update(times())
     if request:
         out.update(request_times())
     return out
@@ -250,8 +268,11 @@ EMIT_CASES = ("K1 bf16", "K2 bf16 B=8", "K2 bf16 B=64")
 # a step's stages by kernel name, for these kernels and the CUDA-core ones
 # before them (whose wo kernel, attn_out, also merged the attention)
 STAGES = (("q/k/v", "qkv"), ("wo", "attn_out"), ("wo", "layer_wo"),
-          ("attention", "attention"), ("gate/up", "gate_up"),
-          ("down", "down"), ("head", "head"), ("argmax", "argmax"))
+          ("wo", "step_wo"), ("attention", "attention"),
+          ("gate/up", "gate_up"), ("down", "down"), ("head", "head"),
+          ("argmax", "argmax"), ("final norm", "final_norm"),
+          ("rope", "rope"), ("scores", "scores"), ("softmax", "softmax"),
+          ("p @ V", "step_pv"))
 
 
 def stage_of(kernel: str) -> str:
@@ -327,11 +348,60 @@ def decode_times() -> dict:
     return out
 
 
-def compare(other: Path, request: bool = False) -> None:
+def step_times() -> dict:
+    """K10's step and stages in bf16 and f32 (module doc)."""
+    import torch
+    from chip_smoke import CFG, step_inputs
+    from pydynet_tpu_torch.models.llama import Llama
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    model = Llama(**CFG, device="cuda",
+                  generator=torch.Generator().manual_seed(0)).eval()
+    out = {}
+    with torch.no_grad():
+        for name, dtype in (("bf16", torch.bfloat16),
+                            ("f32", torch.float32)):
+            args = step_inputs(model, dtype, POS)
+            step = lambda: dsk.fused_decode_step(*args)
+            out[f"K10 {name} step"] = events_us(step, 200)
+            out[f"K10 {name} graph"] = graph_us(step)
+            for stage, t in stage_us(step).items():
+                out[f"K10 {name} {stage}"] = t
+    return out
+
+
+def bn_times() -> dict:
+    """K8 beside ``F.batch_norm`` at chip_smoke.BN_TIME_SHAPES (module
+    doc), us a call, and its byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import BN_TIME_SHAPES, bn_inputs
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    out = {}
+    with torch.no_grad():
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            for N, C in BN_TIME_SHAPES:
+                x, gamma, beta = bn_inputs(N, C, dtype, 3)
+                g, b = gamma.reshape(-1), beta.reshape(-1)
+                key = f"K8 {name} ({N}, {C})"
+                out[key] = graph_us(lambda: [
+                    bn.batch_norm_train(x, gamma, beta)
+                    for _ in range(20)]) / 20
+                out[key + " F.batch_norm"] = graph_us(lambda: [
+                    F.batch_norm(x, None, None, g, b, training=True,
+                                 eps=1e-6) for _ in range(20)]) / 20
+                out[key + " bound"] = (2 * x.numel() * x.element_size()
+                                       + 16 * C) / HBM_BYTES_S * 1e6
+    return out
+
+
+def compare(other: Path, request: bool = False, only=GROUPS) -> None:
     runs = []
     for tree in (other, HERE, HERE, other):
         proc = subprocess.run([sys.executable, __file__, "--tree",
-                               str(tree)] + ["--request"] * request,
+                               str(tree), "--only", ",".join(only)]
+                              + ["--request"] * request,
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"{tree}: {proc.stdout}{proc.stderr}")
@@ -353,11 +423,17 @@ def main(argv=None) -> None:
     ap.add_argument("--compare", type=Path)
     ap.add_argument("--request", action="store_true",
                     help="also time the 7B request (module doc)")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups to time, of "
+                         + ", ".join(GROUPS))
     args = ap.parse_args(argv)
+    only = tuple(args.only.split(","))
+    if not set(only) <= set(GROUPS):
+        ap.error(f"--only: choose from {', '.join(GROUPS)}")
     if args.compare is not None:
-        compare(args.compare.resolve(), args.request)
+        compare(args.compare.resolve(), args.request, only)
     else:
-        print(json.dumps(measure(args.tree.resolve(), args.request)))
+        print(json.dumps(measure(args.tree.resolve(), args.request, only)))
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 // Device helpers shared by the kernel sources (decode_token.cu: K1, the
-// B=1 step, and K9, the greedy head; decode_token_batched.cu: K2, the
-// batched step; decode_step.cu: K10, the layers-only step; gemv_quant.cu:
-// K5-K7; flash_attention.cu: K3/K4). Everything here has internal linkage,
-// so each kernel source is compiled on its own.
+// B=1 step, and K9, the greedy head, whose CUDA-core head_tile is here;
+// decode_token_batched.cu: K2, the batched step; decode_step.cu: K10, the
+// layers-only step, on K2's stages; gemv_quant.cu: K5-K7;
+// flash_attention.cu: K3/K4; batchnorm.cu: K8). Everything here has
+// internal linkage, so each kernel source is compiled on its own.
 //
 // Types: the residual stream is f32; every matmul input is rounded to the
 // weight type T (f32 or bf16) and accumulated in f32; the caches are T.
@@ -81,27 +82,22 @@ __device__ float block_max(float v, float* red) {
   return t;
 }
 
+// Programmatic dependent launch (sm_90): a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// kernel before it in the stream still runs. pdl_wait() blocks until that
+// kernel has completed and its writes are visible; pdl_launch() lets the
+// next such kernel start. Both are no-ops for a kernel launched without
+// the attribute or with no such kernel after it.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // (value, index) order of the greedy argmax: larger value, then lower index
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
-}
-
-// x_s[i] = R(src[i] / sqrt(mean(src^2) + 1e-6) * w[i]) for i < D, where R
-// rounds to the matmul input type (float: no rounding). Ends synchronised.
-template <typename R, typename Src, typename W>
-__device__ void load_normed(const Src* src, const W* w, int D, float* x_s,
-                            float* red) {
-  float ss = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    float v = to_f(src[i]);
-    x_s[i] = v;
-    ss += v * v;
-  }
-  ss = block_sum(ss, red);
-  const float den = sqrtf(ss / (float)D + 1e-6f);
-  for (int i = threadIdx.x; i < D; i += blockDim.x)
-    x_s[i] = round_to<R>(x_s[i] / den * to_f(w[i]));
-  __syncthreads();
 }
 
 // Accumulate row[k] * x_s[k] over the lane's share of k < K: 16-byte loads
@@ -199,50 +195,6 @@ __device__ void head_tile(const float* x_s, const W* head_w, const W* head_b,
     tile_val[blockIdx.x] = bv;
     tile_idx[blockIdx.x] = bi;
   }
-}
-
-// h[r] += dot(w[r, 0:K], x_s) for r < D, a warp per output row
-template <typename T>
-__device__ __forceinline__ void gemv_residual(const float* x_s, int K,
-                                              const T* w, float* h, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = blockIdx.x * kWarps + warp; r < D; r += gridDim.x * kWarps) {
-    const float a = warp_dot(w + (size_t)r * K, x_s, K);
-    if (lane == 0) h[r] += a;
-  }
-}
-
-// K10's FFN, first stage: RMSNorm + gate/up + SiLU(gate) * up -> ff (f32,
-// F wide); shared memory D + kWarps floats
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gate_up_kernel(const float* __restrict__ h, const T* __restrict__ post_norm,
-               const T* __restrict__ gate_w, const T* __restrict__ up_w,
-               float* __restrict__ ff, int D, int F) {
-  extern __shared__ float smem[];
-  float* x_s = smem;
-  float* red = smem + D;
-  load_normed<T>(h, post_norm, D, x_s, red);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int j = blockIdx.x * kWarps + warp; j < F; j += gridDim.x * kWarps) {
-    const float gv = warp_dot(gate_w + (size_t)j * D, x_s, D);
-    const float uv = warp_dot(up_w + (size_t)j * D, x_s, D);
-    if (lane == 0) ff[j] = gv * (1.f / (1.f + expf(-gv))) * uv;
-  }
-}
-
-// K10's FFN, second stage: h[r] += dot(down[r, 0:F], ff rounded to T) for
-// r < D; shared memory F floats
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-down_residual_kernel(const float* __restrict__ ff, int F,
-                     const T* __restrict__ w, float* __restrict__ h, int D) {
-  extern __shared__ float smem[];
-  float* x_s = smem;
-  for (int i = threadIdx.x; i < F; i += blockDim.x)
-    x_s[i] = round_to<T>(ff[i]);
-  __syncthreads();
-  gemv_residual<T>(x_s, F, w, h, D);
 }
 
 // One block per row: argmax over that row's n (max, index) tile pairs ->

@@ -4,8 +4,9 @@
 // float32 weights and holds K2's C entry points, by
 // decode_token_batched_bf16.cu, which instantiates it for bfloat16 weights
 // (nvcc compiles the two at once, each with half of the modes' template
-// instances), and by decode_token.cu, whose K1 entry point runs the same
-// instances at B = 1.
+// instances), by decode_token.cu, whose K1 entry point runs the same
+// instances at B = 1, and by decode_step.cu, whose K10 chain runs the wo,
+// gate/up and down stages (float formats) on its one row.
 #pragma once
 
 #include "common.cuh"
@@ -82,7 +83,9 @@ __host__ __device__ __forceinline__ size_t norm_smem(int K, int G, int MT) {
 // Copy G rows of K values (row b at src + t * K, t = tok[b] clipped to
 // [0, V), or t = b without `tok`) to raw, and the K norm weights w to w_s,
 // by cp.async from all threads, every copy in flight at once; the caller
-// commits them. The rows and weights are whole 4-byte words (D even).
+// commits them and synchronises. The rows are whole 4-byte words (float32
+// rows, or D even); weights that are not (a bfloat16 layer's at odd D) are
+// copied element by element past their last aligned word.
 template <typename S, typename T>
 __device__ void stage_norm_rows(const S* src, const int* tok, int V,
                                 const T* w, int K, int G, S* raw, T* w_s) {
@@ -99,9 +102,12 @@ __device__ void stage_norm_rows(const S* src, const int* tok, int V,
     else
       cp_async4(to + 4 * c, from + 4 * c, 4);
   }
-  for (int c = threadIdx.x; c < wb / 4; c += kThreads)
+  const int ww = reinterpret_cast<uintptr_t>(w) % 4 == 0 ? wb / 4 : 0;
+  for (int c = threadIdx.x; c < ww; c += kThreads)
     cp_async4(smem_u32(reinterpret_cast<char*>(w_s) + 4 * c),
               reinterpret_cast<const char*>(w) + 4 * c, 4);
+  for (int i = 4 * ww / (int)sizeof(T) + threadIdx.x; i < K; i += kThreads)
+    w_s[i] = w[i];
 }
 
 // The rows a block of a step of B rows takes: group blockIdx.y, rows
@@ -123,13 +129,17 @@ __device__ __forceinline__ int row_start(const int* starts, int b, int p) {
 // 64-byte stages w, w + 8, w + 16, ... of every tile through its own
 // kTileStages-deep cp.async ring, so the block reads its tiles once with
 // all its warps' loads in flight and no barrier between stages. `stage`
-// issues cp.async copies of the rows before the ring's first stages, as
-// cp.async group 0 (cp_async_wait<kTileStages - 1> waits for it); `fill`
-// (all threads, ending synchronised) makes the activation rows at `act`
-// while the ring's first stages are in flight. The warps' sums are left in
+// issues cp.async copies of the rows: without PDL before the ring's first
+// stages, as cp.async group 0 (cp_async_wait<kTileStages - 1> waits for
+// it); with PDL (a kernel of a chain of programmatic launches) after them
+// and after the wait for the kernel before (pdl_wait), so that the
+// weights' copies overlap that kernel, as the last group
+// (cp_async_wait<0>). `fill` (all threads, ending synchronised) makes the
+// activation rows at `act`. The warps' sums are left in
 // `smem` (tile_sum reads them); ends synchronised. No part of the split
 // depends on G.
-template <int Q, typename T, int MT, int NT, typename Stage, typename Fill>
+template <int Q, typename T, int MT, int NT, bool PDL, typename Stage,
+          typename Fill>
 __device__ void layer_product(const unsigned char* const (&w)[MT],
                               const int (&nrows)[MT], int K, ActRows a,
                               int G, unsigned char* smem,
@@ -152,11 +162,19 @@ __device__ void layer_product(const unsigned char* const (&w)[MT],
       tile_stage<kLayerRows>(slot + t * kTile, w[t], nrows[t], rb,
                              warp + kWarps * j, vec, lane, 32);
   };
-  stage();
-  cp_async_commit();  // group 0: the rows `stage` copies, if any
+  if constexpr (!PDL) {
+    stage();
+    cp_async_commit();  // group 0: the rows `stage` copies, if any
+  }
 #pragma unroll
   for (int j = 0; j < kTileStages - 1; ++j) {
     if (j < nj) load(j);
+    cp_async_commit();
+  }
+  if constexpr (PDL) {  // the weights depend on no earlier kernel
+    pdl_wait();
+    pdl_launch();
+    stage();
     cp_async_commit();
   }
   fill();
@@ -277,7 +295,8 @@ layer_qkv_kernel(const int* __restrict__ pos_p, const int* __restrict__ tok,
       stage_norm_rows(h, nullptr, 0, in_norm, D, G,
                       reinterpret_cast<float*>(raw), w_s);
   };
-  layer_product<Q, T, 1, NT>(wt, nr, D, a, G, smem_u8, act, stage, [&] {
+  layer_product<Q, T, 1, NT, false>(wt, nr, D, a, G, smem_u8, act, stage,
+                                    [&] {
     cp_async_wait<kTileStages - 1>();
     __syncthreads();
     if (first)
@@ -629,7 +648,7 @@ cudaError_t launch_attention(dim3 grid, cudaStream_t st, const int* pos,
 // output (wo, K = D) or the SwiGLU output (down, K = F), each row rounded
 // to T or quantized with its own amax. One thread writes each element, so
 // the residual add is a plain store.
-template <typename T, int Q, int NT>
+template <typename T, int Q, int NT, bool PDL>
 __device__ void residual_stage(const float* __restrict__ x, int K,
                                const void* __restrict__ w,
                                const float* __restrict__ scale,
@@ -646,7 +665,8 @@ __device__ void residual_stage(const float* __restrict__ x, int K,
   const unsigned char* wt[1] = {static_cast<const unsigned char*>(w) +
                                 fmt_bytes<Q, T>((size_t)row0 * K)};
   const int nr[1] = {min(kLayerRows, D - row0)};
-  layer_product<Q, T, 1, NT>(wt, nr, K, a, G, smem_u8, act, [] {}, [&] {
+  layer_product<Q, T, 1, NT, PDL>(wt, nr, K, a, G, smem_u8, act, [] {},
+                                  [&] {
     load_act_rows<Q, T>(x, nullptr, 0, nullptr, K, G, a, act, sx_s);
   });
   for (int i = threadIdx.x; i < G * kLayerRows; i += kThreads) {
@@ -658,18 +678,19 @@ __device__ void residual_stage(const float* __restrict__ x, int K,
   }
 }
 
-// 3. wo + residual, over the merged attention output
-template <typename T, int Q, int NT>
+// 3. wo + residual, over the merged attention output. PDL: a kernel of a
+// chain of programmatic launches (layer_product)
+template <typename T, int Q, int NT, bool PDL = false>
 __global__ void __launch_bounds__(kThreads)
 layer_wo_kernel(const float* __restrict__ att, const void* __restrict__ wo,
                 const float* __restrict__ s_o, float* __restrict__ h, int B,
                 int D) {
-  residual_stage<T, Q, NT>(att, D, wo, s_o, h, B, D);
+  residual_stage<T, Q, NT, PDL>(att, D, wo, s_o, h, B, D);
 }
 
 // 4. RMSNorm + gate/up + SiLU(gate) * up -> ff (B, F) f32 for one group of
 // rows: block x takes gate rows [16 x, 16 x + 16) and the same up rows
-template <typename T, int Q, int NT>
+template <typename T, int Q, int NT, bool PDL = false>
 __global__ void __launch_bounds__(kThreads)
 layer_gate_up_kernel(const float* __restrict__ h,
                      const T* __restrict__ post_norm,
@@ -694,11 +715,14 @@ layer_gate_up_kernel(const float* __restrict__ h,
   const int nr[2] = {min(kLayerRows, F - row0), min(kLayerRows, F - row0)};
   float* raw = reinterpret_cast<float*>(smem_u8 + layer_smem<Q, T>(D, G, 2));
   T* w_s = reinterpret_cast<T*>(raw + (size_t)G * D);
-  layer_product<Q, T, 2, NT>(
+  layer_product<Q, T, 2, NT, PDL>(
       wt, nr, D, a, G, smem_u8, act,
       [&] { stage_norm_rows(h, nullptr, 0, post_norm, D, G, raw, w_s); },
       [&] {
-        cp_async_wait<kTileStages - 1>();
+        if constexpr (PDL)
+          cp_async_wait<0>();
+        else
+          cp_async_wait<kTileStages - 1>();
         __syncthreads();
         load_act_rows<Q, T>(raw, nullptr, 0, w_s, D, G, a, act, sx_s);
       });
@@ -715,13 +739,13 @@ layer_gate_up_kernel(const float* __restrict__ h,
 }
 
 // 5. down + residual, over the SwiGLU output
-template <typename T, int Q, int NT>
+template <typename T, int Q, int NT, bool PDL = false>
 __global__ void __launch_bounds__(kThreads)
 layer_down_kernel(const float* __restrict__ ff, int F,
                   const void* __restrict__ w,
                   const float* __restrict__ s_down, float* __restrict__ h,
                   int B, int D) {
-  residual_stage<T, Q, NT>(ff, F, w, s_down, h, B, D);
+  residual_stage<T, Q, NT, PDL>(ff, F, w, s_down, h, B, D);
 }
 
 using pdt_k2::Args;

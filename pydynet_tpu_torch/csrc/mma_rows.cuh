@@ -1,6 +1,6 @@
 // The tensor-core machinery of the decode steps' products, shared by the
 // head stage (head.cuh) and the layer stages (decode_token_batched.cuh) of
-// K1 and K2: the activation rows of a group of up to 32 rows made the B
+// K1 and K2, which K10 (decode_step.cu) runs too: the activation rows of a group of up to 32 rows made the B
 // operand a warp a row, a weight tile's 64-byte stages copied by cp.async
 // into swizzled shared memory, and one stage's mma.sync products (bfloat16
 // m16n8k16 with float32 sums, int8 m16n8k32 with exact int32 sums, int4

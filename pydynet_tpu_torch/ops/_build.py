@@ -52,6 +52,7 @@ SIGNATURES = {
     "pdt_qmm": (_I, [_I] + [_P] * 5 + [_I] * 2 + [_P] + [_I] * 3 + [_P]),
     "pdt_batch_norm_train": (_I, [_I, _I] + [_P] * 6 + [_I, _I]
                              + [ctypes.c_float, _P]),
+    "pdt_batch_norm_plan": (_I, [_I] * 3 + [_P]),
 }
 
 

@@ -18,7 +18,9 @@ The JAX package's ``_fits_vmem`` rule (:56) is not ported: its size cap and
 its N >= 8 rule exist for VMEM and the TPU's (8, 128) tiling. The kernel
 takes every N >= 1 and C >= 1 in float32 and bfloat16. Like the JAX rule
 for float64, the ``BatchNorm1d`` module sends what the kernel does not take
-to its composite (``nn/modules/norm.py``).
+to its composite (``nn/modules/norm.py``). How the kernel cuts a batch into
+column strips and row slabs, a thread-block cluster a strip, is
+:func:`bn_plan`, the mirror of ``bn_plan`` in the CUDA source.
 
 On the CPU the plain version also takes float64 (gradient checks): there
 every step, ``mean`` and ``var`` included, is in float64.
@@ -32,6 +34,55 @@ import torch
 from . import _build
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # -> the C type code
+
+# csrc/batchnorm.cu's cut of a batch: 128 bytes of a row a strip; at least
+# this many rows a slab once split; the SMs the blocks should fill, the
+# shared memory of one and the blocks it holds at most; the largest
+# cluster; the shared memory a slab may take; the block's threads
+STRIP_BYTES, MIN_SLAB_ROWS, SMS, MAX_CLUSTER = 128, 64, 132, 16
+SM_SMEM, SM_BLOCKS, THREADS = 228 * 1024, 8, 256
+SLAB_BYTES = 176 * 1024
+
+
+def bn_smem(held: int, cluster: int, width: int) -> int:
+    """Dynamic shared memory of a K8 block (``bn_smem`` in
+    ``csrc/batchnorm.cu``): ``held`` rows of 128 bytes, then the warps'
+    sums, the two exchanges' ``cluster`` slots and the mean and rstd,
+    ``width`` floats each."""
+    return held * STRIP_BYTES + (THREADS // 32 + 2 * cluster + 2) * width * 4
+
+
+def bn_plan(N: int, C: int, itemsize: int) -> dict:
+    """How K8 cuts an (N, C) batch of ``itemsize``-byte elements (``bn_plan``
+    in ``csrc/batchnorm.cu``): strips of ``width`` columns (128 bytes a
+    row); ``cluster`` blocks a strip, one thread-block cluster, each taking
+    a slab of ``rows`` rows (the last may be short), of which the first
+    ``cached`` are held in shared memory (all of them when ``held_all``:
+    x is then read from device memory once) and the rest read again from
+    x in each pass. The cluster doubles from 1 while half a slab keeps
+    MIN_SLAB_ROWS rows and the blocks do not yet fill SMS, or a slab passes
+    SLAB_BYTES, or the blocks cannot all be resident at once (SM_SMEM and
+    SM_BLOCKS an SM, 1 KB of it reserved a block)."""
+    width = STRIP_BYTES // itemsize
+    strips = -(-C // width)
+    max_rows = SLAB_BYTES // STRIP_BYTES
+
+    def slab(c):
+        return -(-N // c)
+
+    def resident(c):
+        per_sm = SM_SMEM // (bn_smem(min(slab(c), max_rows), c, width)
+                             + 1024)
+        return SMS * min(SM_BLOCKS, per_sm)
+
+    cs = 1
+    while (cs < MAX_CLUSTER and slab(2 * cs) >= MIN_SLAB_ROWS
+           and (strips * cs < SMS or slab(cs) > max_rows
+                or strips * cs > resident(cs))):
+        cs *= 2
+    rows = slab(cs)
+    return dict(width=width, strips=strips, cluster=cs, rows=rows,
+                cached=min(rows, max_rows), held_all=rows <= max_rows)
 
 
 def _acc(dtype):

@@ -767,12 +767,24 @@ def head_mask_matrix(dim: int, n_heads: int, dtype=torch.float32):
 
 
 def step_kernel_takes(dim: int, n_heads: int, ffn: int) -> bool:
-    """Whether ``csrc/decode_step.cu`` takes these widths: the norm, RoPE
-    and projection blocks hold D- or F-wide vectors (2 D for RoPE) in the
-    48 KB of shared memory a block gets without opting in, and the p @ V
-    block holds 64 rows and 64 columns of H head values."""
+    """Whether ``csrc/decode_step.cu`` takes these widths. The rule is the
+    one its first design had (vectors of 2 D + 512 and F + 64 floats within
+    48 KB, up to 64 heads), kept so that no width it took is refused: the
+    layer stages it shares with K1 and K2 fit their opt-in at every such
+    width (:func:`layer_smem_bytes` at one row, at most about 136 KB at D =
+    5888), and the attention stage stages its cache rows, rot rows and
+    features in chunks that fit (``attn_plan``), any S."""
     return (1 <= n_heads <= min(dim, MAX_STEP_HEADS)
             and max(2 * dim + 512, ffn + 64) <= _SMEM_FLOATS)
+
+
+def step_scratch_floats(dim: int, n_heads: int, ffn: int, seq: int) -> int:
+    """Floats of device scratch a K10 step takes
+    (``pdt_decode_step_scratch_floats``): the residual h, the raw q and k,
+    the attention output (D, 2 D, D), the SwiGLU output (F), and the scores
+    of ``seq`` rows for the heads padded to 8, for the attention stage's
+    scores where they do not fit in its shared memory."""
+    return 4 * dim + ffn + seq * (-(-n_heads // 8) * 8)
 
 
 def fused_decode_step_ref(pos, h0, cos, sin, rot, hmask, final_norm, wq, wk,

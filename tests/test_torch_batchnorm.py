@@ -149,3 +149,63 @@ def test_wrapper_checks_shapes():
         tbn.batch_norm_train(torch.from_numpy(inputs(6, 4)[0]).t(), g, b)
     with pytest.raises(ValueError, match="floating"):
         tbn.batch_norm_train(x.int(), g, b)
+
+
+# bn_plan (csrc/batchnorm.cu's cut of a batch) worked by hand: strips of 128
+# bytes a row; the cluster doubles from 1 while half a slab keeps 64 rows
+# and the blocks do not fill 132 SMs, or a slab passes 1,408 rows (176 KB),
+# or the blocks cannot all be resident (228 KB an SM, 1 KB reserved a block,
+# at most 8 blocks).
+PLAN_CASES = [
+    # the trainer's batch: half a slab would be 20 rows, one block a strip
+    ((40, 512, 4), dict(width=32, strips=16, cluster=1, rows=40, cached=40,
+                        held_all=True)),
+    # 63 rows a half slab at 126, 64 at 127
+    ((126, 1024, 4), dict(width=32, strips=32, cluster=1, rows=126,
+                          cached=126, held_all=True)),
+    ((127, 1024, 4), dict(width=32, strips=32, cluster=2, rows=64, cached=64,
+                          held_all=True)),
+    # 32 x 8 = 256 blocks of 19.7 KB fill the SMs, 8 resident on each
+    ((1024, 1024, 4), dict(width=32, strips=32, cluster=8, rows=128,
+                           cached=128, held_all=True)),
+    # at a cluster of 8 one 132 KB block an SM: 132 < 256, so 16 (69 KB)
+    ((8192, 1024, 4), dict(width=32, strips=32, cluster=16, rows=512,
+                           cached=512, held_all=True)),
+    ((8192, 1024, 2), dict(width=64, strips=16, cluster=16, rows=512,
+                           cached=512, held_all=True)),
+    # one strip: the cluster grows to 16; 1,409 rows hold 1,408
+    ((22529, 32, 4), dict(width=32, strips=1, cluster=16, rows=1409,
+                          cached=1408, held_all=False)),
+    ((1, 7, 2), dict(width=64, strips=1, cluster=1, rows=1, cached=1,
+                     held_all=True)),
+]
+
+
+@pytest.mark.parametrize("args,want", PLAN_CASES,
+                         ids=lambda a: "x".join(map(str, a))
+                         if isinstance(a, tuple) else "")
+def test_bn_plan_hand_worked(args, want):
+    assert tbn.bn_plan(*args) == want
+
+
+@pytest.mark.parametrize("seam", range(9))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_matches_jax_at_the_kernel_seams(dtype, seam):
+    """chip_smoke.bn_seam_shapes (the shapes that cut the kernel's plan at
+    its seams) against the JAX package's op: its Pallas kernel in interpret
+    mode where ``_fits_vmem`` holds, its composite beyond; the tolerances
+    of the test above."""
+    from chip_smoke import bn_seam_shapes
+
+    tdt, jdt = DTYPES[dtype]
+    N, C = bn_seam_shapes(torch.finfo(tdt).bits // 8)[seam]
+    x, g, b = inputs(N, C, seed=seam)
+    got = tbn.batch_norm_train(torch.from_numpy(x).to(tdt),
+                               torch.from_numpy(g), torch.from_numpy(b))
+    out, mean, var = (as_f32(a) for a in jbn.batch_norm_train(
+        jnp.asarray(x).astype(jdt), jnp.asarray(g), jnp.asarray(b), 1e-6,
+        True))
+    tol = 1e-5 + (BF16_ULP * np.abs(out) if dtype == "bf16" else 0.0)
+    assert np.all(np.abs(got[0].float().numpy() - out) <= tol)
+    np.testing.assert_allclose(got[1].numpy(), mean, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got[2].numpy(), var, atol=1e-5, rtol=0)

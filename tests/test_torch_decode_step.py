@@ -108,10 +108,11 @@ def test_rope_and_head_mask_matrices_equal_jax():
             np.asarray(jds.head_mask_matrix(dim, heads)))
 
 
-def _step_case(seed=0, structured=True):
+def _step_case(seed=0, structured=True, seq=S):
     """test_ops_kernels.py:75's inputs at pos 5 (its tiny fixture's
-    weights, seed 0, its h0 and caches, seed 1), and optionally a random
-    rot and hmask in place of the pair swap and the head mask."""
+    weights, seed 0, its h0 and caches, seed 1, ``seq`` cache rows), and
+    optionally a random rot and hmask in place of the pair swap and the
+    head mask."""
     rng = np.random.default_rng(seed)
     p = {
         "wq": rng.standard_normal((N, D, D)) * 0.2,
@@ -129,8 +130,8 @@ def _step_case(seed=0, structured=True):
     rng = np.random.default_rng(seed + 1)
     pos = 5
     h0 = (rng.standard_normal((1, D)) * 0.5).astype(np.float32)
-    ck = (rng.standard_normal((N, S, D)) * 0.3).astype(np.float32)
-    cv = (rng.standard_normal((N, S, D)) * 0.3).astype(np.float32)
+    ck = (rng.standard_normal((N, seq, D)) * 0.3).astype(np.float32)
+    cv = (rng.standard_normal((N, seq, D)) * 0.3).astype(np.float32)
     inv = 1.0 / (10000 ** (np.arange(0, HD, 2) / HD))
     cosd = np.tile(np.repeat(np.cos(pos * inv), 2), H)[None].astype(
         np.float32)
@@ -181,7 +182,7 @@ def _run_both(case, dtype=np.float32, pos=None):
 
 
 def _untouched(new, old, pos):
-    keep = np.ones(S, bool)
+    keep = np.ones(new.shape[1], bool)
     keep[pos] = False
     np.testing.assert_array_equal(new[:, keep], old[:, keep])
 
@@ -235,6 +236,32 @@ def test_fused_decode_step_positions_and_clamp_match_jax(pos):
     np.testing.assert_allclose(th, jh, atol=1e-4)
     np.testing.assert_allclose(tck, jck, atol=1e-5)
     _untouched(tck, case[7], min(pos, S - 1))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("pos", [63, 64, 65])
+def test_fused_decode_step_across_row_tiles_matches_jax(pos, dtype):
+    """A 128-row cache at positions either side of the kernel's row tiles
+    (16 rows; 64 a block at stories15M's 1024 rows): float32 and bf16 at
+    the tolerances of the tests above, the other rows untouched."""
+    case = _step_case(5, seq=128)
+    jdt = np.float32 if dtype == "f32" else ml_dtypes.bfloat16
+    (jh, jck, jcv), (th, tck, tcv) = _run_both(case, jdt, pos=pos)
+    h_tol, c_tol = (1e-4, 1e-5) if dtype == "f32" else (2.0**-5, 2.0**-6)
+    np.testing.assert_allclose(th, jh, atol=h_tol)
+    np.testing.assert_allclose(tck, jck, atol=c_tol)
+    np.testing.assert_allclose(tcv, jcv, atol=c_tol)
+    _untouched(tck, case[7].astype(jdt).astype(np.float32), pos)
+
+
+@pytest.mark.parametrize("args,want", [
+    # stories15M: h, q and k, att (4 x 288), ff 768, 1024 rows x 8 heads
+    ((288, 6, 768, 1024), 4 * 288 + 768 + 1024 * 8),
+    # H = D = 32: 32 heads already a multiple of 8
+    ((32, 32, 64, 32), 128 + 64 + 32 * 32),
+    ((16, 9, 24, 100), 64 + 24 + 100 * 16)])
+def test_step_scratch_floats_hand_worked(args, want):
+    assert tds.step_scratch_floats(*args) == want
 
 
 def test_fused_decode_step_aliases_caches_by_default():

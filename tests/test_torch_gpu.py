@@ -580,6 +580,45 @@ def test_batchnorm_kernel_matches_plain(gpu, shape, dtype):
     assert set(errs) == {"out", "mean", "var", "dx", "dgamma", "dbeta"}
 
 
+@pytest.mark.parametrize("seam", range(9))
+@pytest.mark.parametrize("pair", range(4))
+def test_batchnorm_kernel_at_its_seams(gpu, pair, seam):
+    """K8 and its gradients against the plain version at the shapes that
+    cut its plan at the seams (chip_smoke.bn_seam_shapes), in the four
+    (x, gamma/beta) type pairs, within chip_smoke's stated tolerances."""
+    from chip_smoke import BN_TYPE_PAIRS, bn_seam_shapes, bn_vs_plain
+
+    dtype, pdtype = BN_TYPE_PAIRS[pair]
+    N, C = bn_seam_shapes(torch.finfo(dtype).bits // 8)[seam]
+    errs = bn_vs_plain(N, C, dtype, pdtype=pdtype)
+    assert set(errs) == {"out", "mean", "var", "dx", "dgamma", "dbeta"}
+
+
+@pytest.mark.parametrize("shape", [(8192, 1024), (1025, 1024), (22529, 32),
+                                   (40, 512)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_batchnorm_kernel_is_deterministic(gpu, dtype, shape):
+    """Two runs give the same bits: the cluster's sums meet in rank
+    order, with no float atomics."""
+    from chip_smoke import FLASH_DTYPES, bn_same_bits
+
+    assert bn_same_bits(*shape, FLASH_DTYPES[dtype], 11)
+
+
+def test_batchnorm_plan_mirrors_the_kernel(gpu):
+    """ops/batchnorm.py's bn_plan equals the CUDA source's at every shape
+    the checks use, both element sizes."""
+    from chip_smoke import BN_SHAPES, bn_plan_on_card, bn_seam_shapes
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    for size in (4, 2):
+        for N, C in BN_SHAPES + bn_seam_shapes(size):
+            want = bn.bn_plan(N, C, size)
+            del want["held_all"]
+            assert bn_plan_on_card(N, C, size) == want
+
+
 def test_batchnorm_modules_route_to_k8(gpu):
     """A 2-D BatchNorm1d input in train mode launches K8 once a forward, in
     float32 and bfloat16, and moves the running statistics; BatchNorm2d,
@@ -700,6 +739,31 @@ def test_step_kernel_matches_plain(model, dtype, pos):
     with torch.no_grad():
         h_err, c_err, kept, _ = step_vs_plain(model, dt, pos)
     assert h_err <= STEP_ATOL[dt] and c_err <= CACHE_ATOL[dt] and kept
+
+
+@pytest.mark.parametrize("pos", [63, 64, 65, 255, 256, 1023])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_step_kernel_across_row_tiles(model, dtype, pos):
+    """K10 either side of its attention stage's 16-row tiles and of its
+    blocks' shares of them (64 rows a block at pos 1023): h_out and the
+    caches within chip_smoke's tolerances, the other rows untouched."""
+    from chip_smoke import CACHE_ATOL, FLASH_DTYPES, STEP_ATOL, step_vs_plain
+
+    dt = FLASH_DTYPES[dtype]
+    with torch.no_grad():
+        h_err, c_err, kept, _ = step_vs_plain(model, dt, pos)
+    assert h_err <= STEP_ATOL[dt] and c_err <= CACHE_ATOL[dt] and kept
+
+
+def test_step_scratch_floats_mirror_the_kernel(tiny):
+    from pydynet_tpu_torch.ops import _build
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    lib = _build.load()
+    for args in ((288, 6, 768, 1024), (32, 2, 64, 32), (32, 32, 64, 32),
+                 (4096, 64, 11008, 2048)):
+        assert dsk.step_scratch_floats(*args) == \
+            lib.pdt_decode_step_scratch_floats(*args)
 
 
 @pytest.mark.parametrize("pos", [0, 5, 31, 40])
