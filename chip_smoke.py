@@ -49,12 +49,16 @@ the run with a nonzero exit and no result line:
    (N, C) from (1, 7) to (8192, 1024) in float32 and bfloat16, its
    gradients through the autograd op against the plain forward's, and a
    float64 CUDA input raising;
-3e. the greedy head alone (K9) against its plain version at stories15M's
-   head (D 288, V 32000) in float32 and bfloat16, with a forced tie between
-   two rows in different vocab tiles (the lower must win); the layers-only
-   step (K10) against its plain version at stories15M width (6 layers,
-   S 1024) in float32 and bfloat16 with the pair-swap and head-mask
-   matrices at positions 0, 511, 1023 and 1030 (which must act as 1023),
+3e. the greedy head alone (K9, K1's tensor-core head stage at one row
+   without the final norm) against its plain version at stories15M's head
+   (D 288, V 32000), a float32 h against float32 and bfloat16 weights, with
+   a forced tie between two rows in different vocab blocks (the lower must
+   win), and a float32 h against bfloat16 weights whose argmax differs from
+   that of h rounded to bfloat16 (the kernel must not round it); the
+   layers-only step (K10) against its plain version at stories15M width
+   (6 layers, S 1024) in float32 and bfloat16 with the pair-swap and
+   head-mask matrices at positions 0, 511, 1023 and 1030 (which must act
+   as 1023),
    its output and both caches compared and the rows other than pos
    untouched; then the path K9 and K10 make together, a float32 greedy
    decode of the prompt and 63 tokens teacher-forced along the float32
@@ -130,6 +134,19 @@ the run with a nonzero exit and no result line:
    lane with a 40-token prompt (its prefill through K6) against the same
    lane on the CPU; and the ``serve_cli`` once with ``--lane xla --quant
    int8``;
+4l. long-prompt prefill: a 1,000-token prompt on stories15M (bfloat16, the
+   fused lane, padded to 1,024) and a 4,000-token prompt on the 7B geometry
+   (its 4,096-token context; int8, the scan lane), each through
+   ``generate(flash_prefill=False)`` (the dense (L, L) scores) and
+   ``generate(flash_prefill=True)`` (K3), then 23 tokens: K3's launch
+   counter must be the model's layers on a flash prefill and 0 on a dense
+   one, and both routes must pass the confident-step gate, the prefill
+   token included, against the float32 truth (stories15M) or the dense
+   route's (7B); each route's time to the first token (3 in turns); the 7B
+   int8 prefill on both routes at padded lengths 256 to 4,096, whose
+   crossover sets ``FLASH_PREFILL_MIN``; K3 against its plain version at
+   (1, 4096, 32, 128) bfloat16, timed beside its bound and
+   ``F.scaled_dot_product_attention(is_causal=True)``;
 4e. the nn-stack trainers: DNN_BN's first step on the card (through K8)
    against the same step on the CPU; the ``dropout_bn`` trainer at its
    published setting, 20 epochs of 8 steps (K8's counter must equal
@@ -303,9 +320,10 @@ TRAIN_L, TRAIN_LR, TRAIN_STEPS = 1024, 1e-3, 20
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_W_ATOL = 1e-5, 1e-4, TRAIN_LR / 10
 TRAIN_TEXT = ("Once upon a time, there was a little girl named Lily. She "
               "loved to play outside in the park with her friends.")
-# Llama-2-7B geometry (scripts/bench_7b_full.py:48), all 32 layers, bf16
+# Llama-2-7B geometry (scripts/bench_7b_full.py:48), all 32 layers, bf16,
+# at Llama-2's published 4,096-token context
 LLAMA2_7B = dict(vocab_size=32000, embed_dim=4096, n_heads=32, ffn_dim=11008,
-                 max_seq_len=1024, max_batch_size=1, n_layers=32)
+                 max_seq_len=4096, max_batch_size=1, n_layers=32)
 # (K, N) of every quantized matmul: fused qkv, wo, fused gate/up, down, head
 QMM_SHAPES = {"stories15M": ((288, 864), (288, 288), (288, 1536), (768, 288),
                              (288, 32000)),
@@ -323,6 +341,18 @@ BIG_TIME_REQUESTS = 16  # the timed server: four admission waves
 BIG_REPEATS = 3
 LONG_PROMPT = 40  # a stories15M scan-lane prompt past 32 rows: the K6 path
 TTFT_PROMPT = 512  # the 7B prompt whose time to the first token is timed
+# the long-prompt phase: a prompt of each length prefilled through the dense
+# scores and through the flash forward (K3), then LONG_NEW tokens (the
+# prefill token included); stories15M's pads to its 1,024 rows, the 7B's to
+# its 4,096
+LONG_PROMPTS = {"stories15M": 1000, "7B": 4000}
+LONG_NEW = 24
+# the padded prompt lengths at which the two routes' prefills are timed at
+# 7B width: the smallest from which flash is faster at every one is the
+# crossover that sets the port's FLASH_PREFILL_MIN
+CROSSOVER_LENGTHS = (256, 512, 1024, 2048, 4096)
+LONG_REPEATS = 3  # first tokens a route and length, the routes in turns
+LONG_FLASH_SHAPE = (1, 4096, 32, 128)  # K3 at the 7B prefill: (B, L, H, d)
 INT4_MIN_AGREE = 0.75  # bench.py's majority floor for the lossy formats
 QMM_KERNELS = ("quantize_rows", "qmatmul", "qmatmul_prefill",
                "qmatmul_stacked")
@@ -812,16 +842,30 @@ def head_inputs(model, dtype, seed=0, tie=False):
     return h, head_w, head_b
 
 
-def head_vs_plain(model, dtype, seed=0, tie=False):
-    """K9 and its plain version on the same inputs. Returns (kernel token,
-    plain token, the plain logit the kernel's token falls short of the
-    plain maximum by)."""
+def head_unrounded_inputs(model):
+    """tests/test_torch_decode_step.py's not-rounded case at the model's
+    head: a float32 h (1, D), 1 + 2**-9 and 1 + 2**-8 in its first two
+    entries and zero elsewhere, against bfloat16 weights whose rows 0 and 1
+    read those entries, and a zero bias. Unrounded, row 1 wins; h rounded to
+    bfloat16 ties the two rows at 1.0, and row 0 wins."""
+    dev, D, V = model.device, model.embed_dim, model.vocab_size
+    h = torch.zeros(1, D, device=dev)
+    h[0, 0], h[0, 1] = 1 + 2.0**-9, 1 + 2.0**-8
+    w = torch.zeros(V, D, dtype=torch.bfloat16, device=dev)
+    w[0, 0] = w[1, 1] = 1.0
+    return h, w, torch.zeros(V, dtype=torch.bfloat16, device=dev)
+
+
+def head_vs_plain(model, dtype, seed=0, tie=False, inputs=None):
+    """K9 and its plain version on the same inputs (``inputs`` (h, w, b),
+    else ``head_inputs``'). Returns (kernel token, plain token, the plain
+    logit the kernel's token falls short of the plain maximum by)."""
     from pydynet_tpu_torch.ops import decode_step as dsk
 
-    h, w, b = head_inputs(model, dtype, seed, tie)
+    h, w, b = inputs or head_inputs(model, dtype, seed, tie)
     got = int(dsk.lm_head_argmax(h, w, b)[0, 0])
     want = int(dsk.lm_head_argmax_ref(h, w, b)[0, 0])
-    logits = w.float() @ h[0] + b.float()
+    logits = w.float() @ h[0].float() + b.float()
     return got, want, float(logits.max() - logits[got])
 
 
@@ -892,6 +936,16 @@ def check_head_and_step(model, truth, margins, tops):
         if got != want or got != HEAD_TIE[0]:
             raise AssertionError(f"K9 {name} tie: kernel {got}, plain {want}"
                                  f", want {HEAD_TIE[0]}")
+    # a float32 h against bfloat16 weights is not rounded to bfloat16
+    h, w, b = head_unrounded_inputs(model)
+    got = head_vs_plain(model, None, inputs=(h, w, b))[:2]
+    rounded = head_vs_plain(model, None, inputs=(h.to(torch.bfloat16), w, b))
+    print(f"[chip_smoke] K9 not-rounded case: kernel, plain {got}; h rounded "
+          f"to bf16: kernel, plain {rounded[:2]}")
+    if got != (1, 1) or rounded[:2] != (0, 0):
+        raise AssertionError(f"K9 not-rounded case: {got}, rounded "
+                             f"{rounded[:2]}; want (1, 1) and (0, 0)")
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         outs = {}
         for pos in STEP_POSITIONS:
             h_err, c_err, kept, outs[pos] = step_vs_plain(model, dtype, pos)
@@ -1375,26 +1429,32 @@ def flash_inputs(B, L, dtype, seed=0, d=48, heads=CFG["n_heads"]):
                         device="cuda").to(dtype) for _ in range(4)]
 
 
-def flash_vs_plain(B, L, dtype, seed=0, d=48, heads=CFG["n_heads"]):
-    """K3 and both K4 kernels against their plain versions on the same
-    inputs (the backward ones given the kernel forward's o and lse). Raises
-    beyond ``FLASH_ATOL``; returns {output: max |kernel - plain|}."""
+def flash_vs_plain(B, L, dtype, seed=0, d=48, heads=CFG["n_heads"],
+                   backward=True):
+    """K3 and (with ``backward``) both K4 kernels against their plain
+    versions on the same inputs (the backward ones given the kernel
+    forward's o and lse). Raises beyond ``FLASH_ATOL``; returns {output:
+    max |kernel - plain|}."""
     from pydynet_tpu_torch.ops import flash_attention as fa
 
     q, k, v, do = flash_inputs(B, L, dtype, seed, d, heads)
     scale = d ** -0.5
     o, lse = fa.flash_attention_fwd(q, k, v)
-    dd = fa.attention_dd(o, do)
-    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, dd)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd)
     plain = dict(zip(("o", "lse"), fa.flash_attention_fwd_ref(q, k, v,
                                                               scale)))
-    plain["dq"] = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, dd, scale)
-    plain["dk"], plain["dv"] = fa.flash_attention_bwd_dkv_ref(
-        q, k, v, do, lse, dd, scale)
+    outs = dict(o=o, lse=lse)
+    if backward:
+        dd = fa.attention_dd(o, do)
+        outs["dq"] = fa.flash_attention_bwd_dq(q, k, v, do, lse, dd)
+        outs["dk"], outs["dv"] = fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                          dd)
+        plain["dq"] = fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, dd,
+                                                    scale)
+        plain["dk"], plain["dv"] = fa.flash_attention_bwd_dkv_ref(
+            q, k, v, do, lse, dd, scale)
     torch.cuda.synchronize()
     errs = {}
-    for name, got in dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv).items():
+    for name, got in outs.items():
         want = plain[name].float()
         err = (got.float() - want).abs()
         tol = FLASH_ATOL[name] + (BF16_ULP * want.abs()
@@ -1974,6 +2034,150 @@ def check_big_dims():
         raise AssertionError(f"a quantized-matmul kernel was not launched: "
                              f"{launches}")
     return model, launches
+
+
+def first_token_s(model, prompt, **kw):
+    """Seconds to the first token of ``generate`` on ``prompt`` (its
+    prefill: the total length is the prompt's plus one), synchronised."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    toks = list(model.generate(prompt, prompt.shape[1] + 1, **kw))
+    torch.cuda.synchronize()
+    if len(toks) != 1:
+        raise AssertionError(f"{len(toks)} tokens from a first-token run")
+    return time.perf_counter() - start
+
+
+def first_tokens_in_turns(model, prompt, **kw):
+    """{flash: seconds of LONG_REPEATS first tokens} on the two prefill
+    routes, after one untimed run each, the routes in turns (dense, flash,
+    flash, dense, ...)."""
+    times = {False: [], True: []}
+    for flash in times:
+        first_token_s(model, prompt, flash_prefill=flash, **kw)
+    for i in range(LONG_REPEATS):
+        for flash in ((False, True) if i % 2 == 0 else (True, False)):
+            times[flash].append(first_token_s(model, prompt,
+                                              flash_prefill=flash, **kw))
+    return times
+
+
+def check_long_prompt(model, big, card):
+    """Long-prompt prefill: stories15M (bf16, the fused lane) and the 7B
+    geometry (int8, the scan lane) each prefill a LONG_PROMPTS prompt
+    through the dense scores and through K3 and decode LONG_NEW tokens; K3
+    launches n_layers times on a flash prefill and never on a dense one;
+    both routes pass the confident-step gate (the prefill token included)
+    against the dense truth; their times to the first token in turns; the
+    routes' crossover at 7B width; K3 against its plain version at the 7B
+    prefill's shape, timed beside its bound and SDPA's forward. Returns
+    (K3 launches on the flash generates, K3's max error, its (ms,
+    plain_ms, bound_ms, bound_by, library_ms))."""
+    import torch.nn.functional as F
+
+    from pydynet_tpu_torch.models.llama import model as lm
+    from pydynet_tpu_torch.ops import flash_attention as fa
+    from pydynet_tpu_torch.utils import fidelity
+
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(3)
+    main_launches = 0
+    cases = (("stories15M", model, dict(dtype=bf16)),
+             ("7B", big, dict(dtype=bf16, quant="int8")))
+    with torch.no_grad():
+        for name, m, kw in cases:
+            L = LONG_PROMPTS[name]
+            prompt = rng.integers(1, m.vocab_size, (1, L))
+            if name == "stories15M":
+                if not m.use_fused(None, 1):
+                    raise AssertionError("stories15M left the fused lane")
+                truth, margins, tops = fidelity.greedy_truth(m, prompt,
+                                                             LONG_NEW)
+                gate = fidelity.gate_fused_argmax
+            else:
+                if m.use_fused("int8", 1):
+                    raise AssertionError("7B int8 left the scan lane")
+                truth, margins, tops = fidelity.scan_truth(
+                    m, prompt, LONG_NEW, dtype=bf16, quant="int8")
+                gate = fidelity.gate_scan_argmax
+            streams = {}
+            for flash in (False, True):
+                torch.cuda.synchronize()
+                fa.flash_attention_fwd.launches = 0
+                streams[flash] = [int(t[0, 0]) for t in m.generate(
+                    prompt, L + LONG_NEW, flash_prefill=flash, **kw)]
+                launches = fa.flash_attention_fwd.launches
+                want = m.n_layers if flash else 0
+                print(f"[chip_smoke] long prompt {name} L={L} "
+                      f"{'flash' if flash else 'dense'}: "
+                      f"{len(streams[flash])} tokens, K3 launches "
+                      f"{launches} (want {want})")
+                if launches != want or len(streams[flash]) != LONG_NEW \
+                        or not all(0 <= x < m.vocab_size
+                                   for x in streams[flash]):
+                    raise AssertionError(f"long prompt {name}: {launches} "
+                                         f"K3 launches, stream "
+                                         f"{streams[flash]}")
+                main_launches += launches
+                checked, ok, agree = gate(m, prompt, truth, margins, tops,
+                                          flash=flash, **kw)
+                print(f"[chip_smoke] gate long prompt {name} "
+                      f"{'flash' if flash else 'dense'} against the "
+                      f"{'f32' if name == 'stories15M' else 'dense int8'} "
+                      f"truth: checked {checked} ok {ok} agree {agree:.3f}")
+                if not (checked > 0 and ok):
+                    raise AssertionError(f"long prompt {name}: the "
+                                         f"{'flash' if flash else 'dense'} "
+                                         f"route failed its gate")
+            same = next((i for i, (a, b) in enumerate(zip(*streams.values()))
+                         if a != b), LONG_NEW)
+            print(f"[chip_smoke] long prompt {name}: the routes' streams "
+                  f"agree on their first {same} of {LONG_NEW} tokens")
+            times = first_tokens_in_turns(m, prompt, **kw)
+            print(f"[chip_smoke] {card}: long prompt {name} L={L} time to "
+                  f"the first token, ms of {LONG_REPEATS} in turns: " +
+                  "; ".join(f"{'flash' if f else 'dense'} "
+                            f"{', '.join(f'{t * 1e3:.1f}' for t in ts)} "
+                            f"(median {float(np.median(ts)) * 1e3:.1f})"
+                            for f, ts in times.items()))
+        # the crossover at 7B width, on the scan lane's int8 prefill
+        wins = {}
+        for n in CROSSOVER_LENGTHS:
+            prompt = rng.integers(1, big.vocab_size, (1, n - 1))  # pads to n
+            times = first_tokens_in_turns(big, prompt, dtype=bf16,
+                                          quant="int8")
+            med = {f: float(np.median(ts)) for f, ts in times.items()}
+            wins[n] = med[True] < med[False]
+            print(f"[chip_smoke] {card}: 7B int8 prefill padded to {n}: "
+                  f"median of {LONG_REPEATS} dense {med[False] * 1e3:.1f} "
+                  f"ms, flash {med[True] * 1e3:.1f} ms")
+        cross = next((n for n in CROSSOVER_LENGTHS
+                      if all(wins[x] for x in CROSSOVER_LENGTHS if x >= n)),
+                     None)
+        print(f"[chip_smoke] {card}: flash prefill crossover at 7B width: "
+              f"{cross} (FLASH_PREFILL_MIN is {lm.FLASH_PREFILL_MIN})")
+        # K3 at the 7B prefill's shape
+        B, L, H, d = LONG_FLASH_SHAPE
+        errs = flash_vs_plain(B, L, bf16, d=d, heads=H, backward=False)
+        q, k, v, _ = flash_inputs(B, L, bf16, 1, d, H)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kern = lambda: fa.flash_attention_fwd(q, k, v)
+        ref = lambda: fa.flash_attention_fwd_ref(q, k, v, d ** -0.5)
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=True)
+        k1, p1, l1 = time_step(kern, 20), time_step(ref, 3), \
+            time_step(lib, 20)
+        k2, p2, l2 = time_step(kern, 20), time_step(ref, 3), \
+            time_step(lib, 20)
+        b_ms, b_by = flash_bound(q, FLASH_PRODUCTS["flash_attention_fwd"],
+                                 True)
+        ms = (min(k1, k2), min(p1, p2), b_ms, b_by, min(l1, l2))
+        print(f"[chip_smoke] {card}: flash_attention_fwd bf16 "
+              f"{LONG_FLASH_SHAPE}: kernel {ms[0] * 1e3:.1f} us, plain "
+              f"{ms[1] * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}), "
+              f"F.scaled_dot_product_attention(is_causal=True) "
+              f"{ms[4] * 1e3:.1f} us; max error {errs}")
+    return main_launches, max(errs.values()), ms
 
 
 def time_rotating(fn, reps, n):
@@ -3319,6 +3523,12 @@ def main() -> int:
     big, qmm_launches = check_big_dims()
     phase("4d big-dims path", t0)
 
+    # 4l. long-prompt prefill: the dense and the flash (K3) routes
+    t0 = time.perf_counter()
+    prefill_launches, prefill_err, prefill_ms = check_long_prompt(
+        model, big, card)
+    phase("4l long-prompt prefill", t0)
+
     # 4e. the nn-stack trainers: dropout_bn through K8, the MNIST ConvNet
     t0 = time.perf_counter()
     bn_launches = check_nn_training()
@@ -3441,7 +3651,7 @@ def main() -> int:
         entry("decode_token", "decode_token.cu",
               "pydynet_tpu/ops/decode_step.py:160", main_launches,
               max_err["f32"], ms["bf16"] + (None,)),
-        entry("lm_head_argmax", "decode_token.cu",
+        entry("lm_head_argmax", "head.cuh",
               "pydynet_tpu/ops/decode_step.py:102",
               step_launches["lm_head_argmax"], step_err["lm_head_argmax"],
               ms["K9 bf16"]),
@@ -3471,6 +3681,9 @@ def main() -> int:
               f"pydynet_tpu/ops/flash_attention.py:{line}",
               train_launches[name], flash_err[name], ms[name, 1])
         for name, line in zip(FLASH_KERNELS, (82, 192, 259))] + [
+        entry("flash_attention_fwd[prefill]", "flash_attention.cu",
+              "pydynet_tpu/ops/flash_attention.py:82", prefill_launches,
+              prefill_err, prefill_ms)] + [
         entry("quantize_rows", "gemv_quant.cu", f"{gq_file}:309",
               qmm_launches["quantize_rows"], qmm_err["quantize_rows"],
               big_ms["quantize_rows"] + (None,)),

@@ -38,6 +38,12 @@ limit in one JSON line of microseconds:
   step;
 * ``F.linear(h, head_w, head_b)`` and ``torch.argmax(F.linear(...), -1)``
   on the bf16 head at B = 1, 8 and 32, the head stage's yardsticks;
+* K9 (``lm_head_argmax``) at stories15M's head (D 288, V 32000), a
+  float32 h against float32 and bfloat16 weights (``chip_smoke.
+  head_inputs``, the pairs chip_smoke.py times) and a bfloat16 h against
+  bfloat16 weights: a call by CUDA-graph replay of 20 calls, each kernel's
+  device time by ``torch.profiler`` name (head, argmax), the kernels a call,
+  and ``torch.argmax(head_w @ h + b)`` timed the same way;
 * K10 (``fused_decode_step``) at stories15M width, pos 512, in bf16 and
   f32 on ``chip_smoke.step_inputs``: the step by CUDA events and by
   CUDA-graph replay, each stage's device time by ``torch.profiler`` kernel
@@ -146,13 +152,13 @@ def request_times() -> dict:
     return out
 
 
-GROUPS = ("k6", "flash", "qmm", "decode", "k10", "k8")  # --only's choices
+GROUPS = ("k6", "flash", "qmm", "decode", "k9", "k10", "k8")  # --only's
 
 
 def measure(tree: Path, request: bool = False, only=GROUPS) -> dict:
     """The kernels of the checkout at ``tree``, timed on the card: the
     groups in ``only`` (K6; K3/K4; K5/K7; K1/K2 and the head's yardsticks;
-    K10; K8)."""
+    K9; K10; K8)."""
     sys.path.insert(0, str(tree))
     import torch
     import torch.nn.functional as F
@@ -194,7 +200,8 @@ def measure(tree: Path, request: bool = False, only=GROUPS) -> dict:
         out[f"K4 dk/dv f32 ({B}, 1024, 6, 48)"] = events_us(
             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd))
     for group, times in (("k8", bn_times), ("qmm", qmm_times),
-                         ("decode", decode_times), ("k10", step_times)):
+                         ("decode", decode_times), ("k9", head_times),
+                         ("k10", step_times)):
         if group in only:
             out.update(times())
     if request:
@@ -345,6 +352,34 @@ def decode_times() -> dict:
             out[f"F.linear head bf16 B={B}"] = events_us(lin, 200)
             out[f"argmax(F.linear) head bf16 B={B}"] = events_us(
                 lambda: torch.argmax(lin(), -1), 200)
+    return out
+
+
+def head_times() -> dict:
+    """K9 at stories15M's head in three (h, w) type pairs (module doc)."""
+    import torch
+    from chip_smoke import CFG, head_inputs
+    from pydynet_tpu_torch.models.llama import Llama
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    model = Llama(**CFG, device="cuda",
+                  generator=torch.Generator().manual_seed(0)).eval()
+    out = {}
+    with torch.no_grad():
+        for name, dtype, hdt in (("f32", torch.float32, torch.float32),
+                                 ("bf16", torch.bfloat16, torch.float32),
+                                 ("bf16 h bf16", torch.bfloat16,
+                                  torch.bfloat16)):
+            h, w, b = head_inputs(model, dtype)
+            h = h.to(hdt)
+            key = f"K9 {name} ({w.shape[0]}, {w.shape[1]})"
+            call = lambda: dsk.lm_head_argmax(h, w, b)
+            out[key] = graph_us(lambda: [call() for _ in range(20)]) / 20
+            for stage, t in stage_us(call).items():
+                out[f"{key} {stage}"] = t
+            hv = h[0].to(dtype)
+            out[key + " torch.argmax(head_w @ h + b)"] = graph_us(
+                lambda: [torch.argmax(w @ hv + b) for _ in range(20)]) / 20
     return out
 
 

@@ -1,5 +1,5 @@
 // Device helpers shared by the kernel sources (decode_token.cu: K1, the
-// B=1 step, and K9, the greedy head, whose CUDA-core head_tile is here;
+// B=1 step, and K9, the greedy head;
 // decode_token_batched.cu: K2, the batched step; decode_step.cu: K10, the
 // layers-only step, on K2's stages; gemv_quant.cu: K5-K7;
 // flash_attention.cu: K3/K4; batchnorm.cu: K8). Everything here has
@@ -22,9 +22,6 @@ namespace {
 constexpr int kThreads = 256;  // ops/decode_step.py's _THREADS: the
                                // wrapper keeps head_dim <= kThreads
 constexpr int kWarps = kThreads / 32;
-constexpr int kHeadRowsPerWarp = 4;  // few, so ~1000 blocks keep the head's
-                                     // row loads in flight on every SM
-constexpr int kHeadRows = kWarps * kHeadRowsPerWarp;  // vocab rows per block
 constexpr int kAttnRows = 64;  // cache rows per attention block
 static_assert(kThreads % kAttnRows == 0 && kAttnRows == 64,
               "attention: one warp reduces the block's 64 scores");
@@ -100,38 +97,6 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-// Accumulate row[k] * x_s[k] over the lane's share of k < K: 16-byte loads
-// of the row where it is 16-byte aligned, element loads for the rest.
-template <typename W>
-__device__ __forceinline__ float lane_dot(const W* row, const float* x_s,
-                                          int K) {
-  constexpr int kVec = 16 / sizeof(W);
-  const int lane = threadIdx.x & 31;
-  float acc = 0.f;
-  int k0 = 0;
-  if ((reinterpret_cast<uintptr_t>(row) & 15) == 0) {
-    const int nvec = K / kVec;
-    const uint4* rv = reinterpret_cast<const uint4*>(row);
-    for (int v = lane; v < nvec; v += 32) {
-      const uint4 u = rv[v];
-      const W* e = reinterpret_cast<const W*>(&u);
-      const float* xs = x_s + v * kVec;
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) acc += to_f(e[i]) * xs[i];
-    }
-    k0 = nvec * kVec;
-  }
-  for (int k = k0 + lane; k < K; k += 32) acc += to_f(row[k]) * x_s[k];
-  return acc;
-}
-
-// dot(row[0:K], x_s[0:K]) over one warp; every lane gets the sum
-template <typename W>
-__device__ __forceinline__ float warp_dot(const W* row, const float* x_s,
-                                          int K) {
-  return warp_sum(lane_dot(row, x_s, K));
-}
-
 // the signed low and high nibbles of each byte of p, as int8 bytes
 __device__ __forceinline__ unsigned nibbles_lo(unsigned p) {
   return __vsub4((p & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
@@ -160,43 +125,6 @@ inline const float* layer_s(const float* s, int l, int rows) {
   return s == nullptr ? nullptr : s + (size_t)l * rows;
 }
 
-// K9's head over the vocab tile of this block: logits of rows
-// [kHeadRows * blockIdx.x, + kHeadRows) as dot(w[r], x_s) + b[r], reduced to
-// their (max, lowest index) pair in tile_val/tile_idx[blockIdx.x] for
-// argmax_kernel, which keeps the tie rule.
-template <typename W>
-__device__ void head_tile(const float* x_s, const W* head_w, const W* head_b,
-                          float* tile_val, int* tile_idx, int D, int V) {
-  __shared__ float wv[kWarps];
-  __shared__ int wi[kWarps];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float bv = -INFINITY;
-  int bi = INT_MAX;
-  const int r0 = blockIdx.x * kHeadRows + warp * kHeadRowsPerWarp;
-  for (int r = r0; r < min(r0 + kHeadRowsPerWarp, V); ++r) {
-    const float logit = warp_dot(head_w + (size_t)r * D, x_s, D) +
-                        to_f(head_b[r]);
-    if (better(logit, r, bv, bi)) {
-      bv = logit;
-      bi = r;
-    }
-  }
-  if (lane == 0) {
-    wv[warp] = bv;
-    wi[warp] = bi;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < kWarps; ++w)
-      if (better(wv[w], wi[w], bv, bi)) {
-        bv = wv[w];
-        bi = wi[w];
-      }
-    tile_val[blockIdx.x] = bv;
-    tile_idx[blockIdx.x] = bi;
-  }
-}
-
 // One block per row: argmax over that row's n (max, index) tile pairs ->
 // out[blockIdx.x]
 __global__ void __launch_bounds__(kThreads)
@@ -204,6 +132,7 @@ argmax_kernel(const float* __restrict__ tile_val,
               const int* __restrict__ tile_idx, int n, int* __restrict__ out) {
   __shared__ float wv[kWarps];
   __shared__ int wi[kWarps];
+  pdl_wait();  // K9 launches it programmatically dependent on its head
   tile_val += (size_t)blockIdx.x * n;
   tile_idx += (size_t)blockIdx.x * n;
   float bv = -INFINITY;
@@ -318,8 +247,31 @@ __device__ __forceinline__ void mma3(float (&c)[4], const unsigned (&ah)[4],
   mma_tf32(c, ah, bh);
 }
 
-int head_tiles(int vocab) { return (vocab + kHeadRows - 1) / kHeadRows; }
 int attn_splits(int seq) { return (seq + kAttnRows - 1) / kAttnRows; }
+
+// Launch `kern` in a chain: programmatically dependent on the kernel
+// before it (it may start while that one runs, and waits for it in
+// pdl_wait), in clusters of `cluster` blocks when cluster > 0
+template <typename... Params, typename... Args>
+cudaError_t chain_launch(void (*kern)(Params...), dim3 grid, int threads,
+                         size_t smem, cudaStream_t st, int cluster,
+                         Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 0 ? 2 : 1;
+  return cudaLaunchKernelEx(&cfg, kern, static_cast<Params>(args)...);
+}
 
 #define PDT_CHECK()                          \
   do {                                       \

@@ -813,30 +813,6 @@ cudaError_t attention_plan(int D, int H, int S, AttnPlan& out) {
   return cudaSuccess;
 }
 
-// Launch `kern` in the step's chain: programmatically dependent on the
-// kernel before it (it may start while that one runs, and waits for it in
-// pdl_wait), in clusters of `cluster` blocks when cluster > 0
-template <typename... Params, typename... Args>
-cudaError_t chain_launch(void (*kern)(Params...), dim3 grid, int threads,
-                         size_t smem, cudaStream_t st, int cluster,
-                         Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  attr[1].id = cudaLaunchAttributeClusterDimension;
-  attr[1].val.clusterDim.x = cluster;
-  attr[1].val.clusterDim.y = 1;
-  attr[1].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster > 0 ? 2 : 1;
-  return cudaLaunchKernelEx(&cfg, kern, static_cast<Params>(args)...);
-}
-
 template <typename T>
 cudaError_t run_step(const StepArgs& a, cudaStream_t st) {
   const int D = a.D, F = a.F, S = a.S, H = a.H;

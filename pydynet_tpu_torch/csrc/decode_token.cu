@@ -5,7 +5,8 @@
 // (pydynet_tpu/ops/decode_step.py:160, launched by `fused_decode_token`
 // at :1346; K1) and `_lm_head_kernel` (:102, launched by `lm_head_argmax`
 // at :129; K9, the head of an h given as it is, without the final RMSNorm
-// and without rounding h to the weights' type: `head_tile` in common.cuh).
+// and without rounding h to the weights' type: K1's head stage, head.cuh,
+// at one row without its norm, `run_head` below).
 // K1 computes the same step:
 // gather emb[tok]; per layer RMSNorm, q/k/v, interleaved RoPE, the K/V row
 // write at pos (clamped to S-1), causal online-softmax attention over rows
@@ -35,12 +36,13 @@
 //   5. down + residual,
 // then 6. final RMSNorm + head product + bias with a (max, index) pair per
 // 128-row vocab block (head.cuh), and 7. a one-block argmax over the blocks
-// (K9 is head_tile's CUDA-core head on h as given, then 7; both keep the tie
-// rule). Stages 1, 3, 4 and 5 are products on the tensor cores. In the TPU
-// kernel's `emit_logits` mode (the sampled decode's,
-// ops/decode_step.py:487-491 there) stage 6 also writes each vocab row's
-// f32 logit, bias added and int8/int4 scale applied by the very arithmetic
-// the argmax compares, to a (V,) output, and 7 is not launched:
+// (K9 is 6 on h as given, without the norm, then 7 as a programmatic
+// dependent launch; both keep the tie rule). Stages 1, 3, 4 and 5 are
+// products on the tensor cores. In the TPU kernel's `emit_logits` mode
+// (the sampled decode's, ops/decode_step.py:487-491 there) stage 6 also
+// writes each vocab row's f32 logit, bias added and int8/int4 scale
+// applied by the very arithmetic the argmax compares, to a (V,) output,
+// and 7 is not launched:
 // 5 * n_layers + 1 launches. `pos` and `tok` are read from device memory,
 // so no step syncs with the host and the chain can later be captured in a
 // CUDA graph.
@@ -66,31 +68,30 @@
 
 namespace {
 
-// K9: the head of h (1, D) alone, h as it is (f32 or bf16, widened to f32,
-// not rounded to the weights' type: jnp.dot promotes both to f32)
-template <typename H, typename W>
-__global__ void __launch_bounds__(kThreads)
-lm_head_kernel(const H* __restrict__ h, const W* __restrict__ w,
-               const W* __restrict__ b, float* __restrict__ tile_val,
-               int* __restrict__ tile_idx, int D, int V) {
-  extern __shared__ float x_s[];
-  for (int i = threadIdx.x; i < D; i += blockDim.x) x_s[i] = to_f(h[i]);
-  __syncthreads();
-  head_tile<W>(x_s, w, b, tile_val, tile_idx, D, V);
-}
-
+// K9: the head of h (1, D) alone, h as it is (float32 or bfloat16, widened
+// to float32, never rounded to the weights' type: jnp.dot promotes both to
+// float32). It is the head stage (head.cuh) at G = 1 without the final
+// norm (lm_head_kernel): bfloat16 weights against a bfloat16 h in plain
+// bfloat16 products, against a float32 h in three bfloat16 pieces of h,
+// each product exact; float32 weights in float32 multiply-adds. Then
+// argmax_kernel over the blocks' pairs, a programmatic dependent launch.
 template <typename H, typename W>
 cudaError_t run_head(const void* h, const void* w, const void* b, int* out,
                      float* scratch, int D, int V, cudaStream_t st) {
-  const int ntiles = head_tiles(V);
+  auto kernel = lm_head_kernel<W, H>;
+  const int nblocks = head_blocks(V);
   float* tile_val = scratch;
-  int* tile_idx = reinterpret_cast<int*>(scratch + ntiles);
-  lm_head_kernel<H, W><<<ntiles, kThreads, D * sizeof(float), st>>>(
+  int* tile_idx = reinterpret_cast<int*>(scratch + nblocks);
+  const size_t smem =
+      head_smem<kFmtFloat, W>(D, sizeof(H) == 4 && sizeof(W) == 2 ? 3 : 1);
+  PDT_TRY(allow_smem(kernel, smem));
+  kernel<<<nblocks, kThreads, smem, st>>>(
       static_cast<const H*>(h), static_cast<const W*>(w),
       static_cast<const W*>(b), tile_val, tile_idx, D, V);
   PDT_CHECK();
-  argmax_kernel<<<1, kThreads, 0, st>>>(tile_val, tile_idx, ntiles, out);
-  return cudaGetLastError();
+  return chain_launch(argmax_kernel, dim3(1), kThreads, 0, st, 0,
+                      static_cast<const float*>(tile_val),
+                      static_cast<const int*>(tile_idx), nblocks, out);
 }
 
 }  // namespace
@@ -154,9 +155,10 @@ int pdt_decode_token(int wdtype, int lfmt, int hfmt, const void* pos,
   return (int)cudaErrorInvalidValue;
 }
 
-// Floats of scratch for lm_head_argmax: a (max, index) pair per head tile.
+// Floats of scratch for lm_head_argmax: a (max, index) pair per head
+// block.
 int pdt_lm_head_argmax_scratch_floats(int vocab) {
-  return 2 * head_tiles(vocab);
+  return 2 * head_blocks(vocab);
 }
 
 // K9: out[0] = argmax over v < V of dot(h, w[v]) + b[v] (ties to the lowest

@@ -17,8 +17,9 @@ npz over the weights. ``--kv-quant int8`` keeps the KV cache as int8 rows with
 per-row scales and cannot be combined with ``--quant`` (``ValueError``, as
 in the JAX package's CLI). ``--temperature`` above 0 samples, with
 ``--top-k``, ``--top-p``, ``--repetition-penalty`` and the sampler's
-``--seed`` (``Llama.generate``); 0 is greedy. Prints the text as it streams
-and then tokens per second.
+``--seed`` (``Llama.generate``); 0 is greedy. On a GPU one short untimed
+``generate`` builds the kernels first, unless ``--no-warmup`` asks to time
+that too. Prints the text as it streams and then tokens per second.
 """
 from __future__ import annotations
 
@@ -109,6 +110,10 @@ def main(argv=None) -> float:
     parser.add_argument("--repetition-penalty", type=float, default=None,
                         help="HF-style penalty (> 1) on the tokens seen so "
                              "far (sampling only)")
+    parser.add_argument("--no-warmup", action="store_true",
+                        help="include the kernels' build and first launches "
+                             "in the timed run (default: one untimed "
+                             "warm-up generate on a GPU first)")
     args = parser.parse_args(argv)
 
     device = resolve(args.device)
@@ -124,7 +129,8 @@ def main(argv=None) -> float:
                           repetition_penalty=args.repetition_penalty)
     input_ids = np.array([tokenizer.encode(args.prompt)])
     L = input_ids.shape[1]
-    if device.type == "cuda":  # build the kernels outside the timed run
+    if device.type == "cuda" and not args.no_warmup:
+        # build the kernels outside the timed run
         for _ in model.generate(input_ids, L + 2, **gen_kwargs):
             pass
     print(f"\n{args.prompt}", end="")

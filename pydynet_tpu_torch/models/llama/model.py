@@ -15,8 +15,11 @@ are torch's (out, in). Four ways through the model:
   optimizers (``optim``);
 * the scan lane (``generate(fused=False)``, the JAX package's XLA
   ``lax.scan`` lane): a dense prefill and a per-token decode over
-  layer-stacked weights, any batch. With ``quant="int8"``/``"int4"`` its
-  four layer matmuls and the head, and with ``"int8-head"`` the head, run
+  layer-stacked weights, any batch. A long prompt's prefill (on either
+  lane, ``flash_prefill``) takes its attention through the flash forward
+  (K3) instead of the dense (L, L) scores. With ``quant="int8"`` or
+  ``"int4"`` its four layer matmuls and the head, and with
+  ``"int8-head"`` the head, run
   through ``ops.gemv_quant`` (the quantized-matmul kernels K5-K7 on a GPU):
   ``qmatmul`` on each layer's weights up to ``UNROLL_MAX_LAYERS`` layers,
   ``qmatmul_stacked`` on the stacked weights with a device layer index
@@ -66,6 +69,7 @@ from ...nn.modules.loss import CrossEntropyLoss
 from ...nn.modules.norm import RMSNorm, rms_norm
 from ...nn.utils import clip_grad_norm_
 from ...ops import decode_step as dsk
+from ...ops import flash_attention as fa
 from ...ops import gemv_quant as gq
 from ...ops.quant import quantize_int4, quantize_int8
 
@@ -76,6 +80,11 @@ DECODE_CHUNK = 512
 # ``model.py:251``)
 UNROLL_MAX_LAYERS = 16
 QUANTS = (None, "int8-head", "int8", "int4")
+# the shortest (padded) prompt whose prefill attention takes the flash
+# forward (K3) on a GPU: chip_smoke.py's long-prompt phase times the 7B
+# geometry's int8 prefill on both routes at padded lengths 256 to 4,096 on
+# an H100, and flash was the faster at every one of them (PERF.md)
+FLASH_PREFILL_MIN = 256
 # the scan lane's matrices: stacked (L, K, N) name -> the per-layer modules
 # concatenated along the output axis, as in ``_weights``
 _LAYER_MATS = {"wqkv": ("attention.Q", "attention.K", "attention.V"),
@@ -285,6 +294,16 @@ class Sampler:
         if self.seen is not None:
             _mark_seen(self.seen, nxt)
         return nxt.to(torch.int32)
+
+
+def flash_prefill_mode(weights, L: int) -> bool:
+    """Whether a pure-causal prefill of ``L`` tokens takes the flash
+    forward (the JAX package's routing rule, ``model.py:264``, for
+    ``generate`` and ``LlamaServer`` admission): on a GPU from
+    ``FLASH_PREFILL_MIN`` tokens on, where the dense route's (L, L) float32
+    scores cost more than K3's blocks; never on the CPU, where the kernel's
+    plain version is a test lane (tests pass ``True``)."""
+    return L >= FLASH_PREFILL_MIN and weights["tok"].device.type == "cuda"
 
 
 def not_ported(what: str, item: str):
@@ -740,7 +759,7 @@ class Llama(nn.Module):
                 torch.zeros(shape, dtype=dtype, device=self.device))
 
     def forward_logits_one(self, weights, ck, cv, tokens, pos: int,
-                           last_idx: int = None, starts=None):
+                           last_idx: int = None, starts=None, flash=False):
         """Dense forward of ``tokens`` (B, L) at absolute position ``pos``
         over caches (N, B, S, Hkv, hd), which are written in place at rows
         [pos, pos + L) (clamped into the cache, as the JAX package's
@@ -750,8 +769,21 @@ class Llama(nn.Module):
         Returns float32 logits (B, V) at the last position, or at
         ``last_idx - 1`` when the prompt is bucket-padded. Weights from
         :meth:`_weights_xq` run the quantized matmuls (see the module
-        doc)."""
+        doc).
+
+        ``flash`` (``True``, or the JAX package's ``"interpret"``, which
+        means the same here) routes a pure-causal prefill's attention (pos
+        0, no ``starts``) through the flash forward (K3,
+        ``ops.flash_attention.flash_attention_fwd``) over the current
+        tokens' K/V, a grouped-query model's repeated to every query head,
+        as the JAX package's ``model.py:842-851``: no (L, L) scores or mask
+        are built. The caches are written as on the dense route. On CPU
+        tensors K3's wrapper runs its plain version."""
         B, L = tokens.shape
+        if flash and (starts is not None or pos != 0):
+            raise ValueError("flash prefill is pure-causal from position 0: "
+                             "it cannot honor per-row starts masks or a "
+                             f"start at pos={pos}")
         S, H, Hkv, hd = (self.max_seq_len, self.n_heads, self.n_kv_heads,
                          self.head_dim)
         D, Dkv, Fd = H * hd, Hkv * hd, self.ffn_dim
@@ -776,13 +808,15 @@ class Llama(nn.Module):
         start = min(pos, S - L)  # the write slice stays inside the cache
         end = min(S, pos + L)
         cos, sin = W["cos"][start:start + L], W["sin"][start:start + L]
-        qpos = pos + torch.arange(L, device=h.device)[:, None]
-        cols = torch.arange(end, device=h.device)
-        allowed = cols[None, :] <= qpos                     # (L, end)
-        if starts is not None:  # (B, 1, L, end): broadcast over heads
-            allowed = (allowed[None] & (cols >= starts[:, None, None]))[:, None]
-        mask = torch.zeros(allowed.shape, device=h.device).masked_fill(
-            ~allowed, float("-inf"))
+        if not flash:
+            qpos = pos + torch.arange(L, device=h.device)[:, None]
+            cols = torch.arange(end, device=h.device)
+            allowed = cols[None, :] <= qpos                     # (L, end)
+            if starts is not None:  # (B, 1, L, end): broadcast over heads
+                allowed = (allowed[None]
+                           & (cols >= starts[:, None, None]))[:, None]
+            mask = torch.zeros(allowed.shape, device=h.device).masked_fill(
+                ~allowed, float("-inf"))
         scale = 1.0 / math.sqrt(hd)
         for i in range(self.n_layers):
             hn = rms_norm(h, W["in_norm"][i]).to(h.dtype)
@@ -794,13 +828,21 @@ class Llama(nn.Module):
             k = _rope_pure(k, cos.to(k.dtype), sin.to(k.dtype))
             ck[i, :, start:start + L] = k
             cv[i, :, start:start + L] = v
-            kk, vv = ck[i, :, :end], cv[i, :, :end]
-            if g != 1:
-                kk = kk.repeat_interleave(g, dim=2)
-                vv = vv.repeat_interleave(g, dim=2)
-            s = torch.einsum("blhd,bmhd->bhlm", q.float(), kk.float()) * scale
-            p = torch.softmax(s + mask, dim=-1).to(h.dtype)
-            att = torch.einsum("bhlm,bmhd->blhd", p, vv).reshape(B, L, D)
+            if flash:
+                kf, vf = ((x.repeat_interleave(g, dim=2) if g != 1 else x)
+                          for x in (k, v))
+                att = fa.flash_attention_fwd(
+                    q.contiguous(), kf.contiguous(), vf.contiguous(),
+                    scale)[0].to(h.dtype).reshape(B, L, D)
+            else:
+                kk, vv = ck[i, :, :end], cv[i, :, :end]
+                if g != 1:
+                    kk = kk.repeat_interleave(g, dim=2)
+                    vv = vv.repeat_interleave(g, dim=2)
+                s = torch.einsum("blhd,bmhd->bhlm", q.float(),
+                                 kk.float()) * scale
+                p = torch.softmax(s + mask, dim=-1).to(h.dtype)
+                att = torch.einsum("bhlm,bmhd->blhd", p, vv).reshape(B, L, D)
             z = h + mm(att, "wo", i)
             zn = rms_norm(z, W["post_norm"][i]).to(z.dtype)
             gate, up = mm(zn, "wgu", i).split(Fd, dim=-1)
@@ -814,18 +856,23 @@ class Llama(nn.Module):
             logits = F.linear(hl, W["head_w"]).float()
         return logits + W["head_b"].float()
 
-    def prefill_logits(self, weights, ck, cv, ids, last_idx=None):
+    def prefill_logits(self, weights, ck, cv, ids, last_idx=None,
+                       flash=False):
         """Float32 logits (B, V) after the prompt ``ids`` (B, L), caches
-        filled (read at ``last_idx - 1`` for a bucket-padded prompt)."""
+        filled (read at ``last_idx - 1`` for a bucket-padded prompt), the
+        attention through the flash forward with ``flash``
+        (:meth:`forward_logits_one`)."""
         tokens = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-        return self.forward_logits_one(weights, ck, cv, tokens, 0, last_idx)
+        return self.forward_logits_one(weights, ck, cv, tokens, 0, last_idx,
+                                       flash=flash)
 
-    def prefill(self, weights, ck, cv, ids, last_idx=None, sampler=None):
+    def prefill(self, weights, ck, cv, ids, last_idx=None, sampler=None,
+                flash=False):
         """The token after the prompt ``ids`` (B, L), caches filled: the
         greedy one, or drawn by ``sampler`` (a :class:`Sampler`, whose
         ``seen`` first marks the prompt's tokens, bucket padding
         excluded)."""
-        logits = self.prefill_logits(weights, ck, cv, ids, last_idx)
+        logits = self.prefill_logits(weights, ck, cv, ids, last_idx, flash)
         if sampler is None:
             return logits.argmax(-1)
         sampler.mark_prompt(ids, last_idx)
@@ -1071,8 +1118,7 @@ class Llama(nn.Module):
         return ck5.view(shape), cv5.view(shape)
 
     # ------------------------------- generate -------------------------------
-    def _check_generate(self, B, dtype, fused, quant, kv_quant,
-                        flash_prefill):
+    def _check_generate(self, B, dtype, fused, quant, kv_quant):
         """Resolve the lane (:meth:`use_fused`) and raise for whatever this
         port does not run yet, naming its ROADMAP.md item. Nothing is
         rerouted silently: a model, format or batch that neither the port's
@@ -1081,8 +1127,6 @@ class Llama(nn.Module):
         ``fused=False``."""
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
-        if flash_prefill:
-            not_ported("flash prefill", "Long-prompt prefill")
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise NotImplementedError(f"dtype {dtype}: use float32 or "
                                       "bfloat16")
@@ -1123,7 +1167,11 @@ class Llama(nn.Module):
         next power of two before the prefill, as the JAX package does; the
         tokens are the same either way (the logits are read at the true
         last position, and every padded cache row lies above the decode
-        position until the step that rewrites it).
+        position until the step that rewrites it). ``flash_prefill``
+        routes the prefill's attention, on either lane, through the flash
+        forward, K3 (:meth:`forward_logits_one`): ``None`` where
+        :func:`flash_prefill_mode` says so for the padded prompt, ``False``
+        never, ``True`` (or ``"interpret"``) always.
 
         ``temperature > 0`` samples (the JAX package's sampled path, token
         for token with it up to the two frameworks' rounding at near-ties):
@@ -1140,8 +1188,7 @@ class Llama(nn.Module):
         do nothing."""
         ids = np.asarray(input_ids)
         B, L = ids.shape
-        fused = self._check_generate(B, dtype, fused, quant, kv_quant,
-                                     flash_prefill)
+        fused = self._check_generate(B, dtype, fused, quant, kv_quant)
         total = min(max_new_tokens, self.max_seq_len)
         if total <= L:
             return
@@ -1156,10 +1203,12 @@ class Llama(nn.Module):
         if temperature is not None and temperature > 0:
             sampler = Sampler(B, self.vocab_size, self.device, temperature,
                               top_k, top_p, seed, repetition_penalty)
-        tok = self.prefill(weights, ck, cv,
-                           *(bucket_prompt(ids, L, self.max_seq_len)
-                             if bucket_prefill else (ids, None)),
-                           sampler=sampler)
+        ids_pad, last_idx = (bucket_prompt(ids, L, self.max_seq_len)
+                             if bucket_prefill else (ids, None))
+        flash = (flash_prefill_mode(weights, ids_pad.shape[1])
+                 if flash_prefill is None else flash_prefill)
+        tok = self.prefill(weights, ck, cv, ids_pad, last_idx,
+                           sampler=sampler, flash=flash)
         tok = tok.to(torch.int32)
         if fused:
             ck, cv = self._flat_caches(ck, cv, weights)

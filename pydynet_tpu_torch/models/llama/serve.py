@@ -60,7 +60,7 @@ sampling server too. Rows whose temperature is 0 take the exact argmax.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): speculative serving, the int8 KV cache on the scan lane, the scan
-lane's prefix cache, flash prefill.
+lane's prefix cache.
 """
 from __future__ import annotations
 
@@ -73,8 +73,8 @@ import torch
 
 from ... import random as prandom
 from ...ops import decode_step as dsk
-from .model import (_rope_pure, bucket_prompt, check_kv_quant, not_ported,
-                    sample_logits_per_row)
+from .model import (_rope_pure, bucket_prompt, check_kv_quant,
+                    flash_prefill_mode, not_ported, sample_logits_per_row)
 
 # seeded requests derive their keys from this fixed key, not the server's,
 # so a (prompt, parameters, seed) triple gives the same stream on any server
@@ -263,7 +263,10 @@ class LlamaServer(_FleetScheduler):
     are the requests' default sampling parameters, which ``submit`` may
     override; ``seed`` keys the unseeded requests' streams (module doc).
     ``lane`` is ``"fused"``, ``"xla"`` (the scan lane) or
-    None (routed as ``generate`` routes, see the module doc). ``chunk`` is
+    None (routed as ``generate`` routes, see the module doc).
+    ``flash_prefill`` routes each admission wave's prefill attention as
+    ``generate``'s does, ``None`` by the wave's prompt length
+    (``flash_prefill_mode``). ``chunk`` is
     the number of decode steps a dispatch runs: a finished request's slot
     is recycled at the next chunk boundary, one chunk late under ``run``'s
     pipeline. The constructor keeps the JAX package's keyword names; the
@@ -287,8 +290,6 @@ class LlamaServer(_FleetScheduler):
             raise ValueError(f"unknown lane: {lane!r}")
         if prefix_cache:
             not_ported("the scan lane's prefix cache", "Big-dims lane")
-        if flash_prefill:
-            not_ported("flash prefill", "Long-prompt prefill")
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise NotImplementedError(f"dtype {dtype}: use float32 or "
                                       "bfloat16")
@@ -298,6 +299,11 @@ class LlamaServer(_FleetScheduler):
         check_kv_quant(kv_quant, quant, fused)
         self._lane = "fused" if fused else "xla"
         self._kv_quant = kv_quant
+        # admission prefill's attention (generate's flash_prefill): None
+        # routes each wave by its prompt length (flash_prefill_mode), False
+        # keeps the dense scores, True (or "interpret") takes the flash
+        # forward
+        self._flash_prefill = flash_prefill
         model.eval()
         self.model = model
         self.B = batch_size
@@ -383,12 +389,14 @@ class LlamaServer(_FleetScheduler):
 
     @torch.no_grad()
     def _admit_many(self, prompts, pos0: int, slots, seeds, has_seed, rids,
-                    sample: bool):
+                    sample: bool, flash=False):
         """Prefill a wave of k same-length prompts (k, L) into ``slots`` at
         absolute rows ``[pos0, pos0 + L)`` of the fleet's caches; returns
         their first tokens (k,) int32 on the device: greedy, or with
         ``sample`` drawn per row with the requests' parameters and keys
         (:meth:`_derive_keys`). The slots' keys become the requests'.
+        ``flash`` takes the prefill's attention through the flash forward
+        (``Llama.forward_logits_one``).
 
         The prefill runs at position 0 (``generate``'s bucketed dense
         prefill), and its K rows are then rotated on by ``pos0``: rotary
@@ -401,7 +409,7 @@ class LlamaServer(_FleetScheduler):
         k, L = prompts.shape
         ids, last_idx = bucket_prompt(prompts, L, self.S)
         ck5, cv5 = model._empty_caches(k, self._cdt)
-        logits1 = model.prefill_logits(w, ck5, cv5, ids, last_idx)
+        logits1 = model.prefill_logits(w, ck5, cv5, ids, last_idx, flash)
         idx = torch.as_tensor(slots, dtype=torch.long, device=logits1.device)
         draw_k, self._pkeys[idx] = self._derive_keys(seeds, has_seed, rids)
         if sample:
@@ -474,11 +482,13 @@ class LlamaServer(_FleetScheduler):
         waves, firsts_dev = [], []
         for L, group in sorted(by_len.items()):
             pos0 = self._pos - L
+            flash = (flash_prefill_mode(self._w, L)
+                     if self._flash_prefill is None else self._flash_prefill)
             for sub in self._pow2_subwaves(group):
                 prompts, slots, seeds, has_seed, rids = self._wave_arrays(sub)
                 firsts_dev.append(self._admit_many(
                     prompts, pos0, slots, seeds, has_seed, rids,
-                    sample=any(samples[s] for s in slots)))
+                    sample=any(samples[s] for s in slots), flash=flash))
                 self._starts[slots] = pos0
                 waves.append(sub)
         self._credit_firsts(waves, firsts_dev)

@@ -707,8 +707,12 @@ def lm_head_argmax(h, w, b, out=None):
     bfloat16 weights), and the products summed in float32 with the bias;
     ties go to the lowest index. Any V >= 1: the TPU kernel's vocab tile is
     its own tiling. CUDA tensors launch ``lm_head_kernel`` of
-    ``csrc/decode_token.cu`` (K1's head tiles without the final RMSNorm);
-    CPU tensors run :func:`lm_head_argmax_ref`."""
+    ``csrc/head.cuh``: K1's tensor-core head stage at one row without the
+    final RMSNorm, whose last block to finish reduces the blocks' (max,
+    index) pairs, one launch (``csrc/decode_token.cu`` zeroes its arrival
+    count first); a float32 ``h`` against bfloat16 weights enters as three
+    bfloat16 pieces whose sum is ``h``. CPU tensors run
+    :func:`lm_head_argmax_ref`."""
     V, D = w.shape if w.dim() == 2 else (-1, -1)
     if w.dtype not in _WDTYPES or h.dtype not in _WDTYPES:
         raise TypeError(f"h and w must be float32 or bfloat16, got "
@@ -723,7 +727,9 @@ def lm_head_argmax(h, w, b, out=None):
     _check_tensors(shapes, w.device)
     if w.device.type == "cpu":
         return lm_head_argmax_ref(h, w, b, out=out)
-    _check_cuda(w, D <= _SMEM_FLOATS, f"D={D}")
+    # the head block's ring and up to three activation rows (head_smem)
+    _check_cuda(w, _HEAD_RING_FLOATS + 3 * (D + 36) <= _SMEM_OPTIN_FLOATS,
+                f"D={D}")
     lib = _build.load()
     if out is None:
         out = torch.empty(1, 1, dtype=torch.int32, device=w.device)

@@ -88,7 +88,7 @@ def _confident(margins, tops, margin, rel):
 def gate_fused_argmax(model, prompt_ids, truth, margins, tops=None, *,
                       dtype=None, quant=None, kv_quant=None,
                       margin: float = MARGIN, rel: float = REL_MARGIN,
-                      min_agree: float = None):
+                      min_agree: float = None, flash=False):
     """``(checked, ok, agree)`` for one weight format on the model's device:
     the dense prefill's token and then the fused step's token, fed the
     ``truth`` stream, must equal it at every confident step of every row.
@@ -99,12 +99,13 @@ def gate_fused_argmax(model, prompt_ids, truth, margins, tops=None, *,
     steps is not a pass. ``agree`` is the agreeing share of the checked
     steps. ``min_agree`` makes it the JAX package's majority gate for lossy
     formats (int8, int4, the int8 KV cache): every step is checked and the
-    agreeing share must reach ``min_agree``."""
+    agreeing share must reach ``min_agree``. ``flash`` takes the prefill's
+    attention through the flash forward (``Llama.forward_logits_one``)."""
     prompt_ids = np.asarray(prompt_ids)
     B, L = prompt_ids.shape
     w = model._fused_weights(dtype, quant)
     ck5, cv5 = model._empty_caches(B, w["tok"].dtype)
-    first = model.prefill(w, ck5, cv5, prompt_ids).cpu().numpy()
+    first = model.prefill(w, ck5, cv5, prompt_ids, flash=flash).cpu().numpy()
     ck, cv = model._flat_caches(ck5, cv5, w)
     if kv_quant:
         if B == 1:  # the batched kernel's (N, 1, S, D) layout
@@ -172,19 +173,21 @@ def scan_truth(model, prompt_ids, steps: int, *, dtype=None, quant=None,
 @torch.no_grad()
 def gate_scan_argmax(model, prompt_ids, truth, margins, tops=None, *,
                      dtype=None, quant=None, margin: float = MARGIN,
-                     rel: float = REL_MARGIN, min_agree: float = None):
+                     rel: float = REL_MARGIN, min_agree: float = None,
+                     flash=False):
     """``(checked, ok, agree)`` for the scan lane in ``dtype`` and ``quant``
     (its quantized matmuls on a GPU), teacher-forced along ``truth``: its
     prefill token and then each step's token must equal the truth at every
     confident step of every row, as :func:`gate_fused_argmax` asks of the
     fused kernels; zero confident steps is not a pass. ``min_agree`` makes
     it the JAX package's majority gate for lossy formats: every step is
-    checked and the agreeing share must reach ``min_agree``."""
+    checked and the agreeing share must reach ``min_agree``. ``flash``
+    takes the prefill's attention through the flash forward."""
     prompt_ids = np.asarray(prompt_ids)
     B, L = prompt_ids.shape
     w = model._weights_xq(dtype, quant) if quant else model._weights(dtype)
     ck, cv = model._empty_caches(B, w["tok"].dtype)
-    got = [model.prefill(w, ck, cv, prompt_ids)]
+    got = [model.prefill(w, ck, cv, prompt_ids, flash=flash)]
     toks_in = torch.as_tensor(truth[:-1], dtype=torch.long,
                               device=model.device)
     for i in range(truth.shape[0] - 1):

@@ -52,13 +52,15 @@ def test_lm_head_argmax_matches_jax(seed):
 
 
 def test_lm_head_argmax_tie_across_tiles_goes_low():
-    """Rows 10 and 200 (different 128-row tiles) tie for the maximum: both
-    packages return 10, exactly."""
-    h, w, b = _head_case(3)
-    w[:, 10] = w[:, 200] = np.sign(h[0]) * 2.0
-    b[0, 10] = b[0, 200] = 1.0
-    assert _jax_head(h, w, b) == 10
-    assert int(tds.lm_head_argmax(t(h), t(w.T), t(b[0]))[0, 0]) == 10
+    """Rows 10 and 200 (different 128-row tiles), and rows 127 and 128 (the
+    last of one 128-row block of the CUDA head stage and the first of the
+    next), tie for the maximum: both packages return the lower, exactly."""
+    for lo, hi in ((10, 200), (127, 128)):
+        h, w, b = _head_case(3)
+        w[:, lo] = w[:, hi] = np.sign(h[0]) * 2.0
+        b[0, lo] = b[0, hi] = 1.0
+        assert _jax_head(h, w, b) == lo
+        assert int(tds.lm_head_argmax(t(h), t(w.T), t(b[0]))[0, 0]) == lo
 
 
 def test_lm_head_argmax_f32_h_is_not_rounded_to_bf16_weights():
@@ -80,6 +82,84 @@ def test_lm_head_argmax_f32_h_is_not_rounded_to_bf16_weights():
     assert int(tds.lm_head_argmax(t(h), tw, tb)[0, 0]) == 1
     rounded = t(h).to(torch.bfloat16)
     assert int(tds.lm_head_argmax(rounded, tw, tb)[0, 0]) == 0
+
+
+def _split3(x):
+    """K9's float32 h as three bfloat16 pieces (``load_split_rows`` in
+    ``csrc/head.cuh``): hi = bf16(x), mid = bf16(x - hi),
+    lo = bf16(x - hi - mid), each rounded to nearest even."""
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    return hi, mid, (rest - mid.float()).to(torch.bfloat16)
+
+
+def _split3_head(h, w, b):
+    """K9's logits for a float32 h against bfloat16 weights, emulated: each
+    piece's products with the weights exact in float32 and summed in
+    float32, the three sums added as (lo + mid) + hi, then the bias."""
+    hi, mid, lo = (torch.mv(w.float(), p.reshape(-1).float())
+                   for p in _split3(h))
+    return ((lo + mid) + hi) + b.float()
+
+
+# half a step of bfloat16's subnormals: what the smallest piece may lose
+BF16_SUBNORMAL_HALF_STEP = 2.0**-134
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e30, 1e-30])
+def test_three_piece_split_carries_every_bit(scale):
+    """hi + mid + lo == h exactly for seeded floats at scales 1 and 1e30. At
+    1e-30 the smallest piece of some values falls among bfloat16's
+    subnormals and is rounded there: each sum stays within half a subnormal
+    step (2**-134) of h, which is within 1e-5 of h wherever |h| is at least
+    1e5 such steps (all but the values nearest 0)."""
+    rng = np.random.default_rng(16)
+    x = t((rng.standard_normal(100_000) * scale).astype(np.float32))
+    hi, mid, lo = _split3(x)
+    back = (lo.float() + mid.float()) + hi.float()
+    if scale >= 1.0:
+        assert torch.equal(back, x)
+        return
+    err = (back.double() - x.double()).abs()
+    assert not torch.equal(back, x)
+    assert float(err.max()) <= BF16_SUBNORMAL_HALF_STEP
+    away = x.abs() >= 1e5 * BF16_SUBNORMAL_HALF_STEP
+    assert int(away.sum()) >= 99_990
+    assert float((err / x.abs().double())[away].max()) <= 1e-5
+
+
+def test_three_piece_head_keeps_h_unrounded():
+    """The split's three column sums in the kernel's order give the JAX
+    package's argmax on the not-rounded case's inputs, and the float32
+    argmax on a seeded stories15M-width head."""
+    D, V = 2, 128
+    h = np.array([[1 + 2**-9, 1 + 2**-8]], np.float32)
+    w = np.zeros((D, V), np.float32)
+    w[0, 0] = w[1, 1] = 1.0
+    b = np.zeros((1, V), np.float32)
+    wb = w.astype(ml_dtypes.bfloat16)
+    want = int(jds.lm_head_argmax(jnp.asarray(h), jnp.asarray(wb),
+                                  jnp.asarray(b.astype(ml_dtypes.bfloat16)),
+                                  vt=128, interpret=True)[0, 0])
+    tw, tb = t(w.T).to(torch.bfloat16), t(b[0]).to(torch.bfloat16)
+    got = _split3_head(t(h), tw, tb)
+    assert want == 1 and int(torch.argmax(got)) == want
+    assert int(torch.argmax(torch.mv(tw.float(),
+                                      t(h)[0].to(torch.bfloat16).float())
+                            + tb.float())) == 0
+    rng = np.random.default_rng(17)
+    h = t(rng.standard_normal((1, 288)).astype(np.float32))
+    wb = t(rng.standard_normal((32000, 288)).astype(np.float32)
+           * 0.06).to(torch.bfloat16)
+    bb = t(rng.standard_normal(32000).astype(np.float32)
+           * 0.1).to(torch.bfloat16)
+    exact = torch.mv(wb.double(), h[0].double()) + bb.double()
+    got = _split3_head(h, wb, bb)
+    assert float((got.double() - exact).abs().max()) <= \
+        1e-5 * float(exact.abs().max())
+    assert int(torch.argmax(got)) == int(torch.argmax(exact)) == \
+        int(tds.lm_head_argmax(h, wb, bb)[0, 0])
 
 
 def test_lm_head_argmax_takes_any_vocab_and_rejects_bad_arguments():

@@ -728,6 +728,50 @@ def test_head_kernel_cross_tile_tie_goes_low(model, dtype):
     assert got == want == HEAD_TIE[0]
 
 
+@pytest.mark.parametrize("shape", [(288, 32000), (288, 1000), (77, 333)],
+                         ids=["stories15M", "V-not-128", "odd-D"])
+@pytest.mark.parametrize("hw", ["f32-f32", "f32-bf16", "bf16-f32",
+                                "bf16-bf16"])
+def test_head_kernel_type_pairs(model, hw, shape):
+    """K9 (K1's head stage at one row, no norm) in the four (h, w) type
+    pairs, at a vocabulary that is not a multiple of the 128-row blocks and
+    at rows whose bytes are not a multiple of 16: the plain version's
+    token at three seeds, and rows 127 and 128 (either side of a block
+    seam) and V - 2 and V - 1 (the last, partial block) tied, the lower
+    winning."""
+    from chip_smoke import FLASH_DTYPES, head_vs_plain
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    hdt, wdt = (FLASH_DTYPES[n] for n in hw.split("-"))
+    D, V = shape
+    for seed in range(3):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        h = torch.randn(1, D, generator=g, device="cuda").to(hdt)
+        w = (torch.randn(V, D, generator=g, device="cuda") * 0.06).to(wdt)
+        b = (torch.randn(V, generator=g, device="cuda") * 0.1).to(wdt)
+        got, want, short = head_vs_plain(model, None, inputs=(h, w, b))
+        assert got == want and short == 0.0
+        for lo, hi in ((127, 128), (V - 2, V - 1)):
+            wt, bt = w.clone(), b.clone()
+            wt[lo] = wt[hi] = (h[0].float().sign() * 0.5).to(wdt)
+            bt[lo] = bt[hi] = 1.0
+            assert int(dsk.lm_head_argmax(h, wt, bt)[0, 0]) == lo
+            assert int(dsk.lm_head_argmax_ref(h, wt, bt)[0, 0]) == lo
+
+
+def test_head_kernel_does_not_round_f32_h(model):
+    """A float32 h against bfloat16 weights enters K9 unrounded (the three
+    bfloat16 pieces): chip_smoke's not-rounded case gives row 1, and the
+    same h rounded to bfloat16 row 0, in the kernel as in the plain
+    version."""
+    from chip_smoke import head_unrounded_inputs, head_vs_plain
+
+    h, w, b = head_unrounded_inputs(model)
+    assert head_vs_plain(model, None, inputs=(h, w, b))[:2] == (1, 1)
+    assert head_vs_plain(model, None,
+                         inputs=(h.to(torch.bfloat16), w, b))[:2] == (0, 0)
+
+
 @pytest.mark.parametrize("pos", [0, 511, 1023, 1030])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_step_kernel_matches_plain(model, dtype, pos):

@@ -238,11 +238,17 @@ def test_generate_length_edges_match_jax(max_new):
 def test_generate_unported_options_raise(batched_calls, step_calls):
     tm = Llama(**TINY, device="cpu")
     ids = np.array([[1, 5, 9]])
-    cases = [dict(flash_prefill=True), dict(fused="numpy"),
-             dict(dtype=torch.float16)]
+    cases = [dict(fused="numpy"), dict(dtype=torch.float16)]
     for kw in cases:
         with pytest.raises(NotImplementedError):
             next(tm.generate(ids, 8, **kw))
+    # flash prefill runs (K3's plain version on the CPU), on both lanes, and
+    # decodes the dense prefill's stream
+    for fused in (False, True):
+        assert stream(tm.generate(ids, 12, flash_prefill=True,
+                                  fused=fused)) == \
+            stream(tm.generate(ids, 12, flash_prefill=False, fused=fused))
+    del step_calls[:]
     # the int8 KV cache runs on the batched step, at B=1 too (as in the JAX
     # package), one call a decode token; the B=1 step is not called
     for fused in (None, True):
@@ -527,3 +533,30 @@ def test_clis_take_finetuned_and_n_heads_like_jax(tmp_path, capsys, heads):
     got = [ln for ln in capsys.readouterr().out.splitlines()
            if ln.startswith("--- [")]
     assert len(got) == 2 and got == want
+
+
+def test_infer_takes_no_warmup_like_jax(tmp_path, capsys):
+    """Both CLIs take ``--no-warmup --random-init --max-new-tokens 3`` and,
+    with every parameter loaded over the random ones (``--finetuned``, the
+    head's bias keeping the tokens in the byte range, where the tokenizer
+    prints them), print the same text."""
+    from llm.llama import infer as jinfer
+    from pydynet_tpu_torch.models.llama import infer, params_to_tpu
+
+    src = Llama(infer.VOCAB_SIZE, infer.DIM, infer.N_HEADS, infer.FFN_DIM,
+                infer.MAX_SEQ_LEN, infer.MAX_BATCH, infer.N_LAYERS,
+                device="cpu", generator=torch.Generator().manual_seed(16))
+    params = params_to_tpu(dict(src.named_parameters()))
+    params["lm_head.bias"][259:] = -100.0
+    full = tmp_path / "full.npz"
+    np.savez(full, **params)
+    flags = ["--no-warmup", "--random-init", "--max-new-tokens", "3",
+             "--prompt", "", "--finetuned", str(full)]
+    capsys.readouterr()
+    with pdn.no_grad():
+        jinfer.main(flags + ["--no-cuda"])
+    jout = capsys.readouterr().out
+    assert infer.main(flags + ["--device", "cpu"]) > 0
+    out = capsys.readouterr().out
+    assert "Token count: 3" in out and "Token count: 3" in jout
+    assert cli_text(out) == cli_text(jout) != ""

@@ -293,10 +293,19 @@ def test_server_dispatches_one_batched_step_per_token(batched_calls):
 def test_unported_options_raise(batched_calls):
     _, tm = models(20)
     cases = [dict(kv_quant="int8", lane="xla"), dict(prefix_cache=True),
-             dict(flash_prefill=True), dict(dtype=torch.float16)]
+             dict(dtype=torch.float16)]
     for kw in cases:
         with pytest.raises(NotImplementedError):
             LlamaServer(tm, **kw)
+    # flash prefill admissions run and serve the dense admissions' streams
+    served = []
+    for flash in (True, False):
+        srv = LlamaServer(tm, batch_size=2, chunk=4, eos_id=-1,
+                          flash_prefill=flash)
+        rids = [srv.submit(p, max_new_tokens=6) for p in ([1, 5, 9], [2, 7])]
+        done = srv.run()
+        served.append([done[r].tokens for r in rids])
+    assert served[0] == served[1] and all(len(t) == 6 for t in served[0])
     with pytest.raises(NotImplementedError, match="Sampling"):
         LlamaServer(tm, speculative=4)
     # the int8 KV cache and int8/int4 layers run on the batched step, one
@@ -330,8 +339,9 @@ def test_unported_options_raise(batched_calls):
     # generate at B>1: options not ported raise, B above the kernel's rows
     # raises, and nothing reroutes to the plain lane
     ids = np.array([[1, 5, 9], [2, 7, 3]])
-    with pytest.raises(NotImplementedError):
-        next(tm.generate(ids, 8, flash_prefill=True))
+    flash = [r.tolist() for r in tm.generate(ids, 8, flash_prefill=True)]
+    assert len(flash) == 5 and flash == [r.tolist()
+                                         for r in tm.generate(ids, 8)]
     for kw in (dict(kv_quant="int8"), dict(quant="int8")):
         del batched_calls[:]
         assert len(list(tm.generate(ids, 8, **kw))) == 5
