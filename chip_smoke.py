@@ -124,15 +124,16 @@ the run with a nonzero exit and no result line:
    quantized-matmul launch counters equal to the counts the code implies
    (4 x 32 stacked launches and one head launch a forward, each the
    product's only launch; a prefill's 8 bucketed rows are quantized by
-   ``quantize_rows`` first, 4 x 32 launches more); the int8 stream
+   ``quantize_rows`` first, 4 x 32 launches more; every scan-lane layer
+   product goes through K7, the head through K5); the int8 stream
    teacher-forced against the bf16 scan lane at confident steps; a B=4
    ``LlamaServer(quant="int4")`` that routes itself to the scan lane and
    serves 8 requests (launches counted the same way), every served stream
    teacher-forced through standalone B=1 ``generate``'s forward and equal
    to it at every confident step; the int4 lane against the truth of
    ``dequant_inplace`` weights by majority agreement; the stories15M scan
-   lane with a 40-token prompt (its prefill through K6) against the same
-   lane on the CPU; and the ``serve_cli`` once with ``--lane xla --quant
+   lane with a 40-token prompt (its prefill through K6's kernel, K7's
+   prefill branch) against the same lane on the CPU; and the ``serve_cli`` once with ``--lane xla --quant
    int8``;
 4l. long-prompt prefill: a 1,000-token prompt on stories15M (bfloat16, the
    fused lane, padded to 1,024) and a 4,000-token prompt on the 7B geometry
@@ -147,6 +148,25 @@ the run with a nonzero exit and no result line:
    crossover sets ``FLASH_PREFILL_MIN``; K3 against its plain version at
    (1, 4096, 32, 128) bfloat16, timed beside its bound and
    ``F.scaled_dot_product_attention(is_causal=True)``;
+4p. the scan lane's int8 KV cache and prefix cache at the 7B geometry,
+   with int8 and then int4 weights: a B=4 server (``chunk=32``) over 16
+   requests, each a seeded 2,048-token system prompt and a seeded suffix
+   of 8-64 tokens, ``max_new_tokens`` cycling 16, 32, 48, with
+   ``prefix_cache=True`` and then ``False`` after an untimed warm-up: the
+   launches of K7, K5, K6 (as K7's prefill branch), K3 and
+   ``quantize_rows`` equal to the implied counts, at least 12 prefix hits
+   of 2,048 rows each, the peak memory beside the KV cache's bytes in int8
+   and bf16, the median ms to the first token of the reuse and the full
+   admissions, generated tok/s; each reuse stream equal to the no-reuse
+   server's up to a step where it parts at a near-tie; standalone
+   ``generate(kv_quant="int8")`` in both formats on the scan lane against
+   the same request without it (int8 at every confident step, int4 by
+   majority); ``serve_cli --lane xla --quant int4 --kv-quant int8
+   --prefix-cache`` (a reuse admission counted); then, at stories15M width
+   in bf16 on the scan lane, ``generate_speculative`` of a 512-token
+   request and ``generate_beam(num_beams=1)`` against greedy
+   ``generate(fused=False)`` up to a near-tie at their parting step, their
+   tok/s and tokens a dispatch, and ``num_beams=4`` timed;
 4e. the nn-stack trainers: DNN_BN's first step on the card (through K8)
    against the same step on the CPU; the ``dropout_bn`` trainer at its
    published setting, 20 epochs of 8 steps (K8's counter must equal
@@ -197,8 +217,9 @@ the run with a nonzero exit and no result line:
    under the profiler; for the training step at B = 1 and 8 the device time
    of its largest kernels and the device's busy share; for a 7B int8 and
    int4 token on the scan lane the device time by kernel and the busy
-   share; for the dropout_bn train step its largest kernels and the busy
-   share.
+   share, and the same for phase 4p's reuse admission, a full admission
+   and 4 decode steps (int8, B=4); for the dropout_bn train step its
+   largest kernels and the busy share.
 
 The last two lines of standard output are a JSON object describing the
 kernels and then ``{"ok": true, "device": {...}}``.
@@ -356,6 +377,21 @@ LONG_FLASH_SHAPE = (1, 4096, 32, 128)  # K3 at the 7B prefill: (B, L, H, d)
 INT4_MIN_AGREE = 0.75  # bench.py's majority floor for the lossy formats
 QMM_KERNELS = ("quantize_rows", "qmatmul", "qmatmul_prefill",
                "qmatmul_stacked")
+# the shared-system-prompt phase (4p): a B=4 scan-lane server with the int8
+# KV cache over PREFIX_REQUESTS requests, each a seeded PREFIX_SYSTEM-token
+# system prompt and a seeded suffix of PREFIX_SUFFIX tokens,
+# max_new_tokens cycling over PREFIX_MAX_NEW
+PREFIX_SERVE = dict(batch_size=4, chunk=32, eos_id=-1, kv_quant="int8")
+PREFIX_SYSTEM = 2048
+PREFIX_SUFFIX = (8, 64)
+PREFIX_REQUESTS = 16
+PREFIX_MAX_NEW = (16, 32, 48)
+PREFIX_MIN_HITS = PREFIX_REQUESTS - PREFIX_SERVE["batch_size"]
+# Part B of phase 4p: beam search and speculative decoding at stories15M
+# width, bf16, on the scan lane
+SPEC_REQUEST = 512  # total length of the speculative and greedy requests
+SPEC_PROMPT = np.array([[1, 243, 532, 991] * 4])
+BEAM_REQUEST = 128  # total length of the beam-search requests
 # K8, the train-mode BatchNorm, against its plain version: (N, C) from one
 # row to a wide batch, the dropout_bn trainer's (40, 512) and (40, 128) among
 # them. Inputs are O(1) (x normal, gamma in [0.5, 1.5], beta normal / 2), so
@@ -1289,6 +1325,48 @@ def profile_big(model):
             del ck, cv
 
 
+def profile_prefix(model):
+    """Phase 6's part for phase 4p: the device time by kernel and the busy
+    share of a reuse admission, a full admission (a prompt sharing no
+    prefix) and 4 decode steps of the 7B int8 kv8 prefix-cache server at
+    B=4, as phase 4p serves them."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from pydynet_tpu_torch.models.llama.serve import LlamaServer
+
+    requests, other = prefix_requests(model), prefix_requests(model, seed=1)
+    with torch.no_grad():
+        srv = LlamaServer(model, dtype=torch.bfloat16, quant="int8",
+                          prefix_cache=True, **PREFIX_SERVE)
+        srv.submit(requests[0][0], max_new_tokens=PREFIX_SYSTEM)
+        srv.step()  # a full admission, then two chunks: the donor is
+        srv.step()  # resident and every prompt fits below the position
+        for label, prompt, n in (("reuse admission", requests[1][0], 1),
+                                 ("full admission", other[0][0], 1),
+                                 ("decode steps", None, 4)):
+            if prompt is not None:
+                srv.submit(prompt, max_new_tokens=PREFIX_SYSTEM)
+            torch.cuda.synchronize()
+            hits = srv.prefix_hits
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                start = time.perf_counter()
+                if prompt is None:
+                    srv._decode(n)
+                else:
+                    srv._try_admit()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - start
+            if (label == "reuse admission") != (srv.prefix_hits > hits):
+                raise AssertionError(f"profile: the {label} was not one")
+            by_kernel(prof, n, f"7B int8 kv8 B=4 {label}", top=10)
+            busy = busy_share(prof, wall)
+            print(f"[chip_smoke] profile 7B int8 kv8 B=4 {label}: "
+                  f"{wall / n * 1e3:.2f} ms each, "
+                  f"{len(kernel_events(prof)) // n} kernels each, device "
+                  f"busy {100 * busy / wall:.1f} %")
+
+
 def check_f32_server(model, label=""):
     """A float32 B=4 server against standalone float32 ``generate`` (K1) on
     each of 8 prompts, both against the eager float32 stream, up to each
@@ -1718,11 +1796,17 @@ def qmm_bound(x, wq, M, N):
 
 
 def qmm_counters():
+    """The quantized matmuls' launches. ``qmatmul_prefill`` counts K6's
+    kernel however it was reached: through ``qmatmul`` above 32 rows, or
+    as K7's prefill branch (``qmatmul_stacked`` above 32 rows, which the
+    scan lane's layer products take), those launches counted in
+    ``qmatmul_stacked`` too."""
     from pydynet_tpu_torch.ops import gemv_quant as gq
 
     return {"quantize_rows": gq.quantize_rows.launches,
             "qmatmul": gq.qmatmul.launches,
-            "qmatmul_prefill": gq.qmatmul.prefill_launches,
+            "qmatmul_prefill": gq.qmatmul.prefill_launches
+            + gq.qmatmul_stacked.prefill_launches,
             "qmatmul_stacked": gq.qmatmul_stacked.launches}
 
 
@@ -1731,6 +1815,7 @@ def zero_qmm_counters():
 
     gq.quantize_rows.launches = gq.qmatmul.launches = 0
     gq.qmatmul.prefill_launches = gq.qmatmul_stacked.launches = 0
+    gq.qmatmul_stacked.prefill_launches = 0
 
 
 def random_qweights(K, N, q4, seed, layers=None):
@@ -1996,9 +2081,11 @@ def check_big_dims():
         for q in ("int8", "int4")}
     long_run = qmm_counters()
     L = CFG["n_layers"]
-    want = {"quantize_rows": 2 * 4 * L,  # the prefill kernel's rows only
-            "qmatmul": 2 * ((4 * L + 1) * (n_new - 1) + 1),
-            "qmatmul_prefill": 2 * 4 * L, "qmatmul_stacked": 0}
+    # every layer product through K7 (the prefill's through its prefill
+    # branch, K6's kernel, on rows quantize_rows made), the head through K5
+    want = {"quantize_rows": 2 * 4 * L, "qmatmul": 2 * n_new,
+            "qmatmul_prefill": 2 * 4 * L,
+            "qmatmul_stacked": 2 * 4 * L * n_new}
     print(f"[chip_smoke] stories15M scan lane, {LONG_PROMPT}-token prompt: "
           f"launches {long_run}, implied {want}")
     if long_run != want:
@@ -2034,6 +2121,305 @@ def check_big_dims():
         raise AssertionError(f"a quantized-matmul kernel was not launched: "
                              f"{launches}")
     return model, launches
+
+
+def prefix_requests(model, seed=0):
+    """Phase 4p's traffic: (prompt, max_new_tokens) pairs, each prompt one
+    seeded PREFIX_SYSTEM-token system prompt and a seeded suffix."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, model.vocab_size, PREFIX_SYSTEM).tolist()
+    lo, hi = PREFIX_SUFFIX
+    return [(system + rng.integers(1, model.vocab_size,
+                                   int(rng.integers(lo, hi + 1))).tolist(),
+             PREFIX_MAX_NEW[i % len(PREFIX_MAX_NEW)])
+            for i in range(PREFIX_REQUESTS)]
+
+
+def prefix_serve(model, requests, quant, prefix_cache):
+    """One phase-4p server run: returns (server, streams, {"full": [s],
+    "reuse": [s]} of each admission's time to its first token, wall
+    seconds). An admission is timed synchronised on both sides: its
+    prefill and the scatter of its rows."""
+    from pydynet_tpu_torch.models.llama.serve import LlamaServer
+
+    srv = LlamaServer(model, dtype=torch.bfloat16, quant=quant,
+                      prefix_cache=prefix_cache, **PREFIX_SERVE)
+    if srv._lane != "xla":
+        raise AssertionError(f"7B {quant} kv8 server on lane {srv._lane}")
+    ttft = {"full": [], "reuse": []}
+
+    def timed(kind, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            ttft[kind].append(time.perf_counter() - start)
+            return out
+        return run
+
+    srv._admit_many = timed("full", srv._admit_many)
+    srv._admit_prefix = timed("reuse", srv._admit_prefix)
+    rids = [srv.submit(p, max_new_tokens=n) for p, n in requests]
+    start = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    return srv, [done[r].tokens for r in rids], ttft, wall
+
+
+def first_difference(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def parts_at_a_tie(model, prompt, ref, other, **kw):
+    """``(d, ok)``: ``d`` the first step where the stream ``other`` leaves
+    ``ref`` (both from ``prompt``), ``ok`` whether they are equal or part at
+    a near-tie: up to ``d`` both fed the same tokens, so only a top-2 gap
+    within bf16 noise at ``d`` itself (not confident in the gates' sense,
+    teacher-forced along ``ref`` on the scan lane with ``kw``) may send them
+    apart there."""
+    from pydynet_tpu_torch.utils import fidelity
+
+    d = first_difference(ref, other)
+    if d == len(ref) == len(other):
+        return d, True
+    _, mg, tp = fidelity.scan_truth(model, np.asarray([prompt]), d + 1,
+                                    forced=np.array(ref[:d + 1])[:, None],
+                                    **kw)
+    return d, not fidelity._confident(mg[d, 0], tp[d, 0], fidelity.MARGIN,
+                                      fidelity.REL_MARGIN)
+
+
+def check_prefix_cache(big, card):
+    """Phase 4p: the 7B geometry served with int8 and int4 weights and the
+    int8 KV cache on the scan lane, a long shared system prompt reused by
+    the prefix cache; the reuse streams against the no-reuse server's;
+    standalone ``generate(kv_quant="int8")`` against the same request
+    without it; ``serve_cli --prefix-cache``. Returns {kernel: launches}
+    of the int8 prefix-cache server's run."""
+    from pydynet_tpu_torch.models.llama import serve_cli
+    from pydynet_tpu_torch.models.llama import serve as serve_mod
+    from pydynet_tpu_torch.ops import decode_step as dsk
+    from pydynet_tpu_torch.ops import flash_attention as fa
+    from pydynet_tpu_torch.utils import fidelity
+
+    bf16 = torch.bfloat16
+    requests = prefix_requests(big)
+    N, S, Hkv, hd = (big.n_layers, big.max_seq_len, big.n_kv_heads,
+                     big.head_dim)
+    B = PREFIX_SERVE["batch_size"]
+    kv8_bytes = 2 * N * B * S * Hkv * (hd + 4)  # int8 rows, f32 scales
+    bf16_bytes = 2 * N * B * S * Hkv * hd * 2
+    path_launches = None
+    with torch.no_grad():
+        for quant in ("int8", "int4"):
+            t0 = time.perf_counter()
+            prefix_serve(big, requests[:2], quant, True)  # warm-up
+            runs = {}
+            for prefix_cache in (True, False):  # in turns
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_qmm_counters()
+                fa.flash_attention_fwd.launches = 0
+                k2 = dsk.fused_decode_token_batched.launches
+                srv, streams, ttft, wall = prefix_serve(
+                    big, requests, quant, prefix_cache)
+                ran = dict(qmm_counters(), flash_attention_fwd=(
+                    fa.flash_attention_fwd.launches))
+                peak = torch.cuda.max_memory_allocated()
+                runs[prefix_cache] = streams
+                n_tok = sum(len(t) for t in streams)
+                waves, reuse = len(ttft["full"]), len(ttft["reuse"])
+                forwards = srv.dispatched_steps + waves + reuse
+                print(f"[chip_smoke] {card}: 7B {quant} kv8 B={B} server, "
+                      f"prefix_cache={prefix_cache}: {len(requests)} "
+                      f"requests, {n_tok} tokens in {wall:.2f} s, "
+                      f"{n_tok / wall:.1f} generated tok/s; "
+                      f"{srv.dispatched_steps} steps, {waves} full "
+                      f"admission waves, {reuse} reuse admissions; "
+                      f"prefix_hits {srv.prefix_hits}, prefix_rows_reused "
+                      f"{srv.prefix_rows_reused}; launches {ran}; peak "
+                      f"memory {peak / 2**30:.2f} GiB (KV cache "
+                      f"{kv8_bytes / 2**30:.2f} GiB in int8, "
+                      f"{bf16_bytes / 2**30:.2f} GiB in bf16)")
+                for kind, t in ttft.items():
+                    if t:
+                        print(f"[chip_smoke] {card}: 7B {quant} kv8 "
+                              f"prefix_cache={prefix_cache}: {kind} "
+                              f"admissions, ms to the first token: median "
+                              f"{float(np.median(t)) * 1e3:.2f} of "
+                              f"{len(t)} "
+                              f"({', '.join(f'{x * 1e3:.1f}' for x in t)})")
+                # every layer product through K7 and the head through K5,
+                # once a forward (a decode step or an admission); each
+                # admission's rows above 4 quantized by quantize_rows; K3
+                # once a layer on every full wave (its padded prompt is
+                # above FLASH_PREFILL_MIN), never on a reuse admission
+                want = {"qmatmul_stacked": 4 * N * forwards,
+                        "qmatmul": forwards,
+                        "quantize_rows": 4 * N * (waves + reuse),
+                        "flash_attention_fwd": N * waves}
+                got = {k: ran[k] for k in want}
+                if got != want or not ran["qmatmul_prefill"] \
+                        or dsk.fused_decode_token_batched.launches != k2:
+                    raise AssertionError(f"7B {quant} kv8 launches {ran}, "
+                                         f"implied {want}")
+                if prefix_cache:
+                    if srv.prefix_hits < PREFIX_MIN_HITS or \
+                            srv.prefix_rows_reused \
+                            != PREFIX_SYSTEM * srv.prefix_hits:
+                        raise AssertionError(
+                            f"7B {quant}: {srv.prefix_hits} prefix hits, "
+                            f"{srv.prefix_rows_reused} rows reused")
+                    if quant == "int8":
+                        path_launches = ran
+                elif srv.prefix_hits:
+                    raise AssertionError("prefix hits without the cache")
+                if not all(len(t) == n for t, (_, n) in zip(streams,
+                                                             requests)):
+                    raise AssertionError(f"7B {quant}: a short stream")
+            # the gate: reused rows carry one more rounding (the int8 K
+            # rows' requantization), the only difference between the two
+            # servers, whose weights are the same int8 or int4 snapshot; so
+            # each stream must equal the no-reuse server's up to a step
+            # where it parts at a near-tie (teacher-forced along the
+            # no-reuse stream on the standalone forward). A free-running
+            # stream of this random-weight model differs from there on,
+            # so the share of equal tokens is printed, not gated
+            parts = []
+            for (prompt, _), a, b in zip(requests, runs[True], runs[False]):
+                d, ok = parts_at_a_tie(big, prompt, b, a, dtype=bf16,
+                                       quant=quant, kv_quant="int8")
+                if not ok:
+                    raise AssertionError(
+                        f"7B {quant} prefix-cache stream leaves the no-reuse "
+                        f"one at confident step {d}: {a[:d + 1]} vs "
+                        f"{b[:d + 1]}")
+                parts.append(d)
+            whole = sum(d == len(b) for d, b in zip(parts, runs[False]))
+            same = sum(sum(x == y for x, y in zip(a, b))
+                       for a, b in zip(runs[True], runs[False]))
+            total = sum(len(b) for b in runs[False])
+            print(f"[chip_smoke] gate 7B {quant} kv8 prefix cache vs no "
+                  f"reuse: {whole} of {len(requests)} streams equal "
+                  f"throughout, the others parting at a near-tie (steps "
+                  f"{parts}); {sum(parts)} tokens equal before the partings,"
+                  f" {same} of {total} in all ({same / total:.3f})")
+            print(f"[chip_smoke] 7B {quant} kv8 prefix-cache runs: "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+        # standalone generate with int8 KV and int8/int4 weights: the scan
+        # lane, teacher-forced against the same request without kv_quant
+        total = PROMPT.shape[1] + BIG_NEW
+        for quant in ("int8", "int4"):
+            if big.use_fused(quant, 1, batched=True):
+                raise AssertionError(f"7B {quant} kv8 routed to the fused "
+                                     "lane")
+            zero_qmm_counters()
+            toks = [int(t[0, 0]) for t in big.generate(
+                PROMPT, total, dtype=bf16, quant=quant, kv_quant="int8")]
+            ran = qmm_counters()
+            if len(toks) != BIG_NEW or ran["qmatmul"] != BIG_NEW \
+                    or ran["qmatmul_stacked"] != 4 * N * BIG_NEW:
+                raise AssertionError(f"7B generate {quant} kv8: "
+                                     f"{len(toks)} tokens, launches {ran}")
+            truth, margins, tops = fidelity.scan_truth(
+                big, PROMPT, BIG_NEW, dtype=bf16, quant=quant)
+            kw = {"min_agree": INT4_MIN_AGREE} if quant == "int4" else {}
+            checked, ok, agree = fidelity.gate_scan_argmax(
+                big, PROMPT, truth, margins, tops, dtype=bf16, quant=quant,
+                kv_quant="int8", **kw)
+            same = first_difference(toks, truth[:, 0].tolist())
+            print(f"[chip_smoke] gate 7B generate {quant} kv8 vs {quant} "
+                  f"(bf16 KV){', majority' if kw else ''}: checked "
+                  f"{checked} ok {ok} agree {agree:.3f}; free-running, the "
+                  f"first {same} of {BIG_NEW} tokens equal")
+            if not (checked > 0 and ok):
+                raise AssertionError(f"7B generate {quant} kv8 gate failed")
+
+    # the serve CLI on the stories15M scan lane with both quantizations
+    # and the prefix cache: the second prompt (longer than the first, so
+    # admitted a chunk later) reuses the first one's resident rows
+    hits = []
+    admit = serve_mod.LlamaServer._admit_prefix
+    serve_mod.LlamaServer._admit_prefix = \
+        lambda self, *a, **kw: hits.append(1) or admit(self, *a, **kw)
+    try:
+        before = qmm_counters()["qmatmul_stacked"]
+        serve_cli.main(["--random-init", "--device", "cuda", "--lane",
+                        "xla", "--quant", "int4", "--kv-quant", "int8",
+                        "--prefix-cache", "--batch-size", "2", "--chunk",
+                        "8", "--max-new-tokens", "24", "--prompt",
+                        "Once upon a time, there was a little girl named "
+                        "Lily. She", "--prompt", "Once upon a time, there "
+                        "was a little girl named Lily. She liked to play"])
+    finally:
+        serve_mod.LlamaServer._admit_prefix = admit
+    print(f"[chip_smoke] serve CLI --lane xla --quant int4 --kv-quant int8 "
+          f"--prefix-cache: {len(hits)} reuse admission(s)")
+    if not hits or qmm_counters()["qmatmul_stacked"] == before:
+        raise AssertionError("serve CLI --prefix-cache reused no rows or "
+                             "ran no quantized matmul")
+    return path_launches
+
+
+def check_beam_and_speculative(model, card):
+    """Phase 4p, Part B: beam search and speculative decoding at stories15M
+    width, bf16, on the scan lane. ``generate_speculative`` of a
+    SPEC_REQUEST-token request and ``generate_beam(num_beams=1)`` against
+    greedy ``generate(fused=False)`` up to its first near-tie (its
+    teacher-forced top-2 margin below the bf16 gates' floor); both
+    tokens/s; ``num_beams=4`` timed."""
+    bf16 = torch.bfloat16
+    ids = SPEC_PROMPT
+    with torch.no_grad():
+        list(model.generate(ids, ids.shape[1] + 4, dtype=bf16, fused=False))
+        model.generate_speculative(ids, ids.shape[1] + 16, dtype=bf16)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        greedy = [int(t[0, 0]) for t in model.generate(
+            ids, SPEC_REQUEST, dtype=bf16, fused=False)]
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - start
+        start = time.perf_counter()
+        spec, stats = model.generate_speculative(ids, SPEC_REQUEST,
+                                                 dtype=bf16)
+        torch.cuda.synchronize()
+        s_s = time.perf_counter() - start
+        prompt, n = ids[0].tolist(), len(greedy)
+        d, ok = parts_at_a_tie(model, prompt, greedy, spec.tolist(),
+                               dtype=bf16)
+        print(f"[chip_smoke] {card}: speculative bf16 {SPEC_REQUEST}-token "
+              f"request: {n / s_s:.1f} tok/s, greedy generate(fused=False) "
+              f"{n / g_s:.1f} tok/s; stats {stats}; equal to greedy for "
+              f"the first {d} of {n} tokens"
+              + ("" if d == n else ", parting at a near-tie"))
+        if not ok or stats["tokens"] != n:
+            raise AssertionError(f"speculative stream leaves greedy at "
+                                 f"confident step {d}")
+        beams = {}
+        for W, total in ((1, SPEC_REQUEST), (4, BEAM_REQUEST)):
+            model.generate_beam(ids, ids.shape[1] + 4, num_beams=W,
+                                eos_id=-1, dtype=bf16)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            beams[W] = model.generate_beam(ids, total, num_beams=W,
+                                           eos_id=-1, dtype=bf16)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - start
+            print(f"[chip_smoke] {card}: beam search W={W} bf16 "
+                  f"{total}-token request: {len(beams[W])} tokens in "
+                  f"{secs:.2f} s, {len(beams[W]) / secs:.1f} tok/s")
+        d, ok = parts_at_a_tie(model, prompt, greedy, beams[1], dtype=bf16)
+        print(f"[chip_smoke] beam W=1 equal to greedy for the first {d} of "
+              f"{n} tokens" + ("" if d == n else ", parting at a near-tie"))
+        if not ok or len(beams[1]) != n:
+            raise AssertionError(f"beam W=1 leaves greedy at confident "
+                                 f"step {d}")
+        if len(beams[4]) != BEAM_REQUEST - ids.shape[1]:
+            raise AssertionError(f"beam W=4: {len(beams[4])} tokens")
 
 
 def first_token_s(model, prompt, **kw):
@@ -2263,7 +2649,7 @@ def time_big_dims(model, card):
             r.append(time.perf_counter() - start)
             ran = qmm_counters()
             if ran["qmatmul_stacked"] != 4 * L or ran["qmatmul"] != 1 \
-                    or ran["qmatmul_prefill"] != 0:
+                    or ran["qmatmul_prefill"] != 4 * L:
                 raise AssertionError(f"7B {TTFT_PROMPT}-token prefill "
                                      f"{quant}: launches {ran}")
     for quant, r in ttft.items():
@@ -3529,6 +3915,14 @@ def main() -> int:
         model, big, card)
     phase("4l long-prompt prefill", t0)
 
+    # 4p. the 7B geometry served with int8 KV and int8/int4 weights, a
+    # shared system prompt reused by the prefix cache; beam search and
+    # speculative decoding on the stories15M scan lane
+    t0 = time.perf_counter()
+    prefix_launches = check_prefix_cache(big, card)
+    check_beam_and_speculative(model, card)
+    phase("4p int8 KV, prefix cache, beam and speculative", t0)
+
     # 4e. the nn-stack trainers: dropout_bn through K8, the MNIST ConvNet
     t0 = time.perf_counter()
     bn_launches = check_nn_training()
@@ -3634,6 +4028,7 @@ def main() -> int:
         t0 = time.perf_counter()
         profile(model, card)
         profile_big(big)
+        profile_prefix(big)
         profile_nn(card)
         phase("6 profile", t0)
 
@@ -3696,6 +4091,25 @@ def main() -> int:
         entry("qmatmul_stacked", "gemv_quant.cu", f"{gq_file}:416",
               qmm_launches["qmatmul_stacked"], qmm_err["qmatmul_stacked"],
               (wgu1[1], wgu1[2], wgu1[3], wgu1[4], None)),
+        entry("qmatmul_stacked[kv8-prefix-serve]", "gemv_quant.cu",
+              f"{gq_file}:416", prefix_launches["qmatmul_stacked"],
+              qmm_err["qmatmul_stacked"],
+              (wgu1[1], wgu1[2], wgu1[3], wgu1[4], None)),
+        entry("qmatmul[kv8-prefix-serve]", "gemv_quant.cu",
+              f"{gq_file}:172", prefix_launches["qmatmul"],
+              qmm_err["qmatmul"],
+              (wgu1[0], wgu1[2], wgu1[3], wgu1[4], None)),
+        entry("qmatmul_prefill[kv8-prefix-serve]", "gemv_quant.cu",
+              f"{gq_file}:136", prefix_launches["qmatmul_prefill"],
+              qmm_err["qmatmul_prefill"],
+              (wgu256[0], wgu256[2], wgu256[3], wgu256[4], wgu256[5])),
+        entry("quantize_rows[kv8-prefix-serve]", "gemv_quant.cu",
+              f"{gq_file}:309", prefix_launches["quantize_rows"],
+              qmm_err["quantize_rows"], big_ms["quantize_rows"] + (None,)),
+        entry("flash_attention_fwd[kv8-prefix-serve]", "flash_attention.cu",
+              "pydynet_tpu/ops/flash_attention.py:82",
+              prefix_launches["flash_attention_fwd"], prefill_err,
+              prefill_ms),
         entry("batch_norm_train", "batchnorm.cu",
               "pydynet_tpu/ops/batchnorm.py:28", bn_launches, bn_err,
               bn_ms[40, 512])]}))

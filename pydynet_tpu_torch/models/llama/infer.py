@@ -7,6 +7,9 @@
         --kv-quant int8
     python -m pydynet_tpu_torch.models.llama.infer --random-init \
         --temperature 0.8 --top-k 50 --top-p 0.9 --seed 7
+    python -m pydynet_tpu_torch.models.llama.infer --random-init --beams 4
+    python -m pydynet_tpu_torch.models.llama.infer --random-init \
+        --speculative --draft-k 7 --ngram 3
 
 ``--device cuda`` (the default) needs a GPU and raises without one;
 ``--device cpu`` runs the kernels' plain versions. Without a checkpoint the
@@ -14,11 +17,17 @@ stories15M configuration is built with random weights from the fixed seed
 ``WEIGHTS_SEED``; ``--n-heads`` sets a checkpoint's head count where its
 shapes leave it ambiguous, and ``--finetuned`` loads a ``finetune --save``
 npz over the weights. ``--kv-quant int8`` keeps the KV cache as int8 rows with
-per-row scales and cannot be combined with ``--quant`` (``ValueError``, as
-in the JAX package's CLI). ``--temperature`` above 0 samples, with
+scales; on the fused lane it cannot be combined with ``--quant``
+(``ValueError``, as in the JAX package's CLI), on the scan lane (a model the
+fused kernels do not take) it composes with it. ``--temperature`` above 0
+samples, with
 ``--top-k``, ``--top-p``, ``--repetition-penalty`` and the sampler's
-``--seed`` (``Llama.generate``); 0 is greedy. On a GPU one short untimed
-``generate`` builds the kernels first, unless ``--no-warmup`` asks to time
+``--seed`` (``Llama.generate``); 0 is greedy. ``--beams W`` (W > 1)
+decodes by beam search (``Llama.generate_beam``) and ``--speculative`` by
+prompt-lookup speculative decoding (``Llama.generate_speculative``, with
+``--draft-k``, ``--ngram`` and the sampling flags), both on the scan lane,
+and print the text at the end, as the JAX package's CLI does. On a GPU one
+untimed run builds the kernels first, unless ``--no-warmup`` asks to time
 that too. Prints the text as it streams and then tokens per second.
 """
 from __future__ import annotations
@@ -97,7 +106,8 @@ def main(argv=None) -> float:
                              "stories15M width)")
     parser.add_argument("--kv-quant", choices=["int8"], default=None,
                         help="int8 KV cache with per-row scales (the "
-                             "batched kernel, at B=1 too); takes no --quant")
+                             "batched kernel, at B=1 too; with --quant only "
+                             "on the scan lane)")
     parser.add_argument("--chunk", type=int, default=None,
                         help="decode steps between reads back to the host")
     parser.add_argument("--temperature", type=float, default=0.0,
@@ -110,6 +120,17 @@ def main(argv=None) -> float:
     parser.add_argument("--repetition-penalty", type=float, default=None,
                         help="HF-style penalty (> 1) on the tokens seen so "
                              "far (sampling only)")
+    parser.add_argument("--beams", type=int, default=1,
+                        help="> 1: beam-search decoding (prints the best "
+                             "sequence at the end)")
+    parser.add_argument("--speculative", action="store_true",
+                        help="prompt-lookup speculative decoding (the greedy "
+                             "stream unchanged; repeated text decodes "
+                             "several tokens a dispatch)")
+    parser.add_argument("--draft-k", type=int, default=7,
+                        help="speculative draft length")
+    parser.add_argument("--ngram", type=int, default=3,
+                        help="speculative lookup n-gram size")
     parser.add_argument("--no-warmup", action="store_true",
                         help="include the kernels' build and first launches "
                              "in the timed run (default: one untimed "
@@ -129,7 +150,10 @@ def main(argv=None) -> float:
                           repetition_penalty=args.repetition_penalty)
     input_ids = np.array([tokenizer.encode(args.prompt)])
     L = input_ids.shape[1]
-    if device.type == "cuda" and not args.no_warmup:
+    warm = device.type == "cuda" and not args.no_warmup
+    if args.beams > 1 or args.speculative:
+        return _decode_whole(model, tokenizer, input_ids, args, warm)
+    if warm:
         # build the kernels outside the timed run
         for _ in model.generate(input_ids, L + 2, **gen_kwargs):
             pass
@@ -147,6 +171,48 @@ def main(argv=None) -> float:
     print(f"\n\nToken count: {L}, elapsed: {elapsed:.2f}s, "
           f"{round(L / elapsed)} tokens/s")
     return L / elapsed
+
+
+def _decode_whole(model, tokenizer, input_ids, args, warm: bool) -> float:
+    """``--beams`` and ``--speculative``: decode the whole request (after one
+    untimed run when ``warm``), print its text and the JAX package's CLI's
+    summary line; returns tokens per second."""
+    L = input_ids.shape[1]
+    dtype = DTYPES[args.dtype]
+    if args.beams > 1:
+        def run():
+            return model.generate_beam(input_ids, args.max_new_tokens,
+                                       num_beams=args.beams,
+                                       eos_id=tokenizer.eos_id, dtype=dtype)
+    else:
+        def run():
+            return model.generate_speculative(
+                input_ids, args.max_new_tokens, draft_k=args.draft_k,
+                ngram=args.ngram, dtype=dtype,
+                temperature=args.temperature or 0.0, top_k=args.top_k,
+                top_p=args.top_p, seed=args.seed)
+    if warm:
+        run()
+    print(f"\n{args.prompt}", end="")
+    start = time.perf_counter()
+    result = run()
+    elapsed = time.perf_counter() - start
+    if args.beams > 1:
+        out, note = result, f"beam={args.beams}"
+    else:
+        toks, stats = result
+        out = []
+        for t in toks.tolist():
+            if t in (tokenizer.eos_id, tokenizer.bos_id):
+                break
+            out.append(t)
+        note = (f"{stats['tokens_per_dispatch']:.2f} tokens/dispatch, "
+                f"{stats['accepted_drafts']} drafts accepted")
+    print(tokenizer.decode(out))
+    n = L + len(out)
+    print(f"\nToken count: {n}, elapsed: {elapsed:.2f}s, "
+          f"{round(n / elapsed)} tokens/s ({note})")
+    return n / elapsed
 
 
 if __name__ == "__main__":

@@ -21,9 +21,12 @@ are torch's (out, in). Four ways through the model:
   ``"int4"`` its four layer matmuls and the head, and with
   ``"int8-head"`` the head, run
   through ``ops.gemv_quant`` (the quantized-matmul kernels K5-K7 on a GPU):
-  ``qmatmul`` on each layer's weights up to ``UNROLL_MAX_LAYERS`` layers,
-  ``qmatmul_stacked`` on the stacked weights with a device layer index
-  above;
+  every layer product through ``qmatmul_stacked`` on the stacked weights
+  with a device layer index, the head through ``qmatmul``.
+  ``kv_quant="int8"`` keeps its caches as (int8 rows, per-(row, head)
+  float32 scales) pairs, with any weight format. Beam search
+  (``generate_beam``) and prompt-lookup speculative decoding
+  (``generate_speculative``, ``speculative.py``) run on this lane;
 * the fused lane: the same dense prefill, then one call per token of
   ``ops.decode_step.fused_decode_token`` at B=1 or
   ``fused_decode_token_batched`` at B>1, which launch the hand-written CUDA
@@ -75,10 +78,6 @@ from ...ops.quant import quantize_int4, quantize_int8
 
 # tokens decoded between two reads back to the host
 DECODE_CHUNK = 512
-# deeper models run the quantized scan lane through ``qmatmul_stacked`` on
-# the layer-stacked weights (the JAX package's rolled-scan bound,
-# ``model.py:251``)
-UNROLL_MAX_LAYERS = 16
 QUANTS = (None, "int8-head", "int8", "int4")
 # the shortest (padded) prompt whose prefill attention takes the flash
 # forward (K3) on a GPU: chip_smoke.py's long-prompt phase times the 7B
@@ -351,16 +350,14 @@ def decode_quant_kwargs(weights):
 
 
 def check_kv_quant(kv_quant, quant, fused: bool):
-    """Raise for an int8 KV cache this port does not run, as the JAX
-    package's ``generate`` and ``LlamaServer`` do: with any weight ``quant``
-    on the fused lane (``ValueError``: int8 caches and int8 weights disagree
-    on the kernel's compute type), and on the scan lane, whose tuple caches
-    are not ported."""
-    if kv_quant and not fused:
-        not_ported(f"kv_quant={kv_quant!r} on the scan lane", "Big-dims lane")
-    if kv_quant and quant:
+    """Raise for an int8 KV cache with a weight ``quant`` on the fused lane
+    (``ValueError``, as the JAX package's ``generate`` and ``LlamaServer``
+    raise: int8 caches and int8 weights disagree on the kernel's compute
+    type). The scan lane composes them."""
+    if kv_quant and quant and fused:
         raise ValueError("kv_quant and (weight) quant are mutually exclusive "
-                         "on the fused kernel")
+                         "on the fused kernel; the scan lane (fused=False) "
+                         "composes them")
 
 
 def bucket_prompt(input_ids, L: int, max_seq_len: int):
@@ -752,14 +749,23 @@ class Llama(nn.Module):
         self._weights_cache[key] = w
         return w
 
-    def _empty_caches(self, B: int, dtype):
+    def _empty_caches(self, B: int, dtype, kv_quant=None):
+        """Zeroed scan-lane caches (N, B, S, Hkv, hd) in ``dtype``, or with
+        ``kv_quant="int8"`` ``(int8 rows, (N, B, S, Hkv) float32 scales)``
+        pairs, the scales zero as the JAX package's."""
         shape = (self.n_layers, B, self.max_seq_len, self.n_kv_heads,
                  self.head_dim)
+        if kv_quant:
+            return tuple(
+                (torch.zeros(shape, dtype=torch.int8, device=self.device),
+                 torch.zeros(shape[:-1], dtype=torch.float32,
+                             device=self.device)) for _ in range(2))
         return (torch.zeros(shape, dtype=dtype, device=self.device),
                 torch.zeros(shape, dtype=dtype, device=self.device))
 
     def forward_logits_one(self, weights, ck, cv, tokens, pos: int,
-                           last_idx: int = None, starts=None, flash=False):
+                           last_idx: int = None, starts=None, flash=False,
+                           all_positions: bool = False):
         """Dense forward of ``tokens`` (B, L) at absolute position ``pos``
         over caches (N, B, S, Hkv, hd), which are written in place at rows
         [pos, pos + L) (clamped into the cache, as the JAX package's
@@ -767,18 +773,27 @@ class Llama(nn.Module):
         [starts[b], pos + L) under the causal mask (``starts`` (B,) int32 on
         the device, the server's slot-recycling bound; 0 when None).
         Returns float32 logits (B, V) at the last position, or at
-        ``last_idx - 1`` when the prompt is bucket-padded. Weights from
-        :meth:`_weights_xq` run the quantized matmuls (see the module
-        doc).
+        ``last_idx - 1`` when the prompt is bucket-padded, or with
+        ``all_positions`` (B, L, V) at every position (the speculative
+        verifier's). Weights from :meth:`_weights_xq` run the quantized
+        matmuls (see the module doc).
+
+        Caches given as ``(int8 rows, (N, B, S, Hkv) float32 scales)``
+        pairs (:meth:`_empty_caches` with ``kv_quant``) are the int8 KV
+        cache: the fresh K rows (rotated) and V rows are quantized by
+        ``ops.decode_step.quantize_kv`` over ``hd``, one scale a (row,
+        head), before they are written, and the attention reads the window
+        dequantized and cast to the model's type, as the JAX package's
+        ``model.py:824-862``.
 
         ``flash`` (``True``, or the JAX package's ``"interpret"``, which
         means the same here) routes a pure-causal prefill's attention (pos
         0, no ``starts``) through the flash forward (K3,
         ``ops.flash_attention.flash_attention_fwd``) over the current
-        tokens' K/V, a grouped-query model's repeated to every query head,
-        as the JAX package's ``model.py:842-851``: no (L, L) scores or mask
-        are built. The caches are written as on the dense route. On CPU
-        tensors K3's wrapper runs its plain version."""
+        tokens' K/V, unquantized, a grouped-query model's repeated to every
+        query head, as the JAX package's ``model.py:842-851``: no (L, L)
+        scores or mask are built. The caches are written as on the dense
+        route. On CPU tensors K3's wrapper runs its plain version."""
         B, L = tokens.shape
         if flash and (starts is not None or pos != 0):
             raise ValueError("flash prefill is pure-causal from position 0: "
@@ -790,19 +805,21 @@ class Llama(nn.Module):
         g = H // Hkv
         W = weights
         q4 = "q4" in W
-        stacked = self.n_layers > UNROLL_MAX_LAYERS
+        kvq = isinstance(ck, tuple)
 
         def mm(x, name, i):
             if name + "_xq" not in W:
                 return F.linear(x, W[name][i])
             x2 = x.reshape(-1, x.shape[-1]).contiguous()
-            if stacked:
-                y = gq.qmatmul_stacked(x2, W[name + "_xq"], W[name + "_xs"],
-                                       W["layer_ids"][i], q4=q4)
-            else:
-                y = gq.qmatmul(x2, W[name + "_xq"][i], W[name + "_xs"][i],
-                               q4=q4)
+            y = gq.qmatmul_stacked(x2, W[name + "_xq"], W[name + "_xs"],
+                                   W["layer_ids"][i], q4=q4)
             return y.reshape(x.shape[:-1] + y.shape[-1:]).to(x.dtype)
+
+        def window(c, i):  # layer i's cache rows [0, end)
+            if not kvq:
+                return c[i, :, :end]
+            return (c[0][i, :, :end].float()
+                    * c[1][i, :, :end, :, None]).to(h.dtype)
 
         h = W["tok"][tokens]
         start = min(pos, S - L)  # the write slice stays inside the cache
@@ -826,8 +843,13 @@ class Llama(nn.Module):
             v = qkv[..., D + Dkv:].reshape(B, L, Hkv, hd)
             q = _rope_pure(q, cos.to(q.dtype), sin.to(q.dtype))
             k = _rope_pure(k, cos.to(k.dtype), sin.to(k.dtype))
-            ck[i, :, start:start + L] = k
-            cv[i, :, start:start + L] = v
+            if kvq:
+                for c, x in ((ck, k), (cv, v)):
+                    c[0][i, :, start:start + L], c[1][i, :, start:start + L] \
+                        = dsk.quantize_kv(x)
+            else:
+                ck[i, :, start:start + L] = k
+                cv[i, :, start:start + L] = v
             if flash:
                 kf, vf = ((x.repeat_interleave(g, dim=2) if g != 1 else x)
                           for x in (k, v))
@@ -835,7 +857,7 @@ class Llama(nn.Module):
                     q.contiguous(), kf.contiguous(), vf.contiguous(),
                     scale)[0].to(h.dtype).reshape(B, L, D)
             else:
-                kk, vv = ck[i, :, :end], cv[i, :, :end]
+                kk, vv = window(ck, i), window(cv, i)
                 if g != 1:
                     kk = kk.repeat_interleave(g, dim=2)
                     vv = vv.repeat_interleave(g, dim=2)
@@ -848,10 +870,14 @@ class Llama(nn.Module):
             gate, up = mm(zn, "wgu", i).split(Fd, dim=-1)
             h = z + mm(gate * torch.sigmoid(gate) * up, "down", i)
         h = rms_norm(h, W["norm"]).to(h.dtype)
-        hl = h[:, -1] if last_idx is None else h[:, last_idx - 1]
+        if all_positions:
+            hl = h
+        else:
+            hl = h[:, -1] if last_idx is None else h[:, last_idx - 1]
         if "head_xq" in W:
-            logits = gq.qmatmul(hl.contiguous(), W["head_xq"], W["head_xs"],
-                                q4=q4)
+            logits = gq.qmatmul(hl.reshape(-1, hl.shape[-1]).contiguous(),
+                                W["head_xq"], W["head_xs"], q4=q4)
+            logits = logits.reshape(hl.shape[:-1] + logits.shape[-1:])
         else:
             logits = F.linear(hl, W["head_w"]).float()
         return logits + W["head_b"].float()
@@ -1154,11 +1180,13 @@ class Llama(nn.Module):
         bfloat16) casts the weights and caches; ``quant="int8-head"`` stores
         the lm_head as int8, ``"int8"`` and ``"int4"`` every matmul weight
         as well (the prefill token stays on the float weights on the fused
-        lane). ``kv_quant="int8"`` keeps the fused lane's KV cache as int8
-        rows with per-row float32 scales (:func:`quantize_kv` of the dense
-        prefill's caches, then the batched kernel's int8 KV mode, at B=1
-        too, as in the JAX package); it takes float weights (a ``quant``
-        raises ``ValueError``) and is not ported on the scan lane.
+        lane). ``kv_quant="int8"`` keeps the KV cache as int8 rows with
+        float32 scales: on the fused lane per row (:func:`quantize_kv` of
+        the dense prefill's caches, then the batched kernel's int8 KV mode,
+        at B=1 too, as in the JAX package), with float weights only (a
+        ``quant`` raises ``ValueError``); on the scan lane per (row, head),
+        through prefill and decode (:meth:`forward_logits_one`), with any
+        ``quant``.
         ``fused`` picks the lane (module doc): on
         the fused lane one B=1 kernel chain a token at B=1, one batched
         chain a token for all rows at B>1 or with ``kv_quant``; on the scan
@@ -1198,7 +1226,10 @@ class Llama(nn.Module):
             weights = self._weights_xq(dtype, quant)
         else:
             weights = self._weights(dtype)
-        ck, cv = self._empty_caches(B, weights["tok"].dtype)
+        # the fused lane quantizes its caches after the dense prefill; the
+        # scan lane carries (rows, scales) pairs from the prefill on
+        ck, cv = self._empty_caches(B, weights["tok"].dtype,
+                                    None if fused else kv_quant)
         sampler = None
         if temperature is not None and temperature > 0:
             sampler = Sampler(B, self.vocab_size, self.device, temperature,
@@ -1230,3 +1261,78 @@ class Llama(nn.Module):
             if pos + 1 >= total:
                 return
             rows = rows[:0]
+
+    # ------------------------- beam search, speculation ----------------------
+    @torch.no_grad()
+    def generate_beam(self, input_ids, max_new_tokens: int,
+                      num_beams: int = 4, length_penalty: float = 1.0,
+                      eos_id: int = 2, dtype=None):
+        """Beam search for one prompt (B=1) on the scan lane's float weights
+        (``generate(fused=False)``'s snapshot), the JAX package's
+        ``generate_beam``: returns the best token list (Python ints,
+        truncated at ``eos_id``). ``max_new_tokens`` bounds the total
+        length, prompt included.
+
+        The prompt is prefilled once at B=1 and its caches repeated to the
+        W beams, which decode as batch rows. Each step takes the top W of
+        the (W * V) float32 scores ``beam score + log_softmax(logits)``,
+        ties to the lower flat index as ``lax.top_k`` takes them (a stable
+        descending sort), and reorders the caches and every per-beam state
+        by parent beam. A finished beam extends only with ``eos_id``, at no
+        cost. The winner maximizes ``score / length ** length_penalty``."""
+        ids = np.asarray(input_ids)
+        B, L = ids.shape
+        if B != 1:
+            raise ValueError("generate_beam decodes one prompt at a time")
+        n_new = min(max_new_tokens, self.max_seq_len) - L
+        if n_new <= 0:
+            return []
+        W = int(num_beams)
+        w = self._weights(dtype)
+        dev = self.device
+
+        def top_w(x):  # lax.top_k's order: ties to the lower index
+            vals, idx = torch.sort(x, descending=True, stable=True)
+            return vals[:W], idx[:W]
+
+        ck1, cv1 = self._empty_caches(1, w["tok"].dtype)
+        logits = self.prefill_logits(w, ck1, cv1, ids)
+        scores, toks = top_w(torch.log_softmax(logits[0].float(), -1))
+        ck, cv = ck1.repeat_interleave(W, 1), cv1.repeat_interleave(W, 1)
+        del ck1, cv1
+        V = logits.shape[-1]
+        seqs = torch.zeros(W, n_new, dtype=torch.int64, device=dev)
+        seqs[:, 0] = toks
+        fin = toks == eos_id
+        lens = torch.ones(W, dtype=torch.float32, device=dev)
+        eos_row = torch.full((V,), float("-inf"), device=dev)
+        eos_row[eos_id] = 0.0
+        for i in range(n_new - 1):
+            logits = self.forward_logits_one(w, ck, cv, toks[:, None], L + i)
+            logp = torch.log_softmax(logits.float(), -1)
+            cont = torch.where(fin[:, None], eos_row[None], logp)
+            scores, idx = top_w((scores[:, None] + cont).reshape(-1))
+            parent = idx // V
+            toks = idx % V
+            ck.copy_(ck.index_select(1, parent))
+            cv.copy_(cv.index_select(1, parent))
+            fin, lens, seqs = fin[parent], lens[parent], seqs[parent]
+            seqs[:, i + 1] = toks
+            lens = torch.where(fin, lens, lens + 1.0)
+            fin = fin | (toks == eos_id)
+        best = torch.argmax(scores / lens.pow(length_penalty))
+        out = seqs[best, :int(lens[best])].tolist()
+        return out[:out.index(eos_id)] if eos_id in out else out
+
+    def generate_speculative(self, input_ids, max_new_tokens: int,
+                             draft_k: int = 7, ngram: int = 3, dtype=None,
+                             temperature: float = 0.0, top_k: int = None,
+                             top_p: float = None, seed: int = 0):
+        """Prompt-lookup speculative decoding at B=1 on the scan lane:
+        ``(tokens (total - L,) int64, stats)``, greedy equal to
+        ``generate(fused=False)``'s stream (``speculative.py``)."""
+        from .speculative import generate_speculative
+        return generate_speculative(self, input_ids, max_new_tokens,
+                                    draft_k=draft_k, ngram=ngram, dtype=dtype,
+                                    temperature=temperature, top_k=top_k,
+                                    top_p=top_p, seed=seed)

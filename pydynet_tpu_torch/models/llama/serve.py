@@ -58,9 +58,28 @@ kernel's ``emit_logits`` mode and the sampling stage only when an active
 slot samples; a fleet of greedy rows keeps the kernel's argmax mode, on a
 sampling server too. Rows whose temperature is 0 take the exact argmax.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): speculative serving, the int8 KV cache on the scan lane, the scan
-lane's prefix cache.
+On the scan lane ``kv_quant="int8"`` keeps the fleet's caches as (int8
+rows, (N, B, S, Hkv) float32 scales) pairs, with any weight ``quant``: an
+admission wave is prefilled on such a pair, so it attends its quantized
+rows, as standalone ``generate(kv_quant="int8", fused=False)`` does; its K
+rows are dequantized, rotated by angle(pos0) in float32 and requantized,
+its V rows and scales scattered as they are.
+
+``prefix_cache=True`` (scan lane only) reuses a resident slot's KV rows for
+a request that shares a prompt prefix with it (the JAX package's
+``admit_prefix_xla``): the longest common prefix with the token sequence
+whose rows a slot holds, rounded down to a power of two, at least
+``_MIN_PREFIX`` rows and leaving one suffix token, is copied from the donor
+slot, its K rows un-rotated by the donor's admission row and rotated on by
+the new one (RoPE composes additively), and only the suffix runs the
+prefill forward. A slot's residency grows with the tokens it decodes (a
+multi-turn follow-up reuses the reply too) and dies when the slot is
+re-admitted, the shared position rewinds or the weights change.
+``prefix_hits`` and ``prefix_rows_reused`` count the reuse admissions and
+the prefill rows they skipped.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md item):
+speculative serving.
 """
 from __future__ import annotations
 
@@ -103,6 +122,9 @@ class _FleetScheduler:
     truncation. Subclasses provide the device programs and the chunk loop.
     """
 
+    # the shortest prefix the prefix cache reuses (rows, a power of two)
+    _MIN_PREFIX = 8
+
     def _init_fleet_state(self):
         self._starts = np.zeros(self.B, np.int32)
         self._pos = 0
@@ -111,6 +133,15 @@ class _FleetScheduler:
         self._rid = itertools.count()
         self._finished: dict = {}
         self._admit_credits: list = []  # (rid, [first_token]) for stream()
+        # prefix-cache residency: slot -> (rid, the tokens whose KV rows the
+        # slot holds, its admission row), the donors of later admissions;
+        # it outlives the request and dies at the slot's next admission
+        self._resident: list = [None] * self.B
+
+    def _on_rewind(self):
+        """A reset of the shared position: every donor dies, since decode
+        steps rewrite the rows above the new position."""
+        self._resident = [None] * self.B
 
     def _init_sampling_state(self, V, temperature, top_k, top_p):
         """The server's default sampling parameters and the per-slot
@@ -186,6 +217,7 @@ class _FleetScheduler:
                 # ``starts`` masks them, above the decode position the
                 # kernel's position bound hides them until rewritten)
                 self._pos = L
+                self._on_rewind()
             if L > self._pos or self._pos >= self.S:
                 continue  # must land in past rows (see module doc)
             self._queue.popleft()
@@ -212,6 +244,41 @@ class _FleetScheduler:
             k = 1 << ((len(group) - i).bit_length() - 1)
             yield group[i:i + k]
             i += k
+
+    def _find_donor(self, prompt, target_slot, planned_slots):
+        """The best ``(slot, start_row, kb)`` donor for ``prompt``: the
+        resident entry sharing the longest common prefix, rounded down to a
+        power of two, of at least ``_MIN_PREFIX`` rows and leaving at least
+        one suffix token (the first token's logits come from the suffix
+        forward); None without one. A slot re-admitted in this wave donates
+        only to itself: its rows are read before they are overwritten."""
+        best = None
+        limit = len(prompt) - 1
+        for slot, ent in enumerate(self._resident):
+            if ent is None or (slot in planned_slots
+                               and slot != target_slot):
+                continue
+            _, rp, start = ent
+            n = 0
+            for a, b in zip(rp, prompt[:limit]):
+                if a != b:
+                    break
+                n += 1
+            if n < self._MIN_PREFIX:
+                continue
+            kb = 1 << (n.bit_length() - 1)
+            if best is None or kb > best[2]:
+                best = (slot, start, kb)
+        return best
+
+    def _grow_resident(self, slot, req):
+        """Grow a slot's residency by its request's credited tokens, all
+        but the last, whose row is written only when the next step reads it
+        (the multi-turn reuse)."""
+        ent = self._resident[slot]
+        if ent is not None and ent[0] == req.rid:
+            self._resident[slot] = (req.rid, tuple(req.prompt)
+                                    + tuple(req.tokens[:-1]), ent[2])
 
     def _credit_firsts(self, waves, firsts_dev):
         """One host read back for every admission wave's first tokens,
@@ -245,6 +312,7 @@ class _FleetScheduler:
             self._maybe_finish(slot, truncated=True)
         if self.active == 0:
             self._pos = 0  # fleet drained: rewind for the queue
+            self._on_rewind()
 
 
 class LlamaServer(_FleetScheduler):
@@ -257,9 +325,14 @@ class LlamaServer(_FleetScheduler):
     ``quant="int8-head"`` stores the lm_head as int8 with per-row scales
     (the batched kernel quantises each row's activations with its own
     scale); ``"int8"`` and ``"int4"`` quantize every matmul, on either
-    lane. ``kv_quant="int8"`` keeps the fused lane's caches int8 (module
-    doc); it takes float weights (a ``quant`` raises ``ValueError``, as in
-    the JAX package). ``temperature`` (0: greedy), ``top_k`` and ``top_p``
+    lane. ``kv_quant="int8"`` keeps the fleet's caches int8 (module doc);
+    on the fused lane it takes float weights (a ``quant`` raises
+    ``ValueError``, as in the JAX package), the scan lane composes it with
+    any ``quant``. ``prefix_cache=True`` reuses resident KV rows for a
+    shared prompt prefix on the scan lane (module doc; a ``ValueError`` on
+    the fused lane, as in the JAX package), counted in ``prefix_hits`` and
+    ``prefix_rows_reused``. ``temperature`` (0: greedy), ``top_k`` and
+    ``top_p``
     are the requests' default sampling parameters, which ``submit`` may
     override; ``seed`` keys the unseeded requests' streams (module doc).
     ``lane`` is ``"fused"``, ``"xla"`` (the scan lane) or
@@ -288,17 +361,22 @@ class LlamaServer(_FleetScheduler):
             raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
         if lane not in (None, "fused", "xla"):
             raise ValueError(f"unknown lane: {lane!r}")
-        if prefix_cache:
-            not_ported("the scan lane's prefix cache", "Big-dims lane")
         if dtype not in (None, torch.float32, torch.bfloat16):
             raise NotImplementedError(f"dtype {dtype}: use float32 or "
                                       "bfloat16")
         fused = model.use_fused(quant, batch_size,
                                 None if lane is None else lane == "fused",
                                 batched=True)
+        if prefix_cache and fused:
+            raise ValueError("prefix_cache runs on the scan lane "
+                             "(lane='xla'): the fused lane's cache layout "
+                             "has no row-reuse path")
         check_kv_quant(kv_quant, quant, fused)
         self._lane = "fused" if fused else "xla"
         self._kv_quant = kv_quant
+        self._prefix_cache = bool(prefix_cache)
+        self.prefix_hits = 0  # reuse admissions served
+        self.prefix_rows_reused = 0  # prefill rows they skipped
         # admission prefill's attention (generate's flash_prefill): None
         # routes each wave by its prompt length (flash_prefill_mode), False
         # keeps the dense scores, True (or "interpret") takes the flash
@@ -321,16 +399,16 @@ class LlamaServer(_FleetScheduler):
         self.S = S
         dev, cdt = model.device, self._w["tok"].dtype
         self._cdt = cdt
-        if kv_quant:  # int8 rows and their scales, floored as quantize_kv's
+        if not fused:  # the scan lane's (N, B, S, Hkv, hd) layout, or pairs
+            self._ck, self._cv = model._empty_caches(self.B, cdt, kv_quant)
+        elif kv_quant:  # int8 rows and their scales, floored as quantize_kv's
             self._ck, self._cv = (
                 (torch.zeros(N, self.B, S, W, dtype=torch.int8, device=dev),
                  torch.full((N, self.B, S), 1e-10, device=dev))
                 for _ in range(2))
-        elif fused:
+        else:
             self._ck = torch.zeros(N, self.B, S, W, dtype=cdt, device=dev)
             self._cv = torch.zeros(N, self.B, S, W, dtype=cdt, device=dev)
-        else:  # the scan lane's (N, B, S, Hkv, hd) layout
-            self._ck, self._cv = model._empty_caches(self.B, cdt)
         self._tok = torch.ones(self.B, dtype=torch.int32, device=dev)
         # the decode steps' copies of _starts and of the per-slot sampling
         # vectors, written at admission only, so a decode dispatch copies
@@ -353,14 +431,19 @@ class LlamaServer(_FleetScheduler):
         """The decode weights of the model as it is now: the snapshot
         ``generate`` uses on this lane (same cache key), which the model
         drops when its weights change, so requests mid-decode continue on
-        the new weights from their next chunk."""
+        the new weights from their next chunk. A new snapshot kills the
+        prefix cache's donors: their rows were computed under the old
+        weights."""
         m = self.model
         if self._lane == "fused":
-            self._w = m._fused_weights(self._dtype, self._quant)
+            w = m._fused_weights(self._dtype, self._quant)
         elif self._quant:
-            self._w = m._weights_xq(self._dtype, self._quant)
+            w = m._weights_xq(self._dtype, self._quant)
         else:
-            self._w = m._weights(self._dtype)
+            w = m._weights(self._dtype)
+        if w is not getattr(self, "_w", None) and self._prefix_cache:
+            self._resident = [None] * self.B
+        self._w = w
 
     def _derive_keys(self, seeds, has_seed, rids):
         """The admitted requests' keys, split once: (draw keys (k, 2) for
@@ -387,14 +470,69 @@ class LlamaServer(_FleetScheduler):
         return sample_logits_per_row(logits.float(), ks[:, 0],
                                      *self._params_dev).to(torch.int32)
 
+    def _first_tokens(self, logits, idx, seeds, has_seed, rids, sample):
+        """An admission's first tokens (k,) int32 from its (k, V) logits:
+        greedy, or with ``sample`` drawn per row with the requests'
+        parameters and keys (:meth:`_derive_keys`). The slots ``idx`` take
+        the requests' keys, and the tokens as their next input."""
+        draw_k, self._pkeys[idx] = self._derive_keys(seeds, has_seed, rids)
+        if sample:
+            tok1 = sample_logits_per_row(
+                logits, draw_k, *(v[idx] for v in self._params_dev))
+        else:
+            tok1 = logits.argmax(-1)
+        tok1 = tok1.to(torch.int32)
+        self._tok[idx] = tok1
+        return tok1
+
+    def _scatter_rows(self, idx, pos0: int, rows_k, rows_v):
+        """Write admitted rows, (N, k, L, ...) in the fleet's layout, into
+        slots ``idx`` at rows [pos0, pos0 + L): ``rows_k`` float32 rows
+        rotated to their absolute positions, ``rows_v`` the value rows.
+        The int8 KV cache quantizes them by ``quantize_kv``, as the kernel
+        quantizes the rows it writes; value rows given as an (int8 rows,
+        scales) pair are scattered as they are."""
+        L = rows_k.shape[2]
+        if self._kv_quant:
+            if not isinstance(rows_v, tuple):
+                rows_v = dsk.quantize_kv(rows_v)
+            for (data, scales), (q, sc) in ((self._ck,
+                                             dsk.quantize_kv(rows_k)),
+                                            (self._cv, rows_v)):
+                data[:, idx, pos0:pos0 + L] = q
+                scales[:, idx, pos0:pos0 + L] = sc
+        else:
+            self._ck[:, idx, pos0:pos0 + L] = rows_k.to(self._cdt)
+            self._cv[:, idx, pos0:pos0 + L] = rows_v
+        self._starts_dev[idx] = pos0
+
+    @staticmethod
+    def _k_rows(c, L: int):
+        """Rows [0, L) of a transient scan-lane K cache as float32, the
+        int8 KV cache's dequantized."""
+        if isinstance(c, tuple):
+            return c[0][:, :, :L].float() * c[1][:, :, :L, :, None]
+        return c[:, :, :L].float()
+
+    @staticmethod
+    def _v_rows(c, L: int):
+        """Rows [0, L) of a transient scan-lane V cache as they are, the
+        int8 KV cache's an (int8 rows, scales) pair."""
+        if isinstance(c, tuple):
+            return tuple(x[:, :, :L] for x in c)
+        return c[:, :, :L]
+
+    def _rot(self, row: int):
+        """Row ``row`` of the RoPE tables as float32 (1, hd / 2) each."""
+        w = self._w
+        return (w["cos"][row:row + 1].float(), w["sin"][row:row + 1].float())
+
     @torch.no_grad()
     def _admit_many(self, prompts, pos0: int, slots, seeds, has_seed, rids,
                     sample: bool, flash=False):
         """Prefill a wave of k same-length prompts (k, L) into ``slots`` at
         absolute rows ``[pos0, pos0 + L)`` of the fleet's caches; returns
-        their first tokens (k,) int32 on the device: greedy, or with
-        ``sample`` drawn per row with the requests' parameters and keys
-        (:meth:`_derive_keys`). The slots' keys become the requests'.
+        their first tokens (k,) int32 on the device (:meth:`_first_tokens`).
         ``flash`` takes the prefill's attention through the flash forward
         (``Llama.forward_logits_one``).
 
@@ -403,46 +541,76 @@ class LlamaServer(_FleetScheduler):
         rotations compose additively, so a row rotated for position p and
         again by row ``pos0`` of the table carries the rotation for p + pos0.
         The rotation is in float32 from the weight-type tables; V rows are
-        not rotated. The int8 KV cache takes the float32 rotated K rows and
-        the prefill's V rows through ``quantize_kv``."""
+        not rotated. The fused lane's int8 KV cache takes the float32
+        rotated K rows and the prefill's V rows through ``quantize_kv``; the
+        scan lane's prefills on an int8 pair, so the wave attends its
+        quantized rows as standalone ``generate`` does, and its K rows are
+        dequantized, rotated and requantized (JAX ``serve.py:652-690``)."""
         model, w = self.model, self._w
         k, L = prompts.shape
         ids, last_idx = bucket_prompt(prompts, L, self.S)
-        ck5, cv5 = model._empty_caches(k, self._cdt)
+        scan_kv = None if self._lane == "fused" else self._kv_quant
+        ck5, cv5 = model._empty_caches(k, self._cdt, scan_kv)
         logits1 = model.prefill_logits(w, ck5, cv5, ids, last_idx, flash)
         idx = torch.as_tensor(slots, dtype=torch.long, device=logits1.device)
-        draw_k, self._pkeys[idx] = self._derive_keys(seeds, has_seed, rids)
-        if sample:
-            tok1 = sample_logits_per_row(
-                logits1, draw_k, *(v[idx] for v in self._params_dev))
-        else:
-            tok1 = logits1.argmax(-1)
-        tok1 = tok1.to(torch.int32)
-        if self._lane == "fused":  # (N, k, L, W) rows in the fleet layout
-            fk, fv = model._flat_caches(ck5, cv5, w)
-            if k == 1:  # _flat_caches drops a unit batch axis
-                fk, fv = fk[:, None], fv[:, None]
-            W = fk.shape[-1]  # the first W columns: the pattern repeats
-            rows_k = dsk._rope_pairs(fk[:, :, :L].float(),
-                                     w["cosD"][pos0, :W].float(),
-                                     w["sinD"][pos0, :W].float())
-            rows_v = fv[:, :, :L]
-        else:  # (N, k, L, Hkv, hd) rows, one table row for every head
-            rows_v = cv5[:, :, :L]
-            rows_k = _rope_pure(ck5[:, :, :L].float(),
-                                w["cos"][pos0:pos0 + 1].float(),
-                                w["sin"][pos0:pos0 + 1].float())
+        tok1 = self._first_tokens(logits1, idx, seeds, has_seed, rids, sample)
+        if self._lane == "xla":  # (N, k, L, Hkv, hd) rows
+            self._scatter_rows(idx, pos0, _rope_pure(self._k_rows(ck5, L),
+                                                     *self._rot(pos0)),
+                               self._v_rows(cv5, L))
+            return tok1
+        # the fused lane: (N, k, L, W) rows in the fleet layout
+        fk, fv = model._flat_caches(ck5, cv5, w)
+        if k == 1:  # _flat_caches drops a unit batch axis
+            fk, fv = fk[:, None], fv[:, None]
+        W = fk.shape[-1]  # the first W columns: the pattern repeats
+        self._scatter_rows(idx, pos0, dsk._rope_pairs(
+            fk[:, :, :L].float(), w["cosD"][pos0, :W].float(),
+            w["sinD"][pos0, :W].float()), fv[:, :, :L])
+        return tok1
+
+    @torch.no_grad()
+    def _admit_prefix(self, suffix, donor_slot: int, donor_start: int,
+                      pos0: int, slot: int, seeds, has_seed, rids, kb: int,
+                      sample: bool):
+        """A prefix-cache admission (the JAX package's ``admit_prefix_xla``,
+        ``serve.py:722-835``): the request whose prompt is the donor's first
+        ``kb`` resident tokens and then ``suffix`` (1, Ls) lands in
+        ``slot`` at rows [pos0, pos0 + kb + Ls); returns its first token
+        (1,) int32 on the device.
+
+        The donor's ``kb`` rows from ``donor_start`` are read first, into a
+        fresh transient cache at rows [0, kb): K un-rotated by
+        angle(-donor_start) in float32 (the int8 KV cache's dequantized
+        before and requantized after, one more rounding), V copied as it is.
+        Only the suffix runs the forward, at position ``kb``; then rows
+        [0, kb + Ls) are rotated by angle(pos0) and scattered as a wave's
+        are, so the donor may be the slot itself."""
+        model = self.model
+        dsl = slice(donor_slot, donor_slot + 1)
+        drows = slice(donor_start, donor_start + kb)
+        ck1, cv1 = model._empty_caches(1, self._cdt, self._kv_quant)
+        cd, sd = self._rot(donor_start)
         if self._kv_quant:
-            for (data, scales), rows in ((self._ck, rows_k),
-                                         (self._cv, rows_v)):
-                q, sc = dsk.quantize_kv(rows)
-                data[:, idx, pos0:pos0 + L] = q
-                scales[:, idx, pos0:pos0 + L] = sc
+            pk = (self._ck[0][:, dsl, drows].float()
+                  * self._ck[1][:, dsl, drows, :, None])
+            ck1[0][:, :, :kb], ck1[1][:, :, :kb] = dsk.quantize_kv(
+                _rope_pure(pk, cd, -sd))
+            cv1[0][:, :, :kb] = self._cv[0][:, dsl, drows]
+            cv1[1][:, :, :kb] = self._cv[1][:, dsl, drows]
         else:
-            self._ck[:, idx, pos0:pos0 + L] = rows_k.to(self._cdt)
-            self._cv[:, idx, pos0:pos0 + L] = rows_v
-        self._tok[idx] = tok1
-        self._starts_dev[idx] = pos0
+            ck1[:, :, :kb] = _rope_pure(self._ck[:, dsl, drows].float(), cd,
+                                        -sd).to(self._cdt)
+            cv1[:, :, :kb] = self._cv[:, dsl, drows]
+        tokens = torch.as_tensor(suffix, dtype=torch.long,
+                                 device=model.device)
+        logits1 = model.forward_logits_one(self._w, ck1, cv1, tokens, kb)
+        idx = torch.tensor([slot], dtype=torch.long, device=model.device)
+        tok1 = self._first_tokens(logits1, idx, seeds, has_seed, rids, sample)
+        L = kb + suffix.shape[1]
+        self._scatter_rows(idx, pos0, _rope_pure(self._k_rows(ck1, L),
+                                                 *self._rot(pos0)),
+                           self._v_rows(cv1, L))
         return tok1
 
     @torch.no_grad()
@@ -470,15 +638,23 @@ class LlamaServer(_FleetScheduler):
         if not plan:
             return
         # the wave grouped by prompt length, each group split into
-        # power-of-two sub-batches: one prefill per sub-batch, and one host
+        # power-of-two sub-batches: one prefill per sub-batch; then the
+        # prefix cache's reuse admissions, one each (donors vary); one host
         # read back for every admission's first token at the end
         by_len: dict = {}
+        reuse = []  # (slot, req, (donor slot, donor start, kb))
         samples = {slot: self._slot_params(slot, req) for slot, req in plan}
         for dev_v, host_v in zip(self._params_dev,
                                  (self._ptemp, self._ptopk, self._ptopp)):
             dev_v.copy_(torch.from_numpy(host_v))
+        planned = {slot for slot, _ in plan}
         for slot, req in plan:
-            by_len.setdefault(len(req.prompt), []).append((slot, req))
+            donor = (self._find_donor(req.prompt, slot, planned)
+                     if self._prefix_cache else None)
+            if donor is not None:
+                reuse.append((slot, req, donor))
+            else:
+                by_len.setdefault(len(req.prompt), []).append((slot, req))
         waves, firsts_dev = [], []
         for L, group in sorted(by_len.items()):
             pos0 = self._pos - L
@@ -490,7 +666,20 @@ class LlamaServer(_FleetScheduler):
                     prompts, pos0, slots, seeds, has_seed, rids,
                     sample=any(samples[s] for s in slots), flash=flash))
                 self._starts[slots] = pos0
+                for s, r in sub:
+                    self._resident[s] = (r.rid, tuple(r.prompt), pos0)
                 waves.append(sub)
+        for slot, req, (dslot, dstart, kb) in reuse:
+            pos0 = self._pos - len(req.prompt)
+            _, _, seeds, has_seed, rids = self._wave_arrays([(slot, req)])
+            firsts_dev.append(self._admit_prefix(
+                np.array([req.prompt[kb:]], np.int64), dslot, dstart, pos0,
+                slot, seeds, has_seed, rids, kb, samples[slot]))
+            self._starts[slot] = pos0
+            self._resident[slot] = (req.rid, tuple(req.prompt), pos0)
+            self.prefix_hits += 1
+            self.prefix_rows_reused += kb
+            waves.append([(slot, req)])
         self._credit_firsts(waves, firsts_dev)
 
     _EXHAUSTED = object()  # _dispatch sentinel: cache end reached
@@ -549,6 +738,8 @@ class LlamaServer(_FleetScheduler):
             new = req.tokens[before:]  # after _maybe_finish pops the EOS
             if new:
                 credited.append((req.rid, new))
+            if self._prefix_cache:
+                self._grow_resident(slot, req)
         return credited
 
     def step(self, n: int = None):

@@ -17,10 +17,15 @@ sample, with ``--top-k``, ``--top-p`` and the unseeded requests' ``--seed``
 ``--prompts-file`` reads one prompt per line; ``--stream`` prints tokens as
 chunks are read back; ``--quant int8-head`` stores the lm_head as int8,
 ``int8``/``int4`` every matmul weight; ``--kv-quant int8`` keeps the fleet's
-KV caches as int8 rows with per-row scales (the fused lane; mutually
-exclusive with ``--quant``, a ``ValueError``). ``--lane`` picks the decode
-engine, ``fused`` (the batched decode kernel) or ``xla`` (the scan lane); by
-default it is routed as ``Llama.generate`` routes.
+KV caches as int8 rows with scales (on the fused lane mutually exclusive
+with ``--quant``, a ``ValueError``; the scan lane composes them).
+``--lane`` picks the decode engine, ``fused`` (the batched decode kernel) or
+``xla`` (the scan lane); by default it is routed as ``Llama.generate``
+routes. ``--prefix-cache`` reuses resident KV rows for requests that share
+a prompt prefix (the scan lane only):
+
+    python -m pydynet_tpu_torch.models.llama.serve_cli --random-init \
+        --lane xla --quant int4 --kv-quant int8 --prefix-cache
 """
 from __future__ import annotations
 
@@ -69,12 +74,17 @@ def main(argv=None) -> float:
     parser.add_argument("--quant", choices=["int8-head", "int8", "int4"],
                         default=None)
     parser.add_argument("--kv-quant", choices=["int8"], default=None,
-                        help="int8 KV cache on the fused lane (mutually "
-                        "exclusive with --quant)")
+                        help="int8 KV cache (on the fused lane mutually "
+                        "exclusive with --quant; the scan lane composes "
+                        "them)")
     parser.add_argument("--lane", choices=["fused", "xla"], default=None,
                         help="decode engine (default: routed as generate "
                         "routes: the fused kernels where they take the "
                         "model and format, else the scan lane)")
+    parser.add_argument("--prefix-cache", action="store_true",
+                        help="reuse KV rows across requests sharing a "
+                             "prompt prefix (XLA lane; shared-system-prompt "
+                             "serving)")
     parser.add_argument("--stream", action="store_true",
                         help="print tokens as chunks are read back "
                         "(LlamaServer.stream) instead of completions at the "
@@ -96,7 +106,8 @@ def main(argv=None) -> float:
                       eos_id=tokenizer.eos_id,
                       temperature=args.temperature, top_k=args.top_k,
                       top_p=args.top_p, seed=args.seed, quant=args.quant,
-                      kv_quant=args.kv_quant, lane=args.lane)
+                      kv_quant=args.kv_quant, lane=args.lane,
+                      prefix_cache=args.prefix_cache)
     encoded = [tokenizer.encode(p) for p in prompts]
     rids = [srv.submit(ids, max_new_tokens=args.max_new_tokens)
             for ids in encoded]

@@ -26,7 +26,9 @@ tensors they run the plain versions (``quantize_rows_ref``,
 back: a CUDA input a kernel does not take raises. Each wrapper counts its
 kernel launches: ``quantize_rows.launches`` (the standalone quantization),
 ``qmatmul.launches`` (K5), ``qmatmul.prefill_launches`` (K6) and
-``qmatmul_stacked.launches`` (K7, either kernel). ``decode_plan`` is the
+``qmatmul_stacked.launches`` (K7, either kernel), of which
+``qmatmul_stacked.prefill_launches`` counts those on the prefill kernel
+(K6's, with a layer index). ``decode_plan`` is the
 decode kernel's launch plan: its K split (a thread-block cluster), its
 staging of the int8 rows and its shared memory.
 
@@ -301,7 +303,10 @@ def qmatmul_stacked(x, wq_all, ws_all, idx, q4: bool = False):
     _check_cuda(x, wq_all, ws_all, N)
     out = _product(x, wq_all, ws_all, q4, idx, L, _route(M))
     qmatmul_stacked.launches += 1
+    if M > MAX_DECODE_ROWS:
+        qmatmul_stacked.prefill_launches += 1
     return out
 
 
 qmatmul_stacked.launches = 0
+qmatmul_stacked.prefill_launches = 0

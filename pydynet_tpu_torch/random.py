@@ -131,14 +131,25 @@ def bits(key, shape):
     return (y0 ^ y1).reshape(key.shape[:-1] + tuple(shape))
 
 
-def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0):
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
+            dtype=torch.float32):
     """``jax.random.uniform`` in float32: the top 23 bits as the mantissa of
     a float in [1, 2), minus 1, then ``max(minval, u * (maxval - minval) +
-    minval)``."""
-    f = ((bits(key, shape) >> 9) | 0x3F800000).to(torch.int32)
-    u = f.view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    span = torch.tensor(maxval, dtype=torch.float32, device=key.device) - lo
+    minval)``. ``dtype=torch.float64`` is JAX's default type under x64 (the
+    speculative sampler's draw): the 64 bits ``(y0 << 32) | y1`` of
+    threefry's two words, their top 52 as the mantissa."""
+    if dtype == torch.float64:
+        n = math.prod(shape)
+        i = torch.arange(n, dtype=torch.int64, device=key.device)
+        k0, k1 = _words(key)
+        y0, y1 = threefry2x32(k0, k1, i >> 32, i & _M32)
+        f = ((y0 << 20) | (y1 >> 12)) | 0x3FF0000000000000
+        u = f.view(torch.float64).reshape(key.shape[:-1] + tuple(shape)) - 1.0
+    else:
+        f = ((bits(key, shape) >> 9) | 0x3F800000).to(torch.int32)
+        u = f.view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=dtype, device=key.device)
+    span = torch.tensor(maxval, dtype=dtype, device=key.device) - lo
     return torch.maximum(lo, u * span + lo)
 
 

@@ -142,17 +142,18 @@ def _top2(logits):
 
 @torch.no_grad()
 def scan_truth(model, prompt_ids, steps: int, *, dtype=None, quant=None,
-               forced=None):
+               forced=None, kv_quant=None):
     """Greedy stream of the scan lane (``generate(fused=False)``'s
-    forward, in ``dtype`` and ``quant``) with per-step top-2 margins and top
-    values: ``(truth, margins, tops)``, each (steps, B). The truth of the
-    gates below on a model too large for the eager float32 stream. With
-    ``forced`` (steps, B) the lane is fed those tokens instead of its own
-    argmax: the margins are then those along the ``forced`` stream."""
+    forward, in ``dtype``, ``quant`` and ``kv_quant``) with per-step top-2
+    margins and top values: ``(truth, margins, tops)``, each (steps, B). The
+    truth of the gates below on a model too large for the eager float32
+    stream. With ``forced`` (steps, B) the lane is fed those tokens instead
+    of its own argmax: the margins are then those along the ``forced``
+    stream."""
     prompt_ids = np.asarray(prompt_ids)
     B, L = prompt_ids.shape
     w = model._weights_xq(dtype, quant) if quant else model._weights(dtype)
-    ck, cv = model._empty_caches(B, w["tok"].dtype)
+    ck, cv = model._empty_caches(B, w["tok"].dtype, kv_quant)
     tokens = torch.as_tensor(prompt_ids, dtype=torch.long,
                              device=model.device)
     logits = model.forward_logits_one(w, ck, cv, tokens, 0)
@@ -174,9 +175,10 @@ def scan_truth(model, prompt_ids, steps: int, *, dtype=None, quant=None,
 def gate_scan_argmax(model, prompt_ids, truth, margins, tops=None, *,
                      dtype=None, quant=None, margin: float = MARGIN,
                      rel: float = REL_MARGIN, min_agree: float = None,
-                     flash=False):
-    """``(checked, ok, agree)`` for the scan lane in ``dtype`` and ``quant``
-    (its quantized matmuls on a GPU), teacher-forced along ``truth``: its
+                     flash=False, kv_quant=None):
+    """``(checked, ok, agree)`` for the scan lane in ``dtype``, ``quant``
+    (its quantized matmuls on a GPU) and ``kv_quant`` (its int8 KV cache),
+    teacher-forced along ``truth``: its
     prefill token and then each step's token must equal the truth at every
     confident step of every row, as :func:`gate_fused_argmax` asks of the
     fused kernels; zero confident steps is not a pass. ``min_agree`` makes
@@ -186,7 +188,7 @@ def gate_scan_argmax(model, prompt_ids, truth, margins, tops=None, *,
     prompt_ids = np.asarray(prompt_ids)
     B, L = prompt_ids.shape
     w = model._weights_xq(dtype, quant) if quant else model._weights(dtype)
-    ck, cv = model._empty_caches(B, w["tok"].dtype)
+    ck, cv = model._empty_caches(B, w["tok"].dtype, kv_quant)
     got = [model.prefill(w, ck, cv, prompt_ids, flash=flash)]
     toks_in = torch.as_tensor(truth[:-1], dtype=torch.long,
                               device=model.device)

@@ -19,7 +19,6 @@ from pydynet_tpu.ops import gemv_quant as jgq
 from pydynet_tpu.ops import quant as jquant
 
 from pydynet_tpu_torch.models.llama import Llama, params_from_tpu
-from pydynet_tpu_torch.models.llama import model as tmodel
 from pydynet_tpu_torch.ops import gemv_quant as tgq
 from pydynet_tpu_torch.ops import quant as tquant
 from pydynet_tpu_torch.utils import fidelity as tfid
@@ -308,9 +307,10 @@ def test_batched_rows_match_b1():
 
 
 def test_stacked_path_matches_per_layer(monkeypatch):
-    """Above ``UNROLL_MAX_LAYERS`` layers the scan lane reads the stacked
-    weights through ``qmatmul_stacked`` with a layer index; its streams
-    equal the per-layer ``qmatmul`` path's (``test_gemv_quant.py:252``)."""
+    """The scan lane runs every layer product through ``qmatmul_stacked``
+    with the layer's device index; its streams equal, bit for bit, the same
+    lane with each product through ``qmatmul`` on that layer's weights
+    (``test_gemv_quant.py:252``)."""
     _, tm = models(0, n_layers=3)
     ids = np.array([[1, 5, 9]])
     calls = []
@@ -320,17 +320,27 @@ def test_stacked_path_matches_per_layer(monkeypatch):
         calls.append(int(args[3]))
         return real(*args, **kwargs)
 
-    monkeypatch.setattr(tgq, "qmatmul_stacked", spy)
+    def per_layer(x, wq_all, ws_all, idx, q4=False):
+        return tgq.qmatmul(x, wq_all[int(idx)], ws_all[int(idx)], q4=q4)
+
     for quant in ("int8", "int4"):
-        per_layer = stream(tm.generate(ids, 20, fused=False, quant=quant))
-        assert not calls
-        monkeypatch.setattr(tmodel, "UNROLL_MAX_LAYERS", 1)
+        monkeypatch.setattr(tgq, "qmatmul_stacked", spy)
         stacked = stream(tm.generate(ids, 20, fused=False, quant=quant))
-        monkeypatch.setattr(tmodel, "UNROLL_MAX_LAYERS", 16)
-        assert stacked == per_layer, (quant, stacked, per_layer)
         # prefill and 16 decode steps, 4 matmuls on each of 3 layers
         assert calls == ([0] * 4 + [1] * 4 + [2] * 4) * 17
         calls.clear()
+        monkeypatch.setattr(tgq, "qmatmul_stacked", per_layer)
+        assert stream(tm.generate(ids, 20, fused=False,
+                                  quant=quant)) == stacked, quant
+        w = tm._weights_xq(None, quant)
+        x = torch.randn(5, 64, generator=torch.Generator().manual_seed(1))
+        for name in ("wqkv", "wo", "wgu"):
+            for i in range(3):
+                assert torch.equal(
+                    real(x, w[name + "_xq"], w[name + "_xs"],
+                         w["layer_ids"][i], q4=quant == "int4"),
+                    per_layer(x, w[name + "_xq"], w[name + "_xs"], i,
+                              q4=quant == "int4"))
 
 
 def test_int4_vs_dequantized_truth():

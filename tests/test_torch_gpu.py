@@ -409,18 +409,22 @@ def test_qmatmul_launch_counters_count_kernel_launches_only(gpu):
     w, ws = random_qweights(288, 864, False, 1)
     counters = (lambda: (gq.quantize_rows.launches, gq.qmatmul.launches,
                          gq.qmatmul.prefill_launches,
-                         gq.qmatmul_stacked.launches))
+                         gq.qmatmul_stacked.launches,
+                         gq.qmatmul_stacked.prefill_launches))
     before = counters()
     gq.qmatmul(random_rows(4, 288, torch.float32, 0), w, ws)
     gq.qmatmul(random_rows(40, 288, torch.float32, 0), w, ws)
     gq.qmatmul_stacked(random_rows(2, 288, torch.float32, 0), w[None],
                        ws[None], 0)
+    gq.qmatmul_stacked(random_rows(40, 288, torch.float32, 0), w[None],
+                       ws[None], 0)
     gq.qmatmul_ref(random_rows(4, 288, torch.float32, 0), w, ws)
     gq.qmatmul(random_rows(4, 288, torch.float32, 0).cpu(), w.cpu(),
                ws.cpu())
-    # quantize_rows counts only the prefill call's: the decode kernel
-    # quantizes its rows itself, in its one launch
-    assert [a - b for a, b in zip(counters(), before)] == [1, 1, 1, 1]
+    # quantize_rows counts only the prefill calls': the decode kernel
+    # quantizes its rows itself, in its one launch; a stacked call on the
+    # prefill kernel counts in both of qmatmul_stacked's counters
+    assert [a - b for a, b in zip(counters(), before)] == [2, 1, 1, 2, 1]
 
 
 # Llama-2-7B's five decode products (fused qkv, wo, fused gate/up, down,
@@ -536,12 +540,12 @@ def test_qmatmul_cuda_inputs_never_fall_back(gpu):
 
 
 def test_scan_lane_quant_generate_on_the_card(gpu):
-    """A tiny model deeper than UNROLL_MAX_LAYERS (the stacked kernel) and
-    a shallow one (the per-layer kernels) decode on the scan lane with
-    int8 and int4 weights through the kernels, and, teacher-forced along
-    the CPU's stream, give its tokens at every confident step (float noise
-    between the devices can move an activation across an int8 rounding
-    boundary, so free-running streams may part at a near-tie)."""
+    """A tiny model of 2 layers and one of 17 decode on the scan lane with
+    int8 and int4 weights through the kernels (every layer product through
+    the stacked kernel, the head through ``qmatmul``), and, teacher-forced
+    along the CPU's stream, give its tokens at every confident step (float
+    noise between the devices can move an activation across an int8
+    rounding boundary, so free-running streams may part at a near-tie)."""
     from pydynet_tpu_torch.models.llama import Llama
     from pydynet_tpu_torch.ops import gemv_quant as gq
     from pydynet_tpu_torch.utils import fidelity
@@ -562,6 +566,95 @@ def test_scan_lane_quant_generate_on_the_card(gpu):
             checked, ok, _ = fidelity.gate_scan_argmax(gpu_m, ids, tr, mg, tp,
                                                        quant=quant)
             assert len(got) == 21 and checked > 0 and ok
+
+
+SCAN_CFG = dict(vocab_size=256, embed_dim=64, n_heads=4, ffn_dim=128,
+                max_seq_len=128, n_layers=2)
+
+
+def test_scan_lane_kv_quant_generate_on_the_card(gpu):
+    """``generate(quant="int4", kv_quant="int8", fused=False)`` on the card
+    at B = 1 and 3 through the quantized-matmul kernels, teacher-forced
+    along the same call's stream on the CPU, gives its tokens at every
+    confident step (float noise between the devices may move an
+    activation or a cache entry across an int8 rounding boundary)."""
+    from pydynet_tpu_torch.models.llama import Llama
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+    from pydynet_tpu_torch.utils import fidelity
+
+    gpu_m = Llama(**SCAN_CFG, device="cuda").eval()
+    cpu_m = Llama(**SCAN_CFG, device="cpu").eval()
+    for ids in (np.array([[1, 5, 9]]), np.array([[1, 5, 9], [2, 7, 3],
+                                                 [30, 20, 10]])):
+        kw = dict(quant="int4", kv_quant="int8")
+        before = gq.qmatmul_stacked.launches
+        rows = list(gpu_m.generate(ids, 24, fused=False, **kw))
+        assert len(rows) == 21 and gq.qmatmul_stacked.launches > before
+        tr, mg, tp = fidelity.scan_truth(cpu_m, ids, 21, **kw)
+        checked, ok, _ = fidelity.gate_scan_argmax(gpu_m, ids, tr, mg, tp,
+                                                   **kw)
+        assert checked > 0 and ok
+
+
+def first_near_tie(model, prompt, stream, **kw):
+    """The first step of ``stream`` whose top-2 margin, teacher-forced
+    along it on the scan lane, is below 1e-3 (its length when none is)."""
+    from pydynet_tpu_torch.utils import fidelity
+
+    _, mg, _ = fidelity.scan_truth(model, np.array([prompt]), len(stream),
+                                   forced=np.array(stream)[:, None], **kw)
+    low = np.flatnonzero(mg[:, 0] < 1e-3)
+    return int(low[0]) if low.size else len(stream)
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_prefix_cache_server_on_the_card(gpu, kv_quant):
+    """A float32 int4 scan-lane server with the prefix cache on the card:
+    the second request reuses the first one's 8 prefix rows, and both
+    streams equal the same server's without reuse up to their first
+    near-tie (the reused rows carry one more rounding)."""
+    from pydynet_tpu_torch.models.llama import Llama
+    from pydynet_tpu_torch.models.llama.serve import LlamaServer
+
+    m = Llama(**SCAN_CFG, device="cuda").eval()
+    pa = [1, 5, 9, 4, 7, 2, 8, 3, 6, 1, 2, 4]
+    pb = pa[:10] + [7, 5]
+    kw = dict(batch_size=2, chunk=4, eos_id=-1, lane="xla", quant="int4",
+              kv_quant=kv_quant)
+    streams = {}
+    for prefix_cache in (True, False):
+        srv = LlamaServer(m, prefix_cache=prefix_cache, **kw)
+        ra = srv.submit(pa, max_new_tokens=12)
+        srv.step()
+        rb = srv.submit(pb, max_new_tokens=12)
+        srv.run()
+        assert srv.prefix_hits == (1 if prefix_cache else 0)
+        streams[prefix_cache] = [srv._finished[ra].tokens,
+                                 srv._finished[rb].tokens]
+    assert streams[True][0] == streams[False][0]
+    k = first_near_tie(m, pb, streams[False][1], quant="int4",
+                       kv_quant=kv_quant)
+    assert k > 0 and streams[True][1][:k] == streams[False][1][:k]
+
+
+def test_speculative_and_beam_on_the_card(gpu):
+    """``generate_speculative`` (greedy) and ``generate_beam(num_beams=1)``
+    on the card equal greedy ``generate(fused=False)`` up to its first
+    near-tie (their verify forward and the one-row step are different
+    products), and the speculative sampler's stream is the same twice."""
+    from pydynet_tpu_torch.models.llama import Llama
+
+    m = Llama(**dict(SCAN_CFG, vocab_size=64), device="cuda").eval()
+    ids = np.array([[1, 7, 3, 1, 7, 3, 1, 7, 3, 1, 7]])
+    want = [int(t[0, 0]) for t in m.generate(ids, 80, fused=False)]
+    k = first_near_tie(m, ids[0].tolist(), want)
+    spec, stats = m.generate_speculative(ids, 80, draft_k=4, ngram=2)
+    assert spec.tolist()[:k] == want[:k] and stats["tokens"] == len(want)
+    assert m.generate_beam(ids, 80, num_beams=1, eos_id=-1)[:k] == want[:k]
+    assert len(m.generate_beam(ids, 80, num_beams=4, eos_id=-1)) == 69
+    a, _ = m.generate_speculative(ids, 60, temperature=0.9, seed=3)
+    b, _ = m.generate_speculative(ids, 60, temperature=0.9, seed=3)
+    assert a.tolist() == b.tolist()
 
 
 # chip_smoke.BN_SHAPES: from one row to a wide batch, the trainer's among

@@ -263,10 +263,10 @@ def test_server_matches_jax_and_standalone(kw, interp_kernels):
 
 
 def test_kv_quant_refusals_that_stay():
-    """The int8 KV cache takes float weights: any ``quant`` with it on the
-    fused lane is a ValueError, as in the JAX package; on the scan lane
-    (``fused=False`` / ``lane="xla"``) it is not ported and names its
-    item; an unknown mode is a ValueError."""
+    """The fused lane's int8 KV cache takes float weights: any ``quant``
+    with it there is a ValueError, as in the JAX package (``fused=None``
+    still routes this model there); the scan lane (``fused=False`` /
+    ``lane="xla"``) composes them; an unknown mode is a ValueError."""
     _, tm = models(10)
     ids = np.array([[1, 5, 9], [2, 7, 3]])
     for quant in ("int8-head", "int8", "int4"):
@@ -275,10 +275,16 @@ def test_kv_quant_refusals_that_stay():
                 next(tm.generate(ids[:b], 8, quant=quant, kv_quant="int8"))
         with pytest.raises(ValueError, match="mutually exclusive"):
             LlamaServer(tm, batch_size=2, quant=quant, kv_quant="int8")
-    with pytest.raises(NotImplementedError, match="Big-dims lane"):
-        next(tm.generate(ids, 8, kv_quant="int8", fused=False))
-    with pytest.raises(NotImplementedError, match="Big-dims lane"):
-        LlamaServer(tm, batch_size=2, kv_quant="int8", lane="xla")
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            LlamaServer(tm, batch_size=2, quant=quant, kv_quant="int8",
+                        lane="fused")
+        rows = list(tm.generate(ids, 8, quant=quant, kv_quant="int8",
+                                fused=False))
+        assert len(rows) == 5 and rows[0].shape == (2, 1)
+        srv = LlamaServer(tm, batch_size=2, chunk=4, eos_id=-1, quant=quant,
+                          kv_quant="int8", lane="xla")
+        rid = srv.submit([1, 5, 9], max_new_tokens=5)
+        assert len(srv.run()[rid].tokens) == 5
     with pytest.raises(ValueError, match="kv_quant"):
         next(tm.generate(ids, 8, kv_quant="fp4"))
     with pytest.raises(ValueError, match="kv_quant"):

@@ -292,11 +292,16 @@ def test_server_dispatches_one_batched_step_per_token(batched_calls):
 
 def test_unported_options_raise(batched_calls):
     _, tm = models(20)
-    cases = [dict(kv_quant="int8", lane="xla"), dict(prefix_cache=True),
-             dict(dtype=torch.float16)]
-    for kw in cases:
-        with pytest.raises(NotImplementedError):
-            LlamaServer(tm, **kw)
+    with pytest.raises(NotImplementedError):
+        LlamaServer(tm, dtype=torch.float16)
+    # the prefix cache rides the scan lane: a ValueError on the fused lane,
+    # as in the JAX package; the scan lane's int8 KV cache runs
+    with pytest.raises(ValueError, match="prefix_cache"):
+        LlamaServer(tm, prefix_cache=True)
+    srv = LlamaServer(tm, batch_size=2, chunk=4, eos_id=-1, kv_quant="int8",
+                      lane="xla", prefix_cache=True)
+    rid = srv.submit([1, 5, 9], max_new_tokens=5)
+    assert isinstance(srv._ck, tuple) and len(srv.run()[rid].tokens) == 5
     # flash prefill admissions run and serve the dense admissions' streams
     served = []
     for flash in (True, False):

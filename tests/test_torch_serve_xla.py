@@ -117,31 +117,46 @@ def test_xla_lane_auto_routes():
 
 def test_xla_lane_quant_runs_the_quantized_matmuls(monkeypatch):
     """Every decode step of an int4 server is four quantized matmuls a
-    layer and one for the head, on all slots at once."""
+    layer, each through ``qmatmul_stacked`` with the layer's index, and one
+    ``qmatmul`` for the head, on all slots at once."""
     _, tm = models(3)
-    rows = []
-    real = tgq.qmatmul
+    rows, layers = [], []
+    real, real_stacked = tgq.qmatmul, tgq.qmatmul_stacked
 
     def spy(x, *args, **kwargs):
         rows.append(x.shape[0])
         return real(x, *args, **kwargs)
 
+    def spy_stacked(x, wq, ws, idx, **kwargs):
+        layers.append((x.shape[0], int(idx)))
+        return real_stacked(x, wq, ws, idx, **kwargs)
+
     monkeypatch.setattr(tgq, "qmatmul", spy)
+    monkeypatch.setattr(tgq, "qmatmul_stacked", spy_stacked)
     srv = LlamaServer(tm, batch_size=2, chunk=4, eos_id=-1, lane="xla",
                       quant="int4")
     for p in ([1, 5, 9], [2, 7, 3, 11], [30, 20]):
         srv.submit(p, max_new_tokens=6)
     srv.run()
-    per_step = 4 * CFG["n_layers"] + 1
-    assert rows.count(2) == per_step * srv.dispatched_steps > 0
+    steps = srv.dispatched_steps
+    assert rows.count(2) == steps > 0
+    per_step = [(2, i) for i in range(CFG["n_layers"]) for _ in range(4)]
+    assert [x for x in layers if x[0] == 2] == per_step * steps
 
 
 def test_xla_lane_unported_options_raise():
+    """Speculative serving still raises naming **Sampling**; the scan
+    lane's prefix cache and int8 KV cache run (``test_torch_prefix_cache.py``
+    holds them to the JAX server)."""
     _, tm = models(20)
+    with pytest.raises(NotImplementedError, match="Sampling"):
+        LlamaServer(tm, lane="xla", speculative=4)
     for kw in (dict(prefix_cache=True), dict(kv_quant="int8"),
-               dict(speculative=4)):
-        with pytest.raises(NotImplementedError):
-            LlamaServer(tm, lane="xla", **kw)
+               dict(prefix_cache=True, kv_quant="int8", quant="int4")):
+        srv = LlamaServer(tm, batch_size=2, chunk=4, eos_id=-1, lane="xla",
+                          **kw)
+        rid = srv.submit([1, 5, 9], max_new_tokens=5)
+        assert srv._lane == "xla" and len(srv.run()[rid].tokens) == 5
     with pytest.raises(ValueError, match="lane"):
         LlamaServer(tm, lane="scan")
     with pytest.raises(ValueError, match="quant"):
