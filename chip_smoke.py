@@ -167,6 +167,31 @@ the run with a nonzero exit and no result line:
    request and ``generate_beam(num_beams=1)`` against greedy
    ``generate(fused=False)`` up to a near-tie at their parting step, their
    tok/s and tokens a dispatch, and ``num_beams=4`` timed;
+4r. LoRA fine-tuning and speculative serving: 2^20 threefry ``uniform``,
+   ``bernoulli`` and bfloat16 draws of the port's ``Generator`` on the card
+   equal to the CPU's bit for bit; DNN_dropout's first step on the card
+   against the CPU's (the DNN_BN gate of 4e; its masks from that
+   ``Generator``; phase 5 times the dropout_bn step); a rank-8
+   LoRA fine-tune of stories15M (alpha 16, Q, K, V, O, gate, up, down,
+   dropout 0.05; f32, Adam lr 1e-2) on a seeded 16-token pattern repeated
+   to 256 tokens: its first step on the card equal to the CPU's (the
+   training gate), K3 once and K4 twice a layer a step, the base weights
+   bit-unchanged, steps until greedy decoding of the pattern's first 8
+   tokens repeats it (at most 200), the loss curve and steps/s; the
+   adapted model in bf16 on the fused lane, ``generate`` (K1) and a B=8
+   ``LlamaServer`` (K2) over 24 requests cut from the pattern, unmerged
+   and merged streams bit-identical and unlike the base model's;
+   ``LlamaServer(speculative=7, batch_size=8, chunk=16)`` over the same
+   requests, each stream equal to ``generate(fused=False)``'s up to a
+   parting at a near-tie, drafts accepted, tokens per verify iteration and
+   generated tok/s beside the scan-lane and fused servers in turns; then
+   the 7B geometry with int8 weights, ``LlamaServer(speculative=7,
+   batch_size=4, chunk=16, quant="int8")`` over 8 seeded 128-token
+   prompts, 64 new tokens each: streams against ``generate(quant="int8",
+   fused=False)`` by the parting rule, the launches of K7, K5,
+   ``quantize_rows`` and K6 (K7's prefill branch) equal to the implied
+   counts, tok/s beside the scan-lane server, tokens per verify iteration,
+   peak memory, and one verify chunk's device time by kernel;
 4e. the nn-stack trainers: DNN_BN's first step on the card (through K8)
    against the same step on the CPU; the ``dropout_bn`` trainer at its
    published setting, 20 epochs of 8 steps (K8's counter must equal
@@ -193,7 +218,10 @@ the run with a nonzero exit and no result line:
    ``BIG_TIME_REQUESTS`` requests, the milliseconds to the first token of a
    ``TTFT_PROMPT``-token prompt in int8 and int4 (its 4 x 32 layer products
    through the prefill kernel; ``BIG_REPEATS`` runs in turns), and each
-   quantized matmul at the 7B shapes (M = 1, 4 and 256) beside its plain
+   quantized matmul at the 7B shapes (M = 1, 4 and 256, and with int8
+   weights also at phase 4r's speculative rows: ``BIG_SPEC_ROWS``, a
+   verify's, and ``BIG_SPEC_WAVE``, an admission wave's, with
+   ``quantize_rows`` at the verify's rows) beside its plain
    version, ``torch._int_mm`` (int8, M > 16) on the weights as stored,
    row-major, and on a column-major copy, and its bound; each kernel's
    bound (bytes over 3.35 TB/s or operations over the peak for its type;
@@ -201,7 +229,8 @@ the run with a nonzero exit and no result line:
    a third of the TF32 peak) and, for K3/K4, ``F.scaled_dot_product_attention``'s
    forward and backward; K8's time at (40, 512), (40, 128), (1024, 1024) and
    (8192, 1024) beside its plain version, its bound and ``F.batch_norm``,
-   the dropout_bn train step in steps/s and the MNIST ConvNet's epochs in
+   the dropout_bn train step in steps/s and kernels a step
+   (``kernel_times.dbn_times``) and the MNIST ConvNet's epochs in
    steps/s and samples/s; K1 narrow against K1 MHA (bf16, pos 512), K2
    narrow B = 8 against MHA B = 8, K2 at B = 64 against B = 32 (bf16 and
    int8 layers), each in turns beside its plain version and bound, and the
@@ -392,6 +421,23 @@ PREFIX_MIN_HITS = PREFIX_REQUESTS - PREFIX_SERVE["batch_size"]
 SPEC_REQUEST = 512  # total length of the speculative and greedy requests
 SPEC_PROMPT = np.array([[1, 243, 532, 991] * 4])
 BEAM_REQUEST = 128  # total length of the beam-search requests
+# phase 4r: the LoRA fine-tune (rank, alpha, targets, dropout), its row of
+# LORA_L tokens (a seeded LORA_PERIOD-token pattern repeated), Adam's lr,
+# the step budget, and how often greedy decoding is checked for the loop
+LORA = dict(r=8, alpha=16.0, targets=("Q", "K", "V", "O", "gate", "up",
+                                      "down"), dropout=0.05)
+LORA_L, LORA_PERIOD, LORA_LR, LORA_MAX_STEPS, LORA_EVERY = 256, 16, 1e-2, \
+    200, 10
+LORA_PROMPTS = (8, 12, 16)  # prompt lengths of the requests cut from it
+SPEC_SERVE = dict(speculative=7, batch_size=8, chunk=16, eos_id=-1)
+BIG_SPEC = dict(speculative=7, batch_size=4, chunk=16, eos_id=-1,
+                quant="int8")
+BIG_SPEC_REQUESTS, BIG_SPEC_PROMPT, BIG_SPEC_NEW = 8, 128, 64
+# the rows of its quantized products: a verify iteration's B (K + 1), and
+# an admission wave's B prompts (phase 5 times the kernels at both)
+BIG_SPEC_ROWS = BIG_SPEC["batch_size"] * (BIG_SPEC["speculative"] + 1)
+BIG_SPEC_WAVE = BIG_SPEC["batch_size"] * BIG_SPEC_PROMPT
+GEN_DRAWS = 1 << 20  # threefry draws compared between the card and the CPU
 # K8, the train-mode BatchNorm, against its plain version: (N, C) from one
 # row to a wide batch, the dropout_bn trainer's (40, 512) and (40, 128) among
 # them. Inputs are O(1) (x normal, gamma in [0.5, 1.5], beta normal / 2), so
@@ -1035,6 +1081,47 @@ def check_head_and_step(model, truth, margins, tops):
     return err, launches
 
 
+def time_k1(model, fmt, card, label=""):
+    """K1's step at pos 512 in ``fmt`` beside its plain version, in turns:
+    (kernel ms, plain ms, bound ms, bound by)."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    dtype, quant = FORMATS[fmt]
+    w = model._fused_weights(dtype, quant)
+    ck, cv = random_caches(model, dtype, 1)
+    args, kw = step_args(model, w, ck, cv, 512, 1234)
+    kern = lambda: dsk.fused_decode_token(*args, **kw)
+    ref = lambda: dsk.fused_decode_token_ref(*args, **kw)
+    plain, kernel = time_step(ref, 20), time_step(kern, 200)
+    plain2, kernel2 = time_step(ref, 20), time_step(kern, 200)
+    t = (min(kernel, kernel2), min(plain, plain2)) \
+        + decode_step_bound(w, ck, 512, 1)
+    print(f"[chip_smoke] {card}: {label}{fmt} step at pos 512: kernel "
+          f"{t[0] * 1e3:.1f} us, plain {t[1] * 1e3:.1f} us, bound "
+          f"{t[2] * 1e3:.1f} us ({t[3]})")
+    return t
+
+
+def time_k2(model, fmt, batch, card, label=""):
+    """K2's step of ``batch`` rows at pos 512 in ``fmt`` beside its plain
+    version, in turns: (kernel ms, plain ms, bound ms, bound by)."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    w = model._fused_weights(*fmt_of(fmt))
+    ck, cv = batched_caches(model, fmt, 1, batch)
+    args, kw = batched_args(model, w, ck, cv, 512, range(100, 100 + batch))
+    kern = lambda: dsk.fused_decode_token_batched(*args, **kw)
+    ref = lambda: dsk.fused_decode_token_batched_ref(*args, **kw)
+    plain, kernel = time_step(ref, 3), time_step(kern, 200)
+    plain2, kernel2 = time_step(ref, 3), time_step(kern, 200)
+    t = (min(kernel, kernel2), min(plain, plain2)) \
+        + decode_step_bound(w, ck, 512, batch)
+    print(f"[chip_smoke] {card}: {label}K2 {fmt} B={batch} step at pos 512: "
+          f"kernel {t[0] * 1e3:.1f} us, plain {t[1] * 1e3:.1f} us, bound "
+          f"{t[2] * 1e3:.1f} us ({t[3]})")
+    return t
+
+
 def time_head_and_step(model, card):
     """Phase 5's K9 and K10 part: device time by CUDA-graph replay beside
     the bound, the plain version (CUDA events around a loop) and, for K9,
@@ -1668,43 +1755,49 @@ def check_training():
     return launches, errs
 
 
-def time_training(card):
-    """Phase 5's training part: K3 and K4 against plain, then the step."""
+def time_flash(B, L, card):
+    """K3 and both K4 kernels on float32 (B, L, 6, 48) inputs beside their
+    plain versions (in turns), their bounds and the SDPA forward and
+    backward: {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
     from pydynet_tpu_torch.ops import flash_attention as fa
 
-    ms = {}
+    out = {}
     scale = 48 ** -0.5
-    for B in (1, 8):
-        q, k, v, do = flash_inputs(B, TRAIN_L, torch.float32, 1)
-        o, lse = fa.flash_attention_fwd(q, k, v)
-        dd = fa.attention_dd(o, do)
-        pairs = {
-            "flash_attention_fwd": (
-                lambda: fa.flash_attention_fwd(q, k, v),
-                lambda: fa.flash_attention_fwd_ref(q, k, v, scale)),
-            "flash_attention_bwd_dq": (
-                lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dd),
-                lambda: fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, dd,
-                                                      scale)),
-            "flash_attention_bwd_dkv": (
-                lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd),
-                lambda: fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, dd,
-                                                       scale)),
-        }
-        lib = sdpa_ms(q, k, v, do)
-        for name, (kern, ref) in pairs.items():
-            plain, kernel = time_step(ref, 10), time_step(kern, 50)
-            kernel2, plain2 = time_step(kern, 50), time_step(ref, 10)
-            b_ms, b_by = flash_bound(q, FLASH_PRODUCTS[name], True)
-            ms[name, B] = (min(kernel, kernel2), min(plain, plain2), b_ms,
-                           b_by, lib[name != "flash_attention_fwd"])
-            way = "forward" if name == "flash_attention_fwd" else "backward"
-            print(f"[chip_smoke] {card}: {name} f32 ({B}, {TRAIN_L}, 6, 48):"
-                  f" kernel {ms[name, B][0] * 1e3:.1f} us, plain "
-                  f"{ms[name, B][1] * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us"
-                  f" ({b_by}), F.scaled_dot_product_attention {way} "
-                  f"{ms[name, B][4] * 1e3:.1f} us")
-        del q, k, v, do, o, lse, dd
+    q, k, v, do = flash_inputs(B, L, torch.float32, 1)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    dd = fa.attention_dd(o, do)
+    pairs = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v),
+            lambda: fa.flash_attention_fwd_ref(q, k, v, scale)),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dd),
+            lambda: fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, dd,
+                                                  scale)),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd),
+            lambda: fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, dd,
+                                                   scale)),
+    }
+    lib = sdpa_ms(q, k, v, do)
+    for name, (kern, ref) in pairs.items():
+        plain, kernel = time_step(ref, 10), time_step(kern, 50)
+        kernel2, plain2 = time_step(kern, 50), time_step(ref, 10)
+        b_ms, b_by = flash_bound(q, FLASH_PRODUCTS[name], True)
+        t = out[name] = (min(kernel, kernel2), min(plain, plain2), b_ms,
+                         b_by, lib[name != "flash_attention_fwd"])
+        way = "forward" if name == "flash_attention_fwd" else "backward"
+        print(f"[chip_smoke] {card}: {name} f32 ({B}, {L}, 6, 48): kernel "
+              f"{t[0] * 1e3:.1f} us, plain {t[1] * 1e3:.1f} us, bound "
+              f"{b_ms * 1e3:.1f} us ({b_by}), "
+              f"F.scaled_dot_product_attention {way} {t[4] * 1e3:.1f} us")
+    return out
+
+
+def time_training(card):
+    """Phase 5's training part: K3 and K4 against plain, then the step."""
+    ms = {(name, B): t for B in (1, 8)
+          for name, t in time_flash(B, TRAIN_L, card).items()}
     runs = {}
     for B in (1, 8):
         model, opt = train_model("cuda")
@@ -2422,6 +2515,472 @@ def check_beam_and_speculative(model, card):
             raise AssertionError(f"beam W=4: {len(beams[4])} tokens")
 
 
+# ------------------------- phase 4r: LoRA, speculative ---------------------
+def check_generator(card):
+    """The threefry ``Generator`` on the card against the CPU, bit for bit:
+    GEN_DRAWS ``uniform`` draws in float32 and bfloat16 and ``bernoulli``
+    draws, each from a fresh generator of one seed; and the key each
+    leaves behind."""
+    from pydynet_tpu_torch.random import Generator
+
+    draws = ((lambda g, dev: g.uniform((GEN_DRAWS,), device=dev), "uniform"),
+             (lambda g, dev: g.uniform((GEN_DRAWS,), dtype=torch.bfloat16,
+                                       device=dev), "uniform bf16"),
+             (lambda g, dev: g.bernoulli(0.05, (GEN_DRAWS,), device=dev),
+              "bernoulli(0.05)"))
+    for draw, name in draws:
+        gpu, cpu = Generator(42), Generator(42)
+        a, b = draw(gpu, "cuda"), draw(cpu, "cpu")
+        if not (torch.equal(a.cpu(), b) and torch.equal(gpu.state.cpu(),
+                                                        cpu.state)):
+            raise AssertionError(f"Generator {name}: the card's draws differ "
+                                 "from the CPU's")
+    print(f"[chip_smoke] {card}: Generator: {GEN_DRAWS} draws each of "
+          f"uniform, uniform bf16 and bernoulli equal to the CPU's bit for "
+          f"bit")
+
+
+def dropout_first_step(device, seed=0):
+    """DNN_dropout from ``seed`` on ``device`` after one Adam step (lr
+    5e-5) on the trainer's first 40 faces, its masks from
+    ``default_generator`` seeded by ``manual_seed``; returns (net,
+    loss)."""
+    from pydynet_tpu_torch import manual_seed
+    from pydynet_tpu_torch.examples import dropout_bn as dbn
+    from pydynet_tpu_torch.nn import CrossEntropyLoss
+    from pydynet_tpu_torch.optim import Adam
+
+    manual_seed(seed)
+    net = dbn.DNN_dropout().to(device)
+    opt = Adam(net.parameters(), lr=DBN_LR)
+    X, y = dbn.load_faces()
+    bx, by = (torch.from_numpy(a[:40]).to(device) for a in (X, y))
+    loss = dbn.train_step([net], [opt], CrossEntropyLoss(), bx, by)[0]
+    return net, float(loss)
+
+
+def check_dropout_step():
+    """DNN_dropout's first step on the card against the CPU's (DNN_BN's
+    gate in phase 4e: loss within TRAIN_LOSS_RTOL, gradients within
+    TRAIN_GRAD_RTOL of each tensor's largest, weights within lr / 10).
+    Phase 5 times the dropout_bn step, its masks drawn the same way."""
+    gpu, gpu_loss = dropout_first_step("cuda")
+    cpu, cpu_loss = dropout_first_step("cpu")
+    if abs(gpu_loss - cpu_loss) > TRAIN_LOSS_RTOL * abs(cpu_loss):
+        raise AssertionError(f"DNN_dropout step loss {gpu_loss} != CPU "
+                             f"{cpu_loss}")
+    g_err, w_err = check_step_vs_cpu(gpu, cpu, DBN_LR / 10)
+    print(f"[chip_smoke] DNN_dropout step 1 vs CPU: loss {gpu_loss:.6f} vs "
+          f"{cpu_loss:.6f}, max gradient error {g_err:.3g}, max weight "
+          f"error {w_err:.3g}")
+
+
+def lora_pattern(seed=0):
+    """The LoRA phase's data: a seeded LORA_PERIOD-token pattern and the
+    (1, LORA_L) shifted pair of it repeated."""
+    pat = np.random.default_rng(seed).integers(1, CFG["vocab_size"],
+                                               LORA_PERIOD)
+    row = np.resize(pat, LORA_L + 1)[None]
+    return pat, row[:, :-1], row[:, 1:]
+
+
+def lora_model(device, seed=0):
+    """stories15M from seed 0 with LORA's adapters (``A`` drawn after
+    ``manual_seed(seed)``, which also seeds the dropout stream) and an Adam
+    over them; returns (model, optimizer, (trainable, frozen))."""
+    from pydynet_tpu_torch import manual_seed
+    from pydynet_tpu_torch.models.llama import Llama
+    from pydynet_tpu_torch.optim import Adam
+
+    manual_seed(seed)
+    model = Llama(**TRAIN_CFG, device=device,
+                  generator=torch.Generator().manual_seed(0))
+    counts = model.add_lora(**LORA)
+    opt = Adam([p for p in model.parameters() if p.requires_grad],
+               lr=LORA_LR)
+    return model, opt, counts
+
+
+def loop_repeats(model, pat, n=8, reps=3):
+    """Whether greedy decoding (f32 scan lane) of the pattern's first ``n``
+    tokens continues it for ``reps`` periods."""
+    want = np.resize(pat, n + reps * LORA_PERIOD)[n:].tolist()
+    with torch.no_grad():
+        got = [int(t[0, 0]) for t in model.generate(
+            pat[None, :n], n + reps * LORA_PERIOD, fused=False)]
+    return got == want
+
+
+def check_lora_training(card):
+    """Phase 4r's fine-tune: the first step on the card against the CPU's,
+    then LORA_EVERY steps at a time until greedy decoding repeats the
+    pattern (at most LORA_MAX_STEPS), K3/K4 counted, the base weights
+    unchanged. Returns (model, pattern, {kernel: launches})."""
+    gpu, gopt, counts = lora_model("cuda")
+    cpu, copt, _ = lora_model("cpu")
+    pat, inp, tgt = lora_pattern()
+    frozen = [n for n, p in gpu.named_parameters() if not p.requires_grad]
+    base = {n: p.detach().clone() for n, p in gpu.named_parameters()
+            if n in frozen}
+    from pydynet_tpu_torch import manual_seed
+
+    for k in flash_counters():
+        k.launches = 0
+    manual_seed(1)  # the same dropout masks on both devices
+    gloss = gpu.finetune_step(inp, tgt, gopt)
+    manual_seed(1)
+    closs = cpu.finetune_step(inp, tgt, copt)
+    if abs(gloss - closs) > TRAIN_LOSS_RTOL * abs(closs):
+        raise AssertionError(f"LoRA step loss {gloss} != CPU {closs}")
+    g_err, w_err = check_step_vs_cpu(gpu, cpu, LORA_LR / 10, skip=frozen)
+    print(f"[chip_smoke] LoRA (r {LORA['r']}, alpha {LORA['alpha']}, "
+          f"dropout {LORA['dropout']}, {','.join(LORA['targets'])}): "
+          f"trainable {counts[0]} tensors, "
+          f"{sum(p.numel() for p in gpu.parameters() if p.requires_grad)} "
+          f"parameters; step 1 vs CPU: loss {gloss:.6f} vs {closs:.6f}, max "
+          f"gradient error {g_err:.3g}, max weight error {w_err:.3g}")
+    del cpu
+    curve, secs, steps = [gloss], 0.0, 1
+    while not loop_repeats(gpu, pat):
+        if steps >= LORA_MAX_STEPS:
+            raise AssertionError(f"greedy decoding did not repeat the "
+                                 f"pattern after {steps} steps")
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        losses = gpu.finetune_steps(inp, tgt, gopt, LORA_EVERY)
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - start
+        steps += LORA_EVERY
+        curve.append(float(losses[-1]))
+    launches = {k.__name__: k.launches for k in flash_counters()}
+    want = {"flash_attention_fwd": CFG["n_layers"] * steps,
+            "flash_attention_bwd_dq": CFG["n_layers"] * steps,
+            "flash_attention_bwd_dkv": CFG["n_layers"] * steps}
+    if launches != want:
+        raise AssertionError(f"LoRA fine-tune launches {launches}, want "
+                             f"{want}")
+    for n, p in gpu.named_parameters():
+        if n in base and not torch.equal(p, base[n]):
+            raise AssertionError(f"LoRA fine-tune moved the base weight {n}")
+    print(f"[chip_smoke] {card}: LoRA fine-tune at L={LORA_L}: greedy "
+          f"decoding repeats the pattern after {steps} steps; loss at "
+          f"steps 1, {LORA_EVERY + 1}, ...: "
+          f"{', '.join(f'{x:.4f}' for x in curve)}; "
+          f"{(steps - 1) / max(secs, 1e-9):.1f} steps/s; launches {launches}")
+    return gpu.eval(), pat, launches
+
+
+def lora_requests(pat):
+    """The LoRA phase's traffic: N_REQUESTS prompts cut from the repeated
+    pattern, request i at offset i mod LORA_PERIOD, its length cycling
+    over LORA_PROMPTS every three requests, ``max_new_tokens`` over
+    MAX_NEW; and each prompt's continuation of the pattern, a period
+    long."""
+    row = np.resize(pat, 3 * LORA_PERIOD + max(LORA_PROMPTS))
+    requests, follow = [], []
+    for i in range(N_REQUESTS):
+        o = i % LORA_PERIOD
+        L = LORA_PROMPTS[(i // len(MAX_NEW)) % len(LORA_PROMPTS)]
+        requests.append((row[o:o + L].tolist(), MAX_NEW[i % len(MAX_NEW)]))
+        follow.append(row[o + L:o + L + LORA_PERIOD].tolist())
+    return requests, follow
+
+
+def fused_streams(model, requests):
+    """The requests' bf16 streams on the fused lane: ``generate`` one at a
+    time (K1) and a B=8 ``LlamaServer`` (K2)."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    k1, k2 = dsk.fused_decode_token, dsk.fused_decode_token_batched
+    b1, b2 = k1.launches, k2.launches
+    with torch.no_grad():
+        gen = [[int(t[0, 0]) for t in model.generate(
+            np.asarray([p]), len(p) + n, dtype=torch.bfloat16)]
+            for p, n in requests]
+    _, done = serve(model, requests, dtype=torch.bfloat16, **SERVE)
+    if k1.launches == b1 or k2.launches == b2:
+        raise AssertionError("the adapted model did not decode on K1/K2")
+    return gen, [r.tokens for r in done], (k1.launches - b1,
+                                           k2.launches - b2)
+
+
+def scan_references(model, requests, batch=8, **kw):
+    """``generate(fused=False)``'s stream of each request in ``kw``'s
+    format, up to ``batch`` requests of one prompt length decoded
+    together."""
+    out = [None] * len(requests)
+    by_len = {}
+    for i, (p, n) in enumerate(requests):
+        by_len.setdefault(len(p), []).append(i)
+    groups = [(L, idx[j:j + batch]) for L, idx in by_len.items()
+              for j in range(0, len(idx), batch)]
+    with torch.no_grad():
+        for L, idx in groups:
+            total = L + max(requests[i][1] for i in idx)
+            rows = torch.cat(list(model.generate(
+                np.asarray([requests[i][0] for i in idx]), total,
+                fused=False, **kw)), 1)
+            for r, i in enumerate(idx):
+                out[i] = rows[r, :requests[i][1]].tolist()
+    return out
+
+
+def gate_partings(model, requests, refs, streams, label, **kw):
+    """Each stream equal to its reference up to a parting at a near-tie
+    (``parts_at_a_tie``); prints the count equal throughout and the
+    tokens before the partings."""
+    equal, before = 0, 0
+    for (p, _), ref, got in zip(requests, refs, streams):
+        if len(got) != len(ref):
+            raise AssertionError(f"{label}: {len(got)} tokens, want "
+                                 f"{len(ref)}")
+        d, ok = parts_at_a_tie(model, p, ref, got, **kw)
+        if not ok:
+            raise AssertionError(f"{label}: a stream leaves "
+                                 f"generate(fused=False) at confident step "
+                                 f"{d}")
+        equal += d == len(ref)
+        before += d
+    print(f"[chip_smoke] {label}: {equal} of {len(streams)} streams equal "
+          f"to generate(fused=False) throughout, the rest parting at "
+          f"near-ties; {before} of {sum(map(len, refs))} tokens before the "
+          f"partings")
+
+
+def spec_serve(model, requests, **kw):
+    """One speculative server run; returns (server, streams, seconds)."""
+    from pydynet_tpu_torch.models.llama.serve import LlamaServer
+
+    srv = LlamaServer(model, **kw)
+    rids = [srv.submit(p, max_new_tokens=n) for p, n in requests]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    return srv, [done[r].tokens for r in rids], time.perf_counter() - start
+
+
+def check_adapted_serving(model, base, pat, card):
+    """The adapted stories15M in bf16: fused-lane streams (K1, K2)
+    unmerged and merged, unlike the base model's; the speculative server
+    gated against ``generate(fused=False)`` and timed beside the scan-lane
+    and fused servers. Returns {kernel: launches} of the unmerged fused
+    runs."""
+    import copy
+
+    bf16 = torch.bfloat16
+    requests, follow = lora_requests(pat)
+    gen, served, launches = fused_streams(model, requests)
+    base_gen = [[int(t[0, 0]) for t in base.generate(
+        np.asarray([p]), len(p) + n, dtype=bf16)] for p, n in requests[:3]]
+    if base_gen == gen[:3]:
+        raise AssertionError("the adapted model decodes as the base model")
+    merged = copy.deepcopy(model)
+    if merged.merge_lora() != CFG["n_layers"] * len(LORA["targets"]):
+        raise AssertionError("merge_lora merged the wrong count")
+    gen_m, served_m, _ = fused_streams(merged, requests)
+    del merged
+    if gen_m != gen or served_m != served:
+        raise AssertionError("merged and unmerged fused streams differ")
+    repeat = sum(g[:LORA_PERIOD] == f for g, f in zip(gen, follow))
+    print(f"[chip_smoke] adapted model, fused lane bf16: {len(gen)} requests "
+          f"through K1 ({launches[0]} launches) and a B=8 server through K2 "
+          f"({launches[1]} launches), merged streams equal to unmerged bit "
+          f"for bit, unlike the base model's; {repeat} of {len(gen)} K1 "
+          f"streams continue the pattern for a period")
+    spec_serve(model, requests[:2], dtype=bf16, **SPEC_SERVE)  # warm-up
+    srv, spec, _ = spec_serve(model, requests, dtype=bf16, **SPEC_SERVE)
+    refs = scan_references(model, requests, dtype=bf16)
+    label = f"speculative bf16 B={SPEC_SERVE['batch_size']}"
+    gate_partings(model, requests, refs, spec, label, dtype=bf16)
+    if srv.spec_accepted <= 0:
+        raise AssertionError("the speculative server accepted no draft")
+    tokens = sum(map(len, spec))
+    print(f"[chip_smoke] {label}: {tokens} tokens in "
+          f"{srv.spec_iterations} verify iterations of the fleet, "
+          f"{tokens / srv.spec_iterations:.2f} a verify iteration; "
+          f"{srv.spec_accepted} drafts accepted")
+    runs = {"speculative": lambda: spec_serve(model, requests, dtype=bf16,
+                                              **SPEC_SERVE)[2],
+            "fused": lambda: timed_serve(model, requests, dtype=bf16,
+                                         **SERVE),
+            "scan lane": lambda: timed_serve(model, requests, dtype=bf16,
+                                             lane="xla", **SERVE)}
+    rates = {name: [] for name in runs}
+    # in turns; the scan-lane server (about 20 s a run) once, in the middle
+    for name in ("speculative", "fused", "scan lane", "fused",
+                 "speculative"):
+        rates[name].append(tokens / runs[name]())
+    print(f"[chip_smoke] {card}: adapted stories15M bf16, {N_REQUESTS} "
+          f"requests, generated tok/s (in turns: speculative, fused, scan "
+          f"lane, fused, speculative): " + "; ".join(
+              f"{name} {', '.join(f'{r:.1f}' for r in v)}"
+              for name, v in rates.items()))
+    return launches
+
+
+def check_adapted_kernels(model, card):
+    """The kernels of phase 4r's LoRA paths against their plain versions
+    at the shapes those paths give them, then timed there: K1 at
+    POSITIONS and K2 (B = 8, pos 512) on the adapted model's bfloat16
+    fused weights (the adapters folded in), with phase 3's gates; K3/K4 on
+    float32 (1, LORA_L, 6, 48). Returns ({kernel: max error}, {kernel:
+    (ms, plain_ms, bound_ms, bound_by, library_ms)})."""
+    errs, ms = {}, {}
+    with torch.no_grad():
+        for pos in POSITIONS:
+            got, want, confident, err = kernel_vs_plain(model, "bf16", pos)
+            if err > cache_atol("bf16") or (got != want and confident):
+                raise AssertionError(f"adapted bf16 pos {pos}: K1 token {got} "
+                                     f"(plain {want}), cache error {err}")
+            errs["decode_token"] = max(errs.get("decode_token", 0.0), err)
+        got, want, conf, err = batched_vs_plain(model, "bf16", 8, 512)
+        if not cache_ok("bf16", err) or not (got == want)[conf].all():
+            raise AssertionError(f"adapted bf16 K2 B=8: tokens "
+                                 f"{got.tolist()} != plain {want.tolist()}, "
+                                 f"cache error {err}")
+        errs["decode_token_batched"] = err
+        ms["decode_token"] = time_k1(model, "bf16", card, "adapted ") \
+            + (None,)
+        ms["decode_token_batched"] = time_k2(model, "bf16", 8, card,
+                                             "adapted ") + (None,)
+    e = flash_vs_plain(1, LORA_L, torch.float32)
+    for name, keys in zip(FLASH_KERNELS, (("o", "lse"), ("dq",),
+                                          ("dk", "dv"))):
+        errs[name] = max(e[x] for x in keys)
+    ms.update(time_flash(1, LORA_L, card))
+    print(f"[chip_smoke] adapted model's kernels vs plain: max errors "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return errs, ms
+
+
+def timed_serve(model, requests, **kw):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    serve(model, requests, **kw)
+    return time.perf_counter() - start
+
+
+def big_spec_requests(model, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(1, model.vocab_size, BIG_SPEC_PROMPT).tolist(),
+             BIG_SPEC_NEW) for _ in range(BIG_SPEC_REQUESTS)]
+
+
+def implied_qmm_launches(forwards, products):
+    """The launches ``qmm_counters`` should read after scan-lane forwards
+    of (layer rows, head rows) each, ``products`` stacked layer products a
+    forward (``gemv_quant``'s routes by rows: the decode kernel quantizing
+    its rows itself up to FUSED_QUANT_MAX_ROWS, ``quantize_rows`` first
+    above, the prefill kernel above MAX_DECODE_ROWS)."""
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    out = dict.fromkeys(QMM_KERNELS, 0)
+    for layer_rows, head_rows in forwards:
+        for rows, n, name in ((layer_rows, products, "qmatmul_stacked"),
+                              (head_rows, 1, "qmatmul")):
+            out["quantize_rows"] += n * (rows > gq.FUSED_QUANT_MAX_ROWS)
+            prefill = rows > gq.MAX_DECODE_ROWS
+            out["qmatmul_prefill"] += n * prefill
+            if name == "qmatmul_stacked" or not prefill:
+                out[name] += n
+    return out
+
+
+def check_big_speculative(big, card):
+    """The 7B geometry, int8: the speculative server's launches against
+    the implied counts, its streams against ``generate(quant="int8",
+    fused=False)`` by the parting rule, tok/s beside the scan-lane server,
+    tokens a verify iteration, peak memory, one verify chunk's device time
+    by kernel. Returns {kernel: launches}."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from pydynet_tpu_torch.models.llama import serve_spec
+
+    bf16 = torch.bfloat16
+    requests = big_spec_requests(big)
+    spec_serve(big, [(requests[0][0], 4)], dtype=bf16,
+               **dict(BIG_SPEC, chunk=1))  # warm-up
+    waves = []
+    admit = serve_spec.SpecLlamaServer._admit_many
+    serve_spec.SpecLlamaServer._admit_many = \
+        lambda self, prompts, slots: waves.append(len(slots)) or admit(
+            self, prompts, slots)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_qmm_counters()
+        srv, spec, secs = spec_serve(big, requests, dtype=bf16, **BIG_SPEC)
+        launches = qmm_counters()
+    finally:
+        serve_spec.SpecLlamaServer._admit_many = admit
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    iters, accepted = srv.spec_iterations, srv.spec_accepted
+    del srv
+    # the forwards: a verify iteration's B * (K + 1) rows (32), each wave's
+    # k * BIG_SPEC_PROMPT prompt rows, its head on the k last rows; each
+    # forward runs 4 layer products a layer (K7) and the head (K5)
+    forwards = [(BIG_SPEC_ROWS, BIG_SPEC_ROWS)] * iters + [
+        (k * BIG_SPEC_PROMPT, k) for k in waves]
+    want = implied_qmm_launches(forwards, 4 * big.n_layers)
+    print(f"[chip_smoke] 7B int8 speculative B=4: {iters} verify "
+          f"iterations, {len(waves)} admission waves {waves}, launches "
+          f"{launches}")
+    if launches != want:
+        raise AssertionError(f"7B speculative launches {launches}, want "
+                             f"{want}")
+    refs = scan_references(big, requests, batch=4, dtype=bf16,
+                           quant="int8")
+    gate_partings(big, requests, refs, spec, "7B int8 speculative B=4",
+                  dtype=bf16, quant="int8")
+    tokens = sum(map(len, spec))
+    xla = [timed_serve(big, requests, dtype=bf16, quant="int8", lane="xla",
+                       batch_size=4, chunk=16, eos_id=-1)]
+    spec_s = [secs, spec_serve(big, requests, dtype=bf16, **BIG_SPEC)[2]]
+    xla.append(timed_serve(big, requests, dtype=bf16, quant="int8",
+                           lane="xla", batch_size=4, chunk=16, eos_id=-1))
+    print(f"[chip_smoke] {card}: 7B int8 B=4, {len(requests)} requests of "
+          f"{BIG_SPEC_PROMPT}-token prompts, {BIG_SPEC_NEW} new tokens: "
+          f"speculative {', '.join(f'{tokens / s:.1f}' for s in spec_s)} "
+          f"tok/s, scan-lane server {', '.join(f'{tokens / s:.1f}' for s in xla)}"
+          f" tok/s (in turns); {tokens / iters:.2f} tokens a verify "
+          f"iteration of the fleet ({accepted} drafts accepted); peak "
+          f"memory {peak:.1f} GiB")
+    srv = serve_spec.SpecLlamaServer(big, dtype=bf16, **dict(BIG_SPEC,
+                                                              chunk=1))
+    for p, _ in requests[:4]:
+        srv.submit(p, max_new_tokens=BIG_SPEC_NEW)
+    srv._try_admit()
+    win = min(big.max_seq_len, 256)
+    srv._spec_chunk(win)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        srv._spec_chunk(win)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    by_kernel(prof, 1, "7B int8 verify iteration (B=4, K=7, window 256)",
+              top=8)
+    print(f"[chip_smoke] 7B int8 verify iteration: {wall * 1e3:.1f} ms, "
+          f"{len(kernel_events(prof))} kernels, device busy "
+          f"{100 * busy_share(prof, wall) / wall:.1f} %")
+    return launches
+
+
+def check_lora_and_speculative(model, big, card):
+    """Phase 4r (module doc). Returns ({kernel: launches} of its runs, the
+    LoRA paths' {kernel: max error} and {kernel: times})."""
+    check_generator(card)
+    check_dropout_step()
+    adapted, pat, launches = check_lora_training(card)
+    k1, k2 = check_adapted_serving(adapted, model, pat, card)
+    errs, ms = check_adapted_kernels(adapted, card)
+    del adapted
+    launches.update(decode_token=k1, decode_token_batched=k2)
+    launches.update(check_big_speculative(big, card))
+    return launches, errs, ms
+
+
 def first_token_s(model, prompt, **kw):
     """Seconds to the first token of ``generate`` on ``prompt`` (its
     prefill: the total length is the prompt's plus one), synchronised."""
@@ -2675,7 +3234,8 @@ def time_big_dims(model, card):
             wq = W[name + "_xq"]
             ws = W[name + "_xs"]
             K, N = wq.shape[-2] * (2 if q4 else 1), wq.shape[-1]
-            for M in (1, 4, 256):
+            spec = (BIG_SPEC_ROWS, BIG_SPEC_WAVE) if quant == "int8" else ()
+            for M in (1, 4, 256) + spec:
                 x = random_rows(M, K, bf16, M)
                 if stacked:
                     ids = W["layer_ids"]
@@ -2735,14 +3295,16 @@ def time_big_dims(model, card):
         print(f"[chip_smoke] {card}: {quant} weight stream of wgu "
               f"({D}, {2 * model.ffn_dim}), M=1: "
               f"{w_bytes / (kms * 1e-3) / 1e9:.0f} GB/s")
-    x = random_rows(1, D, bf16, 0)
-    q_ms = time_graph(lambda i: gq.quantize_rows(x), 100)
-    q_plain = time_step(lambda: gq.quantize_rows_ref(x), 50)
-    q_bound = bound(nbytes(x) + D + 4, 3 * D, bf16)
-    print(f"[chip_smoke] {card}: quantize_rows (1, {D}) bf16: kernel "
-          f"{q_ms * 1e3:.1f} us, plain {q_plain * 1e3:.1f} us, bound "
-          f"{q_bound[0] * 1e3:.3f} us")
-    out["quantize_rows"] = (q_ms, q_plain) + q_bound
+    for M, key in ((1, "quantize_rows"),
+                   (BIG_SPEC_ROWS, "quantize_rows spec")):
+        x = random_rows(M, D, bf16, 0)
+        q_ms = time_graph(lambda i: gq.quantize_rows(x), 100)
+        q_plain = time_step(lambda: gq.quantize_rows_ref(x), 50)
+        q_bound = bound(nbytes(x) + M * (D + 4), 3 * M * D, bf16)
+        print(f"[chip_smoke] {card}: quantize_rows ({M}, {D}) bf16: kernel "
+              f"{q_ms * 1e3:.1f} us, plain {q_plain * 1e3:.1f} us, bound "
+              f"{q_bound[0] * 1e3:.3f} us")
+        out[key] = (q_ms, q_plain) + q_bound
     return out
 
 
@@ -3076,21 +3638,16 @@ def time_nn_training(card):
                   f"kernel {kernel * 1e3:.2f} us on the device, bound "
                   f"{bn_bound(xb)[0] * 1e3:.3f} us, F.batch_norm "
                   f"{library * 1e3:.2f} us")
-    step = dbn_step_runner()
-    for _ in range(3):  # warm-up
-        step()
-    rates = []
-    for _ in range(REPEATS):
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        for _ in range(50):
-            step()
-        torch.cuda.synchronize()
-        rates.append(50 / (time.perf_counter() - start))
+    from kernel_times import dbn_times
+
+    dbn = dbn_times(dbn_step_runner(), REPEATS)
     print(f"[chip_smoke] {card}: dropout_bn train step (three nets, batch "
-          f"40) steps/s of {REPEATS} runs of 50: "
-          f"{', '.join(f'{r:.1f}' for r in rates)}; median "
-          f"{float(np.median(rates)):.1f}")
+          f"40, the dropout masks from the threefry Generator): "
+          f"{dbn['dropout_bn kernels a step']:.0f} kernels a step, steps/s "
+          f"of {REPEATS} runs of 50: median "
+          f"{dbn['dropout_bn steps/s median']:.1f}, least "
+          f"{dbn['dropout_bn steps/s least']:.1f}, most "
+          f"{dbn['dropout_bn steps/s most']:.1f}")
     epoch = mnist_runner()
     epoch()  # warm-up
     times = []
@@ -3923,6 +4480,13 @@ def main() -> int:
     check_beam_and_speculative(model, card)
     phase("4p int8 KV, prefix cache, beam and speculative", t0)
 
+    # 4r. the threefry Generator and dropout, a LoRA fine-tune served on the
+    # fused lane and speculatively, and the 7B speculative server
+    t0 = time.perf_counter()
+    lora_launches, lora_err, lora_ms = check_lora_and_speculative(model, big,
+                                                                  card)
+    phase("4r LoRA fine-tune and speculative serving", t0)
+
     # 4e. the nn-stack trainers: dropout_bn through K8, the MNIST ConvNet
     t0 = time.perf_counter()
     bn_launches = check_nn_training()
@@ -3933,41 +4497,11 @@ def main() -> int:
     ms = {}
     with torch.no_grad():
         for fmt in ("bf16", "bf16-int8head", "bf16-int8", "bf16-int4"):
-            dtype, quant = FORMATS[fmt]
-            w = model._fused_weights(dtype, quant)
-            ck, cv = random_caches(model, dtype, 1)
-            args, kw = step_args(model, w, ck, cv, 512, 1234)
-            plain = time_step(lambda: dsk.fused_decode_token_ref(*args, **kw),
-                              20)
-            kernel = time_step(lambda: dsk.fused_decode_token(*args, **kw),
-                               200)
-            plain2 = time_step(lambda: dsk.fused_decode_token_ref(*args, **kw),
-                               20)
-            kernel2 = time_step(lambda: dsk.fused_decode_token(*args, **kw),
-                                200)
-            ms[fmt] = (min(kernel, kernel2), min(plain, plain2)) \
-                + decode_step_bound(w, ck, 512, 1)
-            print(f"[chip_smoke] {card}: {fmt} step at pos 512: kernel "
-                  f"{ms[fmt][0] * 1e3:.1f} us, plain {ms[fmt][1] * 1e3:.1f} "
-                  f"us, bound {ms[fmt][2] * 1e3:.1f} us ({ms[fmt][3]})")
+            ms[fmt] = time_k1(model, fmt, card)
         for fmt in K2_TIMED:
-            w = model._fused_weights(*fmt_of(fmt))
             for batch in (8, 32):
-                ck, cv = batched_caches(model, fmt, 1, batch)
-                args, kw = batched_args(model, w, ck, cv, 512,
-                                        range(100, 100 + batch))
-                kern = lambda: dsk.fused_decode_token_batched(*args, **kw)
-                ref = lambda: dsk.fused_decode_token_batched_ref(*args, **kw)
-                plain, kernel = time_step(ref, 3), time_step(kern, 200)
-                plain2, kernel2 = time_step(ref, 3), time_step(kern, 200)
                 key = "K2 B=%d" % batch + ("" if fmt == "bf16" else " " + fmt)
-                ms[key] = (min(kernel, kernel2), min(plain, plain2)) \
-                    + decode_step_bound(w, ck, 512, batch)
-                print(f"[chip_smoke] {card}: K2 {fmt} B={batch} step at pos "
-                      f"512: kernel {ms[key][0] * 1e3:.1f} us, plain "
-                      f"{ms[key][1] * 1e3:.1f} us, bound "
-                      f"{ms[key][2] * 1e3:.1f} us ({ms[key][3]})")
-                del ck, cv
+                ms[key] = time_k2(model, fmt, batch, card)
         ms.update(time_head_and_step(model, card))
         emit_ms = time_sampling(model, card)
         ms.update(time_gqa_and_wide(model, gqa, model64, card))
@@ -4042,6 +4576,11 @@ def main() -> int:
     print(f"[chip_smoke] all phases: {time.perf_counter() - t_start:.1f} s")
     gq_file = "pydynet_tpu/ops/gemv_quant.py"
     wgu1, wgu256 = big_ms["int8", "wgu", 1], big_ms["int8", "wgu", 256]
+    # phase 4r's 7B speculative server: a verify's layer products and head
+    # at BIG_SPEC_ROWS, an admission wave's layer products at BIG_SPEC_WAVE
+    wgu_spec = big_ms["int8", "wgu", BIG_SPEC_ROWS]
+    head_spec = big_ms["int8", "head", BIG_SPEC_ROWS]
+    wgu_wave = big_ms["int8", "wgu", BIG_SPEC_WAVE]
     print(json.dumps({"kernels": [
         entry("decode_token", "decode_token.cu",
               "pydynet_tpu/ops/decode_step.py:160", main_launches,
@@ -4112,7 +4651,32 @@ def main() -> int:
               prefill_ms),
         entry("batch_norm_train", "batchnorm.cu",
               "pydynet_tpu/ops/batchnorm.py:28", bn_launches, bn_err,
-              bn_ms[40, 512])]}))
+              bn_ms[40, 512]),
+        entry("decode_token[lora]", "decode_token.cu",
+              "pydynet_tpu/ops/decode_step.py:160",
+              lora_launches["decode_token"], lora_err["decode_token"],
+              lora_ms["decode_token"]),
+        entry("decode_token_batched[lora]", "decode_token_batched.cu",
+              "pydynet_tpu/ops/decode_step.py:509",
+              lora_launches["decode_token_batched"],
+              lora_err["decode_token_batched"],
+              lora_ms["decode_token_batched"])] + [
+        entry(f"{name}[lora]", "flash_attention.cu",
+              f"pydynet_tpu/ops/flash_attention.py:{line}",
+              lora_launches[name], lora_err[name], lora_ms[name])
+        for name, line in zip(FLASH_KERNELS, (82, 192, 259))] + [
+        entry("qmatmul_stacked[spec-7b]", "gemv_quant.cu", f"{gq_file}:416",
+              lora_launches["qmatmul_stacked"], qmm_err["qmatmul_stacked"],
+              (wgu_spec[1],) + wgu_spec[2:]),
+        entry("qmatmul[spec-7b]", "gemv_quant.cu", f"{gq_file}:172",
+              lora_launches["qmatmul"], qmm_err["qmatmul"],
+              (head_spec[0],) + head_spec[2:]),
+        entry("qmatmul_prefill[spec-7b]", "gemv_quant.cu", f"{gq_file}:136",
+              lora_launches["qmatmul_prefill"], qmm_err["qmatmul_prefill"],
+              (wgu_wave[1],) + wgu_wave[2:]),
+        entry("quantize_rows[spec-7b]", "gemv_quant.cu", f"{gq_file}:309",
+              lora_launches["quantize_rows"], qmm_err["quantize_rows"],
+              big_ms["quantize_rows spec"] + (None,))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -53,7 +53,9 @@ limit in one JSON line of microseconds:
 * K8 (``batch_norm_train``) at ``chip_smoke.BN_TIME_SHAPES`` in f32 and
   bf16 (gamma and beta f32): a call by CUDA-graph replay of 20 calls,
   beside ``F.batch_norm(training=True)`` timed the same way and the byte
-  bound (x read once, out written once).
+  bound (x read once, out written once);
+* the dropout_bn train step (``dbn``): steps/s of 5 runs of 50 steps and
+  the kernels a step (the dropout masks' draws among them).
 
 With ``--request``, also a Llama-2-7B-geometry model (32 layers, bf16,
 seeded random weights) on the scan lane: the B=1 request of 64 tokens from
@@ -152,13 +154,14 @@ def request_times() -> dict:
     return out
 
 
-GROUPS = ("k6", "flash", "qmm", "decode", "k9", "k10", "k8")  # --only's
+GROUPS = ("k6", "flash", "qmm", "decode", "k9", "k10", "k8",
+          "dbn")  # --only's
 
 
 def measure(tree: Path, request: bool = False, only=GROUPS) -> dict:
     """The kernels of the checkout at ``tree``, timed on the card: the
     groups in ``only`` (K6; K3/K4; K5/K7; K1/K2 and the head's yardsticks;
-    K9; K10; K8)."""
+    K9; K10; K8; the dropout_bn step)."""
     sys.path.insert(0, str(tree))
     import torch
     import torch.nn.functional as F
@@ -199,7 +202,8 @@ def measure(tree: Path, request: bool = False, only=GROUPS) -> dict:
             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dd))
         out[f"K4 dk/dv f32 ({B}, 1024, 6, 48)"] = events_us(
             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd))
-    for group, times in (("k8", bn_times), ("qmm", qmm_times),
+    for group, times in (("k8", bn_times), ("dbn", dbn_times),
+                         ("qmm", qmm_times),
                          ("decode", decode_times), ("k9", head_times),
                          ("k10", step_times)):
         if group in only:
@@ -429,6 +433,43 @@ def bn_times() -> dict:
                 out[key + " bound"] = (2 * x.numel() * x.element_size()
                                        + 16 * C) / HBM_BYTES_S * 1e6
     return out
+
+
+def dbn_times(step=None, runs: int = 5) -> dict:
+    """The dropout_bn train step of the three nets (``step``, by default
+    ``chip_smoke.dbn_step_runner()`` of the checkout measured): steps/s of
+    ``runs`` runs of 50 steps (median, least, most) and the kernels a step
+    by ``torch.profiler`` over 10 steps. ``chip_smoke.py``'s phase 5 times
+    the step with this function too."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if step is None:
+        from chip_smoke import dbn_step_runner
+        step = dbn_step_runner()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    rates = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(50):
+            step()
+        torch.cuda.synchronize()
+        rates.append(50 / (time.perf_counter() - start))
+    rates.sort()
+    return {"dropout_bn steps/s median": rates[len(rates) // 2],
+            "dropout_bn steps/s least": rates[0],
+            "dropout_bn steps/s most": rates[-1],
+            "dropout_bn kernels a step": kernels / 10}
 
 
 def compare(other: Path, request: bool = False, only=GROUPS) -> None:

@@ -5,15 +5,20 @@
         --text "Once upon a time" --trainable tok_embedding,layers,norm,lm_head
     python -m pydynet_tpu_torch.models.llama.finetune --weights stories15M.npz \\
         --tokenizer tokenizer.model.np --text "..." --steps 30 --lr 1e-4
+    python -m pydynet_tpu_torch.models.llama.finetune --random-init \\
+        --text "..." --lora 8 --lora-targets Q,K,V,O --lora-dropout 0.05
 
 Full-parameter or prefix-frozen fine-tuning with Adam on one shifted
-(input, target) pair of the text, in float32. ``--device cuda`` (the
+(input, target) pair of the text, in float32; or, with ``--lora R``, rank-R
+LoRA adapters on the Linears named by ``--lora-targets`` (``Llama.add_lora``,
+every other parameter frozen; ``--trainable`` is then ignored), their
+dropout drawn from the JAX package's threefry stream. ``--device cuda`` (the
 default) needs a GPU and raises without one; there attention runs through
 the flash-attention kernels. ``--device cpu`` runs their plain versions.
 Without a checkpoint the stories15M configuration is built with random
 weights from ``--seed``. Prints the loss at step 1, every 5th step and the
-last, then saves the trainable parameters (JAX package layout, so the file
-loads into both packages).
+last, then saves the trainable parameters, a LoRA run's adapters only (JAX
+package layout, so the file loads into both packages).
 """
 from __future__ import annotations
 
@@ -28,7 +33,6 @@ from ...device import resolve
 from ...optim import Adam
 from .infer import build_model
 from .io import save_finetuned_parameters
-from .model import not_ported
 from .tokenizer import Tokenizer
 
 
@@ -54,7 +58,13 @@ def main(argv=None) -> list:
     parser.add_argument("--trainable", type=str, default="lm_head",
                         help="Comma-separated parameter name prefixes")
     parser.add_argument("--lora", type=int, default=0, metavar="R",
-                        help="rank-R LoRA adapters (not ported yet)")
+                        help="Train rank-R LoRA adapters instead of full "
+                        "matrices (overrides --trainable)")
+    parser.add_argument("--lora-alpha", type=float, default=16.0)
+    parser.add_argument("--lora-targets", type=str, default="Q,V",
+                        help="Comma-separated Linear attribute names to "
+                        "adapt (Q,K,V,O,gate,up,down,lm_head)")
+    parser.add_argument("--lora-dropout", type=float, default=0.0)
     parser.add_argument("--save", type=str,
                         default="llm/llama/data/finetuned_params.npz")
     parser.add_argument("--weights", type=str,
@@ -70,15 +80,21 @@ def main(argv=None) -> list:
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random weights")
     args = parser.parse_args(argv)
-    if args.lora > 0:
-        not_ported("LoRA fine-tuning (--lora)", "Training stack")
 
     device = resolve(args.device)
     tokenizer = Tokenizer(args.tokenizer)
     model = build_model(args, device)
-    prefixes = tuple(p.strip() for p in args.trainable.split(",")
-                     if p.strip())
-    trainable_count, frozen_count = model.set_trainable_parameters(prefixes)
+    if args.lora > 0:
+        targets = tuple(t.strip() for t in args.lora_targets.split(",")
+                        if t.strip())
+        trainable_count, frozen_count = model.add_lora(
+            r=args.lora, alpha=args.lora_alpha, targets=targets,
+            dropout=args.lora_dropout)
+    else:
+        prefixes = tuple(p.strip() for p in args.trainable.split(",")
+                         if p.strip())
+        trainable_count, frozen_count = model.set_trainable_parameters(
+            prefixes)
     print(f"Trainable params: {trainable_count}, Frozen params: "
           f"{frozen_count}")
 

@@ -37,6 +37,14 @@ are torch's (out, in). Four ways through the model:
   decodes on the kernels' narrow cache, (N, [B,] S, Hkv * hd), or with
   int8/int4 layers on the expanded (MHA) layout, as in the JAX package.
 
+LoRA adapters (``add_lora``, ``nn/modules/lora.py``) run in the module
+path's forward as a low-rank term; every decode snapshot (``_weights``,
+``_weights_xq``, and the fused lane's, built on ``_weights``) folds each
+unmerged adapter's ``A B * scaling`` into its weight, the array
+``merge_lora`` stores, so every lane decodes alike before and after a
+merge. ``forward_logits_one``'s per-row positions serve the speculative
+server (``serve_spec.py``).
+
 ``fused=None`` routes: the fused lane wherever the port's fused kernels
 take the model, weight format and batch; else the scan lane where the JAX
 package's rule (``_tpu_fused_supported``, its ``_fused_decode_supported``)
@@ -598,6 +606,40 @@ class Llama(nn.Module):
             frozen += not on
         return trainable, frozen
 
+    def add_lora(self, r: int = 8, alpha: float = 16.0, targets=("Q", "V"),
+                 dropout: float = 0.0):
+        """Attach rank-``r`` LoRA adapters (``nn/modules/lora.py``) to every
+        Linear whose attribute name is in ``targets`` (``Q``, ``K``, ``V``,
+        ``O``, ``gate``, ``up``, ``down``, ``lm_head``) and freeze every
+        other parameter. Returns ``(trainable, frozen)`` as
+        :meth:`set_trainable_parameters` counts them. Every decode snapshot
+        folds the unmerged adapters into its weights (:meth:`_weights`), and
+        fine-tune steps drop the snapshots, so decoding sees the adapters at
+        once."""
+        from ...nn.modules.lora import apply_lora
+        if not apply_lora(self, r=r, alpha=alpha, targets=targets,
+                          dropout=dropout, freeze=True):
+            raise ValueError(f"no Linear matched targets={targets!r}")
+        self._weights_cache.clear()
+        flags = [p.requires_grad for p in self.parameters()]
+        return sum(flags), len(flags) - sum(flags)
+
+    def merge_lora(self) -> int:
+        """Fold every adapter into its base weight (plain Linears again);
+        returns the number merged. Decoding is bit-identical before and
+        after: both compute the same ``W + A B * scaling`` array."""
+        from ...nn.modules.lora import merge_lora
+        merged = merge_lora(self)
+        self._weights_cache.clear()
+        return merged
+
+    def _lora_deltas(self) -> dict:
+        """Dotted weight name -> its unmerged adapter (empty without
+        adapters)."""
+        from ...nn.modules.lora import LoRALinear
+        return {path + ".weight": m for path, m in self.named_modules()
+                if isinstance(m, LoRALinear)}
+
     def _train_step(self, inp, tgt, optimizer, criterion, start_pos,
                     clip_norm):
         """Forward, loss, backward, optional clipping and the optimizer step
@@ -653,6 +695,25 @@ class Llama(nn.Module):
         return losses
 
     # ------------------------------ scan lane -------------------------------
+    def _snapshot_reader(self, dtype):
+        """``g(name)``: the named parameter or RoPE table as a decode
+        snapshot reads it, cast to ``dtype`` when given. An unmerged
+        adapter's update is added to its weight before the cast (the JAX
+        package's ``model.py:610-616``), the same array ``merge_lora``
+        stores, so every snapshot decodes alike before and after a merge."""
+        P = dict(self.named_parameters())
+        P.update(freqs_cos=self.freqs_cos, freqs_sin=self.freqs_sin)
+        lora = self._lora_deltas()
+
+        def g(name):
+            a = P[name].detach()
+            mod = lora.get(name)
+            if mod is not None:
+                a = a + mod.delta().to(a.dtype)
+            return a.to(dtype) if dtype else a
+
+        return g
+
     def _weights(self, dtype=None):
         """Layer-stacked decode weights in torch's (out, in) layout, cast to
         ``dtype`` when given: q/k/v and gate/up are concatenated into one
@@ -660,12 +721,7 @@ class Llama(nn.Module):
         key = (dtype, "dense", None)
         if key in self._weights_cache:
             return self._weights_cache[key]
-        P = dict(self.named_parameters())
-        P.update(freqs_cos=self.freqs_cos, freqs_sin=self.freqs_sin)
-
-        def g(name):
-            a = P[name].detach()
-            return a.to(dtype) if dtype else a
+        g = self._snapshot_reader(dtype)
 
         def stack(fmt):
             return torch.stack([g(fmt.format(i))
@@ -706,13 +762,7 @@ class Llama(nn.Module):
         key = (dtype, "xq", quant)
         if key in self._weights_cache:
             return self._weights_cache[key]
-        P = dict(self.named_parameters())
-        P.update(freqs_cos=self.freqs_cos, freqs_sin=self.freqs_sin)
-
-        def g(name):
-            a = P[name].detach()
-            return a.to(dtype) if dtype else a
-
+        g = self._snapshot_reader(dtype)
         q4 = quant == "int4"
         qfn = quantize_int4 if q4 else quantize_int8
         if quant == "int8-head":
@@ -763,9 +813,10 @@ class Llama(nn.Module):
         return (torch.zeros(shape, dtype=dtype, device=self.device),
                 torch.zeros(shape, dtype=dtype, device=self.device))
 
-    def forward_logits_one(self, weights, ck, cv, tokens, pos: int,
+    def forward_logits_one(self, weights, ck, cv, tokens, pos,
                            last_idx: int = None, starts=None, flash=False,
-                           all_positions: bool = False):
+                           all_positions: bool = False, win: int = None,
+                           slots=None):
         """Dense forward of ``tokens`` (B, L) at absolute position ``pos``
         over caches (N, B, S, Hkv, hd), which are written in place at rows
         [pos, pos + L) (clamped into the cache, as the JAX package's
@@ -793,8 +844,25 @@ class Llama(nn.Module):
         tokens' K/V, unquantized, a grouped-query model's repeated to every
         query head, as the JAX package's ``model.py:842-851``: no (L, L)
         scores or mask are built. The caches are written as on the dense
-        route. On CPU tensors K3's wrapper runs its plain version."""
+        route. On CPU tensors K3's wrapper runs its plain version.
+
+        Per-row positions (the speculative server's, the JAX package's
+        ``fwd_rows``, ``serve_spec.py:77-155``): ``pos`` a (B,) int tensor on
+        the device. Row b's tokens sit at positions [pos[b], pos[b] + L):
+        their RoPE angles are gathered a row at a time, their K/V rows are
+        scattered into cache slot ``slots[b]`` (b when ``slots`` is None,
+        a (B,) long tensor otherwise) at those rows, and each query attends
+        the rows [0, its position] of its own slot in a window of the first
+        ``win`` rows. Rows from ``max_seq_len`` on (a slot without headroom,
+        whose tokens the caller discards) land in the caches' spare rows
+        past ``max_seq_len``, which no window reads: the JAX package drops
+        them. Nothing is read back to the host. Float caches only."""
         B, L = tokens.shape
+        per_row = isinstance(pos, torch.Tensor)
+        if per_row and (flash or starts is not None or isinstance(ck, tuple)
+                        or last_idx is not None or win is None):
+            raise ValueError("per-row positions take float caches and a "
+                             "window, with no flash, starts or last_idx")
         if flash and (starts is not None or pos != 0):
             raise ValueError("flash prefill is pure-causal from position 0: "
                              "it cannot honor per-row starts masks or a "
@@ -816,22 +884,43 @@ class Llama(nn.Module):
             return y.reshape(x.shape[:-1] + y.shape[-1:]).to(x.dtype)
 
         def window(c, i):  # layer i's cache rows [0, end)
+            if per_row:
+                return c[i, :, :end] if slots is None else c[i, slots, :end]
             if not kvq:
                 return c[i, :, :end]
             return (c[0][i, :, :end].float()
                     * c[1][i, :, :end, :, None]).to(h.dtype)
 
+        def write(c, i, x):  # layer i's new K or V rows
+            if per_row:
+                c[i, slot_ids, rows] = x
+            elif kvq:
+                c[0][i, :, start:start + L], c[1][i, :, start:start + L] \
+                    = dsk.quantize_kv(x)
+            else:
+                c[i, :, start:start + L] = x
+
         h = W["tok"][tokens]
-        start = min(pos, S - L)  # the write slice stays inside the cache
-        end = min(S, pos + L)
-        cos, sin = W["cos"][start:start + L], W["sin"][start:start + L]
+        if per_row:  # (B, L) positions; angles of rows past S: clamped
+            rows = pos.long()[:, None] + torch.arange(L, device=h.device)
+            slot_ids = (torch.arange(B, device=h.device) if slots is None
+                        else slots)[:, None]
+            end = min(win, S)
+            qpos = rows[:, :, None]                              # (B, L, 1)
+            cos, sin = (W[t][rows.clamp(max=S - 1)] for t in ("cos", "sin"))
+        else:
+            start = min(pos, S - L)  # the write slice stays in the cache
+            end = min(S, pos + L)
+            qpos = pos + torch.arange(L, device=h.device)[:, None]  # (L, 1)
+            cos, sin = W["cos"][start:start + L], W["sin"][start:start + L]
         if not flash:
-            qpos = pos + torch.arange(L, device=h.device)[:, None]
             cols = torch.arange(end, device=h.device)
-            allowed = cols[None, :] <= qpos                     # (L, end)
+            allowed = cols <= qpos                  # (L, end) or (B, L, end)
             if starts is not None:  # (B, 1, L, end): broadcast over heads
                 allowed = (allowed[None]
                            & (cols >= starts[:, None, None]))[:, None]
+            elif per_row:
+                allowed = allowed[:, None]
             mask = torch.zeros(allowed.shape, device=h.device).masked_fill(
                 ~allowed, float("-inf"))
         scale = 1.0 / math.sqrt(hd)
@@ -843,13 +932,8 @@ class Llama(nn.Module):
             v = qkv[..., D + Dkv:].reshape(B, L, Hkv, hd)
             q = _rope_pure(q, cos.to(q.dtype), sin.to(q.dtype))
             k = _rope_pure(k, cos.to(k.dtype), sin.to(k.dtype))
-            if kvq:
-                for c, x in ((ck, k), (cv, v)):
-                    c[0][i, :, start:start + L], c[1][i, :, start:start + L] \
-                        = dsk.quantize_kv(x)
-            else:
-                ck[i, :, start:start + L] = k
-                cv[i, :, start:start + L] = v
+            write(ck, i, k)
+            write(cv, i, v)
             if flash:
                 kf, vf = ((x.repeat_interleave(g, dim=2) if g != 1 else x)
                           for x in (k, v))

@@ -78,8 +78,9 @@ re-admitted, the shared position rewinds or the weights change.
 ``prefix_hits`` and ``prefix_rows_reused`` count the reuse admissions and
 the prefill rows they skipped.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md item):
-speculative serving.
+``LlamaServer(model, speculative=K)`` builds the speculative server of
+``serve_spec.py`` instead (routed on the keyword, as in the JAX package):
+per-slot positions, greedy, on the scan lane's forward.
 """
 from __future__ import annotations
 
@@ -93,7 +94,7 @@ import torch
 from ... import random as prandom
 from ...ops import decode_step as dsk
 from .model import (_rope_pure, bucket_prompt, check_kv_quant,
-                    flash_prefill_mode, not_ported, sample_logits_per_row)
+                    flash_prefill_mode, sample_logits_per_row)
 
 # seeded requests derive their keys from this fixed key, not the server's,
 # so a (prompt, parameters, seed) triple gives the same stream on any server
@@ -342,12 +343,21 @@ class LlamaServer(_FleetScheduler):
     (``flash_prefill_mode``). ``chunk`` is
     the number of decode steps a dispatch runs: a finished request's slot
     is recycled at the next chunk boundary, one chunk late under ``run``'s
-    pipeline. The constructor keeps the JAX package's keyword names; the
-    options not ported yet raise ``NotImplementedError`` naming their
-    ROADMAP.md item. ``dispatched_steps`` counts the decode steps
-    dispatched so far, clamped filler steps included, and
-    ``sampled_steps`` those of them in sampled chunks.
+    pipeline. The constructor keeps the JAX package's keyword names;
+    ``speculative=K`` builds a ``serve_spec.SpecLlamaServer`` instead.
+    ``dispatched_steps`` counts the decode steps dispatched so far, clamped
+    filler steps included, and ``sampled_steps`` those of them in sampled
+    chunks.
     """
+
+    def __new__(cls, *args, **kwargs):
+        # the speculative engine is a different fleet protocol (per-slot
+        # positions) on the same scheduler base; Python skips this class's
+        # __init__ on the instance it returns
+        if cls is LlamaServer and kwargs.get("speculative"):
+            from .serve_spec import SpecLlamaServer
+            return SpecLlamaServer(*args, **kwargs)
+        return super().__new__(cls)
 
     def __init__(self, model, batch_size: int = 8, dtype=None,
                  chunk: int = 128, eos_id: int = 2, temperature: float = 0.0,
@@ -355,8 +365,6 @@ class LlamaServer(_FleetScheduler):
                  kv_quant=None, quant=None, lane: str = None,
                  prefix_cache: bool = False, flash_prefill=None,
                  speculative=None):
-        if speculative:
-            not_ported("speculative serving", "Sampling")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
         if lane not in (None, "fused", "xla"):

@@ -28,26 +28,36 @@ from ... import random as prandom
 from .model import Sampler, bucket_prompt, filter_logits
 
 
-def lookup_draft(seq, n: int, K: int, g: int):
-    """The K tokens that followed the most recent strictly-earlier
-    occurrence of the trailing g-gram ``seq[n - g:n]`` in the (S,) token
-    buffer ``seq`` (the JAX package's ``lookup_draft``): the gram's start
-    clamped into the buffer and the draft's start clipped to [0, S - K], as
-    ``dynamic_slice`` clamps them. Without an earlier occurrence the draft is
-    the window at [0, K) or wherever the clip puts it: verification rejects
-    a bad draft, so it changes only the speed. Returns (K,) tokens on
-    ``seq``'s device."""
-    S = seq.shape[0]
+def lookup_draft_rows(seq, n, K: int, g: int):
+    """For every row of a (B, S) token buffer at its own position ``n``
+    (B,) on the device, the K tokens that followed the most recent
+    strictly-earlier occurrence of the row's trailing g-gram
+    ``seq[b, n - g:n]`` (the JAX package's ``lookup_draft``, vmapped as its
+    speculative server does): the gram's start clamped into the buffer and
+    the draft's start clipped to [0, S - K], as ``dynamic_slice`` clamps
+    them. Without an earlier occurrence the draft is the window at [0, K)
+    or wherever the clip puts it: verification rejects a bad draft, so it
+    changes only the speed. Returns (B, K) drafts, computed with no read
+    back to the host."""
+    B, S = seq.shape
     dev = seq.device
-    g0 = min(max(n - g, 0), S - g)
-    gram = seq[g0:g0 + g]
+    n = n.long()[:, None]
+    g0 = torch.clamp(n - g, 0, S - g)
+    gram = seq.gather(1, g0 + torch.arange(g, device=dev))          # (B, g)
     pidx = torch.arange(S, device=dev)
-    # wins[p, i] = seq[(p + i) % S], jnp.roll's windows
-    wins = seq[(pidx[:, None] + torch.arange(g, device=dev)[None]) % S]
-    match = (wins == gram[None]).all(1) & (pidx <= n - g - 1)
-    pstar = torch.where(match, pidx, -1).max()
+    # wins[b, p, i] = seq[b, (p + i) % S], jnp.roll's windows
+    wins = seq[:, (pidx[:, None] + torch.arange(g, device=dev)) % S]
+    match = (wins == gram[:, None]).all(-1) & (pidx <= n - g - 1)  # (B, S)
+    pstar = torch.where(match, pidx, -1).amax(1, keepdim=True)
     dstart = torch.clamp(pstar + g, 0, S - K)
-    return seq[dstart + torch.arange(K, device=dev)]
+    return seq.gather(1, dstart + torch.arange(K, device=dev))
+
+
+def lookup_draft(seq, n: int, K: int, g: int):
+    """:func:`lookup_draft_rows` for one (S,) buffer at a host position
+    ``n``: (K,) tokens on ``seq``'s device."""
+    return lookup_draft_rows(seq[None], torch.full((1,), n, device=seq.device),
+                             K, g)[0]
 
 
 def spec_accept_extra(logits, draft, key, temperature, top_k=None,

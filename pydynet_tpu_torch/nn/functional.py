@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as tF
 
 from ..ops import flash_attention as fa
-from ..random import default_generator
+from .. import random as prandom
 
 
 def linear(x, weight, bias=None):
@@ -86,15 +86,20 @@ def gelu(x):
 
 
 def dropout(x, p: float, training: bool = True, generator=None):
-    """Inverted dropout: each element kept with probability 1 - p and scaled
-    by 1 / (1 - p). The uniform draws come from ``generator``, or the
-    default generator of x's device (``random.default_generator``)."""
+    """Inverted dropout, the JAX package's rule: ``keep = uniform(x.shape,
+    x.dtype) < 1 - p`` from one split of ``generator``'s key (a
+    ``random.Generator``, ``random.default_generator`` when not given), the
+    draw on x's device, then ``x * (keep / (1 - p))``. The mask is the JAX
+    package's bit for bit when the draws come in the same order."""
     if not training or p <= 0:
         return x
-    gen = generator or default_generator(x.device)
-    keep = torch.rand(x.shape, generator=gen, device=x.device,
-                      dtype=x.dtype) < (1 - p)
-    return x * (keep.to(x.dtype) / (1 - p))
+    gen = generator or prandom.default_generator
+    keep = gen.uniform(x.shape, dtype=x.dtype, device=x.device) < (1 - p)
+    # a tensor divisor: a true division, as jnp's (a Python scalar divisor
+    # is a product with its reciprocal on a GPU); filled on the device, no
+    # copy from the host
+    scale = torch.full((), 1 - p, dtype=x.dtype, device=x.device)
+    return x * (keep.to(x.dtype) / scale)
 
 
 def _dims(x, axis):

@@ -1,9 +1,9 @@
 """Weight initializers, with the formulas of ``pydynet_tpu/nn/init.py``.
 
-Draws are made in float32 on the CPU from the CPU's default generator of
-``pydynet_tpu_torch.random`` (seeded by ``manual_seed``) and copied into the
-tensor, whatever its device and type, so one seed gives the same weights on
-every device. They are not the JAX package's NumPy draws: weights cross
+Draws are made in float32 on the CPU from the CPU's ``torch.Generator`` of
+``pydynet_tpu_torch.random`` (``torch_generator``, seeded by
+``manual_seed``) and copied into the tensor, whatever its device and type,
+so one seed gives the same weights on every device. They are not the JAX package's NumPy draws: weights cross
 between the packages through ``utils/checkpoint.py``.
 """
 from __future__ import annotations
@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from ..random import default_generator
+from ..random import torch_generator
 
 
 def calculate_gain(nonlinearity: str, param: float = None) -> float:
@@ -47,12 +47,12 @@ def _assign(tensor: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
 
 def uniform_(tensor, a: float = 0., b: float = 1.):
     return _assign(tensor, torch.empty(tensor.shape).uniform_(
-        a, b, generator=default_generator()))
+        a, b, generator=torch_generator()))
 
 
 def normal_(tensor, mean: float = 0., std: float = 1.):
     return _assign(tensor, torch.empty(tensor.shape).normal_(
-        mean, std, generator=default_generator()))
+        mean, std, generator=torch_generator()))
 
 
 def constant_(tensor, val: float):

@@ -6,6 +6,7 @@ from .conv import Conv1d, Conv2d
 from .dropout import Dropout
 from .linear import Embedding, Linear
 from .loss import CrossEntropyLoss, Loss, MSELoss, NLLLoss
+from .lora import LoRALinear, apply_lora, merge_lora
 from .norm import BatchNorm1d, BatchNorm2d, LayerNorm, RMSNorm, rms_norm
 from .pool import AvgPool1d, AvgPool2d, MaxPool1d, MaxPool2d
 
@@ -16,5 +17,6 @@ __all__ = [
     "MaxPool1d", "MaxPool2d", "AvgPool1d", "AvgPool2d",
     "Dropout",
     "Linear", "Embedding",
+    "LoRALinear", "apply_lora", "merge_lora",
     "MSELoss", "NLLLoss", "CrossEntropyLoss", "Loss",
 ]

@@ -1,5 +1,7 @@
 """Inverted dropout (counterpart of ``pydynet_tpu/nn/modules/dropout.py``):
-:func:`nn.functional.dropout` in train mode, the identity in eval mode."""
+:func:`nn.functional.dropout` in train mode, its mask from one split of
+``random.default_generator`` (the JAX package's threefry stream), the
+identity in eval mode."""
 from __future__ import annotations
 
 from torch import nn

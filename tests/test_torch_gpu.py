@@ -1298,3 +1298,83 @@ def test_quantized_layer_products_are_the_plain_bits(model, quant):
         dsk.decode_token_logits_ref(*args[:-2], rck, rcv, **kw)
         assert torch.equal(ck[0, 0], rck[0, 0])
         assert torch.equal(cv[0, 0], rcv[0, 0])
+
+
+def test_generator_on_the_card_equals_the_cpu(model):
+    """The threefry ``Generator``'s split keys, ``uniform`` in every type
+    and ``bernoulli`` on the card, and a dropout mask drawn there, equal
+    the CPU's bit for bit."""
+    from pydynet_tpu_torch.nn import functional as F
+    from pydynet_tpu_torch.random import Generator
+
+    for dtype in (torch.float32, torch.bfloat16, torch.float16,
+                  torch.float64):
+        a, b = Generator(5), Generator(5)
+        assert torch.equal(a.uniform((4097,), dtype=dtype, device="cuda")
+                           .cpu(), b.uniform((4097,), dtype=dtype))
+        assert torch.equal(a.bernoulli(0.3, (999,), device="cuda").cpu(),
+                           b.bernoulli(0.3, (999,)))
+        assert torch.equal(a.state.cpu(), b.state)
+    x = torch.randn(40, 512)
+    a, b = Generator(9), Generator(9)
+    assert torch.equal(F.dropout(x.cuda(), 0.05, generator=a).cpu(),
+                       F.dropout(x, 0.05, generator=b))
+
+
+def test_lora_first_step_on_the_card_equals_the_cpu(model):
+    """chip_smoke's LoRA fine-tune (rank 8, dropout 0.05, stories15M at
+    L = 256): the first step on the card against the CPU's, by the
+    training gate, with K3 once and K4 twice a layer."""
+    from chip_smoke import (CFG, LORA_LR, TRAIN_LOSS_RTOL, check_step_vs_cpu,
+                            flash_counters, lora_model, lora_pattern)
+    from pydynet_tpu_torch import manual_seed
+
+    gpu, gopt, _ = lora_model("cuda")
+    cpu, copt, _ = lora_model("cpu")
+    _, inp, tgt = lora_pattern()
+    before = [k.launches for k in flash_counters()]
+    manual_seed(1)
+    gloss = gpu.finetune_step(inp, tgt, gopt)
+    manual_seed(1)
+    closs = cpu.finetune_step(inp, tgt, copt)
+    assert [k.launches - b for k, b in zip(flash_counters(), before)] \
+        == [CFG["n_layers"]] * 3
+    assert abs(gloss - closs) <= TRAIN_LOSS_RTOL * abs(closs)
+    check_step_vs_cpu(gpu, cpu, LORA_LR / 10, skip=[
+        n for n, p in gpu.named_parameters() if not p.requires_grad])
+
+
+def test_speculative_int8_server_launch_counts(model):
+    """``LlamaServer(speculative=7, batch_size=4, quant="int8")``: each
+    verify iteration's 32 rows and each admission wave's prompt rows go
+    through the routes ``gemv_quant`` implies (K7 a layer product, K5 the
+    head, ``quantize_rows`` above 4 rows, K7's prefill branch above 32),
+    counted exactly; the streams are those of ``generate(quant="int8",
+    fused=False)`` up to a parting at a near-tie."""
+    from chip_smoke import (implied_qmm_launches, parts_at_a_tie,
+                            qmm_counters, zero_qmm_counters)
+    from pydynet_tpu_torch.models.llama import serve_spec
+    from pydynet_tpu_torch.models.llama.serve import LlamaServer
+
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 32000, 16).tolist() for _ in range(6)]
+    waves = []
+    srv = LlamaServer(model, speculative=7, batch_size=4, chunk=4,
+                      quant="int8", eos_id=-1)
+    admit = srv._admit_many
+    srv._admit_many = lambda p, s: waves.append(len(s)) or admit(p, s)
+    rids = [srv.submit(p, max_new_tokens=20) for p in prompts]
+    zero_qmm_counters()
+    with torch.no_grad():
+        done = srv.run()
+    forwards = [(32, 32)] * srv.spec_iterations + [(16 * k, k)
+                                                   for k in waves]
+    assert qmm_counters() == implied_qmm_launches(
+        forwards, 4 * model.n_layers)
+    assert isinstance(srv, serve_spec.SpecLlamaServer) and waves
+    for p, r in zip(prompts, rids):
+        with torch.no_grad():
+            ref = [int(t[0, 0]) for t in model.generate(
+                np.asarray([p]), 36, fused=False, quant="int8")]
+        assert parts_at_a_tie(model, p, ref, done[r].tokens,
+                              quant="int8")[1]

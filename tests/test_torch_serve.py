@@ -21,6 +21,7 @@ from pydynet_tpu.ops import decode_step as jdsk
 
 from pydynet_tpu_torch.models.llama import Llama, params_from_tpu
 from pydynet_tpu_torch.models.llama.serve import LlamaServer
+from pydynet_tpu_torch.models.llama.serve_spec import SpecLlamaServer
 from pydynet_tpu_torch.ops import decode_step as tdsk
 
 # tests/test_serve.py's tiny config
@@ -311,8 +312,9 @@ def test_unported_options_raise(batched_calls):
         done = srv.run()
         served.append([done[r].tokens for r in rids])
     assert served[0] == served[1] and all(len(t) == 6 for t in served[0])
-    with pytest.raises(NotImplementedError, match="Sampling"):
-        LlamaServer(tm, speculative=4)
+    # speculative=K builds the per-slot-position server, as in the JAX
+    # package (tests/test_torch_serve_spec.py holds it to JAX's)
+    assert isinstance(LlamaServer(tm, speculative=4), SpecLlamaServer)
     # the int8 KV cache and int8/int4 layers run on the batched step, one
     # call a dispatched step
     for kw in (dict(kv_quant="int8"), dict(quant="int8"), dict(quant="int4"),

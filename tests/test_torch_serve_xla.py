@@ -145,12 +145,15 @@ def test_xla_lane_quant_runs_the_quantized_matmuls(monkeypatch):
 
 
 def test_xla_lane_unported_options_raise():
-    """Speculative serving still raises naming **Sampling**; the scan
-    lane's prefix cache and int8 KV cache run (``test_torch_prefix_cache.py``
-    holds them to the JAX server)."""
-    _, tm = models(20)
-    with pytest.raises(NotImplementedError, match="Sampling"):
-        LlamaServer(tm, lane="xla", speculative=4)
+    """Speculative serving with a ``lane`` raises ``ValueError``
+    "unsupported", as the JAX package's ``**extra`` rule does
+    (``serve_spec.py``); the scan lane's prefix cache and int8 KV cache run
+    (``test_torch_prefix_cache.py`` holds them to the JAX server)."""
+    jm, tm = models(20)
+    for m in (jm, tm):
+        with pytest.raises(ValueError, match="unsupported"):
+            (JServer if m is jm else LlamaServer)(m, lane="xla",
+                                                  speculative=4)
     for kw in (dict(prefix_cache=True), dict(kv_quant="int8"),
                dict(prefix_cache=True, kv_quant="int8", quant="int4")):
         srv = LlamaServer(tm, batch_size=2, chunk=4, eos_id=-1, lane="xla",

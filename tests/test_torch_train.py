@@ -225,9 +225,17 @@ def test_finetune_cli_runs_on_cpu(tmp_path, capsys):
     assert len(losses) == 3 and losses[-1] < losses[0]
     with np.load(save) as f:
         assert set(f.files) == {"lm_head.weight", "lm_head.bias"}
-    with pytest.raises(NotImplementedError, match="Training stack"):
-        finetune.main(["--random-init", "--device", "cpu", "--text", "x",
-                       "--lora", "4"])
+    # --lora trains and saves the adapters only (tests/test_torch_lora.py
+    # holds the run to the JAX CLI's)
+    lora = tmp_path / "lora.npz"
+    finetune.main(["--random-init", "--device", "cpu", "--steps", "2",
+                   "--text", "Once upon a time", "--lora", "4",
+                   "--save", str(lora), "--weights", str(tmp_path / "none")])
+    assert "Trainable params: 24, Frozen params: 58" in capsys.readouterr().out
+    with np.load(lora) as f:
+        assert set(f.files) == {f"layers.{i}.attention.{m}.lora_{ab}"
+                                for i in range(6) for m in "QV"
+                                for ab in "AB"}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             finetune.main(["--random-init", "--text", "x"])
