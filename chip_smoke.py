@@ -197,6 +197,21 @@ the run with a nonzero exit and no result line:
    published setting, 20 epochs of 8 steps (K8's counter must equal
    2 x 160 and every net's mean loss must fall); the MNIST ConvNet at its
    defaults (test accuracy above 0.5); and both CLIs once;
+4v. CLIP ViT-B/32 at its published width (12 image layers at width 768,
+   12 text layers at 512, vocab 49,408; seeded random weights built on
+   the CPU and copied to the card), float32 with TF32 off: zero-shot of
+   the infer CLI's synthetic image against "a fish,a dog,a cat", the
+   card's probabilities within 1e-5 of the CPU's and the same argmax; the
+   B=1 zero-shot ms, images/s of a batch of 64 seeded images, kernels a
+   forward and the device's busy share (``torch.profiler``); the first
+   fine-tune step with the finetune CLI's projections trainable and with
+   rank-8 LoRA on QKV and O against the CPU's (the training gate), then
+   20 Adam steps each with the loss falling, steps/s, kernels a step and
+   busy share; a checkpoint of the projection run written on the card,
+   resumed on the CPU bit for bit, and the next step on both held to the
+   gate; one SGD, Adagrad and Adadelta step on the card against the CPU;
+   both CLIP CLIs on the card; no port kernel launched (this path reaches
+   none);
 5. timings: tokens per second of the 1024-token request in each format
    (bfloat16, int8-head, int8, int4, and the int8 KV cache through K2),
    timed ``REPEATS`` times in turns, K1's (also with int8 and int4 layers)
@@ -462,6 +477,23 @@ BN_TYPE_PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16)
 # each with two BatchNorm1d layers in train mode, so 2 K8 launches a step
 DBN_EPOCHS, DBN_STEPS, DBN_LR = 20, 8, 5e-5
 MNIST_MIN_ACC = 0.5  # chance is 0.1; tests/test_utils_examples.py:128
+# phase 4v: CLIP ViT-B/32 at its published width (the CLIP() defaults),
+# seeded random weights: the infer CLI's labels and synthetic image; the
+# card's probabilities against the CPU's within CLIP_PROB_ATOL (float32
+# throughout, the products without TF32, so they differ by summation order
+# only); the finetune CLI's default projections and a rank-8 LoRA on QKV
+# and O, each trained CLIP_STEPS Adam steps at CLIP_LR after its first step
+# is held to the CPU's by the training gate; the other optimizers at their
+# defaults (SGD needs a rate) for one step each
+CLIP_LABELS = "a fish,a dog,a cat"
+CLIP_TARGET = 2
+CLIP_PROB_ATOL = 1e-5
+CLIP_BATCH, CLIP_SEED = 64, 1  # the timed batch of seeded images
+CLIP_REPEATS = 20  # timed zero-shot calls at B=1 and at CLIP_BATCH
+CLIP_STEPS, CLIP_LR = 20, 1e-4
+CLIP_PROJ = ("text_encoder.proj", "image_encoder.proj")
+CLIP_LORA = dict(r=8, alpha=16.0, targets=("QKV", "O"))
+CLIP_OPTIMIZERS = {"SGD": dict(lr=1e-3), "Adagrad": {}, "Adadelta": {}}
 # the least time of a function: bytes over the memory rate, or operations
 # over the card's peak for their type (NVIDIA's H100 SXM data sheet, dense)
 HBM_BYTES_S = 3.35e12
@@ -3687,6 +3719,218 @@ def profile_nn(card):
 
 
 
+# ------------------------- phase 4v: CLIP ViT-B/32 -------------------------
+def kernel_launches():
+    """{wrapper: launches} of every hand-written kernel's wrapper."""
+    from pydynet_tpu_torch.ops import batchnorm as bn
+    from pydynet_tpu_torch.ops import decode_step as dsk
+
+    out = {name: k.launches for name, k in zip(FLASH_KERNELS,
+                                                flash_counters())}
+    out.update(qmm_counters())
+    for k in (dsk.fused_decode_token, dsk.fused_decode_token_batched):
+        out[k.__name__] = k.launches
+        out[k.__name__ + "[emit]"] = k.emit_launches
+    for k in (dsk.lm_head_argmax, dsk.fused_decode_step,
+              bn.batch_norm_train):
+        out[k.__name__] = k.launches
+    return out
+
+
+def clip_inputs(batch=1):
+    """The CLI's synthetic image (``infer.load_image`` of a missing file) or
+    ``batch`` seeded images, (N, 3, 224, 224) on the CPU, and the ids of
+    CLIP_LABELS."""
+    from pydynet_tpu_torch.models.clip import data, infer
+
+    if batch == 1:
+        img = infer.load_image("missing.png")[None]
+    else:
+        rng = np.random.default_rng(CLIP_SEED)
+        img = torch.stack([data.preprocess_array(rng.uniform(
+            0, 1, (256, 256, 3))) for _ in range(batch)])
+    return img, data.tokenize(CLIP_LABELS.split(","))
+
+
+def clip_twin(cpu, device, kind=None):
+    """A copy of ``cpu`` on ``device`` made trainable for ``kind``:
+    "proj" (the CLI's default projections), "lora" (CLIP_LORA, adapters
+    drawn from seed 0) or None. Returns (model, (trainable, frozen))."""
+    import copy
+
+    from pydynet_tpu_torch import manual_seed
+
+    model = copy.deepcopy(cpu).to(device)
+    counts = None
+    if kind == "proj":
+        counts = model.set_trainable_parameters(CLIP_PROJ)
+    elif kind == "lora":
+        manual_seed(0)
+        counts = model.add_lora(**CLIP_LORA)
+    return model, counts
+
+
+def clip_step_vs_cpu(gpu, cpu, gloss, closs, lr, label):
+    """One fine-tune step on the card against the CPU's under the training
+    gate (``check_step_vs_cpu`` over the trainable parameters, the loss
+    within TRAIN_LOSS_RTOL). Returns the largest (gradient, weight)
+    differences."""
+    if abs(gloss - closs) > TRAIN_LOSS_RTOL * abs(closs):
+        raise AssertionError(f"{label} step loss {gloss} != CPU {closs}")
+    g_err, w_err = check_step_vs_cpu(gpu, cpu, lr / 10, skip=[
+        n for n, p in gpu.named_parameters() if not p.requires_grad])
+    print(f"[chip_smoke] CLIP {label} step vs CPU: loss {gloss:.7f} vs "
+          f"{closs:.7f}, max gradient error {g_err:.3g}, max weight error "
+          f"{w_err:.3g}")
+    return g_err, w_err
+
+
+def clip_profile(fn, n):
+    """(kernels a call, device busy share) of ``n`` calls of ``fn`` under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    return len(kernel_events(prof)) / n, busy_share(prof, wall) / wall
+
+
+def check_clip(card):
+    """Phase 4v (module doc)."""
+    import tempfile
+
+    from pydynet_tpu_torch import optim
+    from pydynet_tpu_torch.models.clip import CLIP, finetune, infer
+    from pydynet_tpu_torch.nn import functional as F
+    from pydynet_tpu_torch.utils import checkpoint as ck
+
+    # float32 products stay float32 on this path, whatever ran before
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    cpu = CLIP(device="cpu", generator=torch.Generator().manual_seed(0))
+    gpu, _ = clip_twin(cpu, "cuda")
+    n_params = sum(p.numel() for p in cpu.parameters())
+    print(f"[chip_smoke] CLIP ViT-B/32: {n_params} parameters, built on the "
+          f"CPU and copied to the card in {time.perf_counter() - t0:.1f} s")
+
+    # zero-shot: the synthetic image against the three labels
+    img, text = clip_inputs()
+    with torch.no_grad():
+        pg = F.softmax(gpu.eval()(img, text), axis=-1).cpu()[0]
+        pc = F.softmax(cpu.eval()(img, text), axis=-1)[0]
+    err = float((pg - pc).abs().max())
+    top2 = torch.topk(pc, 2).values
+    print(f"[chip_smoke] CLIP zero-shot {CLIP_LABELS!r}: card "
+          f"{pg.tolist()}, CPU {pc.tolist()}, max error {err:.3g}, top-2 "
+          f"gap {float(top2[0] - top2[1]):.3g}")
+    if err > CLIP_PROB_ATOL or int(pg.argmax()) != int(pc.argmax()):
+        raise AssertionError("CLIP zero-shot on the card differs from the "
+                             "CPU")
+
+    # timings: B=1 zero-shot, a batch of CLIP_BATCH images, the profiler
+    timg, ttext = img.cuda(), torch.from_numpy(text).cuda()
+    bimg, _ = clip_inputs(CLIP_BATCH)
+    bimg = bimg.cuda()
+
+    def zero_shot(x):
+        with torch.no_grad():
+            return F.softmax(gpu(x, ttext), axis=-1)
+
+    for n, x in ((1, timg), (CLIP_BATCH, bimg)):
+        ms = time_step(lambda: zero_shot(x), CLIP_REPEATS)
+        kernels, busy = clip_profile(lambda: zero_shot(x), 5)
+        print(f"[chip_smoke] {card}: CLIP zero-shot B={n} against 3 labels:"
+              f" {ms:.3f} ms a call ({CLIP_REPEATS} back to back, CUDA "
+              f"events), {n / ms * 1e3:.1f} images/s; {kernels:.0f} kernels "
+              f"a forward, device busy {100 * busy:.1f} %")
+
+    # fine-tuning: the first step against the CPU, then CLIP_STEPS
+    tgt = np.array([CLIP_TARGET])
+    for kind in ("proj", "lora"):
+        g, gcounts = clip_twin(cpu, "cuda", kind)
+        c, ccounts = clip_twin(cpu, "cpu", kind)
+        if gcounts != ccounts:
+            raise AssertionError(f"CLIP {kind} counts {gcounts} {ccounts}")
+        gopt, copt = (optim.Adam([p for p in m.parameters()
+                                  if p.requires_grad], lr=CLIP_LR)
+                      for m in (g, c))
+        gloss = g.finetune_step(img, text, tgt, gopt)
+        closs = c.finetune_step(img, text, tgt, copt)
+        clip_step_vs_cpu(g, c, gloss, closs, CLIP_LR, kind)
+        losses = [gloss]
+        start = time.perf_counter()
+        for _ in range(CLIP_STEPS):
+            losses.append(g.finetune_step(timg, ttext, tgt, gopt))
+        steps_s = CLIP_STEPS / (time.perf_counter() - start)
+        ks, busys = clip_profile(
+            lambda: g.finetune_step(timg, ttext, tgt, gopt), 5)
+        print(f"[chip_smoke] {card}: CLIP fine-tune {kind} ({gcounts[0]} "
+              f"trainable, {gcounts[1]} frozen; Adam lr {CLIP_LR}): loss "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f} in {CLIP_STEPS} steps, "
+              f"{steps_s:.2f} steps/s; {ks:.0f} kernels a step, device busy "
+              f"{100 * busys:.1f} %")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"CLIP {kind} loss did not fall: {losses}")
+        if kind == "proj":
+            # the checkpoint: written on the card, resumed on the CPU
+            with tempfile.TemporaryDirectory() as tmp:
+                path = f"{tmp}/clip.npz"
+                ck.save_checkpoint(path, g, gopt, step=int(gopt.t) - 1)
+                c2, _ = clip_twin(cpu, "cpu", "proj")
+                copt2 = optim.Adam([p for p in c2.parameters()
+                                    if p.requires_grad], lr=1.0)
+                if ck.load_checkpoint(path, c2, copt2) != int(gopt.t) - 1:
+                    raise AssertionError("CLIP checkpoint step")
+            mine = g.state_dict()
+            for name, t in c2.state_dict().items():
+                if not torch.equal(t, mine[name].cpu()):
+                    raise AssertionError(f"resumed {name} differs")
+            if copt2.t != gopt.t or copt2.lr != gopt.lr:
+                raise AssertionError("resumed Adam state differs")
+            gloss = g.finetune_step(img, text, tgt, gopt)
+            closs = c2.finetune_step(img, text, tgt, copt2)
+            clip_step_vs_cpu(g, c2, gloss, closs, CLIP_LR,
+                             "resumed on the CPU, next")
+            del c2
+        del g, c
+
+    # the other optimizers: one step each on the card against the CPU
+    for name, kw in CLIP_OPTIMIZERS.items():
+        g, _ = clip_twin(cpu, "cuda", "proj")
+        c, _ = clip_twin(cpu, "cpu", "proj")
+        gopt, copt = (getattr(optim, name)(
+            [p for p in m.parameters() if p.requires_grad], **kw)
+            for m in (g, c))
+        gloss = g.finetune_step(img, text, tgt, gopt)
+        closs = c.finetune_step(img, text, tgt, copt)
+        clip_step_vs_cpu(g, c, gloss, closs, gopt.lr, name)
+        del g, c
+
+    # the CLIs, on the card
+    infer.main(["--random-init", "--image", "missing.png"])
+    with tempfile.TemporaryDirectory() as tmp:
+        finetune.main(["--random-init", "--image", "missing.png",
+                       "--labels", CLIP_LABELS, "--target",
+                       str(CLIP_TARGET), "--steps", "2", "--save",
+                       f"{tmp}/ft.npz"])
+    after = kernel_launches()
+    if after != before:
+        raise AssertionError(f"the CLIP path launched a port kernel: "
+                             f"{before} -> {after}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+
+
 # ------------------------- the sampled decode path -------------------------
 def check_key_stream():
     """Phase 4: the threefry key stream on the card against the CPU: keys,
@@ -4491,6 +4735,12 @@ def main() -> int:
     t0 = time.perf_counter()
     bn_launches = check_nn_training()
     phase("4e nn training path", t0)
+
+    # 4v. CLIP ViT-B/32: zero-shot and fine-tuning, the other optimizers,
+    # the training-state checkpoint (no port kernel on this path)
+    t0 = time.perf_counter()
+    check_clip(card)
+    phase("4v CLIP, optimizers and checkpoint", t0)
 
     # 5. timings: kernels vs plain per step at pos 512, then end to end
     t0 = time.perf_counter()

@@ -1,5 +1,10 @@
-"""Optimizers of the training path (port of ``pydynet_tpu/optim``); SGD,
-Adagrad, Adadelta and the schedulers are still to port (``ROADMAP.md``)."""
-from .optimizer import Adam, AdamW, Optimizer
+"""Optimizers and learning-rate schedulers of the training path (port of
+``pydynet_tpu/optim``)."""
+from . import lr_scheduler
+from .lr_scheduler import (CosineAnnealingLR, ExponentialLR, MultiStepLR,
+                           StepLR)
+from .optimizer import SGD, Adadelta, Adagrad, Adam, AdamW, Optimizer
 
-__all__ = ["Adam", "AdamW", "Optimizer"]
+__all__ = ["Adadelta", "Adagrad", "Adam", "AdamW", "CosineAnnealingLR",
+           "ExponentialLR", "MultiStepLR", "Optimizer", "SGD", "StepLR",
+           "lr_scheduler"]

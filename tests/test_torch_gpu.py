@@ -1378,3 +1378,78 @@ def test_speculative_int8_server_launch_counts(model):
                 np.asarray([p]), 36, fused=False, quant="int8")]
         assert parts_at_a_tie(model, p, ref, done[r].tokens,
                               quant="int8")[1]
+
+
+@pytest.fixture(scope="module")
+def clip_cpu():
+    """ViT-B/32 from seed 0 on the CPU: the twin the card's copies are
+    held to."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the card against the CPU")
+    from pydynet_tpu_torch.models.clip import CLIP
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return CLIP(device="cpu", generator=torch.Generator().manual_seed(0))
+
+
+def test_clip_zero_shot_on_the_card_equals_the_cpu(clip_cpu):
+    """chip_smoke's phase 4v zero-shot: the infer CLI's synthetic image
+    against its three labels, probabilities within ``CLIP_PROB_ATOL`` of
+    the CPU's and the same argmax."""
+    from chip_smoke import CLIP_PROB_ATOL, clip_inputs, clip_twin
+    from pydynet_tpu_torch.nn import functional as F
+
+    gpu, _ = clip_twin(clip_cpu, "cuda")
+    img, text = clip_inputs()
+    with torch.no_grad():
+        pg = F.softmax(gpu(img, text), axis=-1).cpu()
+        pc = F.softmax(clip_cpu(img, text), axis=-1)
+    assert float((pg - pc).abs().max()) <= CLIP_PROB_ATOL
+    assert torch.equal(pg.argmax(-1), pc.argmax(-1))
+
+
+@pytest.mark.parametrize("kind", ["proj", "lora"])
+def test_clip_first_step_on_the_card_equals_the_cpu(clip_cpu, kind):
+    """The first fine-tune step, projections or rank-8 LoRA on QKV and O,
+    on the card against the CPU's by the training gate."""
+    from chip_smoke import (CLIP_LR, CLIP_TARGET, clip_inputs,
+                            clip_step_vs_cpu, clip_twin)
+    from pydynet_tpu_torch import optim
+
+    img, text = clip_inputs()
+    tgt = np.array([CLIP_TARGET])
+    (g, gcounts), (c, ccounts) = (clip_twin(clip_cpu, dev, kind)
+                                  for dev in ("cuda", "cpu"))
+    assert gcounts == ccounts
+    gopt, copt = (optim.Adam([p for p in m.parameters() if p.requires_grad],
+                             lr=CLIP_LR) for m in (g, c))
+    clip_step_vs_cpu(g, c, g.finetune_step(img, text, tgt, gopt),
+                     c.finetune_step(img, text, tgt, copt), CLIP_LR, kind)
+
+
+@pytest.mark.parametrize("name", ["SGD", "Adagrad", "Adadelta"])
+def test_optimizer_steps_on_the_card_equal_the_cpu(gpu, name):
+    """Ten steps over the same gradients, one parameter without any: the
+    card's parameters and buffers within 1e-6 of the CPU's."""
+    from pydynet_tpu_torch import optim
+
+    rng = np.random.default_rng(0)
+    init = [rng.standard_normal(s).astype(np.float32)
+            for s in ((300, 70), (513,), (7,))]
+    kw = {"SGD": dict(lr=0.1, weight_decay=0.01)}.get(name, {})
+    opts = {}
+    for dev in ("cuda", "cpu"):
+        ps = [torch.tensor(a, device=dev, requires_grad=True) for a in init]
+        opts[dev] = getattr(optim, name)(ps, **kw)
+    for _ in range(10):
+        grads = [rng.standard_normal(a.shape).astype(np.float32)
+                 for a in init[:-1]]
+        for opt in opts.values():
+            for p, g in zip(opt.params, grads):
+                p.grad = torch.from_numpy(g).to(p.device)
+            opt.step()
+    buf = "v" if name == "SGD" else "G"
+    for a, b in zip(opts["cuda"].params + getattr(opts["cuda"], buf),
+                    opts["cpu"].params + getattr(opts["cpu"], buf)):
+        np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                   b.detach().numpy(), atol=1e-6, rtol=1e-6)
