@@ -194,9 +194,23 @@ the run with a nonzero exit and no result line:
    peak memory, and one verify chunk's device time by kernel;
 4e. the nn-stack trainers: DNN_BN's first step on the card (through K8)
    against the same step on the CPU; the ``dropout_bn`` trainer at its
-   published setting, 20 epochs of 8 steps (K8's counter must equal
-   2 x 160 and every net's mean loss must fall); the MNIST ConvNet at its
-   defaults (test accuracy above 0.5); and both CLIs once;
+   published setting, 20 epochs of 8 steps through ``jit`` (K8's launches,
+   the eager first step's plus those captured in the graph times its
+   replays, must equal 2 x 160, and every net's mean loss must fall); the
+   MNIST ConvNet at its defaults through ``jit`` (test accuracy above
+   0.5); and both CLIs once;
+4j. ``jit``: each case (a scalar gradient step, BatchNorm with SGD, Adam,
+   Adam with dropout, microbatch accumulation, an LSTM, a dropout mask,
+   the ts_prediction step, the dropout_bn step) ``JIT_STEPS`` calls
+   through the jit's graph and eagerly from one seed, outputs and state
+   within ``JIT_RTOL`` (and whether bit-equal), the threefry keys equal
+   after every call, one graph of ``JIT_STEPS - 1`` replays, K8 captured
+   once a BatchNorm layer and run replays x that; ts_prediction's 50
+   epochs (final test loss below its first and below 0.7); the transformer
+   at full width (dim 512), its first step against the CPU's (the training
+   gate) and two epochs through ``jtrain.foreach``; then, eager against
+   the jit in turns: the dropout_bn step (steps/s, kernels a step, busy
+   share), the ts_prediction epoch and the transformer epoch;
 4v. CLIP ViT-B/32 at its published width (12 image layers at width 768,
    12 text layers at 512, vocab 49,408; seeded random weights built on
    the CPU and copied to the card), float32 with TF32 off: zero-shot of
@@ -244,9 +258,8 @@ the run with a nonzero exit and no result line:
    a third of the TF32 peak) and, for K3/K4, ``F.scaled_dot_product_attention``'s
    forward and backward; K8's time at (40, 512), (40, 128), (1024, 1024) and
    (8192, 1024) beside its plain version, its bound and ``F.batch_norm``,
-   the dropout_bn train step in steps/s and kernels a step
-   (``kernel_times.dbn_times``) and the MNIST ConvNet's epochs in
-   steps/s and samples/s; K1 narrow against K1 MHA (bf16, pos 512), K2
+   and the MNIST ConvNet's epochs through ``jit`` in steps/s and
+   samples/s (phase 4j times the dropout_bn step); K1 narrow against K1 MHA (bf16, pos 512), K2
    narrow B = 8 against MHA B = 8, K2 at B = 64 against B = 32 (bf16 and
    int8 layers), each in turns beside its plain version and bound, and the
    tokens per second of the ``GQA_15M`` request, the ``GQA_15M`` B = 8
@@ -352,7 +365,7 @@ B1_QUANTS = (None, "int8-head", "int8", "int4")  # phase 4's requests
 K2_TIMED = ("bf16", "bf16-int8", "bf16-int4", "bf16-kv8")  # phase 5
 PROMPT = np.array([[1, 243, 532, 991]])
 REQUEST = 1024  # total length of the main-path request
-REPEATS = 5  # timed requests (or serving runs) per format in phase 5
+REPEATS = 3  # timed requests (or serving runs) per format in phase 5
 SERVE = dict(batch_size=8, chunk=128, eos_id=-1)  # the phase-4b server
 SERVE_FORMATS = {"bf16": {}, "bf16-int8head": dict(quant="int8-head"),
                  "bf16-int8": dict(quant="int8"),
@@ -402,7 +415,7 @@ QMM_ROWS = tuple(range(1, 33)) + (33, 256, 1000)
 BIG_NEW = 64  # tokens of the 7B request (prefill token included)
 BIG_SERVE = dict(batch_size=4, chunk=32, eos_id=-1)
 BIG_REQUESTS, BIG_MAX_NEW = 8, (48, 64, 24, 40)
-BIG_TIME_REQUESTS = 16  # the timed server: four admission waves
+BIG_TIME_REQUESTS = 8  # the timed server: two admission waves
 BIG_REPEATS = 3
 LONG_PROMPT = 40  # a stories15M scan-lane prompt past 32 rows: the K6 path
 TTFT_PROMPT = 512  # the 7B prompt whose time to the first token is timed
@@ -477,6 +490,23 @@ BN_TYPE_PAIRS = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16)
 # each with two BatchNorm1d layers in train mode, so 2 K8 launches a step
 DBN_EPOCHS, DBN_STEPS, DBN_LR = 20, 8, 5e-5
 MNIST_MIN_ACC = 0.5  # chance is 0.1; tests/test_utils_examples.py:128
+# phase 4j: the jit's graph route against its eager route, JIT_STEPS steps of
+# each case from one seed. The graph replays the kernels the eager step
+# launched, on the same inputs in the same order, so the two should agree
+# to the bit; JIT_RTOL (of each output's or state tensor's largest element)
+# leaves room for a library call that picks another algorithm under capture
+# (cuBLAS's workspace there is the graph's own). Dropout masks and the
+# threefry keys are integer draws and must be equal.
+JIT_STEPS = 20
+JIT_RTOL = 1e-5
+JIT_CASES = ("gd", "bn-sgd", "adam", "adam-dropout", "accum", "lstm",
+             "dropout-mask", "ts_prediction", "dropout_bn")
+TS_MAX_LOSS = 0.7  # ts_prediction's final test loss (tests/
+# test_utils_examples.py:123-125 holds the JAX example to it)
+TF_EPOCHS, TF_LR = 2, 5e-4  # the transformer example: epochs, its Adam's lr
+JIT_ROUNDS = 3  # timed runs of each route, in turns
+JIT_TIMED = 50  # dropout_bn steps a timed run
+TS_TIMED = 20  # ts_prediction epochs a timed run
 # phase 4v: CLIP ViT-B/32 at its published width (the CLIP() defaults),
 # seeded random weights: the infer CLI's labels and synthetic image; the
 # card's probabilities against the CPU's within CLIP_PROB_ATOL (float32
@@ -1725,6 +1755,50 @@ def check_step_vs_cpu(gpu, cpu, w_atol=TRAIN_W_ATOL, skip=()):
                                  f"error {dg}, weight error {dw}")
         g_err, w_err = max(g_err, dg), max(w_err, dw)
     return g_err, w_err
+
+
+ADAM_EPS1 = 1e-8 / (1 - 0.999) ** 0.5  # eps' of Adam's first step
+
+
+def check_adam_step_vs_cpu(gpu, cpu, lr, noise=None):
+    """The training gate, elementwise, for a first Adam step (betas 0.9,
+    0.999, eps 1e-8) on the card against the CPU's: gradients within
+    ``TRAIN_GRAD_RTOL`` of each tensor's largest; each weight within lr / 10
+    where its CPU gradient is above 10 eps', and within 2 lr below that.
+    The step moves a weight by lr g / (|g| + eps'), eps' = 3.2e-7, whose
+    slope in g is lr eps' / (|g| + eps')^2: above 10 eps' a gradient
+    difference d moves the weight by under lr d / (100 eps'), far below
+    lr / 10 for any d the gradient gate allows here; near zero (a bias
+    before a normalization, a row no token reached) the step is up to lr
+    either way on each device. ``noise`` maps a bias whose gradient is
+    rounding noise on both devices (one before a normalization that takes
+    away a constant shift) to its layer's weight, whose largest gradient
+    scales its gate instead of its own. Parameters that do not train are
+    skipped. Returns (largest gradient error, largest such weight error,
+    the count of weights under 10 eps')."""
+    g_err = w_err = 0.0
+    small = 0
+    theirs = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        if not p.requires_grad:
+            continue
+        c = theirs[name]
+        g = c.grad
+        dg = float((p.grad.cpu() - g).abs().max())
+        scale = theirs[(noise or {}).get(name, name)].grad
+        if dg > TRAIN_GRAD_RTOL * float(scale.abs().max()) + 1e-12:
+            raise AssertionError(f"first Adam step vs CPU: {name} gradient "
+                                 f"error {dg}")
+        dw = (p.detach().cpu() - c.detach()).abs()
+        near = g.abs() < 10 * ADAM_EPS1
+        if bool((dw > torch.where(near, 2 * lr, lr / 10)).any()):
+            raise AssertionError(f"first Adam step vs CPU: {name} weight "
+                                 f"error {float(dw.max())}")
+        g_err = max(g_err, dg)
+        w_err = max(w_err, float(dw[~near].max()) if bool((~near).any())
+                    else 0.0)
+        small += int(near.sum())
+    return g_err, w_err, small
 
 
 def check_training():
@@ -3556,14 +3630,15 @@ def check_nn_training():
 
     check_dbn_step_vs_cpu()
     k8 = bn.batch_norm_train
-    k8.launches = 0
-    _, history, accs = dbn.train(epochs=DBN_EPOCHS)
-    launches = k8.launches
-    print(f"[chip_smoke] dropout_bn {DBN_EPOCHS} epochs: K8 launches "
-          f"{launches}, mean losses first {history[0]} last {history[-1]}, "
-          f"test accuracies {accs}")
+    k8.launches = k8.captured = 0
+    (_, history, accs), launches, (eager, captured, replays) = k8_runs(
+        lambda: dbn.train(epochs=DBN_EPOCHS))
+    print(f"[chip_smoke] dropout_bn {DBN_EPOCHS} epochs through the jit: "
+          f"K8 launches {launches} ({eager} eager, then {captured} captured "
+          f"in the graph x {replays} replays), mean losses first "
+          f"{history[0]} last {history[-1]}, test accuracies {accs}")
     want = 2 * DBN_EPOCHS * DBN_STEPS
-    if launches != want:
+    if launches != want or eager != 2:
         raise AssertionError(f"K8 launches {launches}, want {want}")
     if not all(np.isfinite(history[0] + history[-1])) or not all(
             b < a for a, b in zip(history[0], history[-1])):
@@ -3573,12 +3648,11 @@ def check_nn_training():
     if not acc > MNIST_MIN_ACC:
         raise AssertionError(f"MNIST ConvNet accuracy {acc} <= "
                              f"{MNIST_MIN_ACC}")
-    before = k8.launches
-    accs = dbn.cli(["--epochs", "2"])
+    accs, cli_launches, _ = k8_runs(lambda: dbn.cli(["--epochs", "2"]))
     acc = mnist.main(["--network", "mlp", "--synthetic", "--epochs", "2"])
     print(f"[chip_smoke] CLIs: dropout_bn accuracies {accs}, K8 launches "
-          f"{k8.launches - before}; MNIST MLP accuracy {acc}")
-    if k8.launches - before != 2 * 2 * DBN_STEPS or not 0 < acc <= 1:
+          f"{cli_launches}; MNIST MLP accuracy {acc}")
+    if cli_launches != 2 * 2 * DBN_STEPS or not 0 < acc <= 1:
         raise AssertionError("the CLIs did not train through K8")
     return launches
 
@@ -3609,7 +3683,8 @@ def dbn_step_runner(seed=0):
 
 def mnist_runner(seed=42):
     """The MNIST ConvNet on the card with its Adam and the synthetic
-    training set there: a callable that runs one epoch and waits."""
+    training set there: a callable that runs one epoch through the jit and
+    waits."""
     from pydynet_tpu_torch import manual_seed
     from pydynet_tpu_torch.examples import mnist
     from pydynet_tpu_torch.optim import Adam
@@ -3621,9 +3696,12 @@ def mnist_runner(seed=42):
     Xd = torch.from_numpy(X.astype(np.float32)).cuda()
     yd = torch.from_numpy(y).cuda()
 
+    jtrain = mnist.train_jit(net, opt)
+
     def epoch():
         perm = torch.from_numpy(np.random.permutation(len(X))).cuda()
-        loss, steps = mnist.train_epoch(net, opt, Xd[perm], yd[perm], 256)
+        loss, steps = mnist.train_epoch(net, opt, Xd[perm], yd[perm], 256,
+                                        jtrain)
         float(loss)
         return steps, len(X)
 
@@ -3633,9 +3711,8 @@ def mnist_runner(seed=42):
 def time_nn_training(card):
     """Phase 5's nn part: K8 at BN_TIME_SHAPES in float32 against its plain
     version, its bound and ``F.batch_norm``, and in bfloat16 against its
-    bound and ``F.batch_norm``; the dropout_bn step and the MNIST ConvNet's
-    epochs. Returns {(N, C): (ms, plain_ms, bound_ms,
-    bound_by, library_ms)}."""
+    bound and ``F.batch_norm``; the MNIST ConvNet's epochs through the jit.
+    Returns {(N, C): (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
     import torch.nn.functional as tF
     from pydynet_tpu_torch.ops import batchnorm as bn
 
@@ -3670,16 +3747,6 @@ def time_nn_training(card):
                   f"kernel {kernel * 1e3:.2f} us on the device, bound "
                   f"{bn_bound(xb)[0] * 1e3:.3f} us, F.batch_norm "
                   f"{library * 1e3:.2f} us")
-    from kernel_times import dbn_times
-
-    dbn = dbn_times(dbn_step_runner(), REPEATS)
-    print(f"[chip_smoke] {card}: dropout_bn train step (three nets, batch "
-          f"40, the dropout masks from the threefry Generator): "
-          f"{dbn['dropout_bn kernels a step']:.0f} kernels a step, steps/s "
-          f"of {REPEATS} runs of 50: median "
-          f"{dbn['dropout_bn steps/s median']:.1f}, least "
-          f"{dbn['dropout_bn steps/s least']:.1f}, most "
-          f"{dbn['dropout_bn steps/s most']:.1f}")
     epoch = mnist_runner()
     epoch()  # warm-up
     times = []
@@ -3688,8 +3755,8 @@ def time_nn_training(card):
         steps, samples = epoch()
         times.append(time.perf_counter() - start)
     t = float(np.median(times))
-    print(f"[chip_smoke] {card}: MNIST ConvNet train epoch ({steps} steps of "
-          f"256) s of 5 epochs: {', '.join(f'{x:.4f}' for x in times)}; "
+    print(f"[chip_smoke] {card}: MNIST ConvNet train epoch through the jit "
+          f"({steps} steps of 256) s of 5 epochs: {', '.join(f'{x:.4f}' for x in times)}; "
           f"median {steps / t:.1f} steps/s, {samples / t:.0f} samples/s")
     return out
 
@@ -3717,6 +3784,406 @@ def profile_nn(card):
           f"{busy:.3f} s = {100 * busy / wall:.1f} %, idle "
           f"{100 - 100 * busy / wall:.1f} %")
 
+
+
+# ---------------- phase 4j: the jit, the RNNs and their trainers ------------
+def jit_case(name, steps=JIT_STEPS, seed=0):
+    """One of phase 4j's steps on the card, built from ``seed``: ``(fn,
+    state, args)``, ``args`` the argument tuples of ``steps`` calls."""
+    from pydynet_tpu_torch import nn, optim
+    from pydynet_tpu_torch.examples import dropout_bn as dbn
+    from pydynet_tpu_torch.examples import ts_prediction as tsp
+    from pydynet_tpu_torch.nn import functional as F
+
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) + shift).astype(
+            np.float32)).cuda()
+
+    def sgd_or_adam(net, sgd):
+        return (optim.SGD(net.parameters(), lr=0.01, momentum=0.0,
+                          nesterov=False) if sgd
+                else optim.Adam(net.parameters(), lr=1e-2))
+
+    if name == "gd":
+        w = torch.tensor(5.0).cuda().requires_grad_()
+
+        def step(lr):
+            w.grad = None
+            loss = (w - 2.0) ** 2
+            loss.backward()
+            with torch.no_grad():
+                w.sub_(lr * w.grad)
+            return loss
+
+        return step, [w], [(0.1,)] * steps
+    if name in ("bn-sgd", "adam", "adam-dropout", "accum"):
+        mid = {"bn-sgd": [nn.BatchNorm1d(32)],
+               "adam-dropout": [nn.Dropout(0.5)]}.get(name, [])
+        net = torch.nn.Sequential(nn.Linear(6, 32), *mid, nn.Tanh(),
+                                  nn.Linear(32, 2)).cuda()
+        opt = sgd_or_adam(net, name in ("bn-sgd", "accum"))
+        if name == "accum":  # 4 microbatches, each loss scaled by 1/4
+            def step(xs, ys):
+                opt.zero_grad()
+                for i in range(4):
+                    loss = F.mse_loss(net(xs[i]), ys[i]) / 4
+                    loss.backward()
+                opt.step()
+                return loss
+
+            return step, (net, opt), [(rand(4, 6, 6), rand(4, 6, 2))
+                                      for _ in range(steps)]
+
+        def step(x, y):
+            opt.zero_grad()
+            loss = F.mse_loss(net(x), y)
+            loss.backward()
+            opt.step()
+            return loss
+
+        return step, (net, opt), [(rand(16, 6, shift=3.0), rand(16, 2))
+                                  for _ in range(steps)]
+    if name == "lstm":
+        lstm, head = nn.LSTM(2, 8).cuda(), nn.Linear(8, 1).cuda()
+        opt = optim.Adam(list(lstm.parameters()) + list(head.parameters()),
+                         lr=1e-2)
+
+        def step(x, y):
+            opt.zero_grad()
+            _, (hn, _) = lstm(x)
+            loss = F.mse_loss(head(hn[0]), y)
+            loss.backward()
+            opt.step()
+            return loss
+
+        return step, (lstm, head, opt), [(rand(8, 4, 2), rand(4, 1))
+                                         for _ in range(steps)]
+    if name == "dropout-mask":
+        x = torch.ones(4096).cuda()
+        return (lambda: F.dropout(x, 0.5)), (), [()] * steps
+    if name == "ts_prediction":
+        model = tsp.RNN().cuda()
+        opt = optim.Adam(model.parameters(), lr=0.01)
+        crit = nn.MSELoss()
+        X, _, Y, _ = (t.cuda() for t in tsp.data())
+        return (lambda bx, by: tsp.train_step(model, opt, crit, bx, by),
+                (model, opt), [(X, Y)] * steps)
+    if name == "dropout_bn":
+        nets = [dbn.DNN().cuda(), dbn.DNN_dropout().cuda(),
+                dbn.DNN_BN().cuda()]
+        optims = [optim.Adam(n.parameters(), lr=DBN_LR) for n in nets]
+        loss_fn = nn.CrossEntropyLoss()
+        X, y = dbn.load_faces()
+        order = rng.permutation(320)
+        rows = [order[(40 * i) % 320:(40 * i) % 320 + 40]
+                for i in range(steps)]
+        return (lambda bx, by: dbn.train_step(nets, optims, loss_fn, bx, by),
+                (nets, optims), [(torch.from_numpy(X[r]).cuda(),
+                                  torch.from_numpy(y[r]).cuda())
+                                 for r in rows])
+    raise ValueError(f"no jit case {name!r}")
+
+
+def jit_vs_eager(name, steps=JIT_STEPS, seed=0, counter=None):
+    """Case ``name`` for ``steps`` calls eagerly and through ``jit`` (its
+    first call eager, a graph from the second), each from ``manual_seed(
+    seed)``. Returns ``(err, bit, keys_ok, jit, counts)``: the largest
+    difference of an output or a state tensor over its largest element,
+    whether all were equal to the bit, whether the threefry keys after each
+    call were equal on both routes (and, where the case draws, new at every
+    call), the jit, and ``counter``'s (launches, captured) moves on each
+    route."""
+    from torch.utils import _pytree as pytree
+    from pydynet_tpu_torch import default_generator, jit, manual_seed
+    from pydynet_tpu_torch.jit import _collect_state
+
+    runs, counts = {}, {}
+    for route in ("eager", "graph"):
+        manual_seed(seed)
+        fn, state, args = jit_case(name, steps, seed)
+        j = jit(fn, state=state) if route == "graph" else None
+        before = counter and (counter.launches, counter.captured)
+        outs, keys = [], []
+        for a in args:
+            outs += [t.detach().clone()
+                     for t in pytree.tree_leaves((j or fn)(*a))]
+            keys.append(default_generator.state.clone())
+        torch.cuda.synchronize()
+        if counter:
+            counts[route] = (counter.launches - before[0],
+                             counter.captured - before[1])
+        runs[route] = (outs + [t.detach().clone()
+                               for _, t, _ in _collect_state(state)], keys, j)
+    err, bit = 0.0, True
+    for a, b in zip(runs["graph"][0], runs["eager"][0]):
+        bit = bit and torch.equal(a, b)
+        d = float((a.double() - b.double()).abs().max())
+        err = max(err, d / max(float(b.double().abs().max()), 1e-30))
+    gk, ek = runs["graph"][1], runs["eager"][1]
+    keys_ok = all(torch.equal(a, b) for a, b in zip(gk, ek))
+    if name in ("adam-dropout", "dropout-mask", "dropout_bn"):
+        keys_ok = keys_ok and all(not torch.equal(a, b)
+                                  for a, b in zip(gk, gk[1:]))
+    return err, bit, keys_ok, runs["graph"][2], counts
+
+
+def made_by(module, attr):
+    """A context in which every ``module.attr(...)`` call's result is also
+    appended to the list it yields (the jits an example builds)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        made, real = [], getattr(module, attr)
+        setattr(module, attr, lambda *a, **k: made.append(real(*a, **k))
+                or made[-1])
+        try:
+            yield made
+        finally:
+            setattr(module, attr, real)
+
+    return ctx()
+
+
+def k8_runs(run):
+    """Run ``run()`` (a dropout_bn training through its jit) and count K8's
+    launches: the wrapper's own (the eager first step) plus the launches
+    the graph captured times its replays. Returns (run's result,
+    launches, (eager, captured a graph, replays))."""
+    from pydynet_tpu_torch.examples import dropout_bn as dbn
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    k8 = bn.batch_norm_train
+    before = (k8.launches, k8.captured)
+    with made_by(dbn, "steps") as made:
+        out = run()
+    jtrain = made[0][0]
+    if len(made) != 1 or len(jtrain.graphs) != 1:
+        raise AssertionError(f"dropout_bn made {len(made)} jits, "
+                             f"{len(jtrain.graphs)} graphs")
+    eager, captured = k8.launches - before[0], k8.captured - before[1]
+    return out, eager + captured * jtrain.replays, (eager, captured,
+                                                    jtrain.replays)
+
+
+def runs_in_turns(runners, rounds):
+    """Seconds of each runner's call, ``rounds`` times in turns; each
+    runner is called once first, untimed."""
+    times = {name: [] for name in runners}
+    for run in runners.values():
+        run()
+    torch.cuda.synchronize()
+    for _ in range(rounds):
+        for name, run in runners.items():
+            start = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - start)
+    return times
+
+
+def profile_calls(fn, n):
+    """(kernels a call, device busy share) of ``n`` calls of ``fn`` under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    return len(kernel_events(prof)) / n, busy_share(prof, wall) / wall
+
+
+def transformer_first_step(device, X, y, seed=0):
+    """The transformer example's net at full width from ``seed`` (built on
+    the CPU, copied to ``device``) after one Adam step on its first batch
+    of 128; returns (net, loss)."""
+    from pydynet_tpu_torch import manual_seed
+    from pydynet_tpu_torch.examples import transformer as tf
+    from pydynet_tpu_torch.optim import Adam
+
+    manual_seed(seed)
+    net, _ = tf.build(int(X.max()) + 1, X.shape[1], TF_LR, "cpu")
+    net.to(device)
+    opt = Adam([p for p in net.parameters() if p.requires_grad], lr=TF_LR)
+    loss = tf.train_step(net, opt, torch.from_numpy(X[:128]).to(device),
+                         torch.from_numpy(y[:128]).to(device))
+    return net, float(loss.detach())
+
+
+def check_jit(card):
+    """Phase 4j: every jit case's graph route against its eager route
+    (K8 inside the bn-sgd and dropout_bn graphs); ts_prediction's 50
+    epochs; the transformer at full width, its first step against the
+    CPU's and two epochs through ``foreach``; then the timings, eager
+    against the jit in turns."""
+    from pydynet_tpu_torch.examples import transformer as tf
+    from pydynet_tpu_torch.examples import ts_prediction as tsp
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    k8 = bn.batch_norm_train
+    for name in JIT_CASES:
+        err, bit, keys_ok, j, counts = jit_vs_eager(name, counter=k8)
+        print(f"[chip_smoke] jit {name}: graph vs eager over {JIT_STEPS} "
+              f"steps, max relative error {err:.3g}, "
+              f"{'bit-equal' if bit else 'not bit-equal'}; "
+              f"{len(j.graphs)} graph, {j.replays} replays; threefry keys "
+              f"{'equal' if keys_ok else 'DIFFERENT'}; K8 (launches, "
+              f"captured) eager {counts['eager']}, graph {counts['graph']}")
+        if err > JIT_RTOL or not keys_ok or len(j.graphs) != 1 \
+                or j.replays != JIT_STEPS - 1:
+            raise AssertionError(f"jit {name}: the graph route differs")
+        if name == "dropout-mask" and not bit:
+            raise AssertionError("jit: dropout masks differ from eager")
+        per = {"bn-sgd": 1, "dropout_bn": 2}.get(name, 0)
+        eager, captured = counts["graph"]
+        if counts["eager"] != (per * JIT_STEPS, 0) or captured != per \
+                or eager + captured * j.replays != per * JIT_STEPS:
+            raise AssertionError(f"jit {name}: K8 ran {counts}, want "
+                                 f"{per} a step")
+
+    final = tsp.main()
+    print(f"[chip_smoke] ts_prediction 50 epochs through the jit: final "
+          f"test loss {final:.5f}")
+    if not final < TS_MAX_LOSS:
+        raise AssertionError(f"ts_prediction test loss {final}")
+
+    X, y = tf.synthetic_cola()
+    y = np.where(y == 0, -1.0, 1.0).astype(np.float32)
+    gpu, gpu_loss = transformer_first_step("cuda", X, y)
+    cpu, cpu_loss = transformer_first_step("cpu", X, y)
+    if abs(gpu_loss - cpu_loss) > TRAIN_LOSS_RTOL * abs(cpu_loss):
+        raise AssertionError(f"transformer step loss {gpu_loss} != CPU "
+                             f"{cpu_loss}")
+    # the product before norm2 (the JAX package's LayerNorm, over the
+    # leading axes) has a bias whose gradient is rounding noise
+    g_err, w_err, small = check_adam_step_vs_cpu(
+        gpu, cpu, TF_LR, noise={"layers.0.feed_forward.2.bias":
+                                "layers.0.feed_forward.2.weight"})
+    print(f"[chip_smoke] transformer (dim 512, B=128) step 1 vs CPU: loss "
+          f"{gpu_loss:.6f} vs {cpu_loss:.6f}, max gradient error "
+          f"{g_err:.3g}, max weight error {w_err:.3g} where the gradient is "
+          f"above 10 eps' ({small} weights below it, each within 2 lr)")
+    with made_by(tf, "steps") as made:
+        acc = tf.main(["--epochs", str(TF_EPOCHS)])
+    jtrain = made[0][0]
+    print(f"[chip_smoke] transformer {TF_EPOCHS} epochs through "
+          f"jtrain.foreach: test accuracy {acc:.4f}; {len(jtrain.graphs)} "
+          f"graphs, {jtrain.replays} replays")
+    if not 0 <= acc <= 1 or len(jtrain.graphs) != 2 or jtrain.replays < 20:
+        raise AssertionError("the transformer did not train through graphs")
+    time_jit(card, X, y)
+
+
+def time_jit(card, X, y):
+    """Phase 4j's timings, each route from one seed, in turns: the
+    dropout_bn step (steps/s, kernels a step, busy share), the
+    ts_prediction epoch and the transformer epoch (full width, the device
+    loop of eager steps against ``foreach``)."""
+    from pydynet_tpu_torch import manual_seed
+    from pydynet_tpu_torch.examples import transformer as tf
+    from pydynet_tpu_torch.examples import ts_prediction as tsp
+    from pydynet_tpu_torch.jit import jit
+    from pydynet_tpu_torch.nn import MSELoss
+    from pydynet_tpu_torch.optim import Adam
+
+    def pair(make):
+        """{route: the callable ``make(route)`` builds}, each from seed
+        0."""
+        out = {}
+        for route in ("eager", "jit"):
+            manual_seed(0)
+            out[route] = make(route)
+        return out
+
+    def dbn_step(route):
+        fn, state, args = jit_case("dropout_bn", 1)
+        call = jit(fn, state=state) if route == "jit" else fn
+        return lambda: call(*args[0])
+
+    steps = pair(dbn_step)
+    for run in steps.values():  # the jit's eager call and its capture
+        run()
+        run()
+    times = runs_in_turns({k: (lambda f=f: [f() for _ in range(JIT_TIMED)])
+                           for k, f in steps.items()}, JIT_ROUNDS)
+    for route, f in steps.items():
+        kernels, busy = profile_calls(f, 10)
+        rates = [JIT_TIMED / t for t in times[route]]
+        print(f"[chip_smoke] {card}: dropout_bn train step {route}: steps/s "
+              f"of {JIT_ROUNDS} runs of {JIT_TIMED} in turns "
+              f"{', '.join(f'{r:.1f}' for r in rates)}; median "
+              f"{float(np.median(rates)):.1f}; {kernels:.0f} kernels a step, "
+              f"device busy {100 * busy:.1f} %")
+
+    def ts_epoch(route):
+        model = tsp.RNN().cuda()
+        opt = Adam(model.parameters(), lr=0.01)
+        Xtr, Xte, Ytr, Yte = (t.cuda() for t in tsp.data())
+        if route == "jit":
+            jtrain, jeval = tsp.steps(model, opt)
+        else:
+            crit = MSELoss()
+            jtrain = lambda bx, by: tsp.train_step(model, opt, crit, bx, by)
+            jeval = lambda bx, by: tsp.eval_step(model, crit, bx, by)
+
+        def epoch():
+            model.train()
+            jtrain(Xtr, Ytr)
+            model.eval()
+            with torch.no_grad():
+                jeval(Xte, Yte)
+
+        return lambda: [epoch() for _ in range(TS_TIMED)]
+
+    times = runs_in_turns(pair(ts_epoch), JIT_ROUNDS)
+    for route, t in times.items():
+        print(f"[chip_smoke] {card}: ts_prediction epoch (one full-batch "
+              f"step of 1568 windows and the test loss) {route}: ms of "
+              f"{JIT_ROUNDS} runs of {TS_TIMED} in turns "
+              f"{', '.join(f'{1e3 * x / TS_TIMED:.3f}' for x in t)}; median "
+              f"{1e3 * float(np.median(t)) / TS_TIMED:.3f}")
+
+    Xd = torch.from_numpy(X[:1638]).cuda()
+    yd = torch.from_numpy(y[:1638]).cuda()
+
+    def tf_epoch(route):
+        net, opt = tf.build(int(X.max()) + 1, X.shape[1], TF_LR, "cuda")
+        net.train()
+        if route == "jit":
+            jtrain = tf.steps(net, opt)[0]
+            return lambda: tf.device_epoch(jtrain, Xd, yd, 128)
+        eager = _EagerSteps(lambda a, b: tf.train_step(net, opt, a, b))
+        return lambda: tf.device_epoch(eager, Xd, yd, 128)
+
+    times = runs_in_turns(pair(tf_epoch), JIT_ROUNDS)
+    for route, t in times.items():
+        print(f"[chip_smoke] {card}: transformer epoch (dim 512, 1638 "
+              f"sentences, 12 batches of 128 and one of 102) "
+              f"{'foreach' if route == 'jit' else route}: ms of "
+              f"{JIT_ROUNDS} epochs in turns "
+              f"{', '.join(f'{1e3 * x:.2f}' for x in t)}; median "
+              f"{1e3 * float(np.median(t)):.2f}")
+
+
+class _EagerSteps:
+    """A step with the jit's call and ``foreach``, run eagerly: the
+    transformer's epoch loop without the graphs."""
+
+    def __init__(self, step) -> None:
+        self.step = step
+
+    def __call__(self, *args):
+        return self.step(*args)
+
+    def foreach(self, *args):
+        return torch.stack([self.step(*a) for a in zip(*args)])
 
 
 # ------------------------- phase 4v: CLIP ViT-B/32 -------------------------
@@ -4735,6 +5202,11 @@ def main() -> int:
     t0 = time.perf_counter()
     bn_launches = check_nn_training()
     phase("4e nn training path", t0)
+
+    # 4j. the jit's graphs against eager, the RNN and transformer trainers
+    t0 = time.perf_counter()
+    check_jit(card)
+    phase("4j jit, RNN and transformer trainers", t0)
 
     # 4v. CLIP ViT-B/32: zero-shot and fine-tuning, the other optimizers,
     # the training-state checkpoint (no port kernel on this path)

@@ -8,9 +8,10 @@ This package never imports JAX.
 from torch import no_grad
 
 from .device import device_count, is_available, resolve
+from .jit import jit
 from .random import default_generator, manual_seed
 
-__all__ = ["default_generator", "device_count", "is_available",
+__all__ = ["default_generator", "device_count", "is_available", "jit",
            "manual_seed", "no_grad", "resolve"]
 
 __version__ = "0.1.0"

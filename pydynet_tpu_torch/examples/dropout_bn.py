@@ -8,7 +8,10 @@ Three 4096-512-128-40 MLPs, plain, with dropout (p 0.05) and with two
 ``BatchNorm1d`` layers, train on the same batches with ONE backward over the
 sum of their losses, then one Adam step each (lr 5e-5). On a GPU the
 BatchNorm layers run the fused train-mode kernel (K8, ``ops/batchnorm.py``),
-twice a step. ``--device cuda`` is the default and raises without a GPU.
+twice a step. The train and eval steps go through ``jit``, as the JAX
+example's do: on the card a train step is then one CUDA-graph replay, both
+dropout masks' threefry draws and both K8 launches inside it. ``--device
+cuda`` is the default and raises without a GPU.
 
 The data is the JAX example's synthetic Olivetti-shaped set (400 faces of
 4096 pixels, 40 classes, from ``default_rng(0)``), bit for bit: the JAX
@@ -28,6 +31,7 @@ from torch import nn
 from .. import manual_seed
 from ..data import data_loader
 from ..device import resolve
+from ..jit import jit
 from ..nn import functional as F
 from ..nn import BatchNorm1d, CrossEntropyLoss, Dropout, Linear
 from ..optim import Adam
@@ -96,13 +100,14 @@ def train_step(nets, optims, loss_fn, bx, by):
     return [loss.detach() for loss in losses]
 
 
-@torch.no_grad()
-def accuracies(nets, X, y):
-    """Each net's test accuracy on (X, y), in eval mode."""
-    for net in nets:
-        net.eval()
-    return [float((net(X).argmax(-1).cpu().numpy() == y).mean())
-            for net in nets]
+def steps(nets, optims, loss_fn):
+    """``(jtrain, jeval)``: :func:`train_step` over the three nets, and
+    their argmax predictions, through ``jit``."""
+    jtrain = jit(lambda bx, by: train_step(nets, optims, loss_fn, bx, by),
+                 state=(nets, optims))
+    jeval = jit(lambda X: [net(X).argmax(-1) for net in nets],
+                state=(nets,))
+    return jtrain, jeval
 
 
 def train(epochs: int = 20, batch_size: int = 40, device=None,
@@ -125,6 +130,7 @@ def train(epochs: int = 20, batch_size: int = 40, device=None,
     nets = [DNN().to(device), DNN_dropout().to(device), DNN_BN().to(device)]
     optims = [Adam(n.parameters(), lr=5e-5) for n in nets]
     loss_fn = CrossEntropyLoss()
+    jtrain, jeval = steps(nets, optims, loss_fn)
     train_loader = data_loader(train_X, train_y, batch_size, True)
     test_Xd = torch.from_numpy(test_X).to(device)
     history, accs = [], None
@@ -133,13 +139,16 @@ def train(epochs: int = 20, batch_size: int = 40, device=None,
             net.train()
         total, n = torch.zeros(3, device=device), 0
         for bx, by in train_loader:
-            ls = train_step(nets, optims, loss_fn,
-                            torch.from_numpy(bx).to(device),
-                            torch.from_numpy(by).to(device))
+            ls = jtrain(torch.from_numpy(bx).to(device),
+                        torch.from_numpy(by).to(device))
             total += torch.stack(ls)
             n += 1
         history.append((total / n).tolist())
-        accs = accuracies(nets, test_Xd, test_y)
+        for net in nets:
+            net.eval()
+        with torch.no_grad():
+            accs = [float((p.cpu().numpy() == test_y).mean())
+                    for p in jeval(test_Xd)]
         print("epoch {:2d}: mean losses=({:.4f}, {:.4f}, {:.4f}) "
               "test_acc=(plain={:.3f}, dropout={:.3f}, bn={:.3f})".format(
                   epoch, *history[-1], *accs))

@@ -12,8 +12,10 @@ otherwise, or with ``--synthetic``, the JAX example's synthetic MNIST-shaped
 set (4096 train and 1024 test images from ``default_rng(0)``) is used. The
 epoch's training data stays on the device and is permuted there by the
 ``np.random.permutation`` the JAX example draws each epoch, so the batches
-are its batches. Adam, cross-entropy; PyTorch's TF32 settings are left as
-they are and printed.
+are its batches. The train and eval steps go through ``jit``, as the JAX
+example's do: an epoch's full batches through ``jtrain.foreach`` and the
+rest in one more call, each step on the card one CUDA-graph replay. Adam,
+cross-entropy; PyTorch's TF32 settings are left as they are and printed.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from torch import nn
 
 from .. import manual_seed
 from ..device import resolve
+from ..jit import jit
 from ..nn import functional as F
 from ..nn import Conv2d, Linear
 from ..optim import Adam
@@ -130,24 +133,43 @@ def train_step(net, optimizer, bx, by):
     return loss.detach()
 
 
-def train_epoch(net, optimizer, X, y, batch_size: int):
+def eval_jit(net):
+    """The argmax predictions of ``net`` through ``jit``."""
+    return jit(lambda bx: net(bx).argmax(-1), state=(net,))
+
+
+def train_jit(net, optimizer):
+    """:func:`train_step` of ``net`` and ``optimizer`` through ``jit``."""
+    return jit(lambda bx, by: train_step(net, optimizer, bx, by),
+               state=(net, optimizer))
+
+
+def train_epoch(net, optimizer, X, y, batch_size: int, jtrain=None):
     """One epoch over (X, y), already on the device and in the epoch's
-    order: full batches, then the remainder. Returns (last loss, steps)."""
+    order: the full batches through ``jtrain.foreach`` (``train_jit``'s
+    when not given), then the remainder in one call. Returns (last loss,
+    steps)."""
+    jtrain = jtrain or train_jit(net, optimizer)
     net.train()
-    loss, steps = None, 0
-    for i in range(0, len(X), batch_size):
-        loss = train_step(net, optimizer, X[i:i + batch_size],
-                          y[i:i + batch_size])
-        steps += 1
-    return loss, steps
+    k = len(X) // batch_size
+    loss = None
+    if k:
+        loss = jtrain.foreach(
+            X[:k * batch_size].reshape((k, batch_size) + X.shape[1:]),
+            y[:k * batch_size].reshape(k, batch_size))[-1]
+    if k * batch_size < len(X):
+        loss = jtrain(X[k * batch_size:], y[k * batch_size:])
+        k += 1
+    return loss, k
 
 
 @torch.no_grad()
-def accuracy(net, X, y, batch_size: int) -> float:
-    """Test accuracy of ``net`` in eval mode over (X, y) on its device."""
+def accuracy(net, X, y, batch_size: int, jeval=None) -> float:
+    """Test accuracy of ``net`` in eval mode over (X, y) on its device,
+    through ``jeval`` (``eval_jit``'s when not given)."""
+    jeval = jeval or eval_jit(net)
     net.eval()
-    right = sum((net(X[i:i + batch_size]).argmax(-1)
-                 == y[i:i + batch_size]).sum()
+    right = sum((jeval(X[i:i + batch_size]) == y[i:i + batch_size]).sum()
                 for i in range(0, len(X), batch_size))
     return int(right) / len(X)
 
@@ -190,16 +212,17 @@ def main(argv=None) -> float:
     (train_x, train_y), (test_x, test_y) = load_data(args)
     Xd, yd = (torch.from_numpy(a).to(device) for a in (train_x, train_y))
     Xt, yt = (torch.from_numpy(a).to(device) for a in (test_x, test_y))
+    jtrain, jeval = train_jit(net, optimizer), eval_jit(net)
     acc = None
     for epoch in range(args.epochs):
         t0 = time.perf_counter()
         perm = torch.from_numpy(np.random.permutation(len(train_x))).to(
             device)
         loss, steps = train_epoch(net, optimizer, Xd[perm], yd[perm],
-                                  args.batch_size)
+                                  args.batch_size, jtrain)
         loss = float(loss)  # waits for the epoch's last step
         train_time = time.perf_counter() - t0
-        acc = accuracy(net, Xt, yt, args.test_batch_size)
+        acc = accuracy(net, Xt, yt, args.test_batch_size, jeval)
         print("epoch {:2d}: loss={:.6f} test_acc={:.4f} "
               "({:.2f}s/epoch, {:.1f} steps/s)".format(
                   epoch, loss, acc, train_time, steps / train_time))

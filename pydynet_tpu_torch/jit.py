@@ -1,0 +1,328 @@
+"""``jit``: an imperative train or eval step run as one CUDA graph on a GPU
+(counterpart of ``pydynet_tpu/jit.py``).
+
+    jtrain = jit(train_step, state=(net, optimizer))
+    loss = jtrain(bx, by)              # net and optimizer updated in place
+    losses = jtrain.foreach(Xb, Yb)    # a call a slice of the leading axis
+
+The JAX package traces the step once and runs it as one XLA program. The
+port's counterpart on a GPU is one CUDA graph of the whole step: forward,
+``loss.backward()`` and ``optimizer.step()``, PyTorch's whole-network
+capture.
+
+* A signature's first call runs ``fn`` eagerly. It is a real step, which
+  builds the kernels, moves the generators' keys to the device and
+  allocates what the step keeps.
+* Its second call captures ``fn`` into a ``torch.cuda.CUDAGraph`` and
+  replays it once, since a capture runs nothing.
+* Every later call copies its tensor arguments into the graph's inputs,
+  replays, and returns clones of the graph's outputs in their structure (a
+  later replay overwrites the graph's own).
+
+The signature is the shapes, types and devices of the tensor arguments,
+the other arguments with the tree they sit in, and
+``torch.is_grad_enabled()``; each gets its own graph (:attr:`graphs`, each
+with its ``replays``). A wrapper's Python launch counter moves only while
+``fn`` runs in Python, at the eager call and at the capture, so the
+launches of a kernel inside a graph are its launches recorded in the
+capture times the graph's replays (``ops/batchnorm.py`` counts those as
+``captured``).
+
+On the CPU every call runs ``fn`` eagerly: the same semantics with nothing
+to capture, the route the tests take. Outputs are detached on both routes,
+as the JAX jit's are.
+
+The state (``state=``: modules, optimizers, threefry generators, tensors,
+and lists, tuples or dicts of them; ``random.default_generator`` always)
+is what the step reads and updates in place: every parameter and buffer
+(BatchNorm's running statistics), every optimizer buffer with its learning
+rate and step count, every generator's key. A graph reads and writes the
+memory it saw at its capture, so the state must stay in its tensors: if
+``fn`` rebinds a state tensor during the capture, or a state tensor holds
+other memory at a later replay, the call raises and names it. A
+generator's key that a draw elsewhere moved is copied back into the
+graph's buffer instead. Nothing falls back to the eager route.
+
+As with the JAX jit, Python control flow is fixed at the capture, the
+train or eval mode included: use one jit a mode. A step may not wait for
+the host while it is captured (``.item()``, ``float(optimizer.lr)``,
+printing a tensor). ``mesh=`` raises: the multi-device jit waits for the
+parallel port. ``donate_state`` is taken and has no effect, since the
+state is updated in place anyway.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch.utils import _pytree as pytree
+
+from . import random as _random
+from .optim.optimizer import Optimizer
+
+__all__ = ["jit"]
+
+_OPT_BUFFERS = ("v", "m", "G")
+_OPT_SCALARS = ("_lr_tensor", "_t_tensor")
+
+
+def _collect_state(state) -> list:
+    """``(name, tensor, generator)`` for every state tensor, each once, in a
+    fixed order; ``generator`` is the Generator whose key the tensor is,
+    else None."""
+    out, seen = [], set()
+
+    def add(name, t, gen=None):
+        if t is not None and id(t) not in seen:
+            seen.add(id(t))
+            out.append((name, t, gen))
+
+    def visit(obj, name):
+        if isinstance(obj, torch.Tensor):
+            add(name, obj)
+        elif isinstance(obj, _random.Generator):
+            add(f"{name}.key", obj._state, obj)
+        elif isinstance(obj, torch.nn.Module):
+            for n, t in obj.named_parameters():
+                add(f"{name}.{n}", t)
+            for n, t in obj.named_buffers():
+                add(f"{name}.{n}", t)
+        elif isinstance(obj, Optimizer):
+            for i, p in enumerate(obj.params):
+                add(f"{name}.params[{i}]", p)
+            for b in _OPT_BUFFERS:
+                for i, t in enumerate(getattr(obj, b, None) or ()):
+                    add(f"{name}.{b}[{i}]", t)
+            for s in _OPT_SCALARS:
+                add(f"{name}.{s}", getattr(obj, s, None))
+        elif isinstance(obj, (list, tuple)):
+            for i, o in enumerate(obj):
+                visit(o, f"{name}[{i}]")
+        elif isinstance(obj, dict):
+            for k, o in obj.items():
+                visit(o, f"{name}[{k!r}]")
+        elif obj is not None:
+            raise TypeError(
+                f"Cannot extract jit state from object of type {type(obj)}")
+
+    visit(state, "state")
+    visit(_random.default_generator, "default_generator")
+    return out
+
+
+def _detach(tree):
+    return pytree.tree_map(
+        lambda x: x.detach() if isinstance(x, torch.Tensor) else x, tree)
+
+
+class _Graph:
+    """One signature's captured step: the graph, its input and output
+    tensors, the output tree, the state tensors it captured with their
+    memory, and its replays."""
+
+    def __init__(self, graph, inputs, outputs, out_spec, state) -> None:
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.out_spec = out_spec
+        self.state = [(name, t, gen, t.data_ptr()) for name, t, gen in state]
+        self.replays = 0
+
+    def check_state(self):
+        """Raise if a captured state tensor holds other memory than at the
+        capture; put a generator's key that a draw elsewhere moved back
+        into the graph's buffer."""
+        for name, t, gen, ptr in self.state:
+            if gen is not None and gen._state is not t:
+                with torch.no_grad():
+                    t.copy_(gen._state)
+                gen._state = t
+            elif t.data_ptr() != ptr:
+                raise RuntimeError(
+                    f"jit: the state tensor {name} holds other memory than "
+                    "when the step was captured; a CUDA graph keeps the "
+                    "memory it saw")
+
+    def replay(self, leaves=None):
+        if leaves is not None:
+            self.check_state()
+            with torch.no_grad():
+                for dst, src in zip(self.inputs, leaves):
+                    dst.copy_(src)
+        self.graph.replay()
+        self.replays += 1
+        return pytree.tree_unflatten(
+            [x.clone() if isinstance(x, torch.Tensor) else x
+             for x in self.outputs], self.out_spec)
+
+
+class _JitFunction:
+
+    def __init__(self, fn, state=(), donate_state: bool = True, mesh=None,
+                 batch_axis: str = "dp", shard_rules=None) -> None:
+        if mesh is not None:
+            raise NotImplementedError(
+                "jit(mesh=...) is not ported yet (ROADMAP.md queue 1, "
+                "'Parallel')")
+        self._fn = fn
+        self._state = state
+        self._device = None  # the state's device, found at the first call
+        self._out_device = None  # without state or tensor arguments
+        self._warm = set()  # signatures whose eager first call has run
+        self.graphs: dict = {}  # signature -> _Graph
+        functools.update_wrapper(self, fn, updated=())
+
+    @property
+    def replays(self) -> int:
+        """Replays of all this jit's graphs."""
+        return sum(g.replays for g in self.graphs.values())
+
+    # -- arguments --------------------------------------------------------
+    def _leaves(self, args, kwargs):
+        """The arguments' leaves (every tensor on the step's device), their
+        tree and the step's device: the first state tensor's that is not a
+        generator's key, else the first tensor argument's (else, from the
+        second call, the device of the first call's first tensor
+        output)."""
+        leaves, spec = pytree.tree_flatten((args, kwargs))
+        if self._device is None:
+            self._device = next(
+                (t.device for _, t, gen in _collect_state(self._state)
+                 if gen is None), False)
+        target = self._device or next(
+            (x.device for x in leaves if isinstance(x, torch.Tensor)), None)
+        if target is not None:
+            leaves = [x.to(target) if isinstance(x, torch.Tensor)
+                      and x.device != target else x for x in leaves]
+        return leaves, spec, target
+
+    @staticmethod
+    def _signature(leaves, spec):
+        key = []
+        for leaf in leaves:
+            if isinstance(leaf, torch.Tensor):
+                key.append((tuple(leaf.shape), leaf.dtype, leaf.device,
+                            leaf.requires_grad))
+            else:
+                try:
+                    hash(leaf)
+                except TypeError:
+                    raise TypeError(
+                        f"jit: a non-tensor argument must be hashable, got "
+                        f"{type(leaf).__name__}") from None
+                key.append((type(leaf), leaf))
+        return tuple(key), spec, torch.is_grad_enabled()
+
+    # -- the two routes ---------------------------------------------------
+    def _run(self, leaves, spec):
+        args, kwargs = pytree.tree_unflatten(leaves, spec)
+        return self._fn(*args, **kwargs)
+
+    def _capture(self, leaves, spec, sig, target) -> _Graph:
+        entries = _collect_state(self._state)
+        for name, t, gen in entries:
+            if gen is None and t.device != target:
+                raise RuntimeError(
+                    f"jit: the state tensor {name} is on {t.device}, the "
+                    f"step on {target}: a CUDA graph would keep its value "
+                    "at the capture")
+        ptrs = [t.data_ptr() for _, t, _ in entries]
+        inputs = [x.detach().clone().requires_grad_(x.requires_grad)
+                  if isinstance(x, torch.Tensor) else x for x in leaves]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = self._run(inputs, spec)
+        except Exception as e:
+            raise RuntimeError(
+                f"jit: capturing {getattr(self._fn, '__name__', 'the step')}"
+                f" into a CUDA graph failed ({type(e).__name__}: {e}); the "
+                "step is not run eagerly instead") from e
+        after = _collect_state(self._state)
+        for i, (name, t, _) in enumerate(entries):
+            if i >= len(after) or after[i][1] is not t \
+                    or t.data_ptr() != ptrs[i]:
+                raise RuntimeError(
+                    f"jit: the step rebound the state tensor {name} during "
+                    "the capture; a CUDA graph keeps the memory it saw, so "
+                    "the step must update its state in place")
+        if len(after) != len(entries):
+            raise RuntimeError(f"jit: the step added the state tensor "
+                               f"{after[len(entries)][0]} during the capture")
+        out_leaves, out_spec = pytree.tree_flatten(_detach(out))
+        g = self.graphs[sig] = _Graph(
+            graph, [x for x in inputs if isinstance(x, torch.Tensor)],
+            out_leaves, out_spec, entries)
+        return g
+
+    def _call(self, args, kwargs):
+        leaves, spec, target = self._leaves(args, kwargs)
+        sig = self._signature(leaves, spec)
+        target = target or self._out_device
+        if target is None or target.type != "cuda":
+            out = _detach(self._run(leaves, spec))
+            if target is None:  # the device of the step's first output
+                self._out_device = next(
+                    (x.device for x in pytree.tree_leaves(out)
+                     if isinstance(x, torch.Tensor)), None)
+                self._warm.add(sig)
+            return out
+        g = self.graphs.get(sig)
+        if g is not None:
+            return g.replay([x for x in leaves
+                             if isinstance(x, torch.Tensor)])
+        if sig not in self._warm:
+            out = _detach(self._run(leaves, spec))
+            self._warm.add(sig)
+            return out
+        # the capture ran nothing: its first replay is this call's step
+        return self._capture(leaves, spec, sig, target).replay()
+
+    def __call__(self, *args, **kwargs):
+        return self._call(args, kwargs)
+
+    def foreach(self, *args, **kwargs):
+        """The step over the leading-axis slices of every argument, in
+        order: ``jstep.foreach(Xb, Yb)`` is ``[jstep(Xb[i], Yb[i]) for i in
+        range(n)]`` with each output stacked on a new leading axis, and the
+        same state updates. Every argument must be a tensor with the same
+        leading length; static arguments belong in the step."""
+        leaves, spec = pytree.tree_flatten((args, kwargs))
+        lengths = set()
+        for leaf in leaves:
+            if not isinstance(leaf, torch.Tensor):
+                raise TypeError(
+                    "foreach arguments must all be tensors with a leading "
+                    f"steps axis; got {type(leaf).__name__}")
+            if leaf.dim() == 0:
+                raise ValueError("foreach arguments need a leading steps "
+                                 "axis")
+            lengths.add(leaf.shape[0])
+        if len(lengths) != 1:
+            raise ValueError(f"foreach arguments disagree on the leading "
+                             f"steps axis: {sorted(lengths)}")
+        n = lengths.pop()
+        if n == 0:
+            raise ValueError("foreach needs at least one step")
+        outs = []
+        for i in range(n):
+            step_args, step_kwargs = pytree.tree_unflatten(
+                [leaf[i] for leaf in leaves], spec)
+            outs.append(self._call(step_args, step_kwargs))
+        flat = [pytree.tree_flatten(o)[0] for o in outs]
+        out_spec = pytree.tree_flatten(outs[0])[1]
+        stacked = [torch.stack(col) if isinstance(col[0], torch.Tensor)
+                   else list(col) for col in zip(*flat)]
+        return pytree.tree_unflatten(stacked, out_spec)
+
+
+def jit(fn=None, *, state=(), donate_state: bool = True, mesh=None,
+        batch_axis: str = "dp", shard_rules=None):
+    """Run an imperative step as one CUDA graph on a GPU; see the module
+    docstring. Usable as ``jit(fn, state=...)`` or as a decorator, bare or
+    with arguments."""
+    kwargs = dict(state=state, donate_state=donate_state, mesh=mesh,
+                  batch_axis=batch_axis, shard_rules=shard_rules)
+    if fn is None:
+        return lambda f: _JitFunction(f, **kwargs)
+    return _JitFunction(fn, **kwargs)

@@ -9,6 +9,7 @@ from .loss import CrossEntropyLoss, Loss, MSELoss, NLLLoss
 from .lora import LoRALinear, apply_lora, merge_lora
 from .norm import BatchNorm1d, BatchNorm2d, LayerNorm, RMSNorm, rms_norm
 from .pool import AvgPool1d, AvgPool2d, MaxPool1d, MaxPool2d
+from .rnn import GRU, LSTM, RNN, GRUCell, LSTMCell, RNNCell
 
 __all__ = [
     "Sigmoid", "Tanh", "ReLU", "LeakyReLU", "Softmax", "SiLU", "GELU",
@@ -16,6 +17,7 @@ __all__ = [
     "Conv1d", "Conv2d",
     "MaxPool1d", "MaxPool2d", "AvgPool1d", "AvgPool2d",
     "Dropout",
+    "RNNCell", "LSTMCell", "GRUCell", "RNN", "LSTM", "GRU",
     "Linear", "Embedding",
     "LoRALinear", "apply_lora", "merge_lora",
     "MSELoss", "NLLLoss", "CrossEntropyLoss", "Loss",

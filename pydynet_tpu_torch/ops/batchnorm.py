@@ -7,12 +7,16 @@ mean, var)``: ``out`` in x's type, ``mean`` and ``var`` (1, C) float32, the
 batch mean and the biased batch variance. For a CUDA tensor its forward
 launches the hand-written Hopper kernel of ``csrc/batchnorm.cu`` and counts
 the launch in ``batch_norm_train.launches``; for a CPU tensor it runs the
-plain version :func:`batch_norm_train_ref`. It never falls back: a CUDA
-input the kernel does not take (float64, float16, a shape other than (N, C)
-with (1, C) gamma and beta) raises. Its backward is ``_bn_bwd``'s formula
-(:96) in plain torch ops: the JAX package computes it with XLA, not a Pallas
-kernel. The cotangents of ``mean`` and ``var`` are dropped by design, as
-there (:110): they feed only the running statistics, which are buffers.
+plain version :func:`batch_norm_train_ref`. A launch recorded into a CUDA
+graph (``jit``'s capture) is counted in ``batch_norm_train.captured``
+instead: it runs at each of the graph's replays, so the launches inside a
+graph are its captured launches times its replays. It never falls back: a
+CUDA input the kernel does not take (float64, float16, a shape other than
+(N, C) with (1, C) gamma and beta) raises. Its backward is ``_bn_bwd``'s
+formula (:96) in plain torch ops: the JAX package computes it with XLA, not
+a Pallas kernel. The cotangents of ``mean`` and ``var`` are dropped by
+design, as there (:110): they feed only the running statistics, which are
+buffers.
 
 The JAX package's ``_fits_vmem`` rule (:56) is not ported: its size cap and
 its N >= 8 rule exist for VMEM and the TPU's (8, 128) tiling. The kernel
@@ -163,7 +167,10 @@ def _forward(x, gamma, beta, eps):
     out = torch.empty_like(x)
     mean = torch.empty((1, C), dtype=torch.float32, device=x.device)
     var = torch.empty_like(mean)
-    batch_norm_train.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        batch_norm_train.captured += 1
+    else:
+        batch_norm_train.launches += 1
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pdt_batch_norm_train(
@@ -204,3 +211,4 @@ def batch_norm_train(x, gamma, beta, eps=1e-6):
 
 
 batch_norm_train.launches = 0
+batch_norm_train.captured = 0

@@ -215,13 +215,18 @@ class Generator:
     half stays as the state, the second draws. The key lives on the device
     of the last draw (the CPU at first): a draw on another device moves it
     there once, so a stream of draws on the card copies nothing from the
-    host."""
+    host.
+
+    The key is one buffer: a draw and :meth:`manual_seed` write the new key
+    into it in place, so a CUDA graph that captured draws (``jit``) reads
+    and advances the same key at every replay. Only a move to another
+    device makes a new buffer, and that is refused during a capture."""
 
     def __init__(self, seed: int = 0) -> None:
         self._state = PRNGKey(seed)
 
     def manual_seed(self, seed: int) -> "Generator":
-        self._state = PRNGKey(seed, self._state.device)
+        self._state.copy_(PRNGKey(seed))
         return self
 
     @property
@@ -231,11 +236,27 @@ class Generator:
 
     def next_key(self, device=None) -> torch.Tensor:
         """Split the state on ``device`` (the state's own when not given):
-        keep the first key, return the second."""
-        state = self._state if device is None else self._state.to(device)
-        keys = split(state)
-        self._state = keys[0]
+        keep the first key, written into the state's buffer, and return the
+        second."""
+        if device is not None:
+            self._move(torch.device(device))
+        keys = split(self._state)
+        self._state.copy_(keys[0])
         return keys[1]
+
+    def _move(self, dev: torch.device) -> None:
+        """Put the key on ``dev`` (a new buffer), unless it is there."""
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if self._state.device == dev:
+            return
+        if torch.cuda.is_available() \
+                and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"Generator key on {self._state.device} drawn on {dev} "
+                "during a CUDA graph capture: a capture cannot move it; "
+                "draw once on that device before capturing")
+        self._state = self._state.to(dev)
 
     def uniform(self, shape, dtype=torch.float32, minval: float = 0.0,
                 maxval: float = 1.0, device=None) -> torch.Tensor:

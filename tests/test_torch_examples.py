@@ -29,10 +29,13 @@ from pydynet_tpu import optim as joptim
 import pydynet_tpu.nn.functional as JF
 from examples.pydynet import dropout_bn as jdb
 from examples.pydynet import mnist as jmnist
+from examples.pydynet import transformer as jtf
+from examples.pydynet import ts_prediction as jts
 
 from pydynet_tpu_torch import optim as toptim
 from pydynet_tpu_torch.data import data_loader
-from pydynet_tpu_torch.examples import dropout_bn, mnist
+from pydynet_tpu_torch.examples import dropout_bn, mnist, transformer
+from pydynet_tpu_torch.examples import ts_prediction
 from pydynet_tpu_torch.nn import CrossEntropyLoss
 from pydynet_tpu_torch.utils.checkpoint import load_state_dict, state_dict
 
@@ -184,3 +187,149 @@ def test_entry_points_mean_the_card():
         dropout_bn.main(epochs=1)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         mnist.main(["--epochs", "1", "--synthetic"])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ts_prediction.main(epochs=1)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        ts_prediction.cli(["--epochs", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        transformer.main(["--epochs", "1", "--samples", "64"])
+
+
+def test_ts_prediction_data_equal_the_jax_examples():
+    X, Y = jts.windowize(jts.f(np.arange(0, 100, .05)), jts.TIME_STEP)
+    want = jts.train_test_split(X, Y)
+    for got, w in zip(ts_prediction.data(), want):
+        np.testing.assert_array_equal(got.numpy(), w.numpy())
+    assert tuple(want[0].shape) == (1568, 40, 1)
+
+
+def test_ts_prediction_epochs_match_jax():
+    """Eight epochs from the JAX example's weights: each epoch's full-batch
+    train loss and test loss within 1e-4 relative of the JAX example's
+    (float32, the GRU's 40 steps summed in other orders)."""
+    np.random.seed(0)
+    jnet = jts.RNN()
+    tnet = ts_prediction.RNN()
+    load_state_dict(tnet, jnet.state_dict())
+    jopt = joptim.Adam(jnet.parameters(), lr=0.01)
+    topt = toptim.Adam(tnet.parameters(), lr=0.01)
+    crit = jnn.MSELoss()
+
+    def jtrain_step(bx, by):
+        loss = crit(jnet(bx), by)
+        jopt.zero_grad()
+        loss.backward()
+        jopt.step()
+        return loss
+
+    jtrain = pdn.jit(jtrain_step, state=(jnet, jopt))
+    jeval = pdn.jit(lambda bx, by: crit(jnet(bx), by), state=(jnet,))
+    ttrain, teval = ts_prediction.steps(tnet, topt)
+    X, Y = jts.windowize(jts.f(np.arange(0, 100, .05)), jts.TIME_STEP)
+    jX, jXt, jY, jYt = jts.train_test_split(X, Y)
+    tX, tXt, tY, tYt = ts_prediction.data()
+    for epoch in range(8):
+        jnet.train()
+        tnet.train()
+        want = [float(jtrain(jX, jY).item())]
+        got = [float(ttrain(tX, tY))]
+        jnet.eval()
+        tnet.eval()
+        with pdn.no_grad():
+            want.append(float(jeval(jXt, jYt).item()))
+        with torch.no_grad():
+            got.append(float(teval(tXt, tYt)))
+        np.testing.assert_allclose(got, want, rtol=1e-4,
+                                   err_msg=f"epoch {epoch}")
+
+
+def test_ts_prediction_main_on_cpu(capsys):
+    """``tests/test_utils_examples.py``'s bound for the JAX example."""
+    assert ts_prediction.main(epochs=8, device="cpu") < 0.7
+    assert "loss" in capsys.readouterr().out
+
+
+def test_synthetic_cola_and_mask_equal_the_jax_examples(tmp_path):
+    X, y = transformer.synthetic_cola()
+    jX, jy = jtf.synthetic_cola()
+    np.testing.assert_array_equal(X, jX)
+    np.testing.assert_array_equal(y, jy)
+    np.testing.assert_array_equal(
+        transformer.construct_mask(torch.from_numpy(X[:64])).numpy(),
+        jtf.construct_mask(pdn.Tensor(X[:64])).numpy())
+    np.testing.assert_array_equal(
+        transformer.sinusoidal_positional_encoding(45, 512).numpy(),
+        jtf.sinusoidal_positional_encoding(45, 512).numpy())
+    assert transformer.load_cola(str(tmp_path)) is None
+    (tmp_path / "in_domain_train.tsv").write_text(
+        "gj04\t1\t\tthe cat sat\ngj04\t0\t*\tcat the\n")
+    for a, b in zip(transformer.load_cola(str(tmp_path)),
+                    jtf.load_cola(str(tmp_path))):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_transformer_steps_match_jax():
+    """The encoder at a narrow width (dim 32, 4 heads, length 12) from the
+    JAX classes' weights: its forward and three Adam steps (lr 5e-4) of
+    the example's tanh-score loss (the JAX side through ``pdn.jit``, as its
+    example steps) within 1e-5, float32, and the forward after them. The JAX package's LayerNorm normalizes over the leading
+    axes, so, as BatchNorm does, it takes away any constant shift of each
+    feature: the bias of the product that feeds norm2 gets a gradient of
+    rounding noise, which Adam turns into a move of up to lr a step in
+    either direction, and norm2's running mean carries it. Those two are
+    held to 2 * 3 * lr (the module docstring's rule)."""
+    X, y = jtf.synthetic_cola(n=48, vocab=50, max_len=12, seed=3)
+    y = np.where(y == 0, -1.0, 1.0).astype(np.float32)
+    np.random.seed(0)
+    jnet = jtf.Transformer(32, 1, 4, 2, 0.0, 50, 12)
+    tnet = transformer.Transformer(32, 1, 4, 2, 0.0, 50, 12)
+    load_state_dict(tnet, jnet.state_dict())
+    bx = X[:16]
+    with pdn.no_grad():
+        want = jnet(pdn.Tensor(bx), jtf.construct_mask(pdn.Tensor(bx)))
+    with torch.no_grad():
+        tb = torch.from_numpy(bx)
+        got = tnet(tb, transformer.construct_mask(tb))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    jopt = joptim.Adam(jnet.parameters(), lr=5e-4)
+    topt = toptim.Adam([p for p in tnet.parameters() if p.requires_grad],
+                       lr=5e-4)
+
+    def jstep(jx, jy):  # the JAX example's train_step
+        score = pdn.tanh(jnet(jx, jtf.construct_mask(jx))).reshape(-1)
+        loss = pdn.mean(pdn.square(score - jy))
+        jopt.zero_grad()
+        loss.backward()
+        jopt.step()
+        return loss
+
+    jtrain = pdn.jit(jstep, state=(jnet, jopt))
+    for i in range(3):
+        bx, by = X[16 * i:16 * (i + 1)], y[16 * i:16 * (i + 1)]
+        jl = jtrain(pdn.Tensor(bx), pdn.Tensor(by))
+        tl = transformer.train_step(tnet, topt, torch.from_numpy(bx),
+                                    torch.from_numpy(by))
+        np.testing.assert_allclose(float(tl), float(jl.numpy()), rtol=1e-5)
+    want = jnet.state_dict()
+    inert = ("layers.0.feed_forward.2.bias", "layers.0.norm2.running_mean")
+    for name, got in state_dict(tnet).items():
+        np.testing.assert_allclose(got, want[name], rtol=0, err_msg=name,
+                                   atol=2 * 3 * 5e-4 if name in inert
+                                   else 1e-5)
+    bx = X[:16]
+    with pdn.no_grad():
+        want = jnet(pdn.Tensor(bx), jtf.construct_mask(pdn.Tensor(bx)))
+    with torch.no_grad():
+        tb = torch.from_numpy(bx)
+        got = tnet(tb, transformer.construct_mask(tb))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_transformer_cli_on_cpu(capsys):
+    acc = transformer.main(["--device", "cpu", "--epochs", "1",
+                            "--samples", "128", "--batch-size", "32"])
+    out = capsys.readouterr().out
+    assert "synthetic CoLA-shaped data" in out and "epoch  0:" in out
+    assert 0.0 <= acc <= 1.0

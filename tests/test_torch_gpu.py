@@ -1453,3 +1453,130 @@ def test_optimizer_steps_on_the_card_equal_the_cpu(gpu, name):
                     opts["cpu"].params + getattr(opts["cpu"], buf)):
         np.testing.assert_allclose(a.detach().cpu().numpy(),
                                    b.detach().numpy(), atol=1e-6, rtol=1e-6)
+
+
+# ---- the jit: CUDA-graph route against the eager route (chip_smoke 4j) ----
+@pytest.mark.parametrize("case", ["gd", "bn-sgd", "adam", "adam-dropout",
+                                  "accum", "lstm", "dropout-mask",
+                                  "ts_prediction", "dropout_bn"])
+def test_jit_graph_route_equals_eager(gpu, case):
+    """``JIT_STEPS`` calls through the jit (eager first, then one graph)
+    against the same calls made eagerly from the same seed: outputs and
+    state within ``JIT_RTOL``, the threefry keys equal after every call and
+    new at each where the step draws; dropout masks equal to the bit; K8
+    captured once a BatchNorm layer and run replays x that."""
+    from chip_smoke import JIT_RTOL, JIT_STEPS, jit_vs_eager
+    from pydynet_tpu_torch.ops import batchnorm as bn
+
+    err, bit, keys_ok, j, counts = jit_vs_eager(
+        case, counter=bn.batch_norm_train)
+    print(f"jit {case}: graph vs eager over {JIT_STEPS} steps, max relative "
+          f"error {err:.3g}, {'bit-equal' if bit else 'not bit-equal'}")
+    assert err <= JIT_RTOL and keys_ok
+    assert len(j.graphs) == 1 and j.replays == JIT_STEPS - 1
+    if case == "dropout-mask":
+        assert bit
+    per = {"bn-sgd": 1, "dropout_bn": 2}.get(case, 0)
+    assert counts["eager"] == (per * JIT_STEPS, 0)
+    assert counts["graph"] == (per, per)
+
+
+def test_jit_new_shape_captures_a_second_graph(gpu):
+    from pydynet_tpu_torch import jit, nn
+
+    net = nn.Linear(4, 3).cuda()
+    f = jit(lambda x: net(x), state=(net,))
+    xs = {n: torch.randn(n, 4, device="cuda") for n in (8, 16)}
+    with torch.no_grad():
+        for n in (8, 8, 8, 16, 16, 16, 8):
+            assert torch.equal(f(xs[n]), net(xs[n]))
+    assert sorted(g.replays for g in f.graphs.values()) == [2, 3]
+
+
+def test_jit_outputs_of_earlier_calls_survive_later_replays(gpu):
+    from pydynet_tpu_torch import jit
+
+    f = jit(lambda x: {"twice": x * 2, "sum": x.sum()})
+    outs = [f(torch.full((3,), float(i), device="cuda")) for i in range(6)]
+    assert [o["twice"].tolist() for o in outs] == [[2.0 * i] * 3
+                                                   for i in range(6)]
+    assert [float(o["sum"]) for o in outs] == [3.0 * i for i in range(6)]
+    assert f.replays == 5
+
+
+def test_jit_rebinding_a_state_tensor_raises_and_names_it(gpu):
+    from pydynet_tpu_torch import jit, nn
+
+    net = nn.Linear(4, 3).cuda()
+
+    def step(x):
+        net.bias.data = net.bias.data + x.sum()  # a new tensor: rebinds
+        return net(x)
+
+    f = jit(step, state=(net,))
+    x = torch.ones(2, 4, device="cuda")
+    f(x)  # the eager first call may rebind
+    with pytest.raises(RuntimeError, match=r"state\[0\]\.bias"):
+        f(x)
+    assert not f.graphs
+
+
+def test_jit_state_on_another_device_raises(gpu):
+    from pydynet_tpu_torch import jit, nn, optim
+
+    net = nn.Linear(4, 3)
+    opt = optim.Adam(net.parameters(), lr=1e-3)  # its lr and t on the CPU
+    net.cuda()
+    opt.m, opt.v = opt._zeros(), opt._zeros()  # the moments on the card
+
+    def step(x):
+        opt.zero_grad()
+        net(x).sum().backward()
+        opt.step()
+
+    f = jit(step, state=(net, opt))
+    f(torch.ones(2, 4, device="cuda"))
+    with pytest.raises(RuntimeError, match=r"_lr_tensor is on cpu"):
+        f(torch.ones(2, 4, device="cuda"))
+
+
+def test_jit_puts_back_a_generator_key_a_draw_elsewhere_moved(gpu):
+    """A draw on the CPU between replays moves ``default_generator``'s key
+    off the card; the next replay copies it back into the graph's buffer,
+    so the masks go on as they do eagerly."""
+    from pydynet_tpu_torch import default_generator, jit, manual_seed
+    from pydynet_tpu_torch.nn import functional as F
+
+    x = torch.ones(256, device="cuda")
+
+    def run(step):
+        manual_seed(3)
+        outs = [step() for _ in range(3)]
+        outs.append(default_generator.uniform((4,), device="cpu"))
+        return [o.cpu() for o in outs + [step() for _ in range(2)]]
+
+    f = jit(lambda: F.dropout(x, 0.5))
+    got, want = run(f), run(lambda: F.dropout(x, 0.5))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert f.replays == 4 and default_generator.state.is_cuda
+
+
+def test_jit_failed_capture_raises_and_never_runs_eagerly(gpu):
+    """A step that waits for the host cannot be captured: the call raises
+    instead of falling back to the eager route."""
+    from pydynet_tpu_torch import jit
+
+    calls = []
+
+    def step(x):
+        calls.append(1)
+        return x * float(x.sum())
+
+    f = jit(step)
+    x = torch.ones(3, device="cuda")
+    assert f(x).tolist() == [3.0] * 3
+    with pytest.raises(RuntimeError, match="CUDA graph failed"):
+        f(x)
+    assert len(calls) == 2 and not f.graphs
+    torch.cuda.synchronize()
+    assert (x * 2).tolist() == [2.0] * 3  # the card still works

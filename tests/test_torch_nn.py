@@ -454,7 +454,6 @@ def test_package_surface():
                  "CrossEntropyLoss", "init", "functional"):
         assert name in tnn.__all__ and hasattr(tnn, name)
     assert set(jnn.modules.__all__) - set(tnn.__all__) == {
-        "Module", "Sequential", "ModuleList", "RNN", "LSTM", "GRU",
-        "RNNCell", "LSTMCell", "GRUCell"}
+        "Module", "Sequential", "ModuleList"}
     assert callable(pdt.manual_seed)
     assert isinstance(pdt.default_generator, pdt.random.Generator)
