@@ -226,6 +226,21 @@ the run with a nonzero exit and no result line:
    gate; one SGD, Adagrad and Adadelta step on the card against the CPU;
    both CLIP CLIs on the card; no port kernel launched (this path reaches
    none);
+4t. the tape (``core/tensor.py``: ``Tensor``, ``backward``, the data
+   setter, ``jit`` over tape state): autograd1d on the card, its float64
+   trajectory within 1e-12 of the CPU's; autograd2d's 60 steps through
+   ``jit`` (one CUDA graph, 59 replays) bit-equal to the same steps run
+   eagerly on the card and within 1e-12 of the CPU's, reaching (3, -1);
+   every tape op's value and gradients on the card against the CPU in
+   float64 (1e-12) and float32 (1e-6, TF32 switched on globally to show
+   the tape's products ignore it); a mixed-device op raising; the steps/s
+   of the autograd2d step eagerly and through the jit in turns; a 64-token
+   ``generate(fused="numpy")`` request on the stories15M model (the NumPy
+   lane on the host, float32 copies of the card's weights), teacher-forced
+   equal to the eager float32 stream at every confident step, its stream
+   equal to the fused lane's up to a near-tie, and its tok/s with the host
+   CPU's name; the native merge engine loaded and equal to the Python
+   merge; no port kernel launched by the tape or the NumPy lane;
 5. timings: tokens per second of the 1024-token request in each format
    (bfloat16, int8-head, int8, int4, and the int8 KV cache through K2),
    timed ``REPEATS`` times in turns, K1's (also with int8 and int4 layers)
@@ -282,6 +297,8 @@ The last two lines of standard output are a JSON object describing the
 kernels and then ``{"ok": true, "device": {...}}``.
 """
 import json
+import os
+import platform
 import subprocess
 import sys
 import time
@@ -524,6 +541,55 @@ CLIP_STEPS, CLIP_LR = 20, 1e-4
 CLIP_PROJ = ("text_encoder.proj", "image_encoder.proj")
 CLIP_LORA = dict(r=8, alpha=16.0, targets=("QKV", "O"))
 CLIP_OPTIMIZERS = {"SGD": dict(lr=1e-3), "Adagrad": {}, "Adadelta": {}}
+# phase 4t: the tape. TAPE_STEPS autograd2d steps (the JAX example's 60);
+# every tape op against the CPU within TAPE_TOL; the eager and jitted
+# autograd2d step timed TAPE_TIMED steps a run, TAPE_ROUNDS runs in turns; a
+# NUMPY_REQUEST-token request on the NumPy lane
+TAPE_STEPS = 60
+TAPE_TOL = {np.float64: 1e-12, np.float32: 1e-6}
+TAPE_TIMED, TAPE_ROUNDS = 200, 3
+NUMPY_REQUEST = 64
+# (op, shapes): the loss is the op's output times seeded weights, summed
+TAPE_OPS = {
+    "add": (lambda pdt, x, y: pdt.add(x, y), [(2, 3), (1, 3)]),
+    "sub": (lambda pdt, x, y: x - y, [(4, 2, 3), (3,)]),
+    "mul": (lambda pdt, x, y: x * y, [(2, 3), (2, 1)]),
+    "div": (lambda pdt, x, y: x / (y * y + 1), [(2, 3), (3,)]),
+    "pow": (lambda pdt, x, y: pdt.pow(x * x + 0.5, y), [(2, 3), (2, 3)]),
+    "matmul": (lambda pdt, x, y: x @ y, [(5, 2, 3), (3, 4)]),
+    "matmul_wide": (lambda pdt, x, y: x @ y, [(64, 256), (256, 48)]),
+    "maximum": (lambda pdt, x, y: pdt.maximum(x, y), [(2, 3), (3,)]),
+    "minimum": (lambda pdt, x, y: pdt.minimum(x, y), [(2, 3), (2, 3)]),
+    "abs": (lambda pdt, x: pdt.abs(x), [(3, 4)]),
+    "exp": (lambda pdt, x: pdt.exp(x), [(3, 4)]),
+    "log": (lambda pdt, x: pdt.log(x * x + 0.1), [(3, 4)]),
+    "sign": (lambda pdt, x: pdt.sign(x) * x, [(3, 4)]),
+    "sigmoid": (lambda pdt, x: pdt.sigmoid(x), [(3, 4)]),
+    "tanh": (lambda pdt, x: pdt.tanh(x), [(3, 4)]),
+    "sqrt": (lambda pdt, x: pdt.sqrt(x * x + 1), [(3, 4)]),
+    "square": (lambda pdt, x: pdt.square(x), [(3, 4)]),
+    "sum": (lambda pdt, x: pdt.sum(x, axis=1), [(2, 3, 4)]),
+    "mean": (lambda pdt, x: pdt.mean(x, axis=(0, 2), keepdims=True),
+             [(2, 3, 4)]),
+    "max": (lambda pdt, x: pdt.max(x, axis=-1), [(2, 3, 4)]),
+    "min": (lambda pdt, x: pdt.min(x), [(2, 3, 4)]),
+    "reshape": (lambda pdt, x: pdt.reshape(x, (4, 6)), [(2, 3, 4)]),
+    "transpose": (lambda pdt, x: pdt.transpose(x, (0, -1, -2)),
+                  [(2, 3, 4)]),
+    "swapaxes": (lambda pdt, x: pdt.swapaxes(x, 0, 2), [(2, 3, 4)]),
+    "getitem": (lambda pdt, x: x[[0, 2, 0], 1:], [(3, 4)]),
+    "getitem_neg_step": (lambda pdt, x: x[::-1, 1::-2], [(3, 4)]),
+    "concat": (lambda pdt, x, y: pdt.concat([x, y, x], axis=1),
+               [(2, 3), (2, 2)]),
+    "split": (lambda pdt, x: pdt.split(x, [1, 3], axis=1)[1] * 2
+              + pdt.hsplit(x, 2)[0].sum(), [(3, 4)]),
+    "squeeze": (lambda pdt, x: pdt.squeeze(pdt.unsqueeze(x, (0, 2)), 0),
+                [(3, 4)]),
+    "wrap_pure": (lambda pdt, x, y: pdt.wrap_pure(
+        lambda a, b: torch.sin(a) @ b, x, y), [(2, 3), (3, 2)]),
+    "remat_pure": (lambda pdt, x, y: pdt.remat_pure(
+        lambda a, b: torch.square(a @ b) @ b.T, x, y), [(4, 5), (5, 6)]),
+}
 # the least time of a function: bytes over the memory rate, or operations
 # over the card's peak for their type (NVIDIA's H100 SXM data sheet, dense)
 HBM_BYTES_S = 3.35e12
@@ -4186,6 +4252,212 @@ class _EagerSteps:
         return torch.stack([self.step(*a) for a in zip(*args)])
 
 
+# ----------------------------- phase 4t: the tape ---------------------------
+def tape_op(name, device, dtype, seed=0):
+    """One tape op on ``device``: its value and its inputs' gradients of
+    ``sum(op(...) * weights)``, as NumPy arrays, from seeded inputs."""
+    import pydynet_tpu_torch as pdt
+
+    fn, shapes = TAPE_OPS[name]
+    rng = np.random.default_rng(seed)
+    dev = pdt.Device(device)
+    ts = [pdt.Tensor(rng.standard_normal(s).astype(dtype),
+                     requires_grad=True, device=dev) for s in shapes]
+    out = fn(pdt, *ts)
+    wgt = pdt.Tensor(rng.standard_normal(out.shape).astype(dtype),
+                     device=dev)
+    (out * wgt).sum().backward()
+    return [out.numpy()] + [t.grad.cpu().numpy() for t in ts]
+
+
+def tape_vs_cpu(name, dtype):
+    """The largest error of the op's value and gradients on the card
+    against the CPU, relative to each reference's largest magnitude."""
+    err = 0.0
+    for g, w in zip(tape_op(name, "cuda", dtype), tape_op(name, "cpu", dtype)):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"tape {name}: {g.shape} {g.dtype} on the "
+                                 f"card, {w.shape} {w.dtype} on the CPU")
+        scale = max(float(np.abs(w).max()), 1e-30)
+        err = max(err, float(np.abs(g.astype(np.float64) - w).max()) / scale)
+    return err
+
+
+def autograd2d_run(route, steps=TAPE_STEPS):
+    """autograd2d's point after each of ``steps`` steps on the card, the
+    step through the jit (``route="jit"``) or called directly; returns the
+    (steps + 1, 2) trajectory and the jitted step."""
+    from pydynet_tpu_torch import Device
+    from pydynet_tpu_torch.examples import autograd2d
+
+    w, jstep = autograd2d.build(0.1, Device("cuda"))
+    step = jstep if route == "jit" else jstep.__wrapped__
+    traj = [w.torch.clone()]
+    for _ in range(steps):
+        step()
+        traj.append(w.torch.clone())
+    return torch.stack(traj), jstep
+
+
+def host_cpu_name():
+    """The host CPU's model as ``/proc/cpuinfo`` gives it (its model name,
+    else, where it reads "unknown", its vendor, family and model
+    numbers), with the cores this process may use."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    name = next((info[k] for k in ("model name", "Model")
+                 if info.get(k, "unknown") != "unknown"), None)
+    name = name or " ".join(f"{k} {info[k]}" for k in (
+        "vendor_id", "cpu family", "model", "CPU implementer", "CPU part")
+        if k in info) or platform.machine()
+    return f"{name}, {len(os.sched_getaffinity(0))} cores"
+
+
+def numpy_lane_gate(model, truth, margins, tops):
+    """``(checked, ok)``: the NumPy lane teacher-forced on ``truth`` (the
+    prompt, then each truth token) gives the truth's token at every
+    confident step."""
+    from pydynet_tpu_torch.models.llama import cpu_decode
+    from pydynet_tpu_torch.utils import fidelity
+
+    w = cpu_decode.build_np_weights(model)
+    st = cpu_decode._State(model, w["tok"].dtype)
+    feed = [int(t) for t in PROMPT[0]] + [int(t) for t in truth[:-1, 0]]
+    got = []
+    for pos, tok in enumerate(feed):
+        logits = cpu_decode._advance(model, w, st, tok, pos,
+                                     pos >= PROMPT.shape[1] - 1)
+        if logits is not None:
+            got.append(int(np.argmax(logits)))
+    conf = fidelity._confident(margins[:, 0], tops[:, 0], fidelity.MARGIN,
+                               fidelity.REL_MARGIN)
+    ok = all(got[i] == truth[i, 0] for i in np.flatnonzero(conf))
+    return int(conf.sum()), ok and conf.any()
+
+
+def check_tape(model, card):
+    """Phase 4t: the tape on the card (module docstring)."""
+    import pydynet_tpu_torch as pdt
+    from pydynet_tpu_torch.examples import autograd1d, autograd2d
+    from pydynet_tpu_torch.models.llama.tokenizer import Tokenizer
+    from pydynet_tpu_torch.native import NativeVocab
+    from pydynet_tpu_torch.utils import fidelity
+
+    before = kernel_launches()
+    gpu1, err1 = autograd1d.main(device="cuda")
+    cpu1, _ = autograd1d.main(device="cpu")
+    e1 = float(np.abs(gpu1 - cpu1).max())
+    print(f"[chip_smoke] tape autograd1d on the card: max |auto - manual| "
+          f"{err1:.3g}, trajectory vs CPU {e1:.3g}")
+    if e1 > TAPE_TOL[np.float64]:
+        raise AssertionError(f"autograd1d on the card differs by {e1}")
+
+    jit_traj, jstep = autograd2d_run("jit")
+    eager_traj, _ = autograd2d_run("eager")
+    cpu2 = autograd2d.main(device="cpu")
+    main2 = autograd2d.main(device="cuda")
+    bit = torch.equal(jit_traj, eager_traj)
+    e2 = float(np.abs(jit_traj.cpu().numpy() - cpu2).max())
+    print(f"[chip_smoke] tape autograd2d {TAPE_STEPS} steps through the jit:"
+          f" {len(jstep.graphs)} graph, {jstep.replays} replays, "
+          f"{'bit-equal' if bit else 'NOT bit-equal'} to eager; vs CPU "
+          f"{e2:.3g}; final {jit_traj[-1].tolist()}")
+    if not bit or len(jstep.graphs) != 1 \
+            or jstep.replays != TAPE_STEPS - 1 or e2 > TAPE_TOL[np.float64] \
+            or not np.array_equal(main2, jit_traj.cpu().numpy()):
+        raise AssertionError("autograd2d through the jit differs")
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True  # the tape must ignore it
+    try:
+        worst = {}
+        for dtype in TAPE_TOL:
+            for name in TAPE_OPS:
+                err = tape_vs_cpu(name, dtype)
+                worst[np.dtype(dtype).name] = max(
+                    worst.get(np.dtype(dtype).name, 0.0), err)
+                if err > TAPE_TOL[dtype]:
+                    raise AssertionError(f"tape {name} {np.dtype(dtype)} on "
+                                         f"the card: error {err}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    print(f"[chip_smoke] tape ops: {len(TAPE_OPS)} ops' values and "
+          f"gradients vs CPU, worst relative error {worst} (TF32 on "
+          "globally)")
+    try:
+        pdt.Tensor(np.ones(2), device="cuda") + pdt.Tensor(np.ones(2))
+    except RuntimeError as e:
+        if "different devices" not in str(e):
+            raise
+    else:
+        raise AssertionError("a mixed-device op did not raise")
+
+    rates = {"eager": [], "jit": []}
+    for _ in range(TAPE_ROUNDS):
+        for route in rates:
+            w, jstep = autograd2d.build(0.1, pdt.Device("cuda"))
+            step = jstep if route == "jit" else jstep.__wrapped__
+            step()
+            step()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(TAPE_TIMED):
+                step()
+            torch.cuda.synchronize()
+            rates[route].append(TAPE_TIMED / (time.perf_counter() - start))
+    for route, r in rates.items():
+        print(f"[chip_smoke] {card}: autograd2d step {route}, steps/s of "
+              f"{TAPE_ROUNDS} runs: {', '.join(f'{x:.1f}' for x in r)}; "
+              f"median {float(np.median(r)):.1f}")
+
+    n_new = NUMPY_REQUEST - PROMPT.shape[1]
+    truth, margins, tops = fidelity.greedy_truth(model, PROMPT, n_new)
+    checked, ok = numpy_lane_gate(model, truth, margins, tops)
+    start = time.perf_counter()
+    lane = [int(t) for t in model.generate(PROMPT, NUMPY_REQUEST,
+                                           fused="numpy")]
+    secs = time.perf_counter() - start
+    fused = [int(t) for t in model.generate(PROMPT, NUMPY_REQUEST,
+                                            fused=True)]
+    conf = fidelity._confident(margins[:, 0], tops[:, 0], fidelity.MARGIN,
+                               fidelity.REL_MARGIN)
+    part = next((i for i in range(n_new) if lane[i] != fused[i]), n_new)
+    print(f"[chip_smoke] NumPy lane, {NUMPY_REQUEST}-token stories15M "
+          f"request: teacher-forced gate {checked} confident steps "
+          f"{'ok' if ok else 'FAILED'}; stream equal to the fused lane's for "
+          f"{part} of {n_new} tokens; {len(lane) / secs:.1f} tok/s on the "
+          f"host ({host_cpu_name()}), beside {card}")
+    if not ok or len(lane) != n_new or (part < n_new and conf[part]):
+        raise AssertionError("the NumPy lane differs at a confident step")
+
+    tok = Tokenizer(None)
+    if tok._native is None:
+        raise AssertionError("the native merge engine did not load")
+    tokens = ["<unk>", "<s>", "</s>", "a", "b", "c", "ab", "abc", "bc", "ca"]
+    scores = [0.0, 0.0, 0.0, 1.0, 1.0, 1.0, 5.0, 9.0, 6.0, 4.0]
+    tok.vocab, tok.scores = tokens, scores
+    tok._index = {t: i for i, t in enumerate(tokens)}
+    tok._native = NativeVocab.create(tokens, scores)
+    texts = ["abc", "cab", "aabbcc", "abcabcabc", "xyz abc", "", "ccabba"]
+    native = [tok.encode(t) for t in texts]
+    tok._native = None
+    if native != [tok.encode(t) for t in texts]:
+        raise AssertionError("the native merge differs from the Python one")
+    print(f"[chip_smoke] native merge engine loaded, equal to the Python "
+          f"merge on {len(texts)} texts")
+    after = kernel_launches()
+    fused_k1 = after["fused_decode_token"] - before["fused_decode_token"]
+    ran = {k: after[k] - before[k] for k in after
+           if after[k] != before[k] and k != "fused_decode_token"}
+    if ran or fused_k1 != n_new - 1:
+        raise AssertionError(f"the tape phase launched port kernels: {ran}, "
+                             f"K1 {fused_k1} (the fused-lane comparison's "
+                             f"{n_new - 1})")
+
+
 # ------------------------- phase 4v: CLIP ViT-B/32 -------------------------
 def kernel_launches():
     """{wrapper: launches} of every hand-written kernel's wrapper."""
@@ -5213,6 +5485,13 @@ def main() -> int:
     t0 = time.perf_counter()
     check_clip(card)
     phase("4v CLIP, optimizers and checkpoint", t0)
+
+    # 4t. the tape on the card: the autograd examples (autograd2d through
+    # the jit's graph), every op's gradients against the CPU, the NumPy
+    # decode lane and the native merge engine (no port kernel on this path)
+    t0 = time.perf_counter()
+    check_tape(model, card)
+    phase("4t tape, NumPy lane and native tokenizer", t0)
 
     # 5. timings: kernels vs plain per step at pos 512, then end to end
     t0 = time.perf_counter()

@@ -35,6 +35,7 @@ from ..jit import jit
 from ..nn import functional as F
 from ..nn import BatchNorm1d, CrossEntropyLoss, Dropout, Linear
 from ..optim import Adam
+from ..nn.modules.module import Module
 
 DTYPE = np.float32
 
@@ -49,7 +50,7 @@ def load_faces():
     return np.clip(X, 0, 1), y
 
 
-class DNN(nn.Module):
+class DNN(Module):
 
     def __init__(self) -> None:
         super().__init__()

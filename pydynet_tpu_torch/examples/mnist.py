@@ -34,6 +34,7 @@ from ..jit import jit
 from ..nn import functional as F
 from ..nn import Conv2d, Linear
 from ..optim import Adam
+from ..nn.modules.module import Module, Sequential
 
 DTYPE = np.float32
 
@@ -84,17 +85,17 @@ def synthetic_mnist(n_train=4096, n_test=1024, seed=0):
     return make(n_train), make(n_test)
 
 
-class Flatten(nn.Module):
+class Flatten(Module):
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
 
 
-class MLP(nn.Module):
+class MLP(Module):
 
     def __init__(self) -> None:
         super().__init__()
-        self.layer1 = nn.Sequential(Flatten(), Linear(28 * 28, 1024))
+        self.layer1 = Sequential(Flatten(), Linear(28 * 28, 1024))
         self.layer2 = Linear(1024, 1024)
         self.layer3 = Linear(1024, 10)
 
@@ -104,7 +105,7 @@ class MLP(nn.Module):
         return self.layer3(z2)
 
 
-class ConvNet(nn.Module):
+class ConvNet(Module):
 
     def __init__(self):
         super().__init__()

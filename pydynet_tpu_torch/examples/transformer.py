@@ -38,6 +38,7 @@ from ..device import resolve
 from ..jit import jit
 from ..nn import Embedding, LayerNorm, Linear, ReLU
 from ..optim import Adam
+from ..nn.modules.module import Module, ModuleList, Sequential
 
 DTYPE = torch.float32
 
@@ -98,7 +99,7 @@ def construct_mask(x, padding_idx=0):
     return (x == padding_idx)[:, None, None, :].to(DTYPE) * -1e9
 
 
-class SelfAttention(nn.Module):
+class SelfAttention(Module):
 
     def __init__(self, embed_size, heads):
         super().__init__()
@@ -121,14 +122,14 @@ class SelfAttention(nn.Module):
         return self.O(out.reshape(N, L, -1))
 
 
-class TransformerBlock(nn.Module):
+class TransformerBlock(Module):
 
     def __init__(self, embed_size, heads, dropout, forward_expansion):
         super().__init__()
         self.attention = SelfAttention(embed_size, heads)
         self.norm1 = LayerNorm(embed_size)
         self.norm2 = LayerNorm(embed_size)
-        self.feed_forward = nn.Sequential(
+        self.feed_forward = Sequential(
             Linear(embed_size, forward_expansion * embed_size),
             ReLU(),
             Linear(forward_expansion * embed_size, embed_size),
@@ -140,7 +141,7 @@ class TransformerBlock(nn.Module):
         return self.norm2(self.feed_forward(x) + x)
 
 
-class Transformer(nn.Module):
+class Transformer(Module):
 
     def __init__(self, embed_size, num_layers, heads, forward_expansion,
                  dropout, vocab_size, max_length):
@@ -150,7 +151,7 @@ class Transformer(nn.Module):
         self.position_embedding = nn.Parameter(
             sinusoidal_positional_encoding(max_length, embed_size),
             requires_grad=False)
-        self.layers = nn.ModuleList([
+        self.layers = ModuleList([
             TransformerBlock(embed_size, heads, dropout, forward_expansion)
             for _ in range(num_layers)
         ])

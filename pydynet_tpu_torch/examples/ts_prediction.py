@@ -26,6 +26,7 @@ from ..device import resolve
 from ..jit import jit
 from ..nn import GRU, Linear, MSELoss
 from ..optim import Adam
+from ..nn.modules.module import Module
 
 TIME_STEP = 40
 INPUT_SIZE = 1
@@ -53,7 +54,7 @@ def f(t):
     return np.sin(np.pi * t) + 0.5 * np.cos(2 * np.pi * t)
 
 
-class RNN(nn.Module):
+class RNN(Module):
 
     def __init__(self):
         super().__init__()

@@ -32,8 +32,9 @@ On the CPU every call runs ``fn`` eagerly: the same semantics with nothing
 to capture, the route the tests take. Outputs are detached on both routes,
 as the JAX jit's are.
 
-The state (``state=``: modules, optimizers, threefry generators, tensors,
-and lists, tuples or dicts of them; ``random.default_generator`` always)
+The state (``state=``: modules, optimizers, threefry generators, torch
+tensors, the tape's ``Tensor``s, and lists, tuples or dicts of them;
+``random.default_generator`` always)
 is what the step reads and updates in place: every parameter and buffer
 (BatchNorm's running statistics), every optimizer buffer with its learning
 rate and step count, every generator's key. A graph reads and writes the
@@ -42,6 +43,13 @@ memory it saw at its capture, so the state must stay in its tensors: if
 other memory at a later replay, the call raises and names it. A
 generator's key that a draw elsewhere moved is copied back into the
 graph's buffer instead. Nothing falls back to the eager route.
+
+Tape ``Tensor``s (``core/tensor.py``) may be arguments, state and outputs:
+an argument reaches ``fn`` as a Tensor over the graph's input buffer, and
+an output comes back as a Tensor over a clone, on both routes. A tape step
+(``w.zero_grad()``, ``loss.backward()``, ``w.data -= lr * w.grad``) writes
+its state in place, so it captures: the tape's Python bookkeeping runs at
+the capture only, and the replays run its kernels.
 
 As with the JAX jit, Python control flow is fixed at the capture, the
 train or eval mode included: use one jit a mode. A step may not wait for
@@ -58,6 +66,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import random as _random
+from .core.tensor import Tensor
+from .device import Device
 from .optim.optimizer import Optimizer
 
 __all__ = ["jit"]
@@ -67,9 +77,9 @@ _OPT_SCALARS = ("_lr_tensor", "_t_tensor")
 
 
 def _collect_state(state) -> list:
-    """``(name, tensor, generator)`` for every state tensor, each once, in a
-    fixed order; ``generator`` is the Generator whose key the tensor is,
-    else None."""
+    """``(name, tensor, holder)`` for every state tensor, each once, in a
+    fixed order; ``holder`` is the Generator whose key the tensor is, or the
+    tape Tensor whose array it is, else None."""
     out, seen = [], set()
 
     def add(name, t, gen=None):
@@ -80,6 +90,8 @@ def _collect_state(state) -> list:
     def visit(obj, name):
         if isinstance(obj, torch.Tensor):
             add(name, obj)
+        elif isinstance(obj, Tensor):
+            add(name, obj._data, obj)
         elif isinstance(obj, _random.Generator):
             add(f"{name}.key", obj._state, obj)
         elif isinstance(obj, torch.nn.Module):
@@ -111,8 +123,28 @@ def _collect_state(state) -> list:
 
 
 def _detach(tree):
-    return pytree.tree_map(
-        lambda x: x.detach() if isinstance(x, torch.Tensor) else x, tree)
+    """Outputs off every tape: torch tensors detached, tape Tensors as
+    Tensors over a clone."""
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach()
+        if isinstance(x, Tensor):
+            return Tensor._wrap(x._data.detach().clone(), x.device, False)
+        return x
+    return pytree.tree_map(leaf, tree)
+
+
+def _unwrap(leaves):
+    """Tape Tensor leaves -> their arrays, and which leaves they were (their
+    ``requires_grad``, else None)."""
+    kinds = [x.requires_grad if isinstance(x, Tensor) else None
+             for x in leaves]
+    return [x._data if isinstance(x, Tensor) else x for x in leaves], kinds
+
+
+def _rewrap(leaves, kinds):
+    return [Tensor._wrap(x, Device(x.device), k) if k is not None else x
+            for x, k in zip(leaves, kinds)]
 
 
 class _Graph:
@@ -120,24 +152,29 @@ class _Graph:
     tensors, the output tree, the state tensors it captured with their
     memory, and its replays."""
 
-    def __init__(self, graph, inputs, outputs, out_spec, state) -> None:
+    def __init__(self, graph, inputs, outputs, out_kinds, out_spec,
+                 state) -> None:
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
+        self.out_kinds = out_kinds
         self.out_spec = out_spec
-        self.state = [(name, t, gen, t.data_ptr()) for name, t, gen in state]
+        self.state = [(name, t, holder, t.data_ptr())
+                      for name, t, holder in state]
         self.replays = 0
 
     def check_state(self):
         """Raise if a captured state tensor holds other memory than at the
         capture; put a generator's key that a draw elsewhere moved back
         into the graph's buffer."""
-        for name, t, gen, ptr in self.state:
-            if gen is not None and gen._state is not t:
+        for name, t, holder, ptr in self.state:
+            if isinstance(holder, _random.Generator) \
+                    and holder._state is not t:
                 with torch.no_grad():
-                    t.copy_(gen._state)
-                gen._state = t
-            elif t.data_ptr() != ptr:
+                    t.copy_(holder._state)
+                holder._state = t
+            elif t.data_ptr() != ptr or (isinstance(holder, Tensor)
+                                         and holder._data is not t):
                 raise RuntimeError(
                     f"jit: the state tensor {name} holds other memory than "
                     "when the step was captured; a CUDA graph keeps the "
@@ -151,9 +188,9 @@ class _Graph:
                     dst.copy_(src)
         self.graph.replay()
         self.replays += 1
-        return pytree.tree_unflatten(
+        return pytree.tree_unflatten(_rewrap(
             [x.clone() if isinstance(x, torch.Tensor) else x
-             for x in self.outputs], self.out_spec)
+             for x in self.outputs], self.out_kinds), self.out_spec)
 
 
 class _JitFunction:
@@ -185,16 +222,17 @@ class _JitFunction:
         second call, the device of the first call's first tensor
         output)."""
         leaves, spec = pytree.tree_flatten((args, kwargs))
+        leaves, kinds = _unwrap(leaves)
         if self._device is None:
             self._device = next(
-                (t.device for _, t, gen in _collect_state(self._state)
-                 if gen is None), False)
+                (t.device for _, t, holder in _collect_state(self._state)
+                 if not isinstance(holder, _random.Generator)), False)
         target = self._device or next(
             (x.device for x in leaves if isinstance(x, torch.Tensor)), None)
         if target is not None:
             leaves = [x.to(target) if isinstance(x, torch.Tensor)
                       and x.device != target else x for x in leaves]
-        return leaves, spec, target
+        return leaves, (spec, tuple(kinds)), target
 
     @staticmethod
     def _signature(leaves, spec):
@@ -215,13 +253,15 @@ class _JitFunction:
 
     # -- the two routes ---------------------------------------------------
     def _run(self, leaves, spec):
-        args, kwargs = pytree.tree_unflatten(leaves, spec)
+        spec, kinds = spec
+        args, kwargs = pytree.tree_unflatten(_rewrap(leaves, kinds), spec)
         return self._fn(*args, **kwargs)
 
     def _capture(self, leaves, spec, sig, target) -> _Graph:
         entries = _collect_state(self._state)
-        for name, t, gen in entries:
-            if gen is None and t.device != target:
+        for name, t, holder in entries:
+            if not isinstance(holder, _random.Generator) \
+                    and t.device != target:
                 raise RuntimeError(
                     f"jit: the state tensor {name} is on {t.device}, the "
                     f"step on {target}: a CUDA graph would keep its value "
@@ -249,10 +289,14 @@ class _JitFunction:
         if len(after) != len(entries):
             raise RuntimeError(f"jit: the step added the state tensor "
                                f"{after[len(entries)][0]} during the capture")
-        out_leaves, out_spec = pytree.tree_flatten(_detach(out))
+        out_leaves, out_spec = pytree.tree_flatten(out)
+        out_leaves, out_kinds = _unwrap(out_leaves)
+        out_leaves = [x.detach() if isinstance(x, torch.Tensor) else x
+                      for x in out_leaves]
         g = self.graphs[sig] = _Graph(
             graph, [x for x in inputs if isinstance(x, torch.Tensor)],
-            out_leaves, out_spec, entries)
+            out_leaves, [None if k is None else False for k in out_kinds],
+            out_spec, entries)
         return g
 
     def _call(self, args, kwargs):
@@ -263,7 +307,7 @@ class _JitFunction:
             out = _detach(self._run(leaves, spec))
             if target is None:  # the device of the step's first output
                 self._out_device = next(
-                    (x.device for x in pytree.tree_leaves(out)
+                    (x.device for x in _unwrap(pytree.tree_leaves(out))[0]
                      if isinstance(x, torch.Tensor)), None)
                 self._warm.add(sig)
             return out
@@ -290,11 +334,11 @@ class _JitFunction:
         leaves, spec = pytree.tree_flatten((args, kwargs))
         lengths = set()
         for leaf in leaves:
-            if not isinstance(leaf, torch.Tensor):
+            if not isinstance(leaf, (torch.Tensor, Tensor)):
                 raise TypeError(
                     "foreach arguments must all be tensors with a leading "
                     f"steps axis; got {type(leaf).__name__}")
-            if leaf.dim() == 0:
+            if leaf.ndim == 0:
                 raise ValueError("foreach arguments need a leading steps "
                                  "axis")
             lengths.add(leaf.shape[0])
@@ -312,7 +356,10 @@ class _JitFunction:
         flat = [pytree.tree_flatten(o)[0] for o in outs]
         out_spec = pytree.tree_flatten(outs[0])[1]
         stacked = [torch.stack(col) if isinstance(col[0], torch.Tensor)
-                   else list(col) for col in zip(*flat)]
+                   else Tensor._wrap(torch.stack([c.torch for c in col]),
+                                     col[0].device, False)
+                   if isinstance(col[0], Tensor) else list(col)
+                   for col in zip(*flat)]
         return pytree.tree_unflatten(stacked, out_spec)
 
 

@@ -40,6 +40,7 @@ from ...device import resolve
 from ... import nn
 from ...nn import functional as F
 from ...nn.utils import clip_grad_norm_
+from ...nn.modules.module import Module, ModuleList
 
 
 def build_attention_mask(context_length: int, device=None) -> torch.Tensor:
@@ -71,7 +72,7 @@ def attention(q, k, v, mask, scale: float) -> torch.Tensor:
     return torch.einsum("bhlm,bmhd->blhd", torch.softmax(s, dim=-1), v)
 
 
-class MultiHeadAttention(tnn.Module):
+class MultiHeadAttention(Module):
     """Fused-QKV multi-head attention."""
 
     def __init__(self, n_dim: int, n_heads: int):
@@ -102,7 +103,7 @@ class CLIPLayerNorm(nn.LayerNorm):
             + self.shift
 
 
-class MLP(tnn.Module):
+class MLP(Module):
 
     def __init__(self, d_in: int, d_proj: int):
         super().__init__()
@@ -115,7 +116,7 @@ class MLP(tnn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
-class Transformer(tnn.Module):
+class Transformer(Module):
     """Pre-norm residual block."""
 
     def __init__(self, n_dim: int, n_head: int, mlp_dim: int):
@@ -130,7 +131,7 @@ class Transformer(tnn.Module):
         return x + self.mlp(self.layer_norm2(x))
 
 
-class ImageEncoder(tnn.Module):
+class ImageEncoder(Module):
     """ViT: patches, the class token, the position embedding, the blocks,
     then the class token's normalised features projected."""
 
@@ -140,7 +141,7 @@ class ImageEncoder(tnn.Module):
         self.kernel = tnn.Parameter(
             torch.empty(n_dim, 3, kernel_size, kernel_size))
         self.pre_norm = CLIPLayerNorm((n_dim,), 1e-5)
-        self.transformers = tnn.ModuleList(
+        self.transformers = ModuleList(
             [Transformer(n_dim, n_head, mlp_dim) for _ in range(n_layer)])
         self.post_norm = CLIPLayerNorm((n_dim,), 1e-5)
         self.proj = nn.Linear(n_dim, final_dim, bias=False)
@@ -154,14 +155,14 @@ class ImageEncoder(tnn.Module):
         return self.proj(self.post_norm(x[:, 0]))
 
 
-class TextEncoder(tnn.Module):
+class TextEncoder(Module):
     """Causal text transformer pooled at the end token."""
 
     def __init__(self, n_dim, n_head, mlp_dim, n_layer, final_dim,
                  vocab_size):
         super().__init__()
         self.token_embed = nn.Embedding(vocab_size, n_dim)
-        self.transformers = tnn.ModuleList(
+        self.transformers = ModuleList(
             [Transformer(n_dim, n_head, mlp_dim) for _ in range(n_layer)])
         self.post_norm = CLIPLayerNorm((n_dim,), 1e-5)
         self.proj = nn.Linear(n_dim, final_dim, bias=False)
@@ -182,7 +183,7 @@ class TextEncoder(tnn.Module):
         return self.proj(pooled)
 
 
-class CLIP(tnn.Module):
+class CLIP(Module):
 
     def __init__(self, image_dim: int = 768, image_heads: int = 12,
                  image_mlp_dim: int = 3072, image_patch: int = 32,

@@ -45,12 +45,15 @@ unmerged adapter's ``A B * scaling`` into its weight, the array
 merge. ``forward_logits_one``'s per-row positions serve the speculative
 server (``serve_spec.py``).
 
-``fused=None`` routes: the fused lane wherever the port's fused kernels
+``fused=None`` routes: the NumPy BLAS lane (``cpu_decode.py``) for a B=1
+float32 model on the CPU with no ``quant``, ``kv_quant`` or ``dtype``, as
+the JAX package does; the fused lane wherever the port's fused kernels
 take the model, weight format and batch; else the scan lane where the JAX
 package's rule (``_tpu_fused_supported``, its ``_fused_decode_supported``)
 sends the model there, as it does a Llama-2-7B model with int8 or int4
 weights; else it raises, naming the ROADMAP.md item that would port the
-missing kernel. ``fused=True`` and ``fused=False`` ask for a lane.
+missing kernel. ``fused=True``, ``False`` and ``"numpy"`` ask for a lane.
+float16 runs on the scan lane only (``check_dtype``).
 
 Semantics kept from the JAX package: interleaved RoPE pairs; bucketed
 prefill read at ``last_idx - 1``; decoding starts at ``pos = L`` on the
@@ -83,6 +86,7 @@ from ...ops import decode_step as dsk
 from ...ops import flash_attention as fa
 from ...ops import gemv_quant as gq
 from ...ops.quant import quantize_int4, quantize_int8
+from ...nn.modules.module import Module, ModuleList
 
 # tokens decoded between two reads back to the host
 DECODE_CHUNK = 512
@@ -309,8 +313,29 @@ def flash_prefill_mode(weights, L: int) -> bool:
     ``generate`` and ``LlamaServer`` admission): on a GPU from
     ``FLASH_PREFILL_MIN`` tokens on, where the dense route's (L, L) float32
     scores cost more than K3's blocks; never on the CPU, where the kernel's
-    plain version is a test lane (tests pass ``True``)."""
+    plain version is a test lane (tests pass ``True``). The callers keep a
+    float16 prefill dense: K3 does not take float16 yet
+    (:func:`check_dtype`)."""
     return L >= FLASH_PREFILL_MIN and weights["tok"].device.type == "cuda"
+
+
+def check_dtype(dtype, fused, quant=None, flash=None):
+    """Raise for a ``dtype`` the port does not run on the asked lane
+    (``generate``, ``LlamaServer`` and the speculative server share it).
+    float16 runs on the scan lane only (``fused=False``,
+    ``LlamaServer(lane="xla")``), in plain torch: with float weights
+    (``quant=None``) and the dense prefill, until the port's kernels take
+    it. Anything else raises ``NotImplementedError`` naming ROADMAP.md's
+    'Float16 kernels' mode; nothing is rerouted."""
+    if dtype not in (None, torch.float32, torch.bfloat16, torch.float16):
+        raise NotImplementedError(f"dtype {dtype}: use float32, bfloat16 "
+                                  "or float16")
+    if dtype == torch.float16 and (fused is not False or quant or flash):
+        raise NotImplementedError(
+            "float16 runs on the scan lane only (fused=False, "
+            "LlamaServer(lane='xla')) with quant=None and the dense prefill:"
+            " the kernels take float32 and bfloat16 (ROADMAP.md queue 2, "
+            "'Float16 kernels')")
 
 
 def not_ported(what: str, item: str):
@@ -378,7 +403,7 @@ def bucket_prompt(input_ids, L: int, max_seq_len: int):
     return input_ids, None
 
 
-class FeedForward(nn.Module):
+class FeedForward(Module):
     """SwiGLU feed-forward."""
 
     def __init__(self, dim, up_dim, device=None, dtype=None):
@@ -392,7 +417,7 @@ class FeedForward(nn.Module):
         return self.down(F.silu(self.gate(x)) * self.up(x))
 
 
-class Attention(nn.Module):
+class Attention(Module):
     """Multi-head (or grouped-query) attention with the in-module KV cache
     the eager path uses in eval mode. The caches are non-persistent
     buffers: they stay out of ``state_dict``."""
@@ -454,7 +479,7 @@ class Attention(nn.Module):
         return self.O(out.reshape(B, L, -1))
 
 
-class TransformerBlock(nn.Module):
+class TransformerBlock(Module):
     """Pre-norm decoder block."""
 
     def __init__(self, dim, n_heads, ffn_dim, max_seq_len,
@@ -473,7 +498,7 @@ class TransformerBlock(nn.Module):
         return z + self.ffn(self.post_attn_norm(z))
 
 
-class Llama(nn.Module):
+class Llama(Module):
     """Decoder-only Llama on ``device`` (``"cuda"`` when not given, which
     raises without a GPU; ``"cpu"`` only when asked for). The parameters are
     allocated on the device in ``dtype`` (float32 when not given) and filled
@@ -502,7 +527,7 @@ class Llama(nn.Module):
         with torch.device("meta"):  # shapes only: no storage, no init draws
             self.tok_embedding = nn.Embedding(vocab_size, embed_dim,
                                               dtype=dtype)
-            self.layers = nn.ModuleList([
+            self.layers = ModuleList([
                 TransformerBlock(embed_dim, n_heads, ffn_dim, max_seq_len,
                                  max_batch_size, dtype=dtype,
                                  n_kv_heads=n_kv_heads)
@@ -709,7 +734,7 @@ class Llama(nn.Module):
             a = P[name].detach()
             mod = lora.get(name)
             if mod is not None:
-                a = a + mod.delta().to(a.dtype)
+                a = a + mod.delta_array().to(a.dtype)
             return a.to(dtype) if dtype else a
 
         return g
@@ -1228,7 +1253,32 @@ class Llama(nn.Module):
         return ck5.view(shape), cv5.view(shape)
 
     # ------------------------------- generate -------------------------------
-    def _check_generate(self, B, dtype, fused, quant, kv_quant):
+    def _numpy_lane(self, B, dtype, fused, quant, kv_quant) -> bool:
+        """Whether ``generate`` takes the NumPy BLAS lane (``cpu_decode.py``;
+        the JAX package's rule, ``model.py:1596-1625``): ``fused="numpy"``
+        asks for it and raises ``ValueError`` unless B=1, the weights are
+        float32 and no ``quant``, ``kv_quant`` or ``dtype`` is given;
+        ``fused=None`` takes it for a model on the CPU where those hold."""
+        ok = (B == 1 and quant is None and kv_quant is None and dtype is None
+              and self.tok_embedding.weight.dtype == torch.float32)
+        if isinstance(fused, str) and fused == "numpy":
+            if not ok:
+                raise ValueError("fused='numpy' is the B=1, f32-native CPU "
+                                 "lane (no quant/kv_quant/dtype override)")
+            return True
+        return fused is None and ok and self.device.type == "cpu"
+
+    def _generate_numpy(self, ids, total, **sampling):
+        from .cpu_decode import build_np_weights, numpy_decode
+
+        w = self._weights_cache.get(("numpy",))
+        if w is None:
+            w = self._weights_cache[("numpy",)] = build_np_weights(self)
+        for t in numpy_decode(self, w, ids, total, **sampling):
+            yield torch.tensor([[t]], dtype=torch.int32)
+
+    def _check_generate(self, B, dtype, fused, quant, kv_quant,
+                        flash_prefill=None):
         """Resolve the lane (:meth:`use_fused`) and raise for whatever this
         port does not run yet, naming its ROADMAP.md item. Nothing is
         rerouted silently: a model, format or batch that neither the port's
@@ -1237,11 +1287,7 @@ class Llama(nn.Module):
         ``fused=False``."""
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
-        if dtype not in (None, torch.float32, torch.bfloat16):
-            raise NotImplementedError(f"dtype {dtype}: use float32 or "
-                                      "bfloat16")
-        if fused == "numpy":
-            not_ported("the NumPy CPU decode lane", "CPU decode lane")
+        check_dtype(dtype, fused, quant, flash_prefill)
         # the int8 KV cache lives in the batched kernel, at B=1 too
         fused = self.use_fused(quant, B, fused, batched=bool(kv_quant))
         check_kv_quant(kv_quant, quant, fused)
@@ -1261,7 +1307,8 @@ class Llama(nn.Module):
         token with the first chunk. ``max_new_tokens`` bounds the total
         length (prompt included) and is capped at ``max_seq_len``; a total
         at or below the prompt length yields nothing. ``dtype`` (float32 or
-        bfloat16) casts the weights and caches; ``quant="int8-head"`` stores
+        bfloat16; float16 on the scan lane only, :func:`check_dtype`) casts
+        the weights and caches; ``quant="int8-head"`` stores
         the lm_head as int8, ``"int8"`` and ``"int4"`` every matmul weight
         as well (the prefill token stays on the float weights on the fused
         lane). ``kv_quant="int8"`` keeps the KV cache as int8 rows with
@@ -1271,7 +1318,8 @@ class Llama(nn.Module):
         ``quant`` raises ``ValueError``); on the scan lane per (row, head),
         through prefill and decode (:meth:`forward_logits_one`), with any
         ``quant``.
-        ``fused`` picks the lane (module doc): on
+        ``fused`` picks the lane (module doc; ``"numpy"`` the NumPy BLAS
+        lane, :meth:`_numpy_lane`): on
         the fused lane one B=1 kernel chain a token at B=1, one batched
         chain a token for all rows at B>1 or with ``kv_quant``; on the scan
         lane one dense forward a token, its matmuls quantized with
@@ -1300,8 +1348,16 @@ class Llama(nn.Module):
         do nothing."""
         ids = np.asarray(input_ids)
         B, L = ids.shape
-        fused = self._check_generate(B, dtype, fused, quant, kv_quant)
         total = min(max_new_tokens, self.max_seq_len)
+        if self._numpy_lane(B, dtype, fused, quant, kv_quant):
+            if total > L:
+                yield from self._generate_numpy(
+                    ids, total, temperature=temperature, top_k=top_k,
+                    top_p=top_p, seed=seed,
+                    repetition_penalty=repetition_penalty)
+            return
+        fused = self._check_generate(B, dtype, fused, quant, kv_quant,
+                                     flash_prefill)
         if total <= L:
             return
         if fused:
@@ -1321,6 +1377,7 @@ class Llama(nn.Module):
         ids_pad, last_idx = (bucket_prompt(ids, L, self.max_seq_len)
                              if bucket_prefill else (ids, None))
         flash = (flash_prefill_mode(weights, ids_pad.shape[1])
+                 and weights["tok"].dtype != torch.float16
                  if flash_prefill is None else flash_prefill)
         tok = self.prefill(weights, ck, cv, ids_pad, last_idx,
                            sampler=sampler, flash=flash)

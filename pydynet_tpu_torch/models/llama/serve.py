@@ -93,7 +93,7 @@ import torch
 
 from ... import random as prandom
 from ...ops import decode_step as dsk
-from .model import (_rope_pure, bucket_prompt, check_kv_quant,
+from .model import (_rope_pure, bucket_prompt, check_dtype, check_kv_quant,
                     flash_prefill_mode, sample_logits_per_row)
 
 # seeded requests derive their keys from this fixed key, not the server's,
@@ -369,9 +369,8 @@ class LlamaServer(_FleetScheduler):
             raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
         if lane not in (None, "fused", "xla"):
             raise ValueError(f"unknown lane: {lane!r}")
-        if dtype not in (None, torch.float32, torch.bfloat16):
-            raise NotImplementedError(f"dtype {dtype}: use float32 or "
-                                      "bfloat16")
+        check_dtype(dtype, None if lane is None else lane == "fused", quant,
+                    flash_prefill)
         fused = model.use_fused(quant, batch_size,
                                 None if lane is None else lane == "fused",
                                 batched=True)
@@ -667,6 +666,7 @@ class LlamaServer(_FleetScheduler):
         for L, group in sorted(by_len.items()):
             pos0 = self._pos - L
             flash = (flash_prefill_mode(self._w, L)
+                     and self._w["tok"].dtype != torch.float16
                      if self._flash_prefill is None else self._flash_prefill)
             for sub in self._pow2_subwaves(group):
                 prompts, slots, seeds, has_seed, rids = self._wave_arrays(sub)

@@ -43,6 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .model import check_dtype
 from .serve import _FleetScheduler
 from .speculative import lookup_draft_rows
 
@@ -74,9 +75,7 @@ class SpecLlamaServer(_FleetScheduler):
                              "(serve_spec.py module doc)")
         if quant not in (None, "int8", "int4", "int8-head"):
             raise ValueError(f"unsupported quant mode: {quant!r}")
-        if dtype not in (None, torch.float32, torch.bfloat16):
-            raise NotImplementedError(f"dtype {dtype}: use float32 or "
-                                      "bfloat16")
+        check_dtype(dtype, False, quant)
         model.eval()
         self.model = model
         self.B = batch_size

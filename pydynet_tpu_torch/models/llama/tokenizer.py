@@ -8,9 +8,10 @@ encoding is O(n^2) instead of O(n^2 * V).
 When the vocab file is missing, a byte-level fallback vocab is synthesized
 so CLIs and benchmarks still run end to end.
 
-A copy of ``pydynet_tpu/models/llama/tokenizer.py`` with only the
-pure-Python merge; the C++ merge engine (``pydynet_tpu/native/``) is still
-to port.
+A copy of ``pydynet_tpu/models/llama/tokenizer.py``: the merge runs in the
+port's C++ engine (``pydynet_tpu_torch/native/``, built with g++ at first
+use) where it builds, else in the pure-Python loop below, with the same
+tokens.
 """
 import json
 import os
@@ -36,12 +37,23 @@ class Tokenizer:
         for i, tok in enumerate(self.vocab):
             # first occurrence wins, matching list.index semantics
             self._index.setdefault(tok, i)
+        # the native merge engine; None -> the pure-Python loop below
+        from ...native import NativeVocab
+        self._native = NativeVocab.create(self.vocab, self.scores)
 
     def str_lookup(self, token: str) -> int:
         return self._index.get(token, -1)
 
     def encode(self, text: str, add_bos: bool = True,
                add_eos: bool = False) -> List[int]:
+        if self._native is not None:
+            tokens = self._native.encode(text)
+            if add_bos:
+                tokens.insert(0, self.bos_id)
+            if add_eos:
+                tokens.append(self.eos_id)
+            return tokens
+
         tokens = []
         for char in text:
             idx = self.str_lookup(char)

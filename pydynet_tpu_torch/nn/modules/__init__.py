@@ -1,5 +1,6 @@
-"""The port's layers. Containers are PyTorch's own: ``torch.nn.Sequential``
-and ``torch.nn.ModuleList`` name their children "0", "1", ... as the JAX
+"""The port's layers, each a ``torch.nn.Module`` through the port's
+:class:`Module` base. The containers ``Sequential`` and ``ModuleList`` are
+torch's on that base: they name their children "0", "1", ... as the JAX
 package's containers do, so dotted state-dict names agree."""
 from .activation import GELU, LeakyReLU, ReLU, Sigmoid, SiLU, Softmax, Tanh
 from .conv import Conv1d, Conv2d
@@ -7,6 +8,7 @@ from .dropout import Dropout
 from .linear import Embedding, Linear
 from .loss import CrossEntropyLoss, Loss, MSELoss, NLLLoss
 from .lora import LoRALinear, apply_lora, merge_lora
+from .module import Module, ModuleList, Sequential
 from .norm import BatchNorm1d, BatchNorm2d, LayerNorm, RMSNorm, rms_norm
 from .pool import AvgPool1d, AvgPool2d, MaxPool1d, MaxPool2d
 from .rnn import GRU, LSTM, RNN, GRUCell, LSTMCell, RNNCell
@@ -21,4 +23,5 @@ __all__ = [
     "Linear", "Embedding",
     "LoRALinear", "apply_lora", "merge_lora",
     "MSELoss", "NLLLoss", "CrossEntropyLoss", "Loss",
+    "Module", "Sequential", "ModuleList",
 ]

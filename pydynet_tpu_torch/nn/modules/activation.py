@@ -5,27 +5,28 @@ from __future__ import annotations
 from torch import nn
 
 from .. import functional as F
+from .module import Module
 
 
-class Sigmoid(nn.Module):
+class Sigmoid(Module):
 
     def forward(self, x):
         return F.sigmoid(x)
 
 
-class Tanh(nn.Module):
+class Tanh(Module):
 
     def forward(self, x):
         return F.tanh(x)
 
 
-class ReLU(nn.Module):
+class ReLU(Module):
 
     def forward(self, x):
         return F.relu(x)
 
 
-class LeakyReLU(nn.Module):
+class LeakyReLU(Module):
 
     def __init__(self, alpha: float = 0.1) -> None:
         super().__init__()
@@ -38,19 +39,19 @@ class LeakyReLU(nn.Module):
         return f"alpha={self.alpha}"
 
 
-class SiLU(nn.Module):
+class SiLU(Module):
 
     def forward(self, x):
         return F.silu(x)
 
 
-class GELU(nn.Module):
+class GELU(Module):
 
     def forward(self, x):
         return F.gelu(x)
 
 
-class Softmax(nn.Module):
+class Softmax(Module):
 
     def __init__(self, axis=None) -> None:
         super().__init__()

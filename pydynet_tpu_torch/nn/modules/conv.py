@@ -13,9 +13,10 @@ from torch import nn
 
 from .. import functional as F
 from .. import init
+from .module import Module
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Module):
     _ndim_sp = None
     _conv = None
 

@@ -7,9 +7,10 @@ from __future__ import annotations
 from torch import nn
 
 from .. import functional as F
+from .module import Module
 
 
-class Dropout(nn.Module):
+class Dropout(Module):
 
     def __init__(self, p: float = 0.5) -> None:
         super().__init__()

@@ -15,9 +15,10 @@ from torch import nn
 
 from .. import functional as F
 from .. import init
+from .module import Module
 
 
-class Linear(nn.Module):
+class Linear(Module):
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  device=None, dtype=None) -> None:
@@ -51,7 +52,7 @@ class Linear(nn.Module):
                 f"{self.out_features}, bias={self.bias is not None}")
 
 
-class Embedding(nn.Module):
+class Embedding(Module):
     """A (num_embeddings, embedding_dim) table drawn N(0, 1); the row of
     ``padding_idx`` is zero and gets no gradient."""
 

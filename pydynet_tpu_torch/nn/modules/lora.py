@@ -32,11 +32,12 @@ from torch import nn
 from .. import functional as F
 from .. import init
 from .linear import Linear
+from .module import Module
 
 LORA_NAMES = ("lora_A", "lora_B")
 
 
-class LoRALinear(nn.Module):
+class LoRALinear(Module):
     """A frozen Linear plus a trainable rank-``r`` update:
     ``forward(x) = base(x) + dropout(x) A B * (alpha / r)`` (``alpha``
     defaults to ``r``), ``dropout`` with probability ``dropout`` in train
@@ -84,20 +85,21 @@ class LoRALinear(nn.Module):
         d = F.dropout(x, self.p_dropout, training=self.training)
         return y + self._low_rank(d) * self.scaling
 
-    def delta(self) -> torch.Tensor:
+    def delta_array(self) -> torch.Tensor:
         """The update ``A B * scaling`` in the base weight's layout and
         type, without a gradient: what a decode snapshot adds to the weight
-        (``Llama._weights``) and what :meth:`merge` adds to it."""
+        (``Llama._weights``) and what :meth:`merge_` adds to it."""
         with torch.no_grad():
             a, b = self.lora_A.detach(), self.lora_B.detach()
             d = b @ a if self.torch_layout else a @ b
             return d * self.scaling
 
     @torch.no_grad()
-    def merge(self):
+    def merge_(self):
         """Fold the update into the base weight and return a plain Linear
         of the wrapped type holding the same Parameter objects."""
-        self.weight.copy_(self.weight + self.delta().to(self.weight.dtype))
+        self.weight.copy_(self.weight + self.delta_array().to(
+            self.weight.dtype))
         cls = nn.Linear if self.torch_layout else Linear
         out = cls.__new__(cls)
         nn.Module.__init__(out)
@@ -107,6 +109,10 @@ class LoRALinear(nn.Module):
         out.register_parameter("bias", self.bias)
         out.train(self.training)
         return out
+
+    # the port's earlier names, kept for its callers
+    delta = delta_array
+    merge = merge_
 
     def extra_repr(self) -> str:
         return (f"in_features={self.in_features}, out_features="
@@ -160,7 +166,7 @@ def merge_lora(root: nn.Module) -> int:
     """Fold every :class:`LoRALinear` under ``root`` into a plain Linear
     (weight += A B * scaling); returns the number merged. Dotted names are
     unchanged; the adapters disappear."""
-    return _swap(root, lambda name, value: value.merge()
+    return _swap(root, lambda name, value: value.merge_()
                  if isinstance(value, LoRALinear) else None)
 
 

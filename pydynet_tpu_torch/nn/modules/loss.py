@@ -5,9 +5,10 @@ import torch
 from torch import nn
 
 from .. import functional as F
+from .module import Module
 
 
-class Loss(nn.Module):
+class Loss(Module):
 
     def __init__(self, reduction: str = "mean") -> None:
         super().__init__()

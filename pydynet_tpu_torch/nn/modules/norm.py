@@ -26,9 +26,10 @@ import torch
 from torch import nn
 
 from ...ops import batchnorm as _bn
+from .module import Module
 
 
-class _RunningNorm(nn.Module):
+class _RunningNorm(Module):
     """Parameters, buffers and eval-mode forward shared by the batch norms
     and LayerNorm."""
 
@@ -147,7 +148,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
         * weight.float()
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Module):
     """Weight-only RMS normalization over the trailing ``normalized_shape``
     axes (an int is one axis). The arithmetic is float32 whatever the input
     type; the result has the input's type."""
@@ -159,8 +160,14 @@ class RMSNorm(nn.Module):
             normalized_shape = (normalized_shape,)
         self.normalized_shape = tuple(normalized_shape)
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
-                                              device=device, dtype=dtype))
+        self.weight = nn.Parameter(torch.empty(self.normalized_shape,
+                                               device=device, dtype=dtype))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        """The gain back to ones."""
+        self.weight.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.weight, self.eps).to(x.dtype)

@@ -5,9 +5,10 @@ from __future__ import annotations
 from torch import nn
 
 from .. import functional as F
+from .module import Module
 
 
-class _Pool(nn.Module):
+class _Pool(Module):
     _fn = None
 
     def __init__(self, kernel_size: int, stride: int,

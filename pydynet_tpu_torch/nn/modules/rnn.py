@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from .. import init
+from .module import Module
 
 
 def _rnn_step(x, h, Wx, Wh, b, nonlinearity):
@@ -67,7 +68,7 @@ def _gru_step(x, h, Wx1, Wh1, Wx2, Wh2, b1, b2, H):
     return (1 - z) * h + z * torch.tanh(lin2)
 
 
-class _Cell(nn.Module):
+class _Cell(Module):
     """Weights made empty on ``device``, each filled uniform in
     +-1/sqrt(hidden_size), in the order of ``_weights``."""
 
@@ -191,7 +192,7 @@ def _run(cell, x, state, reverse: bool):
     return torch.stack(ys), state
 
 
-class _RNNBase(nn.Module):
+class _RNNBase(Module):
     _cell_cls = None
     _prefix = None
 

@@ -179,8 +179,10 @@ def test_flash_prefill_mode_routes_long_prompts_on_a_gpu(monkeypatch):
     monkeypatch.setattr(tmodel, "FLASH_PREFILL_MIN", 32)
     monkeypatch.setattr(tmodel, "flash_prefill_mode",
                         lambda weights, L: L >= tmodel.FLASH_PREFILL_MIN)
+    # fused=True: fused=None takes the NumPy lane (no prefill) for a B=1
+    # float32 model on the CPU
     for L, want in ((16, False), (17, True), (32, True)):  # padded 16, 32
-        stream(tm, list(range(1, L + 1)), 2)
+        stream(tm, list(range(1, L + 1)), 2, fused=True)
         assert seen.pop() is want
 
 

@@ -1580,3 +1580,85 @@ def test_jit_failed_capture_raises_and_never_runs_eagerly(gpu):
     assert len(calls) == 2 and not f.graphs
     torch.cuda.synchronize()
     assert (x * 2).tolist() == [2.0] * 3  # the card still works
+
+
+# ------------------------------------------------ the tape on the card
+TAPE_OP_NAMES = sorted(__import__("chip_smoke").TAPE_OPS)
+
+
+@pytest.fixture(scope="module")
+def tape_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the tape on the card against the CPU")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("op", TAPE_OP_NAMES)
+def test_tape_op_on_the_card_matches_cpu(tape_gpu, op, dtype):
+    """Every tape op's value and gradients within 1e-12 (float64) and 1e-6
+    (float32) of the CPU's, with TF32 switched on globally: the tape's
+    float32 products do not take it."""
+    from chip_smoke import TAPE_TOL, tape_vs_cpu
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        assert tape_vs_cpu(op, dtype) <= TAPE_TOL[dtype]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_tape_autograd2d_through_jit_is_eager_bit_for_bit(tape_gpu):
+    from chip_smoke import TAPE_STEPS, autograd2d_run
+    from pydynet_tpu_torch.examples import autograd2d
+
+    got, jstep = autograd2d_run("jit")
+    want, _ = autograd2d_run("eager")
+    assert torch.equal(got, want)
+    assert len(jstep.graphs) == 1 and jstep.replays == TAPE_STEPS - 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               autograd2d.main(device="cpu"), rtol=0,
+                               atol=1e-12)
+
+
+def test_tape_autograd1d_on_the_card_matches_cpu(tape_gpu):
+    from pydynet_tpu_torch.examples import autograd1d
+
+    gpu, err = autograd1d.main(device="cuda")
+    cpu, _ = autograd1d.main(device="cpu")
+    assert err < 1e-6
+    np.testing.assert_allclose(gpu, cpu, rtol=0, atol=1e-12)
+
+
+def test_tape_on_the_card_devices_and_writes(tape_gpu):
+    import pydynet_tpu_torch as pdt
+
+    a = pdt.Tensor(np.ones(3), device="cuda", requires_grad=True)
+    assert a.device == pdt.Device("cuda") and a.torch.is_cuda
+    assert a.xp is torch
+    with pytest.raises(RuntimeError, match="different devices"):
+        a + pdt.Tensor(np.ones(3))
+    ptr = a.torch.data_ptr()
+    (a * a).sum().backward()
+    a.data -= 0.5 * a.grad
+    assert a.torch.data_ptr() == ptr and a.numpy().tolist() == [0.0] * 3
+    b = pdt.Tensor(np.arange(3.0)).cuda()
+    assert b.torch.is_cuda and b.cpu().torch.device.type == "cpu"
+
+
+def test_numpy_lane_of_a_model_on_the_card(tape_gpu):
+    """``fused="numpy"`` on a model on the card decodes from float32 host
+    copies: the stream of the same model on the CPU."""
+    from pydynet_tpu_torch.models.llama import Llama
+
+    cfg = dict(vocab_size=256, embed_dim=32, n_heads=2, ffn_dim=64,
+               max_seq_len=32, n_layers=2)
+    gen = [torch.Generator().manual_seed(3) for _ in range(2)]
+    card = Llama(**cfg, device="cuda", generator=gen[0]).eval()
+    host = Llama(**cfg, device="cpu", generator=gen[1]).eval()
+    ids = np.array([[1, 5, 9]])
+    got = [int(t) for t in card.generate(ids, 20, fused="numpy")]
+    assert got == [int(t) for t in host.generate(ids, 20)]
+    assert card.tok_embedding.weight.is_cuda

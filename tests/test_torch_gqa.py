@@ -243,7 +243,7 @@ def test_k1_narrow_plain_step_at_stories15m_widths(interp):
     ids=["b1", "b3", "b1-sampled", "b3-sampled", "b1-kv8", "b3-kv8"])
 def test_gqa_generate_runs_narrow_kernels_and_matches_jax(case, interp,
                                                           step_calls):
-    """``generate(fused=None)`` on a grouped-query model runs the narrow
+    """``generate(fused=True)`` on a grouped-query model runs the narrow
     mode (K1 at B=1, K2 at B>1 and with the int8 KV cache), one call a
     decode token with 32-wide caches and ``n_kv_heads=2``, and its stream
     equals the JAX package's ``generate(fused=False)`` token for token (its
@@ -258,7 +258,8 @@ def test_gqa_generate_runs_narrow_kernels_and_matches_jax(case, interp,
     with pdn.no_grad():
         want = rows(jm.generate(ids, 12, chunk=5,
                                 fused="kv_quant" in case, **case))
-    got = rows(tm.generate(ids, 12, chunk=5, **case))
+    # fused=True: at B=1 fused=None takes the NumPy lane on the CPU
+    got = rows(tm.generate(ids, 12, chunk=5, fused=True, **case))
     assert got.shape == (9, B)
     np.testing.assert_array_equal(got, want)
     assert step_calls == [(B, 2, 32)] * 8

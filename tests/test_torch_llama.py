@@ -132,11 +132,13 @@ def test_generate_fused_matches_jax_fused(L, quant, jax_interpret_kernel,
     ids = (np.arange(L)[None] * 37 + 1) % 256
     with pdn.no_grad():
         want = stream(jm.generate(ids, 24, chunk=8, fused=True, quant=quant))
-    got = stream(tm.generate(ids, 24, chunk=8, quant=quant))
+    # fused=True: fused=None takes the NumPy lane for a B=1 float32 model
+    # on the CPU (as in the JAX package)
+    got = stream(tm.generate(ids, 24, chunk=8, quant=quant, fused=True))
     assert got == want and len(got) == 24 - L
     assert len(step_calls) == 24 - L - 1
     # the default chunk holds the whole request: one read back at the end
-    assert stream(tm.generate(ids, 24, quant=quant)) == want
+    assert stream(tm.generate(ids, 24, quant=quant, fused=True)) == want
     assert len(step_calls) == 2 * (24 - L - 1)
 
 
@@ -236,12 +238,35 @@ def test_generate_length_edges_match_jax(max_new):
 
 
 def test_generate_unported_options_raise(batched_calls, step_calls):
-    tm = Llama(**TINY, device="cpu")
+    """What generate runs and what it refuses. Once refusals, now ported:
+    ``fused="numpy"`` (the NumPy lane, token for token with JAX's) and
+    float16 on the scan lane (JAX's float16 stream at every confident step
+    of the float32 stream until a near-tie); float16 on the fused lane
+    still raises, naming ROADMAP.md's Float16 kernels."""
+    jm = jax_model(TINY, seed=4)
+    tm = port_of(jm, TINY)
     ids = np.array([[1, 5, 9]])
-    cases = [dict(fused="numpy"), dict(dtype=torch.float16)]
-    for kw in cases:
-        with pytest.raises(NotImplementedError):
-            next(tm.generate(ids, 8, **kw))
+    with pdn.no_grad():
+        want = stream(jm.generate(ids, 20, fused="numpy"))
+        want16 = stream(jm.generate(ids, 20, dtype=np.float16, fused=False))
+    assert stream(tm.generate(ids, 20, fused="numpy")) == want
+    got16 = stream(tm.generate(ids, 20, dtype=torch.float16, fused=False))
+    _, margins, tops = tfid.greedy_truth(tm, ids, 17)
+    conf = tfid._confident(margins[:, 0], tops[:, 0], tfid.MARGIN,
+                           tfid.REL_MARGIN)
+    assert len(got16) == len(want16) == 17 and conf.sum() >= 8
+    for i in range(17):
+        if got16[i] != want16[i]:
+            assert not conf[i], (i, got16, want16)
+            break
+    assert not step_calls and not batched_calls
+    for kw in (dict(fused=None), dict(fused=True),
+               dict(fused=False, quant="int8"),
+               dict(fused=False, flash_prefill=True)):
+        with pytest.raises(NotImplementedError, match="Float16 kernels"):
+            next(tm.generate(ids, 8, dtype=torch.float16, **kw))
+    with pytest.raises(NotImplementedError, match="float64"):
+        next(tm.generate(ids, 8, dtype=torch.float64, fused=False))
     # flash prefill runs (K3's plain version on the CPU), on both lanes, and
     # decodes the dense prefill's stream
     for fused in (False, True):
@@ -280,22 +305,26 @@ def test_generate_unported_options_raise(batched_calls, step_calls):
     # a grouped-query model: the narrow mode of the fused lane at B=1 (one
     # B=1 step a decode token, (N, S, Hkv * hd) caches); the scan lane only
     # when asked for
+    # (fused=None at B=1 on the CPU takes the NumPy lane, as in the JAX
+    # package)
     gqa = Llama(**dict(TINY, n_kv_heads=1), device="cpu")
     assert gqa._fused_decode_supported()
-    for fused in (None, True):
-        del step_calls[:], batched_calls[:]
-        assert len(stream(gqa.generate(ids, 8, fused=fused))) == 5
-        assert len(step_calls) == 4 and not batched_calls
+    del step_calls[:], batched_calls[:]
+    assert len(stream(gqa.generate(ids, 8, fused=True))) == 5
+    assert len(step_calls) == 4 and not batched_calls
     del step_calls[:]
-    assert len(stream(gqa.generate(ids, 8, fused=False))) == 5
+    for fused in (False, None):
+        assert len(stream(gqa.generate(ids, 8, fused=fused))) == 5
     assert not step_calls and not batched_calls
     odd = Llama(**dict(TINY, embed_dim=512, n_heads=1),  # head_dim > 256
                 device="cpu")
-    assert not odd._fused_decode_supported()
-    for fused in (None, True):
-        with pytest.raises(NotImplementedError, match="Big-dims"):
-            next(odd.generate(ids, 8, fused=fused))
-    assert len(stream(odd.generate(ids, 8, fused=False))) == 5
+    assert not odd._fused_decode_supported(batch=2)
+    with pytest.raises(NotImplementedError, match="Big-dims"):
+        next(odd.generate(ids, 8, fused=True))
+    with pytest.raises(NotImplementedError, match="Big-dims"):
+        next(odd.generate(np.array([[1, 2], [3, 4]]), 8))
+    for fused in (False, None):
+        assert len(stream(odd.generate(ids, 8, fused=fused))) == 5
     # B>1 runs the plain lane only when asked for it
     assert len(list(tm.generate(np.array([[1, 2], [3, 4]]), 5,
                                 fused=False))) == 3

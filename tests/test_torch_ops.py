@@ -403,6 +403,19 @@ def test_port_imports_no_jax():
             "import pydynet_tpu_torch.ops.gemv_quant\n"
             "import pydynet_tpu_torch.utils.fidelity\n"
             "import pydynet_tpu_torch.ops._build\n"
+            "import pydynet_tpu_torch.core\n"
+            "import pydynet_tpu_torch.autograd\n"
+            "import pydynet_tpu_torch.special\n"
+            "import pydynet_tpu_torch.cuda\n"
+            "import pydynet_tpu_torch.nn.parameter\n"
+            "import pydynet_tpu_torch.nn.modules.module\n"
+            "import pydynet_tpu_torch.native\n"
+            "import pydynet_tpu_torch.models.llama.cpu_decode\n"
+            "import pydynet_tpu_torch.examples.autograd1d\n"
+            "import pydynet_tpu_torch.examples.autograd2d\n"
+            "from pydynet_tpu_torch.models.llama.tokenizer import "
+            "Tokenizer\n"
+            "Tokenizer(None).encode('abc')\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'pydynet_tpu'))\n"
             "assert not bad, bad\n")

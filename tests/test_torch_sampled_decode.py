@@ -133,7 +133,8 @@ def test_sampled_generate_fused_lane_matches_jax(B, interp, gaps,
     ids = np.array([[1, 5, 9], [2, 7, 3], [30, 20, 10]])[:B]
     with pdn.no_grad():
         want = rows(jm.generate(ids, 20, chunk=6, fused=True, **FULL))
-    got = rows(tm.generate(ids, 20, chunk=6, **FULL))
+    # fused=True: at B=1 fused=None takes the NumPy lane on the CPU
+    got = rows(tm.generate(ids, 20, chunk=6, fused=True, **FULL))
     assert_equal_to_near_tie(got, want, gaps)
     assert step_calls == [(B, True)] * (20 - 3 - 1)
 

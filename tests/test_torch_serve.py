@@ -292,9 +292,41 @@ def test_server_dispatches_one_batched_step_per_token(batched_calls):
 
 
 def test_unported_options_raise(batched_calls):
-    _, tm = models(20)
-    with pytest.raises(NotImplementedError):
-        LlamaServer(tm, dtype=torch.float16)
+    """float16, once refused, serves on the scan lane (``lane="xla"``):
+    each stream equals the JAX package's float16 server's at every
+    confident step of its float32 stream until a near-tie; on the fused
+    lane (``lane=None`` or ``"fused"``) it raises, naming ROADMAP.md's
+    Float16 kernels."""
+    from pydynet_tpu_torch.utils import fidelity as tfid
+
+    jm, tm = models(20)
+    for lane in (None, "fused"):
+        with pytest.raises(NotImplementedError, match="Float16 kernels"):
+            LlamaServer(tm, dtype=torch.float16, lane=lane)
+    with pytest.raises(NotImplementedError, match="Float16 kernels"):
+        LlamaServer(tm, dtype=torch.float16, lane="xla", quant="int8")
+    requests = [([1, 5, 9], 10), ([2, 7, 3, 11], 12), ([30, 20], 8)]
+    kw = dict(batch_size=2, chunk=4, eos_id=-1, lane="xla")
+    with pdn.no_grad():
+        js = JServer(jm, dtype=jnp.float16, **kw)
+        jr = [js.submit(p, max_new_tokens=n) for p, n in requests]
+        jd = js.run()
+    ts = LlamaServer(tm, dtype=torch.float16, **kw)
+    tr = [ts.submit(p, max_new_tokens=n) for p, n in requests]
+    td = ts.run()
+    checked = 0
+    for (prompt, n), j, t in zip(requests, jr, tr):
+        want, got = jd[j].tokens, td[t].tokens
+        _, margins, tops = tfid.greedy_truth(tm, np.array([prompt]), n)
+        conf = tfid._confident(margins[:, 0], tops[:, 0], tfid.MARGIN,
+                               tfid.REL_MARGIN)
+        assert len(got) == len(want) == n
+        for i in range(n):
+            if got[i] != want[i]:
+                assert not conf[i], (prompt, i, got, want)
+                break
+            checked += int(conf[i])
+    assert checked >= 10 and not batched_calls
     # the prefix cache rides the scan lane: a ValueError on the fused lane,
     # as in the JAX package; the scan lane's int8 KV cache runs
     with pytest.raises(ValueError, match="prefix_cache"):
