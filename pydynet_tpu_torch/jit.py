@@ -54,12 +54,28 @@ the capture only, and the replays run its kernels.
 As with the JAX jit, Python control flow is fixed at the capture, the
 train or eval mode included: use one jit a mode. A step may not wait for
 the host while it is captured (``.item()``, ``float(optimizer.lr)``,
-printing a tensor). ``mesh=`` raises: the multi-device jit waits for the
-parallel port. ``donate_state`` is taken and has no effect, since the
+printing a tensor). ``donate_state`` is taken and has no effect, since the
 state is updated in place anyway.
+
+``mesh=`` (a ``parallel.Mesh``) runs the step SPMD on every rank of the
+mesh (``parallel/mesh.py``'s execution model): at the first call the state
+is placed on the mesh as DTensors, once, in place of its tensors: a module's
+parameter or buffer by the first ``shard_rules`` entry (``(fnmatch pattern,
+P(...))`` on its dotted name) that matches, an optimizer's buffers as their
+parameter (paired by index), everything else replicated. A tensor argument
+whose leading dimension divides the ``batch_axis`` size is split over it,
+any other replicated. DTensor propagates the collectives through the step:
+plain tensors made inside it count as replicated, a module's output whose
+reduction is pending (a row-parallel product's partial sums) is reduced at
+the module's boundary, and each gradient is redistributed to its
+parameter's placement as it is accumulated (the sum over ``dp`` among
+them), so the optimizer's in-place update is its plain arithmetic. Every
+rank gets the step's outputs whole. On a GPU the step is captured as on
+one device, the collectives (NCCL) inside the graph.
 """
 from __future__ import annotations
 
+import fnmatch
 import functools
 
 import torch
@@ -122,6 +138,23 @@ def _collect_state(state) -> list:
     return out
 
 
+def _ptr(t) -> int:
+    """The address of a tensor's (a DTensor's local) memory."""
+    local = getattr(t, "_local_tensor", None)
+    return (t if local is None else local).data_ptr()
+
+
+def _gather_tree(tree):
+    """Every rank gets the step's outputs whole: DTensors (and tape Tensors
+    over them) gathered to their global values."""
+    def leaf(x):
+        if isinstance(x, Tensor) and hasattr(x._data, "full_tensor"):
+            return Tensor._wrap(x._data.full_tensor(), x.device,
+                                x.requires_grad)
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+    return pytree.tree_map(leaf, tree)
+
+
 def _detach(tree):
     """Outputs off every tape: torch tensors detached, tape Tensors as
     Tensors over a clone."""
@@ -147,6 +180,30 @@ def _rewrap(leaves, kinds):
             for x, k in zip(leaves, kinds)]
 
 
+def _reduce_pending(module, inputs, out):
+    """A module's DTensor output with a pending reduction (``Partial``, a
+    row-parallel product's partial sums) reduced at the module's boundary,
+    where GSPMD would: code after it reads whole values."""
+    def leaf(x):
+        pl = getattr(x, "placements", None)
+        if pl is None or not any(p.is_partial() for p in pl):
+            return x
+        from torch.distributed.tensor import Replicate
+
+        return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                              else p for p in pl])
+    return pytree.tree_map(leaf, out)
+
+
+def _grad_to_placement(p):
+    """A DTensor parameter's accumulated gradient in the parameter's own
+    placement (a ``Partial`` gradient of a replicated weight is summed), so
+    the optimizer's in-place update sees matching tensors."""
+    g = p.grad
+    if g is not None and tuple(g.placements) != tuple(p.placements):
+        p.grad = g.redistribute(p.device_mesh, p.placements)
+
+
 class _Graph:
     """One signature's captured step: the graph, its input and output
     tensors, the output tree, the state tensors it captured with their
@@ -159,7 +216,7 @@ class _Graph:
         self.outputs = outputs
         self.out_kinds = out_kinds
         self.out_spec = out_spec
-        self.state = [(name, t, holder, t.data_ptr())
+        self.state = [(name, t, holder, _ptr(t))
                       for name, t, holder in state]
         self.replays = 0
 
@@ -173,8 +230,8 @@ class _Graph:
                 with torch.no_grad():
                     t.copy_(holder._state)
                 holder._state = t
-            elif t.data_ptr() != ptr or (isinstance(holder, Tensor)
-                                         and holder._data is not t):
+            elif _ptr(t) != ptr or (isinstance(holder, Tensor)
+                                    and holder._data is not t):
                 raise RuntimeError(
                     f"jit: the state tensor {name} holds other memory than "
                     "when the step was captured; a CUDA graph keeps the "
@@ -197,10 +254,14 @@ class _JitFunction:
 
     def __init__(self, fn, state=(), donate_state: bool = True, mesh=None,
                  batch_axis: str = "dp", shard_rules=None) -> None:
+        self._mesh = None
         if mesh is not None:
-            raise NotImplementedError(
-                "jit(mesh=...) is not ported yet (ROADMAP.md queue 1, "
-                "'Parallel')")
+            from .parallel.mesh import as_mesh
+
+            self._mesh = as_mesh(mesh)
+        self._batch_axis = batch_axis
+        self._shard_rules = list(shard_rules or ())
+        self._placed = False
         self._fn = fn
         self._state = state
         self._device = None  # the state's device, found at the first call
@@ -232,6 +293,9 @@ class _JitFunction:
         if target is not None:
             leaves = [x.to(target) if isinstance(x, torch.Tensor)
                       and x.device != target else x for x in leaves]
+        if self._mesh is not None:
+            leaves = [self._place_arg(x) if isinstance(x, torch.Tensor)
+                      else x for x in leaves]
         return leaves, (spec, tuple(kinds)), target
 
     @staticmethod
@@ -240,7 +304,8 @@ class _JitFunction:
         for leaf in leaves:
             if isinstance(leaf, torch.Tensor):
                 key.append((tuple(leaf.shape), leaf.dtype, leaf.device,
-                            leaf.requires_grad))
+                            leaf.requires_grad,
+                            getattr(leaf, "placements", None)))
             else:
                 try:
                     hash(leaf)
@@ -255,7 +320,110 @@ class _JitFunction:
     def _run(self, leaves, spec):
         spec, kinds = spec
         args, kwargs = pytree.tree_unflatten(_rewrap(leaves, kinds), spec)
-        return self._fn(*args, **kwargs)
+        if self._mesh is None:
+            return self._fn(*args, **kwargs)
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        with implicit_replication():
+            return self._fn(*args, **kwargs)
+
+    # -- mesh= -----------------------------------------------------------
+    def _place_arg(self, x):
+        """A tensor argument on the mesh: split over the batch axis when
+        its leading dimension divides that axis's size, else replicated."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        from .parallel.mesh import named_sharding
+
+        if isinstance(x, DTensor):
+            return x
+        mesh, ax = self._mesh, self._batch_axis
+        n = mesh.axis_size(ax)
+        spec = (ax,) if ax in mesh.axis_names and x.ndim >= 1 \
+            and x.shape[0] % n == 0 else ()
+        return distribute_tensor(
+            x.detach().to(mesh.device), mesh.device_mesh,
+            named_sharding(mesh, *spec).placements,
+            src_data_rank=None).requires_grad_(x.requires_grad)
+
+    def _place_state(self):
+        """Place the state on the mesh once (module docstring)."""
+        from torch.distributed.tensor import DTensor, distribute_tensor
+
+        from .parallel.mesh import named_sharding
+
+        mesh = self._mesh
+
+        def placements(name):
+            for pat, spec in self._shard_rules:
+                if name is not None and fnmatch.fnmatch(name, pat):
+                    return named_sharding(mesh, *spec).placements
+            return named_sharding(mesh).placements
+
+        def place(t, pl):
+            if isinstance(t, DTensor):
+                return t
+            return distribute_tensor(t.detach().to(mesh.device),
+                                     mesh.device_mesh, pl,
+                                     src_data_rank=None)
+
+        modules, optimizers, tapes = [], [], []
+
+        def visit(obj):
+            if isinstance(obj, torch.nn.Module):
+                modules.append(obj)
+            elif isinstance(obj, Optimizer):
+                optimizers.append(obj)
+            elif isinstance(obj, Tensor):
+                tapes.append(obj)
+            elif isinstance(obj, (list, tuple)):
+                for o in obj:
+                    visit(o)
+            elif isinstance(obj, dict):
+                for o in obj.values():
+                    visit(o)
+            elif isinstance(obj, torch.Tensor):
+                raise TypeError(
+                    "jit(mesh=): a bare torch tensor in the state cannot be "
+                    "placed on the mesh in place; hold it in a module")
+
+        visit(self._state)
+        placed = {}  # id(tensor before) -> the DTensor that replaced it
+        for module in modules:
+            for path, m in module.named_modules():
+                pre = path + "." if path else ""
+                for n, p in list(m._parameters.items()):
+                    if p is None or isinstance(p, DTensor):
+                        continue
+                    new = torch.nn.Parameter(place(p, placements(pre + n)),
+                                             requires_grad=p.requires_grad)
+                    placed[id(p)] = m._parameters[n] = new
+                for n, b in list(m._buffers.items()):
+                    if b is not None and not isinstance(b, DTensor):
+                        placed[id(b)] = m._buffers[n] = place(
+                            b, placements(pre + n))
+                m.register_forward_hook(_reduce_pending)
+            cache = getattr(module, "_weights_cache", None)
+            if isinstance(cache, dict):
+                cache.clear()
+        for opt in optimizers:
+            for i, p in enumerate(opt.params):
+                if id(p) not in placed:
+                    placed[id(p)] = torch.nn.Parameter(
+                        place(p, placements(None)),
+                        requires_grad=p.requires_grad)
+                opt.params[i] = placed[id(p)]
+            for b in _OPT_BUFFERS:
+                bufs = getattr(opt, b, None) or []
+                for i, t in enumerate(bufs):
+                    bufs[i] = place(t, opt.params[i].placements)
+        for t in tapes:
+            t._data = place(t._data, placements(None))
+        for p in placed.values():
+            if isinstance(p, torch.nn.Parameter) and p.requires_grad:
+                p.register_post_accumulate_grad_hook(_grad_to_placement)
+        self._placed = True
 
     def _capture(self, leaves, spec, sig, target) -> _Graph:
         entries = _collect_state(self._state)
@@ -266,7 +434,7 @@ class _JitFunction:
                     f"jit: the state tensor {name} is on {t.device}, the "
                     f"step on {target}: a CUDA graph would keep its value "
                     "at the capture")
-        ptrs = [t.data_ptr() for _, t, _ in entries]
+        ptrs = [_ptr(t) for _, t, _ in entries]
         inputs = [x.detach().clone().requires_grad_(x.requires_grad)
                   if isinstance(x, torch.Tensor) else x for x in leaves]
         graph = torch.cuda.CUDAGraph()
@@ -281,7 +449,7 @@ class _JitFunction:
         after = _collect_state(self._state)
         for i, (name, t, _) in enumerate(entries):
             if i >= len(after) or after[i][1] is not t \
-                    or t.data_ptr() != ptrs[i]:
+                    or _ptr(t) != ptrs[i]:
                 raise RuntimeError(
                     f"jit: the step rebound the state tensor {name} during "
                     "the capture; a CUDA graph keeps the memory it saw, so "
@@ -300,6 +468,13 @@ class _JitFunction:
         return g
 
     def _call(self, args, kwargs):
+        if self._mesh is not None:
+            if not self._placed:
+                self._place_state()
+            return _gather_tree(self._call_placed(args, kwargs))
+        return self._call_placed(args, kwargs)
+
+    def _call_placed(self, args, kwargs):
         leaves, spec, target = self._leaves(args, kwargs)
         sig = self._signature(leaves, spec)
         target = target or self._out_device

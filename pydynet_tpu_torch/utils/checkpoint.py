@@ -105,20 +105,31 @@ def _buffers(module, optimizer):
                 yield f"opt.{buf_name}.{i}", b, names.get(id(p))
 
 
-def state_blob(module, optimizer=None, step: int = None) -> dict:
+def state_blob(module, optimizer=None, step: int = None,
+               leaf=None) -> dict:
     """The training state as the JAX package lays it out: dotted name ->
-    NumPy array (module docstring)."""
-    swap = _torch_layout(module)
-    blob = {f"model.{k}": _jax_layout(k, v, swap)
-            for k, v in state_dict(module).items()}
+    ``leaf(name, tensor)``, where ``name`` is the dotted name of the
+    parameter a tensor belongs to (None for ``opt.lr``, ``opt.t`` and
+    ``step``). The default leaf is a NumPy copy in the JAX package's layout
+    (module docstring); the sharded checkpoint passes the live tensors, in
+    the port's own layout, with their placements: the same key set."""
+    if leaf is None:
+        swap = _torch_layout(module)
+
+        def leaf(name, t):
+            return _jax_layout(name, t.detach().cpu().numpy(), swap)
+
+    blob = {f"model.{k}": leaf(k, t)
+            for k, t in module.state_dict(keep_vars=True).items()}
     if optimizer is not None:
-        blob["opt.lr"] = np.asarray(optimizer.lr)
+        # float64, as ``np.asarray(optimizer.lr)`` in the JAX package
+        blob["opt.lr"] = leaf(None, optimizer._lr_tensor.double())
         for key, b, name in _buffers(module, optimizer):
-            blob[key] = _jax_layout(name, b.detach().cpu().numpy(), swap)
+            blob[key] = leaf(name, b)
         if hasattr(optimizer, "_t_tensor"):
-            blob["opt.t"] = optimizer._t_tensor.detach().cpu().numpy()
+            blob["opt.t"] = leaf(None, optimizer._t_tensor)
     if step is not None:
-        blob["step"] = np.asarray(step)
+        blob["step"] = leaf(None, torch.tensor(step))
     return blob
 
 

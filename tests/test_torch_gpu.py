@@ -1662,3 +1662,88 @@ def test_numpy_lane_of_a_model_on_the_card(tape_gpu):
     got = [int(t) for t in card.generate(ids, 20, fused="numpy")]
     assert got == [int(t) for t in host.generate(ids, 20)]
     assert card.tok_embedding.weight.is_cuda
+
+
+# ------------------- the parallel package on the card ---------------------
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL group (a ``HashStore``: no network) and its
+    ``{"dp": 1, "tp": 1}`` mesh on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the mesh runs over NCCL on the card")
+    import torch.distributed as dist
+    from pydynet_tpu_torch.parallel import make_mesh
+
+    started = not dist.is_initialized()
+    if started:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1,
+                                device_id=torch.device("cuda", 0))
+    yield make_mesh({"dp": 1, "tp": 1})
+    if started:
+        dist.destroy_process_group()
+
+
+def test_nccl_mesh_one_rank(nccl_mesh):
+    """The mesh lives on the card; a CPU mesh over the NCCL group raises
+    instead of falling back."""
+    from pydynet_tpu_torch.parallel import make_mesh, shard
+
+    assert nccl_mesh.shape == {"dp": 1, "tp": 1}
+    assert nccl_mesh.device_type == "cuda"
+    x = shard(np.arange(8.0).reshape(4, 2), nccl_mesh, "dp", None)
+    assert x.to_local().is_cuda
+    np.testing.assert_array_equal(x.full_tensor().cpu().numpy(),
+                                  np.arange(8.0).reshape(4, 2))
+    with pytest.raises(RuntimeError, match="gloo"):
+        make_mesh({"dp": 1}, device_type="cpu")
+
+
+def test_spmd_server_tokens_on_card(model, nccl_mesh):
+    """``SpmdLlamaServer`` (float32, 8 slots, recycling) against the scan
+    lane's ``LlamaServer`` on the same weights, each stream equal up to a
+    parting at a near-tie."""
+    from chip_smoke import check_partings, mesh_requests, mesh_serve
+    from pydynet_tpu_torch.models.llama.serve import LlamaServer
+    from pydynet_tpu_torch.parallel.serve_spmd import SpmdLlamaServer
+
+    prompts = mesh_requests()
+    with torch.no_grad():
+        got, _ = mesh_serve(SpmdLlamaServer(model, nccl_mesh, batch_size=8,
+                                            chunk=32, eos_id=-1), prompts)
+        want, _ = mesh_serve(LlamaServer(model, batch_size=8, chunk=32,
+                                         eos_id=-1, lane="xla",
+                                         dtype=torch.float32), prompts)
+    assert check_partings(model, prompts, want, got, "mesh server") >= 1
+
+
+def test_sharded_checkpoint_round_trip_on_card(nccl_mesh, tmp_path):
+    """``save_sharded``/``load_sharded`` of a ``jit(mesh=)`` train state on
+    the card, bit for bit."""
+    from pydynet_tpu_torch import jit, nn as tnn, optim as toptim
+    from pydynet_tpu_torch.utils import load_sharded, save_sharded
+
+    net = tnn.Sequential(tnn.Linear(6, 16), tnn.Tanh(),
+                         tnn.Linear(16, 3)).cuda()
+    opt = toptim.Adam(net.parameters(), lr=1e-2)
+
+    def step(x, y):
+        opt.zero_grad()
+        loss = tnn.functional.mse_loss(net(x), y)
+        loss.backward()
+        opt.step()
+        return loss
+
+    js = jit(step, state=(net, opt), mesh=nccl_mesh)
+    x, y = torch.randn(8, 6, device="cuda"), torch.randn(8, 3, device="cuda")
+    for _ in range(3):
+        js(x, y)
+    state = list(net.parameters()) + opt.m + opt.v
+    snap = [t.full_tensor().clone() for t in state]
+    save_sharded(str(tmp_path / "ckpt"), net, opt, step=3)
+    with torch.no_grad():
+        for t in state:
+            t.add_(1.0)
+    assert load_sharded(str(tmp_path / "ckpt"), net, opt) == 3
+    for a, t in zip(snap, state):
+        assert torch.equal(a, t.full_tensor())

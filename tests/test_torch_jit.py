@@ -385,8 +385,45 @@ def test_lstm_trains_under_jit_like_jax():
 
 
 def test_mesh_raises_naming_parallel():
-    with pytest.raises(NotImplementedError, match="Parallel"):
-        jit(lambda x: x, mesh=object())
+    """``jit(mesh=)`` runs (it raised until the parallel package was
+    ported): on a one-rank gloo mesh in this process, the state placed on
+    the mesh as DTensors and the losses those of the eager step.
+    ``tests/test_torch_parallel.py`` holds it against the JAX package on
+    spawned ranks."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from pydynet_tpu_torch.parallel import make_mesh
+
+    started = not dist.is_initialized()
+    mesh = make_mesh({"dp": 1}, device_type="cpu")
+    try:
+        nets = [tnn.Linear(3, 2, dtype=F64) for _ in range(2)]
+        load_state_dict(nets[1], state_dict(nets[0]))
+        opts = [toptim.SGD(n.parameters(), lr=0.1) for n in nets]
+
+        def make(net, opt):
+            def step(x, y):
+                opt.zero_grad()
+                loss = TF.mse_loss(net(x), y)
+                loss.backward()
+                opt.step()
+                return loss
+            return step
+
+        js = jit(make(nets[0], opts[0]), state=(nets[0], opts[0]),
+                 mesh=mesh)
+        eager = make(nets[1], opts[1])
+        x = torch.randn(4, 3, dtype=F64)
+        y = torch.randn(4, 2, dtype=F64)
+        got = [float(js(x, y)) for _ in range(3)]
+        want = [float(eager(x, y)) for _ in range(3)]
+        assert got == want
+        assert isinstance(nets[0].weight, DTensor)
+        assert not isinstance(js(x, y), DTensor)  # outputs come back whole
+    finally:
+        if started:
+            dist.destroy_process_group()
     # donate_state and batch_axis are taken
     assert jit(lambda x: x + 1, donate_state=False,
                batch_axis="dp")(torch.zeros(1)).tolist() == [1]

@@ -413,6 +413,12 @@ def test_port_imports_no_jax():
             "import pydynet_tpu_torch.models.llama.cpu_decode\n"
             "import pydynet_tpu_torch.examples.autograd1d\n"
             "import pydynet_tpu_torch.examples.autograd2d\n"
+            "import pydynet_tpu_torch.parallel\n"
+            "import pydynet_tpu_torch.parallel._cases\n"
+            "import pydynet_tpu_torch.parallel._dryrun\n"
+            "import pydynet_tpu_torch.utils.debug\n"
+            "import pydynet_tpu_torch.utils.profiler\n"
+            "import pydynet_tpu_torch.utils.sharded_checkpoint\n"
             "from pydynet_tpu_torch.models.llama.tokenizer import "
             "Tokenizer\n"
             "Tokenizer(None).encode('abc')\n"
