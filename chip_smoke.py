@@ -39,8 +39,9 @@ the run with a nonzero exit and no result line:
 3c. the quantized-matmul kernels against their plain versions, bit for
    bit: the activation quantization, the decode kernel (K5) at M up to 32
    on each side of every tile edge (``QMM_ROWS``) and the prefill kernel
-   (K6) at M in {33, 256, 1000} rows, float32
-   and bfloat16 rows, int8 and int4 weights, at stories15M's and
+   (K6) at M in {33, 64, 256, 1000} rows (64: the scan lane's padded
+   40-token prompt), float32, bfloat16 and float16 rows, int8 and int4
+   weights, at stories15M's and
    Llama-2-7B's (K, N); at each of those decode cases the stacked kernel
    (K7) with a device layer index, eagerly and captured in a CUDA graph
    replayed at another layer and at indices past either end (clamped) on
@@ -113,8 +114,8 @@ the run with a nonzero exit and no result line:
    a B = 64 1024-token ``generate`` through K2's row groups;
 4c. the training path: the flash-attention forward (K3) and its dq and
    dk/dv backward kernels (K4) against their plain versions at
-   (B, L, 6, 48), B in {1, 8}, L in {1, 7, 64, 1000, 1024}, in float32 and
-   bfloat16; a full-parameter fine-tune of the stories15M model at B = 1,
+   (B, L, 6, 48), B in {1, 8}, L in {1, 7, 64, 1000, 1024}, in float32,
+   bfloat16 and float16; a full-parameter fine-tune of the stories15M model at B = 1,
    L = 1024 over ``TRAIN_STEPS`` Adam steps through ``finetune_steps``
    (each kernel's launch counter must equal 6 layers x the steps, and the
    loss must fall), whose first step is held against the same step on the
@@ -262,6 +263,30 @@ the run with a nonzero exit and no result line:
    read before and after each, the references they are held against left
    out); every number beside the card's name and power limit, the phase's
    seconds;
+4h. float16 through every kernel of its path (each kernel's float16
+   instances): K1 against its plain version in float16, float16 with the
+   int8 head, int8 and int4 layers at positions 0, 255 and 1030, and its
+   emit mode; K2 at B = 8 (those formats and the int8 KV cache) at 1 and
+   1030 with per-row starts, its rows against K1 and its emit mode; both
+   on ``GQA_15M``'s narrow caches; K3 at the 7B prefill's (1, 4096, 32,
+   128) (K3/K4's other float16 shapes in phase 4c, and ``quantize_rows``
+   and K5-K7 on float16 rows in phase 3c); K9 with float16 weights against a float32 h (the
+   CUDA cores) and a float16 h (the tensor cores) and a cross-tile tie;
+   K10 at positions 0, 64, 511 and 1030. Then the path in float16, each run
+   with its counters zeroed just before it: a 256-token stories15M request
+   (K1's launches = the decode steps; the confident-step gate against the
+   float32 truth), a 300-token prompt whose prefill runs K3 (a launch a
+   layer; the gate with the flash prefill), a B = 8 server over 12
+   requests of at most 64 new tokens (K2's launches = the dispatched steps;
+   each stream against standalone float16 ``generate`` up to a parting at
+   a near-tie), a 5-step SGD fine-tune at L = 1024 (K3/K4 6 x 5 launches
+   each, the loss falling; Adam's eps is 0 in float16), the scan lane
+   with int8 weights and a 40-token prompt (K5, K6 as K7's prefill branch,
+   K7, ``quantize_rows``; the majority gate) and the K10 + K9 path in
+   float16. Each kernel's float16 time beside its bfloat16 time in turns
+   (bfloat16, float16, float16, bfloat16), with the float16 plain version,
+   bound and library call (SDPA for K3/K4, ``torch.argmax(w @ h + b)`` for
+   K9, ``torch._int_mm`` for K6); the kernels line's ``[f16]`` entries;
 5. timings: tokens per second of the 1024-token request in each format
    (bfloat16, int8-head, int8, int4, and the int8 KV cache through K2),
    timed ``REPEATS`` times in turns, K1's (also with int8 and int4 layers)
@@ -341,11 +366,20 @@ FORMATS = {"f32": (torch.float32, None), "bf16": (torch.bfloat16, None),
            "bf16-int8head": (torch.bfloat16, "int8-head"),
            "f32-int8": (torch.float32, "int8"),
            "bf16-int8": (torch.bfloat16, "int8"),
-           "bf16-int4": (torch.bfloat16, "int4")}
+           "bf16-int4": (torch.bfloat16, "int4"),
+           "f16": (torch.float16, None),
+           "f16-int8head": (torch.float16, "int8-head"),
+           "f16-int8": (torch.float16, "int8"),
+           "f16-int4": (torch.float16, "int4")}
+B1_FORMATS = ("f32", "bf16", "bf16-int8head", "f32-int8", "bf16-int8",
+              "bf16-int4")  # phases 3 and 3n (phase 4h: F16_FORMATS)
+F16_FORMATS = ("f16", "f16-int8head", "f16-int8", "f16-int4")
 # K2's int8 KV cache (float weights only): its formats' weight types
-KV8_FORMATS = {"f32-kv8": torch.float32, "bf16-kv8": torch.bfloat16}
+KV8_FORMATS = {"f32-kv8": torch.float32, "bf16-kv8": torch.bfloat16,
+               "f16-kv8": torch.float16}
 BATCHED_FORMATS = ("f32", "bf16", "bf16-int8head", "bf16-int8", "bf16-int4",
-                   "f32-kv8", "bf16-kv8")  # what K2 takes
+                   "f32-kv8", "bf16-kv8")  # what K2 takes (phase 3b)
+F16_BATCHED = F16_FORMATS + ("f16-kv8",)  # phase 4h
 # int8 KV caches, kernel vs plain: both quantize the same new K/V rows, whose
 # float32 values differ by summation order (and, in bf16, by a matmul input
 # rounded to a neighbouring bf16 value), so an entry may land one step apart.
@@ -354,7 +388,8 @@ BATCHED_FORMATS = ("f32", "bf16", "bf16-int8head", "bf16-int8", "bf16-int4",
 # QUANT_CACHE_ATOL), so a row's scale (its amax / 127) may move by ~1e-4 of
 # itself (1.7e-4 seen at f32, B=32); one bf16 ulp, 2**-7, bounds that and
 # keeps a row's entries within one step of each other
-KV8_SCALE_RTOL = {torch.float32: 2.0**-7, torch.bfloat16: 2.0**-7}
+KV8_SCALE_RTOL = {torch.float32: 2.0**-7, torch.bfloat16: 2.0**-7,
+                  torch.float16: 2.0**-7}
 # int8 KV caches at a rounding tie: where the plain step's new K or V entry
 # x lies within float noise of a half step (x / s, s its row's scale, that
 # close to n + 1/2), a kernel's entry may take the other side, and its
@@ -366,8 +401,10 @@ KV8_SCALE_RTOL = {torch.float32: 2.0**-7, torch.bfloat16: 2.0**-7}
 KV8_TIE_STEPS = 2.0**-8
 # cache tolerance, kernel vs plain: f32 differs only in summation order
 # (values are O(1), so 1e-4 is ~1000 f32 ulps); bf16 rows may round to a
-# neighbouring bf16 value (one ulp at |x| < 8 is at most 2**-5)
-CACHE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-5}
+# neighbouring bf16 value (one ulp at |x| < 8 is at most 2**-5), f16 rows
+# to a neighbouring f16 value (2**-8 there)
+CACHE_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-5,
+              torch.float16: 2.0**-8}
 # int8/int4 layers: an activation whose x * 127 / amax lies within float32
 # summation noise of a half-integer rounds to the other integer in one of
 # the two; that moves its matmul's outputs by up to max |w| * amax / 127 and
@@ -393,7 +430,8 @@ EMIT_RTOL = {"f32": 1e-4, "other": 2e-2}
 # summation order only (the JAX package's 1e-4 for its kernel,
 # tests/test_ops_kernels.py:107); bf16 rounds every matmul input and the
 # probabilities, one of which may land on a neighbouring bf16 value
-STEP_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-5}
+STEP_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-5,
+             torch.float16: 2.0**-8}
 # around the attention stage's 16-row tiles and its blocks' shares of
 # them; 1030 >= S acts as S - 1
 STEP_POSITIONS = (0, 63, 64, 65, 255, 256, 511, 1023, 1030)
@@ -403,7 +441,7 @@ B1_QUANTS = (None, "int8-head", "int8", "int4")  # phase 4's requests
 K2_TIMED = ("bf16", "bf16-int8", "bf16-int4", "bf16-kv8")  # phase 5
 PROMPT = np.array([[1, 243, 532, 991]])
 REQUEST = 1024  # total length of the main-path request
-REPEATS = 3  # timed requests (or serving runs) per format in phase 5
+REPEATS = 2  # timed requests (or serving runs) per format in phase 5
 SERVE = dict(batch_size=8, chunk=128, eos_id=-1)  # the phase-4b server
 SERVE_FORMATS = {"bf16": {}, "bf16-int8head": dict(quant="int8-head"),
                  "bf16-int8": dict(quant="int8"),
@@ -415,7 +453,10 @@ F32_MARGIN = 1e-3  # f32 server vs f32 generate: they differ by rounding of
 # the shifted rotation and summation order (~1e-6), so a stream is compared
 # up to its first step whose f32 top-2 margin is below this
 FLASH_BATCHES, FLASH_LENGTHS = (1, 8), (1, 7, 64, 1000, 1024)
-FLASH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+BN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}  # K8's, as JAX's
+# the flash kernels' and the quantized matmuls' row types
+DTYPES = dict(BN_DTYPES, f16=torch.float16)
+
 # flash kernels vs their plain versions, both float32 arithmetic on the same
 # inputs: they differ in summation order (and the forward's online softmax
 # against a two-pass one), so outputs of O(1) get the JAX package's own
@@ -424,6 +465,8 @@ FLASH_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 # neighbouring bfloat16 value, one ulp, at most 2**-7 of its magnitude
 FLASH_ATOL = {"o": 2e-5, "lse": 2e-5, "dq": 5e-4, "dk": 5e-4, "dv": 5e-4}
 BF16_ULP = 2.0**-7
+# one ulp of a 16-bit output, as a share of its magnitude at most
+ULP16 = {torch.bfloat16: BF16_ULP, torch.float16: 2.0**-10}
 TRAIN_CFG = dict(CFG, max_batch_size=1)
 TRAIN_PREFIXES = ("tok_embedding", "layers", "norm", "lm_head")
 TRAIN_L, TRAIN_LR, TRAIN_STEPS = 1024, 1e-3, 20
@@ -449,8 +492,8 @@ QMM_NAMES = ("wqkv", "wo", "wgu", "down", "head")
 # decode row counts (M <= 32: the fused route up to 4 rows, then the int8
 # rows in tiles of 8, each side of every tile edge and partial tiles among
 # them) and prefill rows (M > 32) in tiles of 64, full and partial
-QMM_ROWS = (1, 2, 3, 4, 5, 7, 8, 9, 12, 15, 16, 17, 24, 25, 31, 32, 33, 256,
-            1000)
+QMM_ROWS = (1, 2, 3, 4, 5, 7, 8, 9, 12, 15, 16, 17, 24, 25, 31, 32, 33, 64,
+            256, 1000)
 BIG_NEW = 64  # tokens of the 7B request (prefill token included)
 BIG_SERVE = dict(batch_size=4, chunk=32, eos_id=-1)
 BIG_REQUESTS, BIG_MAX_NEW = 8, (48, 64, 24, 40)
@@ -468,7 +511,7 @@ LONG_NEW = 24
 # 7B width: the smallest from which flash is faster at every one is the
 # crossover that sets the port's FLASH_PREFILL_MIN
 CROSSOVER_LENGTHS = (256, 512, 1024, 2048, 4096)
-LONG_REPEATS = 3  # first tokens a route and length, the routes in turns
+LONG_REPEATS = 2  # first tokens a route and length, the routes in turns
 LONG_FLASH_SHAPE = (1, 4096, 32, 128)  # K3 at the 7B prefill: (B, L, H, d)
 INT4_MIN_AGREE = 0.75  # bench.py's majority floor for the lossy formats
 QMM_KERNELS = ("quantize_rows", "qmatmul", "qmatmul_prefill",
@@ -546,7 +589,7 @@ JIT_CASES = ("gd", "bn-sgd", "adam", "adam-dropout", "accum", "lstm",
 TS_MAX_LOSS = 0.7  # ts_prediction's final test loss (tests/
 # test_utils_examples.py:123-125 holds the JAX example to it)
 TF_EPOCHS, TF_LR = 2, 5e-4  # the transformer example: epochs, its Adam's lr
-JIT_ROUNDS = 3  # timed runs of each route, in turns
+JIT_ROUNDS = 2  # timed runs of each route, in turns
 JIT_TIMED = 50  # dropout_bn steps a timed run
 TS_TIMED = 20  # ts_prediction epochs a timed run
 # phase 4v: CLIP ViT-B/32 at its published width (the CLIP() defaults),
@@ -572,7 +615,7 @@ CLIP_OPTIMIZERS = {"SGD": dict(lr=1e-3), "Adagrad": {}, "Adadelta": {}}
 # NUMPY_REQUEST-token request on the NumPy lane
 TAPE_STEPS = 60
 TAPE_TOL = {np.float64: 1e-12, np.float32: 1e-6}
-TAPE_TIMED, TAPE_ROUNDS = 200, 3
+TAPE_TIMED, TAPE_ROUNDS = 200, 2
 NUMPY_REQUEST = 64
 # (op, shapes): the loss is the op's output times seeded weights, summed
 TAPE_OPS = {
@@ -622,11 +665,25 @@ MESH_REQUESTS, MESH_NEW = 12, 32
 MESH_B, MESH_L, MESH_LR, MESH_STEPS = 4, 64, 0.5, 3
 MESH_JIT_STEPS = 6
 TRACE_PRODUCTS = 50  # the (1024, 1024) products under utils.profiler.trace
+# phase 4h: float16 through every kernel of its path. K1 against plain at
+# F16_POSITIONS (every float16 format, and the emit mode), K2 at B =
+# F16_BATCH at F16_BATCH_POSITIONS, K10 at F16_STEP_POSITIONS; K3/K4 timed
+# at F16_FLASH (B, L, H, d, with the backward). The main path: a F16_REQUEST-token stories15M
+# request, a F16_LONG_PROMPT-token prompt (a flash prefill), a B=8 server
+# over F16_SERVE_REQUESTS requests capped at F16_SERVE_NEW new tokens, a
+# F16_TRAIN_STEPS-step SGD fine-tune (Adam's eps of 1e-8 is 0 in float16)
+F16_POSITIONS = (0, 255, 1030)
+F16_BATCH, F16_BATCH_POSITIONS = 8, (1, 1030)
+F16_STEP_POSITIONS = (0, 64, 511, 1030)
+F16_FLASH = ((1, TRAIN_L, 6, 48, True), LONG_FLASH_SHAPE + (False,))
+F16_REQUEST, F16_LONG_PROMPT = 256, 300
+F16_SERVE_REQUESTS, F16_SERVE_NEW = 12, 64
+F16_TRAIN_STEPS, F16_TRAIN_LR = 5, 0.1
 # the least time of a function: bytes over the memory rate, or operations
 # over the card's peak for their type (NVIDIA's H100 SXM data sheet, dense)
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
-              torch.int8: 1979e12,
+              torch.float16: 989e12, torch.int8: 1979e12,
               # float32 products at float32 accuracy on the tensor cores:
               # three TF32 products each (3xTF32), a third of 495 TFLOP/s
               "3xtf32": 495e12 / 3}
@@ -949,8 +1006,8 @@ def batched_vs_plain(model, fmt, batch, pos, seed=0):
 
 def emit_ok(fmt, err, scale):
     """Whether emitted logits are within the stated tolerance of the plain
-    version's: float32 EMIT_RTOL[f32] of the logit scale, bfloat16 and the
-    quantized formats EMIT_RTOL[other]."""
+    version's: float32 EMIT_RTOL[f32] of the logit scale, bfloat16,
+    float16 and the quantized formats EMIT_RTOL[other]."""
     rtol = EMIT_RTOL["f32" if fmt in ("f32", "f32-kv8") else "other"]
     return err <= rtol * scale
 
@@ -1203,12 +1260,25 @@ def check_head_and_step(model, truth, margins, tops):
         if not torch.equal(outs[STEP_POSITIONS[-1]], outs[last]):
             raise AssertionError(f"K10 {name}: pos {STEP_POSITIONS[-1]} "
                                  f"differs from pos {last}")
-    # the path: counters zeroed just before it, read just after
-    w = model._fused_weights(torch.float32)
+    launches = head_and_step_path(model, truth, margins, tops)
+    return err, launches
+
+
+def head_and_step_path(model, truth, margins, tops, dtype=torch.float32):
+    """The path K10 and K9 make together: a greedy decode of PROMPT and the
+    first PATH_STEPS - 1 truth tokens in ``dtype``, one K10 (the layers)
+    and one K9 (the head, on K10's float32 h) launch a token from position
+    0, teacher-forced, with the counters zeroed just before it and read just
+    after. Its token after each step from the prompt's last on must equal
+    the float32 truth at every confident step. Returns {kernel: launches}."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+    from pydynet_tpu_torch.utils import fidelity
+
+    w = model._fused_weights(dtype)
     dev, D, L = model.device, model.embed_dim, PROMPT.shape[1]
     rot = dsk.rope_pair_swap_matrix(D).to(dev)
     hmask = dsk.head_mask_matrix(D, model.n_heads).to(dev)
-    ck, cv = model._flat_caches(*model._empty_caches(1, torch.float32), w)
+    ck, cv = model._flat_caches(*model._empty_caches(1, dtype), w)
     feed = list(PROMPT[0]) + [int(t) for t in truth[:PATH_STEPS - 1, 0]]
     toks = torch.tensor(feed, dtype=torch.long, device=dev)
     positions = torch.arange(len(feed), dtype=torch.int32, device=dev)
@@ -1229,7 +1299,7 @@ def check_head_and_step(model, truth, margins, tops):
     conf = fidelity._confident(margins[:PATH_STEPS], tops[:PATH_STEPS],
                                fidelity.MARGIN, fidelity.REL_MARGIN)
     ok = int((got[conf] == truth[:PATH_STEPS][conf]).sum())
-    print(f"[chip_smoke] K10 + K9 path: {len(feed)} steps, launches "
+    print(f"[chip_smoke] {dtype} K10 + K9 path: {len(feed)} steps, launches "
           f"{launches}, {ok}/{int(conf.sum())} confident steps equal the "
           f"f32 truth")
     if any(n != len(feed) for n in launches.values()):
@@ -1238,7 +1308,7 @@ def check_head_and_step(model, truth, margins, tops):
     if not conf.any() or ok != int(conf.sum()):
         raise AssertionError("K10 + K9 path differs from the truth at a "
                              "confident step")
-    return err, launches
+    return launches
 
 
 def time_k1(model, fmt, card, label=""):
@@ -1461,7 +1531,8 @@ def profile(model, card):
     cuda = [ProfilerActivity.CUDA]
     n = 50
     with torch.no_grad():
-        for fmt, (dtype, quant) in FORMATS.items():
+        for fmt in B1_FORMATS:
+            dtype, quant = FORMATS[fmt]
             w = model._fused_weights(dtype, quant)
             ck, cv = random_caches(model, dtype, 1)
             for pos in (0, 512, 1023):
@@ -1782,8 +1853,7 @@ def flash_vs_plain(B, L, dtype, seed=0, d=48, heads=CFG["n_heads"],
     for name, got in outs.items():
         want = plain[name].float()
         err = (got.float() - want).abs()
-        tol = FLASH_ATOL[name] + (BF16_ULP * want.abs()
-                                  if got.dtype == torch.bfloat16 else 0.0)
+        tol = FLASH_ATOL[name] + ULP16.get(got.dtype, 0.0) * want.abs()
         if got.shape != want.shape or not bool((err <= tol).all()):
             raise AssertionError(f"flash {name} B={B} L={L} d={d} "
                                  f"{dtype}: max error {float(err.max())} "
@@ -1901,21 +1971,23 @@ def check_adam_step_vs_cpu(gpu, cpu, lr, noise=None):
 
 def check_training():
     """Phase 4c: K3/K4 against plain, the fine-tune through them, the CLI.
-    Returns ({kernel: launches in the main run}, {kernel: max f32 error})."""
+    Returns ({kernel: launches in the main run}, {kernel: max f32 error},
+    {kernel: max f16 error})."""
     from pydynet_tpu_torch.models.llama import finetune
 
-    errs = {name: 0.0 for name in FLASH_KERNELS}
-    for dname, dtype in FLASH_DTYPES.items():
+    errs = {d: {name: 0.0 for name in FLASH_KERNELS} for d in ("f32", "f16")}
+    for dname, dtype in DTYPES.items():
         for B in FLASH_BATCHES:
             for L in FLASH_LENGTHS:
                 e = flash_vs_plain(B, L, dtype)
                 print(f"[chip_smoke] flash {dname} B={B} L={L}: max error "
                       + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
-                if dtype == torch.float32:
+                if dname in errs:
                     for name, keys in zip(FLASH_KERNELS,
                                           (("o", "lse"), ("dq",),
                                            ("dk", "dv"))):
-                        errs[name] = max([errs[name]] + [e[x] for x in keys])
+                        errs[dname][name] = max([errs[dname][name]]
+                                                + [e[x] for x in keys])
 
     inp, tgt = train_pair()
     gpu, opt = train_model("cuda")
@@ -1956,18 +2028,20 @@ def check_training():
     if ran != [CFG["n_layers"] * 5] * 3 or not cli[-1] < cli[0]:
         raise AssertionError("finetune CLI did not train through the "
                              "kernels")
-    return launches, errs
+    return launches, errs["f32"], errs["f16"]
 
 
-def time_flash(B, L, card):
-    """K3 and both K4 kernels on float32 (B, L, 6, 48) inputs beside their
-    plain versions (in turns), their bounds and the SDPA forward and
-    backward: {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+def time_flash(B, L, card, dtype=torch.float32, d=48, heads=CFG["n_heads"],
+               backward=True):
+    """K3 and (with ``backward``) both K4 kernels on (B, L, heads, d) inputs
+    of ``dtype`` beside their plain versions (in turns), their bounds and
+    the SDPA forward and backward: {kernel: (ms, plain_ms, bound_ms,
+    bound_by, library_ms)}."""
     from pydynet_tpu_torch.ops import flash_attention as fa
 
     out = {}
-    scale = 48 ** -0.5
-    q, k, v, do = flash_inputs(B, L, torch.float32, 1)
+    scale = d ** -0.5
+    q, k, v, do = flash_inputs(B, L, dtype, 1, d, heads)
     o, lse = fa.flash_attention_fwd(q, k, v)
     dd = fa.attention_dd(o, do)
     pairs = {
@@ -1983,6 +2057,8 @@ def time_flash(B, L, card):
             lambda: fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, dd,
                                                    scale)),
     }
+    if not backward:
+        del pairs["flash_attention_bwd_dq"], pairs["flash_attention_bwd_dkv"]
     lib = sdpa_ms(q, k, v, do)
     for name, (kern, ref) in pairs.items():
         plain, kernel = time_step(ref, 10), time_step(kern, 50)
@@ -1991,7 +2067,7 @@ def time_flash(B, L, card):
         t = out[name] = (min(kernel, kernel2), min(plain, plain2), b_ms,
                          b_by, lib[name != "flash_attention_fwd"])
         way = "forward" if name == "flash_attention_fwd" else "backward"
-        print(f"[chip_smoke] {card}: {name} f32 ({B}, {L}, 6, 48): kernel "
+        print(f"[chip_smoke] {card}: {name} {dtype} {tuple(q.shape)}: kernel "
               f"{t[0] * 1e3:.1f} us, plain {t[1] * 1e3:.1f} us, bound "
               f"{b_ms * 1e3:.1f} us ({b_by}), "
               f"F.scaled_dot_product_attention {way} {t[4] * 1e3:.1f} us")
@@ -2137,18 +2213,21 @@ def random_rows(M, K, dtype, seed):
 
 def check_qmatmul():
     """Phase 3c: the quantized-matmul kernels against their plain versions,
-    bit for bit. Returns {kernel: max |kernel - plain|}."""
+    bit for bit. Returns {kernel: max |kernel - plain|} on float32 and
+    bfloat16 rows, and the same on float16 rows."""
     from pydynet_tpu_torch.ops import gemv_quant as gq
 
     errs = {name: 0.0 for name in QMM_KERNELS}
+    f16_errs = dict(errs)
     counts = {}
 
-    def same(name, got, want, what):
+    def same(name, got, want, what, dtype):
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"{name} {what}: max error "
                                  f"{max_diff(got, want)}")
-        errs[name] = max(errs[name], max_diff(got, want))
+        into = f16_errs if dtype == torch.float16 else errs
+        into[name] = max(into[name], max_diff(got, want))
 
     def replayed(x, w, ws, q4, what):
         """The stacked call at a device index, eager at layer 0, then
@@ -2157,7 +2236,8 @@ def check_qmatmul():
         idx = torch.zeros((), dtype=torch.int32, device=w.device)
         L = w.shape[0]
         same("qmatmul_stacked", gq.qmatmul_stacked(x, w, ws, idx, q4=q4),
-             gq.qmatmul_ref(x, w[0], ws[0], q4=q4), f"{what} index 0")
+             gq.qmatmul_ref(x, w[0], ws[0], q4=q4), f"{what} index 0",
+             x.dtype)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = gq.qmatmul_stacked(x, w, ws, idx, q4=q4)
@@ -2168,27 +2248,25 @@ def check_qmatmul():
             graph.replay()
             same("qmatmul_stacked", out,
                  gq.qmatmul_ref(x, w[layer], ws[layer], q4=q4),
-                 f"{what} replayed at index {index}")
+                 f"{what} replayed at index {index}", x.dtype)
 
     for where, shapes in QMM_SHAPES.items():
         for K, N in shapes:
             for q4 in (False, True):
                 w, ws = random_qweights(K, N, q4, K + N + q4, layers=3)
                 for M in QMM_ROWS:
-                    for dtype in (torch.float32, torch.bfloat16):
+                    for dtype in DTYPES.values():
                         what = f"{where} ({K}, {N}) q4={q4} M={M} {dtype}"
                         x = random_rows(M, K, dtype, M + K)
-                        xq, sx = gq.quantize_rows(x)
-                        rxq, rsx = gq.quantize_rows_ref(x)
-                        torch.cuda.synchronize()
-                        if not (torch.equal(xq, rxq) and torch.equal(sx, rsx)):
-                            raise AssertionError(
-                                f"quantize_rows M={M} K={K} {dtype} differs "
-                                f"from plain")
+                        (xq, sx), (rxq, rsx) = (gq.quantize_rows(x),
+                                                gq.quantize_rows_ref(x))
+                        same("quantize_rows", xq, rxq, what, dtype)
+                        same("quantize_rows", sx, rsx, what, dtype)
                         decode = M <= gq.MAX_DECODE_ROWS
                         same("qmatmul" if decode else "qmatmul_prefill",
                              gq.qmatmul(x, w[1], ws[1], q4=q4),
-                             gq.qmatmul_ref(x, w[1], ws[1], q4=q4), what)
+                             gq.qmatmul_ref(x, w[1], ws[1], q4=q4), what,
+                             dtype)
                         if decode:
                             replayed(x, w, ws, q4, what)
                         counts[where] = counts.get(where, 0) + 1
@@ -2207,7 +2285,7 @@ def check_qmatmul():
                 same("qmatmul_stacked",
                      gq.qmatmul_stacked(x, w, ws, idx, q4=q4),
                      gq.qmatmul_ref(x, w[layer], ws[layer], q4=q4),
-                     f"index {index} of {L} q4={q4} M={M}")
+                     f"index {index} of {L} q4={q4} M={M}", x.dtype)
         del w, ws
     print(f"[chip_smoke] quantized matmuls equal their plain versions bit "
           f"for bit: {counts} (shape, format, M, type) cases, int8 and int4; "
@@ -2215,7 +2293,7 @@ def check_qmatmul():
           f"index eagerly and replayed from a CUDA graph at other layers and "
           f"clamped indices; over {L} layers at indices "
           f"{[i for i, _ in layers]} (the last two clamped)")
-    return errs
+    return errs, f16_errs
 
 
 def big_requests(model, n=BIG_REQUESTS, seed=0):
@@ -3613,7 +3691,7 @@ def check_batchnorm():
     from pydynet_tpu_torch.ops import batchnorm as bn
 
     worst = 0.0
-    for dname, dtype in FLASH_DTYPES.items():
+    for dname, dtype in BN_DTYPES.items():
         for N, C in BN_SHAPES:
             e = bn_vs_plain(N, C, dtype)
             print(f"[chip_smoke] batch_norm_train {dname} ({N}, {C}): max "
@@ -3630,7 +3708,7 @@ def check_batchnorm():
                   ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
             if dtype == torch.float32:
                 worst = max(worst, e["out"], e["mean"], e["var"])
-    for dtype in FLASH_DTYPES.values():
+    for dtype in BN_DTYPES.values():
         size = torch.finfo(dtype).bits // 8
         shapes = BN_SHAPES + bn_seam_shapes(size)
         for N, C in shapes:
@@ -4970,14 +5048,15 @@ def time_sampling(model, card):
     return out
 
 
-def check_k1(model, label=""):
-    """Phase 3 (and 3n on a grouped-query model): K1 against its plain
-    version in every format at POSITIONS, then its emit_logits mode.
-    Returns (cache errors, emit errors) by format."""
+def check_k1(model, label="", formats=B1_FORMATS, positions=POSITIONS):
+    """Phase 3 (and 3n on a grouped-query model, 4h in float16): K1 against
+    its plain version in each of ``formats`` at ``positions``, then its
+    emit_logits mode. Returns (cache errors, emit errors) by format."""
     max_err, emit_err = {}, {}
-    for fmt, (dtype, _) in FORMATS.items():
+    for fmt in formats:
+        dtype = FORMATS[fmt][0]
         max_err[fmt] = 0.0
-        for pos in POSITIONS:
+        for pos in positions:
             got, want, confident, err = kernel_vs_plain(model, fmt, pos)
             print(f"[chip_smoke] {label}{fmt} pos {pos}: kernel {got} plain "
                   f"{want} confident {confident} cache err {err:.3g}")
@@ -4988,8 +5067,8 @@ def check_k1(model, label=""):
                 raise AssertionError(f"{label}{fmt} pos {pos}: kernel token "
                                      f"{got} != plain {want}")
             max_err[fmt] = max(max_err[fmt], err)
-    for fmt in FORMATS:  # the emit_logits mode
-        for pos in POSITIONS:
+    for fmt in formats:  # the emit_logits mode
+        for pos in positions:
             err, scale, same, cerr = emit_vs_plain(model, fmt, pos)
             print(f"[chip_smoke] {label}{fmt} pos {pos} emit_logits: max "
                   f"|logit diff| {err:.3g} of scale {scale:.3g}, argmax "
@@ -5003,14 +5082,14 @@ def check_k1(model, label=""):
 
 
 def check_k2(model, batches, positions, label="", rows_batch=8,
-             emit_positions=EMIT_POSITIONS_B):
-    """Phase 3b (3n, 3w): K2 against its plain version in every format at
-    ``batches`` x ``positions`` with per-row starts, each row of a
-    ``rows_batch``-row step against K1 on that row alone (the int8 KV
+             emit_positions=EMIT_POSITIONS_B, formats=BATCHED_FORMATS):
+    """Phase 3b (3n, 3w, 4h): K2 against its plain version in each of
+    ``formats`` at ``batches`` x ``positions`` with per-row starts, each row
+    of a ``rows_batch``-row step against K1 on that row alone (the int8 KV
     cache's against K2 at B=1), then K2's emit_logits mode at ``batches``
     x ``emit_positions``. Returns (cache errors, emit errors) by format."""
     max_err_b, emit_err_b = {}, {}
-    for fmt in BATCHED_FORMATS:
+    for fmt in formats:
         dtype = fmt_of(fmt)[0]
         errs = []
         for batch in batches:
@@ -5040,7 +5119,7 @@ def check_k2(model, batches, positions, label="", rows_batch=8,
         if not equal or not cache_ok(fmt, err):
             raise AssertionError(f"{label}K2 {fmt}: rows differ from "
                                  f"{alone}")
-    for fmt in BATCHED_FORMATS:  # the emit_logits mode
+    for fmt in formats:  # the emit_logits mode
         for batch in batches:
             for pos in emit_positions:
                 err, scale, same, cerr = batched_emit_vs_plain(
@@ -5258,14 +5337,14 @@ def time_gqa_and_wide(model, gqa, model64, card):
             "serve B=64": lambda: sum(len(r.tokens) for r in serve(
                 model64, wide_requests, dtype=torch.bfloat16, **wide)[1])}
     rates = {name: [] for name in runs}
-    for _ in range(3):  # in turns
+    for _ in range(REPEATS):  # in turns
         for name, run in runs.items():
             start = time.perf_counter()
             n = run()
             torch.cuda.synchronize()
             rates[name].append(n / (time.perf_counter() - start))
     for name, r in rates.items():
-        print(f"[chip_smoke] {card}: {name} tok/s of 3 runs: "
+        print(f"[chip_smoke] {card}: {name} tok/s of {REPEATS} runs: "
               f"{', '.join(f'{x:.1f}' for x in r)}; median "
               f"{float(np.median(r)):.1f}")
     return ms
@@ -5501,6 +5580,317 @@ def check_parallel(model, card):
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# --------------------------- phase 4h: float16 -----------------------------
+def f16_vs_plain(model, gqa):
+    """Phase 4h's checks: the float16 instances of K1, K2, K3 at the 7B
+    prefill's shape, K9 and K10 against their plain versions at the main
+    path's shapes (K3/K4's other shapes in phase 4c, K5-K7's in phase 3c).
+    Returns {kernel: max error}."""
+    f16 = torch.float16
+    errs = {}
+    k1, _ = check_k1(model, "f16 ", F16_FORMATS, F16_POSITIONS)
+    k2, _ = check_k2(model, (F16_BATCH,), F16_BATCH_POSITIONS, "f16 ",
+                     emit_positions=(17,), formats=F16_BATCHED)
+    check_k1(gqa, "GQA f16 ", ("f16",), (1, 1030))
+    check_k2(gqa, (F16_BATCH,), (1030,), "GQA f16 ", emit_positions=(17,),
+             formats=("f16", "f16-kv8"))
+    errs["decode_token"] = k1["f16"]
+    errs["decode_token_batched"] = k2["f16"]
+    B, L, H, d = LONG_FLASH_SHAPE
+    e = flash_vs_plain(B, L, f16, d=d, heads=H, backward=False)
+    print(f"[chip_smoke] flash f16 {LONG_FLASH_SHAPE}: max error "
+          + ", ".join(f"{k} {v:.3g}" for k, v in e.items()))
+    errs["flash_attention_fwd[prefill]"] = max(e["o"], e["lse"])
+    # K9: float16 weights against a float32 h (the CUDA cores, the weights
+    # widened) and against a float16 h (the tensor cores), a cross-tile tie
+    errs["lm_head_argmax"] = 0.0
+    for seed in range(3):
+        h, w, b = head_inputs(model, f16, seed)
+        for hh in (h, h.to(f16)):
+            got, want, short = head_vs_plain(model, None, inputs=(hh, w, b))
+            print(f"[chip_smoke] K9 f16 weights, {hh.dtype} h, seed {seed}: "
+                  f"kernel {got} plain {want}, logit shortfall {short:.3g}")
+            if got != want:
+                raise AssertionError(f"K9 f16 {hh.dtype} h: kernel {got} != "
+                                     f"plain {want}")
+            errs["lm_head_argmax"] = max(errs["lm_head_argmax"], short)
+    got, want, _ = head_vs_plain(model, f16, 7, tie=True)
+    if got != want or got != HEAD_TIE[0]:
+        raise AssertionError(f"K9 f16 tie: kernel {got}, plain {want}, want "
+                             f"{HEAD_TIE[0]}")
+    errs["fused_decode_step"] = 0.0
+    for pos in F16_STEP_POSITIONS:
+        h_err, c_err, kept, _ = step_vs_plain(model, f16, pos)
+        print(f"[chip_smoke] K10 f16 pos {pos}: h_out err {h_err:.3g}, cache "
+              f"err {c_err:.3g}, other rows kept {kept}")
+        if h_err > STEP_ATOL[f16] or c_err > CACHE_ATOL[f16] or not kept:
+            raise AssertionError(f"K10 f16 pos {pos}: h_out err {h_err}, "
+                                 f"cache err {c_err}, kept {kept}")
+        errs["fused_decode_step"] = max(errs["fused_decode_step"], h_err)
+    return errs
+
+
+def f16_main_path(model, truth, margins, tops):
+    """Phase 4h's main path in float16, each run with the launch counters
+    zeroed just before it and read just after: a stories15M request through
+    K1, a long prompt's flash prefill (K3), a B=8 server through K2, a
+    fine-tune through K3/K4, the scan lane with int8 weights (K5-K7 on
+    float16 rows) and the K10 + K9 path. Returns {kernel: launches}."""
+    from pydynet_tpu_torch.models.llama import Llama
+    from pydynet_tpu_torch.ops import decode_step as dsk
+    from pydynet_tpu_torch.optim import SGD
+    from pydynet_tpu_torch.utils import fidelity
+
+    f16, V, N = torch.float16, CFG["vocab_size"], CFG["n_layers"]
+    launches = {}
+    # the B=1 request (K1), gated against the float32 truth
+    steps = F16_REQUEST - PROMPT.shape[1] - 1
+    list(model.generate(PROMPT, PROMPT.shape[1] + 3, dtype=f16))  # warm-up
+    torch.cuda.synchronize()
+    zero_decode_counters()
+    toks = [int(t[0, 0]) for t in model.generate(PROMPT, F16_REQUEST,
+                                                 dtype=f16)]
+    launches["decode_token"] = dsk.fused_decode_token.launches
+    print(f"[chip_smoke] generate f16: {len(toks)} tokens, "
+          f"{launches['decode_token']} K1 launches")
+    if launches["decode_token"] != steps or len(toks) != steps + 1 \
+            or not all(0 <= x < V for x in toks):
+        raise AssertionError(f"f16 generate: {launches}, {len(toks)} tokens;"
+                             f" want {steps} steps")
+    checked, ok, agree = fidelity.gate_fused_argmax(
+        model, PROMPT, truth, margins, tops, dtype=f16)
+    print(f"[chip_smoke] gate f16: checked {checked} ok {ok} agree "
+          f"{agree:.3f}")
+    if not (checked > 0 and ok):
+        raise AssertionError("fidelity gate failed for f16")
+    # a prompt past FLASH_PREFILL_MIN: its prefill through K3 in float16
+    long = np.random.default_rng(11).integers(1, V, (1, F16_LONG_PROMPT))
+    list(model.generate(long, F16_LONG_PROMPT + 2, dtype=f16))  # warm-up
+    torch.cuda.synchronize()
+    for c in flash_counters():
+        c.launches = 0
+    toks = list(model.generate(long, F16_LONG_PROMPT + LONG_NEW, dtype=f16))
+    launches["flash_attention_fwd[prefill]"] = flash_counters()[0].launches
+    print(f"[chip_smoke] generate f16, a {F16_LONG_PROMPT}-token prompt: "
+          f"{len(toks)} tokens, {launches['flash_attention_fwd[prefill]']} "
+          f"K3 launches")
+    if launches["flash_attention_fwd[prefill]"] != N:
+        raise AssertionError(f"f16 flash prefill: {launches}, want {N}")
+    t_l, m_l, tp_l = fidelity.greedy_truth(model, long, LONG_NEW)
+    checked, ok, _ = fidelity.gate_fused_argmax(model, long, t_l, m_l, tp_l,
+                                                dtype=f16, flash=True)
+    print(f"[chip_smoke] gate f16 flash prefill: checked {checked} ok {ok}")
+    if not (checked > 0 and ok):
+        raise AssertionError("fidelity gate failed for the f16 flash prefill")
+    # a B=8 server (K2), each stream against standalone float16 generate
+    requests = [(p, min(n, F16_SERVE_NEW))
+                for p, n in serve_requests(model, 5, F16_SERVE_REQUESTS)]
+    zero_decode_counters()
+    srv, done = serve(model, requests, dtype=f16, **SERVE)
+    launches["decode_token_batched"] = dsk.fused_decode_token_batched.launches
+    print(f"[chip_smoke] serve f16 B=8: {len(requests)} requests, "
+          f"{sum(len(r.tokens) for r in done)} tokens, "
+          f"{srv.dispatched_steps} steps, {launches['decode_token_batched']} "
+          f"K2 launches")
+    if launches["decode_token_batched"] != srv.dispatched_steps:
+        raise AssertionError("f16 server: K2 launches != dispatched steps")
+    for (p, n), req in zip(requests, done):
+        alone = [int(t[0, 0]) for t in model.generate(np.array([p]),
+                                                      len(p) + n, dtype=f16)]
+        d, ok = parts_at_a_tie(model, p, alone, req.tokens, dtype=f16)
+        if len(req.tokens) != n or not ok:
+            raise AssertionError(f"f16 server stream parts from generate at "
+                                 f"{d}, not at a near-tie")
+    # a float16 fine-tune (K3/K4): SGD, as Adam's eps is 0 in float16
+    tm = Llama(**TRAIN_CFG, device="cuda", dtype=f16,
+               generator=torch.Generator().manual_seed(0))
+    tm.set_trainable_parameters(TRAIN_PREFIXES)
+    opt = SGD([p for p in tm.parameters() if p.requires_grad],
+              lr=F16_TRAIN_LR)
+    inp, tgt = train_pair()
+    for c in flash_counters():
+        c.launches = 0
+    losses = tm.finetune_steps(inp, tgt, opt, F16_TRAIN_STEPS).tolist()
+    for name, c in zip(FLASH_KERNELS, flash_counters()):
+        launches[name] = c.launches
+    print(f"[chip_smoke] fine-tune f16 stories15M B=1 L={TRAIN_L}, SGD lr "
+          f"{F16_TRAIN_LR}: losses {', '.join(f'{x:.4f}' for x in losses)};"
+          f" launches {[launches[k] for k in FLASH_KERNELS]}")
+    if any(launches[k] != N * F16_TRAIN_STEPS for k in FLASH_KERNELS) or \
+            not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError("the f16 fine-tune did not train through the "
+                             "kernels")
+    del tm, opt
+    # the scan lane with int8 weights: K7 (its prefill branch K6) for the
+    # layers, K5 for the head, on float16 rows
+    prompt = np.random.default_rng(1).integers(1, V, (1, LONG_PROMPT))
+    list(model.generate(prompt, LONG_PROMPT + 2, dtype=f16, quant="int8",
+                        fused=False))  # warm-up
+    torch.cuda.synchronize()
+    zero_qmm_counters()
+    toks = list(model.generate(prompt, LONG_PROMPT + LONG_NEW, dtype=f16,
+                               quant="int8", fused=False))
+    ran = qmm_counters()
+    launches.update(ran)
+    print(f"[chip_smoke] scan lane f16 int8, a {LONG_PROMPT}-token prompt: "
+          f"{len(toks)} tokens, launches {ran}")
+    if min(ran.values()) < 1:
+        raise AssertionError(f"f16 scan lane int8: launches {ran}")
+    t_s, m_s, tp_s = fidelity.greedy_truth(model, prompt, LONG_NEW)
+    checked, ok, agree = fidelity.gate_scan_argmax(
+        model, prompt, t_s, m_s, tp_s, dtype=f16, quant="int8",
+        min_agree=INT4_MIN_AGREE)
+    print(f"[chip_smoke] gate f16 scan lane int8 (majority): checked "
+          f"{checked} ok {ok} agree {agree:.3f}")
+    if not ok:
+        raise AssertionError("fidelity gate failed for the f16 scan lane")
+    launches.update(head_and_step_path(model, truth, margins, tops, f16))
+    return launches
+
+
+def in_turns(fn, a, b):
+    """fn(a), fn(b), fn(b), fn(a): for a and for b the results of its
+    first call, their first element (the time) the smaller of its two
+    calls'. ``fn`` returns a tuple, or a dict of tuples."""
+    def keep(r1, r2):
+        if isinstance(r1, dict):
+            return {k: keep(r1[k], r2[k]) for k in r1}
+        return (min(r1[0], r2[0]),) + tuple(r1[1:])
+
+    ra1, rb1, rb2, ra2 = fn(a), fn(b), fn(b), fn(a)
+    return keep(ra1, ra2), keep(rb1, rb2)
+
+
+def time_float16(model, card):
+    """Phase 4h's timings: each kernel's float16 instance beside its
+    bfloat16 one in turns, with the float16 plain version, bound and
+    library call. Returns {kernel: (ms, plain_ms, bound_ms, bound_by,
+    library_ms)} for float16, and prints bfloat16's beside it."""
+    from pydynet_tpu_torch.ops import decode_step as dsk
+    from pydynet_tpu_torch.ops import gemv_quant as gq
+
+    bf16, f16 = torch.bfloat16, torch.float16
+    out = {}
+
+    def report(name, tb, tf):
+        print(f"[chip_smoke] {card}: {name} in turns: f16 "
+              f"{tf[0] * 1e3:.1f} us, bf16 {tb[0] * 1e3:.1f} us")
+        out[name] = tf
+
+    tb, tf = in_turns(lambda f: time_k1(model, f, card), "bf16", "f16")
+    report("decode_token", tb, tf + (None,))
+    tb, tf = in_turns(lambda f: time_k2(model, f, F16_BATCH, card), "bf16",
+                      "f16")
+    report("decode_token_batched", tb, tf + (None,))
+    for B, L, H, d, backward in F16_FLASH:
+        with torch.enable_grad():  # the SDPA backward it times beside K4
+            tb, tf = in_turns(lambda t: time_flash(B, L, card, t, d, H,
+                                                   backward), bf16, f16)
+        for name in tf:
+            report(name + ("" if backward else "[prefill]"), tb[name],
+                   tf[name])
+
+    def head(dtype):
+        h, w, b = head_inputs(model, dtype)
+        hv = h[0].to(dtype)
+        kern = time_graph(lambda i: dsk.lm_head_argmax(h, w, b), 1, 50)
+        lib = time_graph(lambda i: torch.argmax(w @ hv + b), 1, 50)
+        plain = time_step(lambda: dsk.lm_head_argmax_ref(h, w, b), 20)
+        V, D = w.shape
+        return (kern, plain) + bound(nbytes(h, w, b) + 4, 2 * V * D, dtype) \
+            + (lib,)
+
+    tb, tf = in_turns(head, bf16, f16)
+    report("lm_head_argmax", tb, tf)
+
+    def step(dtype):
+        args = step_inputs(model, dtype, 512)
+        kern = time_graph(lambda i: dsk.fused_decode_step(*args), 1, 20)
+        plain = time_step(lambda: dsk.fused_decode_step_ref(*args), 5)
+        N, S, D = args[-1].shape
+        H, rows, mats = model.n_heads, 513, args[7:14]
+        n_bytes = (nbytes(*args[1:16]) + 4 * D
+                   + 2 * N * D * args[-1].element_size() * (rows + 1))
+        n_ops = N * (2 * sum(m.numel() for m in mats) + 4 * D * D
+                     + 2 * rows * D * H + rows * D * (2 * H + 2))
+        return (kern, plain) + bound(n_bytes, n_ops, dtype) + (None,)
+
+    tb, tf = in_turns(step, bf16, f16)
+    report("fused_decode_step", tb, tf)
+    # K5-K7 on float16 and bfloat16 rows at the 7B gate/up shape, int8
+    K, N = QMM_SHAPES["7B"][2]
+    w, ws = random_qweights(K, N, False, 3, layers=3)
+    ids = [torch.tensor(i, dtype=torch.int32, device="cuda")
+           for i in range(3)]
+    for name, M in (("qmatmul", 1), ("qmatmul_stacked", 1),
+                    ("qmatmul_prefill", 256), ("quantize_rows", 1)):
+        def qmm(dtype):
+            x = random_rows(M, K, dtype, M)
+            if name == "quantize_rows":
+                kern = time_graph(lambda i: gq.quantize_rows(x), 100)
+                plain = time_step(lambda: gq.quantize_rows_ref(x), 50)
+                return (kern, plain) + bound(nbytes(x) + M * (K + 4),
+                                             3 * M * K, dtype) + (None,)
+            if name == "qmatmul_stacked":
+                call = lambda i: gq.qmatmul_stacked(x, w, ws, ids[i])
+            else:
+                call = lambda i: gq.qmatmul(x, w[i], ws[i])
+            kern = time_graph(call, 3, 10)
+            plain = time_step(lambda: gq.qmatmul_ref(x, w[0], ws[0]), 2)
+            lib = None
+            if M > 16:  # torch._int_mm on a column-major copy of the weights
+                xq = gq.quantize_rows(x)[0]
+                wt = w.transpose(-1, -2).contiguous()
+                lib = time_graph(lambda i: torch._int_mm(xq, wt[i].t()), 3,
+                                 10)
+                del wt
+            return (kern, plain) + qmm_bound(x, w[0], M, N) + (lib,)
+
+        tb, tf = in_turns(qmm, bf16, f16)
+        report(name, tb, tf)
+    del w, ws
+    return out
+
+
+def check_float16(model, gqa, truth, margins, tops, card):
+    """Phase 4h: float16 through every kernel of its path (K1, K2, K3/K4,
+    K5-K7, K9, K10): against the plain versions (K3/K4's other shapes in
+    phase 4c, K5-K7 in phase 3c), the main path in float16, the timings
+    beside bfloat16's. Returns (errs, launches, ms) by kernel."""
+    with torch.no_grad():
+        errs = f16_vs_plain(model, gqa)
+    launches = f16_main_path(model, truth, margins, tops)
+    with torch.no_grad():
+        ms = time_float16(model, card)
+    return errs, launches, ms
+
+
+# the kernels line's float16 entries: (kernel, its source, the TPU kernel)
+F16_ENTRIES = (
+    ("decode_token", "decode_token_batched_f16.cu",
+     "pydynet_tpu/ops/decode_step.py", 160),
+    ("decode_token_batched", "decode_token_batched_f16.cu",
+     "pydynet_tpu/ops/decode_step.py", 509),
+    ("flash_attention_fwd", "flash_attention_f16.cu",
+     "pydynet_tpu/ops/flash_attention.py", 82),
+    ("flash_attention_bwd_dq", "flash_attention_f16.cu",
+     "pydynet_tpu/ops/flash_attention.py", 192),
+    ("flash_attention_bwd_dkv", "flash_attention_f16.cu",
+     "pydynet_tpu/ops/flash_attention.py", 259),
+    ("flash_attention_fwd[prefill]", "flash_attention_f16.cu",
+     "pydynet_tpu/ops/flash_attention.py", 82),
+    ("quantize_rows", "gemv_quant_f16.cu", "pydynet_tpu/ops/gemv_quant.py",
+     309),
+    ("qmatmul", "gemv_quant_f16.cu", "pydynet_tpu/ops/gemv_quant.py", 172),
+    ("qmatmul_prefill", "gemv_quant.cu", "pydynet_tpu/ops/gemv_quant.py",
+     136),
+    ("qmatmul_stacked", "gemv_quant_f16.cu", "pydynet_tpu/ops/gemv_quant.py",
+     416),
+    ("lm_head_argmax", "head.cuh", "pydynet_tpu/ops/decode_step.py", 102),
+    ("fused_decode_step", "decode_step_f16.cu",
+     "pydynet_tpu/ops/decode_step.py", 1575))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("[chip_smoke] no CUDA GPU: nothing to check", file=sys.stderr)
@@ -5574,7 +5964,7 @@ def main() -> int:
 
     # 3c. the quantized matmuls (K5, K6, K7) against plain
     t0 = time.perf_counter()
-    qmm_err = check_qmatmul()
+    qmm_err, qmm_f16_err = check_qmatmul()
     phase("3c quantized matmuls vs plain", t0)
 
     # 3d. the train-mode BatchNorm (K8) against plain
@@ -5701,7 +6091,7 @@ def main() -> int:
 
     # 4c. the training path
     t0 = time.perf_counter()
-    train_launches, flash_err = check_training()
+    train_launches, flash_err, flash_f16_err = check_training()
     phase("4c training path", t0)
 
     # 4d. the big-dims path: Llama-2-7B geometry on the scan lane
@@ -5758,6 +6148,14 @@ def main() -> int:
     t0 = time.perf_counter()
     check_parallel(model, card)
     phase("4m parallel package on a one-rank mesh", t0)
+
+    # 4h. float16 through every kernel of its path: against the plain
+    # versions, the main path, the timings beside bfloat16's
+    t0 = time.perf_counter()
+    f16_err, f16_launches, f16_ms = check_float16(model, gqa, truth, margins,
+                                                  tops, card)
+    f16_err.update(flash_f16_err, **qmm_f16_err)  # phases 4c and 3c
+    phase("4h float16 path", t0)
 
     # 5. timings: kernels vs plain per step at pos 512, then end to end
     t0 = time.perf_counter()
@@ -5816,14 +6214,14 @@ def main() -> int:
               f"{', '.join(f'{r:.1f}' for r in rates)}; median "
               f"{float(np.median(rates)):.1f}")
     rates = []
-    for _ in range(3):
+    for _ in range(REPEATS):
         start = time.perf_counter()
         n = sum(r.numel() for r in model.generate(batch_prompt(8), REQUEST,
                                                   dtype=torch.bfloat16))
         torch.cuda.synchronize()
         rates.append(n / (time.perf_counter() - start))
     print(f"[chip_smoke] {card}: generate bf16 B=8 {REQUEST}-token request, "
-          f"tok/s of 3 runs: {', '.join(f'{r:.1f}' for r in rates)}; median "
+          f"tok/s of {REPEATS} runs: {', '.join(f'{r:.1f}' for r in rates)}; median "
           f"{float(np.median(rates)):.1f}")
     ms.update(time_training(card))
     big_ms = time_big_dims(big, card)
@@ -5948,7 +6346,10 @@ def main() -> int:
               (wgu_wave[1],) + wgu_wave[2:]),
         entry("quantize_rows[spec-7b]", "gemv_quant.cu", f"{gq_file}:309",
               lora_launches["quantize_rows"], qmm_err["quantize_rows"],
-              big_ms["quantize_rows spec"] + (None,))]}))
+              big_ms["quantize_rows spec"] + (None,))] + [
+        entry(f"{name}[f16]", source, f"{file}:{line}", f16_launches[name],
+              f16_err[name], f16_ms[name])
+        for name, source, file, line in F16_ENTRIES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -28,8 +28,9 @@ limit in one JSON line of microseconds:
   (B, 1024, 6, 48) at B = 1 and 8 by CUDA events, beside
   ``F.scaled_dot_product_attention(is_causal=True)``'s forward;
 * K1's and K2's steps at stories15M width, pos 512, seeded random weights
-  and caches: K1 in bf16, int8 and int4 (layers and head), K2 in bf16 at
-  B = 8, 32 and 64 and in int8, int4 and the int8 KV cache at B = 8, and
+  and caches: K1 in bf16, int8 and int4 (layers and head) and f16, K2 in
+  bf16 at B = 8, 32 and 64 and in int8, int4, the int8 KV cache and f16
+  at B = 8, and
   the bf16 emit_logits mode of K1 and of K2 at B = 8 and 64. For each, the
   step by CUDA events, the device time of each stage by ``torch.profiler``
   kernel name (q/k/v, attention, wo, gate/up, down, head, argmax; before
@@ -274,7 +275,8 @@ DECODE_CASES = (("K1 bf16", "bf16", None), ("K1 int8", "bf16-int8", None),
                 ("K1 int4", "bf16-int4", None),
                 ("K2 bf16 B=8", "bf16", 8), ("K2 bf16 B=32", "bf16", 32),
                 ("K2 bf16 B=64", "bf16", 64), ("K2 int8 B=8", "bf16-int8", 8),
-                ("K2 int4 B=8", "bf16-int4", 8), ("K2 kv8 B=8", "bf16-kv8", 8))
+                ("K2 int4 B=8", "bf16-int4", 8), ("K2 kv8 B=8", "bf16-kv8", 8),
+                ("K1 f16", "f16", None), ("K2 f16 B=8", "f16", 8))
 EMIT_CASES = ("K1 bf16", "K2 bf16 B=8", "K2 bf16 B=64")
 # a step's stages by kernel name, for these kernels and the CUDA-core ones
 # before them (whose wo kernel, attn_out, also merged the attention)

@@ -6,15 +6,17 @@
 // internal linkage, so each kernel source is compiled on its own.
 //
 // Types: the residual stream is f32; every matmul input is rounded to the
-// weight type T (f32 or bf16) and accumulated in f32; the caches are T.
+// weight type T (f32, bf16 or f16) and accumulated in f32; the caches are T.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 namespace {
@@ -30,6 +32,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
@@ -38,6 +41,10 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to T and widened back: "the matmul input is cast to T"
@@ -197,14 +204,35 @@ __device__ __forceinline__ void ldmatrix_x2(unsigned addr, unsigned (&b)[2]) {
                : "r"(addr) : "memory");
 }
 
-// c += a (16 x 16 bfloat16, row-major) * b (16 x 8 bfloat16, K-major),
-// float32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c += a (16 x 16 T, row-major) * b (16 x 8 T, K-major), float32
+// accumulators, T bfloat16 or float16 (the same fragments; every product of
+// two 16-bit values is exact in float32)
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const unsigned (&a)[4],
+                                      unsigned b0, unsigned b1) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value ||
+                    std::is_same<T, __half>::value,
+                "mma16: bfloat16 or float16 operands");
+  if constexpr (std::is_same<T, __half>::value)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The pair (lo, hi) rounded to T (bfloat16 or float16) as the 32 bits of an
+// mma operand, lo in the low half
+template <typename T>
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  const T v[2] = {from_f<T>(lo), from_f<T>(hi)};
+  unsigned u;
+  memcpy(&u, v, sizeof(u));
+  return u;
 }
 
 // x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away from
@@ -215,8 +243,8 @@ __device__ __forceinline__ unsigned tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x = hi + lo, both TF32 (LO), or hi = x exactly (a widened bfloat16, which
-// TF32 holds: lo = 0 and its products are skipped)
+// x = hi + lo, both TF32 (LO), or hi = x exactly (a widened bfloat16 or
+// float16, which TF32 holds: lo = 0 and its products are skipped)
 template <bool LO, int N>
 __device__ __forceinline__ void split(const float (&x)[N], unsigned (&hi)[N],
                                       unsigned (&lo)[N]) {

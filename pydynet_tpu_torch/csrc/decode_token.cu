@@ -55,7 +55,8 @@
 // stage is kept short.
 //
 // Types: the residual stream is f32; every matmul input is rounded to the
-// weight type T (f32 or bf16) and accumulated in f32; the caches are T.
+// weight type T (f32, bf16 or f16) and accumulated in f32; the caches are
+// T.
 // Quantized weights (the TPU kernel's `qhead`, `qlayers` and `q4` modes):
 // the int8 head, int8 layers with the int8 head, or int4 layers with the
 // int4 head. Each of their matmuls quantizes its f32 activation vector (the
@@ -68,22 +69,25 @@
 
 namespace {
 
-// K9: the head of h (1, D) alone, h as it is (float32 or bfloat16, widened
-// to float32, never rounded to the weights' type: jnp.dot promotes both to
-// float32). It is the head stage (head.cuh) at G = 1 without the final
-// norm (lm_head_kernel): bfloat16 weights against a bfloat16 h in plain
-// bfloat16 products, against a float32 h in three bfloat16 pieces of h,
-// each product exact; float32 weights in float32 multiply-adds. Then
-// argmax_kernel over the blocks' pairs, a programmatic dependent launch.
+// K9: the head of h (1, D) alone, h as it is (float32, bfloat16 or
+// float16, widened to float32, never rounded to the weights' type: jnp.dot
+// promotes both to float32). It is the head stage (head.cuh) at G = 1
+// without the final norm (lm_head_kernel, LmHeadRoute): 16-bit weights
+// against an h of their type in plain 16-bit products, bfloat16 weights
+// against another h in three bfloat16 pieces of h, each product exact;
+// float32 weights, and float16 weights against another h, in float32
+// multiply-adds. Then argmax_kernel over the blocks' pairs, a
+// programmatic dependent launch.
 template <typename H, typename W>
 cudaError_t run_head(const void* h, const void* w, const void* b, int* out,
                      float* scratch, int D, int V, cudaStream_t st) {
+  using R = LmHeadRoute<W, H>;
   auto kernel = lm_head_kernel<W, H>;
   const int nblocks = head_blocks(V);
   float* tile_val = scratch;
   int* tile_idx = reinterpret_cast<int*>(scratch + nblocks);
   const size_t smem =
-      head_smem<kFmtFloat, W>(D, sizeof(H) == 4 && sizeof(W) == 2 ? 3 : 1);
+      head_smem<kFmtFloat, typename R::AT>(D, R::SPLIT ? 3 : 1);
   PDT_TRY(allow_smem(kernel, smem));
   kernel<<<nblocks, kThreads, smem, st>>>(
       static_cast<const H*>(h), static_cast<const W*>(w),
@@ -104,7 +108,8 @@ int pdt_decode_token_scratch_floats(int dim, int n_heads, int ffn, int vocab,
   return scratch_floats(1, dim, n_heads, ffn, vocab, seq);
 }
 
-// wdtype 0: float32 weights and caches, 1: bfloat16. lfmt / hfmt: the
+// wdtype 0: float32 weights and caches, 1: bfloat16, 2: float16. lfmt /
+// hfmt: the
 // formats of the layer matmuls and of the head (0 the weight type, 1 int8,
 // 2 int4 packed along the contraction axis), one of (0, 0), (0, 1), (1, 1),
 // (2, 2); a quantized matrix has float32 scales per output row: head_s
@@ -152,6 +157,7 @@ int pdt_decode_token(int wdtype, int lfmt, int hfmt, const void* pos,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wdtype == 0) return pdt_k2::run_f32(lfmt, hfmt, 0, a, st);
   if (wdtype == 1) return pdt_k2::run_bf16(lfmt, hfmt, 0, a, st);
+  if (wdtype == 2) return pdt_k2::run_f16(lfmt, hfmt, 0, a, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -163,19 +169,25 @@ int pdt_lm_head_argmax_scratch_floats(int vocab) {
 
 // K9: out[0] = argmax over v < V of dot(h, w[v]) + b[v] (ties to the lowest
 // v), h (D,) of type hdtype, w (V, D) and b (V,) of type wdtype (0 float32,
-// 1 bfloat16), f32 accumulation.
+// 1 bfloat16, 2 float16, in any pairing), f32 accumulation.
 int pdt_lm_head_argmax(int hdtype, int wdtype, const void* h, const void* w,
                        const void* b, void* out, void* scratch, int dim,
                        int vocab, void* stream) {
   using bf = __nv_bfloat16;
+  using hf = __half;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* o = static_cast<int*>(out);
   float* sc = static_cast<float*>(scratch);
-  switch (hdtype * 2 + wdtype) {
+  switch (hdtype * 3 + wdtype) {
     case 0: return run_head<float, float>(h, w, b, o, sc, dim, vocab, st);
     case 1: return run_head<float, bf>(h, w, b, o, sc, dim, vocab, st);
-    case 2: return run_head<bf, float>(h, w, b, o, sc, dim, vocab, st);
-    case 3: return run_head<bf, bf>(h, w, b, o, sc, dim, vocab, st);
+    case 2: return run_head<float, hf>(h, w, b, o, sc, dim, vocab, st);
+    case 3: return run_head<bf, float>(h, w, b, o, sc, dim, vocab, st);
+    case 4: return run_head<bf, bf>(h, w, b, o, sc, dim, vocab, st);
+    case 5: return run_head<bf, hf>(h, w, b, o, sc, dim, vocab, st);
+    case 6: return run_head<hf, float>(h, w, b, o, sc, dim, vocab, st);
+    case 7: return run_head<hf, bf>(h, w, b, o, sc, dim, vocab, st);
+    case 8: return run_head<hf, hf>(h, w, b, o, sc, dim, vocab, st);
   }
   return (int)cudaErrorInvalidValue;
 }

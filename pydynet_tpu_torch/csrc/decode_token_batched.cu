@@ -22,10 +22,10 @@
 // cache streams at its narrow width. Narrow composes with every mode below
 // except the int8/int4 layers (the TPU kernel asserts that too).
 //
-// Modes, as the TPU kernel's: float weights (T, f32 or bf16) with T caches;
-// the int8 head (`qhead`); int8 layers and head (`qlayers`) or int4 layers
-// and head packed two a byte (`q4`), with T caches; float weights with the
-// int8 KV cache (`kv_int8`). Each quantized matmul quantizes each of its B
+// Modes, as the TPU kernel's: float weights (T, f32, bf16 or f16) with T
+// caches; the int8 head (`qhead`); int8 layers and head (`qlayers`) or int4
+// layers and head packed two a byte (`q4`), with T caches; float weights with
+// the int8 KV cache (`kv_int8`). Each quantized matmul quantizes each of its B
 // f32 activation rows with the row's own amax (the TPU kernel's qvec_b),
 // accumulates exactly in int32 and rescales by the weight row's scale times
 // the activation row's amax / 127. The int8 KV
@@ -77,7 +77,9 @@
 //     attention output or the SwiGLU output as they are; rounded to T or
 //     quantized per row); the warps' shares are summed in shared memory in
 //     warp order and one thread writes each output (RoPE pairs, cache rows,
-//     SwiGLU, residual adds). bfloat16 m16n8k16 with float32 sums, int8 and
+//     SwiGLU, residual adds). bfloat16 or float16 m16n8k16 with float32
+//     sums (the row rounded to the weights' type, as the TPU kernel's
+//     hn32.astype(cdtype)), int8 and
 //     int4 m16n8k32 with exact int32 sums rescaled as float(acc) * (scale[r]
 //     * sx), each operation rounded on its own, float32 in 3xTF32 summed a
 //     k8 step at a time. So each weight matrix is read once a token for a
@@ -102,8 +104,9 @@
 //
 // The kernels and the chain are in decode_token_batched.cuh. This file
 // instantiates them for float32 weights and holds the C entry points;
-// decode_token_batched_bf16.cu instantiates them for bfloat16, so that nvcc
-// compiles the two halves of the modes' template instances at once.
+// decode_token_batched_bf16.cu and decode_token_batched_f16.cu instantiate
+// them for bfloat16 and float16, so that nvcc compiles the three thirds of
+// the modes' template instances at once.
 
 #include "decode_token_batched.cuh"
 
@@ -121,7 +124,8 @@ int pdt_decode_token_batched_scratch_floats(int batch, int dim, int n_heads,
   return scratch_floats(batch, dim, n_heads, ffn, vocab, seq);
 }
 
-// wdtype 0: float32 weights, 1: bfloat16. lfmt / hfmt: the formats of the
+// wdtype 0: float32 weights, 1: bfloat16, 2: float16. lfmt / hfmt: the
+// formats of the
 // layer matmuls and of the head (0 the weight type, 1 int8, 2 int4 packed
 // along the contraction axis), one of (0, 0), (0, 1), (1, 1), (2, 2); a
 // quantized matrix has float32 scales per output row: head_s (V,), s_q ..
@@ -175,6 +179,7 @@ int pdt_decode_token_batched(int wdtype, int lfmt, int hfmt, int kv8,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wdtype == 0) return pdt_k2::run_f32(lfmt, hfmt, kv8, a, st);
   if (wdtype == 1) return pdt_k2::run_bf16(lfmt, hfmt, kv8, a, st);
+  if (wdtype == 2) return pdt_k2::run_f16(lfmt, hfmt, kv8, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,9 +2,10 @@
 // of one row; see decode_token_batched.cu for what it computes and why).
 // Included by decode_token_batched.cu, which instantiates the chain for
 // float32 weights and holds K2's C entry points, by
-// decode_token_batched_bf16.cu, which instantiates it for bfloat16 weights
-// (nvcc compiles the two at once, each with half of the modes' template
-// instances), by decode_token.cu, whose K1 entry point runs the same
+// decode_token_batched_bf16.cu and decode_token_batched_f16.cu, which
+// instantiate it for bfloat16 and float16 weights (nvcc compiles the three
+// at once, each with a third of the modes' template instances), by
+// decode_token.cu, whose K1 entry point runs the same
 // instances at B = 1, and by decode_step.cu, whose K10 chain runs the wo,
 // gate/up and down stages (float formats) on its one row.
 #pragma once
@@ -35,10 +36,12 @@ struct Args {
   float scale;
 };
 
-// run_mode<float>, defined in decode_token_batched.cu, and
-// run_mode<__nv_bfloat16>, in decode_token_batched_bf16.cu
+// run_mode<float>, defined in decode_token_batched.cu,
+// run_mode<__nv_bfloat16>, in decode_token_batched_bf16.cu, and
+// run_mode<__half>, in decode_token_batched_f16.cu
 int run_f32(int lfmt, int hfmt, int kv8, const Args& a, cudaStream_t st);
 int run_bf16(int lfmt, int hfmt, int kv8, const Args& a, cudaStream_t st);
+int run_f16(int lfmt, int hfmt, int kv8, const Args& a, cudaStream_t st);
 
 }  // namespace pdt_k2
 
@@ -84,7 +87,7 @@ __host__ __device__ __forceinline__ size_t norm_smem(int K, int G, int MT) {
 // [0, V), or t = b without `tok`) to raw, and the K norm weights w to w_s,
 // by cp.async from all threads, every copy in flight at once; the caller
 // commits them and synchronises. The rows are whole 4-byte words (float32
-// rows, or D even); weights that are not (a bfloat16 layer's at odd D) are
+// rows, or D even); weights that are not (a 16-bit layer's at odd D) are
 // copied element by element past their last aligned word.
 template <typename S, typename T>
 __device__ void stage_norm_rows(const S* src, const int* tok, int V,

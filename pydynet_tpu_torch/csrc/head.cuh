@@ -6,10 +6,11 @@
 // row groups) launch the same kernel, so a row's logits are the same bits
 // at any B and in either step. K9 (decode_token.cu: the greedy head of an h
 // given as it is) runs the same block at G = 1 without the final norm
-// (lm_head_kernel), h float32 or bfloat16 and never rounded to the
-// weights' type: against bfloat16 weights a float32 h goes in as three
-// bfloat16 rows (SPLIT, load_split_rows); float32 weights take the CUDA
-// cores (FFMA).
+// (lm_head_kernel), h float32, bfloat16 or float16 and never rounded to
+// the weights' type: against bfloat16 weights an h of another type goes in
+// as three bfloat16 rows (SPLIT, load_split_rows); float32 weights, and
+// float16 weights against an h of another type, take the CUDA cores
+// (FFMA, the float16 weights widened as they are read).
 //
 // Replaces the head of the TPU kernels `_token_kernel` and
 // `_token_kernel_batched` (pydynet_tpu/ops/decode_step.py): the final norm,
@@ -35,15 +36,15 @@
 //     amax), into shared memory as the B operand (K-major rows, padded so
 //     ldmatrix reads hit 32 banks). The ring's stages, the rows and the
 //     products are mma_rows.cuh's, which the layer stages share;
-//   * the product is `mma.sync`: bfloat16 m16n8k16 with float32
-//     accumulators (the activations are rounded to bfloat16 first, so every
-//     product is exact); int8 m16n8k32 with exact int32 sums, rescaled as
-//     float(acc) * (scale[r] * sx) + bias, each product and the sum rounded
-//     on its own as the plain version rounds them, so on the same
+//   * the product is `mma.sync`: bfloat16 or float16 m16n8k16 with
+//     float32 accumulators (the activations are rounded to the weights' type
+//     first, so every product is exact); int8 m16n8k32 with exact int32 sums,
+//     rescaled as float(acc) * (scale[r] * sx) + bias, each product and the
+//     sum rounded on its own as the plain version rounds them, so on the same
 //     activations the int8 and int4 logits are its bits; int4 bytes unpacked
-//     to the int8 low- and high-nibble operands in registers (element j and
-//     j + D/2 of ops/quant.py's layout), two IMMAs a fragment; a float32
-//     head in 3xTF32 (as flash_attention.cu), about 2^-22 relative;
+//     to the int8 low- and high-nibble operands in registers (element j and j
+//     + D/2 of ops/quant.py's layout), two IMMAs a fragment; a float32 head in
+//     3xTF32 (as flash_attention.cu), about 2^-22 relative;
 //   * the logits of the block (128 x G floats) are staged in shared memory,
 //     then each row's are written along V (coalesced) and reduced to the
 //     row's (max, lowest index) pair, ties low (`better`), over the block's
@@ -75,17 +76,18 @@ size_t head_smem(int D, int G) {
   return (size_t)kHeadRing + (size_t)act_rows<HQ, T>(D).stride * G;
 }
 
-// K9's float32 row x (K values) against bfloat16 weights, as the B operand
-// of three bfloat16 rows, a warp each: hi = bf16(x), mid = bf16(x - hi),
-// lo = bf16(x - hi - mid). The differences are exact in float32 and the
-// three pieces carry all 24 significand bits, so hi + mid + lo == x, and
-// each piece's product with a bfloat16 weight is exact in float32: the
-// head sees x unrounded. The split is exact unless lo falls below
-// bfloat16's normal range (|x| below about 1e-33, or tensor cores that
-// flush such a subnormal piece): then the sum misses x by up to half a
-// subnormal step, 2^-134, as a normed hidden state (O(1)) never does.
-// Zero past K; ends synchronised.
-__device__ void load_split_rows(const float* x, int K, ActRows a,
+// K9's row x (K values, float32 or float16) against bfloat16 weights, as
+// the B operand of three bfloat16 rows, a warp each: hi = bf16(x), mid =
+// bf16(x - hi), lo = bf16(x - hi - mid). The differences are exact in
+// float32 and the three pieces carry all 24 significand bits (a float16's
+// 11 take two), so hi + mid + lo == x, and each piece's product with a
+// bfloat16 weight is exact in float32: the head sees x unrounded. The
+// split is exact unless lo falls below bfloat16's normal range (|x| below
+// about 1e-33, or tensor cores that flush such a subnormal piece): then
+// the sum misses x by up to half a subnormal step, 2^-134, as a normed
+// hidden state (O(1)) never does. Zero past K; ends synchronised.
+template <typename S>
+__device__ void load_split_rows(const S* x, int K, ActRows a,
                                 unsigned char* act) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (warp < 3) {
@@ -94,7 +96,7 @@ __device__ void load_split_rows(const float* x, int K, ActRows a,
       reinterpret_cast<unsigned*>(row)[i] = 0u;
     __syncwarp();
     for (int i = lane; i < K; i += 32) {
-      float r = x[i];
+      float r = to_f(x[i]);
       __nv_bfloat16 piece = __float2bfloat16_rn(r);
       for (int p = 0; p < warp; ++p) {  // peel the pieces above this one
         r -= __bfloat162float(piece);
@@ -115,12 +117,14 @@ __device__ void load_split_rows(const float* x, int K, ActRows a,
 // head and the int8 layers) or int4 rows (the int4 layers), with per-row
 // f32 scales `head_s`; a quantized head quantizes each row's activations
 // with the row's own scale (the TPU kernel's qvec_b). The rows h are of
-// type S (K9's bfloat16 h; float32 else). With SPLIT (K9: one float32 row
-// against bfloat16 weights, no final norm) the row is load_split_rows'
-// three bfloat16 rows, and a vocab row's logit is its three sums added in
-// one order, (lo + mid) + hi, then the bias. With FFMA (K9: one row
-// against float32 weights) the product runs on the CUDA cores from the
-// same ring, a float32 multiply-add a weight.
+// type S (K9's 16-bit h; float32 else). With SPLIT (K9: one float32 or
+// float16 row against bfloat16 weights, no final norm) the row is
+// load_split_rows' three bfloat16 rows, and a vocab row's logit is its
+// three sums added in one order, (lo + mid) + hi, then the bias. With FFMA
+// (K9: one row against float32 weights, or against float16 weights when
+// h is not float16) the product runs on the CUDA cores from the same
+// ring, h kept float32 in shared memory and a float32 multiply-add a
+// weight, a float16 weight widened exactly.
 template <typename T, int HQ, int NT, typename S, bool SPLIT, bool FFMA>
 __device__ __forceinline__ void head_block(
     const S* __restrict__ h, const T* __restrict__ final_norm,
@@ -130,11 +134,15 @@ __device__ __forceinline__ void head_block(
     int V) {
   extern __shared__ __align__(16) unsigned char smem_u8[];
   __shared__ float sx_s[NT * 8];
-  static_assert(!SPLIT || (HQ == kFmtFloat && sizeof(T) == 2 && NT == 1 &&
-                            sizeof(S) == 4),
-                "SPLIT: one float32 row against bfloat16 weights");
-  static_assert(!FFMA || (HQ == kFmtFloat && sizeof(T) == 4 && NT == 1),
-                "FFMA: one row against float32 weights");
+  static_assert(!SPLIT || (HQ == kFmtFloat && NT == 1 &&
+                            std::is_same<T, __nv_bfloat16>::value &&
+                            !std::is_same<S, T>::value),
+                "SPLIT: one row of another type against bfloat16 weights");
+  static_assert(!FFMA || (HQ == kFmtFloat && NT == 1 &&
+                          !std::is_same<T, __nv_bfloat16>::value),
+                "FFMA: one row against float32 or float16 weights");
+  // the activation rows' element type: h kept float32 for FFMA
+  using AT = typename std::conditional<FFMA, float, T>::type;
   const int b0 = blockIdx.y * 32, G = min(32, B - b0);
   const int GA = SPLIT ? 3 : G;  // activation rows of the product
   h += (size_t)b0 * D;
@@ -150,7 +158,7 @@ __device__ __forceinline__ void head_block(
   constexpr int kSlot = kHeadBlockRows * kTileStageBytes;
   unsigned char* ring = smem_u8;
   unsigned char* act = smem_u8 + kHeadRing;
-  const ActRows a = act_rows<HQ, T>(D);
+  const ActRows a = act_rows<HQ, AT>(D);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, q = lane & 3;
   // the bias of this thread's two vocab rows, 16 warp + g and + 8, read
@@ -169,6 +177,9 @@ __device__ __forceinline__ void head_block(
   }
   if constexpr (SPLIT)
     load_split_rows(h, D, a, act);
+  else if constexpr (FFMA)  // K9 has no final norm
+    load_act_rows<HQ, float>(h, nullptr, 0, static_cast<const float*>(nullptr),
+                             D, G, a, act, sx_s);
   else
     load_act_rows<HQ, T>(h, nullptr, 0, final_norm, D, G, a, act, sx_s);
 
@@ -192,17 +203,18 @@ __device__ __forceinline__ void head_block(
         ring + (st % kTileStages) * kSlot + 16 * warp * kTileStageBytes;
     if constexpr (FFMA) {
       // on the CUDA cores: lane (g, q) takes 16-byte chunk q of rows g and
-      // g + 8, one float32 multiply-add a weight
-      const float4 x = *reinterpret_cast<const float4*>(
-          act + st * kTileStageBytes + 16 * q);
+      // g + 8 (CE weights, 4 float32 or 8 float16) and the CE float32
+      // elements of h they meet, one float32 multiply-add a weight
+      constexpr int CE = 16 / (int)sizeof(T);
+      const float* x = reinterpret_cast<const float*>(act) +
+                       st * (kTileStageBytes / (int)sizeof(T)) + CE * q;
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const float4 wv =
-            *reinterpret_cast<const float4*>(s_w + tile_chunk(g + 8 * u, q));
-        fsum[u] = fmaf(wv.x, x.x, fsum[u]);
-        fsum[u] = fmaf(wv.y, x.y, fsum[u]);
-        fsum[u] = fmaf(wv.z, x.z, fsum[u]);
-        fsum[u] = fmaf(wv.w, x.w, fsum[u]);
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(s_w + tile_chunk(g + 8 * u, q));
+        const T* wv = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int i = 0; i < CE; ++i) fsum[u] = fmaf(to_f(wv[i]), x[i], fsum[u]);
       }
     } else {
       mma_stage<HQ, T, NT>(acc, s_w, act, a, GA, st * kTileStageBytes);
@@ -285,21 +297,36 @@ head_mma_kernel(const float* __restrict__ h, const T* __restrict__ final_norm,
                                              logits, B, D, V);
 }
 
+// K9's route for weights of type W and an h of type S: 16-bit weights
+// against an h of their own type on the tensor cores (h exact in W);
+// bfloat16 weights against another h as three bfloat16 pieces (SPLIT);
+// float32 weights, and float16 weights against another h, on the CUDA
+// cores (FFMA: one row leaves 7 of an n8 tile's 8 columns idle, and
+// 3xTF32 would split h for that one row, so a float32 multiply-add a
+// weight costs less; float16 cannot hold a float32 or bfloat16 h in a few
+// pieces, its 5-bit exponent underflowing and overflowing). AT is the type
+// of its activation row.
+template <typename W, typename S>
+struct LmHeadRoute {
+  static constexpr bool kSame = std::is_same<W, S>::value;
+  static constexpr bool kBf16 = std::is_same<W, __nv_bfloat16>::value;
+  static constexpr bool SPLIT = kBf16 && !kSame;
+  static constexpr bool FFMA = sizeof(W) == 4 || (!kBf16 && !kSame);
+  using AT = typename std::conditional<FFMA, float, W>::type;
+};
+
 // K9 (decode_token.cu): the head stage on one row h of type S without the
-// final norm: bfloat16 weights on the tensor cores (SPLIT: a float32 h as
-// three bfloat16 pieces), float32 weights on the CUDA cores (FFMA: one
-// row leaves 7 of an n8 tile's 8 columns idle, and 3xTF32 splits every
-// weight for that one row, so a float32 multiply-add a weight costs less).
-// It lets argmax_kernel, launched after it as a programmatic dependent
-// launch, start at once and wait there for the blocks' pairs.
+// final norm, by LmHeadRoute's route. It lets argmax_kernel, launched after
+// it as a programmatic dependent launch, start at once and wait there for
+// the blocks' pairs.
 template <typename W, typename S>
 __global__ void __launch_bounds__(kThreads)
 lm_head_kernel(const S* __restrict__ h, const W* __restrict__ head_w,
                const W* __restrict__ head_b, float* __restrict__ tile_val,
                int* __restrict__ tile_idx, int D, int V) {
-  constexpr bool kF32 = sizeof(W) == 4;
+  using R = LmHeadRoute<W, S>;
   pdl_launch();
-  head_block<W, kFmtFloat, 1, S, !kF32 && sizeof(S) == 4, kF32>(
+  head_block<W, kFmtFloat, 1, S, R::SPLIT, R::FFMA>(
       h, nullptr, head_w, nullptr, head_b, tile_val, tile_idx, nullptr, 1, D,
       V);
 }

@@ -1,10 +1,11 @@
-// The tensor-core machinery of the decode steps' products, shared by the
-// head stage (head.cuh) and the layer stages (decode_token_batched.cuh) of
-// K1 and K2, which K10 (decode_step.cu) runs too: the activation rows of a group of up to 32 rows made the B
-// operand a warp a row, a weight tile's 64-byte stages copied by cp.async
-// into swizzled shared memory, and one stage's mma.sync products (bfloat16
-// m16n8k16 with float32 sums, int8 m16n8k32 with exact int32 sums, int4
-// unpacked to int8 in registers, float32 in 3xTF32).
+// The tensor-core machinery of the decode steps' products, shared by the head
+// stage (head.cuh) and the layer stages (decode_token_batched.cuh) of K1 and
+// K2, which K10 (decode_step.cu) runs too: the activation rows of a group of
+// up to 32 rows made the B operand a warp a row, a weight tile's 64-byte
+// stages copied by cp.async into swizzled shared memory, and one stage's
+// mma.sync products (bfloat16 or float16 m16n8k16 with float32 sums, int8
+// m16n8k32 with exact int32 sums, int4 unpacked to int8 in registers, float32
+// in 3xTF32).
 //
 // A product element depends only on its weight row and its activation row:
 // the k steps run in the same order whatever the group's size, and an n8
@@ -147,10 +148,11 @@ using MmaAcc = typename std::conditional<Q == kFmtFloat, float, int>::type;
 // stores them) times the group's G activation rows: acc[t] += the tile x
 // rows [8 t, 8 t + 8) of the group over the stage's k, whose first weight
 // byte is kb. An n8 tile's rows past G read row G - 1 (their sums are not
-// used). bfloat16 weights: m16n8k16 (the activations are rounded to
-// bfloat16, so every product is exact); int8: m16n8k32 s8; int4: the packed
-// bytes unpacked to their low- and high-nibble int8 operands in registers
-// (element j and j + K/2 of ops/quant.py's layout), two IMMAs a fragment;
+// used). bfloat16 or float16 weights: m16n8k16 of that type (the activations
+// are rounded to it, so every product is exact); int8: m16n8k32 s8; int4: the
+// packed bytes unpacked to their low- and high-nibble int8 operands in
+// registers (element j and j + K/2 of ops/quant.py's layout), two IMMAs a
+// fragment;
 // float32: 3xTF32, each k8 step's products summed apart and then added.
 template <int Q, typename T, int NT>
 __device__ __forceinline__ void mma_stage(MmaAcc<Q> (&acc)[NT][4],
@@ -233,7 +235,7 @@ __device__ __forceinline__ void mma_stage(MmaAcc<Q> (&acc)[NT][4],
         } else {
 #pragma unroll
           for (int u = 0; u < 2 && t + u < NT; ++u)
-            mma_bf16(acc[t + u], av, bv[2 * u], bv[2 * u + 1]);
+            mma16<T>(acc[t + u], av, bv[2 * u], bv[2 * u + 1]);
         }
       }
     }

@@ -53,7 +53,7 @@ package's rule (``_tpu_fused_supported``, its ``_fused_decode_supported``)
 sends the model there, as it does a Llama-2-7B model with int8 or int4
 weights; else it raises, naming the ROADMAP.md item that would port the
 missing kernel. ``fused=True``, ``False`` and ``"numpy"`` ask for a lane.
-float16 runs on the scan lane only (``check_dtype``).
+float32, bfloat16 and float16 run on every lane (``check_dtype``).
 
 Semantics kept from the JAX package: interleaved RoPE pairs; bucketed
 prefill read at ``last_idx - 1``; decoding starts at ``pos = L`` on the
@@ -313,29 +313,19 @@ def flash_prefill_mode(weights, L: int) -> bool:
     ``generate`` and ``LlamaServer`` admission): on a GPU from
     ``FLASH_PREFILL_MIN`` tokens on, where the dense route's (L, L) float32
     scores cost more than K3's blocks; never on the CPU, where the kernel's
-    plain version is a test lane (tests pass ``True``). The callers keep a
-    float16 prefill dense: K3 does not take float16 yet
-    (:func:`check_dtype`)."""
+    plain version is a test lane (tests pass ``True``)."""
     return L >= FLASH_PREFILL_MIN and weights["tok"].device.type == "cuda"
 
 
-def check_dtype(dtype, fused, quant=None, flash=None):
-    """Raise for a ``dtype`` the port does not run on the asked lane
-    (``generate``, ``LlamaServer`` and the speculative server share it).
-    float16 runs on the scan lane only (``fused=False``,
-    ``LlamaServer(lane="xla")``), in plain torch: with float weights
-    (``quant=None``) and the dense prefill, until the port's kernels take
-    it. Anything else raises ``NotImplementedError`` naming ROADMAP.md's
-    'Float16 kernels' mode; nothing is rerouted."""
+def check_dtype(dtype):
+    """Raise ``NotImplementedError`` for a ``dtype`` the port does not
+    decode in (``generate``, ``LlamaServer`` and the speculative server
+    share it): float32, bfloat16 and float16 run on every lane and route,
+    each through the kernels' own instances for that type, as the JAX
+    package runs them; nothing is rerouted."""
     if dtype not in (None, torch.float32, torch.bfloat16, torch.float16):
         raise NotImplementedError(f"dtype {dtype}: use float32, bfloat16 "
                                   "or float16")
-    if dtype == torch.float16 and (fused is not False or quant or flash):
-        raise NotImplementedError(
-            "float16 runs on the scan lane only (fused=False, "
-            "LlamaServer(lane='xla')) with quant=None and the dense prefill:"
-            " the kernels take float32 and bfloat16 (ROADMAP.md queue 2, "
-            "'Float16 kernels')")
 
 
 def not_ported(what: str, item: str):
@@ -1280,8 +1270,7 @@ class Llama(Module):
         for t in numpy_decode(self, w, ids, total, **sampling):
             yield torch.tensor([[t]], dtype=torch.int32)
 
-    def _check_generate(self, B, dtype, fused, quant, kv_quant,
-                        flash_prefill=None):
+    def _check_generate(self, B, dtype, fused, quant, kv_quant):
         """Resolve the lane (:meth:`use_fused`) and raise for whatever this
         port does not run yet, naming its ROADMAP.md item. Nothing is
         rerouted silently: a model, format or batch that neither the port's
@@ -1290,7 +1279,7 @@ class Llama(Module):
         ``fused=False``."""
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
-        check_dtype(dtype, fused, quant, flash_prefill)
+        check_dtype(dtype)
         # the int8 KV cache lives in the batched kernel, at B=1 too
         fused = self.use_fused(quant, B, fused, batched=bool(kv_quant))
         check_kv_quant(kv_quant, quant, fused)
@@ -1309,9 +1298,9 @@ class Llama(Module):
         read back from the device once per ``chunk`` steps, the prefill
         token with the first chunk. ``max_new_tokens`` bounds the total
         length (prompt included) and is capped at ``max_seq_len``; a total
-        at or below the prompt length yields nothing. ``dtype`` (float32 or
-        bfloat16; float16 on the scan lane only, :func:`check_dtype`) casts
-        the weights and caches; ``quant="int8-head"`` stores
+        at or below the prompt length yields nothing. ``dtype`` (float32,
+        bfloat16 or float16, :func:`check_dtype`) casts the weights and
+        caches; ``quant="int8-head"`` stores
         the lm_head as int8, ``"int8"`` and ``"int4"`` every matmul weight
         as well (the prefill token stays on the float weights on the fused
         lane). ``kv_quant="int8"`` keeps the KV cache as int8 rows with
@@ -1359,8 +1348,7 @@ class Llama(Module):
                     top_p=top_p, seed=seed,
                     repetition_penalty=repetition_penalty)
             return
-        fused = self._check_generate(B, dtype, fused, quant, kv_quant,
-                                     flash_prefill)
+        fused = self._check_generate(B, dtype, fused, quant, kv_quant)
         if total <= L:
             return
         if fused:
@@ -1380,7 +1368,6 @@ class Llama(Module):
         ids_pad, last_idx = (bucket_prompt(ids, L, self.max_seq_len)
                              if bucket_prefill else (ids, None))
         flash = (flash_prefill_mode(weights, ids_pad.shape[1])
-                 and weights["tok"].dtype != torch.float16
                  if flash_prefill is None else flash_prefill)
         tok = self.prefill(weights, ck, cv, ids_pad, last_idx,
                            sampler=sampler, flash=flash)

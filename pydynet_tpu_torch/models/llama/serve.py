@@ -369,8 +369,7 @@ class LlamaServer(_FleetScheduler):
             raise ValueError(f"unsupported kv_quant mode: {kv_quant!r}")
         if lane not in (None, "fused", "xla"):
             raise ValueError(f"unknown lane: {lane!r}")
-        check_dtype(dtype, None if lane is None else lane == "fused", quant,
-                    flash_prefill)
+        check_dtype(dtype)
         fused = model.use_fused(quant, batch_size,
                                 None if lane is None else lane == "fused",
                                 batched=True)
@@ -666,7 +665,6 @@ class LlamaServer(_FleetScheduler):
         for L, group in sorted(by_len.items()):
             pos0 = self._pos - L
             flash = (flash_prefill_mode(self._w, L)
-                     and self._w["tok"].dtype != torch.float16
                      if self._flash_prefill is None else self._flash_prefill)
             for sub in self._pow2_subwaves(group):
                 prompts, slots, seeds, has_seed, rids = self._wave_arrays(sub)

@@ -75,7 +75,7 @@ class SpecLlamaServer(_FleetScheduler):
                              "(serve_spec.py module doc)")
         if quant not in (None, "int8", "int4", "int8-head"):
             raise ValueError(f"unsupported quant mode: {quant!r}")
-        check_dtype(dtype, False, quant)
+        check_dtype(dtype)
         model.eval()
         self.model = model
         self.B = batch_size

@@ -16,8 +16,8 @@ functions). They never move data between devices and never fall back: a
 CUDA input a kernel does not take raises. Each wrapper counts its kernel
 launches in its ``launches`` attribute.
 
-Layouts (T is the weight type, float32 or bfloat16; N layers, S cache rows,
-D model width, F ffn width, V vocab):
+Layouts (T is the weight type, float32, bfloat16 or float16; N layers, S
+cache rows, D model width, F ffn width, V vocab):
 
 * ``pos``, ``tok``: (1,) int32 on the weights' device (device memory, so a
   chain of steps never waits for the host). ``pos >= S`` acts as ``S - 1``.
@@ -103,7 +103,7 @@ _SMEM_OPTIN_FLOATS = _SMEM_OPTIN_BYTES // 4
 ROW_GROUP = 32  # kRowGroup in decode_token_batched.cuh
 _HEAD_RING_FLOATS = 4 * 128 * 64 // 4  # kHeadRing in head.cuh
 _MAX_GRID_Z = 65535  # the attention grid's rows, one a z index
-_WDTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_WDTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # a layer-stage block (csrc/decode_token_batched.cuh): 8 warps, each with a
 # cp.async ring of 4 stages of 64 bytes of 16 weight rows a tile
 _WARPS, _TILE_STAGES, _STAGE_BYTES, _LAYER_ROWS = 8, 4, 64, 16
@@ -113,7 +113,8 @@ def act_row_bytes(k: int, itemsize: int = 4, q4: bool = False) -> int:
     """Bytes of one activation row of ``k`` elements in a product's shared
     memory (``act_rows`` in ``csrc/mma_rows.cuh``): the 64-byte stages that
     cover a weight row of ``itemsize`` bytes an element (4 float32, 2
-    bfloat16, 1 int8; ``q4``: int4, two a byte), padded for the banks."""
+    bfloat16 or float16, 1 int8; ``q4``: int4, two a byte), padded for
+    the banks."""
     wbytes = k // 2 if q4 else k * itemsize
     span = -(-wbytes // _STAGE_BYTES) * _STAGE_BYTES
     if itemsize == 4:
@@ -460,7 +461,8 @@ def _check(pos, tok, emb, cos, sin, final_norm, wq, wk, wv, wo, gate_w, up_w,
     F = up_w.shape[1]
     wdt = emb.dtype
     if wdt not in _WDTYPES:
-        raise TypeError(f"weights must be float32 or bfloat16, got {wdt}")
+        raise TypeError(f"weights must be float32, bfloat16 or float16, "
+                        f"got {wdt}")
     if N < 1 or D % n_heads or (D // n_heads) % 2:
         raise ValueError(f"need >= 1 layer and an even head_dim: N={N}, "
                          f"D={D}, n_heads={n_heads}")
@@ -701,22 +703,24 @@ def lm_head_argmax_ref(h, w, b, out=None):
 def lm_head_argmax(h, w, b, out=None):
     """Greedy next token, ``argmax(w @ h + b)`` over the vocabulary, as an
     int32 (1, 1) tensor (the JAX package's ``lm_head_argmax``). ``h`` (1, D)
-    float32 or bfloat16; ``w`` (V, D), the port's (out, in) layout, and ``b``
-    (V,), both float32 or both bfloat16. Both operands are widened to
-    float32, as ``jnp.dot`` promotes them (a float32 ``h`` is not rounded to
-    bfloat16 weights), and the products summed in float32 with the bias;
-    ties go to the lowest index. Any V >= 1: the TPU kernel's vocab tile is
-    its own tiling. CUDA tensors launch ``lm_head_kernel`` of
-    ``csrc/head.cuh``: K1's tensor-core head stage at one row without the
-    final RMSNorm, whose last block to finish reduces the blocks' (max,
-    index) pairs, one launch (``csrc/decode_token.cu`` zeroes its arrival
-    count first); a float32 ``h`` against bfloat16 weights enters as three
-    bfloat16 pieces whose sum is ``h``. CPU tensors run
+    float32, bfloat16 or float16; ``w`` (V, D), the port's (out, in) layout,
+    and ``b`` (V,), both of one of those types. Both operands are widened to
+    float32, as ``jnp.dot`` promotes them (an ``h`` of another type is not
+    rounded to the weights'), and the products summed in float32 with the bias;
+    ties go to the lowest index. Any V >= 1: the TPU kernel's vocab tile is its
+    own tiling. CUDA tensors launch ``lm_head_kernel`` of ``csrc/head.cuh``:
+    K1's tensor-core head stage at one row without the final RMSNorm, whose
+    last block to finish reduces the blocks' (max, index) pairs, one launch
+    (``csrc/decode_token.cu`` zeroes its arrival count first); an ``h`` of
+    another type against bfloat16 weights enters as three bfloat16 pieces whose
+    sum is ``h``, and against float16 weights (whose 5-bit exponent holds no
+    such split) the float16 weights are widened and multiplied on the CUDA
+    cores, as float32 weights are. CPU tensors run
     :func:`lm_head_argmax_ref`."""
     V, D = w.shape if w.dim() == 2 else (-1, -1)
     if w.dtype not in _WDTYPES or h.dtype not in _WDTYPES:
-        raise TypeError(f"h and w must be float32 or bfloat16, got "
-                        f"{h.dtype} and {w.dtype}")
+        raise TypeError(f"h and w must be float32, bfloat16 or float16, "
+                        f"got {h.dtype} and {w.dtype}")
     if w.dim() != 2 or V < 1 or D < 1:
         raise ValueError(f"w: expected (V, D) with V, D >= 1, got "
                          f"{tuple(w.shape)}")
@@ -845,9 +849,9 @@ def fused_decode_step(pos, h0, cos, sin, rot, hmask, final_norm, wq, wk, wv,
     (1, D) float32 and the caches, updated in place, or in copies when
     ``alias`` is false.
 
-    Layouts (T float32 or bfloat16): ``pos`` (1,) int32; ``h0``, ``cos``,
-    ``sin`` (1, D), ``rot`` (D, D) and ``hmask`` (D, H) float32, each used as
-    given; ``final_norm`` (D,) T; ``wq``..``wo`` (N, D, D), ``gate_w``,
+    Layouts (T float32, bfloat16 or float16): ``pos`` (1,) int32; ``h0``,
+    ``cos``, ``sin`` (1, D), ``rot`` (D, D) and ``hmask`` (D, H) float32, each
+    used as given; ``final_norm`` (D,) T; ``wq``..``wo`` (N, D, D), ``gate_w``,
     ``up_w`` (N, F, D), ``down_w`` (N, D, F) in the (out, in) layout, T;
     ``in_norm``, ``post_norm`` (N, D) T; ``ck``, ``cv`` (N, S, D) T. Each
     matmul input is rounded to T and accumulated in float32, the residual
@@ -861,7 +865,8 @@ def fused_decode_step(pos, h0, cos, sin, rot, hmask, final_norm, wq, wk, wv,
     F = up_w.shape[1] if up_w.dim() == 3 else -1
     T = ck.dtype
     if T not in _WDTYPES:
-        raise TypeError(f"caches must be float32 or bfloat16, got {T}")
+        raise TypeError(f"caches must be float32, bfloat16 or float16, "
+                        f"got {T}")
     if N < 1 or not 1 <= H <= D:
         raise ValueError(f"need >= 1 layer and 1 <= H <= D: N={N}, H={H}, "
                          f"D={D}")

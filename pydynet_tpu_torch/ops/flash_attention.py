@@ -14,10 +14,10 @@ kernels do not take (another type, head_dim > 256) raises.
 counterpart of the JAX package's custom-VJP ``flash_attention_causal``.
 
 Layouts: ``q``, ``k``, ``v``, ``o``, ``do`` and the gradients are the JAX
-package's public (B, L, H, d), contiguous, float32 or bfloat16 on a GPU (any
-floating type on the CPU). ``lse`` (the row log-sum-exp) and ``dd`` (the
-row sums of ``do * o``) are (B, H, L) in the accumulation type: float32, or
-float64 for float64 inputs on the CPU. Every product accumulates in that
+package's public (B, L, H, d), contiguous, float32, bfloat16 or float16 on a
+GPU (any floating type on the CPU). ``lse`` (the row log-sum-exp) and ``dd``
+(the row sums of ``do * o``) are (B, H, L) in the accumulation type: float32,
+or float64 for float64 inputs on the CPU. Every product accumulates in that
 type; ``o`` and the gradients come back in the inputs' type. Unlike the JAX
 package, there is no ``_tiles`` fallback to a dense composite: the kernels
 mask the ragged last tile and take any L >= 1.
@@ -32,7 +32,7 @@ import torch
 from . import _build
 
 MAX_HEAD_DIM = 256  # kMaxHeadDim in csrc/flash_attention.cu
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _acc(dtype):
@@ -125,8 +125,8 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, scale):
 def _check(heads: dict, rows: dict):
     """Raise unless every tensor of ``heads`` is (B, L, H, d) of one type and
     every one of ``rows`` (B, H, L) in the accumulation type, all contiguous
-    on one device. On a CUDA device the kernels also need float32 or
-    bfloat16 and d <= 256. Returns (B, L, H, d)."""
+    on one device. On a CUDA device the kernels also need float32,
+    bfloat16 or float16 and d <= 256. Returns (B, L, H, d)."""
     ref = next(iter(heads.values()))
     if ref.dim() != 4:
         raise ValueError(f"expected (B, L, H, d) tensors, got "
@@ -155,7 +155,8 @@ def _check(heads: dict, rows: dict):
                          f"{ref.device}")
     if ref.dtype not in _DTYPES or d > MAX_HEAD_DIM or B * H > 65535:
         raise ValueError(f"beyond the kernels' limits: {ref.dtype}, d={d} "
-                         f"(float32 or bfloat16, d <= {MAX_HEAD_DIM}), "
+                         f"(float32, bfloat16 or float16, d <= "
+                         f"{MAX_HEAD_DIM}), "
                          f"B*H={B * H} (<= 65535)")
     return B, L, H, d
 

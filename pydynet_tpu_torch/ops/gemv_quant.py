@@ -3,10 +3,11 @@ Pallas TPU kernels of ``pydynet_tpu/ops/gemv_quant.py`` (K5 ``_kgrid_kernel``
 :172, K6 ``_qmm_kernel`` :136, K7 the inner ``kernel`` of
 ``qmatmul_stacked`` :416).
 
-``qmatmul(x, wq, ws, q4)`` multiplies (M, K) float32 or bfloat16 rows by
-weights quantized with ``ops.quant.quantize_int8(w, axis=0)`` ((K, N) int8)
-or ``quantize_int4(w, axis=0)`` ((K/2, N) packed, ``q4=True``), with
-per-output-channel float32 scales ``ws`` (1, N), and returns (M, N) float32.
+``qmatmul(x, wq, ws, q4)`` multiplies (M, K) float32, bfloat16 or float16
+rows by weights quantized with ``ops.quant.quantize_int8(w, axis=0)`` ((K,
+N) int8) or ``quantize_int4(w, axis=0)`` ((K/2, N) packed, ``q4=True``),
+with per-output-channel float32 scales ``ws`` (1, N), and returns (M, N)
+float32 (for float16 rows too, as the JAX package's ``qmatmul`` returns).
 ``qmatmul_stacked(x, wq_all, ws_all, idx, q4)`` does the same against layer
 ``idx`` of layer-stacked (L, Kst, N) / (L, 1, N) weights, ``idx`` a Python
 int or a 0-d int32 tensor on the weights' device. The layouts are the JAX
@@ -52,7 +53,8 @@ MAX_DECODE_ROWS = 32  # kMaxDecodeRows in csrc/gemv_quant.cu (K5's M bound)
 # launch a product; above it a quantize_rows launch comes first, which on
 # the H100 costs less device time from 6 rows on (PERF.md)
 FUSED_QUANT_MAX_ROWS = 4
-_XDTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the row types' codes (kXF32, kXBF16, kXF16 in csrc/gemv_quant.cuh)
+_XDTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 3}
 _X_INT8 = 2  # kXInt8: rows quantized beforehand
 # the routes of a product on the card: the decode kernel quantizing its
 # rows itself, the decode kernel on rows that quantize_rows made, and the
@@ -150,8 +152,8 @@ def _check(x, wq, ws, q4, stacked):
     """Raise unless the arguments have the module doc's layouts. Returns
     (M, K, N, L)."""
     if x.dim() != 2 or x.dtype not in _XDTYPES:
-        raise ValueError(f"x: expected (M, K) float32 or bfloat16, got "
-                         f"{x.dtype} {tuple(x.shape)}")
+        raise ValueError(f"x: expected (M, K) float32, bfloat16 or float16, "
+                         f"got {x.dtype} {tuple(x.shape)}")
     M, K = x.shape
     if wq.dtype != torch.int8 or wq.dim() != (3 if stacked else 2):
         raise ValueError(f"wq: expected int8 with {3 if stacked else 2} "
@@ -190,8 +192,8 @@ def quantize_rows(x: torch.Tensor):
     :func:`quantize_rows_ref` gives them. CUDA tensors launch
     ``quantize_rows_kernel``."""
     if x.dim() != 2 or x.dtype not in _XDTYPES or x.shape[0] < 1:
-        raise ValueError(f"x: expected (M, K) float32 or bfloat16, got "
-                         f"{x.dtype} {tuple(x.shape)}")
+        raise ValueError(f"x: expected (M, K) float32, bfloat16 or float16, "
+                         f"got {x.dtype} {tuple(x.shape)}")
     if x.device.type == "cpu":
         return quantize_rows_ref(x)
     if x.device.type != "cuda":

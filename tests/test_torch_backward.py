@@ -16,6 +16,8 @@ from chip_smoke import TAPE_OPS
 from pydynet_tpu.core.tensor import Graph as JGraph
 from pydynet_tpu_torch.core.tensor import Graph
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 TOL = {np.dtype(np.float64): 1e-12, np.dtype(np.float32): 1e-6}
 
 

@@ -19,6 +19,8 @@ from pydynet_tpu.ops import batchnorm as jbn
 
 from pydynet_tpu_torch.ops import batchnorm as tbn
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 SHAPES = [(8, 7), (16, 128), (32, 128), (40, 512)]
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}

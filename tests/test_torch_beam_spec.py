@@ -22,6 +22,8 @@ from pydynet_tpu_torch import random as prandom
 from pydynet_tpu_torch.models.llama import Llama, params_from_tpu
 from pydynet_tpu_torch.models.llama import speculative as tspec
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 # tests/test_serve_xla.py's tiny config
 CFG = dict(vocab_size=256, embed_dim=32, n_heads=2, ffn_dim=64,
            max_seq_len=64, max_batch_size=2, n_layers=2)

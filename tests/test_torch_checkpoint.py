@@ -26,6 +26,8 @@ from pydynet_tpu_torch.models.llama.convert import params_to_tpu
 from pydynet_tpu_torch.nn import functional as F
 from pydynet_tpu_torch.utils import checkpoint as tck
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 X = np.random.default_rng(0).standard_normal((8, 4)).astype(np.float32)
 Y = np.random.default_rng(1).standard_normal((8, 2)).astype(np.float32)
 

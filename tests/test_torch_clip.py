@@ -36,6 +36,8 @@ from pydynet_tpu_torch.models.clip import model as tmodel
 from pydynet_tpu_torch.models.clip.tokenizer import SimpleTokenizer
 from pydynet_tpu_torch.utils.checkpoint import load_state_dict, state_dict
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 F32 = np.float32
 TOL = dict(atol=1e-5, rtol=1e-5)
 TINY = dict(image_dim=16, image_heads=2, image_mlp_dim=32, image_patch=8,

@@ -14,6 +14,8 @@ from pydynet_tpu.models.llama.model import Llama as JLlama
 from pydynet_tpu_torch.models.llama import Llama, params_from_tpu
 from pydynet_tpu_torch.models.llama import cpu_decode
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 TINY = dict(vocab_size=256, embed_dim=32, n_heads=2, ffn_dim=64,
             max_seq_len=32, max_batch_size=1, n_layers=2)
 # tests/test_llama.py's narrow-KV config: Dkv = 2 * 16 = 32 against D = 128

@@ -17,6 +17,8 @@ from pydynet_tpu.ops import decode_step as jds
 
 from pydynet_tpu_torch.ops import decode_step as tds
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 # test_ops_kernels.py's tiny decode-step size
 N, H, D, S, F = 2, 2, 16, 32, 24
 HD = D // H
@@ -162,9 +164,31 @@ def test_three_piece_head_keeps_h_unrounded():
         int(tds.lm_head_argmax(h, wb, bb)[0, 0])
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lm_head_argmax_float16_matches_jax(seed):
+    """float16 weights and bias against a float16 h and a float32 h (the
+    JAX kernel's jnp.dot promotes both operands to float32, as the port's
+    head widens them; a float32 h is not rounded to float16): the index
+    JAX's kernel gives in interpret mode, which is the float32 argmax of
+    the widened values; a cross-tile tie (rows 127 and 128) goes low."""
+    h, w, b = _head_case(seed)
+    w16, b16 = w.astype(np.float16), b.astype(np.float16)
+    for hh in (h.astype(np.float16), h):
+        want = _jax_head(hh, w16, b16)
+        got = tds.lm_head_argmax(t(hh), t(w16.T), t(b16[0]))
+        assert got.dtype == torch.int32 and int(got[0, 0]) == want
+        assert want == int(np.argmax(hh.astype(np.float32)
+                                     @ w16.astype(np.float32)
+                                     + b16.astype(np.float32)))
+    w16[:, 127] = w16[:, 128] = np.sign(h[0]).astype(np.float16) * 2
+    b16[0, 127] = b16[0, 128] = 1
+    assert _jax_head(h, w16, b16) == 127
+    assert int(tds.lm_head_argmax(t(h), t(w16.T), t(b16[0]))[0, 0]) == 127
+
+
 def test_lm_head_argmax_takes_any_vocab_and_rejects_bad_arguments():
-    """The TPU kernel's vt tiling is its own: V = 7 works; mismatched
-    shapes and types raise."""
+    """The TPU kernel's vt tiling is its own: V = 7 works (float16 weights
+    too); mismatched shapes and types, and a type no kernel takes, raise."""
     h, w, b = _head_case(4, D=8, V=7)
     assert int(tds.lm_head_argmax(t(h), t(w.T), t(b[0]))[0, 0]) == \
         int(np.argmax(h @ w + b))
@@ -174,8 +198,12 @@ def test_lm_head_argmax_takes_any_vocab_and_rejects_bad_arguments():
         tds.lm_head_argmax(t(h), t(w.T), t(b[0, :6]))
     with pytest.raises(ValueError, match="b"):
         tds.lm_head_argmax(t(h), t(w.T), t(b[0]).double())
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tds.lm_head_argmax(t(h), t(w.T).half(), t(b[0]).half())
+    assert int(tds.lm_head_argmax(t(h), t(w.T).half(),
+                                  t(b[0]).half())[0, 0]) == \
+        int(np.argmax(h @ w.astype(np.float16).astype(np.float32)
+                      + b.astype(np.float16).astype(np.float32)))
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        tds.lm_head_argmax(t(h), t(w.T).double(), t(b[0]).double())
 
 
 def test_rope_and_head_mask_matrices_equal_jax():
@@ -244,7 +272,8 @@ def _run_both(case, dtype=np.float32, pos=None):
         *jw, jnp.asarray(cast(p["in_norm"])), jnp.asarray(cast(p["post_norm"])),
         jnp.asarray(cast(ck)), jnp.asarray(cast(cv)), interpret=True,
         alias=False)
-    tdt = torch.bfloat16 if dtype != np.float32 else torch.float32
+    tdt = {np.float32: torch.float32, np.float16: torch.float16}.get(
+        dtype, torch.bfloat16)
 
     def tt(a):
         return t(a.astype(np.float32)).to(tdt)
@@ -295,6 +324,25 @@ def test_fused_decode_step_matches_jax_bf16():
     np.testing.assert_allclose(tcv, jcv, atol=2.0**-6)
     bf = case[7].astype(ml_dtypes.bfloat16).astype(np.float32)
     _untouched(tck, bf, 5)
+
+
+@pytest.mark.parametrize("pos", [None, 0, 65])
+def test_fused_decode_step_matches_jax_f16(pos):
+    """float16 weights and caches, at pos 5, at 0 and across the kernel's
+    16-row tiles of a 128-row cache: both round hn, zn, ff, att, qM and the
+    probabilities to float16 at the same points, so they differ only where
+    a float32 summation-order difference moves a rounded value to the
+    neighbouring float16 (2**-11 relative): h_out within 2**-8 (measured up
+    to 5e-7), the new cache row within one float16 ulp at |x| < 4 (2**-9;
+    measured up to 6e-5), the other rows bit-equal."""
+    case = _step_case(5, seq=128)
+    p = 5 if pos is None else pos
+    (jh, jck, jcv), (th, tck, tcv) = _run_both(case, np.float16, pos=p)
+    np.testing.assert_allclose(th, jh, atol=2.0**-8)
+    np.testing.assert_allclose(tck, jck, atol=2.0**-9)
+    np.testing.assert_allclose(tcv, jcv, atol=2.0**-9)
+    _untouched(tck, case[7].astype(np.float16).astype(np.float32), p)
+    _untouched(tcv, case[8].astype(np.float16).astype(np.float32), p)
 
 
 def test_fused_decode_step_takes_any_rot_and_hmask():

@@ -15,6 +15,8 @@ from pydynet_tpu_torch import cuda
 from pydynet_tpu_torch import device as tdevice
 from pydynet_tpu_torch.device import Device
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 BOTH = [(Device, cuda), (JDevice, jcuda)]
 
 

@@ -39,6 +39,8 @@ from pydynet_tpu_torch.examples import ts_prediction
 from pydynet_tpu_torch.nn import CrossEntropyLoss
 from pydynet_tpu_torch.utils.checkpoint import load_state_dict, state_dict
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 
 def twins(jclasses, tclasses, seed):
     np.random.seed(seed)

@@ -27,6 +27,8 @@ from pydynet_tpu_torch.nn import utils as tutils
 from pydynet_tpu_torch.nn.modules.loss import CrossEntropyLoss
 from pydynet_tpu_torch.ops import flash_attention as tfa
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 FWD_ATOL, GRAD_ATOL = 2e-5, 5e-4
 
 
@@ -77,6 +79,31 @@ def test_plain_kernels_match_jax_pallas_interpret():
     assert tlse.shape == (1, 2, 256) and tlse.dtype == torch.float32
     np.testing.assert_allclose(tlse.numpy().reshape(2, 256),
                                np.asarray(lse)[..., 0], atol=FWD_ATOL)
+
+
+def test_float16_plain_kernels_match_jax_pallas_interpret():
+    """float16 q, k, v and cotangent at (1, 256, 2, 48): the JAX op's Pallas
+    forward and backward kernels (interpret mode) against the port's plain
+    K3/K4 through the autograd op. Both keep every product and the softmax
+    float32 and round o and the gradients to float16 once, so they differ
+    where a float32 summation-order difference moves a value to the
+    neighbouring float16: o within 2e-3 (measured up to 2.4e-4), each
+    gradient within one float16 ulp of its largest |entry| (measured up to
+    half of it)."""
+    for seed in (0, 1):
+        q, k, v, g = (a.astype(np.float16)
+                      for a in qkv((1, 256, 2, 48), seed))
+        fn = lambda a, b, c: jfa.flash_attention_causal(a, b, c, None, 128,
+                                                        128, True)
+        want = jax_grads(fn, q, k, v, g)
+        got = port_grads(q, k, v, g)
+        assert all(x.dtype == np.float16 for x in got + want)
+        np.testing.assert_allclose(got[0].astype(np.float32),
+                                   want[0].astype(np.float32), atol=2e-3)
+        for a, b in zip(got[1:], want[1:]):
+            ulp = float(np.spacing(np.abs(b).max()))
+            np.testing.assert_allclose(a.astype(np.float32),
+                                       b.astype(np.float32), atol=ulp)
 
 
 @pytest.mark.parametrize("L", [7, 100])

@@ -24,6 +24,8 @@ from pydynet_tpu_torch.models.llama import model as tmodel
 from pydynet_tpu_torch.models.llama.serve import LlamaServer
 from pydynet_tpu_torch.ops import flash_attention as tfa
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 # tests/test_flash_prefill.py's config
 CFG = dict(vocab_size=128, embed_dim=32, n_heads=4, ffn_dim=64,
            max_seq_len=64, max_batch_size=1, n_layers=2)

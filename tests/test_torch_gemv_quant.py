@@ -23,6 +23,8 @@ from pydynet_tpu_torch.ops import gemv_quant as tgq
 from pydynet_tpu_torch.ops import quant as tquant
 from pydynet_tpu_torch.utils import fidelity as tfid
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 # tests/test_gemv_quant.py's model config
 CFG = dict(vocab_size=512, embed_dim=64, n_heads=4, ffn_dim=128,
            max_seq_len=64, max_batch_size=1, n_layers=2)
@@ -121,6 +123,42 @@ def test_qmatmul_bf16_rows_and_the_vocab_width():
                                np.asarray(js), q4=q4)
         got = tgq.qmatmul(x16, t(np.asarray(jq)), t(np.asarray(js)), q4=q4)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("M", [1, 4, 40])
+def test_qmatmul_float16_rows_match_jax_exactly(M):
+    """float16 rows (the decode kernel's M <= 32 and the prefill kernel's
+    rows) widen exactly to float32 and quantize by the same rule: qmatmul
+    and qmatmul_stacked (a Python and a device index) equal JAX's kernels
+    in interpret mode on the same float16 rows bit for bit, int8 and int4,
+    float32 out; and on rows of exact .5 steps (``half_step_rows``, exact
+    in float16) the rounding is half to even as there."""
+    rng = np.random.default_rng(40 + M)
+    L, K, N = 2, 256, 512
+    for x in (rng.standard_normal((M, K)).astype(np.float16),
+              half_step_rows(M, K, rng).astype(np.float16)):
+        for q4 in (False, True):
+            qfn = jquant.quantize_int4 if q4 else jquant.quantize_int8
+            qs = [qfn(jnp.asarray(rng.standard_normal((K, N)).astype(
+                np.float32) * 0.05), 0) for _ in range(L)]
+            jw = jnp.stack([q for q, _ in qs])
+            js = jnp.stack([s for _, s in qs])
+            tw, ts = t(np.asarray(jw)), t(np.asarray(js))
+            want = np.asarray(jgq.qmatmul(jnp.asarray(x), qs[1][0],
+                                          qs[1][1], q4=q4, interpret=True))
+            assert want.dtype == np.float32
+            got = tgq.qmatmul(t(x), tw[1], ts[1], q4=q4)
+            assert got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(), want)
+            want = np.asarray(jgq.qmatmul_stacked(jnp.asarray(x), jw, js, 1,
+                                                  q4=q4, interpret=True))
+            for idx in (1, torch.tensor(1, dtype=torch.int32)):
+                np.testing.assert_array_equal(
+                    tgq.qmatmul_stacked(t(x), tw, ts, idx, q4=q4).numpy(),
+                    want)
+        xq, sx = tgq.quantize_rows(t(x))
+        rq, rs = tgq.quantize_rows_ref(t(x.astype(np.float32)))
+        assert torch.equal(xq, rq) and torch.equal(sx, rs)
 
 
 @pytest.mark.parametrize("M", [2, 40])
@@ -252,7 +290,8 @@ def test_qmatmul_rejects_bad_arguments():
     with pytest.raises(ValueError, match="ws"):
         tgq.qmatmul(x, q, s.double())
     with pytest.raises(ValueError, match="x:"):
-        tgq.qmatmul(x.half(), q, s)
+        tgq.qmatmul(x.double(), q, s)
+    assert torch.equal(tgq.qmatmul(x.half(), q, s), tgq.qmatmul(x, q, s))
     with pytest.raises(ValueError, match="idx"):
         tgq.qmatmul_stacked(x, q[None], s[None], torch.tensor(0))
     with pytest.raises(ValueError, match="device"):

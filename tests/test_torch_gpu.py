@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 pytestmark = pytest.mark.gpu
 
 
@@ -33,9 +35,10 @@ STAGE_POSITIONS = [0, 63, 64, 511, 512, 1023]
 
 @pytest.mark.parametrize("pos", [1, 17, 255, 1030] + STAGE_POSITIONS)
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "f32-int8",
-                                 "bf16-int8", "bf16-int4"])
+                                 "bf16-int8", "bf16-int4", "f16",
+                                 "f16-int8head", "f16-int8", "f16-int4"])
 def test_kernel_matches_plain(model, fmt, pos):
-    """Tokens equal (bf16: where the plain top-2 margin is confident) and
+    """Tokens equal (bf16, f16: where the plain top-2 margin is confident) and
     caches within chip_smoke's stated tolerance, with float, int8 and int4
     layers."""
     from chip_smoke import FORMATS, cache_atol, kernel_vs_plain
@@ -47,21 +50,24 @@ def test_kernel_matches_plain(model, fmt, pos):
         assert got == want
 
 
-@pytest.mark.parametrize("qhead", [False, True], ids=["bf16", "int8-head"])
-def test_kernel_cross_tile_tie_goes_low(model, qhead):
+@pytest.mark.parametrize("dtype,qhead", [(torch.bfloat16, False),
+                                         (torch.bfloat16, True),
+                                         (torch.float16, False),
+                                         (torch.float16, True)],
+                         ids=["bf16", "int8-head", "f16", "f16-int8-head"])
+def test_kernel_cross_tile_tie_goes_low(model, dtype, qhead):
     """Rows 10 and 20000 (different vocab tiles) tie for the maximum."""
     from chip_smoke import random_caches, step_args
     from pydynet_tpu_torch.ops import decode_step as dsk
 
-    w = dict(model._fused_weights(torch.bfloat16,
-                                  "int8-head" if qhead else None))
+    w = dict(model._fused_weights(dtype, "int8-head" if qhead else None))
     key = "head_wq" if qhead else "head_w"
     head = torch.zeros_like(w[key])
     head[10] = head[20000] = w[key][5]
     bias = torch.zeros_like(w["head_b"])
     bias[10] = bias[20000] = 100.0
     w[key], w["head_b"] = head, bias
-    ck, cv = random_caches(model, torch.bfloat16, 2)
+    ck, cv = random_caches(model, dtype, 2)
     args, kw = step_args(model, w, ck, cv, 40, 321)
     assert int(dsk.fused_decode_token(*args, **kw)[0]) == 10
     assert int(dsk.fused_decode_token_ref(*args, **kw)[0]) == 10
@@ -100,13 +106,15 @@ def test_cpu_inputs_never_launch(model):
 @pytest.mark.parametrize("batch", [4, 32, 1, 3, 8, 33, 64, 31])
 @pytest.mark.parametrize("pos", [17, 1030] + STAGE_POSITIONS)
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
-                                 "bf16-int4", "f32-kv8", "bf16-kv8"])
+                                 "bf16-int4", "f32-kv8", "bf16-kv8", "f16",
+                                 "f16-int8head", "f16-int8", "f16-int4",
+                                 "f16-kv8"])
 def test_batched_kernel_matches_plain(model, fmt, pos, batch):
     """K2 with per-row starts (row 0 starting at pos, so all its 64-row
     blocks but the last are empty), with float, int8 and int4 layers and the
     int8 KV cache, at n8 tiles of 1, 4 and 4 rows and one and two row
-    groups: tokens equal (float32 weights: every row; bf16: at confident
-    rows) and caches within chip_smoke's stated tolerance."""
+    groups: tokens equal (float32 weights: every row; bf16, f16: at
+    confident rows) and caches within chip_smoke's stated tolerance."""
     from chip_smoke import batched_vs_plain, cache_ok, fmt_of
 
     with torch.no_grad():
@@ -117,7 +125,9 @@ def test_batched_kernel_matches_plain(model, fmt, pos, batch):
 
 
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
-                                 "bf16-int4", "f32-kv8", "bf16-kv8"])
+                                 "bf16-int4", "f32-kv8", "bf16-kv8", "f16",
+                                 "f16-int8head", "f16-int8", "f16-int4",
+                                 "f16-kv8"])
 def test_batched_rows_match_k1(model, fmt):
     """Each K2 row starting at 0 gives K1's token and cache row on that row
     alone (the int8 KV cache, which K1 lacks: K2's at B=1)."""
@@ -128,22 +138,25 @@ def test_batched_rows_match_k1(model, fmt):
     assert equal and cache_ok(fmt, err), err
 
 
-@pytest.mark.parametrize("qhead", [False, True], ids=["bf16", "int8-head"])
-def test_batched_cross_tile_tie_goes_low(model, qhead):
+@pytest.mark.parametrize("dtype,qhead", [(torch.bfloat16, False),
+                                         (torch.bfloat16, True),
+                                         (torch.float16, False),
+                                         (torch.float16, True)],
+                         ids=["bf16", "int8-head", "f16", "f16-int8-head"])
+def test_batched_cross_tile_tie_goes_low(model, dtype, qhead):
     """Rows 10 and 20000 (different vocab tiles) tie in every row; two rows
     with different inputs both pick 10."""
     from chip_smoke import batched_args, random_caches
     from pydynet_tpu_torch.ops import decode_step as dsk
 
-    w = dict(model._fused_weights(torch.bfloat16,
-                                  "int8-head" if qhead else None))
+    w = dict(model._fused_weights(dtype, "int8-head" if qhead else None))
     key = "head_wq" if qhead else "head_w"
     head = torch.zeros_like(w[key])
     head[10] = head[20000] = w[key][5]
     bias = torch.zeros_like(w["head_b"])
     bias[10] = bias[20000] = 100.0
     w[key], w["head_b"] = head, bias
-    ck, cv = random_caches(model, torch.bfloat16, 2, 2)
+    ck, cv = random_caches(model, dtype, 2, 2)
     args, kw = batched_args(model, w, ck, cv, 40, [321, 7], [0, 30])
     assert dsk.fused_decode_token_batched(*args, **kw).tolist() == [10, 10]
     assert dsk.fused_decode_token_batched_ref(*args, **kw).tolist() == \
@@ -216,13 +229,13 @@ def gpu():
 
 @pytest.mark.parametrize("L", [1, 7, 64, 1000, 1024])
 @pytest.mark.parametrize("B", [1, 8])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 def test_flash_kernels_match_plain(gpu, dtype, B, L):
     """K3 and both K4 kernels within chip_smoke's stated tolerances of their
     plain versions at the training path's shapes (B, L, 6, 48)."""
-    from chip_smoke import FLASH_DTYPES, flash_vs_plain
+    from chip_smoke import DTYPES, flash_vs_plain
 
-    errs = flash_vs_plain(B, L, FLASH_DTYPES[dtype])
+    errs = flash_vs_plain(B, L, DTYPES[dtype])
     assert set(errs) == {"o", "lse", "dq", "dk", "dv"}
 
 
@@ -251,28 +264,28 @@ FLASH_DIMS = [16, 32, 48, 64, 80, 100, 128, 256]
 FLASH_LENS = [1, 15, 16, 17, 63, 65, 1000, 1024]
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 @pytest.mark.parametrize("L", FLASH_LENS)
 @pytest.mark.parametrize("d", FLASH_DIMS)
 def test_flash_backward_tiles_match_plain(gpu, d, L, dtype):
     """K3 and both K4 kernels within ``FLASH_ATOL`` of their plain versions
     at (1, L, 3, d)."""
-    from chip_smoke import FLASH_DTYPES, flash_vs_plain
+    from chip_smoke import DTYPES, flash_vs_plain
 
-    errs = flash_vs_plain(1, L, FLASH_DTYPES[dtype], seed=d + L, d=d,
+    errs = flash_vs_plain(1, L, DTYPES[dtype], seed=d + L, d=d,
                           heads=3)
     assert set(errs) == {"o", "lse", "dq", "dk", "dv"}
 
 
 @pytest.mark.parametrize("d", [48, 100, 256])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 def test_flash_backward_is_deterministic(gpu, dtype, d):
     """Two calls of each K4 kernel on the same inputs give the same bits:
     no float is summed across blocks or with atomics."""
-    from chip_smoke import FLASH_DTYPES, flash_inputs
+    from chip_smoke import DTYPES, flash_inputs
     from pydynet_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = flash_inputs(8, 1024, FLASH_DTYPES[dtype], 3, d=d)
+    q, k, v, do = flash_inputs(8, 1024, DTYPES[dtype], 3, d=d)
     o, lse = fa.flash_attention_fwd(q, k, v)
     dd = fa.attention_dd(o, do)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, dd)
@@ -289,7 +302,7 @@ def test_flash_cuda_inputs_never_fall_back(gpu):
     q = torch.zeros((1, 8, 2, 264), device="cuda")
     with pytest.raises(ValueError, match="limits"):
         fa.flash_attention_fwd(q, q, q)
-    h = torch.zeros((1, 8, 2, 16), device="cuda", dtype=torch.float16)
+    h = torch.zeros((1, 8, 2, 16), device="cuda", dtype=torch.float64)
     with pytest.raises(ValueError, match="limits"):
         fa.flash_attention_fwd(h, h, h)
 
@@ -324,14 +337,15 @@ QMM_CASES = [(288, 864), (288, 288), (288, 1536), (768, 288), (288, 32000),
 @pytest.mark.parametrize("shape", QMM_CASES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_qmatmul_matches_plain(gpu, shape, M, q4):
     """K5 (M <= 32) and K6 (M > 32) bit for bit against the plain version,
-    float32 and bfloat16 rows, at stories15M's and Llama-2-7B's shapes: every
-    decode row tile (1, 2, 4, 8 rows), full and partial (M = 3, 5, 12)."""
+    float32, bfloat16 and float16 rows, at stories15M's and Llama-2-7B's
+    shapes: every decode row tile (1, 2, 4, 8 rows), full and partial (M =
+    3, 5, 12)."""
     from chip_smoke import random_qweights, random_rows
     from pydynet_tpu_torch.ops import gemv_quant as gq
 
     K, N = shape
     w, ws = random_qweights(K, N, q4, K + N)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         x = random_rows(M, K, dtype, M)
         assert torch.equal(gq.qmatmul(x, w, ws, q4=q4),
                            gq.qmatmul_ref(x, w, ws, q4=q4))
@@ -372,14 +386,14 @@ K6_SHAPES = [(100, 4), (100, 292), (104, 292), (290, 4), (290, 292),
 @pytest.mark.parametrize("M", K6_ROWS)
 @pytest.mark.parametrize("shape", K6_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
 def test_prefill_kernel_tile_edges(gpu, shape, M, q4):
-    """K6 bit for bit against the plain version, float32 and bfloat16
-    rows."""
+    """K6 bit for bit against the plain version, float32, bfloat16 and
+    float16 rows."""
     from chip_smoke import random_qweights, random_rows
     from pydynet_tpu_torch.ops import gemv_quant as gq
 
     K, N = shape
     w, ws = random_qweights(K, N, q4, K + N + M)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         x = random_rows(M, K, dtype, M + K)
         assert torch.equal(gq.qmatmul(x, w, ws, q4=q4),
                            gq.qmatmul_ref(x, w, ws, q4=q4))
@@ -439,9 +453,9 @@ DECODE_7B = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096),
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_decode_kernel_every_row_count(gpu, shape, q4):
     """The one-launch decode kernel bit for bit against the plain version at
-    every M in 1..32, float32 and bfloat16 rows, with a host and a device
-    (clamped) layer index, through the wrappers and on both of its routes:
-    its own row quantization (which the wrappers take up to
+    every M in 1..32, float32, bfloat16 and float16 rows, with a host and a
+    device (clamped) layer index, through the wrappers and on both of its
+    routes: its own row quantization (which the wrappers take up to
     FUSED_QUANT_MAX_ROWS rows) and rows quantized beforehand."""
     from chip_smoke import random_qweights, random_rows
     from pydynet_tpu_torch.ops import gemv_quant as gq
@@ -451,7 +465,7 @@ def test_decode_kernel_every_row_count(gpu, shape, q4):
     last = torch.tensor(1, dtype=torch.int32, device="cuda")
     past = torch.tensor(5, dtype=torch.int32, device="cuda")
     for M in range(1, gq.MAX_DECODE_ROWS + 1):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             x = random_rows(M, K, dtype, M)
             want0 = gq.qmatmul_ref(x, w[0], ws[0], q4=q4)
             want1 = gq.qmatmul_ref(x, w[1], ws[1], q4=q4)
@@ -534,7 +548,7 @@ def test_qmatmul_cuda_inputs_never_fall_back(gpu):
     with pytest.raises(ValueError, match="contiguous"):
         gq.qmatmul(random_rows(64, 2, torch.float32, 0).t(), w, ws)
     with pytest.raises(ValueError, match="x:"):
-        gq.qmatmul(x.half(), w, ws)
+        gq.qmatmul(x.double(), w, ws)
     with pytest.raises(ValueError, match="is on cpu"):
         gq.qmatmul(x, w.cpu(), ws)
 
@@ -667,9 +681,9 @@ BN_CASES = [(1, 7), (8, 128), (40, 512), (40, 128), (1000, 300),
 def test_batchnorm_kernel_matches_plain(gpu, shape, dtype):
     """K8 and its gradients within chip_smoke's stated tolerances of the
     plain version."""
-    from chip_smoke import FLASH_DTYPES, bn_vs_plain
+    from chip_smoke import BN_DTYPES, bn_vs_plain
 
-    errs = bn_vs_plain(*shape, FLASH_DTYPES[dtype])
+    errs = bn_vs_plain(*shape, BN_DTYPES[dtype])
     assert set(errs) == {"out", "mean", "var", "dx", "dgamma", "dbeta"}
 
 
@@ -694,9 +708,9 @@ def test_batchnorm_kernel_at_its_seams(gpu, pair, seam):
 def test_batchnorm_kernel_is_deterministic(gpu, dtype, shape):
     """Two runs give the same bits: the cluster's sums meet in rank
     order, with no float atomics."""
-    from chip_smoke import FLASH_DTYPES, bn_same_bits
+    from chip_smoke import BN_DTYPES, bn_same_bits
 
-    assert bn_same_bits(*shape, FLASH_DTYPES[dtype], 11)
+    assert bn_same_bits(*shape, BN_DTYPES[dtype], 11)
 
 
 def test_batchnorm_plan_mirrors_the_kernel(gpu):
@@ -802,40 +816,41 @@ def test_tiny_quant_generate_runs_k1(tiny, quant):
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 def test_head_kernel_matches_plain(model, tiny, dtype, seed):
     """K9 at stories15M's head and the tiny one: the plain version's
     token."""
-    from chip_smoke import FLASH_DTYPES, head_vs_plain
+    from chip_smoke import DTYPES, head_vs_plain
 
     for m in (model, tiny):
-        got, want, short = head_vs_plain(m, FLASH_DTYPES[dtype], seed)
+        got, want, short = head_vs_plain(m, DTYPES[dtype], seed)
         assert got == want and short == 0.0
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 def test_head_kernel_cross_tile_tie_goes_low(model, dtype):
-    from chip_smoke import FLASH_DTYPES, HEAD_TIE, head_vs_plain
+    from chip_smoke import DTYPES, HEAD_TIE, head_vs_plain
 
-    got, want, _ = head_vs_plain(model, FLASH_DTYPES[dtype], 7, tie=True)
+    got, want, _ = head_vs_plain(model, DTYPES[dtype], 7, tie=True)
     assert got == want == HEAD_TIE[0]
 
 
 @pytest.mark.parametrize("shape", [(288, 32000), (288, 1000), (77, 333)],
                          ids=["stories15M", "V-not-128", "odd-D"])
 @pytest.mark.parametrize("hw", ["f32-f32", "f32-bf16", "bf16-f32",
-                                "bf16-bf16"])
+                                "bf16-bf16", "f32-f16", "f16-f32",
+                                "f16-f16", "bf16-f16", "f16-bf16"])
 def test_head_kernel_type_pairs(model, hw, shape):
-    """K9 (K1's head stage at one row, no norm) in the four (h, w) type
+    """K9 (K1's head stage at one row, no norm) in the nine (h, w) type
     pairs, at a vocabulary that is not a multiple of the 128-row blocks and
     at rows whose bytes are not a multiple of 16: the plain version's
     token at three seeds, and rows 127 and 128 (either side of a block
     seam) and V - 2 and V - 1 (the last, partial block) tied, the lower
     winning."""
-    from chip_smoke import FLASH_DTYPES, head_vs_plain
+    from chip_smoke import DTYPES, head_vs_plain
     from pydynet_tpu_torch.ops import decode_step as dsk
 
-    hdt, wdt = (FLASH_DTYPES[n] for n in hw.split("-"))
+    hdt, wdt = (DTYPES[n] for n in hw.split("-"))
     D, V = shape
     for seed in range(3):
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -866,27 +881,27 @@ def test_head_kernel_does_not_round_f32_h(model):
 
 
 @pytest.mark.parametrize("pos", [0, 511, 1023, 1030])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 def test_step_kernel_matches_plain(model, dtype, pos):
     """K10 at stories15M width: h_out and the caches within chip_smoke's
     tolerances, the other cache rows untouched."""
-    from chip_smoke import CACHE_ATOL, FLASH_DTYPES, STEP_ATOL, step_vs_plain
+    from chip_smoke import CACHE_ATOL, DTYPES, STEP_ATOL, step_vs_plain
 
-    dt = FLASH_DTYPES[dtype]
+    dt = DTYPES[dtype]
     with torch.no_grad():
         h_err, c_err, kept, _ = step_vs_plain(model, dt, pos)
     assert h_err <= STEP_ATOL[dt] and c_err <= CACHE_ATOL[dt] and kept
 
 
 @pytest.mark.parametrize("pos", [63, 64, 65, 255, 256, 1023])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 def test_step_kernel_across_row_tiles(model, dtype, pos):
     """K10 either side of its attention stage's 16-row tiles and of its
     blocks' shares of them (64 rows a block at pos 1023): h_out and the
     caches within chip_smoke's tolerances, the other rows untouched."""
-    from chip_smoke import CACHE_ATOL, FLASH_DTYPES, STEP_ATOL, step_vs_plain
+    from chip_smoke import CACHE_ATOL, DTYPES, STEP_ATOL, step_vs_plain
 
-    dt = FLASH_DTYPES[dtype]
+    dt = DTYPES[dtype]
     with torch.no_grad():
         h_err, c_err, kept, _ = step_vs_plain(model, dt, pos)
     assert h_err <= STEP_ATOL[dt] and c_err <= CACHE_ATOL[dt] and kept
@@ -904,11 +919,11 @@ def test_step_scratch_floats_mirror_the_kernel(tiny):
 
 
 @pytest.mark.parametrize("pos", [0, 5, 31, 40])
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 def test_tiny_step_kernel_matches_plain(tiny, dtype, pos):
-    from chip_smoke import CACHE_ATOL, FLASH_DTYPES, STEP_ATOL, step_vs_plain
+    from chip_smoke import CACHE_ATOL, DTYPES, STEP_ATOL, step_vs_plain
 
-    dt = FLASH_DTYPES[dtype]
+    dt = DTYPES[dtype]
     with torch.no_grad():
         h_err, c_err, kept, _ = step_vs_plain(tiny, dt, pos)
     assert h_err <= STEP_ATOL[dt] and c_err <= CACHE_ATOL[dt] and kept
@@ -968,7 +983,8 @@ def test_head_and_step_cuda_inputs_never_fall_back(tiny):
 
 @pytest.mark.parametrize("pos", [17, 1030] + STAGE_POSITIONS)
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "f32-int8",
-                                 "bf16-int8", "bf16-int4"])
+                                 "bf16-int8", "bf16-int4", "f16",
+                                 "f16-int8head", "f16-int8", "f16-int4"])
 def test_emit_logits_matches_plain_and_argmax_mode(model, fmt, pos):
     """K1's emit_logits mode: the (1, V) logits within chip_smoke's stated
     tolerance of the plain version's, their argmax the argmax mode's token,
@@ -984,7 +1000,9 @@ def test_emit_logits_matches_plain_and_argmax_mode(model, fmt, pos):
 @pytest.mark.parametrize("batch", [4, 32, 1, 3, 8, 33, 64, 31])
 @pytest.mark.parametrize("pos", [1030, 0, 64, 512])
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
-                                 "bf16-int4", "f32-kv8", "bf16-kv8"])
+                                 "bf16-int4", "f32-kv8", "bf16-kv8", "f16",
+                                 "f16-int8head", "f16-int8", "f16-int4",
+                                 "f16-kv8"])
 def test_batched_emit_logits_matches_plain_and_argmax_mode(model, fmt, pos,
                                                            batch):
     """K2's emit_logits mode with per-row starts, in every K2 format."""
@@ -1031,7 +1049,8 @@ def gqa():
 
 @pytest.mark.parametrize("pos", [17, 1030] + STAGE_POSITIONS)
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "f32-int8",
-                                 "bf16-int8", "bf16-int4"])
+                                 "bf16-int8", "bf16-int4", "f16",
+                                 "f16-int8head", "f16-int8", "f16-int4"])
 def test_narrow_kernel_matches_plain(gqa, fmt, pos):
     """K1 on a grouped-query model: the narrow mode (96-wide caches) with
     float weights and the int8 head, the expanded layout with int8/int4
@@ -1050,7 +1069,9 @@ def test_narrow_kernel_matches_plain(gqa, fmt, pos):
 
 @pytest.mark.parametrize("batch", [4, 32, 1, 3, 8, 33, 64, 31])
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
-                                 "bf16-int4", "f32-kv8", "bf16-kv8"])
+                                 "bf16-int4", "f32-kv8", "bf16-kv8", "f16",
+                                 "f16-int8head", "f16-int8", "f16-int4",
+                                 "f16-kv8"])
 def test_narrow_batched_kernel_matches_plain(gqa, fmt, batch):
     """K2 on a grouped-query model with per-row starts, every mode (the
     int8 KV cache on the narrow rows), argmax and emit_logits."""
@@ -1069,7 +1090,9 @@ def test_narrow_batched_kernel_matches_plain(gqa, fmt, batch):
 
 @pytest.mark.parametrize("batch", [33, 48, 64])
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8head", "bf16-int8",
-                                 "bf16-int4", "f32-kv8", "bf16-kv8"])
+                                 "bf16-int4", "f32-kv8", "bf16-kv8", "f16",
+                                 "f16-int8head", "f16-int8", "f16-int4",
+                                 "f16-kv8"])
 def test_batched_kernel_above_32_rows_matches_plain(model, fmt, batch):
     """K2's row groups in every mode with per-row starts, argmax and
     emit_logits."""
@@ -1198,16 +1221,16 @@ def test_quantized_head_logits_are_the_plain_bits(model, fmt):
         assert torch.equal(got[0], dsk.decode_token_logits_ref(*args, **kw))
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "f16"])
 def test_head_stage_and_flash_forward_are_deterministic(model, gpu, dtype):
     """Two K2 emit calls on the same inputs (B = 40, two row groups) give
     the same logits, and two K3 calls the same o and lse."""
-    from chip_smoke import FLASH_DTYPES, batched_args, flash_inputs, \
+    from chip_smoke import DTYPES, batched_args, flash_inputs, \
         random_caches
     from pydynet_tpu_torch.ops import decode_step as dsk
     from pydynet_tpu_torch.ops import flash_attention as fa
 
-    dt = FLASH_DTYPES[dtype]
+    dt = DTYPES[dtype]
     w = model._fused_weights(dt, None)
     logits = []
     for _ in range(2):
@@ -1224,7 +1247,8 @@ def test_head_stage_and_flash_forward_are_deterministic(model, gpu, dtype):
 
 # ------------- the layer stages on the tensor cores (K1 and K2) --------------
 @pytest.mark.parametrize("fmt", ["f32", "bf16", "bf16-int8", "bf16-int4",
-                                 "bf16-kv8"])
+                                 "bf16-kv8", "f16", "f16-int8", "f16-int4",
+                                 "f16-kv8"])
 def test_layer_stages_are_deterministic(model, fmt):
     """One step twice on the same inputs gives the same bits: K2 at B = 40
     (two row groups, per-row starts) its logits and caches, K1 its logits

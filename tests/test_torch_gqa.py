@@ -29,6 +29,8 @@ from pydynet_tpu_torch.models.llama.model import (decode_quant_kwargs,
 from pydynet_tpu_torch.models.llama.serve import LlamaServer
 from pydynet_tpu_torch.ops import decode_step as tdsk
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 # tests/test_llama.py's narrow-KV config: Dkv = 2 * 16 = 32 against D = 128
 GQA = dict(vocab_size=256, embed_dim=128, n_heads=8, n_kv_heads=2,
            ffn_dim=64, max_seq_len=32, max_batch_size=3, n_layers=2)

@@ -25,6 +25,8 @@ from pydynet_tpu_torch import jit, nn as tnn, optim as toptim
 from pydynet_tpu_torch.nn import functional as TF
 from pydynet_tpu_torch.utils.checkpoint import load_state_dict, state_dict
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 F64 = torch.float64
 
 

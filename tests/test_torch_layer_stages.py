@@ -18,6 +18,8 @@ from pydynet_tpu_torch.models.llama import Llama
 from pydynet_tpu_torch.ops import decode_step as tds
 from tests.test_torch_ops import H, SB, VT, _batched_inputs, _i32
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 STORIES15M = dict(vocab_size=32000, embed_dim=288, n_heads=6, ffn_dim=768,
                   max_seq_len=1024, n_layers=6)
 MODELS = {"stories15M": STORIES15M,

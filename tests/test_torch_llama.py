@@ -23,6 +23,8 @@ from pydynet_tpu_torch.models.llama.tokenizer import Tokenizer
 from pydynet_tpu_torch.ops import decode_step as tdsk
 from pydynet_tpu_torch.utils import fidelity as tfid
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 # a fused-capable tiny size (test_llama.py's int8 plumbing config)
 TINY = dict(vocab_size=256, embed_dim=32, n_heads=2, ffn_dim=64,
             max_seq_len=32, max_batch_size=1, n_layers=2)
@@ -239,10 +241,11 @@ def test_generate_length_edges_match_jax(max_new):
 
 def test_generate_unported_options_raise(batched_calls, step_calls):
     """What generate runs and what it refuses. Once refusals, now ported:
-    ``fused="numpy"`` (the NumPy lane, token for token with JAX's) and
-    float16 on the scan lane (JAX's float16 stream at every confident step
-    of the float32 stream until a near-tie); float16 on the fused lane
-    still raises, naming ROADMAP.md's Float16 kernels."""
+    ``fused="numpy"`` (the NumPy lane, token for token with JAX's), float16
+    on the scan lane (JAX's float16 stream at every confident step of the
+    float32 stream until a near-tie), and float16 on the fused lane, with
+    int8 weights and with the flash prefill (the kernels' float16
+    instances; tests/test_torch_float16.py holds them against JAX)."""
     jm = jax_model(TINY, seed=4)
     tm = port_of(jm, TINY)
     ids = np.array([[1, 5, 9]])
@@ -263,8 +266,9 @@ def test_generate_unported_options_raise(batched_calls, step_calls):
     for kw in (dict(fused=None), dict(fused=True),
                dict(fused=False, quant="int8"),
                dict(fused=False, flash_prefill=True)):
-        with pytest.raises(NotImplementedError, match="Float16 kernels"):
-            next(tm.generate(ids, 8, dtype=torch.float16, **kw))
+        got = stream(tm.generate(ids, 8, dtype=torch.float16, **kw))
+        assert len(got) == 5 and all(0 <= x < TINY["vocab_size"]
+                                     for x in got), (kw, got)
     with pytest.raises(NotImplementedError, match="float64"):
         next(tm.generate(ids, 8, dtype=torch.float64, fused=False))
     # flash prefill runs (K3's plain version on the CPU), on both lanes, and

@@ -34,6 +34,8 @@ from pydynet_tpu_torch.models.llama.serve import LlamaServer
 from pydynet_tpu_torch.nn.modules.lora import (LoRALinear, apply_lora,
                                                lora_state_names, merge_lora)
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 # a size both packages' fused kernels take (tests/test_torch_serve.py's)
 CFG = dict(vocab_size=256, embed_dim=32, n_heads=2, ffn_dim=64,
            max_seq_len=64, max_batch_size=2, n_layers=2)

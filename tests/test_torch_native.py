@@ -5,12 +5,15 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from pydynet_tpu.models.llama.tokenizer import Tokenizer as JTokenizer
 from pydynet_tpu.native import NativeVocab as JNativeVocab
 
 from pydynet_tpu_torch import native
 from pydynet_tpu_torch.models.llama.tokenizer import Tokenizer
+
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
 
 VOCAB = {
     "tokens": ["<unk>", "<s>", "</s>", "a", "b", "c", "ab", "abc", "bc",

@@ -10,6 +10,7 @@ a tied max-pool window splits its gradient evenly in both, and
 ``leaky_relu`` at exactly 0 passes its gradient to both operands of its
 max, as the JAX package's maximum does.
 """
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -27,6 +28,8 @@ from pydynet_tpu_torch import nn as tnn
 from pydynet_tpu_torch.data import data_loader
 from pydynet_tpu_torch.nn import functional as F
 from pydynet_tpu_torch.utils.checkpoint import load_state_dict, state_dict
+
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
 
 REPO = Path(__file__).resolve().parents[1]
 F32 = np.float32
@@ -444,7 +447,7 @@ def test_new_modules_import_no_jax():
             "             if m.split('.')[0] in ('jax', 'pydynet_tpu'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                   timeout=120)
+                   timeout=120, env=dict(os.environ, OMP_NUM_THREADS="1"))
 
 
 def test_package_surface():

@@ -5,6 +5,7 @@ float32 (``pydynet_tpu`` enables x64). The JAX fused decode step runs its
 Pallas kernel in interpret mode, as the JAX package's own tests do; the
 port's wrapper runs its plain version because the tensors are on the CPU.
 """
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +25,8 @@ from pydynet_tpu_torch.models.llama import model as tmodel
 from pydynet_tpu_torch.nn import RMSNorm, rms_norm
 from pydynet_tpu_torch.ops import decode_step as tds
 from pydynet_tpu_torch.ops import quant as tquant
+
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
 
 REPO = Path(__file__).resolve().parents[1]
 N, D, H, S, V, F = 2, 16, 2, 32, 256, 24  # test_ops_kernels.py's tiny size
@@ -426,7 +429,7 @@ def test_port_imports_no_jax():
             "             if m.split('.')[0] in ('jax', 'pydynet_tpu'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                   timeout=120)
+                   timeout=120, env=dict(os.environ, OMP_NUM_THREADS="1"))
 
 
 def test_build_paths_are_keyed_by_sources(monkeypatch, tmp_path):
@@ -436,10 +439,14 @@ def test_build_paths_are_keyed_by_sources(monkeypatch, tmp_path):
 
     srcs = _build.sources()
     assert [p.name for p in srcs] == ["batchnorm.cu", "decode_step.cu",
+                                      "decode_step_f16.cu",
                                       "decode_token.cu",
                                       "decode_token_batched.cu",
                                       "decode_token_batched_bf16.cu",
-                                      "flash_attention.cu", "gemv_quant.cu"]
+                                      "decode_token_batched_f16.cu",
+                                      "flash_attention.cu",
+                                      "flash_attention_f16.cu",
+                                      "gemv_quant.cu", "gemv_quant_f16.cu"]
     path = _build.library_path()
     assert path == _build.library_path()
     assert path.parent == REPO / "build" / "pydynet_tpu_torch"

@@ -19,6 +19,8 @@ from pydynet_tpu import optim as joptim
 
 from pydynet_tpu_torch import optim as toptim
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 SHAPES = ((3, 4), (5,), (2, 3, 2))
 OPTIMIZERS = {
     "sgd": ("SGD", dict(lr=0.1)),

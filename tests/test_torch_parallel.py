@@ -18,6 +18,7 @@ import pickle
 
 import numpy as np
 import pytest
+import torch
 import jax
 import jax.numpy as jnp
 
@@ -30,6 +31,8 @@ from pydynet_tpu.parallel import moe as jmoe
 from pydynet_tpu.parallel import pipeline as jpipe
 from pydynet_tpu.parallel import shard as jshard
 from pydynet_tpu.utils import checkpoint as jck
+
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
 
 N_RANKS = 4
 
@@ -560,6 +563,7 @@ def test_params_to_torch_carries_the_jax_weights():
 def test_jit_mesh_and_parallel_import_no_jax(tmp_path):
     """The parallel package and the rank bodies load no JAX (a spawned rank
     imports them without this file's conftest)."""
+    import os
     import subprocess
     import sys
 
@@ -571,4 +575,5 @@ def test_jit_mesh_and_parallel_import_no_jax(tmp_path):
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'pydynet_tpu'))\n"
             "assert not bad, bad\n")
-    subprocess.run([sys.executable, "-c", code], check=True)
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   env=dict(os.environ, OMP_NUM_THREADS="1"))

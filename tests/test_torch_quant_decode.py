@@ -27,6 +27,8 @@ from pydynet_tpu_torch.models.llama.model import (FUSED_MATS,
                                                   decode_weight_args)
 from pydynet_tpu_torch.ops import decode_step as tds
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 # test_torch_llama.py's fused-capable tiny size
 TINY = dict(vocab_size=256, embed_dim=32, n_heads=2, ffn_dim=64,
             max_seq_len=32, max_batch_size=1, n_layers=2)

@@ -10,6 +10,7 @@ seeds is 5.1e-6 in float32 (1e-13 in float64), so it is held to 1e-5
 relative. Dropout masks equal the JAX package's after the same seed, and
 the first Adam step of the dropout example equals its.
 """
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -33,6 +34,8 @@ from pydynet_tpu_torch import random as prandom
 from pydynet_tpu_torch.examples import dropout_bn
 from pydynet_tpu_torch.nn import functional as F
 from pydynet_tpu_torch.utils.checkpoint import load_state_dict, state_dict
+
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
 
 REPO = Path(__file__).resolve().parents[1]
 SEEDS = (0, 7, 2**40 + 3)
@@ -187,4 +190,4 @@ def test_new_modules_import_no_jax():
             "             if m.split('.')[0] in ('jax', 'pydynet_tpu'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
-                   timeout=120)
+                   timeout=120, env=dict(os.environ, OMP_NUM_THREADS="1"))

@@ -18,6 +18,8 @@ from pydynet_tpu import nn as jnn
 from pydynet_tpu_torch import nn as tnn
 from pydynet_tpu_torch.utils.checkpoint import load_state_dict
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 L, B, I, H = 5, 3, 4, 6
 ATOL = {np.float32: 1e-5, np.float64: 1e-12}
 KINDS = ("RNN", "LSTM", "GRU")

@@ -16,6 +16,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 import pydynet_tpu as pdn
 from pydynet_tpu.models.llama.model import Llama as JLlama
@@ -28,6 +29,8 @@ from pydynet_tpu_torch.models.llama import Llama, params_from_tpu
 from pydynet_tpu_torch.models.llama.serve import LlamaServer
 from pydynet_tpu_torch.ops import decode_step as tdsk
 from pydynet_tpu_torch.utils import fidelity as tfid
+
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
 
 NEAR_TIE = 1e-5
 # tests/test_llama.py's sampling config (generate), tests/test_serve.py's

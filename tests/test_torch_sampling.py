@@ -25,6 +25,8 @@ from pydynet_tpu.models.llama import model as jmodel
 from pydynet_tpu_torch import random as prandom
 from pydynet_tpu_torch.models.llama import model as tmodel
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 NEAR_TIE = 1e-5     # perturbed top-2 gap below which two draws may differ
 MASS_GAP = 1e-6     # prefix mass this close to top_p: a float32 sum's noise
 

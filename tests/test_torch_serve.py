@@ -24,6 +24,8 @@ from pydynet_tpu_torch.models.llama.serve import LlamaServer
 from pydynet_tpu_torch.models.llama.serve_spec import SpecLlamaServer
 from pydynet_tpu_torch.ops import decode_step as tdsk
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 # tests/test_serve.py's tiny config
 CFG = dict(vocab_size=256, embed_dim=32, n_heads=2, ffn_dim=64,
            max_seq_len=64, max_batch_size=2, n_layers=2)
@@ -295,16 +297,13 @@ def test_unported_options_raise(batched_calls):
     """float16, once refused, serves on the scan lane (``lane="xla"``):
     each stream equals the JAX package's float16 server's at every
     confident step of its float32 stream until a near-tie; on the fused
-    lane (``lane=None`` or ``"fused"``) it raises, naming ROADMAP.md's
-    Float16 kernels."""
+    lane (``lane=None`` or ``"fused"``, the batched kernel's float16
+    instances) and with int8 weights on the scan lane, once refused too, it
+    serves as well (tests/test_torch_float16.py holds those against
+    JAX)."""
     from pydynet_tpu_torch.utils import fidelity as tfid
 
     jm, tm = models(20)
-    for lane in (None, "fused"):
-        with pytest.raises(NotImplementedError, match="Float16 kernels"):
-            LlamaServer(tm, dtype=torch.float16, lane=lane)
-    with pytest.raises(NotImplementedError, match="Float16 kernels"):
-        LlamaServer(tm, dtype=torch.float16, lane="xla", quant="int8")
     requests = [([1, 5, 9], 10), ([2, 7, 3, 11], 12), ([30, 20], 8)]
     kw = dict(batch_size=2, chunk=4, eos_id=-1, lane="xla")
     with pdn.no_grad():
@@ -327,6 +326,15 @@ def test_unported_options_raise(batched_calls):
                 break
             checked += int(conf[i])
     assert checked >= 10 and not batched_calls
+    for lane, quant in ((None, None), ("fused", None), ("xla", "int8")):
+        srv = LlamaServer(tm, dtype=torch.float16, lane=lane, quant=quant,
+                          batch_size=2, chunk=4, eos_id=-1)
+        rid = srv.submit([1, 5, 9], max_new_tokens=6)
+        got = srv.run()[rid].tokens
+        assert len(got) == 6 and all(0 <= x < CFG["vocab_size"]
+                                     for x in got), (lane, quant, got)
+        assert bool(batched_calls) == (lane != "xla")
+        del batched_calls[:]
     # the prefix cache rides the scan lane: a ValueError on the fused lane,
     # as in the JAX package; the scan lane's int8 KV cache runs
     with pytest.raises(ValueError, match="prefix_cache"):

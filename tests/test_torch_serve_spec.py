@@ -25,6 +25,8 @@ from pydynet_tpu_torch.models.llama.serve import LlamaServer
 from pydynet_tpu_torch.models.llama.serve_spec import SpecLlamaServer
 from pydynet_tpu_torch.models.llama.speculative import lookup_draft_rows
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 # tests/test_serve_spec.py's config
 CFG = dict(vocab_size=256, embed_dim=32, n_heads=4, ffn_dim=64,
            max_seq_len=128, max_batch_size=2, n_layers=2)

@@ -13,12 +13,15 @@ import pickle
 
 import numpy as np
 import pytest
+import torch
 
 import pydynet_tpu as pdn
 from pydynet_tpu.models.llama.model import Llama
 from pydynet_tpu.parallel import make_mesh
 from pydynet_tpu.parallel.serve_spmd import SpmdLlamaServer
 from pydynet_tpu.utils import checkpoint as jck
+
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
 
 CFG = dict(vocab_size=256, embed_dim=32, n_heads=4, ffn_dim=64,
            max_seq_len=64, max_batch_size=2, n_layers=2, dtype=np.float32)

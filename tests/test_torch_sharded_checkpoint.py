@@ -13,11 +13,14 @@ import pickle
 
 import numpy as np
 import pytest
+import torch
 
 import pydynet_tpu as pdn
 from pydynet_tpu import nn as jnn
 from pydynet_tpu import optim as joptim
 from pydynet_tpu.utils import checkpoint as jck
+
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
 
 
 def _jbuild(seed):

@@ -18,6 +18,8 @@ import pydynet_tpu as jpdn
 import pydynet_tpu_torch as pdt
 from pydynet_tpu_torch.core import tensor as ttensor
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 TOL = {np.dtype(np.float64): 1e-12, np.dtype(np.float32): 1e-6,
        np.dtype(np.float16): 1e-3}
 FLOATS = [np.float16, np.float32, np.float64]

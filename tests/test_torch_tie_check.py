@@ -26,6 +26,8 @@ from chip_smoke import KV8_TIE_STEPS, QUANT_CACHE_ATOL, against_plain
 from pydynet_tpu_torch.ops import decode_step as dsk
 from pydynet_tpu_torch.ops import gemv_quant as gq
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 M, K, N = 4, 64, 32
 TIE = (1, 5)  # x * 127 / amax = 2.5: round half to even gives 2
 OTHER = (2, 7)  # x * 127 / amax = 1.2, far from a tie

@@ -24,6 +24,8 @@ from pydynet_tpu_torch.models.llama.convert import params_to_tpu
 from pydynet_tpu_torch.nn.modules.loss import CrossEntropyLoss
 from pydynet_tpu_torch.ops import flash_attention as tfa
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 TINY = dict(vocab_size=256, embed_dim=32, n_heads=2, ffn_dim=64,
             max_seq_len=32, max_batch_size=1, n_layers=2)
 ALL = ("tok_embedding", "layers", "norm", "lm_head")

@@ -14,6 +14,8 @@ from pydynet_tpu import utils as jutils
 from pydynet_tpu_torch import nn as tnn
 from pydynet_tpu_torch import utils as tutils
 
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
+
 
 def test_check_finite():
     """The same names and the same error as the JAX package's, gradients

@@ -15,6 +15,7 @@ import functools
 
 import numpy as np
 import pytest
+import torch
 
 import pydynet_tpu as pdn
 from pydynet_tpu.models.llama.model import Llama as JLlama
@@ -23,6 +24,8 @@ from pydynet_tpu.ops import decode_step as jdsk
 from pydynet_tpu_torch.models.llama import Llama, params_from_tpu
 from pydynet_tpu_torch.models.llama.serve import LlamaServer
 from pydynet_tpu_torch.ops import decode_step as tdsk
+
+torch.set_num_threads(1)  # six test workers share the CPU: one thread each
 
 # tests/test_serve.py's tiny config with one layer: the plain batched step
 # loops over 33-42 rows in Python, so depth is what these tests pay for
